@@ -1,0 +1,45 @@
+"""p2p_gossip_tpu_torch — the P2P gossip simulation on PyTorch and CUDA.
+
+The flood engine of ``p2p_gossip_tpu`` (the JAX package, its reference)
+rebuilt for an NVIDIA H100: the per-node seen-sets are (nodes x shares)
+int32 bitmasks, one synchronous tick delivers every in-flight message
+through a hand-written CUDA gather-OR kernel over the ELL adjacency
+(``ops.ell``, ``ops.kernels``), and per-node counters and per-share
+coverage come from CUDA popcount and coverage kernels. Graphs, schedules
+and delays are numpy, built from a seed exactly as in the JAX package, of
+which this package imports nothing.
+"""
+
+from p2p_gossip_tpu_torch.models.topology import (
+    Graph,
+    erdos_renyi,
+    barabasi_albert,
+    ring_graph,
+)
+from p2p_gossip_tpu_torch.models.generation import (
+    Schedule,
+    poisson_schedule,
+    single_share_schedule,
+    uniform_renewal_schedule,
+)
+from p2p_gossip_tpu_torch.models.latency import constant_delays, lognormal_delays
+from p2p_gossip_tpu_torch.utils.stats import NodeStats
+
+# The engine stays behind an explicit module import, as in the JAX package:
+#   from p2p_gossip_tpu_torch.engine.sync import run_sync_sim, run_flood_coverage
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Graph",
+    "erdos_renyi",
+    "barabasi_albert",
+    "ring_graph",
+    "Schedule",
+    "uniform_renewal_schedule",
+    "poisson_schedule",
+    "single_share_schedule",
+    "constant_delays",
+    "lognormal_delays",
+    "NodeStats",
+]

@@ -1,0 +1,211 @@
+"""Random P2P network topology builders (host-side numpy).
+
+The port's own copy of the JAX package's topology layer, rebuilding the
+reference's `CreateRandomTopology` (p2pnetwork.cc:62-96): a builder emits a
+symmetric adjacency in CSR plus the ELL (padded dense) form the tick engine
+gathers over. With the same seed these builders produce the same graphs as
+the reference package's, draw for draw.
+
+Connectivity guarantee parity (p2pnetwork.cc:81-84): any row ``i`` with no
+sampled edge to a higher-numbered node gets a forced edge to ``i-1``
+(``(0, 1)`` for row 0). Edges are canonicalized and deduplicated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+
+# Dense O(n^2) ER sampling below this size; sparse per-row binomial above.
+_DENSE_ER_LIMIT = 4096
+
+
+@dataclasses.dataclass
+class Graph:
+    """Undirected graph in CSR + ELL forms (both directions stored)."""
+
+    n: int
+    indptr: np.ndarray   # (n+1,) int64 — CSR row pointers (rows = nodes)
+    indices: np.ndarray  # (nnz,) int32 — CSR neighbor ids, sorted per row
+
+    def __post_init__(self):
+        self.indptr = np.asarray(self.indptr, dtype=np.int64)
+        self.indices = np.asarray(self.indices, dtype=np.int32)
+
+    @functools.cached_property
+    def degree(self) -> np.ndarray:
+        return np.diff(self.indptr).astype(np.int32)
+
+    @property
+    def num_edges(self) -> int:
+        """Number of undirected edges (nnz / 2)."""
+        return int(self.indices.shape[0] // 2)
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.degree.max()) if self.n else 0
+
+    @property
+    def ell_width(self) -> int:
+        """The (n, dmax) ELL minor dimension shared by `ell()` and the delay
+        builders (models/latency.py), so mask and delay arrays align.
+        Minimum 1: one all-masked column is harmless."""
+        return max(self.max_degree, 1)
+
+    def csr_rows_pos(self) -> tuple[np.ndarray, np.ndarray]:
+        """(rows, pos): for each CSR entry, its row id and its position
+        within the row — the coordinate map between CSR and ELL layouts."""
+        deg = self.degree
+        rows = np.repeat(np.arange(self.n, dtype=np.int64), deg)
+        pos = np.arange(self.indices.shape[0], dtype=np.int64) - np.repeat(
+            self.indptr[:-1], deg
+        )
+        return rows, pos
+
+    def ell(self, pad_to: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """ELL form ``(ell_idx, ell_mask)`` of shape (n, dmax): ``ell_idx[i,
+        k]`` is the k-th neighbor of node i (0-padded), ``ell_mask[i, k]``
+        marks valid entries."""
+        dmax = int(pad_to) if pad_to is not None else self.ell_width
+        ell_idx = np.zeros((self.n, dmax), dtype=np.int32)
+        ell_mask = np.zeros((self.n, dmax), dtype=bool)
+        rows, pos = self.csr_rows_pos()
+        ell_idx[rows, pos] = self.indices
+        ell_mask[rows, pos] = True
+        return ell_idx, ell_mask
+
+    def ell_rows(self, rows: np.ndarray, pad_to: int) -> tuple[np.ndarray, np.ndarray]:
+        """ELL form of a row subset straight from CSR, identical to
+        ``self.ell()[...][rows, :pad_to]`` without building the global
+        (n, dmax) ELL."""
+        deg = self.degree[rows].astype(np.int64)
+        nnz = int(deg.sum())
+        rep = np.repeat(np.arange(len(rows), dtype=np.int64), deg)
+        pos = np.arange(nnz, dtype=np.int64) - np.repeat(
+            np.cumsum(deg) - deg, deg
+        )
+        src = self.indices[np.repeat(self.indptr[rows], deg) + pos]
+        ell_idx = np.zeros((len(rows), pad_to), dtype=np.int32)
+        ell_mask = np.zeros((len(rows), pad_to), dtype=bool)
+        ell_idx[rep, pos] = src
+        ell_mask[rep, pos] = True
+        return ell_idx, ell_mask
+
+    def edges(self) -> np.ndarray:
+        """(m, 2) array of undirected edges with src < dst."""
+        rows = np.repeat(np.arange(self.n, dtype=np.int64), self.degree)
+        mask = rows < self.indices
+        return np.stack([rows[mask], self.indices[mask]], axis=1).astype(np.int32)
+
+    def validate(self) -> None:
+        """Structural invariants: CSR shape, no isolated node (the
+        reference's connectivity guarantee), symmetric adjacency."""
+        if self.indptr.shape != (self.n + 1,):
+            raise ValueError("indptr has the wrong shape")
+        if self.indptr[0] != 0 or self.indptr[-1] != self.indices.shape[0]:
+            raise ValueError("indptr does not span indices")
+        if not (self.degree >= 1).all():
+            raise ValueError("isolated node — connectivity guarantee violated")
+        rows, _ = self.csr_rows_pos()
+        cols = self.indices.astype(np.int64)
+        fwd = np.sort(rows * self.n + cols)
+        rev = np.sort(cols * self.n + rows)
+        if not np.array_equal(fwd, rev):
+            raise ValueError("adjacency not symmetric")
+
+    @staticmethod
+    def from_edges(n: int, edges: np.ndarray) -> "Graph":
+        """Build a symmetric, deduplicated CSR graph from an (m, 2) edge list."""
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        edges = edges[edges[:, 0] != edges[:, 1]]
+        lo = np.minimum(edges[:, 0], edges[:, 1])
+        hi = np.maximum(edges[:, 0], edges[:, 1])
+        keys = np.unique(lo * n + hi)
+        lo, hi = keys // n, keys % n
+        src = np.concatenate([lo, hi])
+        dst = np.concatenate([hi, lo])
+        order = np.lexsort((dst, src))
+        src, dst = src[order], dst[order]
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.add.at(indptr, src + 1, 1)
+        np.cumsum(indptr, out=indptr)
+        return Graph(n=n, indptr=indptr, indices=dst.astype(np.int32))
+
+
+def _forced_edges(n: int, has_upper_edge: np.ndarray) -> np.ndarray:
+    """The reference connectivity fix (p2pnetwork.cc:81-84): rows with no
+    sampled edge to any j > i get a forced edge to i-1 (row 0 -> (0, 1))."""
+    out = []
+    for i in np.flatnonzero(~has_upper_edge):
+        if i == 0:
+            if n > 1:
+                out.append((0, 1))
+        else:
+            out.append((i - 1, i))
+    return np.array(out, dtype=np.int64).reshape(-1, 2)
+
+
+def erdos_renyi(n: int, p: float, seed: int = 0) -> Graph:
+    """Erdős–Rényi G(n, p) with the reference's connectivity fix: dense
+    upper-triangle Bernoulli(p) sampling for small n, per-row binomial
+    sampling (identical distribution) above ``_DENSE_ER_LIMIT``."""
+    if n <= 0:
+        raise ValueError("n must be positive")
+    rng = np.random.default_rng(seed)
+    if n <= _DENSE_ER_LIMIT:
+        tri = np.triu(rng.random((n, n)) < p, k=1)
+        src, dst = np.nonzero(tri)
+        has_upper = tri.any(axis=1)
+        edges = np.stack([src, dst], axis=1)
+    else:
+        counts = rng.binomial(np.maximum(n - 1 - np.arange(n), 0), p)
+        has_upper = counts > 0
+        srcs, dsts = [], []
+        for i in np.flatnonzero(counts):
+            k = counts[i]
+            cols = rng.choice(n - 1 - i, size=k, replace=False) + i + 1
+            srcs.append(np.full(k, i, dtype=np.int64))
+            dsts.append(cols.astype(np.int64))
+        edges = (
+            np.stack([np.concatenate(srcs), np.concatenate(dsts)], axis=1)
+            if srcs
+            else np.zeros((0, 2), dtype=np.int64)
+        )
+    return Graph.from_edges(
+        n, np.concatenate([edges, _forced_edges(n, has_upper)], axis=0)
+    )
+
+
+def barabasi_albert(n: int, m: int = 3, seed: int = 0, batch: int = 1024) -> Graph:
+    """Barabási–Albert preferential attachment, m edges per node, attached
+    in batches (preferential weights frozen per batch)."""
+    if n <= m:
+        raise ValueError("n must exceed m")
+    rng = np.random.default_rng(seed)
+    seed_nodes = np.arange(m + 1)
+    edges = [np.stack([seed_nodes, np.roll(seed_nodes, -1)], axis=1)]
+    # Endpoint pool: each edge contributes both endpoints -> degree-weighted.
+    pool = np.empty(2 * ((m + 1) + m * (n - m - 1)), dtype=np.int64)
+    fill = 2 * (m + 1)
+    pool[:fill] = edges[0].ravel()
+    next_node = m + 1
+    while next_node < n:
+        b = min(batch, n - next_node)
+        new_nodes = np.arange(next_node, next_node + b)
+        targets = pool[rng.integers(0, fill, size=(b, m))]
+        batch_edges = np.stack(
+            [np.repeat(new_nodes, m), targets.ravel()], axis=1
+        )
+        edges.append(batch_edges)
+        pool[fill : fill + 2 * b * m] = batch_edges.ravel()
+        fill += 2 * b * m
+        next_node += b
+    return Graph.from_edges(n, np.concatenate(edges, axis=0))
+
+
+def ring_graph(n: int) -> Graph:
+    """Ring topology — deterministic diameter."""
+    nodes = np.arange(n, dtype=np.int64)
+    return Graph.from_edges(n, np.stack([nodes, (nodes + 1) % n], axis=1))

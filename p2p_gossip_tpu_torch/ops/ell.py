@@ -1,0 +1,228 @@
+"""ELL gather-OR frontier propagation — the hot op of the tick engine.
+
+One tick delivers every in-flight message at once:
+
+    arrivals[dst] = OR_{k in nbrs(dst)} hist[(t - delay[dst,k]) mod D, src[dst,k]]
+
+where ``hist`` is a ring of the last D newly-acquired frontiers: per-edge
+latency as reads into the past. On the GPU every variant below is one
+launch of the hand-written ``gather_or`` kernel (ops/kernels.py) per ELL
+(one per degree bucket); on the CPU it is that kernel's plain version.
+
+The host planners (`bucket_rows_by_count`, `build_degree_buckets`,
+`detect_uniform_delay`) are this package's own copies of the JAX
+package's, so both stage identical buckets.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from p2p_gossip_tpu_torch.ops import kernels
+
+# Degree quantum of the bucketing policy (row caps are multiples of it).
+DEFAULT_DEGREE_BLOCK = 8
+
+# Degree-bucket levels above this are quantized to powers of two (see
+# build_degree_buckets) and always form standalone buckets.
+GEOMETRIC_LEVEL_THRESHOLD = 8
+
+
+def detect_uniform_delay(ell_delays, ell_mask) -> int | None:
+    """The delay when every VALID edge shares it, else None — the single
+    rule for choosing the uniform-delay path."""
+    ell_delays = np.asarray(ell_delays)
+    ell_mask = np.asarray(ell_mask)
+    valid = ell_delays[ell_mask] if ell_mask.size else ell_delays
+    if valid.size and (valid == valid.flat[0]).all():
+        return int(valid.flat[0])
+    return None
+
+
+def gather_or_frontier(
+    frontier: torch.Tensor,  # (N_src, W) int32 — one delay slice of history
+    tick: int,
+    ell_idx: torch.Tensor,   # (N_out, dmax) int32
+    ell_mask: torch.Tensor,  # (N_out, dmax) bool
+    *,
+    plain: bool = False,
+) -> torch.Tensor:
+    """OR-gather arrivals from a single source frontier: (N_out, W)."""
+    out = torch.empty(
+        (ell_idx.shape[0], frontier.shape[-1]), dtype=torch.int32,
+        device=frontier.device,
+    )
+    return kernels.gather_or(
+        frontier.unsqueeze(0), tick, ell_idx, ell_mask, uniform_slot=0,
+        out=out, plain=plain,
+    )
+
+
+def propagate_uniform(
+    hist: torch.Tensor,      # (D, N_src, W) int32
+    tick: int,
+    ell_idx: torch.Tensor,   # (N_out, dmax) int32
+    ell_mask: torch.Tensor,  # (N_out, dmax) bool
+    *,
+    ring_size: int,
+    uniform_delay: int = 1,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Uniform per-edge delay: the delay-line slot is one scalar per tick,
+    so no per-edge delay is read."""
+    if hist.shape[0] != ring_size:
+        raise ValueError("hist ring does not match ring_size")
+    return gather_or_frontier(
+        hist[(tick - uniform_delay) % ring_size], tick, ell_idx, ell_mask,
+        plain=plain,
+    )
+
+
+def propagate(
+    hist: torch.Tensor,       # (D, N_src, W) int32
+    tick: int,
+    ell_idx: torch.Tensor,    # (N_out, dmax) int32
+    ell_delay: torch.Tensor,  # (N_out, dmax) int32, >= 1
+    ell_mask: torch.Tensor,   # (N_out, dmax) bool
+    *,
+    ring_size: int,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Per-edge delays: arrivals (N_out, W) int32."""
+    if hist.shape[0] != ring_size:
+        raise ValueError("hist ring does not match ring_size")
+    out = torch.empty(
+        (ell_idx.shape[0], hist.shape[-1]), dtype=torch.int32, device=hist.device
+    )
+    return kernels.gather_or(
+        hist, tick, ell_idx, ell_mask, ell_delay, out=out, plain=plain
+    )
+
+
+def propagate_bucketed(
+    hist: torch.Tensor,
+    tick: int,
+    buckets,
+    *,
+    n_out: int,
+    ring_size: int,
+    uniform_delay: int | None = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Gather-OR over degree buckets (see `build_degree_buckets`),
+    bitwise-identical to `propagate`/`propagate_uniform` on the full ELL.
+    Each bucket's launch writes its rows straight into node order; rows no
+    bucket names stay zero."""
+    if hist.shape[0] != ring_size:
+        raise ValueError("hist ring does not match ring_size")
+    arrivals = torch.zeros(
+        (n_out, hist.shape[-1]), dtype=torch.int32, device=hist.device
+    )
+    uniform_slot = (
+        None if uniform_delay is None else (tick - uniform_delay) % ring_size
+    )
+    for rows, b_idx, b_mask, b_delay in buckets:
+        kernels.gather_or(
+            hist, tick, b_idx, b_mask,
+            None if uniform_delay is not None else b_delay,
+            uniform_slot=uniform_slot, rows=rows, out=arrivals, plain=plain,
+        )
+    return arrivals
+
+
+def propagate_reference(hist, tick, ell_idx, ell_delay, ell_mask, *, ring_size):
+    """Straight-line oracle: materializes (N_out, dmax, W) and OR-folds it."""
+    d, n_src, w = hist.shape
+    slot = torch.remainder(tick - ell_delay.to(torch.int64), ring_size)
+    gathered = hist.reshape(d * n_src, w)[slot * n_src + ell_idx.to(torch.int64)]
+    gathered = torch.where(ell_mask[..., None], gathered, 0)
+    acc = torch.zeros((ell_idx.shape[0], w), dtype=torch.int32, device=hist.device)
+    for k in range(gathered.shape[1]):
+        acc |= gathered[:, k]
+    return acc
+
+
+def bucket_rows_by_count(cnt, block: int, min_rows: int):
+    """THE bucketing policy: quantize per-row valid-entry counts to levels
+    (linear multiples of ``block``; powers of two past
+    ``GEOMETRIC_LEVEL_THRESHOLD`` so heavy tails stay < 2x padded), then
+    merge small linear-level groups upward until each holds ``min_rows``
+    rows — tail levels always stand alone. Returns row-index arrays in
+    ascending level order; they partition ``range(len(cnt))``."""
+    cnt = np.asarray(cnt, dtype=np.int64)
+    if cnt.size == 0:
+        return []
+    level = -(-cnt // block)
+    high = level > GEOMETRIC_LEVEL_THRESHOLD
+    if high.any():
+        level = np.where(
+            high,
+            1 << np.ceil(np.log2(np.maximum(level, 1))).astype(np.int64),
+            level,
+        )
+    order = np.argsort(level, kind="stable")
+    sorted_level = level[order]
+    change = np.flatnonzero(np.diff(sorted_level)) + 1
+    groups = np.split(order, change)
+    merged: list[np.ndarray] = []
+    pending: list[np.ndarray] = []
+    pending_count = 0
+    for g in groups:
+        if level[g[0]] > GEOMETRIC_LEVEL_THRESHOLD:  # geometric group
+            if pending:
+                merged.append(np.concatenate(pending))
+                pending, pending_count = [], 0
+            merged.append(g)
+            continue
+        pending.append(g)
+        pending_count += g.shape[0]
+        if pending_count >= min_rows:
+            merged.append(np.concatenate(pending))
+            pending, pending_count = [], 0
+    if pending:
+        # Leftovers keep their own bucket: folding them into the previous
+        # bucket would raise that bucket's cap for every row.
+        merged.append(np.concatenate(pending))
+    return merged
+
+
+def build_degree_buckets(
+    graph,
+    ell_delays=None,
+    *,
+    block: int = DEFAULT_DEGREE_BLOCK,
+    min_rows: int = 2048,
+    ell: tuple | None = None,
+):
+    """Group nodes into degree buckets for padding-free ELL propagation.
+
+    Nodes are grouped by ``ceil(degree / block)`` so each group's ELL is
+    padded only to its own cap. Returns a tuple of numpy ``(rows, ell_idx,
+    ell_mask, ell_delay)`` per bucket (``ell_delay`` None without per-edge
+    delays); the ``rows`` arrays partition ``range(n)``. ``ell`` passes an
+    already built ``(ell_idx, ell_mask)`` pair."""
+    deg = np.asarray(graph.degree)
+    if ell is None and ell_delays is not None:
+        ell = graph.ell()
+    ell_idx, ell_mask = ell if ell is not None else (None, None)
+    buckets = []
+    for rows in bucket_rows_by_count(deg, block, min_rows):
+        # Cap at the bucket's true max degree, block-rounded.
+        cap = max(-(-int(deg[rows].max()) // block) * block, block)
+        if ell_idx is not None:
+            b_idx = np.ascontiguousarray(ell_idx[rows, :cap])
+            b_mask = np.ascontiguousarray(ell_mask[rows, :cap])
+        else:
+            b_idx, b_mask = graph.ell_rows(rows, cap)
+        buckets.append(
+            (
+                rows.astype(np.int32),
+                b_idx.astype(np.int32),
+                b_mask.astype(bool),
+                np.ascontiguousarray(ell_delays[rows, :cap]).astype(np.int32)
+                if ell_delays is not None
+                else None,
+            )
+        )
+    return tuple(buckets)

@@ -1,0 +1,230 @@
+"""The port's hand-written CUDA kernels, each beside its plain torch version
+— the counterpart of the JAX package's ``ops/pallas_kernels.py``.
+
+| kernel              | replaces (JAX package)                                  |
+|---------------------|---------------------------------------------------------|
+| `gather_or`         | ops/ell.py gather_or_frontier / propagate (XLA gather)   |
+| `popcount_rows`     | ops/pallas_kernels.py popcount_rows_pallas              |
+| `coverage_per_slot` | ops/pallas_kernels.py coverage_per_slot_pallas          |
+
+Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
+launches the kernel (csrc/gossip_kernels.cu, built and bound by
+`ops.build`), and a failed build or launch raises. ``plain=True`` asks for
+the plain version on any device — the comparison runs of the kernels use
+it; nothing falls back to it.
+
+``launches`` counts kernel launches per kernel (one per launch, and only
+there), so a run can show which kernels its main path went through.
+
+Bitmasks are torch.int32 tensors holding the uint32 bit pattern (torch's
+uint32 lacks shifts on the CPU). ``>>`` on int32 sign-extends, so every
+bit extraction below is written ``(x >> b) & 1``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+WORD_BITS = 32
+
+launches = {"gather_or": 0, "popcount_rows": 0, "coverage_per_slot": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
+    if plain or t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _int32_matrix(t: torch.Tensor, name: str) -> None:
+    _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
+    _require(t.dim() == 2, f"{name} must be 2-D, got shape {tuple(t.shape)}")
+    _require(t.stride(1) == 1 or t.shape[1] <= 1, f"{name} rows must be contiguous")
+
+
+def _launch(name: str, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    launches[name] += 1
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _lib():
+    from p2p_gossip_tpu_torch.ops.build import load_library
+
+    return load_library()
+
+
+# --- popcount_rows ----------------------------------------------------------
+
+def popcount_rows_plain(words: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount per word in int64 (no sign or overflow hazards), summed
+    per row: (N, W) int32 -> (N,) int32."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = ((x * 0x01010101) >> 24) & 0xFF
+    return x.sum(dim=-1).to(torch.int32)
+
+
+def popcount_rows(words: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """Per-row set-bit count: (N, W) int32 bitmask -> (N,) int32."""
+    if not _use_kernel(words, plain):
+        return popcount_rows_plain(words)
+    _int32_matrix(words, "words")
+    n, w = words.shape
+    if not (n and w):
+        return torch.zeros((n,), dtype=torch.int32, device=words.device)
+    out = torch.empty((n,), dtype=torch.int32, device=words.device)
+    _launch(
+        "popcount_rows", _lib().gossip_popcount_rows,
+        words.data_ptr(), n, w, words.stride(0), out.data_ptr(),
+        _stream(words.device),
+    )
+    return out
+
+
+# --- coverage_per_slot ------------------------------------------------------
+
+def coverage_per_slot_plain(words: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """32 per-bit column sums: (N, W) int32 -> (n_slots,) int32, slot s =
+    word s // 32, bit s % 32."""
+    w = words.shape[-1]
+    counts = torch.stack(
+        [((words >> b) & 1).sum(dim=0, dtype=torch.int32) for b in range(WORD_BITS)],
+        dim=1,
+    )  # (W, 32)
+    return counts.reshape(w * WORD_BITS)[:n_slots].contiguous()
+
+
+# Blocks the coverage grid aims for: ~8 resident blocks of <= 128 threads
+# on each of the H100's 132 SMs. More blocks means more atomics per slot.
+_COVERAGE_TARGET_BLOCKS = 132 * 8
+_MAX_GRID_Y = 65535
+
+
+def coverage_per_slot(
+    words: torch.Tensor, n_slots: int, *, plain: bool = False
+) -> torch.Tensor:
+    """Per-share coverage counts: (N, W) int32 bitmask -> (n_slots,) int32.
+    ``words`` may be a column slice (row stride > W) of a wider bitmask."""
+    _require(0 <= n_slots <= words.shape[-1] * WORD_BITS, "n_slots out of range")
+    if not _use_kernel(words, plain):
+        return coverage_per_slot_plain(words, n_slots)
+    _int32_matrix(words, "words")
+    n, w = words.shape
+    out = torch.zeros((n_slots,), dtype=torch.int32, device=words.device)
+    if n and w and n_slots:
+        grid_x = -(-w // 128)
+        grid_y = min(max(1, _COVERAGE_TARGET_BLOCKS // grid_x), n, _MAX_GRID_Y)
+        rows_per = -(-n // grid_y)
+        _launch(
+            "coverage_per_slot", _lib().gossip_coverage_per_slot,
+            words.data_ptr(), n, w, words.stride(0), rows_per, n_slots,
+            out.data_ptr(), _stream(words.device),
+        )
+    return out
+
+
+# --- gather_or --------------------------------------------------------------
+
+def gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out):
+    """A masked ``|=`` over the degree columns, then a write into node
+    order that drops rows outside ``[0, len(out))``. The mask is applied
+    as an AND with all-ones (valid) or zero (padding) words."""
+    d, n_src, w = hist.shape
+    acc = torch.zeros((idx.shape[0], w), dtype=torch.int32, device=hist.device)
+    keep = (-mask.to(torch.int32)).t().contiguous()
+    if delay is None:
+        src = hist[uniform_slot]
+        rows_k = idx.to(torch.int64)
+    else:
+        src = hist.reshape(d * n_src, w)
+        rows_k = torch.remainder(tick - delay.to(torch.int64), d) * n_src + idx
+    rows_k = rows_k.t().contiguous()
+    for k in range(idx.shape[1]):
+        acc |= torch.index_select(src, 0, rows_k[k]) & keep[k, :, None]
+    if rows is None:
+        out.copy_(acc)
+    else:
+        r = rows.to(torch.int64)
+        ok = (r >= 0) & (r < out.shape[0])
+        out[r[ok]] = acc[ok]
+    return out
+
+
+def gather_or(
+    hist: torch.Tensor,
+    tick: int,
+    idx: torch.Tensor,
+    mask: torch.Tensor,
+    delay: torch.Tensor | None = None,
+    *,
+    uniform_slot: int | None = None,
+    rows: torch.Tensor | None = None,
+    out: torch.Tensor,
+    plain: bool = False,
+) -> torch.Tensor:
+    """ELL gather-OR over a frontier-history ring, written into ``out``:
+
+        out[rows[r]] = OR_k mask[r, k] ? hist[slot(r, k), idx[r, k]] : 0
+
+    ``hist`` (D, N_src, W) int32; ``idx`` (R, C) int32; ``mask`` (R, C)
+    bool; ``delay`` (R, C) int32 per-edge delays with slot(r, k) = (tick -
+    delay[r, k]) mod D, or None with the one ``uniform_slot``; ``rows`` (R,)
+    int32 destination rows (None: row r -> r, and then R == len(out)).
+    Returns ``out``."""
+    _require(hist.dim() == 3, "hist must be (D, N, W)")
+    d, n_src, w = hist.shape
+    _require(idx.shape == mask.shape, "idx and mask shapes differ")
+    _require(delay is None or delay.shape == idx.shape, "delay shape differs")
+    _require((delay is None) != (uniform_slot is None),
+             "pass exactly one of delay and uniform_slot")
+    _require(uniform_slot is None or 0 <= uniform_slot < d, "uniform_slot out of range")
+    _require(out.dim() == 2 and out.shape[1] == w, "out must be (N_out, W)")
+    _require(rows is not None or idx.shape[0] == out.shape[0],
+             "identity rows need one ELL row per output row")
+    if not _use_kernel(hist, plain):
+        return gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out)
+    tensors = [("hist", hist, torch.int32), ("idx", idx, torch.int32),
+               ("mask", mask, torch.bool), ("out", out, torch.int32)]
+    if delay is not None:
+        tensors.append(("delay", delay, torch.int32))
+    if rows is not None:
+        _require(rows.shape == (idx.shape[0],), "rows must be (R,)")
+        tensors.append(("rows", rows, torch.int32))
+    for name, t, dtype in tensors:
+        _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        _require(t.device == hist.device, f"{name} is on {t.device}, not {hist.device}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    n_rows, cap = idx.shape
+    if n_rows and w:
+        _launch(
+            "gather_or", _lib().gossip_gather_or,
+            hist.data_ptr(), n_src, w, d, int(tick),
+            -1 if uniform_slot is None else int(uniform_slot),
+            idx.data_ptr(), mask.data_ptr(),
+            None if delay is None else delay.data_ptr(),
+            n_rows, cap, None if rows is None else rows.data_ptr(),
+            out.shape[0], out.data_ptr(), _stream(hist.device),
+        )
+    return out
