@@ -11,7 +11,13 @@ Phases (any failure raises and the script exits nonzero):
 2. Build the CUDA kernels from ``p2p_gossip_tpu_torch/csrc`` (``nvcc``).
 3. Hold each kernel against its plain torch version on the card at the
    main path's shapes (bitwise: every op is integer), and time both with
-   CUDA events beside the least time the bytes allow at 3.35 TB/s.
+   CUDA events beside the least time the bytes allow at 3.35 TB/s:
+   gather_or and sector_occupancy on random (dense) rings and on rings
+   captured from the engine's own tick at tick 10 of the main-path flood
+   (uniform delay, and lognormal per-edge delays with D = 6), with the
+   captured ring's measured sector occupancy; coverage_per_slot on dense
+   words and on the coverage run's tick-2 frontier; and every kernel on
+   ragged shapes.
 4. Run the engine twice on small graphs, with the kernels and with the
    plain versions, and require equal counters and executed ticks; run
    the CLI's reference default config on the card.
@@ -40,9 +46,13 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 N_NODES, EDGE_P, SEED = 100_000, 0.001, 0
 N_SHARES, GEN_WINDOW, HORIZON, CHUNK = 8192, 16, 64, 8192
 COVERAGE_ORIGINS = 4096
+CAPTURE_TICK = 10  # a mid-flood tick: shares of generation ticks 6-9 spreading
 SOURCE = "p2p_gossip_tpu_torch/csrc/gossip_kernels.cu"
 REPLACES = {
     "gather_or": "p2p_gossip_tpu/ops/ell.py:157",
+    # No TPU counterpart: the gather's companion pass, filed under the XLA
+    # gather-OR it serves.
+    "sector_occupancy": "p2p_gossip_tpu/ops/ell.py:157",
     "popcount_rows": "p2p_gossip_tpu/ops/pallas_kernels.py:152",
     "coverage_per_slot": "p2p_gossip_tpu/ops/pallas_kernels.py:122",
 }
@@ -52,9 +62,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, each bracketed by
-    CUDA events on the current stream."""
+# Back-to-back calls per timed run of a kernel: the device's work then
+# covers the host's launch overhead (Python checks, ctypes, allocation),
+# which a single bracketed call would add to a kernel of tens of µs.
+KERNEL_CALLS = 10
+
+
+def time_ms(fn, reps: int, warmup: int = 2, calls: int = 1) -> float:
+    """Median milliseconds of one call of ``fn`` over ``reps`` runs of
+    ``calls`` back-to-back calls, each run bracketed by CUDA events on the
+    current stream."""
     import torch
 
     for _ in range(warmup):
@@ -65,10 +82,11 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -85,6 +103,33 @@ def random_words(rng, shape, dev):
     return torch.as_tensor(words.copy(), device=dev)
 
 
+def sparse_words(rng, shape, dev, p_sector=0.4):
+    """Random words in whole 8-word sectors kept with probability
+    ``p_sector``, the rest zero — a frontier's banded look."""
+    import torch
+
+    *lead, w = shape
+    keep = rng.random((*lead, -(-w // 8))) < p_sector
+    sector_mask = torch.as_tensor(np.repeat(keep, 8, axis=-1)[..., :w], device=dev)
+    return torch.where(sector_mask, random_words(rng, shape, dev), 0)
+
+
+def ring_occupancy(hist, *, plain=False):
+    """sector_occupancy of every slot of a (D, N, W) ring, as the engine
+    keeps it: (D, N) int32."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    return torch.stack([kernels.sector_occupancy(h, plain=plain) for h in hist])
+
+
+def set_bits(x) -> int:
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    return int(kernels.popcount_rows_plain(x.reshape(-1, 1)).sum())
+
+
 def compare(name, got, want) -> int:
     """Bitwise comparison; returns the max absolute difference (0)."""
     if got.shape != want.shape:
@@ -98,16 +143,32 @@ def compare(name, got, want) -> int:
 # --- phase 3 ----------------------------------------------------------------
 
 def check_gather_ragged(dev, rng):
-    """gather_or on awkward shapes: W of 1, 3 and 300 (> one block of
-    threads), per-edge and uniform slots, destination rows in shuffled
-    order with some outside [0, N) (dropped), and a zero-width ELL."""
+    """gather_or on awkward shapes, each with no occupancy, the exact one
+    and an over-approximate one (bits over zero sectors and past the last
+    sector): W of 1, 3 and 5 (4-byte loads), 300 (sectors widened to 16
+    words), 520 and 1027 (32- and 64-word sectors), caps of 129 and 300
+    (more than one staging round of 128 entries), an all-zero ring,
+    per-edge and uniform slots, destination rows in shuffled order with
+    some outside [0, N) (dropped), and a zero-width ELL. ``out`` starts
+    as all ones, so a row the kernel should zero and does not shows."""
     import torch
 
     from p2p_gossip_tpu_torch.ops import kernels
 
-    for n, cap, w, ring, per_edge in ((1237, 7, 3, 4, True), (513, 5, 1, 2, False),
-                                      (300, 9, 300, 6, True), (64, 0, 2, 2, False)):
-        hist = random_words(rng, (ring, n, w), dev)
+    cases = (  # n, cap, w, ring, per_edge, fill
+        (1237, 7, 3, 4, True, "sparse"), (513, 5, 1, 2, False, "dense"),
+        (300, 9, 300, 6, True, "sparse"), (400, 11, 5, 3, False, "sparse"),
+        (256, 300, 16, 3, True, "sparse"), (129, 129, 8, 2, False, "sparse"),
+        (777, 6, 520, 2, False, "sparse"), (150, 4, 1027, 2, True, "sparse"),
+        (500, 12, 64, 3, True, "zero"), (64, 0, 2, 2, False, "sparse"),
+    )
+    for n, cap, w, ring, per_edge, fill in cases:
+        if fill == "zero":
+            hist = torch.zeros((ring, n, w), dtype=torch.int32, device=dev)
+        elif fill == "dense":
+            hist = random_words(rng, (ring, n, w), dev)
+        else:
+            hist = sparse_words(rng, (ring, n, w), dev)
         idx = torch.as_tensor(rng.integers(0, n, (n, cap)).astype(np.int32), device=dev)
         mask = torch.as_tensor(rng.random((n, cap)) < 0.7, device=dev)
         delay = (torch.as_tensor(rng.integers(1, ring, (n, cap)).astype(np.int32),
@@ -115,19 +176,53 @@ def check_gather_ragged(dev, rng):
         rows = rng.permutation(n + 6)[:n].astype(np.int32) - 3
         rows = torch.as_tensor(rows, device=dev)
         slot = None if per_edge else 1
-        outs = []
-        for plain in (False, True):
-            out = torch.zeros((n, w), dtype=torch.int32, device=dev)
-            outs.append(kernels.gather_or(hist, 5, idx, mask, delay, uniform_slot=slot,
-                                          rows=rows, out=out, plain=plain))
-        compare(f"gather_or[n={n} cap={cap} w={w} D={ring}]", *outs)
-    log("gather_or ragged shapes (W 1/3/300, per-edge, out-of-range rows, "
-        "cap 0): bitwise equal")
+        exact = ring_occupancy(hist)
+        compare(f"sector_occupancy[ring n={n} w={w}]", exact, ring_occupancy(hist, plain=True))
+        over = exact | random_words(rng, exact.shape, dev)
+
+        def run(occ, plain):
+            out = torch.full((n, w), -1, dtype=torch.int32, device=dev)
+            return kernels.gather_or(hist, 5, idx, mask, delay, uniform_slot=slot,
+                                     rows=rows, occ=occ, out=out, plain=plain)
+
+        want = run(None, True)
+        for occ_name, occ in (("none", None), ("exact", exact), ("over", over)):
+            got = run(occ, False)
+            label = f"gather_or[n={n} cap={cap} w={w} D={ring} {fill} occ={occ_name}]"
+            compare(label, got, run(occ, True))
+            compare(label + " vs no occupancy", got, want)
+    log("gather_or ragged shapes (W 1/3/5/300/520/1027, caps 0/129/300, zero "
+        "ring, per-edge, out-of-range rows; occupancy none/exact/over): bitwise equal")
+
+
+def check_occupancy_ragged(dev, rng):
+    """sector_occupancy on W of 1, 3, 5, 128, 256, 300, 512 and 1027, an
+    all-ones row, a zero row and a bit-31-only row, and on column slices
+    (row stride > W; an unaligned base)."""
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    for shape in ((1237, 1), (1000, 3), (999, 5), (513, 128), (4097, 256),
+                  (300, 300), (77, 512), (50, 1027)):
+        words = sparse_words(rng, shape, dev)
+        words[0] = -1
+        words[1] = 0
+        words[2] = 0
+        words[2, -1] = -(2**31)
+        compare(f"sector_occupancy{shape}", kernels.sector_occupancy(words),
+                kernels.sector_occupancy_plain(words))
+    for wide, cols in (((1000, 13), slice(2, 11)), ((1000, 260), slice(4, 260))):
+        words = sparse_words(rng, wide, dev)[:, cols]
+        compare(f"sector_occupancy[slice {wide}]", kernels.sector_occupancy(words),
+                kernels.sector_occupancy_plain(words))
+    log("sector_occupancy ragged shapes (W 1..1027, slices): bitwise equal")
 
 
 def check_gather(dg, dg_edge, n, w, dev, rng, reps):
     """gather_or at the main path's buckets (uniform delay 1, W words) and
-    with per-edge delays (ring D from the staged delays)."""
+    with per-edge delays (ring D from the staged delays), on random words
+    (every sector occupied) with the ring's occupancy, as the engine calls
+    it. The bound counts each distinct source row (W words and its
+    occupancy word) once, the staged ELL and bucket rows, and the output."""
     import torch
 
     from p2p_gossip_tpu_torch.ops.ell import propagate_bucketed
@@ -138,10 +233,12 @@ def check_gather(dg, dg_edge, n, w, dev, rng, reps):
         hist = random_words(rng, (g.ring_size, n, w), dev)
         tick = 2 * g.ring_size + 1
 
-        def run(plain, g=g, hist=hist, tick=tick):
+        occ = ring_occupancy(hist)
+
+        def run(plain, g=g, hist=hist, tick=tick, occ=occ):
             return propagate_bucketed(
                 hist, tick, g.buckets, n_out=n, ring_size=g.ring_size,
-                uniform_delay=g.uniform_delay, plain=plain,
+                uniform_delay=g.uniform_delay, occ=occ, plain=plain,
             )
 
         err = compare(f"gather_or[{label}]", run(False), run(True))
@@ -156,12 +253,11 @@ def check_gather(dg, dg_edge, n, w, dev, rng, reps):
                 keys.append((slot * n + idx.long())[mask])
             src_rows = int(torch.unique(torch.cat(keys)).numel())
             per_entry = 9
-        nbytes = src_rows * w * 4 + staged * per_entry + rows_bytes + n * w * 4
-        ms = time_ms(lambda: run(False), reps)
+        nbytes = src_rows * (w + 1) * 4 + staged * per_entry + rows_bytes + n * w * 4
+        ms = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
         plain_ms = time_ms(lambda: run(True), max(2, reps // 4), warmup=1)
         results[label] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
-            ring=g.ring_size, buckets=len(g.buckets), staged_entries=staged,
         )
         log(
             f"gather_or[{label}] N={n} W={w} D={g.ring_size} buckets="
@@ -170,7 +266,119 @@ def check_gather(dg, dg_edge, n, w, dev, rng, reps):
             f"plain {plain_ms:.3f} ms, bound {bound_ms(nbytes):.4f} ms "
             f"({nbytes / 1e6:.1f} MB)"
         )
-        del hist
+        del hist, occ
+    return results
+
+
+def check_occupancy(n, w, dev, rng, reps):
+    """sector_occupancy on one random (N, W) slot (every sector occupied)."""
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    words = random_words(rng, (n, w), dev)
+    err = compare("sector_occupancy", kernels.sector_occupancy(words),
+                  kernels.sector_occupancy_plain(words))
+    ms = time_ms(lambda: kernels.sector_occupancy(words), reps, calls=KERNEL_CALLS)
+    plain_ms = time_ms(lambda: kernels.sector_occupancy_plain(words), reps)
+    nbytes = n * w * 4 + n * 4
+    log(f"sector_occupancy ({n}, {w}) random: bitwise equal; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms(nbytes):.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
+
+
+def capture_ring(dg, sched, chunk, ticks, dev):
+    """Run the engine's own tick on one chunk of ``sched`` for ``ticks``
+    ticks from t = 0 and return its frontier ring, occupancy ring and the
+    last tick's new frontier."""
+    import torch
+
+    from p2p_gossip_tpu_torch.engine.sync import _chunk_state, _tick
+
+    origins, gen_ticks = sched.padded(chunk, HORIZON)
+    origins = torch.as_tensor(origins.astype(np.int64), device=dev)
+    gen_ticks = torch.as_tensor(gen_ticks, device=dev)
+    slots = torch.arange(chunk, dtype=torch.int64, device=dev)
+    seen, hist, occ, received, sent = _chunk_state(dg, chunk // 32)
+    newly = None
+    for t in range(ticks):
+        newly, _ = _tick(dg, t, seen, hist, occ, received, sent, origins, slots,
+                         gen_ticks, False)
+    return hist, occ, newly
+
+
+def check_captured(dg, dg_edge, sched, n, dev, reps):
+    """gather_or and sector_occupancy on the rings the engine itself built
+    by tick CAPTURE_TICK of the main-path flood, uniform and per-edge.
+    Prints the sector occupancy the gather meets: the share of (valid
+    edge, sector) pairs it reads. The bound counts what this ring needs:
+    the occupied sectors of each distinct source row once, its occupancy
+    word, the staged ELL and bucket rows, and the output."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.ops.ell import propagate_bucketed
+
+    w = CHUNK // 32
+    sw = kernels.sector_words(w)
+    nsec = -(-w // sw)
+    tick = CAPTURE_TICK
+    results = {}
+    for label, g in (("uniform", dg), ("per_edge", dg_edge)):
+        hist, occ, _ = capture_ring(g, sched, CHUNK, tick, dev)
+
+        def run(plain, occ_arg, g=g, hist=hist):
+            return propagate_bucketed(
+                hist, tick, g.buckets, n_out=n, ring_size=g.ring_size,
+                uniform_delay=g.uniform_delay, occ=occ_arg, plain=plain,
+            )
+
+        got = run(False, occ)
+        err = compare(f"gather_or[captured {label}]", got, run(True, occ))
+        compare(f"gather_or[captured {label}] vs no occupancy", got, run(False, None))
+        keys, edge_sectors, edges, staged, rows_bytes = [], 0, 0, 0, 0
+        for rows, idx, mask, delay in g.buckets:
+            if g.uniform_delay is not None:
+                slot = torch.full_like(idx, (tick - g.uniform_delay) % g.ring_size,
+                                       dtype=torch.int64)
+            else:
+                slot = torch.remainder(tick - delay.long(), g.ring_size)
+            key = (slot * n + idx.long())[mask]
+            keys.append(key)
+            edge_sectors += set_bits(occ.reshape(-1)[key])
+            edges += int(key.numel())
+            staged += int(idx.numel())
+            rows_bytes += 4 * int(rows.numel())
+        distinct = torch.unique(torch.cat(keys))
+        sectors_needed = set_bits(occ.reshape(-1)[distinct])
+        per_entry = 5 if g.uniform_delay is not None else 9
+        nbytes = (sectors_needed * sw * 4 + distinct.numel() * 4 + staged * per_entry
+                  + rows_bytes + n * w * 4)
+        share = edge_sectors / (edges * nsec)
+        ms = time_ms(lambda: run(False, occ), reps, calls=KERNEL_CALLS)
+        ms_full = time_ms(lambda: run(False, None), reps, calls=KERNEL_CALLS)
+        plain_ms = time_ms(lambda: run(True, occ), max(2, reps // 4), warmup=1)
+        # The occupancy pass on the slot this tick's own _tick call writes.
+        slot_words = hist[(tick - 1) % g.ring_size]
+        occ_err = compare(f"sector_occupancy[captured {label}]",
+                          kernels.sector_occupancy(slot_words),
+                          kernels.sector_occupancy_plain(slot_words))
+        occ_ms = time_ms(lambda: kernels.sector_occupancy(slot_words), reps,
+                         calls=KERNEL_CALLS)
+        occ_plain_ms = time_ms(lambda: kernels.sector_occupancy_plain(slot_words), reps)
+        results[label] = dict(
+            max_abs_err=max(err, occ_err), ms=ms, ms_no_occupancy=ms_full,
+            plain_ms=plain_ms, bound_ms=bound_ms(nbytes), sector_share=share,
+            occupancy_ms=occ_ms, occupancy_plain_ms=occ_plain_ms,
+        )
+        log(
+            f"gather_or[captured {label}, tick {tick}] D={g.ring_size}: bitwise "
+            f"equal (kernel == plain == kernel without occupancy); sector occupancy "
+            f"met by the gather {share:.4f} of {edges} edges x {nsec} sectors; "
+            f"kernel {ms:.4f} ms (reading every sector: {ms_full:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} "
+            f"MB); sector_occupancy of the tick-{tick - 1} slot: kernel {occ_ms:.4f} "
+            f"ms, plain {occ_plain_ms:.4f} ms"
+        )
+        del hist, occ
     return results
 
 
@@ -185,7 +393,7 @@ def check_popcount(n, w, dev, rng, reps):
     words = random_words(rng, (n, w), dev)
     got, want = kernels.popcount_rows(words), kernels.popcount_rows_plain(words)
     err = compare("popcount_rows", got, want)
-    ms = time_ms(lambda: kernels.popcount_rows(words), reps)
+    ms = time_ms(lambda: kernels.popcount_rows(words), reps, calls=KERNEL_CALLS)
     plain_ms = time_ms(lambda: kernels.popcount_rows_plain(words), reps)
     nbytes = n * w * 4 + n * 4
     log(
@@ -209,18 +417,58 @@ def check_coverage(n, w, dev, rng, reps):
     wide = random_words(rng, (2000, 5), dev)
     compare("coverage_per_slot[slice]", kernels.coverage_per_slot(wide[:, :3], 90),
             kernels.coverage_per_slot_plain(wide[:, :3], 90))
+    # Row stride 7 (not a multiple of 4), one slice from an unaligned base.
+    wide = random_words(rng, (2000, 7), dev)
+    for cols, slots in ((slice(0, 3), 90), (slice(2, 6), 128)):
+        compare(f"coverage_per_slot[stride 7 {cols}]",
+                kernels.coverage_per_slot(wide[:, cols], slots),
+                kernels.coverage_per_slot_plain(wide[:, cols], slots))
+    # Runs around the counters' flush period (255 nonzero words a column).
+    for rows in (255, 256, 257, 2 * 8 * 255 + 1):
+        words = random_words(rng, (rows, 33), dev)
+        words[:, 0] = -1
+        compare(f"coverage_per_slot[{rows} rows]", kernels.coverage_per_slot(words, 33 * 32),
+                kernels.coverage_per_slot_plain(words, 33 * 32))
     words = random_words(rng, (n, w), dev)
     slots = w * 32
     err = compare("coverage_per_slot", kernels.coverage_per_slot(words, slots),
                   kernels.coverage_per_slot_plain(words, slots))
-    ms = time_ms(lambda: kernels.coverage_per_slot(words, slots), reps)
+    ms = time_ms(lambda: kernels.coverage_per_slot(words, slots), reps,
+                 calls=KERNEL_CALLS)
     plain_ms = time_ms(lambda: kernels.coverage_per_slot_plain(words, slots), reps)
     nbytes = n * w * 4 + slots * 4
     log(
-        f"coverage_per_slot ({n}, {w}) -> {slots}: bitwise equal; kernel "
+        f"coverage_per_slot ({n}, {w}) -> {slots} random: bitwise equal; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms(nbytes):.4f} ms"
     )
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
+
+
+def check_coverage_frontier(graph, dg, dev, reps):
+    """coverage_per_slot on the coverage run's own tick-2 new frontier
+    (4,096 origins at t = 0, W = 128), captured from the engine's tick."""
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
+    sched = pt.Schedule(graph.n, origins, np.zeros(COVERAGE_ORIGINS, dtype=np.int32))
+    _, _, newly = capture_ring(dg, sched, COVERAGE_ORIGINS, 3, dev)
+    words, slots = newly[:, : COVERAGE_ORIGINS // 32], COVERAGE_ORIGINS
+    err = compare("coverage_per_slot[tick-2 frontier]",
+                  kernels.coverage_per_slot(words, slots),
+                  kernels.coverage_per_slot_plain(words, slots))
+    nonzero = float((words != 0).float().mean())
+    ms = time_ms(lambda: kernels.coverage_per_slot(words, slots), reps,
+                 calls=KERNEL_CALLS)
+    plain_ms = time_ms(lambda: kernels.coverage_per_slot_plain(words, slots), reps)
+    nbytes = words.numel() * 4 + slots * 4
+    log(
+        f"coverage_per_slot tick-2 frontier {tuple(words.shape)} ({nonzero:.4f} of "
+        f"words nonzero): bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms(nbytes):.4f} ms"
+    )
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                nonzero_words=nonzero)
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -295,10 +543,22 @@ def check_cli(dev):
 
 # --- phases 5 and 6 -----------------------------------------------------------
 
-def main_path(graph, dg, dev):
+def flood_schedule(graph):
+    """bench.py's flood: N_SHARES shares at random origins, generation
+    ticks uniform over the first GEN_WINDOW ticks."""
+    import p2p_gossip_tpu_torch as pt
+
+    rng = np.random.default_rng(SEED)
+    return pt.Schedule(
+        graph.n,
+        rng.integers(0, graph.n, N_SHARES).astype(np.int32),
+        rng.integers(0, GEN_WINDOW, N_SHARES).astype(np.int32),
+    )
+
+
+def main_path(graph, dg, sched, dev):
     import torch
 
-    import p2p_gossip_tpu_torch as pt
     from p2p_gossip_tpu_torch.engine.sync import (
         run_flood_coverage,
         run_sync_sim,
@@ -306,12 +566,6 @@ def main_path(graph, dg, dev):
     )
     from p2p_gossip_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(SEED)
-    sched = pt.Schedule(
-        graph.n,
-        rng.integers(0, graph.n, N_SHARES).astype(np.int32),
-        rng.integers(0, GEN_WINDOW, N_SHARES).astype(np.int32),
-    )
     t0 = time.perf_counter()
     warm = run_sync_sim(graph, sched, HORIZON, chunk_size=CHUNK, device_graph=dg,
                         device=dev)
@@ -332,12 +586,14 @@ def main_path(graph, dg, dev):
     stats.check_conservation()
     ticks = stats.extra["ticks_executed"]
     w = CHUNK // 32
-    modeled = dg.hbm_bytes_per_tick(w) * ticks
+    must = dg.must_move_bytes_per_tick(w)
+    tick_ms = wall / ticks * 1e3
     log(
         f"main path: N={graph.n} shares={N_SHARES} W={w} ticks={ticks} "
         f"wall={wall:.4f} s -> {totals['processed'] / wall:.4e} node-updates/s, "
-        f"{wall / ticks * 1e3:.3f} ms/tick, modeled {modeled / wall / 1e9:.1f} GB/s "
-        f"({dg.hbm_bytes_per_tick(w) / 1e9:.3f} GB/tick model); "
+        f"{tick_ms:.3f} ms/tick; must-move {must / 1e9:.4f} GB/tick = "
+        f"{bound_ms(must):.4f} ms/tick at 3.35 TB/s, achieved "
+        f"{bound_ms(must) / tick_ms:.4f} of that bound; "
         f"processed == shares x N, conservation holds; launches {flood_launches}"
     )
 
@@ -361,7 +617,7 @@ def main_path(graph, dg, dev):
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
-    return launches, sched
+    return launches
 
 
 def profile_flood(graph, sched, dg, dev):
@@ -435,26 +691,54 @@ def main() -> int:
     w_flood, w_cov = CHUNK // 32, COVERAGE_ORIGINS // 32
     log("tolerance: bitwise (integer ops), max_abs_err must be 0")
     check_gather_ragged(dev, rng)
+    check_occupancy_ragged(dev, rng)
     gather = check_gather(dg, dg_edge, graph.n, w_flood, dev, rng, reps=10)
+    occupancy = check_occupancy(graph.n, w_flood, dev, rng, reps=20)
+    sched = flood_schedule(graph)
+    captured = check_captured(dg, dg_edge, sched, graph.n, dev, reps=10)
     popcount = check_popcount(graph.n, w_flood, dev, rng, reps=20)
     coverage = check_coverage(graph.n, w_cov, dev, rng, reps=20)
+    frontier = check_coverage_frontier(graph, dg, dev, reps=20)
     del dg_edge
     torch.cuda.empty_cache()
 
     check_engine_paths(dev)
-    launches, sched = main_path(graph, dg, dev)
+    launches = main_path(graph, dg, sched, dev)
     profile_flood(graph, sched, dg, dev)
 
-    measured = {"gather_or": gather["uniform"], "popcount_rows": popcount,
-                "coverage_per_slot": coverage}
+    cu, ce = captured["uniform"], captured["per_edge"]
+    measured = {
+        # ms / bound_ms: the random (dense) ring with uniform delay, the shape
+        # the gather was first timed at; the captured ring's beside it.
+        "gather_or": dict(
+            gather["uniform"], max_abs_err=max(gather["uniform"]["max_abs_err"],
+                                               gather["per_edge"]["max_abs_err"],
+                                               cu["max_abs_err"], ce["max_abs_err"]),
+            ms_captured=cu["ms"], bound_ms_captured=cu["bound_ms"],
+            plain_ms_captured=cu["plain_ms"], sector_share_captured=cu["sector_share"],
+            ms_per_edge=gather["per_edge"]["ms"],
+            bound_ms_per_edge=gather["per_edge"]["bound_ms"],
+            ms_per_edge_captured=ce["ms"], bound_ms_per_edge_captured=ce["bound_ms"],
+            sector_share_per_edge_captured=ce["sector_share"],
+        ),
+        "sector_occupancy": dict(occupancy, ms_captured=cu["occupancy_ms"],
+                                 plain_ms_captured=cu["occupancy_plain_ms"]),
+        "popcount_rows": popcount,
+        "coverage_per_slot": dict(coverage, max_abs_err=max(coverage["max_abs_err"],
+                                                            frontier["max_abs_err"]),
+                                  ms_frontier=frontier["ms"],
+                                  bound_ms_frontier=frontier["bound_ms"],
+                                  plain_ms_frontier=frontier["plain_ms"]),
+    }
+    base = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     record = []
     for name, m in measured.items():
         record.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            **{k: m[k] for k in base},
             "bound_by": "bytes", "library_ms": None,
+            **{k: v for k, v in m.items() if k not in base},
         })
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,79 @@
 
 namespace {
 
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Words per occupancy sector of a w-word row: 8 (one 32-byte L2 sector)
+// while w <= 256, doubled until the row has at most 32 sectors, so a row's
+// occupancy is always one 32-bit word. The sector is then a power of two
+// of at least 8 words, a whole number of 16-byte units.
+__host__ __device__ inline int sector_words(int w) {
+  int sw = 8;
+  while (sw * 32 < w) sw <<= 1;
+  return sw;
+}
+
+__device__ inline uint32_t or_units(uint32_t a, uint32_t b) { return a | b; }
+__device__ inline uint4 or_units(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ inline uint32_t shfl_xor(uint32_t v, int m) {
+  return __shfl_xor_sync(kFullMask, v, m);
+}
+__device__ inline uint4 shfl_xor(uint4 v, int m) {
+  return make_uint4(shfl_xor(v.x, m), shfl_xor(v.y, m), shfl_xor(v.z, m),
+                    shfl_xor(v.w, m));
+}
+// Position of the set bit of x that has n set bits below it.
+__device__ inline int nth_set_bit(uint32_t x, int n) {
+  for (int i = 0; i < n; ++i) x &= x - 1u;
+  return __ffs(x) - 1;
+}
+template <typename T> __device__ inline T zero_unit();
+template <> __device__ inline uint32_t zero_unit<uint32_t>() { return 0u; }
+template <> __device__ inline uint4 zero_unit<uint4>() { return make_uint4(0u, 0u, 0u, 0u); }
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// ---------------------------------------------------------------------------
+// sector_occupancy
+//
+// Replaces: nothing on the TPU; it is the gather's companion pass. The
+//   engine runs it on each tick's new frontier slot, so the frontier ring
+//   carries a (D, N) ring of occupancy words beside it.
+// Computes: out[r] bit s = any word of row r's sector s is nonzero (sector
+//   size from sector_words). Exact; gather_or only needs it to over-
+//   approximate.
+// Bound on the H100: bytes (N*W*4 read, N*4 written).
+// Design: one warp per row, lane s ORs sector s's words (16-byte loads when
+//   the row allows them) and the warp's ballot of "nonzero" is the row's
+//   occupancy word: no shared memory, no reduction tree.
+// ---------------------------------------------------------------------------
+template <bool kVec>
+__global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
+                                        int n, int w, long long ld, int sw,
+                                        int32_t* __restrict__ out) {
+  const long long row =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;  // warp-uniform
+  const uint32_t* p = words + (size_t)row * (size_t)ld;
+  const int c0 = lane * sw;
+  const int c1 = c0 + sw < w ? c0 + sw : w;
+  uint32_t acc = 0u;
+  if (kVec) {  // c0 and c1 are multiples of 4 here (sw % 8 == 0, w % 4 == 0)
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    for (int c = c0 >> 2; c < (c1 >> 2); ++c) {
+      const uint4 v = __ldg(q + c);
+      acc |= v.x | v.y | v.z | v.w;
+    }
+  } else {
+    for (int c = c0; c < c1; ++c) acc |= __ldg(p + c);
+  }
+  const unsigned bits = __ballot_sync(kFullMask, acc != 0u);
+  if (lane == 0) out[row] = (int32_t)bits;
+}
+
 // ---------------------------------------------------------------------------
 // gather_or
 //
@@ -22,48 +95,172 @@ namespace {
 //   concatenate-and-scatter back to node order in propagate_bucketed
 //   (ell.py:523-525). It has no Pallas source.
 // Computes:
-//   out[rows[r], w] = OR_k mask[r,k] ? hist[slot(r,k), idx[r,k], w] : 0
+//   out[rows[r], :] = OR_k mask[r,k] ? hist[slot(r,k), idx[r,k], :] & S : 0
 //   slot(r,k) = ((tick - delay[r,k]) % ring + ring) % ring   (per-edge)
 //             = uniform_slot                                  (delay == null)
-// Bound on the H100: bytes. Each valid edge reads one W-word frontier row
-//   (W*4 bytes) for a 4-byte index and 1-byte mask: with mean degree ~100
-//   and W = 256 a tick moves ~10 GB of row reads through L2/HBM, far above
-//   the ~0.3 GB the function must move (each input and output once).
-// Design: threads run over the W words of a row, so every frontier-row
-//   read is one coalesced W*4-byte transaction run; a block holds one row
-//   (W >= 256) or several rows (narrow W). The row's index and mask are
-//   read once per warp as broadcast loads. Rows are written straight into
+//   S = the sectors that occ[slot(r,k), idx[r,k]] marks (all when occ is
+//   null). With an exact or over-approximating occupancy, S drops only
+//   zero words, so the result is the plain gather-OR.
+// Bound on the H100: bytes. The function must move each source row once
+//   (~0.1 GB at N = 100,000, W = 256), but each valid edge reads its source
+//   row again: ~100 edges per row turn that into ~10 GB of row reads per
+//   tick, and the source slot (100 MB) is twice the 50 MB L2. Most of those
+//   words are zero: shares are ordered by generation tick, so a row's new
+//   bits sit in the few 32-byte sectors of the shares now spreading (about
+//   0.1-0.2 of the sectors in the middle of a flood).
+// Design: one warp per destination row, 8 rows per block.
+//   1. Stage: the warp compacts the row's valid entries through `mask`
+//      (ballot + prefix popcount) into shared memory, 128 entries at a
+//      time: each neighbour's source-row offset and its occupancy word.
+//      Neighbours with no occupied sector are dropped here. The OR of the
+//      staged occupancy words (`any`) is the output row's possibly nonzero
+//      sectors.
+//   2. Sectors outside `any` are written as zeros without a read. The
+//      16-byte units of the sectors in `any` (the row's band) are numbered
+//      densely and lanes own two units of the band each: a band of at most
+//      2L units takes L lanes per neighbour (L a power of two, at most
+//      32), so 32 / L neighbours are read at once. A lane ORs in its unit
+//      of a neighbour only when that neighbour's occupancy marks the
+//      unit's sector; a shuffle-XOR tree folds the neighbour groups. With
+//      every sector occupied this is one neighbour at a time, the lanes
+//      covering 64 units of its row per pass.
+//   The loop runs over neighbours, not sectors, so each neighbour's
+//   occupied sectors are read together as coalesced runs of its row.
+//   Walking sector by sector (16 neighbours' 32-byte sector per load) was
+//   faster than a neighbour walk over the whole row when the occupied data
+//   sits in L2 (a uniform-delay ring mid-flood), but several times slower
+//   when it comes from DRAM (a dense ring, or a per-edge ring spread over
+//   D slots). Spreading the lanes over the band only gives the neighbour
+//   walk the fewer iterations that made the sector walk fast (PERF.md).
+//   Rows with more than 128 entries take further staging rounds that OR
+//   into the row the first round wrote. Loads are 16 bytes a thread when
+//   w % 4 == 0 and hist and out are 16-byte aligned (the entry point picks
+//   the instantiation), 4 bytes otherwise. Rows are written straight into
 //   node order through `rows` (null = identity), dropping rows outside
-//   [0, n_out); bucket rows partition range(N), so no two blocks write the
-//   same row. All offsets are size_t: ring*N*W passes 2^31 at real sizes.
+//   [0, n_out); bucket rows partition range(N), so no two warps write the
+//   same row. Offsets are size_t: ring*N*W passes 2^31 at real sizes.
+//   No tensor cores: an OR over a 0.1%-dense adjacency has no matrix-
+//   product form that pays.
 // ---------------------------------------------------------------------------
-__global__ void gather_or_kernel(
-    const uint32_t* __restrict__ hist, int n_src, int w, int ring, int tick,
-    int uniform_slot, const int32_t* __restrict__ idx,
-    const uint8_t* __restrict__ mask, const int32_t* __restrict__ delay,
-    int n_rows, int cap, const int32_t* __restrict__ rows, int n_out,
-    uint32_t* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.y + threadIdx.y;
-  if (r >= n_rows) return;
+constexpr int kGatherWarps = 8;
+constexpr int kGatherStage = 128;
+constexpr int kLaneUnits = 2;
+
+template <typename T>
+__global__ void __launch_bounds__(kGatherWarps * 32)
+gather_or_kernel(const uint32_t* __restrict__ hist,
+                 const uint32_t* __restrict__ occ, int n_src, int w, int sw,
+                 int ring, int tick, int uniform_slot,
+                 const int32_t* __restrict__ idx,
+                 const uint8_t* __restrict__ mask,
+                 const int32_t* __restrict__ delay, int n_rows, int cap,
+                 const int32_t* __restrict__ rows, int n_out,
+                 uint32_t* __restrict__ out) {
+  __shared__ unsigned long long s_off[kGatherWarps][kGatherStage];
+  __shared__ uint32_t s_occ[kGatherWarps][kGatherStage];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kGatherWarps + warp;
+  if (r >= n_rows) return;  // warp-uniform: only warp-level syncs follow
   const int dst = rows ? rows[r] : r;
   if (dst < 0 || dst >= n_out) return;
+
+  constexpr int kUnitWords = (int)(sizeof(T) / sizeof(uint32_t));
+  const int n_units = w / kUnitWords;
+  const int sec_shift = __ffs(sw / kUnitWords) - 1;  // unit -> sector
+  const int nsec = (w + sw - 1) / sw;
+  const uint32_t all = nsec >= 32 ? kFullMask : ((1u << nsec) - 1u);
+  const size_t slot_words = (size_t)n_src * (size_t)w;
+  const T* src = reinterpret_cast<const T*>(hist);
+  T* row_out = reinterpret_cast<T*>(out + (size_t)dst * (size_t)w);
   const size_t e0 = (size_t)r * (size_t)cap;
-  const size_t row_words = (size_t)w;
-  const size_t slot_words = (size_t)n_src * row_words;
-  for (int c = threadIdx.x; c < w; c += blockDim.x) {
-    uint32_t acc = 0;
-#pragma unroll 4
-    for (int k = 0; k < cap; ++k) {
-      if (!mask[e0 + k]) continue;
-      int slot = uniform_slot;
-      if (delay) {
-        slot = (tick - delay[e0 + k]) % ring;
-        if (slot < 0) slot += ring;
+  unsigned long long* off = s_off[warp];
+  uint32_t* occ_of = s_occ[warp];
+
+  int k0 = 0;
+  do {
+    // 1. Stage this round's valid entries, compacted.
+    const int k1 = k0 + kGatherStage < cap ? k0 + kGatherStage : cap;
+    int nv = 0;
+    uint32_t any = 0u;
+    for (int kb = k0; kb < k1; kb += 32) {
+      const int k = kb + lane;
+      bool keep = k < k1 && mask[e0 + k];
+      unsigned long long o = 0;
+      uint32_t oc = 0u;
+      if (keep) {
+        int slot = uniform_slot;
+        if (delay) {
+          slot = (tick - delay[e0 + k]) % ring;
+          if (slot < 0) slot += ring;
+        }
+        const int s = idx[e0 + k];
+        o = ((size_t)slot * slot_words + (size_t)s * (size_t)w) / kUnitWords;
+        oc = occ ? (occ[(size_t)slot * (size_t)n_src + s] & all) : all;
+        keep = oc != 0u;
       }
-      acc |= hist[(size_t)slot * slot_words + (size_t)idx[e0 + k] * row_words + c];
+      const unsigned b = __ballot_sync(kFullMask, keep);
+      if (keep) {
+        const int pos = nv + __popc(b & ((1u << lane) - 1u));
+        off[pos] = o;
+        occ_of[pos] = oc;
+        any |= oc;
+      }
+      nv += __popc(b);
     }
-    out[(size_t)dst * row_words + c] = acc;
-  }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) any |= __shfl_xor_sync(kFullMask, any, m);
+    __syncwarp();
+
+    // 2. Zeros outside the band, then passes over the band.
+    if (k0 == 0) {
+      for (int u = lane; u < n_units; u += 32)
+        if (!((any >> (u >> sec_shift)) & 1u)) row_out[u] = zero_unit<T>();
+    }
+    const int n_band = __popc(any) << sec_shift;
+    int lanes = 32;
+    while (lanes > 1 && (lanes >> 1) * kLaneUnits >= n_band) lanes >>= 1;
+    const int groups = 32 / lanes;
+    const int group = lane / lanes;
+    const int part = lane & (lanes - 1);
+    for (int c0 = 0; c0 < n_band; c0 += lanes * kLaneUnits) {
+      T acc[kLaneUnits];
+      int unit[kLaneUnits];  // -1: no unit (past the band or the row)
+      int sec[kLaneUnits];
+#pragma unroll
+      for (int i = 0; i < kLaneUnits; ++i) {
+        const int c = c0 + i * lanes + part;
+        unit[i] = -1;
+        sec[i] = 0;
+        acc[i] = zero_unit<T>();
+        if (c < n_band) {
+          const int s = nth_set_bit(any, c >> sec_shift);
+          const int u = (s << sec_shift) + (c & ((1 << sec_shift) - 1));
+          if (u < n_units) {
+            unit[i] = u;
+            sec[i] = s;
+          }
+        }
+      }
+#pragma unroll 4
+      for (int j = group; j < nv; j += groups) {
+        const uint32_t oc = occ_of[j];
+        const T* row = src + off[j];
+#pragma unroll
+        for (int i = 0; i < kLaneUnits; ++i)
+          if (unit[i] >= 0 && ((oc >> sec[i]) & 1u))
+            acc[i] = or_units(acc[i], __ldg(row + unit[i]));
+      }
+#pragma unroll
+      for (int i = 0; i < kLaneUnits; ++i) {
+        for (int m = lanes; m < 32; m <<= 1) acc[i] = or_units(acc[i], shfl_xor(acc[i], m));
+        if (group == 0 && unit[i] >= 0)
+          row_out[unit[i]] = k0 == 0 ? acc[i] : or_units(row_out[unit[i]], acc[i]);
+      }
+    }
+    __syncwarp();  // the next round overwrites this round's staging
+    k0 += kGatherStage;
+  } while (k0 < cap);
 }
 
 // ---------------------------------------------------------------------------
@@ -101,38 +298,102 @@ __global__ void popcount_rows_kernel(const uint32_t* __restrict__ words,
 // Replaces: p2p_gossip_tpu/ops/pallas_kernels.py coverage_per_slot_pallas
 //   (+ _coverage_kernel, _bit_column_counts): per-share coverage
 //   (N, W) -> (S,) int32, out[w*32 + b] = #rows with bit b of word w set.
-// Bound on the H100: bytes (N*W*4 read once); the 32 bit tests per word
-//   are integer ALU work that the skipped zero words keep small on the
-//   sparse per-tick frontier the engine feeds it.
-// Design: the TPU kernel carried a (32, W) accumulator across a sequential
-//   grid; CUDA blocks run in no order, so nothing carries over between
-//   them. Each thread owns one word column over a run of `rows_per` rows
-//   (coalesced across the warp), keeps its 32 counters in registers, and
-//   ends with one integer atomicAdd per nonzero counter into the zeroed
-//   output — exact in any order.
+// Bound on the H100: bytes (N*W*4 read once) once the per-word work is a
+//   few logic operations. Counting each bit with its own shift-and-add (32
+//   per word, as the first port did) made it ALU-bound at ~15x its bytes.
+// Design: each thread owns one word column over an interleaved run of a
+//   block's rows and keeps bit-sliced vertical counters: kCovPlanes uint32
+//   planes, plane i holding bit i of 32 per-bit counts. Adding a word is a
+//   ripple carry over the planes (t = plane & carry; plane ^= carry;
+//   carry = t): two logic operations a plane. It runs through all planes
+//   without testing the carry: on the card a per-plane test-and-branch cost
+//   more than the planes it skipped, on dense and on sparse-bit words
+//   alike (the warp waits for its longest carry anyway). Before the planes
+//   could overflow (every 2^k - 1 nonzero words) they flush into 32
+//   integer counts in registers. Zero words are skipped. Rows are loaded
+//   kCovBatch at a time so each warp keeps that many 128-byte loads in
+//   flight. The block's 8 warps reduce their counts in shared memory, then
+//   one global atomicAdd per nonzero slot per block into the zeroed
+//   output: exact in any order.
 // ---------------------------------------------------------------------------
-__global__ void coverage_per_slot_kernel(const uint32_t* __restrict__ words,
-                                         int n, int w, long long ld,
-                                         int rows_per, int n_slots,
-                                         int32_t* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= w) return;
+constexpr int kCovPlanes = 8;
+constexpr int kCovFlush = (1 << kCovPlanes) - 1;
+constexpr int kCovWarps = 8;
+constexpr int kCovBatch = 8;
+
+struct BitSlicedCounter {
+  uint32_t plane[kCovPlanes];
+  int cnt[32];
+  int pending;
+
+  __device__ void init() {
+#pragma unroll
+    for (int i = 0; i < kCovPlanes; ++i) plane[i] = 0u;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) cnt[b] = 0;
+    pending = 0;
+  }
+  __device__ void flush() {
+#pragma unroll
+    for (int i = 0; i < kCovPlanes; ++i) {
+#pragma unroll
+      for (int b = 0; b < 32; ++b) cnt[b] += (int)((plane[i] >> b) & 1u) << i;
+      plane[i] = 0u;
+    }
+    pending = 0;
+  }
+  __device__ void add(uint32_t v) {
+    if (v == 0u) return;
+    if (pending == kCovFlush) flush();
+    uint32_t carry = v;
+#pragma unroll
+    for (int i = 0; i < kCovPlanes; ++i) {
+      const uint32_t t = plane[i] & carry;
+      plane[i] ^= carry;
+      carry = t;
+    }
+    ++pending;
+  }
+};
+
+__global__ void __launch_bounds__(kCovWarps * 32)
+coverage_per_slot_kernel(const uint32_t* __restrict__ words, int n, int w,
+                         long long ld, int rows_per, int n_slots,
+                         int32_t* __restrict__ out) {
+  __shared__ int s_cnt[32 * 32];  // [bit][column of the block's tile]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x) s_cnt[i] = 0;
+  __syncthreads();
   const long long r0 = (long long)blockIdx.y * rows_per;
   const long long r_end = r0 + rows_per;
   const long long r1 = r_end < n ? r_end : (long long)n;
-  int cnt[32];
+  if (c < w) {
+    BitSlicedCounter ctr;
+    ctr.init();
+    const uint32_t* col = words + c;
+    const size_t step = (size_t)ld * kCovWarps;
+    long long r = r0 + warp;
+    for (; r + (kCovBatch - 1) * kCovWarps < r1; r += kCovBatch * kCovWarps) {
+      uint32_t v[kCovBatch];
+      const uint32_t* p = col + (size_t)r * (size_t)ld;
 #pragma unroll
-  for (int b = 0; b < 32; ++b) cnt[b] = 0;
-  for (long long r = r0; r < r1; ++r) {
-    const uint32_t v = words[(size_t)r * (size_t)ld + c];
-    if (v == 0u) continue;
+      for (int i = 0; i < kCovBatch; ++i) v[i] = __ldg(p + i * step);
 #pragma unroll
-    for (int b = 0; b < 32; ++b) cnt[b] += (int)((v >> b) & 1u);
+      for (int i = 0; i < kCovBatch; ++i) ctr.add(v[i]);
+    }
+    for (; r < r1; r += kCovWarps) ctr.add(__ldg(col + (size_t)r * (size_t)ld));
+    ctr.flush();
+#pragma unroll
+    for (int b = 0; b < 32; ++b)
+      if (ctr.cnt[b] != 0) atomicAdd(&s_cnt[b * 32 + lane], ctr.cnt[b]);
   }
-#pragma unroll
-  for (int b = 0; b < 32; ++b) {
-    const int s = c * 32 + b;
-    if (s < n_slots && cnt[b] != 0) atomicAdd(out + s, cnt[b]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * 32; i += blockDim.x) {
+    const int v = s_cnt[i];
+    const int s = (blockIdx.x * 32 + (i & 31)) * 32 + (i >> 5);
+    if (v != 0 && s < n_slots) atomicAdd(out + s, v);
   }
 }
 
@@ -140,18 +401,40 @@ __global__ void coverage_per_slot_kernel(const uint32_t* __restrict__ words,
 
 extern "C" {
 
-int gossip_gather_or(const void* hist, int n_src, int w, int ring, int tick,
-                     int uniform_slot, const void* idx, const void* mask,
-                     const void* delay, int n_rows, int cap, const void* rows,
-                     int n_out, void* out, void* stream) {
-  const int tx = w >= 256 ? 256 : ((w + 31) / 32) * 32;
-  const int ty = 256 / tx;
-  const dim3 block(tx, ty);
-  const dim3 grid((unsigned)((n_rows + ty - 1) / ty));
-  gather_or_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)hist, n_src, w, ring, tick, uniform_slot,
-      (const int32_t*)idx, (const uint8_t*)mask, (const int32_t*)delay,
-      n_rows, cap, (const int32_t*)rows, n_out, (uint32_t*)out);
+int gossip_sector_occupancy(const void* words, int n, int w, long long ld,
+                            void* out, void* stream) {
+  const int threads = 256;
+  const long long blocks = ((long long)n * 32 + threads - 1) / threads;
+  const int sw = sector_words(w);
+  if (w % 4 == 0 && ld % 4 == 0 && aligned16(words)) {
+    sector_occupancy_kernel<true><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, n, w, ld, sw, (int32_t*)out);
+  } else {
+    sector_occupancy_kernel<false><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, n, w, ld, sw, (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int gossip_gather_or(const void* hist, const void* occ, int n_src, int w,
+                     int ring, int tick, int uniform_slot, const void* idx,
+                     const void* mask, const void* delay, int n_rows, int cap,
+                     const void* rows, int n_out, void* out, void* stream) {
+  const dim3 grid((unsigned)((n_rows + kGatherWarps - 1) / kGatherWarps));
+  const int sw = sector_words(w);
+  if (w % 4 == 0 && aligned16(hist) && aligned16(out)) {
+    gather_or_kernel<uint4><<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)hist, (const uint32_t*)occ, n_src, w, sw, ring, tick,
+        uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,
+        (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,
+        (uint32_t*)out);
+  } else {
+    gather_or_kernel<uint32_t><<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)hist, (const uint32_t*)occ, n_src, w, sw, ring, tick,
+        uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,
+        (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,
+        (uint32_t*)out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -165,12 +448,22 @@ int gossip_popcount_rows(const void* words, int n, int w, long long ld,
 }
 
 int gossip_coverage_per_slot(const void* words, int n, int w, long long ld,
-                             int rows_per, int n_slots, void* out,
-                             void* stream) {
-  const int tx = w >= 128 ? 128 : ((w + 31) / 32) * 32;
-  const dim3 grid((unsigned)((w + tx - 1) / tx),
-                  (unsigned)((n + rows_per - 1) / rows_per));
-  coverage_per_slot_kernel<<<grid, tx, 0, (cudaStream_t)stream>>>(
+                             int n_slots, void* out, void* stream) {
+  // A block spans 32 word columns times 8 warps, each warp on every 8th row
+  // of the block's run. The grid aims at one wave: ~4 resident blocks (64
+  // registers a thread) on each of the H100's 132 SMs. More blocks add
+  // global atomics per slot without adding loads in flight, and so does a
+  // wider block: spanning all 128 columns of a (100,000, 128) bitmask, each
+  // block holds every slot and the kernel took twice as long.
+  const int grid_x = (w + 31) / 32;
+  long long grid_y = 132 * 4 / grid_x;
+  const long long max_y = (n + kCovWarps - 1) / kCovWarps;
+  if (grid_y > max_y) grid_y = max_y;
+  if (grid_y > 65535) grid_y = 65535;
+  if (grid_y < 1) grid_y = 1;
+  const int rows_per = (int)((n + grid_y - 1) / grid_y);
+  const dim3 grid((unsigned)grid_x, (unsigned)((n + rows_per - 1) / rows_per));
+  coverage_per_slot_kernel<<<grid, kCovWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, n, w, ld, rows_per, n_slots, (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,10 @@ The NS-3 event loop becomes a synchronous graph message-passing simulation:
 
 - one **tick** delivers every in-flight message at once: a gather-OR over
   the ELL adjacency reading a ring of past frontiers (`ops.ell`, one
-  ``gather_or`` kernel launch per degree bucket on the GPU);
+  ``gather_or`` kernel launch per degree bucket on the GPU). Beside the
+  ring the engine keeps each slot's per-row sector occupancy (the
+  ``sector_occupancy`` kernel, run on the slot the tick writes), so the
+  gather reads only the sectors of a source row that hold bits;
 - the per-node seen-set (p2pnode.h:38) is an (N x S/32) int32 bitmask;
 - generation events (`GenerateAndGossipShare`, p2pnode.cc:106) are
   pre-sampled host-side and scattered into the frontier at their tick;
@@ -28,7 +31,7 @@ import torch
 
 from p2p_gossip_tpu_torch.models.generation import Schedule
 from p2p_gossip_tpu_torch.models.topology import Graph
-from p2p_gossip_tpu_torch.ops import bitmask
+from p2p_gossip_tpu_torch.ops import bitmask, kernels
 from p2p_gossip_tpu_torch.ops.ell import (
     build_degree_buckets,
     detect_uniform_delay,
@@ -44,14 +47,6 @@ DEFAULT_CHUNK_SIZE = 4096
 # Kept at the JAX package's value so chunking, and with it the executed
 # tick count, matches the reference engine; not tuned for the GPU.
 MIN_CHUNK_SHARES = 4096
-
-# Full (N, W) int32 passes of one tick besides the gather's row reads
-# (see `_tick`). Reads (10): ~seen 1, arrivals & ~seen 2, popcount 1,
-# seen |= arrivals 2, seen |= gen_bits 2, newly | gen_bits 2. Writes (8):
-# the arrivals zero-fill and the gather's output, the gen_bits zero-fill,
-# ~seen, newly, seen twice, the hist slot. (Full-width staging skips the
-# arrivals zero-fill.)
-ELEMENTWISE_PASSES = 18
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,22 +147,35 @@ class DeviceGraph:
             buckets=staged,
         )
 
-    def hbm_bytes_per_tick(self, w: int) -> int:
-        """Modeled device-memory traffic of one tick at W words per row:
-        the roofline denominator for a tick (bytes moved / time vs the
-        card's memory rate). The gather reads one W-word frontier row per
-        VALID edge (the kernel skips masked entries) plus each staged
-        entry's int32 index and bool mask (and int32 delay when per-edge);
-        the tick adds ``ELEMENTWISE_PASSES`` (N, W) passes. A model, not a
-        measurement: repeated frontier rows hit in L2."""
+    def must_move_bytes_per_tick(self, w: int) -> int:
+        """The least device-memory traffic of one tick at W words per row,
+        each input read once and each output written once: the source
+        rows the gather needs (one per distinct source of a valid edge, or
+        per distinct (delay, source) pair with per-edge delays) with their
+        occupancy words; the staged ELL (int32 index and bool mask, int32
+        delay when per-edge, int32 bucket rows); ``seen`` read and
+        written; the new frontier slot and its occupancy written; the
+        int32 counters ``received`` and ``sent`` read and written and
+        ``degree`` read. Intermediates of the unfused tick (arrivals,
+        ~seen, the generation bits) are not counted. Over the card's
+        memory rate this is the least time a tick can take."""
         if self.buckets is not None:
-            staged = sum(int(b[1].numel()) for b in self.buckets)
+            parts = self.buckets
         else:
-            staged = int(self.ell_idx.numel())
-        per_entry = 5 if self.uniform_delay is not None else 9
-        valid = int(self.degree.sum())
-        gather = valid * w * 4 + staged * per_entry
-        return gather + ELEMENTWISE_PASSES * self.n * w * 4
+            parts = ((None, self.ell_idx, self.ell_mask, self.ell_delay),)
+        per_edge = self.uniform_delay is None
+        staged = row_bytes = 0
+        keys = []
+        for rows, idx, mask, delay in parts:
+            staged += int(idx.numel())
+            row_bytes += 0 if rows is None else 4 * int(rows.numel())
+            key = idx.to(torch.int64)
+            if per_edge:
+                key = delay.to(torch.int64) * self.n + key
+            keys.append(key[mask])
+        src_rows = int(torch.unique(torch.cat(keys)).numel())
+        gather = src_rows * (w + 1) * 4 + staged * (9 if per_edge else 5) + row_bytes
+        return gather + self.n * (3 * w * 4 + 4 + 5 * 4)
 
 
 def apply_tick_updates(
@@ -192,30 +200,31 @@ def apply_tick_updates(
     return seen, newly_out, received, sent, newly_cnt
 
 
-def _gather(dg: DeviceGraph, hist: torch.Tensor, t: int, plain: bool):
+def _gather(dg: DeviceGraph, hist: torch.Tensor, occ: torch.Tensor, t: int, plain: bool):
     if dg.buckets is not None:
         return propagate_bucketed(
             hist, t, dg.buckets, n_out=dg.n, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, plain=plain,
+            uniform_delay=dg.uniform_delay, occ=occ, plain=plain,
         )
     if dg.uniform_delay is not None:
         return propagate_uniform(
             hist, t, dg.ell_idx, dg.ell_mask, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, plain=plain,
+            uniform_delay=dg.uniform_delay, occ=occ, plain=plain,
         )
     return propagate(
         hist, t, dg.ell_idx, dg.ell_delay, dg.ell_mask,
-        ring_size=dg.ring_size, plain=plain,
+        ring_size=dg.ring_size, occ=occ, plain=plain,
     )
 
 
-def _tick(dg, t, seen, hist, received, sent, origins, slots, gen_ticks, plain):
+def _tick(dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, plain):
     """One synchronous tick at time ``t``: gather arrivals, scatter this
     tick's generations, update seen and the counters, and write the new
-    frontier into hist slot ``t mod D``. Returns that slot's frontier and
-    a 0-d device tensor telling whether it holds any bit."""
+    frontier into hist slot ``t mod D`` and its sector occupancy into occ
+    slot ``t mod D``. Returns that slot's frontier and a 0-d device tensor
+    telling whether it holds any bit."""
     n, w = seen.shape
-    arrivals = _gather(dg, hist, t, plain)
+    arrivals = _gather(dg, hist, occ, t, plain)
     gen_active = gen_ticks == t
     gen_bits = bitmask.slot_scatter(n, w, origins, slots, gen_active)
     gen_cnt = torch.zeros((n,), dtype=torch.int32, device=seen.device)
@@ -225,6 +234,7 @@ def _tick(dg, t, seen, hist, received, sent, origins, slots, gen_ticks, plain):
         seen, arrivals, gen_bits, gen_cnt, received, sent, dg.degree,
         out=slot, plain=plain,
     )
+    kernels.sector_occupancy(slot, out=occ[t % dg.ring_size], plain=plain)
     # newly_out = newly | gen_bits holds a bit iff a node newly processed a
     # share or a generation fired — read from the two small count vectors
     # instead of another (N, W) pass.
@@ -233,12 +243,16 @@ def _tick(dg, t, seen, hist, received, sent, origins, slots, gen_ticks, plain):
 
 
 def _chunk_state(dg: DeviceGraph, w: int):
+    """Zeroed chunk state: seen (N, W), the frontier ring hist (D, N, W)
+    with its sector occupancy occ (D, N) (all clear, as the ring is
+    zero), and the int32 counters received and sent (N,)."""
     dev = dg.device
     seen = torch.zeros((dg.n, w), dtype=torch.int32, device=dev)
     hist = torch.zeros((dg.ring_size, dg.n, w), dtype=torch.int32, device=dev)
+    occ = torch.zeros((dg.ring_size, dg.n), dtype=torch.int32, device=dev)
     received = torch.zeros((dg.n,), dtype=torch.int32, device=dev)
     sent = torch.zeros((dg.n,), dtype=torch.int32, device=dev)
-    return seen, hist, received, sent
+    return seen, hist, occ, received, sent
 
 
 def _run_chunk_while(
@@ -259,12 +273,12 @@ def _run_chunk_while(
     ring slot."""
     w = bitmask.num_words(chunk_size)
     slots = torch.arange(chunk_size, dtype=torch.int64, device=dg.device)
-    seen, hist, received, sent = _chunk_state(dg, w)
+    seen, hist, occ, received, sent = _chunk_state(dg, w)
     in_flight = [False] * dg.ring_size
     t = t_start
     while t < horizon and (any(in_flight) or t <= last_gen):
         _, nonzero = _tick(
-            dg, t, seen, hist, received, sent, origins, slots, gen_ticks, plain
+            dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, plain
         )
         in_flight[t % dg.ring_size] = bool(nonzero)
         t += 1
@@ -296,14 +310,14 @@ def _run_chunk_coverage(
     g = gen_ticks.cpu().numpy()
     live = g[g < horizon]
     last_gen = int(live.max()) if live.size else 0
-    seen, hist, received, sent = _chunk_state(dg, w)
+    seen, hist, occ, received, sent = _chunk_state(dg, w)
     cov_run = torch.zeros((cov_slots,), dtype=torch.int32, device=dg.device)
     cov_hist = torch.zeros((horizon, cov_slots), dtype=torch.int32, device=dg.device)
     in_flight = [False] * dg.ring_size
     t = 0
     while t < horizon and (any(in_flight) or t <= last_gen):
         newly_out, nonzero = _tick(
-            dg, t, seen, hist, received, sent, origins, slots, gen_ticks, plain
+            dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, plain
         )
         cov_run += bitmask.coverage_per_slot(
             newly_out[:, :cov_w], cov_slots, plain=plain

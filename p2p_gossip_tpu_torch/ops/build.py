@@ -30,13 +30,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # hist, n_src, w, ring, tick, uniform_slot, idx, mask, delay, n_rows,
-    # cap, rows, n_out, out, stream
-    "gossip_gather_or": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P),
+    # hist, occ, n_src, w, ring, tick, uniform_slot, idx, mask, delay,
+    # n_rows, cap, rows, n_out, out, stream
+    "gossip_gather_or": (
+        _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+    ),
+    # words, n, w, ld, out, stream
+    "gossip_sector_occupancy": (_P, _I, _I, _LL, _P, _P),
     # words, n, w, ld, out, stream
     "gossip_popcount_rows": (_P, _I, _I, _LL, _P, _P),
-    # words, n, w, ld, rows_per, n_slots, out, stream
-    "gossip_coverage_per_slot": (_P, _I, _I, _LL, _I, _I, _P, _P),
+    # words, n, w, ld, n_slots, out, stream
+    "gossip_coverage_per_slot": (_P, _I, _I, _LL, _I, _P, _P),
 }
 
 

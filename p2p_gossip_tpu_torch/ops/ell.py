@@ -8,6 +8,9 @@ where ``hist`` is a ring of the last D newly-acquired frontiers: per-edge
 latency as reads into the past. On the GPU every variant below is one
 launch of the hand-written ``gather_or`` kernel (ops/kernels.py) per ELL
 (one per degree bucket); on the CPU it is that kernel's plain version.
+Each variant takes the ring's sector occupancy ``occ`` ((D, N_src) int32,
+`kernels.sector_occupancy` of each slot) so the kernel reads only the
+sectors of a source row that hold bits; None reads every sector.
 
 The host planners (`bucket_rows_by_count`, `build_degree_buckets`,
 `detect_uniform_delay`) are this package's own copies of the JAX
@@ -46,6 +49,7 @@ def gather_or_frontier(
     ell_idx: torch.Tensor,   # (N_out, dmax) int32
     ell_mask: torch.Tensor,  # (N_out, dmax) bool
     *,
+    occ: torch.Tensor | None = None,  # (N_src,) int32 sector occupancy
     plain: bool = False,
 ) -> torch.Tensor:
     """OR-gather arrivals from a single source frontier: (N_out, W)."""
@@ -55,7 +59,7 @@ def gather_or_frontier(
     )
     return kernels.gather_or(
         frontier.unsqueeze(0), tick, ell_idx, ell_mask, uniform_slot=0,
-        out=out, plain=plain,
+        occ=None if occ is None else occ.unsqueeze(0), out=out, plain=plain,
     )
 
 
@@ -67,15 +71,17 @@ def propagate_uniform(
     *,
     ring_size: int,
     uniform_delay: int = 1,
+    occ: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Uniform per-edge delay: the delay-line slot is one scalar per tick,
     so no per-edge delay is read."""
     if hist.shape[0] != ring_size:
         raise ValueError("hist ring does not match ring_size")
+    slot = (tick - uniform_delay) % ring_size
     return gather_or_frontier(
-        hist[(tick - uniform_delay) % ring_size], tick, ell_idx, ell_mask,
-        plain=plain,
+        hist[slot], tick, ell_idx, ell_mask,
+        occ=None if occ is None else occ[slot], plain=plain,
     )
 
 
@@ -87,6 +93,7 @@ def propagate(
     ell_mask: torch.Tensor,   # (N_out, dmax) bool
     *,
     ring_size: int,
+    occ: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Per-edge delays: arrivals (N_out, W) int32."""
@@ -96,7 +103,7 @@ def propagate(
         (ell_idx.shape[0], hist.shape[-1]), dtype=torch.int32, device=hist.device
     )
     return kernels.gather_or(
-        hist, tick, ell_idx, ell_mask, ell_delay, out=out, plain=plain
+        hist, tick, ell_idx, ell_mask, ell_delay, occ=occ, out=out, plain=plain
     )
 
 
@@ -108,6 +115,7 @@ def propagate_bucketed(
     n_out: int,
     ring_size: int,
     uniform_delay: int | None = None,
+    occ: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Gather-OR over degree buckets (see `build_degree_buckets`),
@@ -126,7 +134,8 @@ def propagate_bucketed(
         kernels.gather_or(
             hist, tick, b_idx, b_mask,
             None if uniform_delay is not None else b_delay,
-            uniform_slot=uniform_slot, rows=rows, out=arrivals, plain=plain,
+            uniform_slot=uniform_slot, rows=rows, occ=occ, out=arrivals,
+            plain=plain,
         )
     return arrivals
 

@@ -4,6 +4,7 @@
 | kernel              | replaces (JAX package)                                  |
 |---------------------|---------------------------------------------------------|
 | `gather_or`         | ops/ell.py gather_or_frontier / propagate (XLA gather)   |
+| `sector_occupancy`  | none: the gather's companion pass over each new slot    |
 | `popcount_rows`     | ops/pallas_kernels.py popcount_rows_pallas              |
 | `coverage_per_slot` | ops/pallas_kernels.py coverage_per_slot_pallas          |
 
@@ -29,7 +30,9 @@ import torch
 
 WORD_BITS = 32
 
-launches = {"gather_or": 0, "popcount_rows": 0, "coverage_per_slot": 0}
+launches = {
+    "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
+}
 
 
 def reset_launches() -> None:
@@ -116,12 +119,6 @@ def coverage_per_slot_plain(words: torch.Tensor, n_slots: int) -> torch.Tensor:
     return counts.reshape(w * WORD_BITS)[:n_slots].contiguous()
 
 
-# Blocks the coverage grid aims for: ~8 resident blocks of <= 128 threads
-# on each of the H100's 132 SMs. More blocks means more atomics per slot.
-_COVERAGE_TARGET_BLOCKS = 132 * 8
-_MAX_GRID_Y = 65535
-
-
 def coverage_per_slot(
     words: torch.Tensor, n_slots: int, *, plain: bool = False
 ) -> torch.Tensor:
@@ -134,35 +131,94 @@ def coverage_per_slot(
     n, w = words.shape
     out = torch.zeros((n_slots,), dtype=torch.int32, device=words.device)
     if n and w and n_slots:
-        grid_x = -(-w // 128)
-        grid_y = min(max(1, _COVERAGE_TARGET_BLOCKS // grid_x), n, _MAX_GRID_Y)
-        rows_per = -(-n // grid_y)
         _launch(
             "coverage_per_slot", _lib().gossip_coverage_per_slot,
-            words.data_ptr(), n, w, words.stride(0), rows_per, n_slots,
+            words.data_ptr(), n, w, words.stride(0), n_slots,
             out.data_ptr(), _stream(words.device),
+        )
+    return out
+
+
+# --- sector_occupancy -------------------------------------------------------
+
+def sector_words(w: int) -> int:
+    """Words per occupancy sector of a W-word row: 8 (one 32-byte L2
+    sector) while W <= 256, doubled until the row has at most 32 sectors —
+    so a row's occupancy is always one int32 word. The CUDA source computes
+    the same (``sector_words`` in csrc/gossip_kernels.cu)."""
+    sw = 8
+    while sw * WORD_BITS < w:
+        sw *= 2
+    return sw
+
+
+def sector_occupancy_plain(words: torch.Tensor) -> torch.Tensor:
+    """Bit s of row r's word is set iff sector s of row r (words
+    ``s*sw .. s*sw + sw - 1``, ``sw = sector_words(W)``) holds a nonzero
+    word: (N, W) int32 -> (N,) int32."""
+    n, w = words.shape
+    sw = sector_words(w)
+    nsec = -(-w // sw)
+    padded = words.new_zeros((n, nsec * sw))
+    padded[:, :w] = words
+    nonzero = (padded.reshape(n, nsec, sw) != 0).any(dim=-1)
+    weight = 2 ** torch.arange(nsec, dtype=torch.int64, device=words.device)
+    bits = (nonzero.to(torch.int64) * weight).sum(dim=-1)
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)  # uint32 bits
+
+
+def sector_occupancy(
+    words: torch.Tensor, *, out: torch.Tensor | None = None, plain: bool = False
+) -> torch.Tensor:
+    """Per-row sector occupancy of a frontier slot, (N, W) int32 -> (N,)
+    int32, written into ``out`` when given. The engine keeps one such word
+    per row of its frontier ring, and `gather_or` reads only the sectors it
+    marks."""
+    n, w = words.shape
+    if out is None:
+        out = torch.empty((n,), dtype=torch.int32, device=words.device)
+    _require(out.shape == (n,) and out.dtype == torch.int32, "out must be (N,) int32")
+    if not _use_kernel(words, plain):
+        return out.copy_(sector_occupancy_plain(words))
+    _int32_matrix(words, "words")
+    _require(out.device == words.device and out.is_contiguous(),
+             "out must be contiguous on the words' device")
+    if n:
+        _launch(
+            "sector_occupancy", _lib().gossip_sector_occupancy,
+            words.data_ptr(), n, w, words.stride(0), out.data_ptr(),
+            _stream(words.device),
         )
     return out
 
 
 # --- gather_or --------------------------------------------------------------
 
-def gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out):
+def gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out, occ=None):
     """A masked ``|=`` over the degree columns, then a write into node
     order that drops rows outside ``[0, len(out))``. The mask is applied
-    as an AND with all-ones (valid) or zero (padding) words."""
+    as an AND with all-ones (valid) or zero (padding) words, and ``occ``
+    (when given) as an AND with each gathered row's expanded sector mask —
+    exactly what the kernel reads, so a wrong occupancy shows here too."""
     d, n_src, w = hist.shape
     acc = torch.zeros((idx.shape[0], w), dtype=torch.int32, device=hist.device)
     keep = (-mask.to(torch.int32)).t().contiguous()
     if delay is None:
         src = hist[uniform_slot]
+        src_occ = None if occ is None else occ[uniform_slot]
         rows_k = idx.to(torch.int64)
     else:
         src = hist.reshape(d * n_src, w)
+        src_occ = None if occ is None else occ.reshape(d * n_src)
         rows_k = torch.remainder(tick - delay.to(torch.int64), d) * n_src + idx
     rows_k = rows_k.t().contiguous()
+    sector = torch.arange(w, dtype=torch.int32, device=hist.device) // sector_words(w)
     for k in range(idx.shape[1]):
-        acc |= torch.index_select(src, 0, rows_k[k]) & keep[k, :, None]
+        words = torch.index_select(src, 0, rows_k[k]) & keep[k, :, None]
+        if src_occ is not None:
+            marked = (src_occ[rows_k[k]][:, None] >> sector) & 1
+            words &= -marked
+        acc |= words
     if rows is None:
         out.copy_(acc)
     else:
@@ -181,6 +237,7 @@ def gather_or(
     *,
     uniform_slot: int | None = None,
     rows: torch.Tensor | None = None,
+    occ: torch.Tensor | None = None,
     out: torch.Tensor,
     plain: bool = False,
 ) -> torch.Tensor:
@@ -192,7 +249,9 @@ def gather_or(
     bool; ``delay`` (R, C) int32 per-edge delays with slot(r, k) = (tick -
     delay[r, k]) mod D, or None with the one ``uniform_slot``; ``rows`` (R,)
     int32 destination rows (None: row r -> r, and then R == len(out)).
-    Returns ``out``."""
+    ``occ`` (D, N_src) int32 is the ring's `sector_occupancy`: only the
+    sectors it marks are read (an exact or over-approximating occupancy
+    leaves the result unchanged); None reads every sector. Returns ``out``."""
     _require(hist.dim() == 3, "hist must be (D, N, W)")
     d, n_src, w = hist.shape
     _require(idx.shape == mask.shape, "idx and mask shapes differ")
@@ -203,8 +262,9 @@ def gather_or(
     _require(out.dim() == 2 and out.shape[1] == w, "out must be (N_out, W)")
     _require(rows is not None or idx.shape[0] == out.shape[0],
              "identity rows need one ELL row per output row")
+    _require(occ is None or occ.shape == (d, n_src), "occ must be (D, N_src)")
     if not _use_kernel(hist, plain):
-        return gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out)
+        return gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out, occ)
     tensors = [("hist", hist, torch.int32), ("idx", idx, torch.int32),
                ("mask", mask, torch.bool), ("out", out, torch.int32)]
     if delay is not None:
@@ -212,6 +272,8 @@ def gather_or(
     if rows is not None:
         _require(rows.shape == (idx.shape[0],), "rows must be (R,)")
         tensors.append(("rows", rows, torch.int32))
+    if occ is not None:
+        tensors.append(("occ", occ, torch.int32))
     for name, t, dtype in tensors:
         _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
         _require(t.device == hist.device, f"{name} is on {t.device}, not {hist.device}")
@@ -220,7 +282,8 @@ def gather_or(
     if n_rows and w:
         _launch(
             "gather_or", _lib().gossip_gather_or,
-            hist.data_ptr(), n_src, w, d, int(tick),
+            hist.data_ptr(), None if occ is None else occ.data_ptr(),
+            n_src, w, d, int(tick),
             -1 if uniform_slot is None else int(uniform_slot),
             idx.data_ptr(), mask.data_ptr(),
             None if delay is None else delay.data_ptr(),

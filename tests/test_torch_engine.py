@@ -7,6 +7,7 @@ JAX package's graphs and schedules for the same seed. Counters,
 ``ticks_executed`` and coverage rows must be bitwise equal.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,15 +21,19 @@ from p2p_gossip_tpu.engine.sync import run_sync_sim as jax_sync_sim
 from p2p_gossip_tpu.engine.sync import time_to_coverage as jax_time_to_coverage
 from p2p_gossip_tpu.models import latency as jlatency
 from p2p_gossip_tpu.models import topology as jtopo
+from p2p_gossip_tpu.ops import ell as jell
 from p2p_gossip_tpu_torch import convert
 from p2p_gossip_tpu_torch.engine.sync import (
     DeviceGraph,
+    _chunk_state,
+    _tick,
     run_flood_coverage,
     run_sync_sim,
     time_to_coverage,
 )
 from p2p_gossip_tpu_torch.models import latency, topology
 from p2p_gossip_tpu_torch.ops import kernels
+from p2p_gossip_tpu_torch.ops.ell import propagate_bucketed
 
 
 def _same_stats(a, b):
@@ -154,12 +159,78 @@ def test_flood_coverage_horizon_past_quiescence_filled():
     assert (cov[9:, 0] == 16).all()
 
 
+# Bytes per node of a tick outside the gather: seen read and written, the
+# new slot written (W words each), its occupancy word written, and the int32
+# counters received and sent read and written and degree read.
+def _tick_node_bytes(w):
+    return 3 * w * 4 + 4 + 5 * 4
+
+
 def test_hbm_model_counts_valid_edges():
+    """The must-move bytes of a tick: every node of a ring is the source of
+    a valid edge, so the gather reads each of the 64 rows (W words and an
+    occupancy word) once, plus the staged ELL's int32 index and bool mask."""
     g = topology.ring_graph(64)
     dg = DeviceGraph.build(g, device="cpu")
     w = 4
-    want = 2 * 64 * w * 4 + dg.ell_idx.numel() * 5 + 18 * 64 * w * 4
-    assert dg.hbm_bytes_per_tick(w) == want
+    assert dg.ell_idx.numel() == 128 and dg.uniform_delay == 1
+    want = 64 * (w + 1) * 4 + 128 * 5 + 64 * _tick_node_bytes(w)
+    assert dg.must_move_bytes_per_tick(w) == want
+
+
+def test_must_move_bytes_per_edge_counts_distinct_delay_rows():
+    """With per-edge delays a source row is needed once per distinct delay
+    on its out-edges: one edge of delay 3 among delays of 2 adds one row."""
+    g = topology.ring_graph(8)
+    delays = np.full(g.ell()[0].shape, 2, dtype=np.int32)
+    delays[0, 0] = 3
+    dg = DeviceGraph.build(g, delays, device="cpu")
+    assert dg.uniform_delay is None and dg.buckets is None
+    w = 4
+    want = 9 * (w + 1) * 4 + 16 * 9 + 8 * _tick_node_bytes(w)
+    assert dg.must_move_bytes_per_tick(w) == want
+    bucketed = DeviceGraph.build(g, delays, bucketed=True, device="cpu")
+    rows = sum(int(b[0].numel()) for b in bucketed.buckets)
+    staged = sum(int(b[1].numel()) for b in bucketed.buckets)
+    assert bucketed.must_move_bytes_per_tick(w) == (
+        9 * (w + 1) * 4 + staged * 9 + rows * 4 + 8 * _tick_node_bytes(w)
+    )
+
+
+def test_engine_occupancy_ring_tracks_the_frontier_ring():
+    """Driving the engine's own tick: after every tick each occupancy slot
+    is the exact sector occupancy of its frontier slot, and the gather the
+    next tick runs gives the same arrivals with and without it, equal to
+    the JAX package's bucketed gather on the same ring."""
+    g = topology.barabasi_albert(300, m=3, seed=2)
+    d = latency.lognormal_delays(g, max_ticks=4, seed=8)
+    dg = DeviceGraph.build(g, d, bucketed=True, device="cpu")
+    assert dg.buckets is not None and dg.uniform_delay is None
+    jbuckets = tuple(
+        tuple(a.numpy() for a in b) for b in dg.buckets
+    )
+    shares, w = 768, 24  # 3 sectors of 8 words; 96 shares per generation tick
+    origins = torch.as_tensor(np.arange(shares) % g.n, dtype=torch.int64)
+    gen_ticks = torch.as_tensor(np.arange(shares) // 96, dtype=torch.int32)
+    slots = torch.arange(shares, dtype=torch.int64)
+    seen, hist, occ, received, sent = _chunk_state(dg, w)
+    partial = 0
+    for t in range(14):
+        with_occ = propagate_bucketed(hist, t, dg.buckets, n_out=g.n,
+                                      ring_size=dg.ring_size, occ=occ)
+        without = propagate_bucketed(hist, t, dg.buckets, n_out=g.n,
+                                     ring_size=dg.ring_size)
+        want = jell.propagate_bucketed(
+            jnp.asarray(convert.bitmask_to_numpy(hist)), jnp.int32(t), jbuckets,
+            n_out=g.n, ring_size=dg.ring_size,
+        )
+        assert torch.equal(with_occ, without)
+        np.testing.assert_array_equal(convert.bitmask_to_numpy(with_occ), np.asarray(want))
+        _tick(dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, False)
+        for s in range(dg.ring_size):
+            assert torch.equal(occ[s], kernels.sector_occupancy_plain(hist[s]))
+        partial += int(((occ[t % dg.ring_size] != 0) & (occ[t % dg.ring_size] != 7)).sum())
+    assert partial > 0  # some rows had zero sectors for the gather to skip
 
 
 def test_cpu_run_launches_no_kernel():

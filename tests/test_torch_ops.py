@@ -6,6 +6,8 @@ CPU every port op runs its kernel's plain torch version; the JAX side runs
 its Pallas kernels in interpret mode, as tests/test_pallas.py does.
 """
 
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -21,7 +23,7 @@ from p2p_gossip_tpu.ops.pallas_kernels import (
     popcount_rows_pallas,
 )
 from p2p_gossip_tpu_torch import convert
-from p2p_gossip_tpu_torch.ops import bitmask, ell, kernels
+from p2p_gossip_tpu_torch.ops import bitmask, build, ell, kernels
 
 CPU = torch.device("cpu")
 
@@ -222,7 +224,10 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
     assert torch.equal(
         bitmask.coverage_per_slot(words, 70), kernels.coverage_per_slot_plain(words, 70)
     )
-    assert kernels.launches == {"gather_or": 0, "popcount_rows": 0, "coverage_per_slot": 0}
+    assert torch.equal(kernels.sector_occupancy(words), kernels.sector_occupancy_plain(words))
+    assert kernels.launches == {
+        "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
+    }
 
 
 def test_no_kernel_for_other_devices():
@@ -232,6 +237,8 @@ def test_no_kernel_for_other_devices():
         kernels.popcount_rows(words)
     with pytest.raises(ValueError):
         kernels.coverage_per_slot(words, 10)
+    with pytest.raises(ValueError):
+        kernels.sector_occupancy(words)
 
 
 def test_gather_or_rejects_bad_arguments():
@@ -243,6 +250,9 @@ def test_gather_or_rejects_bad_arguments():
         kernels.gather_or(hist, 0, idx, mask, out=out)
     with pytest.raises(ValueError):  # slot outside the ring
         kernels.gather_or(hist, 0, idx, mask, uniform_slot=2, out=out)
+    with pytest.raises(ValueError):  # occupancy not (D, N_src)
+        kernels.gather_or(hist, 0, idx, mask, uniform_slot=0, out=out,
+                          occ=torch.zeros((4,), dtype=torch.int32))
 
 
 def test_bucket_planner_matches_jax():
@@ -252,3 +262,224 @@ def test_bucket_planner_matches_jax():
     assert len(got) == len(want) > 1
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# --- sector occupancy and the occupancy-aware gather ---------------------------
+
+def _sparse_words(rng, shape, sw, p_sector=0.3):
+    """Random words in whole sectors of ``sw`` words kept with probability
+    ``p_sector`` (the rest zero), as a flood's frontier looks."""
+    *lead, w = shape
+    nsec = -(-w // sw)
+    keep = rng.random((*lead, nsec)) < p_sector
+    sector_mask = np.repeat(keep, sw, axis=-1)[..., :w]
+    return np.where(sector_mask, _words(rng, shape), 0).astype(np.uint32)
+
+
+def _occupancy_numpy(words, sw):
+    n, w = words.shape
+    out = np.zeros(n, dtype=np.uint32)
+    for s in range(-(-w // sw)):
+        hit = (words[:, s * sw:(s + 1) * sw] != 0).any(axis=1)
+        out |= hit.astype(np.uint32) << np.uint32(s)
+    return out
+
+
+def _ring_occupancy(hist):
+    """The engine's occupancy ring for ``hist`` (D, N, W): one
+    sector_occupancy per slot."""
+    return torch.stack([kernels.sector_occupancy(slot) for slot in hist])
+
+
+# W -> words per sector: 8 (a 32-byte sector) up to W = 256, then widened so
+# a row never has more than 32 sectors.
+@pytest.mark.parametrize("w,sw", [(1, 8), (3, 8), (128, 8), (256, 8), (300, 16), (512, 16)])
+def test_sector_occupancy_matches_numpy(w, sw):
+    rng = np.random.default_rng(w)
+    n = 97
+    words = _sparse_words(rng, (n, w), sw)
+    words[0] = 0                      # all-zero row
+    words[1] = 0
+    words[1, -1] = 0x80000000         # bit 31 alone, in the last sector
+    words[2] = 0
+    words[2, 0] = 1                   # bit 0 alone, in sector 0
+    assert kernels.sector_words(w) == sw
+    got = kernels.sector_occupancy(convert.bitmask_to_torch(words))
+    want = _occupancy_numpy(words, sw)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(got), want)
+    assert want[0] == 0 and want[2] == 1
+    assert want[1] == 1 << ((w - 1) // sw)
+
+
+def test_sector_occupancy_writes_into_out():
+    words = convert.bitmask_to_torch(_sparse_words(np.random.default_rng(2), (40, 64), 8))
+    ring = torch.full((3, 40), -7, dtype=torch.int32)
+    got = kernels.sector_occupancy(words, out=ring[1])
+    assert got.data_ptr() == ring[1].data_ptr()
+    assert torch.equal(ring[1], kernels.sector_occupancy_plain(words))
+    assert (ring[0] == -7).all() and (ring[2] == -7).all()
+
+
+@pytest.mark.parametrize("layout,per_edge", [
+    ("full", False), ("full", True), ("bucketed", False), ("bucketed", True),
+    ("frontier", False),
+])
+def test_gather_or_with_occupancy_matches_jax(layout, per_edge):
+    """The gather reading only occupied sectors (occupancy built as the
+    engine builds it) equals the gather reading every sector, and both
+    equal the JAX package's gather."""
+    g = erdos_renyi(300, 0.04, seed=2)
+    delays = (lognormal_delays(g, mean_ticks=2.0, sigma=0.6, max_ticks=4, seed=5)
+              if per_edge else np.ones(g.ell()[0].shape, dtype=np.int32))
+    idx, mask = g.ell()
+    ring = int(delays.max()) + 1
+    w = 40  # 5 sectors of 8 words
+    hist_np = _sparse_words(np.random.default_rng(11), (ring, g.n, w), 8)
+    hist = convert.bitmask_to_torch(hist_np)
+    occ = _ring_occupancy(hist)
+    tick = 7
+    t_idx, t_mask = torch.as_tensor(idx), torch.as_tensor(mask)
+    if layout == "frontier":
+        want = jell.gather_or_frontier(jnp.asarray(hist_np[0]), jnp.int32(tick),
+                                       jnp.asarray(idx), jnp.asarray(mask))
+        run = lambda o: ell.gather_or_frontier(  # noqa: E731
+            hist[0], tick, t_idx, t_mask, occ=None if o is None else o[0])
+    elif layout == "full" and not per_edge:
+        want = jell.propagate_uniform(
+            jnp.asarray(hist_np), jnp.int32(tick), jnp.asarray(idx), jnp.asarray(mask),
+            ring_size=ring, uniform_delay=1)
+        run = lambda o: ell.propagate_uniform(  # noqa: E731
+            hist, tick, t_idx, t_mask, ring_size=ring, uniform_delay=1, occ=o)
+    elif layout == "full":
+        want = jell.propagate(jnp.asarray(hist_np), jnp.int32(tick), jnp.asarray(idx),
+                              jnp.asarray(delays), jnp.asarray(mask), ring_size=ring)
+        run = lambda o: ell.propagate(  # noqa: E731
+            hist, tick, t_idx, torch.as_tensor(delays), t_mask, ring_size=ring, occ=o)
+    else:
+        jb = jell.build_degree_buckets(g, delays if per_edge else None, min_rows=32,
+                                       ell=(idx, mask))
+        assert len(jb) > 1
+        uniform = None if per_edge else 1
+        want = jell.propagate_bucketed(jnp.asarray(hist_np), jnp.int32(tick), jb,
+                                       n_out=g.n, ring_size=ring, uniform_delay=uniform)
+        tb = tuple(tuple(None if a is None else torch.as_tensor(np.array(a)) for a in b)
+                   for b in jb)
+        run = lambda o: ell.propagate_bucketed(  # noqa: E731
+            hist, tick, tb, n_out=g.n, ring_size=ring, uniform_delay=uniform, occ=o)
+    with_occ, without = run(occ), run(None)
+    assert torch.equal(with_occ, without)
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(with_occ), np.asarray(want))
+
+
+def _small_gather_case(seed, n=64, w=24, cap=6, ring=3):
+    rng = np.random.default_rng(seed)
+    hist = convert.bitmask_to_torch(_sparse_words(rng, (ring, n, w), 8, p_sector=0.5))
+    idx = torch.as_tensor(rng.integers(0, n, (n, cap)).astype(np.int32))
+    mask = torch.as_tensor(rng.random((n, cap)) < 0.8)
+    delay = torch.as_tensor(rng.integers(1, ring, (n, cap)).astype(np.int32))
+    return hist, idx, mask, delay
+
+
+def _gather(hist, idx, mask, delay, occ):
+    out = torch.empty((idx.shape[0], hist.shape[-1]), dtype=torch.int32)
+    return kernels.gather_or(hist, 5, idx, mask, delay, occ=occ, out=out)
+
+
+def test_gather_or_plain_honours_a_cleared_occupancy_bit():
+    """Clearing the bit of one nonzero sector that an edge reads changes
+    the plain result: the plain gather reads through the occupancy, so
+    the engine parity tests guard the occupancy the engine writes."""
+    hist, idx, mask, delay = _small_gather_case(3)
+    slot = torch.remainder(5 - delay.long(), hist.shape[0])
+    edges = [(int(slot[0, k]), int(idx[0, k])) for k in range(idx.shape[1]) if mask[0, k]]
+    s, src = edges[0]
+    # Make (s, src) the only source of row 0's sector 0, and give it bits.
+    for ss, ii in edges[1:]:
+        if (ss, ii) != (s, src):
+            hist[ss, ii, :8] = 0
+    hist[s, src, :8] = torch.arange(1, 9, dtype=torch.int32)
+    occ = _ring_occupancy(hist)
+    base = _gather(hist, idx, mask, delay, occ)
+    assert torch.equal(base[0, :8], hist[s, src, :8])
+    wrong = occ.clone()
+    wrong[s, src] &= ~1
+    changed = _gather(hist, idx, mask, delay, wrong)
+    assert not changed[0, :8].any()
+    assert torch.equal(changed[0, 8:], base[0, 8:])
+
+
+def test_gather_or_ignores_over_approximate_occupancy():
+    """Bits over zero sectors, and stray bits past the row's last sector,
+    cost reads but never change the result."""
+    hist, idx, mask, delay = _small_gather_case(4)
+    exact = _ring_occupancy(hist)
+    stray = exact | torch.tensor(-(2**31) | (1 << 20) | 0b1010, dtype=torch.int32)
+    full = torch.full_like(exact, -1)
+    want = _gather(hist, idx, mask, delay, None)
+    for occ in (exact, stray, full):
+        assert torch.equal(_gather(hist, idx, mask, delay, occ), want)
+    zero_hist = torch.zeros_like(hist)
+    assert not _gather(zero_hist, idx, mask, delay, full).any()
+    assert not _gather(zero_hist, idx, mask, delay, _ring_occupancy(zero_hist)).any()
+
+
+# --- the coverage kernel's bit-sliced counter ---------------------------------
+
+def _kernel_planes() -> int:
+    with open(build.SOURCE, encoding="utf-8") as f:
+        m = re.search(r"constexpr int kCovPlanes = (\d+);", f.read())
+    assert m, "kCovPlanes not found in the CUDA source"
+    return int(m.group(1))
+
+
+def _bitsliced_column_counts(words, planes):
+    """numpy emulation of one coverage-kernel thread per column: ``planes``
+    uint32 planes (plane i = bit i of 32 per-bit counts); a nonzero word
+    ripples in through every plane; before a column's planes could
+    overflow (after 2**planes - 1 nonzero words) and at the end they flush
+    into 32 integer counts. Returns the (W * 32,) slot counts."""
+    n, w = words.shape
+    plane = np.zeros((planes, w), dtype=np.uint32)
+    cnt = np.zeros((w, 32), dtype=np.int64)
+    pending = np.zeros(w, dtype=np.int64)
+    bits = np.arange(32, dtype=np.uint32)
+
+    def flush(cols):
+        for i in range(planes):
+            cnt[cols] += ((plane[i, cols][:, None] >> bits) & 1).astype(np.int64) << i
+            plane[i, cols] = 0
+        pending[cols] = 0
+
+    for r in range(n):
+        cols = np.flatnonzero(words[r])
+        flush(cols[pending[cols] == 2**planes - 1])
+        carry = words[r, cols].copy()
+        for i in range(planes):
+            t = plane[i, cols] & carry
+            plane[i, cols] ^= carry
+            carry = t
+        assert not carry.any(), "a counter plane overflowed"
+        pending[cols] += 1
+    flush(np.arange(w))
+    return cnt.reshape(-1)
+
+
+@pytest.mark.parametrize("planes", [3, None])
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+def test_bitsliced_counter_matches_coverage_plain(planes, extra):
+    """Row runs of 2^k - 1, 2^k and 2^k + 1 (k = 3 and the kernel's own k):
+    the add-and-flush arithmetic the CUDA kernel runs equals the plain
+    per-bit column sums, all-ones columns (the longest carries) included."""
+    k = _kernel_planes() if planes is None else planes
+    n = 2**k + extra
+    rng = np.random.default_rng(k + extra)
+    words = _words(rng, (n, 5))
+    words[:, 0] = 0xFFFFFFFF            # every count reaches 2^k - 1 before a flush
+    words[:, 1] = 0x80000000            # bit 31 only
+    words[rng.random(n) < 0.5, 2] = 0   # zero words skip
+    words[:, 3] = 0
+    got = _bitsliced_column_counts(words, k)
+    want = kernels.coverage_per_slot_plain(convert.bitmask_to_torch(words), 5 * 32)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert got[0] == n and got[32 + 31] == n and not got[96:128].any()
