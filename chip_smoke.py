@@ -18,19 +18,29 @@ Phases (any failure raises and the script exits nonzero):
    captured ring's measured sector occupancy; coverage_per_slot on dense
    words and on the coverage run's tick-2 frontier; and every kernel on
    ragged shapes.
+   gather_or also with the engine's options: the link-loss coin and a
+   destination up mask, on ragged shapes and on the captured rings.
 4. Run the engine twice on small graphs, with the kernels and with the
-   plain versions, and require equal counters and executed ticks; run
-   the CLI's reference default config on the card.
+   plain versions, and require equal counters and executed ticks, also
+   with churn, loss, the connect window and snapshots on, and a run
+   stopped after one chunk and resumed from its checkpoint; run the CLI
+   on the card and on the CPU (the plain versions) and require the same
+   report, at the reference defaults and with the option flags.
 5. The main path at full size: ``bench.py``'s flood configuration —
    100K-node Erdős–Rényi p=0.001, 8,192 shares over a 16-tick window,
    horizon 64, one 8,192-share chunk — one warm run, one timed run.
 6. ``run_flood_coverage`` on the same graph with 4,096 origins.
-7. One more flood run under ``torch.profiler``: device time by kernel and
-   the device's busy share of the run's wall time.
+7. The options path: phases 5 and 6 again under churn and link loss, with
+   snapshot boundaries; kernel == plain.
+8. Flood runs under ``torch.profiler``, without and with the options:
+   device time by kernel and the device's busy share of the run's wall
+   time.
 
 Kernel launch counts are zeroed just before the timed run of phase 5 and
-read after phase 6. The second-to-last line is the kernels' JSON record;
-the last line is ``{"ok": true, "device": {...}}``.
+read after phase 6 (they must equal the option-free tick's), and zeroed
+again just before the timed run of phase 7 and read after its coverage
+run. The second-to-last line is the kernels' JSON record; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -47,6 +57,12 @@ N_NODES, EDGE_P, SEED = 100_000, 0.001, 0
 N_SHARES, GEN_WINDOW, HORIZON, CHUNK = 8192, 16, 64, 8192
 COVERAGE_ORIGINS = 4096
 CAPTURE_TICK = 10  # a mid-flood tick: shares of generation ticks 6-9 spreading
+SNAPSHOTS = [8, 16, 24, 32]  # the options run's periodic-stats boundaries
+# The loss-free main path's launches (flood + coverage), as before the
+# options existed: with every option off the tick launches what it did.
+LOSS_FREE_LAUNCHES = {
+    "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 29, "coverage_per_slot": 7,
+}
 SOURCE = "p2p_gossip_tpu_torch/csrc/gossip_kernels.cu"
 REPLACES = {
     "gather_or": "p2p_gossip_tpu/ops/ell.py:157",
@@ -193,6 +209,58 @@ def check_gather_ragged(dev, rng):
             compare(label + " vs no occupancy", got, want)
     log("gather_or ragged shapes (W 1/3/5/300/520/1027, caps 0/129/300, zero "
         "ring, per-edge, out-of-range rows; occupancy none/exact/over): bitwise equal")
+
+
+def check_gather_options_ragged(dev, rng):
+    """gather_or with the loss coin and the destination up mask against
+    its plain version: p = 0 (equal to no loss), p = 0.05, p = 0.6 (a
+    threshold past 2^31: the unsigned compare) and p = 1.0 (every row
+    zero), a seed past 2^31, each without and with an up mask (a fifth of
+    the nodes down), through identity rows and through shuffled bucket
+    rows with some outside [0, N). ``out`` starts as all ones, so a down
+    row the kernel should zero and does not shows."""
+    import torch
+
+    from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    cases = (  # n, cap, w, ring, per_edge
+        (1237, 7, 3, 4, True), (513, 9, 64, 2, False), (300, 9, 300, 6, True),
+        (129, 129, 8, 2, False), (400, 11, 5, 3, True),
+    )
+    probs = (0.0, 0.05, 0.6, 1.0)
+    for n, cap, w, ring, per_edge in cases:
+        hist = sparse_words(rng, (ring, n, w), dev)
+        occ = ring_occupancy(hist)
+        idx = torch.as_tensor(rng.integers(0, n, (n, cap)).astype(np.int32), device=dev)
+        mask = torch.as_tensor(rng.random((n, cap)) < 0.7, device=dev)
+        delay = (torch.as_tensor(rng.integers(1, ring, (n, cap)).astype(np.int32),
+                                 device=dev) if per_edge else None)
+        slot = None if per_edge else 1
+        up = torch.as_tensor(rng.random(n) >= 0.2, device=dev)
+        shuffled = torch.as_tensor(rng.permutation(n + 6)[:n].astype(np.int32) - 3,
+                                   device=dev)
+        for rows in (None, shuffled):
+            def run(loss, up_arg, plain, rows=rows):
+                out = torch.full((n, w), -1, dtype=torch.int32, device=dev)
+                return kernels.gather_or(hist, 7, idx, mask, delay, uniform_slot=slot,
+                                         rows=rows, occ=occ, loss=loss, up=up_arg,
+                                         out=out, plain=plain)
+
+            lossless = run(None, None, False)
+            for prob in probs:
+                loss = LinkLossModel(prob, seed=2**31 + 17).static_cfg
+                for up_arg in (None, up):
+                    label = (f"gather_or[n={n} cap={cap} w={w} D={ring} p={prob} "
+                             f"up={up_arg is not None} rows={rows is not None}]")
+                    got = run(loss, up_arg, False)
+                    compare(label, got, run(loss, up_arg, True))
+                    if prob == 0.0 and up_arg is None:
+                        compare(label + " vs no loss", got, lossless)
+                    if prob == 1.0 and rows is None and got.any():
+                        raise AssertionError(f"{label}: p = 1.0 left a nonzero row")
+    log("gather_or with loss coin and up mask, ragged shapes (p 0/0.05/0.6/1.0, seed "
+        "> 2^31, up none/80%, identity and shuffled rows, garbage out): bitwise equal")
 
 
 def check_occupancy_ragged(dev, rng):
@@ -364,10 +432,15 @@ def check_captured(dg, dg_edge, sched, n, dev, reps):
         occ_ms = time_ms(lambda: kernels.sector_occupancy(slot_words), reps,
                          calls=KERNEL_CALLS)
         occ_plain_ms = time_ms(lambda: kernels.sector_occupancy_plain(slot_words), reps)
+        opt = captured_with_options(g, hist, occ, tick, n, dev, reps)
+        # The option-free call again, right after the options' timing.
+        ms_again = time_ms(lambda: run(False, occ), reps, calls=KERNEL_CALLS)
         results[label] = dict(
-            max_abs_err=max(err, occ_err), ms=ms, ms_no_occupancy=ms_full,
-            plain_ms=plain_ms, bound_ms=bound_ms(nbytes), sector_share=share,
-            occupancy_ms=occ_ms, occupancy_plain_ms=occ_plain_ms,
+            max_abs_err=max(err, occ_err, opt["max_abs_err"]), ms=ms,
+            ms_no_occupancy=ms_full, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+            sector_share=share, occupancy_ms=occ_ms, occupancy_plain_ms=occ_plain_ms,
+            ms_loss=opt["ms"], plain_ms_loss=opt["plain_ms"],
+            bound_ms_loss=opt["bound_ms"], ms_again=ms_again,
         )
         log(
             f"gather_or[captured {label}, tick {tick}] D={g.ring_size}: bitwise "
@@ -378,8 +451,63 @@ def check_captured(dg, dg_edge, sched, n, dev, reps):
             f"MB); sector_occupancy of the tick-{tick - 1} slot: kernel {occ_ms:.4f} "
             f"ms, plain {occ_plain_ms:.4f} ms"
         )
+        log(
+            f"gather_or[captured {label}, tick {tick}] with loss p=0.05 and 10% of "
+            f"nodes down: bitwise equal; kernel {opt['ms']:.4f} ms (without options, "
+            f"timed again beside it: {ms_again:.4f} ms), plain {opt['plain_ms']:.3f} "
+            f"ms, bound {opt['bound_ms']:.4f} ms; edges kept {opt['kept']} of {edges}"
+        )
         del hist, occ
     return results
+
+
+def captured_with_options(g, hist, occ, tick, n, dev, reps):
+    """gather_or on a captured ring with the loss coin at p = 0.05 (the
+    options run's loss model) and an up mask with 10% of the nodes down.
+    The bound counts the occupied sectors of each distinct source row of a
+    kept edge (not dropped, to an up node) once, its occupancy word, the
+    staged ELL and bucket rows, the up mask and the output."""
+    import torch
+
+    from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel, drop_mask_torch
+    from p2p_gossip_tpu_torch.models.seeds import loss_stream_seed
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.ops.ell import propagate_bucketed
+
+    loss = LinkLossModel(0.05, seed=loss_stream_seed(SEED)).static_cfg
+    up = torch.as_tensor(np.random.default_rng(SEED + 2).random(n) >= 0.1, device=dev)
+
+    def run(plain):
+        return propagate_bucketed(
+            hist, tick, g.buckets, n_out=n, ring_size=g.ring_size,
+            uniform_delay=g.uniform_delay, occ=occ, loss=loss, up=up, plain=plain,
+        )
+
+    err = compare("gather_or[captured, loss + up]", run(False), run(True))
+    w = hist.shape[-1]
+    sw = kernels.sector_words(w)
+    keys, staged, rows_bytes = [], 0, 0
+    for rows, idx, mask, delay in g.buckets:
+        if g.uniform_delay is not None:
+            slot = torch.full_like(idx, (tick - g.uniform_delay) % g.ring_size,
+                                   dtype=torch.int64)
+        else:
+            slot = torch.remainder(tick - delay.long(), g.ring_size)
+        keep = mask & ~drop_mask_torch(idx, rows.long()[:, None], tick, *loss)
+        keep &= up[rows.long()][:, None]
+        keys.append((slot * n + idx.long())[keep])
+        staged += int(idx.numel())
+        rows_bytes += 4 * int(rows.numel())
+    distinct = torch.unique(torch.cat(keys))
+    per_entry = 5 if g.uniform_delay is not None else 9
+    nbytes = (set_bits(occ.reshape(-1)[distinct]) * sw * 4 + distinct.numel() * 4
+              + staged * per_entry + rows_bytes + n + n * w * 4)
+    return dict(
+        max_abs_err=err, kept=int(sum(k.numel() for k in keys)),
+        ms=time_ms(lambda: run(False), reps, calls=KERNEL_CALLS),
+        plain_ms=time_ms(lambda: run(True), max(2, reps // 4), warmup=1),
+        bound_ms=bound_ms(nbytes),
+    )
 
 
 def check_popcount(n, w, dev, rng, reps):
@@ -502,6 +630,7 @@ def check_engine_paths(dev):
             f"{k.extra['ticks_executed']} ticks, kernel path {t1 - t0:.2f} s, "
             f"plain path {t2 - t1:.2f} s, equal NodeStats, conservation holds"
         )
+    check_engine_options(dev, cases)
     check_cli(dev)
     origins = np.arange(0, 300, 3)
     _, ck = run_flood_coverage(ba, origins, 60, ell_delays=d, device=dev)
@@ -511,34 +640,92 @@ def check_engine_paths(dev):
     log(f"coverage[BA 300]: {len(origins)} origins, kernel == plain over 60 ticks")
 
 
-def check_cli(dev):
-    """``python -m p2p_gossip_tpu_torch``'s reference default run on the
-    card: its per-node lines equal the plain path's report."""
-    import contextlib
-    import io
+def check_engine_options(dev, cases):
+    """The same two engine cases with every option on — churn, loss, the
+    connect window and snapshot boundaries — on the kernel and the plain
+    path: equal counters, executed ticks and snapshots. Then the first
+    case stopped after one chunk with a checkpoint in a temporary directory
+    and resumed: equal to the uninterrupted run."""
+    import os
+    import tempfile
 
     import p2p_gossip_tpu_torch as pt
     from p2p_gossip_tpu_torch.engine.sync import run_sync_sim
-    from p2p_gossip_tpu_torch.utils import cli
-    from p2p_gossip_tpu_torch.utils.stats import format_final_statistics
 
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.run(["--device", str(dev)])
-    wall = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"CLI exited {rc}")
-    g = pt.erdos_renyi(10, 0.3, seed=0)
-    sched = pt.uniform_renewal_schedule(10, 60.0, 0.005, seed=0)
-    want = format_final_statistics(run_sync_sim(g, sched, 12000, device=dev, plain=True))
-    node_lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("Node ")]
-    if len(node_lines) != 10 or node_lines != [
-        ln for ln in want.splitlines() if ln.startswith("Node ")
-    ]:
-        raise AssertionError("CLI report differs from the plain path's")
-    log(f"cli: reference default config on {dev}, {wall:.2f} s, per-node lines "
-        "equal the plain path's")
+    for i, (label, graph, sch, horizon, delays, chunk) in enumerate(cases):
+        opts = dict(
+            ell_delays=delays, chunk_size=chunk,
+            churn=pt.random_churn(graph.n, horizon, outage_prob=0.2,
+                                  mean_down_ticks=40.0, max_outages=2,
+                                  seed=pt.churn_stream_seed(i)),
+            loss=pt.LinkLossModel(0.1, seed=pt.loss_stream_seed(i)),
+            connect_tick=int(sch.gen_ticks[sch.num_shares // 10]),
+            snapshot_ticks=[horizon // 5, horizon // 2, horizon - 7, horizon],
+            device=dev,
+        )
+        t0 = time.perf_counter()
+        k = run_sync_sim(graph, sch, horizon, **opts)
+        t1 = time.perf_counter()
+        p = run_sync_sim(graph, sch, horizon, plain=True, **opts)
+        t2 = time.perf_counter()
+        if not (k.equal_counts(p)
+                and k.extra["ticks_executed"] == p.extra["ticks_executed"]
+                and k.extra["snapshots"] == p.extra["snapshots"]):
+            raise AssertionError(f"{label} with options: kernel and plain paths differ")
+        log(
+            f"engine[{label}] with churn, loss p=0.1, connect tick "
+            f"{opts['connect_tick']}, 4 snapshots: {k.extra['ticks_executed']} ticks, "
+            f"kernel path {t1 - t0:.2f} s, plain path {t2 - t1:.2f} s, equal "
+            f"NodeStats, ticks and snapshots"
+        )
+        if i == 0:
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = os.path.join(tmp, "run.npz")
+                part = run_sync_sim(graph, sch, horizon, checkpoint_path=ckpt,
+                                    stop_after_chunks=1, **opts)
+                resumed = run_sync_sim(graph, sch, horizon, checkpoint_path=ckpt, **opts)
+            if part.equal_counts(k) or not resumed.equal_counts(k) or (
+                resumed.extra["snapshots"] != k.extra["snapshots"]
+            ):
+                raise AssertionError(f"{label}: checkpoint resume differs")
+            log(f"engine[{label}] with options: stopped after 1 chunk of "
+                f"{-(-sch.num_shares // chunk)}, resumed from the checkpoint: equal "
+                "to the uninterrupted run")
+
+
+def check_cli(dev):
+    """``python -m p2p_gossip_tpu_torch`` on the card against the same
+    flags on the CPU (the plain torch versions): the reference default run
+    (its five periodic-stats blocks included) and a run with churn, loss,
+    the connect window and lognormal delays print the same report, apart
+    from the start line's device and the wall-time line."""
+    import contextlib
+    import io
+
+    from p2p_gossip_tpu_torch.utils import cli
+
+    def report(args):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.run(args)
+        if rc != 0:
+            raise AssertionError(f"CLI {args} exited {rc}")
+        return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+    options = ["--numNodes", "60", "--simTime", "20", "--statsInterval", "5",
+               "--churnProb", "0.2", "--lossProb", "0.1", "--connectAtTick", "300",
+               "--delayModel", "lognormal"]
+    for label, args, blocks in (("reference defaults", [], 5), ("options", options, 3)):
+        got, wall = report(args + ["--device", str(dev)])
+        want, plain_wall = report(args + ["--device", "cpu"])
+        if got[1:-1] != want[1:-1] or len(got) != len(want):
+            raise AssertionError(f"CLI {label}: report differs from the plain path's")
+        periodic = sum(ln.startswith("=== Periodic Stats at ") for ln in got)
+        if periodic != blocks:
+            raise AssertionError(f"CLI {label}: {periodic} periodic blocks, not {blocks}")
+        log(f"cli[{label}] on {dev} {wall:.2f} s, on the CPU {plain_wall:.2f} s: equal "
+            f"reports ({periodic} periodic-stats blocks)")
 
 
 # --- phases 5 and 6 -----------------------------------------------------------
@@ -617,13 +804,85 @@ def main_path(graph, dg, sched, dev):
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
-    return launches
+    if launches != LOSS_FREE_LAUNCHES:
+        raise AssertionError(
+            f"loss-free main path launched {launches}, not {LOSS_FREE_LAUNCHES}: "
+            "the options changed the option-free tick"
+        )
+    return launches, dict(tick_ms=tick_ms, rate=totals["processed"] / wall)
 
 
-def profile_flood(graph, sched, dg, dev):
-    """Device time of one flood run by kernel name, from torch.profiler's
-    CUDA kernel events, and the share of the run's wall time the device
-    was busy (kernels run on one stream, so their durations add)."""
+def options_path(graph, dg, sched, dev, base):
+    """The main path with the options on: the same 100K flood under churn
+    (10% of nodes with one outage of mean 4 ticks in the 64-tick horizon)
+    and link loss (p = 0.05), with snapshot boundaries, then the coverage
+    run under the same churn and loss. Kernel launch counts are zeroed
+    just before the timed flood and read after the coverage run; the
+    plain comparison runs come after that."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.engine.sync import run_flood_coverage, run_sync_sim
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    churn = pt.random_churn(graph.n, HORIZON, outage_prob=0.1, mean_down_ticks=4,
+                            max_outages=1, seed=pt.churn_stream_seed(SEED))
+    loss = pt.LinkLossModel(0.05, seed=pt.loss_stream_seed(SEED))
+    flood = dict(chunk_size=CHUNK, device_graph=dg, churn=churn, loss=loss,
+                 snapshot_ticks=SNAPSHOTS, device=dev)
+    warm = run_sync_sim(graph, sched, HORIZON, **flood)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = run_sync_sim(graph, sched, HORIZON, **flood)
+    wall = time.perf_counter() - t0
+    origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
+    cov_kw = dict(device_graph=dg, churn=churn, loss=loss, device=dev)
+    cstats, cov = run_flood_coverage(graph, origins, HORIZON, **cov_kw)
+    launches = dict(kernels.launches)
+    log(f"options-path kernel launches (flood + coverage): {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} never launched on the options path")
+
+    t0 = time.perf_counter()
+    plain = run_sync_sim(graph, sched, HORIZON, plain=True, **flood)
+    plain_wall = time.perf_counter() - t0
+    _, plain_cov = run_flood_coverage(graph, origins, HORIZON, plain=True, **cov_kw)
+    for other in (warm, plain):
+        if not (stats.equal_counts(other)
+                and stats.extra["ticks_executed"] == other.extra["ticks_executed"]
+                and stats.extra["snapshots"] == other.extra["snapshots"]):
+            raise AssertionError("options flood: runs differ (kernel, warm, plain)")
+    if not np.array_equal(cov, plain_cov):
+        raise AssertionError("options coverage: kernel and plain paths differ")
+    stats.check_conservation()
+    cstats.check_conservation()
+    if not (np.diff(cov, axis=0) >= 0).all():
+        raise AssertionError("options coverage rows are not monotone")
+    totals = stats.totals()
+    ticks = stats.extra["ticks_executed"]
+    tick_ms = wall / ticks * 1e3
+    rate = totals["processed"] / wall
+    log(
+        f"options path: churn ({int((churn.down_end > churn.down_start).sum())} "
+        f"outages), loss p=0.05, snapshots at {SNAPSHOTS}: ticks={ticks} wall="
+        f"{wall:.4f} s -> {rate:.4e} node-updates/s, {tick_ms:.3f} ms/tick "
+        f"(loss-free run: {base['tick_ms']:.3f} ms/tick, {base['rate']:.4e}; ratio "
+        f"{tick_ms / base['tick_ms']:.3f}); processed {totals['processed']} of "
+        f"{N_SHARES * graph.n}; kernel == warm == plain (counters, ticks, "
+        f"snapshots; plain {plain_wall:.2f} s), conservation holds; snapshots "
+        f"processed {[s['processed'] for s in stats.extra['snapshots']]}; coverage "
+        f"kernel == plain, final mean {cov[-1].mean():.1f} of {graph.n}"
+    )
+    return launches, dict(churn=churn, loss=loss, snapshot_ticks=SNAPSHOTS)
+
+
+def profile_flood(graph, sched, dg, dev, label="flood", **opts):
+    """Device time of one flood run (``opts``: the engine's options) by
+    kernel name, from torch.profiler's CUDA kernel events, and the share of
+    the run's wall time the device was busy (kernels run on one stream, so
+    their durations add)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -634,7 +893,7 @@ def profile_flood(graph, sched, dg, dev):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         stats = run_sync_sim(graph, sched, HORIZON, chunk_size=CHUNK,
-                             device_graph=dg, device=dev)
+                             device_graph=dg, device=dev, **opts)
         wall = time.perf_counter() - t0
     by_name: dict[str, float] = {}
     for e in prof.events():
@@ -646,7 +905,7 @@ def profile_flood(graph, sched, dg, dev):
         return
     busy_us = sum(by_name.values())
     log(
-        f"profile (profiled flood run, {ticks} ticks, wall {wall * 1e3:.2f} ms): "
+        f"profile (profiled {label} run, {ticks} ticks, wall {wall * 1e3:.2f} ms): "
         f"device busy {busy_us / 1e3:.2f} ms = {busy_us / (wall * 1e6):.3f} of wall"
     )
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
@@ -691,6 +950,7 @@ def main() -> int:
     w_flood, w_cov = CHUNK // 32, COVERAGE_ORIGINS // 32
     log("tolerance: bitwise (integer ops), max_abs_err must be 0")
     check_gather_ragged(dev, rng)
+    check_gather_options_ragged(dev, rng)
     check_occupancy_ragged(dev, rng)
     gather = check_gather(dg, dg_edge, graph.n, w_flood, dev, rng, reps=10)
     occupancy = check_occupancy(graph.n, w_flood, dev, rng, reps=20)
@@ -703,13 +963,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     check_engine_paths(dev)
-    launches = main_path(graph, dg, sched, dev)
+    launches, base = main_path(graph, dg, sched, dev)
+    options_launches, option_models = options_path(graph, dg, sched, dev, base)
     profile_flood(graph, sched, dg, dev)
+    profile_flood(graph, sched, dg, dev, "options flood", **option_models)
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
         # ms / bound_ms: the random (dense) ring with uniform delay, the shape
-        # the gather was first timed at; the captured ring's beside it.
+        # the gather was first timed at; the captured ring's beside it, with
+        # and without the loss coin and up mask.
         "gather_or": dict(
             gather["uniform"], max_abs_err=max(gather["uniform"]["max_abs_err"],
                                                gather["per_edge"]["max_abs_err"],
@@ -720,6 +983,13 @@ def main() -> int:
             bound_ms_per_edge=gather["per_edge"]["bound_ms"],
             ms_per_edge_captured=ce["ms"], bound_ms_per_edge_captured=ce["bound_ms"],
             sector_share_per_edge_captured=ce["sector_share"],
+            ms_captured_loss=cu["ms_loss"], bound_ms_captured_loss=cu["bound_ms_loss"],
+            plain_ms_captured_loss=cu["plain_ms_loss"],
+            ms_captured_again=cu["ms_again"],
+            ms_per_edge_captured_loss=ce["ms_loss"],
+            bound_ms_per_edge_captured_loss=ce["bound_ms_loss"],
+            plain_ms_per_edge_captured_loss=ce["plain_ms_loss"],
+            ms_per_edge_captured_again=ce["ms_again"],
         ),
         "sector_occupancy": dict(occupancy, ms_captured=cu["occupancy_ms"],
                                  plain_ms_captured=cu["occupancy_plain_ms"]),
@@ -730,15 +1000,16 @@ def main() -> int:
                                   bound_ms_frontier=frontier["bound_ms"],
                                   plain_ms_frontier=frontier["plain_ms"]),
     }
-    base = ("max_abs_err", "ms", "plain_ms", "bound_ms")
+    base_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     record = []
     for name, m in measured.items():
         record.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
-            **{k: m[k] for k in base},
+            **{k: m[k] for k in base_keys},
             "bound_by": "bytes", "library_ms": None,
-            **{k: v for k, v in m.items() if k not in base},
+            "launches_options": options_launches[name],
+            **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@ rebuilt for an NVIDIA H100: the per-node seen-sets are (nodes x shares)
 int32 bitmasks, one synchronous tick delivers every in-flight message
 through a hand-written CUDA gather-OR kernel over the ELL adjacency
 (``ops.ell``, ``ops.kernels``), and per-node counters and per-share
-coverage come from CUDA popcount and coverage kernels. Graphs, schedules
-and delays are numpy, built from a seed exactly as in the JAX package, of
-which this package imports nothing.
+coverage come from CUDA popcount and coverage kernels. The engine's
+options — node churn, link loss (its coin computed inside the gather
+kernel), the connect window, periodic snapshots and checkpoint/resume —
+follow the JAX engine's. Graphs, schedules, delays and the option models
+are numpy, built from a seed exactly as in the JAX package, of which this
+package imports nothing.
 """
 
 from p2p_gossip_tpu_torch.models.topology import (
@@ -22,7 +25,25 @@ from p2p_gossip_tpu_torch.models.generation import (
     single_share_schedule,
     uniform_renewal_schedule,
 )
-from p2p_gossip_tpu_torch.models.latency import constant_delays, lognormal_delays
+from p2p_gossip_tpu_torch.models.churn import (
+    ChurnModel,
+    always_up,
+    effective_generated,
+    from_intervals,
+    random_churn,
+)
+from p2p_gossip_tpu_torch.models.latency import (
+    constant_delays,
+    lognormal_delays,
+    serialization_delays,
+)
+from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
+from p2p_gossip_tpu_torch.models.seeds import churn_stream_seed, loss_stream_seed
+from p2p_gossip_tpu_torch.utils.analysis import (
+    format_propagation_report,
+    message_redundancy,
+    propagation_latency,
+)
 from p2p_gossip_tpu_torch.utils.stats import NodeStats
 
 # The engine stays behind an explicit module import, as in the JAX package:
@@ -41,5 +62,17 @@ __all__ = [
     "single_share_schedule",
     "constant_delays",
     "lognormal_delays",
+    "serialization_delays",
+    "ChurnModel",
+    "always_up",
+    "from_intervals",
+    "random_churn",
+    "effective_generated",
+    "LinkLossModel",
+    "loss_stream_seed",
+    "churn_stream_seed",
+    "propagation_latency",
+    "format_propagation_report",
+    "message_redundancy",
     "NodeStats",
 ]

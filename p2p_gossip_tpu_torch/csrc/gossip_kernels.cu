@@ -95,12 +95,20 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   concatenate-and-scatter back to node order in propagate_bucketed
 //   (ell.py:523-525). It has no Pallas source.
 // Computes:
-//   out[rows[r], :] = OR_k mask[r,k] ? hist[slot(r,k), idx[r,k], :] & S : 0
+//   out[dst, :] = up[dst] ? OR_k keep(r,k) ? hist[slot(r,k), idx[r,k], :] & S : 0
+//                         : 0
+//   dst = rows ? rows[r] : r
+//   keep(r,k) = mask[r,k] && !drop(idx[r,k], dst, tick)
+//   drop(s, d, t) = mix32(seed ^ s*0x9E3779B1 ^ d*0x85EBCA77 ^ t*0xC2B2AE3D)
+//                   <= loss_limit (uint32; only in the kLoss instantiation)
 //   slot(r,k) = ((tick - delay[r,k]) % ring + ring) % ring   (per-edge)
 //             = uniform_slot                                  (delay == null)
 //   S = the sectors that occ[slot(r,k), idx[r,k]] marks (all when occ is
 //   null). With an exact or over-approximating occupancy, S drops only
-//   zero words, so the result is the plain gather-OR.
+//   zero words, so the result is the plain gather-OR. `up` (null: every
+//   node up) is the churn model's destination mask, `drop` the link-loss
+//   coin of p2p_gossip_tpu/ops/ell.py _loss_keep (models/linkloss.py spec;
+//   the JAX package applies both in and after its gather).
 // Bound on the H100: bytes. The function must move each source row once
 //   (~0.1 GB at N = 100,000, W = 256), but each valid edge reads its source
 //   row again: ~100 edges per row turn that into ~10 GB of row reads per
@@ -141,13 +149,43 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   same row. Offsets are size_t: ring*N*W passes 2^31 at real sizes.
 //   No tensor cores: an OR over a 0.1%-dense adjacency has no matrix-
 //   product form that pays.
+//   Options (off: the kernel reads and writes what it did without them).
+//   The loss coin is a separate instantiation (kLoss), computed in the
+//   staging step: about a dozen integer operations in registers per valid
+//   edge, the per-row part (seed, dst, tick) hashed in once per row. A
+//   dropped edge is not staged, exactly like a padded entry, so its source
+//   row is never read and its occupancy does not widen the row's band. A
+//   down destination (`up`) writes a zero row and reads nothing; it must
+//   still write, because the callers hand in uninitialised outputs.
+//   Registers: the gather waits on L2 and is paced by the warps resident
+//   per SM. The loss instantiation asks for six blocks of 256 threads a
+//   SM, which caps it at the 40 registers the loss-free kernel takes on
+//   its own; left free it took 48, five blocks a SM, and ran ~20% slower
+//   than the loss-free kernel though it reads fewer edges. The loss-free
+//   instantiation keeps its plain bound: the six-block request, at the
+//   same 40 registers, made it slower in the flood (PERF.md).
 // ---------------------------------------------------------------------------
 constexpr int kGatherWarps = 8;
+constexpr int kGatherMinBlocks = 6;
 constexpr int kGatherStage = 128;
 constexpr int kLaneUnits = 2;
 
-template <typename T>
-__global__ void __launch_bounds__(kGatherWarps * 32)
+constexpr uint32_t kCoinSrc = 0x9E3779B1u;
+constexpr uint32_t kCoinDst = 0x85EBCA77u;
+constexpr uint32_t kCoinTick = 0xC2B2AE3Du;
+
+// splitmix32 finalizer (models/linkloss.py); uint32 arithmetic wraps.
+__device__ inline uint32_t mix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return h;
+}
+
+template <typename T, bool kLoss>
+__global__ void __launch_bounds__(kGatherWarps * 32, kLoss ? kGatherMinBlocks : 0)
 gather_or_kernel(const uint32_t* __restrict__ hist,
                  const uint32_t* __restrict__ occ, int n_src, int w, int sw,
                  int ring, int tick, int uniform_slot,
@@ -155,7 +193,8 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
                  const uint8_t* __restrict__ mask,
                  const int32_t* __restrict__ delay, int n_rows, int cap,
                  const int32_t* __restrict__ rows, int n_out,
-                 uint32_t* __restrict__ out) {
+                 const uint8_t* __restrict__ up, uint32_t loss_seed,
+                 uint32_t loss_limit, uint32_t* __restrict__ out) {
   __shared__ unsigned long long s_off[kGatherWarps][kGatherStage];
   __shared__ uint32_t s_occ[kGatherWarps][kGatherStage];
   const int warp = threadIdx.x >> 5;
@@ -177,6 +216,14 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
   unsigned long long* off = s_off[warp];
   uint32_t* occ_of = s_occ[warp];
 
+  if (up && !up[dst]) {  // warp-uniform: a down node receives nothing
+    for (int u = lane; u < n_units; u += 32) row_out[u] = zero_unit<T>();
+    return;
+  }
+  const uint32_t coin_row =
+      kLoss ? loss_seed ^ ((uint32_t)dst * kCoinDst) ^ ((uint32_t)tick * kCoinTick)
+            : 0u;
+
   int k0 = 0;
   do {
     // 1. Stage this round's valid entries, compacted.
@@ -189,15 +236,19 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
       unsigned long long o = 0;
       uint32_t oc = 0u;
       if (keep) {
-        int slot = uniform_slot;
-        if (delay) {
-          slot = (tick - delay[e0 + k]) % ring;
-          if (slot < 0) slot += ring;
-        }
         const int s = idx[e0 + k];
-        o = ((size_t)slot * slot_words + (size_t)s * (size_t)w) / kUnitWords;
-        oc = occ ? (occ[(size_t)slot * (size_t)n_src + s] & all) : all;
-        keep = oc != 0u;
+        if (kLoss && mix32(coin_row ^ ((uint32_t)s * kCoinSrc)) <= loss_limit) {
+          keep = false;  // erased in flight: not staged, never read
+        } else {
+          int slot = uniform_slot;
+          if (delay) {
+            slot = (tick - delay[e0 + k]) % ring;
+            if (slot < 0) slot += ring;
+          }
+          o = ((size_t)slot * slot_words + (size_t)s * (size_t)w) / kUnitWords;
+          oc = occ ? (occ[(size_t)slot * (size_t)n_src + s] & all) : all;
+          keep = oc != 0u;
+        }
       }
       const unsigned b = __ballot_sync(kFullMask, keep);
       if (keep) {
@@ -416,25 +467,34 @@ int gossip_sector_occupancy(const void* words, int n, int w, long long ld,
   return (int)cudaGetLastError();
 }
 
+// `up` may be null (every node up). loss_on == 0 launches the loss-free
+// instantiation; otherwise an edge drops when its coin is <= loss_limit
+// (threshold - 1, so 0xFFFFFFFF drops every edge).
 int gossip_gather_or(const void* hist, const void* occ, int n_src, int w,
                      int ring, int tick, int uniform_slot, const void* idx,
                      const void* mask, const void* delay, int n_rows, int cap,
-                     const void* rows, int n_out, void* out, void* stream) {
+                     const void* rows, int n_out, const void* up, int loss_on,
+                     unsigned int loss_seed, unsigned int loss_limit,
+                     void* out, void* stream) {
   const dim3 grid((unsigned)((n_rows + kGatherWarps - 1) / kGatherWarps));
   const int sw = sector_words(w);
-  if (w % 4 == 0 && aligned16(hist) && aligned16(out)) {
-    gather_or_kernel<uint4><<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)hist, (const uint32_t*)occ, n_src, w, sw, ring, tick,
-        uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,
-        (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,
-        (uint32_t*)out);
+  const bool vec = w % 4 == 0 && aligned16(hist) && aligned16(out);
+#define GOSSIP_GATHER_LAUNCH(T, LOSS)                                          \
+  gather_or_kernel<T, LOSS><<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>( \
+      (const uint32_t*)hist, (const uint32_t*)occ, n_src, w, sw, ring, tick,   \
+      uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,                 \
+      (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,         \
+      (const uint8_t*)up, loss_seed, loss_limit, (uint32_t*)out)
+  if (vec && loss_on) {
+    GOSSIP_GATHER_LAUNCH(uint4, true);
+  } else if (vec) {
+    GOSSIP_GATHER_LAUNCH(uint4, false);
+  } else if (loss_on) {
+    GOSSIP_GATHER_LAUNCH(uint32_t, true);
   } else {
-    gather_or_kernel<uint32_t><<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)hist, (const uint32_t*)occ, n_src, w, sw, ring, tick,
-        uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,
-        (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,
-        (uint32_t*)out);
+    GOSSIP_GATHER_LAUNCH(uint32_t, false);
   }
+#undef GOSSIP_GATHER_LAUNCH
   return (int)cudaGetLastError();
 }
 

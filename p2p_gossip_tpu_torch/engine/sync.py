@@ -16,10 +16,18 @@ The NS-3 event loop becomes a synchronous graph message-passing simulation:
   generation is pending (or the horizon). Its predicate is read on the
   host once per tick — one device sync per tick.
 
+Options, as in the JAX engine and all off by default (the tick then runs
+exactly the option-free work): node churn (a per-tick up mask the gather
+kernel applies to destinations, and skipped generations), link loss (the
+coin computed edge by edge inside the gather kernel), the connect window,
+periodic snapshots (device copies of ``received`` at the boundary ticks)
+and checkpoint/resume between chunks (the JAX package's file format).
+
 Share counts of any size run in fixed-size chunks (shares are independent,
 counters add). Semantics are tick-exact against the JAX package's
-``engine/sync.py``: same graph + schedule + integer delays give identical
-per-node counters, executed-tick counts and coverage rows.
+``engine/sync.py``: same graph + schedule + integer delays + option models
+give identical per-node counters, executed-tick counts, snapshots and
+coverage rows.
 """
 
 from __future__ import annotations
@@ -29,7 +37,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from p2p_gossip_tpu_torch.models import churn as churn_mod
+from p2p_gossip_tpu_torch.models.churn import ChurnModel, effective_generated
 from p2p_gossip_tpu_torch.models.generation import Schedule
+from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
 from p2p_gossip_tpu_torch.models.topology import Graph
 from p2p_gossip_tpu_torch.ops import bitmask, kernels
 from p2p_gossip_tpu_torch.ops.ell import (
@@ -38,6 +49,11 @@ from p2p_gossip_tpu_torch.ops.ell import (
     propagate,
     propagate_bucketed,
     propagate_uniform,
+)
+from p2p_gossip_tpu_torch.utils.checkpoint import (
+    ChunkCheckpointer,
+    checkpointed_chunks,
+    fingerprint,
 )
 from p2p_gossip_tpu_torch.utils.device import resolve_device
 from p2p_gossip_tpu_torch.utils.stats import NodeStats
@@ -200,45 +216,80 @@ def apply_tick_updates(
     return seen, newly_out, received, sent, newly_cnt
 
 
-def _gather(dg: DeviceGraph, hist: torch.Tensor, occ: torch.Tensor, t: int, plain: bool):
+@dataclasses.dataclass(frozen=True)
+class TickOptions:
+    """The flood engine's options as one tick applies them (all off by
+    default, and then the tick runs exactly the option-free work):
+    ``churn`` the (N, K) int32 downtime intervals on the device
+    (`models.churn.to_device`), ``loss`` the link-loss (threshold, seed)
+    pair, ``connect_tick`` the reference's socket warm-up window."""
+
+    churn: tuple | None = None
+    loss: tuple | None = None
+    connect_tick: int = 0
+
+
+NO_OPTIONS = TickOptions()
+
+
+def _gather(dg: DeviceGraph, hist, occ, t: int, plain: bool, loss=None, up=None):
     if dg.buckets is not None:
         return propagate_bucketed(
             hist, t, dg.buckets, n_out=dg.n, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, occ=occ, plain=plain,
+            uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up, plain=plain,
         )
     if dg.uniform_delay is not None:
         return propagate_uniform(
             hist, t, dg.ell_idx, dg.ell_mask, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, occ=occ, plain=plain,
+            uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up, plain=plain,
         )
     return propagate(
         hist, t, dg.ell_idx, dg.ell_delay, dg.ell_mask,
-        ring_size=dg.ring_size, occ=occ, plain=plain,
+        ring_size=dg.ring_size, occ=occ, loss=loss, up=up, plain=plain,
     )
 
 
-def _tick(dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, plain):
+def _tick(
+    dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, plain,
+    opts: TickOptions = NO_OPTIONS,
+):
     """One synchronous tick at time ``t``: gather arrivals, scatter this
     tick's generations, update seen and the counters, and write the new
     frontier into hist slot ``t mod D`` and its sector occupancy into occ
     slot ``t mod D``. Returns that slot's frontier and a 0-d device tensor
-    telling whether it holds any bit."""
+    telling whether it holds any bit.
+
+    Options (the JAX package's ``_tick_body``): under churn a down node's
+    arrivals are zero (the gather kernel's ``up`` mask) and its generations
+    are skipped; the loss coin drops edges inside the gather; before
+    ``connect_tick`` generations enter their origin's seen-set but not the
+    frontier and charge no sends (p2pnetwork.cc:93-96, p2pnode.cc:131-135)."""
     n, w = seen.shape
-    arrivals = _gather(dg, hist, occ, t, plain)
+    up = None if opts.churn is None else churn_mod.up_mask(*opts.churn, t)
+    arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up)
     gen_active = gen_ticks == t
+    if up is not None:
+        gen_active &= up[origins]
     gen_bits = bitmask.slot_scatter(n, w, origins, slots, gen_active)
     gen_cnt = torch.zeros((n,), dtype=torch.int32, device=seen.device)
     gen_cnt.index_add_(0, origins, gen_active.to(torch.int32))
+    pre_connect = t < opts.connect_tick
+    live_bits, live_cnt = gen_bits, gen_cnt
+    if pre_connect:
+        live_bits, live_cnt = torch.zeros_like(gen_bits), torch.zeros_like(gen_cnt)
     slot = hist[t % dg.ring_size]
     _, newly_out, _, _, newly_cnt = apply_tick_updates(
-        seen, arrivals, gen_bits, gen_cnt, received, sent, dg.degree,
+        seen, arrivals, live_bits, live_cnt, received, sent, dg.degree,
         out=slot, plain=plain,
     )
+    if pre_connect:
+        seen |= gen_bits
     kernels.sector_occupancy(slot, out=occ[t % dg.ring_size], plain=plain)
-    # newly_out = newly | gen_bits holds a bit iff a node newly processed a
-    # share or a generation fired — read from the two small count vectors
-    # instead of another (N, W) pass.
-    nonzero = (newly_cnt.sum() + gen_cnt.sum()) > 0
+    # newly_out = newly | live_bits holds a bit iff a node newly processed a
+    # share or a live generation fired — read from the two small count
+    # vectors instead of another (N, W) pass. Before connect_tick the live
+    # count is zero: the slot holds no generation bit then.
+    nonzero = (newly_cnt.sum() + live_cnt.sum()) > 0
     return newly_out, nonzero
 
 
@@ -264,25 +315,41 @@ def _run_chunk_while(
     *,
     chunk_size: int,
     horizon: int,
+    opts: TickOptions = NO_OPTIONS,
+    snap_ticks: list[int] | None = None,
     plain: bool = False,
 ):
     """Run one share chunk to quiescence (or the horizon). Returns (seen,
-    received, sent, ticks executed). The loop predicate — a message in
-    flight in any hist slot, or a generation still pending — is the JAX
+    received, sent, snaps, ticks executed). The loop predicate — a message
+    in flight in any hist slot, or a generation still pending — is the JAX
     engine's ``any(hist != 0) | t <= last_gen``, kept as one host flag per
-    ring slot."""
+    ring slot.
+
+    With ``snap_ticks`` (sorted boundaries), ``snaps`` is (K, N) int32: row
+    i holds ``received`` as the tick counter reaches boundary i (the totals
+    over ticks strictly before it), or the final counts for a boundary at
+    or after the exit tick. Device copies only, no host sync."""
     w = bitmask.num_words(chunk_size)
     slots = torch.arange(chunk_size, dtype=torch.int64, device=dg.device)
     seen, hist, occ, received, sent = _chunk_state(dg, w)
+    snap_ticks = snap_ticks or []
+    snaps = torch.zeros((len(snap_ticks), dg.n), dtype=torch.int32, device=dg.device)
     in_flight = [False] * dg.ring_size
     t = t_start
     while t < horizon and (any(in_flight) or t <= last_gen):
+        for i, b in enumerate(snap_ticks):
+            if b == t:
+                snaps[i].copy_(received)
         _, nonzero = _tick(
-            dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, plain
+            dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
+            plain, opts,
         )
         in_flight[t % dg.ring_size] = bool(nonzero)
         t += 1
-    return seen, received, sent, t - t_start
+    for i, b in enumerate(snap_ticks):
+        if b >= t:  # at or after quiescence: the (unchanging) final counts
+            snaps[i].copy_(received)
+    return seen, received, sent, snaps, t - t_start
 
 
 def _run_chunk_coverage(
@@ -293,11 +360,12 @@ def _run_chunk_coverage(
     chunk_size: int,
     horizon: int,
     coverage_slots: int | None = None,
+    opts: TickOptions = NO_OPTIONS,
     plain: bool = False,
 ):
     """Coverage-recording run from t=0. Returns (seen, received, sent,
     coverage) with coverage (horizon, S) int32 node counts per tick; rows
-    past quiescence hold the final value.
+    past quiescence hold the final value. ``opts`` as in `_tick`.
 
     Coverage accumulates incrementally: each (node, share) bit enters the
     tick's new frontier at most once, so per-tick coverage is a running
@@ -317,7 +385,8 @@ def _run_chunk_coverage(
     t = 0
     while t < horizon and (any(in_flight) or t <= last_gen):
         newly_out, nonzero = _tick(
-            dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, plain
+            dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
+            plain, opts,
         )
         cov_run += bitmask.coverage_per_slot(
             newly_out[:, :cov_w], cov_slots, plain=plain
@@ -329,11 +398,47 @@ def _run_chunk_coverage(
     return seen, received, sent, cov_hist
 
 
-def _generated(schedule: Schedule, horizon: int) -> np.ndarray:
-    live = schedule.gen_ticks < horizon
-    return np.bincount(
-        schedule.origins[live], minlength=schedule.n_nodes
-    ).astype(np.int64)
+def filter_snapshot_boundaries(snapshot_ticks, horizon_ticks) -> list[int]:
+    """Boundaries past the horizon never fire on the event engine (its
+    final flush is at horizon_ticks): drop them, as the JAX engine does."""
+    if not snapshot_ticks:
+        return []
+    return sorted(b for b in snapshot_ticks if b <= horizon_ticks)
+
+
+def assemble_snapshots(schedule, churn, boundaries, snap_received, connections):
+    """The periodic-stats entries (PrintPeriodicStats, p2pnetwork.cc:231)
+    from per-boundary received totals, in the JAX engine's dict form."""
+    snapshots = []
+    for i, b in enumerate(boundaries):
+        gen_b = int(effective_generated(schedule, b, churn).sum())
+        snapshots.append(
+            {
+                "tick": int(b),
+                "generated": gen_b,
+                "processed": gen_b + int(snap_received[i].sum()),
+                "connections": int(connections),
+            }
+        )
+    return snapshots
+
+
+def _canonical_delays(dg: DeviceGraph) -> np.ndarray:
+    """Per-edge delays in CSR order, independent of how they were staged
+    (the JAX engine's checkpoint fingerprint input): bucketed and
+    full-width stagings of the same delays fingerprint identically."""
+    if dg.uniform_delay is not None:
+        return np.asarray([dg.uniform_delay], dtype=np.int64)
+    if dg.buckets is None:
+        mask = dg.ell_mask.cpu().numpy()
+        return dg.ell_delay.cpu().numpy()[mask]
+    per_node: list = [None] * dg.n
+    for rows, _idx, b_mask, b_delay in dg.buckets:
+        mask_np = b_mask.cpu().numpy()
+        delay_np = b_delay.cpu().numpy()
+        for j, r in enumerate(rows.cpu().numpy()):
+            per_node[r] = delay_np[j][mask_np[j]]
+    return np.concatenate(per_node)
 
 
 def _stage(graph, ell_delays, constant_delay, device_graph, device):
@@ -347,6 +452,14 @@ def _stage(graph, ell_delays, constant_delay, device_graph, device):
     return device_graph
 
 
+def _tick_options(dg, churn, loss, connect_tick=0) -> TickOptions:
+    return TickOptions(
+        churn=churn_mod.to_device(churn, dg.device),
+        loss=None if loss is None else loss.static_cfg,
+        connect_tick=int(connect_tick),
+    )
+
+
 def run_sync_sim(
     graph: Graph,
     schedule: Schedule,
@@ -355,50 +468,107 @@ def run_sync_sim(
     constant_delay: int = 1,
     chunk_size: int = DEFAULT_CHUNK_SIZE,
     device_graph: DeviceGraph | None = None,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 1,
+    stop_after_chunks: int | None = None,
+    churn: ChurnModel | None = None,
+    snapshot_ticks: list[int] | None = None,
+    loss: LinkLossModel | None = None,
+    connect_tick: int = 0,
     *,
     device=None,
     plain: bool = False,
 ) -> NodeStats:
     """Run the full simulation on the synchronous engine: the counterpart
-    of the JAX package's ``run_sync_sim``, identical per-node counters and
-    ``stats.extra["ticks_executed"]``.
+    of the JAX package's ``run_sync_sim``, identical per-node counters,
+    ``stats.extra["ticks_executed"]`` and snapshots.
+
+    Options, as in the JAX engine:
+    - ``checkpoint_path``: accumulated counters are written atomically
+      every ``checkpoint_every`` chunks, and a run restarted with the same
+      inputs resumes after the last completed chunk; a checkpoint of a
+      different run is detected by fingerprint and ignored. The file is
+      the JAX package's: either package resumes the other's.
+      ``stop_after_chunks`` ends the call after that many chunks.
+    - ``churn`` (`models.churn.ChurnModel`): a node inside a downtime
+      interval loses its arrivals and skips its generations.
+    - ``snapshot_ticks``: ``stats.extra["snapshots"]`` gets one entry per
+      boundary with the totals over all ticks strictly before it
+      (PrintPeriodicStats, p2pnetwork.cc:231); present (possibly empty)
+      whenever snapshots were requested.
+    - ``loss`` (`models.linkloss.LinkLossModel`): messages crossing a
+      directed link during one of its erasure ticks are dropped in flight.
+    - ``connect_tick``: the socket warm-up window; earlier generations are
+      counted and marked seen at their origin but never broadcast.
 
     ``device=None`` means CUDA and raises RuntimeError without it; pass
     ``device="cpu"`` for the CPU. ``plain=True`` runs the kernels' plain
     torch versions on any device (the comparison run for the kernels)."""
     dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
+    opts = _tick_options(dg, churn, loss, connect_tick)
     chunk_size = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
     chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
+    boundaries = filter_snapshot_boundaries(snapshot_ticks, horizon_ticks)
+    snap_received = np.zeros((len(boundaries), graph.n), dtype=np.int64)
     received = np.zeros(graph.n, dtype=np.int64)
     sent = np.zeros(graph.n, dtype=np.int64)
     ticks_executed = 0
-    for chunk in schedule.chunk(chunk_size):
+
+    checkpointer = None
+    if checkpoint_path is not None:
+        # The JAX engine's fingerprint, part for part (its sync.py:761-775),
+        # over the effective delays in canonical CSR order.
+        ckpt_fp = fingerprint(
+            "sync_sim", graph.n, graph.edges(), schedule.origins,
+            schedule.gen_ticks, horizon_ticks, chunk_size,
+            _canonical_delays(dg), dg.uniform_delay, dg.ring_size,
+            churn.down_start if churn is not None else None,
+            churn.down_end if churn is not None else None,
+            *([np.asarray(opts.loss, dtype=np.int64)] if opts.loss else []),
+            *([np.asarray(boundaries, dtype=np.int64)] if boundaries else []),
+            *(["connect", connect_tick] if connect_tick else []),
+        )
+        checkpointer = ChunkCheckpointer(
+            checkpoint_path, ckpt_fp,
+            {"received": received, "sent": sent, "snap_received": snap_received},
+            checkpoint_every,
+        )
+
+    chunks = schedule.chunk(chunk_size)
+    for _, chunk in checkpointed_chunks(chunks, checkpointer, stop_after_chunks):
         live = chunk.gen_ticks < horizon_ticks
         if not live.any():
             continue
         origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
-        _, r, s, ticks = _run_chunk_while(
+        _, r, s, snaps, ticks = _run_chunk_while(
             dg,
             torch.as_tensor(origins.astype(np.int64), device=dg.device),
             torch.as_tensor(gen_ticks, device=dg.device),
             int(chunk.gen_ticks[live].min()),
             int(chunk.gen_ticks[live].max()),
-            chunk_size=chunk_size, horizon=horizon_ticks, plain=plain,
+            chunk_size=chunk_size, horizon=horizon_ticks, opts=opts,
+            snap_ticks=boundaries, plain=plain,
         )
         received += r.cpu().numpy().astype(np.int64)
         sent += s.cpu().numpy().astype(np.int64)
+        snap_received += snaps.cpu().numpy().astype(np.int64)
         ticks_executed += ticks
 
-    generated = _generated(schedule, horizon_ticks)
+    generated = effective_generated(schedule, horizon_ticks, churn)
+    degree = graph.degree.astype(np.int64)
     stats = NodeStats(
         generated=generated,
         received=received,
         forwarded=received.copy(),
         sent=sent,
         processed=generated + received,
-        degree=graph.degree.astype(np.int64),
+        degree=degree,
     )
     stats.extra["ticks_executed"] = ticks_executed
+    if snapshot_ticks is not None:
+        stats.extra["snapshots"] = assemble_snapshots(
+            schedule, churn, boundaries, snap_received, degree.sum()
+        )
     return stats
 
 
@@ -409,6 +579,8 @@ def run_flood_coverage(
     ell_delays: np.ndarray | None = None,
     constant_delay: int = 1,
     device_graph: DeviceGraph | None = None,
+    churn: ChurnModel | None = None,
+    loss: LinkLossModel | None = None,
     chunk_size: int | None = None,
     *,
     device=None,
@@ -419,7 +591,8 @@ def run_flood_coverage(
     Returns (stats, coverage) where coverage is (horizon, num_origins)
     int32 node counts per tick — the time-to-99%-coverage curve.
     ``chunk_size=None`` pads the bitmask to MIN_CHUNK_SHARES, as the JAX
-    engine does. ``device`` and ``plain`` as in `run_sync_sim`."""
+    engine does. ``churn`` and ``loss`` as in `run_sync_sim`; ``device``
+    and ``plain`` as there too."""
     origins = np.asarray(origins, dtype=np.int32).reshape(-1)
     s = origins.shape[0]
     floor = MIN_CHUNK_SHARES if chunk_size is None else chunk_size
@@ -432,9 +605,9 @@ def run_flood_coverage(
         torch.as_tensor(o.astype(np.int64), device=dg.device),
         torch.as_tensor(g, device=dg.device),
         chunk_size=chunk_size, horizon=horizon_ticks, coverage_slots=s,
-        plain=plain,
+        opts=_tick_options(dg, churn, loss), plain=plain,
     )
-    generated = _generated(sched, horizon_ticks)
+    generated = effective_generated(sched, horizon_ticks, churn)
     received = r.cpu().numpy().astype(np.int64)
     stats = NodeStats(
         generated=generated,

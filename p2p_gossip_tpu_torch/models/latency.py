@@ -53,3 +53,31 @@ def lognormal_delays(
         np.round(rng.lognormal(mu, sigma, size=m)), 1, max_ticks
     ).astype(np.int32)
     return _symmetrize_edge_values(graph, vals)
+
+
+def serialization_delays(
+    graph: Graph,
+    *,
+    latency_ticks: int = 1,
+    message_bytes: int = 30,
+    bandwidth_mbps: float = 5.0,
+    tick_dt: float = 0.005,
+) -> np.ndarray:
+    """Latency plus the per-hop serialization time of an S-byte message on
+    the reference's point-to-point links (5 Mbps, p2pnetwork.cc:113): the
+    combined time (latency + S*8/bandwidth) rounded half-up to whole ticks,
+    floored at 1. The reference's ~30-byte shares at 5 Mbps on 5 ms ticks
+    stay at 1 tick a hop; larger payloads or slower links add whole ticks.
+    Each message is charged on its own (no per-link queue). Uniform across
+    edges, so the uniform-delay path applies."""
+    if latency_ticks < 1:
+        raise ValueError("latency_ticks must be >= 1")
+    if message_bytes < 0:
+        raise ValueError("message_bytes must be >= 0")
+    if bandwidth_mbps <= 0 or tick_dt <= 0:
+        raise ValueError("bandwidth_mbps and tick_dt must be > 0")
+    ser_s = message_bytes * 8 / (bandwidth_mbps * 1e6)
+    total_s = latency_ticks * tick_dt + ser_s
+    # floor(x + 0.5): half-up, immune to float banker's rounding.
+    ticks = max(1, int(np.floor(total_s / tick_dt + 0.5)))
+    return np.full((graph.n, graph.ell_width), ticks, dtype=np.int32)

@@ -29,11 +29,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_U32 = ctypes.c_uint32  # values up to 0xFFFFFFFF (c_int raises from 2^31)
 _SIGNATURES = {
     # hist, occ, n_src, w, ring, tick, uniform_slot, idx, mask, delay,
-    # n_rows, cap, rows, n_out, out, stream
+    # n_rows, cap, rows, n_out, up, loss_on, loss_seed, loss_limit, out,
+    # stream
     "gossip_gather_or": (
-        _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+        _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I,
+        _P, _I, _U32, _U32, _P, _P,
     ),
     # words, n, w, ld, out, stream
     "gossip_sector_occupancy": (_P, _I, _I, _LL, _P, _P),

@@ -10,7 +10,13 @@ launch of the hand-written ``gather_or`` kernel (ops/kernels.py) per ELL
 (one per degree bucket); on the CPU it is that kernel's plain version.
 Each variant takes the ring's sector occupancy ``occ`` ((D, N_src) int32,
 `kernels.sector_occupancy` of each slot) so the kernel reads only the
-sectors of a source row that hold bits; None reads every sector.
+sectors of a source row that hold bits; None reads every sector. Each also
+takes the two options the kernel applies: ``loss``, the link-loss model's
+(threshold, seed) pair, whose coin hashes (src, dst, arrival tick ``t``)
+edge by edge before the OR (dst is the output row's node id: its index in
+a full-width ELL, its bucket's ``rows`` entry in a bucketed one), and
+``up``, the churn model's (N_out,) bool destination mask (a down node's
+arrivals are zero).
 
 The host planners (`bucket_rows_by_count`, `build_degree_buckets`,
 `detect_uniform_delay`) are this package's own copies of the JAX
@@ -22,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from p2p_gossip_tpu_torch.models.linkloss import drop_mask_torch
 from p2p_gossip_tpu_torch.ops import kernels
 
 # Degree quantum of the bucketing policy (row caps are multiples of it).
@@ -50,16 +57,21 @@ def gather_or_frontier(
     ell_mask: torch.Tensor,  # (N_out, dmax) bool
     *,
     occ: torch.Tensor | None = None,  # (N_src,) int32 sector occupancy
+    loss: tuple | None = None,
+    up: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
-    """OR-gather arrivals from a single source frontier: (N_out, W)."""
+    """OR-gather arrivals from a single source frontier: (N_out, W).
+    ``tick`` is the arrival tick (the loss coin's input), whichever past
+    slice ``frontier`` is."""
     out = torch.empty(
         (ell_idx.shape[0], frontier.shape[-1]), dtype=torch.int32,
         device=frontier.device,
     )
     return kernels.gather_or(
         frontier.unsqueeze(0), tick, ell_idx, ell_mask, uniform_slot=0,
-        occ=None if occ is None else occ.unsqueeze(0), out=out, plain=plain,
+        occ=None if occ is None else occ.unsqueeze(0), loss=loss, up=up,
+        out=out, plain=plain,
     )
 
 
@@ -72,6 +84,8 @@ def propagate_uniform(
     ring_size: int,
     uniform_delay: int = 1,
     occ: torch.Tensor | None = None,
+    loss: tuple | None = None,
+    up: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Uniform per-edge delay: the delay-line slot is one scalar per tick,
@@ -81,7 +95,7 @@ def propagate_uniform(
     slot = (tick - uniform_delay) % ring_size
     return gather_or_frontier(
         hist[slot], tick, ell_idx, ell_mask,
-        occ=None if occ is None else occ[slot], plain=plain,
+        occ=None if occ is None else occ[slot], loss=loss, up=up, plain=plain,
     )
 
 
@@ -94,6 +108,8 @@ def propagate(
     *,
     ring_size: int,
     occ: torch.Tensor | None = None,
+    loss: tuple | None = None,
+    up: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Per-edge delays: arrivals (N_out, W) int32."""
@@ -103,7 +119,8 @@ def propagate(
         (ell_idx.shape[0], hist.shape[-1]), dtype=torch.int32, device=hist.device
     )
     return kernels.gather_or(
-        hist, tick, ell_idx, ell_mask, ell_delay, occ=occ, out=out, plain=plain
+        hist, tick, ell_idx, ell_mask, ell_delay, occ=occ, loss=loss, up=up,
+        out=out, plain=plain,
     )
 
 
@@ -116,6 +133,8 @@ def propagate_bucketed(
     ring_size: int,
     uniform_delay: int | None = None,
     occ: torch.Tensor | None = None,
+    loss: tuple | None = None,
+    up: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Gather-OR over degree buckets (see `build_degree_buckets`),
@@ -134,17 +153,23 @@ def propagate_bucketed(
         kernels.gather_or(
             hist, tick, b_idx, b_mask,
             None if uniform_delay is not None else b_delay,
-            uniform_slot=uniform_slot, rows=rows, occ=occ, out=arrivals,
-            plain=plain,
+            uniform_slot=uniform_slot, rows=rows, occ=occ, loss=loss, up=up,
+            out=arrivals, plain=plain,
         )
     return arrivals
 
 
-def propagate_reference(hist, tick, ell_idx, ell_delay, ell_mask, *, ring_size):
-    """Straight-line oracle: materializes (N_out, dmax, W) and OR-folds it."""
+def propagate_reference(
+    hist, tick, ell_idx, ell_delay, ell_mask, *, ring_size, loss=None
+):
+    """Straight-line oracle: materializes (N_out, dmax, W) and OR-folds it,
+    with the loss coin (dst = row index) cleared from the mask."""
     d, n_src, w = hist.shape
     slot = torch.remainder(tick - ell_delay.to(torch.int64), ring_size)
     gathered = hist.reshape(d * n_src, w)[slot * n_src + ell_idx.to(torch.int64)]
+    if loss is not None:
+        dst = torch.arange(ell_idx.shape[0], device=hist.device)[:, None]
+        ell_mask = ell_mask & ~drop_mask_torch(ell_idx, dst, tick, *loss)
     gathered = torch.where(ell_mask[..., None], gathered, 0)
     acc = torch.zeros((ell_idx.shape[0], w), dtype=torch.int32, device=hist.device)
     for k in range(gathered.shape[1]):

@@ -28,6 +28,8 @@ import ctypes
 
 import torch
 
+from p2p_gossip_tpu_torch.models.linkloss import drop_mask_torch
+
 WORD_BITS = 32
 
 launches = {
@@ -194,14 +196,23 @@ def sector_occupancy(
 
 # --- gather_or --------------------------------------------------------------
 
-def gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out, occ=None):
+def gather_or_plain(
+    hist, tick, idx, mask, delay, uniform_slot, rows, out, occ=None, loss=None, up=None,
+):
     """A masked ``|=`` over the degree columns, then a write into node
-    order that drops rows outside ``[0, len(out))``. The mask is applied
-    as an AND with all-ones (valid) or zero (padding) words, and ``occ``
-    (when given) as an AND with each gathered row's expanded sector mask —
-    exactly what the kernel reads, so a wrong occupancy shows here too."""
+    order that drops rows outside ``[0, len(out))``. The mask (with the
+    loss coin's drops cleared from it) is applied as an AND with all-ones
+    (kept) or zero words, ``occ`` (when given) as an AND with each gathered
+    row's expanded sector mask — exactly what the kernel reads, so a wrong
+    occupancy shows here too — and ``up`` as an AND of each destination
+    row with all-ones (up) or zero (down)."""
     d, n_src, w = hist.shape
-    acc = torch.zeros((idx.shape[0], w), dtype=torch.int32, device=hist.device)
+    n_rows = idx.shape[0]
+    dst = (torch.arange(n_rows, device=hist.device) if rows is None
+           else rows.to(torch.int64))
+    if loss is not None:
+        mask = mask & ~drop_mask_torch(idx, dst[:, None], tick, *loss)
+    acc = torch.zeros((n_rows, w), dtype=torch.int32, device=hist.device)
     keep = (-mask.to(torch.int32)).t().contiguous()
     if delay is None:
         src = hist[uniform_slot]
@@ -219,12 +230,15 @@ def gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out, occ=N
             marked = (src_occ[rows_k[k]][:, None] >> sector) & 1
             words &= -marked
         acc |= words
+    ok = (dst >= 0) & (dst < out.shape[0])
+    if up is not None:
+        live = torch.zeros_like(ok)
+        live[ok] = up[dst[ok]]
+        acc &= -live.to(torch.int32)[:, None]
     if rows is None:
         out.copy_(acc)
     else:
-        r = rows.to(torch.int64)
-        ok = (r >= 0) & (r < out.shape[0])
-        out[r[ok]] = acc[ok]
+        out[dst[ok]] = acc[ok]
     return out
 
 
@@ -238,12 +252,16 @@ def gather_or(
     uniform_slot: int | None = None,
     rows: torch.Tensor | None = None,
     occ: torch.Tensor | None = None,
+    loss: tuple[int, int] | None = None,
+    up: torch.Tensor | None = None,
     out: torch.Tensor,
     plain: bool = False,
 ) -> torch.Tensor:
     """ELL gather-OR over a frontier-history ring, written into ``out``:
 
-        out[rows[r]] = OR_k mask[r, k] ? hist[slot(r, k), idx[r, k]] : 0
+        out[dst] = up[dst] ? OR_k (mask[r, k] && !drop(idx[r, k], dst, tick))
+                                  ? hist[slot(r, k), idx[r, k]] : 0
+                           : 0,       dst = rows[r] (r when rows is None)
 
     ``hist`` (D, N_src, W) int32; ``idx`` (R, C) int32; ``mask`` (R, C)
     bool; ``delay`` (R, C) int32 per-edge delays with slot(r, k) = (tick -
@@ -251,7 +269,11 @@ def gather_or(
     int32 destination rows (None: row r -> r, and then R == len(out)).
     ``occ`` (D, N_src) int32 is the ring's `sector_occupancy`: only the
     sectors it marks are read (an exact or over-approximating occupancy
-    leaves the result unchanged); None reads every sector. Returns ``out``."""
+    leaves the result unchanged); None reads every sector. ``loss`` is the
+    link-loss model's (threshold, seed) pair (`models.linkloss`; ``tick``
+    is the arrival tick the coin hashes), None or threshold 0 for no loss.
+    ``up`` (len(out),) bool is the churn model's up mask of destinations;
+    a down destination gets a zero row. Returns ``out``."""
     _require(hist.dim() == 3, "hist must be (D, N, W)")
     d, n_src, w = hist.shape
     _require(idx.shape == mask.shape, "idx and mask shapes differ")
@@ -263,8 +285,14 @@ def gather_or(
     _require(rows is not None or idx.shape[0] == out.shape[0],
              "identity rows need one ELL row per output row")
     _require(occ is None or occ.shape == (d, n_src), "occ must be (D, N_src)")
+    _require(up is None or (up.shape == (out.shape[0],) and up.dtype == torch.bool),
+             "up must be (N_out,) bool")
+    if loss is not None and loss[0] <= 0:
+        loss = None  # threshold 0: the coin never drops
     if not _use_kernel(hist, plain):
-        return gather_or_plain(hist, tick, idx, mask, delay, uniform_slot, rows, out, occ)
+        return gather_or_plain(
+            hist, tick, idx, mask, delay, uniform_slot, rows, out, occ, loss, up
+        )
     tensors = [("hist", hist, torch.int32), ("idx", idx, torch.int32),
                ("mask", mask, torch.bool), ("out", out, torch.int32)]
     if delay is not None:
@@ -274,10 +302,17 @@ def gather_or(
         tensors.append(("rows", rows, torch.int32))
     if occ is not None:
         tensors.append(("occ", occ, torch.int32))
+    if up is not None:
+        tensors.append(("up", up, torch.bool))
     for name, t, dtype in tensors:
         _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
         _require(t.device == hist.device, f"{name} is on {t.device}, not {hist.device}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
+    loss_seed = loss_limit = 0
+    if loss is not None:
+        threshold, seed = loss
+        loss_seed = int(seed) & 0xFFFFFFFF
+        loss_limit = min(int(threshold), 1 << 32) - 1
     n_rows, cap = idx.shape
     if n_rows and w:
         _launch(
@@ -288,6 +323,8 @@ def gather_or(
             idx.data_ptr(), mask.data_ptr(),
             None if delay is None else delay.data_ptr(),
             n_rows, cap, None if rows is None else rows.data_ptr(),
-            out.shape[0], out.data_ptr(), _stream(hist.device),
+            out.shape[0], None if up is None else up.data_ptr(),
+            int(loss is not None), loss_seed, loss_limit,
+            out.data_ptr(), _stream(hist.device),
         )
     return out

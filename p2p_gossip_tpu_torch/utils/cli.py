@@ -1,15 +1,21 @@
 """``python -m p2p_gossip_tpu_torch`` — the flood engine from the command
 line, with the reference's four flags and defaults (p2pnetwork.cc:300-305:
-``--numNodes 10 --connectionProb 0.3 --simTime 60 --Latency 5``) and its
-`PrintStatistics` report. One tick is one link latency, as in the JAX
-package's CLI: the graph is Erdős–Rényi, shares follow the reference's
-U(2, 5) s renewal process, and both derive from ``--seed``."""
+``--numNodes 10 --connectionProb 0.3 --simTime 60 --Latency 5``), its
+periodic and final reports (`PrintPeriodicStats`, `PrintStatistics`), and
+the JAX package CLI's flags for the flood engine's options: delay models,
+churn, link loss, the connect window, checkpoints and the flood-coverage
+experiment, with that CLI's names, defaults, validation and messages. One
+tick is one link latency; the graph is Erdős–Rényi, shares follow the
+reference's U(2, 5) s renewal process, and every random model derives from
+``--seed`` as in the JAX package."""
 
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+
+import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -26,9 +32,84 @@ def build_parser() -> argparse.ArgumentParser:
         "--simTime", type=float, default=60.0, help="Simulation time in seconds"
     )
     p.add_argument("--Latency", type=float, default=5.0, help="latency in ms")
+    p.add_argument(
+        "--delayModel",
+        choices=("constant", "lognormal", "serialization"),
+        default="constant",
+        help="Per-edge delay model: constant (reference default), "
+        "lognormal (heterogeneous links), or serialization (latency + "
+        "message size / link bandwidth, the reference's 5 Mbps "
+        "point-to-point links)",
+    )
+    p.add_argument("--delayMeanTicks", type=float, default=2.0)
+    p.add_argument("--delaySigma", type=float, default=0.5)
+    p.add_argument("--delayMaxTicks", type=int, default=8)
+    p.add_argument(
+        "--shareBytes", type=int, default=30,
+        help="Message size for --delayModel serialization (the reference "
+        "share struct is ~30 bytes on the wire)",
+    )
+    p.add_argument(
+        "--bandwidthMbps", type=float, default=5.0,
+        help="Link bandwidth for --delayModel serialization "
+        "(reference: 5 Mbps, p2pnetwork.cc:113)",
+    )
+    p.add_argument(
+        "--churnProb", type=float, default=0.0,
+        help="Node churn: probability each node suffers a random outage "
+        "(per outage slot; 0 disables churn). Down nodes lose arriving "
+        "shares and skip generations.",
+    )
+    p.add_argument(
+        "--lossProb", type=float, default=0.0,
+        help="Per-link message loss probability: each directed link drops "
+        "all messages crossing it during an erasure tick with this "
+        "probability (0 disables). Deterministic in --seed.",
+    )
+    p.add_argument(
+        "--churnDowntime", type=float, default=5.0,
+        help="Mean outage duration in seconds (geometric, min one tick)",
+    )
+    p.add_argument(
+        "--churnOutages", type=int, default=1,
+        help="Maximum outages per node over the run",
+    )
+    p.add_argument(
+        "--connectAtTick", type=int, default=0,
+        help="Socket warm-up window: peers connect at this tick "
+        "(reference: 5s, p2pnetwork.cc:93-96); shares generated earlier "
+        "stay with their origin and charge no sends. 0 = connected at t0",
+    )
+    p.add_argument(
+        "--statsInterval", type=float, default=10.0,
+        help="Periodic stats interval in seconds",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--chunkSize", type=int, default=4096, help="Shares per device pass"
+    )
+    p.add_argument(
+        "--perNodeStats", action="store_true", default=None,
+        help="Print per-node lines (default: on for N <= 1000)",
+    )
+    p.add_argument(
+        "--checkpoint", type=str, default="",
+        help="Checkpoint file: save progress between share chunks and resume "
+        "an interrupted run from it (the JAX package's file format)",
+    )
+    p.add_argument(
+        "--checkpointEvery", type=int, default=1,
+        help="Chunks between checkpoint writes (default 1)",
+    )
+    p.add_argument(
+        "--floodCoverage", type=int, default=0, metavar="S",
+        help="Coverage-time experiment instead of the gossip run: flood S "
+        "shares from random origins at t=0 and report per-share "
+        "time-to-99%% coverage",
+    )
+    p.add_argument(
+        "--coverageFraction", type=float, default=0.99,
+        help="Coverage fraction reported by --floodCoverage (default 0.99)",
     )
     p.add_argument(
         "--device", default="cuda",
@@ -37,38 +118,188 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def _run_flood_coverage_cli(args, g, horizon, delays, churn, loss) -> int:
+    """Flood coverage-time experiment: S shares flooded from random origins
+    at t=0, per-share time-to-``coverageFraction`` in ticks and seconds,
+    the propagation-latency table and the redundancy line."""
+    from p2p_gossip_tpu_torch.engine.sync import run_flood_coverage, time_to_coverage
+    from p2p_gossip_tpu_torch.utils.analysis import (
+        format_propagation_report,
+        message_redundancy,
+        propagation_latency,
+    )
+
+    tick_dt = args.Latency / 1000.0
+    rng = np.random.default_rng(args.seed)
+    origins = rng.integers(0, g.n, args.floodCoverage).astype(np.int32)
+    t0 = time.perf_counter()
+    stats, coverage = run_flood_coverage(
+        g, origins, horizon, ell_delays=delays, churn=churn, loss=loss,
+        device=args.device,
+    )
+    wall = time.perf_counter() - t0
+    ttc = time_to_coverage(coverage, g.n, args.coverageFraction)
+    reached = ttc >= 0
+    print(
+        f"=== Flood Coverage ({args.floodCoverage} shares, target "
+        f"{args.coverageFraction:.0%} of {g.n} nodes) ==="
+    )
+    if reached.any():
+        ticks = ttc[reached]
+        print(
+            f"Shares reaching target: {int(reached.sum())}/{len(ttc)}\n"
+            f"Time to {args.coverageFraction:.0%} coverage: "
+            f"min {ticks.min()} / median {int(np.median(ticks))} / "
+            f"max {ticks.max()} ticks "
+            f"({ticks.min() * tick_dt:g}s / {np.median(ticks) * tick_dt:g}s / "
+            f"{ticks.max() * tick_dt:g}s)"
+        )
+    else:
+        print(f"Shares reaching target: 0/{len(ttc)} within {horizon} ticks")
+    print(
+        f"Final coverage: min {coverage[-1].min()} / "
+        f"mean {coverage[-1].mean():.1f} / max {coverage[-1].max()} nodes"
+    )
+    report = propagation_latency(coverage, g.n)
+    print(format_propagation_report(report, tick_ms=args.Latency), end="")
+    red = message_redundancy(stats)
+    spd = red["sends_per_delivery"]  # None when nothing was delivered
+    print(
+        f"Redundancy: {'n/a' if spd is None else f'{spd:.2f}'} sends per "
+        f"delivery ({red['wasted_fraction']:.1%} duplicate or lost)"
+    )
+    print(
+        f"Simulated {horizon} ticks in {wall:.3f}s wall "
+        f"({stats.totals()['processed'] / max(wall, 1e-9):.3g} node-updates/s)"
+    )
+    return 0
+
+
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from p2p_gossip_tpu_torch.engine.sync import run_sync_sim
+    from p2p_gossip_tpu_torch.models.churn import random_churn
     from p2p_gossip_tpu_torch.models.generation import uniform_renewal_schedule
+    from p2p_gossip_tpu_torch.models.latency import (
+        lognormal_delays,
+        serialization_delays,
+    )
+    from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
+    from p2p_gossip_tpu_torch.models.seeds import churn_stream_seed, loss_stream_seed
     from p2p_gossip_tpu_torch.models.topology import erdos_renyi
     from p2p_gossip_tpu_torch.utils.stats import format_final_statistics
 
     if args.numNodes < 2:
-        print("error: --numNodes must be >= 2", file=sys.stderr)
-        return 2
+        return _error("--numNodes must be >= 2")
     if args.Latency <= 0 or args.simTime < 0 or args.chunkSize < 1:
-        print(
-            "error: --Latency must be > 0, --simTime >= 0, --chunkSize >= 1",
-            file=sys.stderr,
-        )
-        return 2
+        return _error("--Latency must be > 0, --simTime >= 0, --chunkSize >= 1")
     tick_dt = args.Latency / 1000.0
     horizon = int(round(args.simTime / tick_dt))
     g = erdos_renyi(args.numNodes, args.connectionProb, seed=args.seed)
     sched = uniform_renewal_schedule(g.n, args.simTime, tick_dt, seed=args.seed)
+
+    delays = None
+    if args.delayModel == "lognormal":
+        delays = lognormal_delays(
+            g, args.delayMeanTicks, args.delaySigma, args.delayMaxTicks,
+            seed=args.seed,
+        )
+    elif args.delayModel == "serialization":
+        if args.shareBytes < 0 or args.bandwidthMbps <= 0:
+            return _error("--shareBytes must be >= 0 and --bandwidthMbps > 0")
+        delays = serialization_delays(
+            g, message_bytes=args.shareBytes,
+            bandwidth_mbps=args.bandwidthMbps, tick_dt=tick_dt,
+        )
+        print(
+            f"serialization delay model: {args.shareBytes} B at "
+            f"{args.bandwidthMbps:g} Mbps on {args.Latency:g} ms latency "
+            f"-> {int(delays.max())} tick(s)/hop",
+            file=sys.stderr,
+        )
+
+    loss = None
+    if not 0.0 <= args.lossProb <= 1.0:
+        return _error(f"--lossProb must be in [0, 1], got {args.lossProb:g}")
+    if args.lossProb > 0.0:
+        loss = LinkLossModel(args.lossProb, seed=loss_stream_seed(args.seed))
+    churn = None
+    if not 0.0 <= args.churnProb <= 1.0:
+        return _error(f"--churnProb must be in [0, 1], got {args.churnProb:g}")
+    if args.churnProb > 0.0:
+        churn = random_churn(
+            g.n, horizon,
+            outage_prob=args.churnProb,
+            mean_down_ticks=max(args.churnDowntime / tick_dt, 1.0),
+            max_outages=args.churnOutages,
+            seed=churn_stream_seed(args.seed),
+        )
+
     print(
         f"Starting gossip network simulation: {g.n} nodes, "
         f"{g.num_edges} links, {sched.num_shares} shares scheduled, "
         f"{horizon} ticks ({args.simTime:g}s at {args.Latency:g}ms), "
         f"device={args.device}"
     )
+    if churn is not None:
+        n_outages = int((churn.down_end > churn.down_start).sum())
+        print(
+            f"Churn enabled: {n_outages} outages scheduled across {g.n} "
+            f"nodes (mean downtime {args.churnDowntime:g}s)"
+        )
+    interval_ticks = int(round(args.statsInterval / tick_dt))
+    snapshot_ticks = (
+        list(range(interval_ticks, horizon, interval_ticks))
+        if interval_ticks > 0
+        else []
+    )
+
+    if args.connectAtTick < 0:
+        return _error(f"--connectAtTick must be >= 0, got {args.connectAtTick}")
+    if args.connectAtTick and args.floodCoverage:
+        return _error(
+            "--connectAtTick cannot be combined with --floodCoverage (the "
+            "warm-up window is a flood-gossip reference semantic)"
+        )
+    if args.floodCoverage:
+        if args.floodCoverage < 0:
+            return _error(
+                f"--floodCoverage must be positive, got {args.floodCoverage}"
+            )
+        if not 0.0 < args.coverageFraction <= 1.0:
+            return _error(
+                "--coverageFraction must be in (0, 1], got "
+                f"{args.coverageFraction:g}"
+            )
+        return _run_flood_coverage_cli(args, g, horizon, delays, churn, loss)
+    if args.checkpointEvery < 1:
+        return _error("--checkpointEvery must be >= 1")
+
     t0 = time.perf_counter()
     stats = run_sync_sim(
-        g, sched, horizon, chunk_size=args.chunkSize, device=args.device
+        g, sched, horizon, ell_delays=delays, chunk_size=args.chunkSize,
+        checkpoint_path=args.checkpoint or None,
+        checkpoint_every=args.checkpointEvery, churn=churn,
+        snapshot_ticks=snapshot_ticks, loss=loss,
+        connect_tick=args.connectAtTick, device=args.device,
     )
     wall = time.perf_counter() - t0
-    print(format_final_statistics(stats, per_node=g.n <= 1000), end="")
+    # Periodic reports (PrintPeriodicStats, p2pnetwork.cc:201-204).
+    for snap in stats.extra["snapshots"]:
+        avg = snap["processed"] // max(g.n, 1)
+        print(
+            f"=== Periodic Stats at {snap['tick'] * tick_dt:g}s ===\n"
+            f"Total shares generated: {snap['generated']}\n"
+            f"Average shares per node: {avg}\n"
+            f"Total socket connections: {snap['connections']}"
+        )
+    per_node = args.perNodeStats if args.perNodeStats is not None else g.n <= 1000
+    print(format_final_statistics(stats, per_node=per_node), end="")
     print(
         f"Simulated {args.simTime:g}s ({horizon} ticks, "
         f"{stats.extra['ticks_executed']} executed) in {wall:.3f}s wall "

@@ -5,12 +5,19 @@ import numpy as np
 import pytest
 
 import p2p_gossip_tpu as pg
+from p2p_gossip_tpu.models import churn as jchurn
 from p2p_gossip_tpu.models import generation as jgen
 from p2p_gossip_tpu.models import latency as jlatency
+from p2p_gossip_tpu.models import seeds as jseeds
 from p2p_gossip_tpu.models import topology as jtopo
+from p2p_gossip_tpu.models.linkloss import LinkLossModel as JaxLoss
+from p2p_gossip_tpu.models.linkloss import drop_mask_np as jdrop_mask_np
+from p2p_gossip_tpu.utils import analysis as janalysis
+from p2p_gossip_tpu.utils import checkpoint as jcheckpoint
 from p2p_gossip_tpu.utils import stats as jstats
-from p2p_gossip_tpu_torch.models import generation, latency, topology
-from p2p_gossip_tpu_torch.utils import stats
+from p2p_gossip_tpu_torch.models import churn, generation, latency, seeds, topology
+from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel, drop_mask_np
+from p2p_gossip_tpu_torch.utils import analysis, checkpoint, stats
 
 
 def _same_graph(a, b):
@@ -152,3 +159,120 @@ def test_root_exports_match_jax_builders():
 
     _same_graph(pt.erdos_renyi(40, 0.1, seed=8), pg.erdos_renyi(40, 0.1, seed=8))
     assert pt.NodeStats is stats.NodeStats
+
+
+# --- the options' host layer: churn, loss, seeds, delays, checkpoints, analysis
+
+@pytest.mark.parametrize("kw", [
+    dict(outage_prob=0.4, mean_down_ticks=120.0, max_outages=2, seed=2),
+    dict(outage_prob=1.0, mean_down_ticks=0.5, max_outages=3, seed=7919),
+    dict(outage_prob=0.0, seed=1),
+])
+def test_random_churn_and_effective_generated_match_jax(kw):
+    want = jchurn.random_churn(80, 600, **kw)
+    got = churn.random_churn(80, 600, **kw)
+    np.testing.assert_array_equal(got.down_start, want.down_start)
+    np.testing.assert_array_equal(got.down_end, want.down_end)
+    assert got.down_start.dtype == want.down_start.dtype == np.int32
+    sched = jgen.uniform_renewal_schedule(80, 6.0, 0.01, seed=3)
+    for horizon in (300, 600):
+        for model in ((got, want), (None, None)):
+            np.testing.assert_array_equal(
+                churn.effective_generated(sched, horizon, model[0]),
+                jchurn.effective_generated(sched, horizon, model[1]),
+            )
+    np.testing.assert_array_equal(got.total_downtime(600), want.total_downtime(600))
+
+
+def test_up_mask_torch_matches_numpy():
+    cm = churn.from_intervals(5, [(0, 5, 10), (0, 20, 25), (2, 0, 1000), (4, 3, 4)])
+    jcm = jchurn.from_intervals(5, [(0, 5, 10), (0, 20, 25), (2, 0, 1000), (4, 3, 4)])
+    ds, de = churn.to_device(cm, "cpu")
+    assert churn.to_device(None, "cpu") is None
+    for t in (0, 3, 4, 5, 9, 10, 22, 999, 1000):
+        want = jcm.up_mask(t)
+        np.testing.assert_array_equal(cm.up_mask(t), want)
+        np.testing.assert_array_equal(churn.up_mask(ds, de, t).numpy(), want)
+    assert churn.always_up(4).up_mask(0).all()
+
+
+def test_loss_model_and_seed_streams_match_jax():
+    for prob in (0.0, 0.05, 0.6, 1.0):
+        assert LinkLossModel(prob, seed=3).static_cfg == JaxLoss(prob, seed=3).static_cfg
+    with pytest.raises(ValueError):
+        LinkLossModel(1.5)
+    assert seeds.loss_stream_seed(0) == jseeds.loss_stream_seed(0)
+    assert seeds.churn_stream_seed(5) == jseeds.churn_stream_seed(5)
+    src = np.arange(2000, dtype=np.int32)
+    np.testing.assert_array_equal(
+        drop_mask_np(src, src[::-1], 3, 2**31, 9), jdrop_mask_np(src, src[::-1], 3, 2**31, 9)
+    )
+
+
+@pytest.mark.parametrize("message_bytes,bandwidth,tick_dt", [
+    (30, 5.0, 0.005), (8_000, 5.0, 0.005), (0, 5.0, 0.005), (1500, 1.0, 0.001),
+])
+def test_serialization_delays_match_jax(message_bytes, bandwidth, tick_dt):
+    g = topology.erdos_renyi(60, 0.1, seed=4)
+    kw = dict(message_bytes=message_bytes, bandwidth_mbps=bandwidth, tick_dt=tick_dt)
+    np.testing.assert_array_equal(
+        latency.serialization_delays(g, **kw),
+        jlatency.serialization_delays(jtopo.erdos_renyi(60, 0.1, seed=4), **kw),
+    )
+    with pytest.raises(ValueError):
+        latency.serialization_delays(g, bandwidth_mbps=0.0)
+    with pytest.raises(ValueError):
+        latency.serialization_delays(g, message_bytes=-1)
+
+
+def test_fingerprint_and_checkpoint_files_match_jax(tmp_path):
+    g = topology.erdos_renyi(30, 0.2, seed=1)
+    parts = ("sync_sim", g.n, g.edges(), np.arange(5, dtype=np.int32), None, 7,
+             np.asarray([1], dtype=np.int64), ["connect", 3])
+    assert checkpoint.fingerprint(*parts) == jcheckpoint.fingerprint(*parts)
+    assert checkpoint.fingerprint(*parts[:-1]) != checkpoint.fingerprint(*parts)
+    path = str(tmp_path / "c.npz")
+    arrays = {"received": np.arange(4, dtype=np.int64), "sent": np.ones(4, np.int64)}
+    checkpoint.save_checkpoint(path, arrays, {"fingerprint": "x", "next_chunk": 2})
+    saved, meta = jcheckpoint.load_checkpoint(path)
+    assert meta["next_chunk"] == 2 and meta["fingerprint"] == "x"
+    np.testing.assert_array_equal(saved["received"], arrays["received"])
+    jcheckpoint.save_checkpoint(path, arrays, {"fingerprint": "y", "next_chunk": 1})
+    acc = {k: np.zeros(4, np.int64) for k in arrays}
+    ck = checkpoint.ChunkCheckpointer(path, "y", acc)
+    assert ck.start_chunk == 1
+    np.testing.assert_array_equal(acc["sent"], arrays["sent"])
+    assert checkpoint.ChunkCheckpointer(path, "z", {}).start_chunk == 0
+
+
+def test_checkpointed_chunks_skip_stop_and_save(tmp_path):
+    path = str(tmp_path / "c.npz")
+    acc = {"n": np.zeros(1, np.int64)}
+    ck = checkpoint.ChunkCheckpointer(path, "fp", acc, checkpoint_every=2)
+    ran = []
+    for ci, chunk in checkpoint.checkpointed_chunks(list("abcde"), ck, stop_after_chunks=3):
+        ran.append(chunk)
+        acc["n"] += 1
+    assert ran == ["a", "b", "c"]
+    assert checkpoint.load_checkpoint(path)[1]["next_chunk"] == 2  # saved every 2
+    resumed = checkpoint.ChunkCheckpointer(path, "fp", {"n": np.zeros(1, np.int64)})
+    assert [c for _, c in checkpoint.checkpointed_chunks(list("abcde"), resumed)] == list("cde")
+    assert checkpoint.load_checkpoint(path)[1]["next_chunk"] == 5
+
+
+def test_propagation_report_and_redundancy_match_jax():
+    rng = np.random.default_rng(0)
+    cov = np.sort(rng.integers(0, 50, (30, 6)), axis=0)
+    cov[:, 0] = 3  # one share never reaches any target
+    for gen in (None, np.arange(6)):
+        want = janalysis.propagation_latency(cov, 50, gen)
+        got = analysis.propagation_latency(cov, 50, gen)
+        for f in want.fractions:
+            np.testing.assert_array_equal(got.latency[f], want.latency[f])
+        for tick_ms in (None, 5.0):
+            assert (analysis.format_propagation_report(got, tick_ms)
+                    == janalysis.format_propagation_report(want, tick_ms))
+    empty = analysis.propagation_latency(np.zeros((0, 2), np.int32), 10)
+    assert (empty.latency[0.5] == -1).all()
+    a, b = _stats_pair(3)
+    assert analysis.message_redundancy(a) == janalysis.message_redundancy(b)

@@ -22,7 +22,9 @@ from p2p_gossip_tpu.ops.pallas_kernels import (
     coverage_per_slot_pallas,
     popcount_rows_pallas,
 )
+from p2p_gossip_tpu.models.linkloss import drop_mask_np
 from p2p_gossip_tpu_torch import convert
+from p2p_gossip_tpu_torch.models.linkloss import drop_mask_torch
 from p2p_gossip_tpu_torch.ops import bitmask, build, ell, kernels
 
 CPU = torch.device("cpu")
@@ -483,3 +485,136 @@ def test_bitsliced_counter_matches_coverage_plain(planes, extra):
     want = kernels.coverage_per_slot_plain(convert.bitmask_to_torch(words), 5 * 32)
     np.testing.assert_array_equal(got, want.numpy())
     assert got[0] == n and got[32 + 31] == n and not got[96:128].any()
+
+
+# --- the loss coin and the destination up mask ----------------------------------
+
+@pytest.mark.parametrize("threshold", [0, 1, 2**31, 3 * 2**30, 2**32])
+@pytest.mark.parametrize("seed", [0, 104729, 2**31 + 5, 2**32 - 1])
+def test_drop_mask_torch_matches_numpy(threshold, seed):
+    """The plain coin is bit for bit the JAX package's numpy spec on random
+    int32 inputs (negative ones included: they hash as their uint32 bits),
+    seeds past 2^31 and the edge thresholds (0 off, 2^32 drops all)."""
+    rng = np.random.default_rng(seed % 1000 + threshold % 7)
+    src, dst, tick = (rng.integers(-2**31, 2**31, 4000).astype(np.int32) for _ in range(3))
+    want = drop_mask_np(src, dst, tick, threshold, seed)
+    got = drop_mask_torch(torch.as_tensor(src), torch.as_tensor(dst),
+                          torch.as_tensor(tick), threshold, seed)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if threshold in (0, 2**32):
+        assert want.mean() == threshold / 2**32
+
+
+def _up_mask(n, seed):
+    up = np.random.default_rng(seed).random(n) >= 0.2
+    up[:3] = (True, False, True)
+    return up
+
+
+@pytest.mark.parametrize("loss", [(int(0.3 * 2**32), 2**31 + 7), (int(0.6 * 2**32), 11)])
+@pytest.mark.parametrize("layout", ["per_edge", "uniform", "frontier", "bucketed", "bucketed_per_edge"])
+def test_gather_with_loss_and_up_matches_jax(layout, loss):
+    """Every ELL variant with the coin (dst = row index, or the bucket's
+    rows) equals the JAX package's gather with ``loss``, and with ``up``
+    equals it masked as the JAX tick masks a down node's arrivals."""
+    per_edge = layout in ("per_edge", "bucketed_per_edge")
+    g = erdos_renyi(300, 0.04, seed=2)
+    idx, mask = g.ell()
+    dly = lognormal_delays(g, mean_ticks=2.0, sigma=0.6, max_ticks=4, seed=5)
+    ring, tick = int(dly.max()) + 1, 9
+    hist = _hist(3, ring, g.n, 3)
+    up = _up_mask(g.n, 1)
+    j = (jnp.asarray(hist), jnp.int32(tick))
+    t = (convert.bitmask_to_torch(hist), tick)
+    if layout == "per_edge":
+        want = jell.propagate(*j, jnp.asarray(idx), jnp.asarray(dly), jnp.asarray(mask),
+                              ring_size=ring, loss=loss)
+
+        def port(**kw):
+            return ell.propagate(*t, torch.as_tensor(idx), torch.as_tensor(dly),
+                                 torch.as_tensor(mask), ring_size=ring, **kw)
+
+        ref = ell.propagate_reference(*t, torch.as_tensor(idx), torch.as_tensor(dly),
+                                      torch.as_tensor(mask), ring_size=ring, loss=loss)
+        np.testing.assert_array_equal(convert.bitmask_to_numpy(ref), np.asarray(want))
+    elif layout == "uniform":
+        want = jell.propagate_uniform(*j, jnp.asarray(idx), jnp.asarray(mask),
+                                      ring_size=ring, uniform_delay=2, loss=loss)
+
+        def port(**kw):
+            return ell.propagate_uniform(*t, torch.as_tensor(idx), torch.as_tensor(mask),
+                                         ring_size=ring, uniform_delay=2, **kw)
+    elif layout == "frontier":
+        want = jell.gather_or_frontier(j[0][1], j[1], jnp.asarray(idx), jnp.asarray(mask),
+                                       loss=loss)
+
+        def port(**kw):
+            return ell.gather_or_frontier(t[0][1], tick, torch.as_tensor(idx),
+                                          torch.as_tensor(mask), **kw)
+    else:
+        buckets = jell.build_degree_buckets(g, dly if per_edge else None, min_rows=32,
+                                            ell=(idx, mask))
+        assert len(buckets) > 1
+        uniform = None if per_edge else 1
+        want = jell.propagate_bucketed(*j, buckets, n_out=g.n, ring_size=ring,
+                                       uniform_delay=uniform, loss=loss)
+        tb = convert.device_graph_from_numpy(
+            g.n, idx, dly, mask, g.degree, ring, uniform, buckets, device="cpu"
+        ).buckets
+
+        def port(**kw):
+            return ell.propagate_bucketed(*t, tb, n_out=g.n, ring_size=ring,
+                                          uniform_delay=uniform, **kw)
+    want = np.asarray(want)
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(port(loss=loss)), want)
+    got = port(loss=loss, up=torch.as_tensor(up))
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(got),
+                                  np.where(up[:, None], want, 0))
+    assert (want[~up] != 0).any()  # the mask had something to clear
+    lossless = convert.bitmask_to_numpy(port())
+    assert (lossless != want).any() and not (want & ~lossless).any()
+
+
+def test_gather_or_loss_thresholds():
+    """threshold 0 is no loss; 2^32 drops every edge (every row zero);
+    a threshold past 2^31 compares unsigned."""
+    hist, idx, mask, dly = _small_gather_case(4)
+
+    def run(loss):
+        out = torch.full((hist.shape[1], hist.shape[2]), -1, dtype=torch.int32)
+        return kernels.gather_or(hist, 5, idx, mask, dly, loss=loss, out=out)
+
+    none = run(None)
+    assert torch.equal(run((0, 123)), none)
+    assert not run((2**32, 123)).any()
+    high = run((int(0.6 * 2**32), 2**32 - 3))
+    assert high.any() and not torch.equal(high, none)
+    n = hist.shape[1]
+    keep = mask & ~drop_mask_torch(idx, torch.arange(n)[:, None], 5, int(0.6 * 2**32), 2**32 - 3)
+    assert torch.equal(high, _gather(hist, idx, keep, dly, None))
+
+
+def test_gather_or_up_writes_zero_rows_into_garbage():
+    """A down destination's row is written as zeros even when ``out``
+    starts as garbage, with identity rows and through bucket rows."""
+    hist, idx, mask, dly = _small_gather_case(5)
+    n, w = hist.shape[1], hist.shape[2]
+    up = torch.as_tensor(_up_mask(n, 2))
+    want = torch.where(up[:, None], _gather(hist, idx, mask, dly, None), 0)
+    out = torch.full((n, w), -1, dtype=torch.int32)
+    assert torch.equal(kernels.gather_or(hist, 5, idx, mask, dly, up=up, out=out), want)
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(n).astype(np.int32))
+    out = torch.full((n, w), -1, dtype=torch.int32)
+    kernels.gather_or(hist, 5, idx[perm.long()], mask[perm.long()], dly[perm.long()],
+                      rows=perm, up=up, out=out)
+    assert torch.equal(out, want)
+
+
+def test_gather_or_rejects_bad_up():
+    hist = torch.zeros((2, 4, 1), dtype=torch.int32)
+    idx = torch.zeros((4, 2), dtype=torch.int32)
+    mask = torch.ones((4, 2), dtype=torch.bool)
+    out = torch.zeros((4, 1), dtype=torch.int32)
+    for up in (torch.ones(4, dtype=torch.int32), torch.ones(3, dtype=torch.bool)):
+        with pytest.raises(ValueError):
+            kernels.gather_or(hist, 0, idx, mask, uniform_slot=0, up=up, out=out)

@@ -97,3 +97,17 @@ def test_chip_smoke_exits_nonzero_without_cuda(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_gather_binding_declares_unsigned_loss_words():
+    """The loss seed and threshold - 1 reach 0xFFFFFFFF: they are declared
+    c_uint32 (c_int would raise from 2^31 on), right after the up pointer
+    and the loss-on flag, and the C entry takes them as unsigned."""
+    import ctypes
+
+    sig = build._SIGNATURES["gossip_gather_or"]
+    assert sig[14:18] == (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32)
+    assert ctypes.c_uint32(0xFFFFFFFF).value == 0xFFFFFFFF
+    with open(build.SOURCE, encoding="utf-8") as f:
+        src = f.read()
+    assert "unsigned int loss_seed, unsigned int loss_limit" in src
