@@ -35,11 +35,27 @@ Phases (any failure raises and the script exits nonzero):
 8. Flood runs under ``torch.profiler``, without and with the options:
    device time by kernel and the device's busy share of the run's wall
    time.
+9. The random-partner protocols at full size, on the phase-5 graph staged
+   full-width: push-pull with log-normal per-edge delays (max 5 ticks,
+   D = 6), pull with a uniform delay, fanout push (k = 2, uniform delay)
+   and a push-pull coverage run with 4,096 origins; one warm and one timed
+   run each, every run against its plain run (counters and coverage
+   rows), and the push-pull run under ``torch.profiler``.
+
+Phase 3 also holds the ``scatter_or`` kernel against its plain version on
+ragged shapes and at the protocols' own shapes (M = N for push-pull,
+M = 2N for fanout 2, W = 256) over rings captured at rounds 10 and 40 of
+the phase-9 push-pull run. Phase 4 also runs the protocols (push-pull, pull,
+fanout push) with the kernels and with the plain versions on small graphs,
+with churn and loss, with coverage rows, and stopped after a chunk and
+resumed from a checkpoint; and the CLI's protocol, topology and
+generation flags on the card and on the CPU.
 
 Kernel launch counts are zeroed just before the timed run of phase 5 and
-read after phase 6 (they must equal the option-free tick's), and zeroed
+read after phase 6 (they must equal the option-free tick's), zeroed
 again just before the timed run of phase 7 and read after its coverage
-run. The second-to-last line is the kernels' JSON record; the last line
+run, and zeroed again just before phase 9's timed runs and read after
+them. The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -60,9 +76,12 @@ CAPTURE_TICK = 10  # a mid-flood tick: shares of generation ticks 6-9 spreading
 SNAPSHOTS = [8, 16, 24, 32]  # the options run's periodic-stats boundaries
 # The loss-free main path's launches (flood + coverage), as before the
 # options existed: with every option off the tick launches what it did.
+# The flood never scatters.
 LOSS_FREE_LAUNCHES = {
     "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 29, "coverage_per_slot": 7,
+    "scatter_or": 0,
 }
+FLOOD_KERNELS = tuple(name for name, count in LOSS_FREE_LAUNCHES.items() if count)
 SOURCE = "p2p_gossip_tpu_torch/csrc/gossip_kernels.cu"
 REPLACES = {
     "gather_or": "p2p_gossip_tpu/ops/ell.py:157",
@@ -71,7 +90,12 @@ REPLACES = {
     "sector_occupancy": "p2p_gossip_tpu/ops/ell.py:157",
     "popcount_rows": "p2p_gossip_tpu/ops/pallas_kernels.py:152",
     "coverage_per_slot": "p2p_gossip_tpu/ops/pallas_kernels.py:122",
+    "scatter_or": "p2p_gossip_tpu/ops/segment.py:41",
 }
+# The kernels the protocols' path runs (it keeps no occupancy ring).
+PROTOCOL_KERNELS = ("gather_or", "popcount_rows", "coverage_per_slot", "scatter_or")
+PROTOCOL_CAPTURE_ROUND = 10
+PROTOCOL_DENSE_ROUND = 40  # push-pull near saturation: dense rows
 
 
 def log(msg: str) -> None:
@@ -599,6 +623,111 @@ def check_coverage_frontier(graph, dg, dev, reps):
                 nonzero_words=nonzero)
 
 
+
+def check_scatter_ragged(dev, rng):
+    """scatter_or against its plain version on awkward shapes: M off a
+    multiple of 32 and of a block's 8 entries, W of 1, 3, 8 and 256 (4-
+    and 16-byte loads), bit 31 set in every source row, masked-out
+    entries, every entry to one destination, destinations and source rows
+    outside range (dropped), rows read through ``src_row`` and, where M
+    allows it, by identity; ``out`` already holds bits (it is ORed into)."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    cases = (  # m, n_src, n_out, w, one destination
+        (37, 50, 20, 1, False), (1001, 700, 333, 3, False), (77, 80, 9, 8, True),
+        (4099, 5000, 4096, 256, False), (513, 600, 1, 256, True), (1, 1, 1, 3, False),
+        (0, 4, 4, 8, False),
+    )
+    for m, n_src, n_out, w, hot in cases:
+        src = random_words(rng, (n_src, w), dev)
+        src[:, -1] |= -(2**31)
+        dst = np.zeros(m, np.int32) if hot else rng.integers(-3, n_out + 3, m)
+        dst = torch.as_tensor(dst.astype(np.int32), device=dev)
+        src_row = torch.as_tensor(rng.integers(-2, n_src + 2, m).astype(np.int32),
+                                  device=dev)
+        mask = torch.as_tensor(rng.random(m) < 0.75, device=dev)
+        base = sparse_words(rng, (n_out, w), dev)
+        for rows_arg, mask_arg in ((src_row, mask), (src_row, None), (None, mask)):
+            if rows_arg is None and m > n_src:
+                continue
+
+            def run(plain, rows_arg=rows_arg, mask_arg=mask_arg):
+                return kernels.scatter_or(src, dst, src_row=rows_arg, mask=mask_arg,
+                                          out=base.clone(), plain=plain)
+
+            compare(f"scatter_or[m={m} w={w} n_out={n_out} one_dst={hot} "
+                    f"src_row={rows_arg is not None} mask={mask_arg is not None}]",
+                    run(False), run(True))
+    log("scatter_or ragged shapes (M 0..4099, W 1/3/8/256, bit 31, masks, one "
+        "destination, out-of-range dst and rows, identity rows, ORed into out): "
+        "bitwise equal")
+
+
+def check_scatter(graph, dg_edge, sched, dev, reps):
+    """scatter_or at the protocols' shapes: the push of round
+    PROTOCOL_CAPTURE_ROUND of the phase-9 push-pull run (M = N) and the
+    same ring pushed along two picks a node (M = 2N, fanout 2's shape),
+    sources read from the run's own (D*N, W) seen-ring; then the same at
+    PROTOCOL_DENSE_ROUND, where the rows are dense. Timed as
+    ``ops.segment.scatter_or`` runs it from zeros (zero fill + kernel). The
+    bound counts each distinct kept source row read once, ``out`` written
+    once, and the index and mask arrays (dst and src_row int32, mask
+    bool)."""
+    import torch
+
+    from p2p_gossip_tpu_torch.models import protocols
+    from p2p_gossip_tpu_torch.models.partnersel import pick_key
+    from p2p_gossip_tpu_torch.ops.segment import scatter_or
+
+    n = graph.n
+    w = CHUNK // 32
+    origins, gen_ticks = sched.padded(CHUNK, HORIZON)
+    nodes = torch.arange(n, dtype=torch.int64, device=dev)
+    results = {}
+    for t in (PROTOCOL_CAPTURE_ROUND, PROTOCOL_DENSE_ROUND):
+        key1 = pick_key(nodes[:, None], torch.zeros((1, 1), dtype=torch.int64, device=dev),
+                        SEED)
+        _, _, _, hist = protocols._run_chunk(
+            dg_edge, origins, gen_ticks, key1, None, None, None, mode="pushpull",
+            chunk_size=CHUNK, horizon=t, n_cov=None, plain=False,
+        )
+        flat = hist.view(-1, w)
+        for label, fanout in (("pushpull M=N", 1), ("fanout2 M=2N", 2)):
+            key = pick_key(nodes[:, None], torch.arange(fanout, device=dev)[None, :], SEED)
+            draw = protocols._draw_rounds(dg_edge, key, None, None, None, t, t + 1,
+                                          "pushpull")
+            dst = draw["partners"][0].reshape(-1).contiguous()
+            rows = draw["src"][0].reshape(-1).contiguous()
+            mask = draw["attempted"][0].reshape(-1).contiguous()
+
+            def run(plain, dst=dst, rows=rows, mask=mask, flat=flat):
+                return scatter_or(n, dst, flat, mask, src_row=rows, plain=plain)
+
+            got = run(False)
+            err = compare(f"scatter_or[{label} round {t}]", got, run(True))
+            m = int(dst.numel())
+            distinct = int(torch.unique(rows.long()[mask]).numel())
+            touched = int((got != 0).sum())
+            nbytes = distinct * w * 4 + n * w * 4 + m * 9
+            ms = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
+            plain_ms = time_ms(lambda: run(True), max(2, reps // 4), warmup=1)
+            nonzero = float((flat[rows.long()] != 0).float().mean())
+            name = label if t == PROTOCOL_CAPTURE_ROUND else f"{label} round {t}"
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms(nbytes))
+            log(
+                f"scatter_or[{label}, round-{t} ring D={dg_edge.ring_size}] M={m} W={w}, "
+                f"{distinct} distinct source rows, {nonzero:.4f} of their words "
+                f"nonzero, {touched} words set: bitwise equal; zero fill + kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms(nbytes):.4f} ms "
+                f"({nbytes / 1e6:.1f} MB)"
+            )
+        del hist, flat
+    return results
+
+
 # --- phase 4 ----------------------------------------------------------------
 
 def check_engine_paths(dev):
@@ -728,6 +857,106 @@ def check_cli(dev):
             f"reports ({periodic} periodic-stats blocks)")
 
 
+def check_protocol_paths(dev):
+    """Push-pull, pull and fanout push (k = 2) with the kernels and with
+    the plain versions on ER 2,000 (3,000 shares over 16 rounds, 1,024-share
+    chunks) and BA 300 (Poisson generations), both with log-normal delays,
+    40 rounds, coverage rows recorded; each also with churn and loss p =
+    0.1. Counters and coverage rows must be equal. Then each protocol on
+    ER stopped after one chunk and resumed from its checkpoint: equal to
+    the uninterrupted run."""
+    import os
+    import tempfile
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.models.protocols import run_pushk_sim, run_pushpull_sim
+
+    rounds = 40
+    rng = np.random.default_rng(1)
+    er = pt.erdos_renyi(2000, 0.01, seed=1)
+    er_sched = pt.Schedule(2000, rng.integers(0, 2000, 3000), rng.integers(0, 16, 3000))
+    ba = pt.barabasi_albert(300, 3, seed=2)
+    ba_sched = pt.poisson_schedule(300, 5.0, 0.25, rate=0.4, seed=2)
+    cases = (
+        ("ER 2000 p=0.01", er, er_sched,
+         pt.lognormal_delays(er, mean_ticks=2.0, sigma=0.5, max_ticks=5, seed=1), 1024),
+        ("BA 300 m=3", ba, ba_sched,
+         pt.lognormal_delays(ba, mean_ticks=2.0, sigma=0.5, max_ticks=8, seed=2), 4096),
+    )
+    protos = (("pushpull", run_pushpull_sim, dict(mode="pushpull")),
+              ("pull", run_pushpull_sim, dict(mode="pull")),
+              ("pushk", run_pushk_sim, dict(fanout=2)))
+    for i, (label, graph, sch, delays, chunk) in enumerate(cases):
+        models = dict(
+            churn=pt.random_churn(graph.n, rounds, outage_prob=0.2, mean_down_ticks=4.0,
+                                  max_outages=2, seed=pt.churn_stream_seed(i)),
+            loss=pt.LinkLossModel(0.1, seed=pt.loss_stream_seed(i)),
+        )
+        for name, fn, kw in protos:
+            for opt_label, opts in (("", {}), (" with churn + loss", models)):
+                common = dict(ell_delays=delays, seed=3, chunk_size=chunk, device=dev,
+                              **kw, **opts)
+                t0 = time.perf_counter()
+                k, kc = fn(graph, sch, rounds, record_coverage=True, **common)
+                t1 = time.perf_counter()
+                p, pc = fn(graph, sch, rounds, record_coverage=True, plain=True, **common)
+                t2 = time.perf_counter()
+                if not (k.equal_counts(p) and np.array_equal(kc, pc)):
+                    raise AssertionError(f"{name}[{label}{opt_label}]: kernel and plain differ")
+                if not (np.diff(kc, axis=0) >= 0).all() or kc.max() > graph.n:
+                    raise AssertionError(f"{name}[{label}{opt_label}]: bad coverage rows")
+                log(f"{name}[{label}{opt_label}]: {sch.num_shares} shares, {rounds} rounds, "
+                    f"received {int(k.received.sum())}, kernel {t1 - t0:.2f} s, plain "
+                    f"{t2 - t1:.2f} s: equal counters and coverage rows")
+                if i == 0 and opts:
+                    with tempfile.TemporaryDirectory() as tmp:
+                        ckpt = os.path.join(tmp, "run.npz")
+                        part, _ = fn(graph, sch, rounds, checkpoint_path=ckpt,
+                                     stop_after_chunks=1, **common)
+                        resumed, _ = fn(graph, sch, rounds, checkpoint_path=ckpt, **common)
+                    if part.equal_counts(k) or not resumed.equal_counts(k):
+                        raise AssertionError(f"{name}[{label}]: checkpoint resume differs")
+                    log(f"{name}[{label}{opt_label}]: stopped after 1 chunk, resumed from "
+                        "the checkpoint: equal to the uninterrupted run")
+
+
+def check_protocol_cli(dev):
+    """The CLI's protocol, topology and generation flags on the card and on
+    the CPU: the same report, apart from the start line's device and the
+    wall-time line."""
+    import contextlib
+    import io
+
+    from p2p_gossip_tpu_torch.utils import cli
+
+    small = ["--numNodes", "60", "--simTime", "10", "--Latency", "50"]
+    configs = (
+        ("pushpull lognormal", small + ["--protocol", "pushpull", "--delayModel",
+                                        "lognormal"]),
+        ("pull churn + loss", small + ["--protocol", "pull", "--churnProb", "0.2",
+                                       "--lossProb", "0.1"]),
+        ("pushk coverage", small + ["--protocol", "pushk", "--fanout", "3",
+                                    "--floodCoverage", "20"]),
+        ("ws pushpull", ["--numNodes", "80", "--topology", "ws", "--simTime", "10",
+                         "--Latency", "50", "--protocol", "pushpull"]),
+        ("torus flood", ["--numNodes", "64", "--topology", "torus", "--simTime", "10"]),
+        ("poisson pushk", small + ["--genModel", "poisson", "--protocol", "pushk"]),
+    )
+    for label, args in configs:
+        lines = {}
+        for device in (str(dev), "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.run(args + ["--device", device])
+            if rc != 0:
+                raise AssertionError(f"CLI {label} on {device} exited {rc}")
+            lines[device] = buf.getvalue().splitlines()
+        got, want = lines[str(dev)], lines["cpu"]
+        if len(got) != len(want) or got[1:-1] != want[1:-1]:
+            raise AssertionError(f"CLI {label}: report differs from the CPU's")
+        log(f"cli[{label}] on {dev} and on the CPU: equal reports ({len(got)} lines)")
+
+
 # --- phases 5 and 6 -----------------------------------------------------------
 
 def flood_schedule(graph):
@@ -801,8 +1030,8 @@ def main_path(graph, dg, sched, dev):
         f"median t99 = {float(np.median(t99))} ticks (min {t99.min()}, max {t99.max()})"
     )
     log(f"main-path kernel launches (flood + coverage): {launches}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in FLOOD_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
     if launches != LOSS_FREE_LAUNCHES:
         raise AssertionError(
@@ -841,9 +1070,11 @@ def options_path(graph, dg, sched, dev, base):
     cstats, cov = run_flood_coverage(graph, origins, HORIZON, **cov_kw)
     launches = dict(kernels.launches)
     log(f"options-path kernel launches (flood + coverage): {launches}")
-    for name, count in launches.items():
-        if count == 0:
+    for name in FLOOD_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the options path")
+    if launches["scatter_or"]:
+        raise AssertionError("scatter_or launched on the options path: the flood never scatters")
 
     t0 = time.perf_counter()
     plain = run_sync_sim(graph, sched, HORIZON, plain=True, **flood)
@@ -878,28 +1109,24 @@ def options_path(graph, dg, sched, dev, base):
     return launches, dict(churn=churn, loss=loss, snapshot_ticks=SNAPSHOTS)
 
 
-def profile_flood(graph, sched, dg, dev, label="flood", **opts):
-    """Device time of one flood run (``opts``: the engine's options) by
-    kernel name, from torch.profiler's CUDA kernel events, and the share of
-    the run's wall time the device was busy (kernels run on one stream, so
-    their durations add)."""
+def profile_device(label, run):
+    """Device time of ``run()`` by kernel name, from torch.profiler's CUDA
+    kernel events, and the share of the run's wall time the device was
+    busy (kernels run on one stream, so their durations add). ``run``
+    returns the number of ticks (rounds) it ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from p2p_gossip_tpu_torch.engine.sync import run_sync_sim
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stats = run_sync_sim(graph, sched, HORIZON, chunk_size=CHUNK,
-                             device_graph=dg, device=dev, **opts)
+        ticks = run()
         wall = time.perf_counter() - t0
     by_name: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    ticks = stats.extra["ticks_executed"]
     if not by_name:
         log("profile: no device events recorded; breakdown not measured")
         return
@@ -910,6 +1137,116 @@ def profile_flood(graph, sched, dg, dev, label="flood", **opts):
     )
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {us / 1e3:9.3f} ms  {us / busy_us:6.3f}  {name[:110]}")
+
+
+def profile_flood(graph, sched, dg, dev, label="flood", **opts):
+    """One flood run (``opts``: the engine's options) under the profiler."""
+    from p2p_gossip_tpu_torch.engine.sync import run_sync_sim
+
+    def run():
+        stats = run_sync_sim(graph, sched, HORIZON, chunk_size=CHUNK,
+                             device_graph=dg, device=dev, **opts)
+        return stats.extra["ticks_executed"]
+
+    profile_device(label, run)
+
+
+# --- phase 9 ------------------------------------------------------------------
+
+def pushpull_floor_bytes(n: int, w: int) -> int:
+    """A rough floor of one push-pull round's device-memory traffic, six
+    (N, W) int32 passes: the partners' rows read by the pull gather and
+    written into the round's ``incoming``, the pushed rows (``my_old``)
+    read, ``seen`` read and written, the ring slot written (the scatter's
+    read-modify-writes, the picks and the popcounts' reads not counted)."""
+    return 6 * n * w * 4
+
+
+def protocols_path(graph, dg_uni, dg_edge, sched, dev):
+    """The slice's main path: the random-partner protocols at full size on
+    the phase-5 graph and schedule (one 8,192-share chunk, 64 rounds).
+    Warm runs of all four first; then every launch count is zeroed, the
+    four timed runs go, and the counts are read. Every run is held
+    against its warm run and its plain run (counters and coverage rows)."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.models.protocols import run_pushk_sim, run_pushpull_sim
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
+    cov_sched = pt.Schedule(graph.n, origins, np.zeros(COVERAGE_ORIGINS, dtype=np.int32))
+    runs = (
+        ("push-pull, log-normal per-edge delays (D=6)", run_pushpull_sim, sched,
+         dict(device_graph=dg_edge, mode="pushpull", chunk_size=CHUNK)),
+        ("pull, uniform delay", run_pushpull_sim, sched,
+         dict(device_graph=dg_uni, mode="pull", chunk_size=CHUNK)),
+        ("fanout push k=2, uniform delay", run_pushk_sim, sched,
+         dict(device_graph=dg_uni, fanout=2, chunk_size=CHUNK)),
+        (f"push-pull coverage, {COVERAGE_ORIGINS} origins, D=6", run_pushpull_sim,
+         cov_sched, dict(device_graph=dg_edge, mode="pushpull", record_coverage=True)),
+    )
+
+    def drive(fn, sch, kw, **extra):
+        return fn(graph, sch, HORIZON, seed=SEED, device=dev, **kw, **extra)
+
+    warm = [drive(fn, sch, kw) for _, fn, sch, kw in runs]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    timed = []
+    for _, fn, sch, kw in runs:
+        t0 = time.perf_counter()
+        out = drive(fn, sch, kw)
+        timed.append((out, time.perf_counter() - t0))
+    launches = dict(kernels.launches)
+    log(f"protocols-path kernel launches (4 timed runs): {launches}")
+    for name in PROTOCOL_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the protocols path")
+
+    plain_walls = []
+    for (label, fn, sch, kw), ((stats, cov), _) in zip(runs, timed):
+        t0 = time.perf_counter()
+        pstats, pcov = drive(fn, sch, kw, plain=True)
+        plain_walls.append(time.perf_counter() - t0)
+        if not stats.equal_counts(pstats) or (cov is not None
+                                              and not np.array_equal(cov, pcov)):
+            raise AssertionError(f"{label}: kernel and plain runs differ")
+    w = CHUNK // 32
+    results = {}
+    for (label, _, sch, kw), (wstats, wcov), ((stats, cov), wall), plain_wall in zip(
+            runs, warm, timed, plain_walls):
+        if not stats.equal_counts(wstats) or (cov is not None and not np.array_equal(cov, wcov)):
+            raise AssertionError(f"{label}: timed run differs from the warm run")
+        totals = stats.totals()
+        if totals["processed"] <= sch.num_shares or totals["sent"] <= 0:
+            raise AssertionError(f"{label}: nothing spread ({totals})")
+        rate = totals["processed"] / wall
+        round_ms = wall / HORIZON * 1e3
+        extra = ""
+        if cov is not None:
+            if not ((np.diff(cov, axis=0) >= 0).all() and (cov[0] >= 1).all()
+                    and cov.max() <= graph.n):
+                raise AssertionError(f"{label}: bad coverage rows")
+            extra = (f"; final coverage mean {cov[-1].mean():.1f} of {graph.n}, "
+                     f"shares at N {int((cov[-1] == graph.n).sum())} of {cov.shape[1]}")
+        elif label.startswith("push-pull"):
+            floor = bound_ms(pushpull_floor_bytes(graph.n, w))
+            extra = (f"; floor {floor:.4f} ms/round "
+                     f"({pushpull_floor_bytes(graph.n, w) / 1e9:.3f} GB), achieved "
+                     f"{floor / round_ms:.4f} of it")
+        log(f"protocol[{label}]: {HORIZON} rounds wall={wall:.4f} s -> {rate:.4e} "
+            f"node-updates/s, {round_ms:.3f} ms/round; processed {totals['processed']}"
+            f" of {sch.num_shares * graph.n}, sent {totals['sent']}{extra}; kernel == "
+            f"warm == plain (plain run {plain_wall:.2f} s)")
+        results[label] = dict(round_ms=round_ms, rate=rate)
+
+    def run():
+        drive(runs[0][1], runs[0][2], runs[0][3])
+        return HORIZON
+
+    profile_device("push-pull", run)
+    return launches, results
 
 
 def main() -> int:
@@ -946,12 +1283,21 @@ def main() -> int:
     log(f"staging: {time.perf_counter() - t0:.1f} s, {len(dg.buckets)} buckets, "
         f"per-edge ring D={dg_edge.ring_size}")
 
+    t0 = time.perf_counter()
+    # The protocols' full-width stagings: uniform delay, and the push-pull
+    # run's log-normal per-edge delays (D = 6).
+    dgf = DeviceGraph.build(graph, bucketed=False, device=dev)
+    dgf_edge = DeviceGraph.build(graph, delays, bucketed=False, device=dev)
+    log(f"full-width staging: {time.perf_counter() - t0:.1f} s, ELL width "
+        f"{dgf.ell_idx.shape[1]}, per-edge ring D={dgf_edge.ring_size}")
+
     rng = np.random.default_rng(SEED)
     w_flood, w_cov = CHUNK // 32, COVERAGE_ORIGINS // 32
     log("tolerance: bitwise (integer ops), max_abs_err must be 0")
     check_gather_ragged(dev, rng)
     check_gather_options_ragged(dev, rng)
     check_occupancy_ragged(dev, rng)
+    check_scatter_ragged(dev, rng)
     gather = check_gather(dg, dg_edge, graph.n, w_flood, dev, rng, reps=10)
     occupancy = check_occupancy(graph.n, w_flood, dev, rng, reps=20)
     sched = flood_schedule(graph)
@@ -959,14 +1305,18 @@ def main() -> int:
     popcount = check_popcount(graph.n, w_flood, dev, rng, reps=20)
     coverage = check_coverage(graph.n, w_cov, dev, rng, reps=20)
     frontier = check_coverage_frontier(graph, dg, dev, reps=20)
+    scatter = check_scatter(graph, dgf_edge, sched, dev, reps=10)
     del dg_edge
     torch.cuda.empty_cache()
 
     check_engine_paths(dev)
+    check_protocol_paths(dev)
+    check_protocol_cli(dev)
     launches, base = main_path(graph, dg, sched, dev)
     options_launches, option_models = options_path(graph, dg, sched, dev, base)
     profile_flood(graph, sched, dg, dev)
     profile_flood(graph, sched, dg, dev, "options flood", **option_models)
+    protocol_launches, _ = protocols_path(graph, dgf, dgf_edge, sched, dev)
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -999,16 +1349,33 @@ def main() -> int:
                                   ms_frontier=frontier["ms"],
                                   bound_ms_frontier=frontier["bound_ms"],
                                   plain_ms_frontier=frontier["plain_ms"]),
+        # ms / bound_ms: the push-pull push (M = N) on the round-10 ring;
+        # fanout 2's beside it, and both on the dense round-40 ring.
+        "scatter_or": dict(
+            scatter["pushpull M=N"],
+            max_abs_err=max(r["max_abs_err"] for r in scatter.values()),
+            **{f"{key}_{tag}": scatter[label][key]
+               for tag, label in (
+                   ("fanout2", "fanout2 M=2N"),
+                   ("dense", f"pushpull M=N round {PROTOCOL_DENSE_ROUND}"),
+                   ("fanout2_dense", f"fanout2 M=2N round {PROTOCOL_DENSE_ROUND}"))
+               for key in ("ms", "bound_ms", "plain_ms")},
+        ),
     }
     base_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     record = []
     for name, m in measured.items():
+        # `launches`: the path the kernel serves — the flood's main path, or
+        # for scatter_or (the protocols' kernel) the protocols' path.
+        flood = name in FLOOD_KERNELS
         record.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name] if flood else protocol_launches[name],
             **{k: m[k] for k in base_keys},
             "bound_by": "bytes", "library_ms": None,
             "launches_options": options_launches[name],
+            "launches_protocols": protocol_launches[name],
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

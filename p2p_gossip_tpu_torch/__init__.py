@@ -8,7 +8,9 @@ through a hand-written CUDA gather-OR kernel over the ELL adjacency
 coverage come from CUDA popcount and coverage kernels. The engine's
 options — node churn, link loss (its coin computed inside the gather
 kernel), the connect window, periodic snapshots and checkpoint/resume —
-follow the JAX engine's. Graphs, schedules, delays and the option models
+follow the JAX engine's. The random-partner protocols (push-pull, pull,
+fanout push; ``models.protocols``) push through a hand-written CUDA
+scatter-OR kernel. Graphs, schedules, delays and the option models
 are numpy, built from a seed exactly as in the JAX package, of which this
 package imports nothing.
 """
@@ -18,6 +20,9 @@ from p2p_gossip_tpu_torch.models.topology import (
     erdos_renyi,
     barabasi_albert,
     ring_graph,
+    complete_graph,
+    watts_strogatz,
+    grid_graph,
 )
 from p2p_gossip_tpu_torch.models.generation import (
     Schedule,
@@ -45,9 +50,15 @@ from p2p_gossip_tpu_torch.utils.analysis import (
     propagation_latency,
 )
 from p2p_gossip_tpu_torch.utils.stats import NodeStats
+from p2p_gossip_tpu_torch.models.protocols import (
+    pushk_oracle,
+    pushpull_oracle,
+    seeded_partners,
+)
 
-# The engine stays behind an explicit module import, as in the JAX package:
+# The engines stay behind an explicit module import, as in the JAX package:
 #   from p2p_gossip_tpu_torch.engine.sync import run_sync_sim, run_flood_coverage
+#   from p2p_gossip_tpu_torch.models.protocols import run_pushpull_sim, run_pushk_sim
 
 __version__ = "0.1.0"
 
@@ -56,6 +67,9 @@ __all__ = [
     "erdos_renyi",
     "barabasi_albert",
     "ring_graph",
+    "complete_graph",
+    "watts_strogatz",
+    "grid_graph",
     "Schedule",
     "uniform_renewal_schedule",
     "poisson_schedule",
@@ -75,4 +89,7 @@ __all__ = [
     "format_propagation_report",
     "message_redundancy",
     "NodeStats",
+    "seeded_partners",
+    "pushpull_oracle",
+    "pushk_oracle",
 ]

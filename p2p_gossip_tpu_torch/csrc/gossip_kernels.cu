@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the flood engine's tick.
+// Hand-written Hopper (sm_90a) kernels for the flood engine's tick and the
+// random-partner protocols' push.
 //
 // Plain C interface, loaded with ctypes (p2p_gossip_tpu_torch/ops/kernels.py).
 // Every entry point launches on the stream it is given, allocates nothing,
@@ -448,6 +449,68 @@ coverage_per_slot_kernel(const uint32_t* __restrict__ words, int n, int w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// scatter_or
+//
+// Replaces: the XLA scatter-OR of the JAX package,
+//   p2p_gossip_tpu/ops/segment.py scatter_or (argsort by destination, a
+//   segmented associative OR-scan, a scatter of the segment tails) and its
+//   narrow-row twin scatter_or_bits (bit unpack + scatter-add). It has no
+//   Pallas source: XLA has no scatter-OR, and neither has torch.
+// Computes: out[dst[m], :] |= src[row(m), :] for every entry m < M with
+//   mask[m] (null: every entry), row(m) = src_row[m] (null: m),
+//   dst[m] in [0, n_out) and row(m) in [0, n_src); other entries are
+//   dropped, never wrapped. `out` is ORed into, not overwritten.
+// Bound on the H100: bytes: each distinct kept source row read once (W*4
+//   bytes), `out` written once, the index and mask arrays. The push
+//   protocols read their payload rows straight out of the history ring
+//   (src = the (D*N, W) flattened ring, src_row = slot*N + sender), so the
+//   (M, W) payload is never built.
+// Design: one warp per entry, eight entries per block; lanes stride the
+//   source row with 16-byte loads when W % 4 == 0 and both tables are
+//   16-byte aligned (the entry point picks the instantiation), 4 bytes
+//   otherwise. Each nonzero source word goes to `out` by one atomicOr,
+//   which is exact in any order because OR commutes and associates, so
+//   colliding destinations need no sort. A zero word sends nothing:
+//   fanout push sends frontier rows, which are mostly zero.
+// ---------------------------------------------------------------------------
+constexpr int kScatterWarps = 8;
+
+__device__ inline void or_word(uint32_t* p, uint32_t v) {
+  if (v) atomicOr(p, v);
+}
+__device__ inline void or_into(uint32_t* p, uint32_t v) { or_word(p, v); }
+__device__ inline void or_into(uint32_t* p, uint4 v) {
+  or_word(p, v.x);
+  or_word(p + 1, v.y);
+  or_word(p + 2, v.z);
+  or_word(p + 3, v.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kScatterWarps * 32)
+scatter_or_kernel(const uint32_t* __restrict__ src, int n_src, int w,
+                  const int32_t* __restrict__ src_row,
+                  const int32_t* __restrict__ dst,
+                  const uint8_t* __restrict__ mask, int m, int n_out,
+                  uint32_t* out) {
+  const long long e =
+      (long long)blockIdx.x * kScatterWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (e >= m) return;  // warp-uniform, as every test below
+  if (mask && !mask[e]) return;
+  const int d = dst[e];
+  const long long s = src_row ? (long long)src_row[e] : e;
+  if (d < 0 || d >= n_out || s < 0 || s >= n_src) return;
+  constexpr int kUnitWords = (int)(sizeof(T) / sizeof(uint32_t));
+  const int n_units = w / kUnitWords;
+  const T* row = reinterpret_cast<const T*>(src + (size_t)s * (size_t)w);
+  uint32_t* o = out + (size_t)d * (size_t)w;
+  for (int u = lane; u < n_units; u += 32) {
+    or_into(o + u * kUnitWords, __ldg(row + u));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -525,6 +588,26 @@ int gossip_coverage_per_slot(const void* words, int n, int w, long long ld,
   const dim3 grid((unsigned)grid_x, (unsigned)((n + rows_per - 1) / rows_per));
   coverage_per_slot_kernel<<<grid, kCovWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, n, w, ld, rows_per, n_slots, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// `src_row` and `mask` may be null (row m reads src row m; every entry
+// kept). `src` and `out` are row-major with W words a row.
+int gossip_scatter_or(const void* src, int n_src, int w, const void* src_row,
+                      const void* dst, const void* mask, int m, int n_out,
+                      void* out, void* stream) {
+  const dim3 grid((unsigned)(((long long)m + kScatterWarps - 1) / kScatterWarps));
+  const bool vec = w % 4 == 0 && aligned16(src) && aligned16(out);
+#define GOSSIP_SCATTER_LAUNCH(T)                                                 \
+  scatter_or_kernel<T><<<grid, kScatterWarps * 32, 0, (cudaStream_t)stream>>>(   \
+      (const uint32_t*)src, n_src, w, (const int32_t*)src_row,                  \
+      (const int32_t*)dst, (const uint8_t*)mask, m, n_out, (uint32_t*)out)
+  if (vec) {
+    GOSSIP_SCATTER_LAUNCH(uint4);
+  } else {
+    GOSSIP_SCATTER_LAUNCH(uint32_t);
+  }
+#undef GOSSIP_SCATTER_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,616 @@
+"""The random-partner gossip protocols on PyTorch: push-pull and pull
+anti-entropy, and fanout-limited push.
+
+The counterpart of the JAX package's ``models/protocols.py``: the same
+graph, schedule, seed and option models give bitwise the same per-node
+counters and coverage rows. The reference floods (`engine.sync`); these
+are the classic low-bandwidth alternatives (BASELINE.json config 5 is
+push-pull with log-normal per-edge delays).
+
+Each round every node with a neighbour picks one (push-pull, pull) or
+``fanout`` (fanout push) uniform-random neighbours by the counter-based
+hash of `models.partnersel`, keyed only by (seed, round), so share chunks
+see the same exchanges and counters add across chunks. Both directions of
+an exchange read the sender's state as it was ``delay`` rounds ago, from a
+ring of past rows: ``seen`` for push-pull and pull, the frontier (``newly
+| generated``) for fanout push; the slot is ``(t - delay) mod D`` with the
+picked edge's own delay, the one uniform delay, or 1 under
+``partners_override``. The picks, loss coins and churn masks of 16 rounds
+are drawn in one pass (`_draw_rounds`). One round on the device:
+
+- the pull: a one-column `ops.kernels.gather_or` of the partner's row,
+  the link-loss coin ``drop(partner, node, t)`` applied inside it;
+- the push: `ops.segment.scatter_or` (the CUDA ``scatter_or`` kernel) of
+  the sender's ring row into the partner's, read straight out of the ring;
+- the new ring row (``seen | incoming``, or the frontier ``incoming &
+  ~seen``), the round's generations added into it, and its popcount from
+  the ``popcount_rows`` kernel into a (D, N) ring beside it: the digest
+  sizes later rounds charge to ``sent`` and, at the chunk's end, the
+  ``received`` counts; with ``record_coverage`` the ``coverage_per_slot``
+  kernel on ``seen``.
+
+Counter mapping (anti-entropy has no per-share forwarding): ``received``
+and ``forwarded`` count newly acquired shares; ``sent`` counts shares
+transmitted in digests. ``received`` is int32 and wraps as the JAX
+package's does (the host sums chunks in int64). The JAX package keeps
+``sent`` as a uint32 (lo, hi) pair; the port keeps one int64 per node on
+the device, equal to that pair's ``combine_u64`` below 2^63.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from p2p_gossip_tpu_torch.engine.sync import (
+    DEFAULT_CHUNK_SIZE,
+    MIN_CHUNK_SHARES,
+    DeviceGraph,
+    _canonical_delays,
+)
+from p2p_gossip_tpu_torch.models import churn as churn_mod
+from p2p_gossip_tpu_torch.models.churn import effective_generated
+from p2p_gossip_tpu_torch.models.generation import Schedule
+from p2p_gossip_tpu_torch.models.linkloss import drop_mask_np, drop_mask_torch
+from p2p_gossip_tpu_torch.models.partnersel import (
+    pick_from_key,
+    pick_index_np,
+    pick_key,
+)
+from p2p_gossip_tpu_torch.models.topology import Graph
+from p2p_gossip_tpu_torch.ops import bitmask, kernels
+from p2p_gossip_tpu_torch.ops.segment import scatter_or
+from p2p_gossip_tpu_torch.utils.checkpoint import (
+    checkpointed_chunks,
+    make_checkpointer,
+)
+from p2p_gossip_tpu_torch.utils.device import resolve_device
+from p2p_gossip_tpu_torch.utils.stats import NodeStats
+
+_U32 = 0xFFFFFFFF
+
+
+class PullCreditBoundError(ValueError):
+    """Pull mode's per-round responder credit could pass 2^32 for this
+    graph and chunk width. A distinct type, so the CLI can print exactly
+    this precondition as an error."""
+
+
+def _check_pull_credit_bound(graph: Graph, chunk_size: int, schedule) -> None:
+    """The JAX package's precondition for pull mode: a responder's credit
+    in one round is at most degree x chunk width, which its uint32 scatter
+    accumulator must hold. The port adds credits in int64 and could not
+    wrap, but refuses the same runs at the same bound, so both packages
+    accept and reject alike."""
+    eff_chunk = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
+    check_pull_credit_width(graph, bitmask.num_words(eff_chunk) * bitmask.WORD_BITS)
+
+
+def check_pull_credit_width(graph: Graph, eff_chunk: int) -> None:
+    """The bound itself, for a caller that knows its pass width."""
+    if int(graph.max_degree) * eff_chunk >= 1 << 32:
+        raise PullCreditBoundError(
+            "pull-mode per-round sent credit may overflow uint32: "
+            f"max degree {graph.max_degree} x chunk {eff_chunk} >= 2^32 — "
+            "reduce chunk_size"
+        )
+
+
+def _stage(graph, ell_delays, constant_delay, device_graph, device) -> DeviceGraph:
+    """The full-width staging the picks index (``ell_idx[node, k]``)."""
+    device = resolve_device(device)
+    if device_graph is None:
+        device_graph = DeviceGraph.build(
+            graph, ell_delays, constant_delay, bucketed=False, device=device
+        )
+    if device_graph.buckets is not None:
+        raise ValueError(
+            "random-partner protocols require a DeviceGraph built with "
+            "bucketed=False (partner selection reads the full ELL)"
+        )
+    if device_graph.device != device:
+        raise ValueError(f"device_graph lives on {device_graph.device}, not {device}")
+    if device_graph.ring_size * device_graph.n >= 1 << 31:
+        raise ValueError("ring slots x nodes must stay below 2^31 (int32 ring rows)")
+    return device_graph
+
+
+# Rounds whose picks, loss coins and churn masks are drawn in one pass:
+# drawn a round at a time they were ~40 small launches a round, and the
+# card sat idle most of the run waiting for the host (PERF.md).
+PICK_BLOCK = 16
+
+
+def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str):
+    """The exchanges of rounds t0..t1-1, drawn in one pass, each (B, N, c)
+    with B = t1 - t0: ``partners`` int32; ``src`` the sender's ring row
+    ``slot * N + node`` and, for pull, ``served`` the partner's, int32;
+    ``delay`` the picked edges' int32 delays (None with one uniform slot a
+    round); ``attempted`` and ``push_ok`` bool; and ``up`` (B, N) bool
+    under churn (else None)."""
+    n, ring, dev = dg.n, dg.ring_size, dg.device
+    ticks = torch.arange(t0, t1, dtype=torch.int64, device=dev)[:, None, None]
+    rows = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
+    delay = None
+    if override is not None:
+        partners = override[t0:t1].reshape(t1 - t0, n, -1)
+        slot = torch.remainder(ticks - 1, ring)
+    else:
+        k = pick_from_key(key, ticks, dg.degree[None, :, None])
+        partners = dg.ell_idx[rows, k]
+        if dg.uniform_delay is not None:
+            slot = torch.remainder(ticks - dg.uniform_delay, ring)
+        else:
+            delay = dg.ell_delay[rows, k]
+            slot = torch.remainder(ticks - delay, ring)
+    draw = dict(partners=partners, delay=delay, up=None)
+    draw["src"] = (slot * n + rows).expand(partners.shape).to(torch.int32).contiguous()
+    if mode == "pull":
+        draw["served"] = (slot * n + partners).to(torch.int32)
+    attempted = (dg.degree > 0)[None, :, None]  # a degree-0 row never exchanges
+    if churn is not None:
+        down_start, down_end = churn
+        up = ~((down_start <= ticks) & (ticks < down_end)).any(dim=-1)  # (B, N)
+        up_partner = up.gather(1, partners.reshape(t1 - t0, -1).to(torch.int64))
+        attempted = attempted & up[:, :, None] & up_partner.view(partners.shape)
+        draw["up"] = up
+    attempted = attempted.expand(partners.shape).contiguous()
+    push_ok = attempted
+    if loss is not None and mode != "pull":
+        push_ok = attempted & ~drop_mask_torch(rows, partners, ticks, *loss)
+    draw.update(attempted=attempted, push_ok=push_ok)
+    return draw
+
+
+def _gen_events(origins: np.ndarray, gen_ticks: np.ndarray, horizon: int, w: int, dev):
+    """A chunk's generation events that fire before ``horizon``, sorted by
+    tick: each event's bitmask word (``origin * W + slot // 32``), its bit
+    as the int32 pattern, and its origin, on the device; and for each
+    tick with events, its (start, end) range."""
+    live = np.flatnonzero(gen_ticks < horizon)
+    order = live[np.argsort(gen_ticks[live], kind="stable")]  # the share slots
+    ticks = gen_ticks[order]
+    org = origins[order].astype(np.int64)
+    word = org * w + order // 32
+    bit = (np.uint32(1) << (order % 32).astype(np.uint32)).view(np.int32)
+    spans = {}
+    for t in np.unique(ticks):
+        spans[int(t)] = (int(np.searchsorted(ticks, t)),
+                         int(np.searchsorted(ticks, t, side="right")))
+    as_dev = functools.partial(torch.as_tensor, device=dev)
+    return as_dev(word), as_dev(bit), as_dev(org), spans
+
+
+def _run_chunk(
+    dg: DeviceGraph,
+    origins: np.ndarray,      # (S,) chunk origins
+    gen_ticks: np.ndarray,    # (S,) int32; >= horizon never fires
+    key: torch.Tensor,        # (N, c) `pick_key` of every (node, pick)
+    override: torch.Tensor | None,  # (horizon, N[, c]) int32 pinned partners
+    churn: tuple | None,
+    loss: tuple | None,
+    *,
+    mode: str,
+    chunk_size: int,
+    horizon: int,
+    n_cov: int | None,
+    plain: bool,
+):
+    """``horizon`` rounds of one share chunk from t = 0 (the JAX package's
+    ``_pushpull_scan`` and ``_pushk_scan``). A node makes c exchanges a
+    round: c = 1 for push-pull and pull, the fanout for fanout push.
+    Returns (received int32, sent int64, coverage (horizon, n_cov) int32
+    or None, the (D, N, W) ring as the last round left it), on the
+    device.
+
+    For push-pull and pull the ring holds ``seen`` itself: round t reads
+    its ``seen`` from slot t-1 and writes the new one into slot t, so no
+    separate copy is kept. A generation's bit is added into its origin's
+    new row, which is an exact OR: no node holds a share before its
+    generation tick. So a node's ``received`` over the chunk is its final
+    ``seen`` popcount less the generations that fired at it — the sum of
+    the rounds' ``popcount(incoming & ~seen)`` (below 2^31: at most the
+    chunk's shares)."""
+    n, dev = dg.n, dg.device
+    w = bitmask.num_words(chunk_size)
+    ring = dg.ring_size
+    words, bits, gen_org, spans = _gen_events(origins, gen_ticks, horizon, w, dev)
+    hist = torch.zeros((ring, n, w), dtype=torch.int32, device=dev)
+    hcnt = torch.zeros((ring, n), dtype=torch.int32, device=dev)  # rows' popcounts
+    flat, flat_cnt = hist.view(ring * n, w), hcnt.view(-1)
+    seen = hist[ring - 1]  # slot t-1 at t = 0: zero
+    if mode == "pushk":
+        seen = torch.zeros((n, w), dtype=torch.int32, device=dev)
+    fired = torch.zeros((n,), dtype=torch.int32, device=dev)
+    sent = torch.zeros((n,), dtype=torch.int64, device=dev)
+    cov = None
+    if n_cov is not None:
+        cov = torch.zeros((horizon, n_cov), dtype=torch.int32, device=dev)
+    cov_w = bitmask.num_words(n_cov or 0)
+
+    for t in range(horizon):
+        i = t % PICK_BLOCK
+        if i == 0:
+            draw = _draw_rounds(dg, key, override, churn, loss, t,
+                                min(t + PICK_BLOCK, horizon), mode)
+        partners, attempted = draw["partners"][i], draw["attempted"][i]
+        src = draw["src"][i]
+        if mode == "pushk":
+            incoming = torch.zeros((n, w), dtype=torch.int32, device=dev)
+        else:
+            # The pull: the partner's row, the coin drop(partner, node, t)
+            # applied inside the gather.
+            delay = None if draw["delay"] is None else draw["delay"][i]
+            incoming = torch.empty((n, w), dtype=torch.int32, device=dev)
+            kernels.gather_or(
+                hist, t, partners, attempted, delay,
+                uniform_slot=None if delay is not None else _uniform_slot(dg, override, t),
+                loss=loss, out=incoming, plain=plain,
+            )
+        if mode == "pull":
+            # The responder transmits: each attempted pull credits the
+            # partner with the size of the row it served, before the coin.
+            served = torch.where(attempted, flat_cnt[draw["served"][i]], 0)
+            sent.index_add_(0, partners.view(-1).to(torch.int64),
+                            served.view(-1).to(torch.int64))
+        else:
+            scatter_or(
+                n, partners.view(-1), flat, draw["push_ok"][i].view(-1),
+                src_row=src.view(-1), out=incoming, plain=plain,
+            )
+            # The sender counts every attempted send. The JAX package sums
+            # a node's picks in int32 and adds the sum as a uint32: the
+            # same value mod 2^32.
+            digest = torch.where(attempted, flat_cnt[src], 0)
+            sent += digest.sum(dim=1, dtype=torch.int64) & _U32
+
+        row = hist[t % ring]
+        if mode == "pushk":
+            torch.bitwise_and(incoming, torch.bitwise_not(seen), out=row)  # newly
+        else:
+            torch.bitwise_or(seen, incoming, out=row)
+        if t in spans:
+            lo, hi = spans[t]
+            vals, org = bits[lo:hi], gen_org[lo:hi]
+            fire = torch.ones_like(vals)
+            if draw["up"] is not None:
+                fire = draw["up"][i][org].to(torch.int32)
+                vals = vals * fire
+            row.view(-1).index_add_(0, words[lo:hi], vals)
+            fired.index_add_(0, org, fire)
+        bitmask.popcount_rows(row, out=hcnt[t % ring], plain=plain)
+        if mode == "pushk":
+            seen |= row
+        else:
+            seen = row
+        if cov is not None:
+            cov[t] = bitmask.coverage_per_slot(seen[:, :cov_w], n_cov, plain=plain)
+    final = bitmask.popcount_rows(seen, plain=plain) if mode == "pushk" else hcnt[
+        (horizon - 1) % ring]
+    return final - fired, sent, cov, hist
+
+
+def _uniform_slot(dg: DeviceGraph, override, t: int) -> int:
+    """The one ring slot round t reads: one round back under an override,
+    else the uniform delay back."""
+    back = 1 if override is not None else dg.uniform_delay
+    return (t - back) % dg.ring_size
+
+
+def _run_partnered_sim(
+    mode: str,
+    fanout: int,
+    fingerprint_extra: tuple,
+    graph: Graph,
+    schedule: Schedule,
+    horizon_ticks: int,
+    ell_delays,
+    constant_delay,
+    seed,
+    record_coverage,
+    partners_override,
+    device_graph,
+    chunk_size,
+    churn,
+    loss,
+    checkpoint_path,
+    checkpoint_every,
+    stop_after_chunks,
+    device,
+    plain,
+):
+    """The chunk loop of both protocols (the JAX package's
+    ``_run_partnered_sim``): stage, chunk, checkpoint, run each chunk's
+    rounds and add the counters. ``fingerprint_extra`` (protocol name and
+    its static knobs) keys the checkpoint, part for part as the JAX
+    package's, so a checkpoint either package writes, the other resumes."""
+    dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
+    dev = dg.device
+    chunk_size = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
+    chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
+    seed = int(seed) & _U32
+    nodes = torch.arange(dg.n, dtype=torch.int64, device=dev)
+    picks = torch.arange(fanout, dtype=torch.int64, device=dev)
+    key = pick_key(nodes[:, None], picks[None, :], seed)  # pick 0 for push-pull
+    override = None
+    if partners_override is not None:
+        override = torch.as_tensor(
+            np.asarray(partners_override, dtype=np.int32), device=dev
+        )
+    churn_dev = churn_mod.to_device(churn, dev)
+    loss_cfg = None
+    if loss is not None and loss.threshold > 0:
+        loss_cfg = loss.static_cfg
+
+    received = np.zeros(graph.n, dtype=np.int64)
+    sent = np.zeros(graph.n, dtype=np.int64)
+    checkpointer = make_checkpointer(
+        checkpoint_path, checkpoint_every, record_coverage,
+        lambda: (
+            "partnered_sim", *fingerprint_extra, graph.n, graph.edges(),
+            schedule.origins, schedule.gen_ticks, horizon_ticks, chunk_size,
+            _canonical_delays(dg), dg.uniform_delay, dg.ring_size, seed,
+            partners_override,
+            churn.down_start if churn is not None else None,
+            churn.down_end if churn is not None else None,
+            *([np.asarray(loss.static_cfg, dtype=np.int64)] if loss is not None else []),
+        ),
+        {"received": received, "sent": sent},
+    )
+    cov_chunks = []
+    chunks = schedule.chunk(chunk_size) or [schedule]
+    for _, chunk in checkpointed_chunks(chunks, checkpointer, stop_after_chunks):
+        origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
+        r, s, cov, _ = _run_chunk(
+            dg, origins, gen_ticks, key, override, churn_dev, loss_cfg,
+            mode=mode, chunk_size=chunk_size, horizon=horizon_ticks,
+            n_cov=chunk.num_shares if record_coverage else None, plain=plain,
+        )
+        received += r.cpu().numpy().astype(np.int64)
+        sent += s.cpu().numpy()
+        if record_coverage:
+            cov_chunks.append(cov.cpu().numpy())
+
+    generated = effective_generated(schedule, horizon_ticks, churn)
+    stats = NodeStats(
+        generated=generated,
+        received=received,
+        forwarded=received.copy(),
+        sent=sent,
+        processed=generated + received,
+        degree=graph.degree.astype(np.int64),
+    )
+    cov = np.concatenate(cov_chunks, axis=1) if record_coverage else None
+    return stats, cov
+
+
+def run_pushpull_sim(
+    graph: Graph,
+    schedule: Schedule,
+    horizon_ticks: int,
+    ell_delays: np.ndarray | None = None,
+    constant_delay: int = 1,
+    seed: int = 0,
+    record_coverage: bool = False,
+    partners_override: np.ndarray | None = None,
+    device_graph: DeviceGraph | None = None,
+    chunk_size: int = DEFAULT_CHUNK_SIZE,
+    churn=None,
+    loss=None,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 1,
+    stop_after_chunks: int | None = None,
+    mode: str = "pushpull",
+    *,
+    device=None,
+    plain: bool = False,
+):
+    """Push-pull anti-entropy for ``horizon_ticks`` rounds; ``mode="pull"``
+    runs pull-only anti-entropy (a node ORs in its partner's past state and
+    pushes nothing; ``sent`` credits the responder with the popcount of the
+    state it served, lost in flight or not). The JAX package's
+    ``run_pushpull_sim``, with identical counters and coverage rows.
+    Returns (stats, coverage or None); coverage is (horizon, S) int32 node
+    counts per round.
+
+    ``partners_override`` (horizon, N) pins each round's partners (with a
+    one-round delay), for the numpy oracles. ``churn``: an exchange with a
+    down endpoint never happens and down nodes skip generations. ``loss``:
+    each direction of an attempted exchange is lost independently to the
+    per-link coin; the sender still counts its digest.
+    ``checkpoint_path``/``checkpoint_every``/``stop_after_chunks`` as in
+    `engine.sync.run_sync_sim` (not with ``record_coverage``).
+
+    ``device=None`` means CUDA and raises without it; ``device="cpu"`` runs
+    the kernels' plain versions, as does ``plain=True`` on any device."""
+    if mode not in ("pushpull", "pull"):
+        raise ValueError(f"unknown anti-entropy mode {mode!r}")
+    if mode == "pull":
+        _check_pull_credit_bound(graph, chunk_size, schedule)
+    return _run_partnered_sim(
+        mode, 1, (mode,), graph, schedule, horizon_ticks, ell_delays,
+        constant_delay, seed, record_coverage, partners_override, device_graph,
+        chunk_size, churn, loss, checkpoint_path, checkpoint_every,
+        stop_after_chunks, device, plain,
+    )
+
+
+def run_pushk_sim(
+    graph: Graph,
+    schedule: Schedule,
+    horizon_ticks: int,
+    fanout: int = 2,
+    ell_delays: np.ndarray | None = None,
+    constant_delay: int = 1,
+    seed: int = 0,
+    record_coverage: bool = False,
+    partners_override: np.ndarray | None = None,
+    device_graph: DeviceGraph | None = None,
+    chunk_size: int = DEFAULT_CHUNK_SIZE,
+    churn=None,
+    loss=None,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 1,
+    stop_after_chunks: int | None = None,
+    *,
+    device=None,
+    plain: bool = False,
+):
+    """Fanout-limited push ("rumor mongering") for ``horizon_ticks`` rounds:
+    each node pushes its frontier — the shares it newly acquired or
+    generated ``delay`` rounds ago — to ``fanout`` uniform-random
+    neighbour picks a round (with replacement; duplicate picks are
+    independent sends). ``sent`` counts the pushed frontier's popcount per
+    attempted pick (a pick lost in flight still counts).
+    ``partners_override`` is (horizon, N, fanout). The JAX package's
+    ``run_pushk_sim``; the rest as in `run_pushpull_sim`."""
+    if fanout < 1:
+        raise ValueError(f"fanout must be >= 1, got {fanout}")
+    return _run_partnered_sim(
+        "pushk", fanout, ("pushk", fanout), graph, schedule, horizon_ticks,
+        ell_delays, constant_delay, seed, record_coverage, partners_override,
+        device_graph, chunk_size, churn, loss, checkpoint_path,
+        checkpoint_every, stop_after_chunks, device, plain,
+    )
+
+
+# --- numpy oracles (the JAX package's, copied) -------------------------------
+
+def seeded_partners(
+    graph: Graph, horizon: int, seed: int, fanout: int | None = None
+) -> np.ndarray:
+    """The partners a seeded run picks, from the counter-based hash on the
+    host: (horizon, N) for push-pull, (horizon, N, fanout) for fanout
+    push. Fed to the oracles they reproduce a seeded run with a one-round
+    uniform delay."""
+    ell_idx, _ = graph.ell()
+    deg = graph.degree
+    rows = np.arange(graph.n)
+    ticks = np.arange(horizon)
+    if fanout is None:
+        k = pick_index_np(rows[None, :], ticks[:, None], 0, deg[None, :], seed)
+        return ell_idx[rows[None, :], k].astype(np.int32)
+    picks = np.arange(fanout)
+    k = pick_index_np(
+        rows[None, :, None],
+        ticks[:, None, None],
+        picks[None, None, :],
+        deg[None, :, None],
+        seed,
+    )
+    return ell_idx[rows[None, :, None], k].astype(np.int32)
+
+
+def pushpull_oracle(
+    graph: Graph,
+    schedule: Schedule,
+    horizon_ticks: int,
+    partners: np.ndarray,
+    churn=None,
+    loss=None,
+    mode: str = "pushpull",
+) -> NodeStats:
+    """Plain-numpy specification of one-round-delay push-pull (or pull,
+    ``mode="pull"``) with pinned partners, under the same churn and loss
+    gating and counter rules as the engines."""
+    n = graph.n
+    s = schedule.num_shares
+    seen = np.zeros((n, s), dtype=bool)
+    hist = [np.zeros((n, s), dtype=bool) for _ in range(2)]
+    received = np.zeros(n, dtype=np.int64)
+    sent = np.zeros(n, dtype=np.int64)
+    rows = np.arange(n)
+    for t in range(horizon_ticks):
+        old = hist[(t - 1) % 2]
+        p = partners[t]
+        attempted = graph.degree > 0
+        if churn is not None:
+            up = churn.up_mask(t)
+            attempted = attempted & up & up[p]
+        pull_ok = push_ok = attempted
+        if loss is not None:
+            pull_ok = attempted & ~drop_mask_np(p, rows, t, loss.threshold, loss.seed)
+            push_ok = attempted & ~drop_mask_np(rows, p, t, loss.threshold, loss.seed)
+        incoming = old[p] & pull_ok[:, None]  # pull
+        if mode == "pull":
+            np.add.at(sent, p, np.where(attempted, old[p].sum(axis=1), 0))
+        else:
+            for i in range(n):  # push
+                if push_ok[i]:
+                    incoming[p[i]] = incoming[p[i]] | old[i]
+            sent += np.where(attempted, old.sum(axis=1), 0)
+        newly = incoming & ~seen
+        received += newly.sum(axis=1)
+        seen |= newly
+        gen_now = schedule.gen_ticks == t
+        if churn is not None:
+            gen_now = gen_now & up[schedule.origins]
+        seen[schedule.origins[gen_now], np.flatnonzero(gen_now)] = True
+        hist[t % 2] = seen.copy()
+    generated = effective_generated(schedule, horizon_ticks, churn)
+    return NodeStats(
+        generated=generated,
+        received=received,
+        forwarded=received.copy(),
+        sent=sent,
+        processed=generated + received,
+        degree=graph.degree.astype(np.int64),
+    )
+
+
+def pushk_oracle(
+    graph: Graph,
+    schedule: Schedule,
+    horizon_ticks: int,
+    partners: np.ndarray,
+    churn=None,
+    loss=None,
+) -> NodeStats:
+    """Plain-numpy specification of one-round-delay fanout push with
+    pinned (horizon, N, k) picks, under the engines' churn and loss gating."""
+    n = graph.n
+    s = schedule.num_shares
+    k = partners.shape[2]
+    seen = np.zeros((n, s), dtype=bool)
+    hist = [np.zeros((n, s), dtype=bool) for _ in range(2)]
+    received = np.zeros(n, dtype=np.int64)
+    sent = np.zeros(n, dtype=np.int64)
+    rows = np.arange(n)
+    for t in range(horizon_ticks):
+        front_old = hist[(t - 1) % 2]
+        p = partners[t]
+        attempted = np.broadcast_to((graph.degree > 0)[:, None], (n, k)).copy()
+        if churn is not None:
+            up = churn.up_mask(t)
+            attempted = attempted & up[:, None] & up[p]
+        push_ok = attempted
+        if loss is not None:
+            push_ok = attempted & ~drop_mask_np(
+                rows[:, None], p, t, loss.threshold, loss.seed
+            )
+        incoming = np.zeros((n, s), dtype=bool)
+        for i in range(n):
+            for j in range(k):
+                if push_ok[i, j]:
+                    incoming[p[i, j]] |= front_old[i]
+        sent += front_old.sum(axis=1) * attempted.sum(axis=1)
+        newly = incoming & ~seen
+        received += newly.sum(axis=1)
+        front = newly.copy()
+        gen_now = schedule.gen_ticks == t
+        if churn is not None:
+            gen_now = gen_now & up[schedule.origins]
+        front[schedule.origins[gen_now], np.flatnonzero(gen_now)] = True
+        seen |= front
+        hist[t % 2] = front
+    generated = effective_generated(schedule, horizon_ticks, churn)
+    return NodeStats(
+        generated=generated,
+        received=received,
+        forwarded=received.copy(),
+        sent=sent,
+        processed=generated + received,
+        degree=graph.degree.astype(np.int64),
+    )

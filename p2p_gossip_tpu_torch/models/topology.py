@@ -209,3 +209,77 @@ def ring_graph(n: int) -> Graph:
     """Ring topology — deterministic diameter."""
     nodes = np.arange(n, dtype=np.int64)
     return Graph.from_edges(n, np.stack([nodes, (nodes + 1) % n], axis=1))
+
+
+def complete_graph(n: int) -> Graph:
+    """Fully connected topology (single-hop flood)."""
+    src, dst = np.nonzero(np.triu(np.ones((n, n), dtype=bool), k=1))
+    return Graph.from_edges(n, np.stack([src, dst], axis=1))
+
+
+def watts_strogatz(n: int, k: int = 4, beta: float = 0.1, seed: int = 0) -> Graph:
+    """Watts–Strogatz small-world: ring lattice (each node to its k nearest
+    neighbors, k even) with each clockwise edge rewired to a uniform random
+    endpoint with probability ``beta``.
+
+    Beyond-reference topology family: gossip latency studies care about the
+    small-world regime (high clustering, log diameter) between the ring
+    (beta=0) and ER-like (beta=1) extremes. Fully vectorized; rewires that
+    would create a self-loop or duplicate are dropped by ``from_edges``'s
+    canonicalization, and the ring backbone keeps every node connected
+    (min degree >= k/2 >= 1, matching the reference's no-isolated-nodes
+    guarantee).
+    """
+    if k < 2 or k % 2 != 0:
+        raise ValueError("k must be a positive even integer")
+    if k >= n:
+        raise ValueError("k must be < n")
+    if not 0.0 <= beta <= 1.0:
+        raise ValueError("beta must be in [0, 1]")
+    rng = np.random.default_rng(seed)
+    nodes = np.arange(n, dtype=np.int64)
+    lattice = [
+        np.stack([nodes, (nodes + d) % n], axis=1) for d in range(1, k // 2 + 1)
+    ]
+    edges = np.concatenate(lattice, axis=0)
+    rewire = np.flatnonzero(rng.random(edges.shape[0]) < beta)
+    # Redraw targets that would self-loop (expected O(1) rounds).
+    targets = rng.integers(0, n, size=rewire.shape[0])
+    while True:
+        bad = targets == edges[rewire, 0]
+        if not bad.any():
+            break
+        targets[bad] = rng.integers(0, n, size=int(bad.sum()))
+    edges[rewire, 1] = targets
+    g = Graph.from_edges(n, edges)
+    # Rewiring keeps each node's k/2 clockwise edges attached, so isolation
+    # is only possible through duplicate-collapse corners; apply the
+    # reference's forced-edge fix (p2pnetwork.cc:81-84) if it ever happens.
+    isolated = np.flatnonzero(g.degree == 0)
+    if isolated.size:
+        fix = np.stack([isolated, (isolated - 1) % n], axis=1)
+        g = Graph.from_edges(n, np.concatenate([g.edges(), fix], axis=0))
+    return g
+
+
+def grid_graph(rows: int, cols: int, torus: bool = False) -> Graph:
+    """2D grid (optionally wrapped into a torus): the NetAnim layout's
+    geometry (p2pnetwork.cc:167-176 arranges nodes on exactly this grid) as
+    an actual communication topology. Deterministic degree <= 4, diameter
+    rows+cols — the worst-case flood-latency stress test.
+    """
+    if rows < 1 or cols < 1 or rows * cols < 2:
+        raise ValueError("grid needs at least 2 nodes")
+    n = rows * cols
+    ids = np.arange(n, dtype=np.int64).reshape(rows, cols)
+    edges = []
+    if cols > 1:
+        edges.append(np.stack([ids[:, :-1].ravel(), ids[:, 1:].ravel()], axis=1))
+    if rows > 1:
+        edges.append(np.stack([ids[:-1, :].ravel(), ids[1:, :].ravel()], axis=1))
+    if torus:
+        if cols > 2:
+            edges.append(np.stack([ids[:, -1].ravel(), ids[:, 0].ravel()], axis=1))
+        if rows > 2:
+            edges.append(np.stack([ids[-1, :].ravel(), ids[0, :].ravel()], axis=1))
+    return Graph.from_edges(n, np.concatenate(edges, axis=0))

@@ -7,6 +7,7 @@
 | `sector_occupancy`  | none: the gather's companion pass over each new slot    |
 | `popcount_rows`     | ops/pallas_kernels.py popcount_rows_pallas              |
 | `coverage_per_slot` | ops/pallas_kernels.py coverage_per_slot_pallas          |
+| `scatter_or`        | ops/segment.py scatter_or / scatter_or_bits (XLA)        |
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel (csrc/gossip_kernels.cu, built and bound by
@@ -34,6 +35,7 @@ WORD_BITS = 32
 
 launches = {
     "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
+    "scatter_or": 0,
 }
 
 
@@ -91,15 +93,22 @@ def popcount_rows_plain(words: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=-1).to(torch.int32)
 
 
-def popcount_rows(words: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-    """Per-row set-bit count: (N, W) int32 bitmask -> (N,) int32."""
-    if not _use_kernel(words, plain):
-        return popcount_rows_plain(words)
-    _int32_matrix(words, "words")
+def popcount_rows(
+    words: torch.Tensor, *, out: torch.Tensor | None = None, plain: bool = False
+) -> torch.Tensor:
+    """Per-row set-bit count: (N, W) int32 bitmask -> (N,) int32, written
+    into ``out`` when given."""
     n, w = words.shape
+    if out is None:
+        out = torch.empty((n,), dtype=torch.int32, device=words.device)
+    _require(out.shape == (n,) and out.dtype == torch.int32, "out must be (N,) int32")
+    if not _use_kernel(words, plain):
+        return out.copy_(popcount_rows_plain(words))
+    _int32_matrix(words, "words")
+    _require(out.device == words.device and out.is_contiguous(),
+             "out must be contiguous on the words' device")
     if not (n and w):
-        return torch.zeros((n,), dtype=torch.int32, device=words.device)
-    out = torch.empty((n,), dtype=torch.int32, device=words.device)
+        return out.zero_()
     _launch(
         "popcount_rows", _lib().gossip_popcount_rows,
         words.data_ptr(), n, w, words.stride(0), out.data_ptr(),
@@ -326,5 +335,88 @@ def gather_or(
             out.shape[0], None if up is None else up.data_ptr(),
             int(loss is not None), loss_seed, loss_limit,
             out.data_ptr(), _stream(hist.device),
+        )
+    return out
+
+
+# --- scatter_or -------------------------------------------------------------
+
+def scatter_or_plain(src, dst, src_row, mask, out):
+    """Exact and small in memory: sort the kept entries by destination,
+    rank each within its run of equal destinations, and for each rank OR
+    that rank's source rows into ``out`` — the rows of one rank have
+    distinct destinations, so a plain indexed ``|=`` is safe. (The JAX
+    package's bit-unpack form would build an (M, W, 32) tensor.)"""
+    n_src = src.shape[0]
+    n_out = out.shape[0]
+    d = dst.to(torch.int64)
+    s = (torch.arange(d.shape[0], device=d.device) if src_row is None
+         else src_row.to(torch.int64))
+    keep = (d >= 0) & (d < n_out) & (s >= 0) & (s < n_src)
+    if mask is not None:
+        keep &= mask
+    d, order = torch.sort(d[keep], stable=True)
+    s = s[keep][order]
+    if not d.numel():
+        return out
+    pos = torch.arange(d.numel(), device=d.device)
+    head = torch.ones_like(d, dtype=torch.bool)
+    head[1:] = d[1:] != d[:-1]
+    rank = pos - torch.where(head, pos, 0).cummax(0).values
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        rows = d[sel]
+        out[rows] = out[rows] | torch.index_select(src, 0, s[sel])
+    return out
+
+
+def scatter_or(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    *,
+    src_row: torch.Tensor | None = None,
+    mask: torch.Tensor | None = None,
+    out: torch.Tensor,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Scatter-OR of table rows into ``out``, in place:
+
+        out[dst[m]] |= src[src_row[m]]   for every m with mask[m]
+
+    ``src`` (R, W) int32 — for the push protocols the flattened history
+    ring; ``dst`` (M,) int32; ``src_row`` (M,) int32 (None: row m reads
+    src row m); ``mask`` (M,) bool (None: every entry). Entries whose
+    ``dst`` lies outside ``[0, len(out))`` or whose source row lies outside
+    ``[0, R)`` are dropped, never wrapped. ``out`` (N, W) int32 is ORed
+    into (zero it first for a plain scatter). Returns ``out``."""
+    _require(src.dim() == 2 and out.dim() == 2 and src.shape[1] == out.shape[1],
+             "src and out must be (R, W) and (N, W)")
+    _require(dst.dim() == 1, "dst must be (M,)")
+    m = dst.shape[0]
+    _require(src_row is None or src_row.shape == (m,), "src_row must be (M,)")
+    _require(mask is None or (mask.shape == (m,) and mask.dtype == torch.bool),
+             "mask must be (M,) bool")
+    if not _use_kernel(src, plain):
+        return scatter_or_plain(src, dst, src_row, mask, out)
+    tensors = [("src", src, torch.int32), ("dst", dst, torch.int32),
+               ("out", out, torch.int32)]
+    if src_row is not None:
+        tensors.append(("src_row", src_row, torch.int32))
+    else:
+        _require(m <= src.shape[0], "identity rows need M <= R")
+    if mask is not None:
+        tensors.append(("mask", mask, torch.bool))
+    for name, t, dtype in tensors:
+        _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        _require(t.device == src.device, f"{name} is on {t.device}, not {src.device}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    n_src, w = src.shape
+    if m and w:
+        _launch(
+            "scatter_or", _lib().gossip_scatter_or,
+            src.data_ptr(), n_src, w,
+            None if src_row is None else src_row.data_ptr(), dst.data_ptr(),
+            None if mask is None else mask.data_ptr(), m, out.shape[0],
+            out.data_ptr(), _stream(src.device),
         )
     return out

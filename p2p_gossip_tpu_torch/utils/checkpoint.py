@@ -196,3 +196,24 @@ def checkpointed_chunks(chunks, checkpointer, stop_after_chunks=None):
         done += 1
         if checkpointer is not None:
             checkpointer.maybe_save(done, ci, last)
+
+
+def make_checkpointer(
+    checkpoint_path, checkpoint_every, record_coverage, fp_parts_fn, arrays
+):
+    """Checkpoint set-up of the random-partner protocols: None when
+    checkpointing is off; a ValueError with ``record_coverage`` (a resumed
+    run would lack the skipped chunks' coverage rows); otherwise a
+    ChunkCheckpointer over ``arrays`` keyed by ``fingerprint(
+    *fp_parts_fn())``. ``fp_parts_fn`` is a thunk, so the O(edges) parts are
+    built only when a checkpoint is asked for."""
+    if checkpoint_path is None:
+        return None
+    if record_coverage:
+        raise ValueError(
+            "checkpointing is not combinable with record_coverage (a "
+            "resumed run would be missing the skipped chunks' coverage)"
+        )
+    return ChunkCheckpointer(
+        checkpoint_path, fingerprint(*fp_parts_fn()), arrays, checkpoint_every
+    )

@@ -5,6 +5,7 @@ line's ``backend=...`` / ``device=...`` suffix and the wall-time line.
 The port runs with ``--device cpu`` (its kernels' plain torch versions),
 the JAX package on the CPU (``JAX_PLATFORMS=cpu``)."""
 
+import json
 import os
 import subprocess
 import sys
@@ -102,3 +103,121 @@ def test_bad_option_flags_exit_2_as_in_jax(args, capsys):
     assert "error" in capsys.readouterr().err
     assert cli.run(args + ["--device", "cpu"]) == 2
     assert "error" in capsys.readouterr().err
+
+
+# --- the protocols, topologies, generation models, --json and --anim --------
+
+PROTOCOL = ["--numNodes", "40", "--simTime", "4", "--Latency", "50"]
+
+
+def _split_tail(out: str, prefix: str):
+    """(report without its last line, that line), the line starting with
+    ``prefix``."""
+    head, _, last = out.rstrip("\n").rpartition("\n")
+    assert last.startswith(prefix), out
+    return head + "\n", last
+
+
+@pytest.mark.parametrize("name,args", [
+    ("pushpull", PROTOCOL + ["--protocol", "pushpull", "--delayModel", "lognormal"]),
+    ("pull", PROTOCOL + ["--protocol", "pull", "--churnProb", "0.3", "--lossProb", "0.2"]),
+    ("pushk", PROTOCOL + ["--protocol", "pushk", "--fanout", "3", "--lossProb", "0.1"]),
+    ("pushpull_coverage", PROTOCOL + ["--protocol", "pushpull", "--floodCoverage", "9",
+                                      "--churnProb", "0.2", "--delayModel", "lognormal"]),
+    ("pull_coverage", PROTOCOL + ["--protocol", "pull", "--floodCoverage", "7",
+                                  "--lossProb", "0.3", "--coverageFraction", "0.9"]),
+    ("pushk_coverage", PROTOCOL + ["--protocol", "pushk", "--fanout", "3",
+                                   "--floodCoverage", "8"]),
+])
+def test_protocol_flags_print_the_jax_report(name, args, capsys):
+    want = _run_in_process(jax_cli.run, args, capsys)
+    port = _run_in_process(cli.run, args + ["--device", "cpu"], capsys)
+    _assert_same_report(port, want)
+    title = "Coverage (" if "coverage" in name else "Total shares sent: "
+    assert title in port
+    if "coverage" in name:
+        assert f"=== {name.split('_')[0]} Coverage (" in port
+
+
+@pytest.mark.parametrize("name,args", [
+    ("ws", ["--numNodes", "50", "--topology", "ws", "--wsK", "6", "--wsBeta", "0.3",
+            "--simTime", "12"]),
+    ("grid", ["--numNodes", "42", "--topology", "grid", "--simTime", "12"]),
+    ("torus", ["--numNodes", "48", "--topology", "torus", "--gridCols", "8",
+               "--simTime", "12", "--protocol", "pushpull", "--Latency", "50"]),
+    ("complete", ["--numNodes", "12", "--topology", "complete", "--simTime", "12"]),
+    ("ba", ["--numNodes", "60", "--topology", "ba", "--baM", "2", "--simTime", "12",
+            "--delayModel", "lognormal"]),
+    ("poisson", ["--numNodes", "50", "--genModel", "poisson", "--poissonRate", "0.8",
+                 "--simTime", "12", "--statsInterval", "3"]),
+    ("gen_window", ["--numNodes", "30", "--genLo", "0.5", "--genHi", "1.5",
+                    "--simTime", "6", "--protocol", "pushk", "--Latency", "50"]),
+])
+def test_topology_and_generation_flags_print_the_jax_report(name, args, capsys):
+    want = _run_in_process(jax_cli.run, args, capsys)
+    port = _run_in_process(cli.run, args + ["--device", "cpu"], capsys)
+    _assert_same_report(port, want)
+
+
+def _json_line(out: str) -> dict:
+    """The --json line with its timing fields dropped and the engine key
+    (``backend`` in the JAX CLI, ``device`` in the port's) set aside."""
+    head, last = _split_tail(out, "{")
+    record = json.loads(last)
+    for key in ("wall_s", "node_updates_per_s"):
+        record.pop(key, None)
+    config = record["config"]
+    assert config.pop("backend", None) or config.pop("device", None)
+    return head, record
+
+
+@pytest.mark.parametrize("args", [
+    ["--numNodes", "30", "--simTime", "10"],
+    PROTOCOL + ["--protocol", "pull"],
+    PROTOCOL + ["--protocol", "pushk", "--floodCoverage", "6"],
+])
+def test_json_line_carries_the_jax_keys(args, capsys):
+    want_head, want = _json_line(_run_in_process(jax_cli.run, args + ["--json"], capsys))
+    port_head, got = _json_line(
+        _run_in_process(cli.run, args + ["--json", "--device", "cpu"], capsys)
+    )
+    _assert_same_report(port_head, want_head)
+    assert got == want
+
+
+@pytest.mark.parametrize("topology", ["er", "torus"])
+def test_anim_file_is_byte_equal(topology, tmp_path, capsys):
+    args = ["--numNodes", "36", "--simTime", "6", "--topology", topology]
+    jax_out = _run_in_process(jax_cli.run, args + ["--anim", str(tmp_path / "jax.xml")],
+                              capsys)
+    port_out = _run_in_process(
+        cli.run, args + ["--anim", str(tmp_path / "port.xml"), "--device", "cpu"], capsys
+    )
+    jax_head, _ = _split_tail(jax_out, "NetAnim trace written to ")
+    port_head, line = _split_tail(port_out, "NetAnim trace written to ")
+    assert line.endswith("port.xml")
+    _assert_same_report(port_head, jax_head)
+    assert (tmp_path / "port.xml").read_bytes() == (tmp_path / "jax.xml").read_bytes()
+
+
+PULL_BOUND = ["--protocol", "pull", "--numNodes", "2000", "--topology", "complete",
+              "--chunkSize", "4000000", "--simTime", "1"]
+
+
+@pytest.mark.parametrize("args", [
+    ["--protocol", "pushk", "--fanout", "0"],
+    ["--protocol", "pushk", "--fanout", "0", "--floodCoverage", "3"],
+    ["--protocol", "pushpull", "--connectAtTick", "5"],
+    ["--connectAtTick", "5", "--floodCoverage", "3"],
+    # Degree 1,999 x a 2.2M-share chunk passes 2^32: the pull credit bound.
+    PULL_BOUND + ["--genModel", "poisson", "--poissonRate", "1100"],
+    PULL_BOUND + ["--floodCoverage", "2200000"],
+    ["--topology", "grid", "--numNodes", "42", "--gridCols", "5"],
+])
+def test_shared_validations_print_the_jax_error(args, capsys):
+    assert jax_cli.run(args) == 2
+    want = capsys.readouterr().err
+    assert cli.run(args + ["--device", "cpu"]) == 2
+    got = capsys.readouterr().err
+    assert got.startswith("error: ")
+    assert got == want

@@ -276,3 +276,79 @@ def test_propagation_report_and_redundancy_match_jax():
     assert (empty.latency[0.5] == -1).all()
     a, b = _stats_pair(3)
     assert analysis.message_redundancy(a) == janalysis.message_redundancy(b)
+
+
+# --- partner picks and the protocols' topologies -----------------------------
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from p2p_gossip_tpu.models import partnersel as jpartnersel  # noqa: E402
+from p2p_gossip_tpu_torch.models import partnersel  # noqa: E402
+
+
+@pytest.mark.parametrize("seed", [0, 12345, 2**31 - 1, 2**31, 2**31 + 99, 2**32 - 1])
+def test_pick_index_matches_numpy_and_jax(seed):
+    """Node ids near 2^31 and 2^32, ticks past 2^31, degree 0 (pick 0) and
+    degree 1, for push-pull's one pick and fanout slots."""
+    rng = np.random.default_rng(seed % 1000)
+    node = np.concatenate([rng.integers(0, 5000, 300),
+                           2**31 + np.arange(-3, 3), 2**32 - 1 - np.arange(3)])
+    degree = rng.integers(0, 200, node.shape[0])
+    degree[:5] = 0
+    degree[5:9] = 1
+    for tick, pick in ((0, 0), (17, 2), (2**31 + 5, 7)):
+        want = partnersel.pick_index_np(node, tick, pick, degree, seed)
+        np.testing.assert_array_equal(
+            want, jpartnersel.pick_index_np(node, tick, pick, degree, seed))
+        got = partnersel.pick_index_torch(torch.as_tensor(node), tick, pick,
+                                          torch.as_tensor(degree), seed)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (got[:5] == 0).all() and (got[5:9] == 0).all()
+        small = node < 2**31  # pick_index_jnp takes int32 node ids
+        jgot = jpartnersel.pick_index_jnp(jnp.asarray(node[small], jnp.int32),
+                                          np.uint32(tick),
+                                          pick, jnp.asarray(degree[small], jnp.int32),
+                                          seed)
+        np.testing.assert_array_equal(np.asarray(jgot), want[small])
+
+
+def test_pick_index_broadcasts_node_tick_and_pick():
+    """The (ticks, nodes, picks) grid seeded_partners evaluates, and the
+    tick-free key the round loop keeps."""
+    node = np.arange(50)[None, :, None]
+    tick = np.arange(6)[:, None, None]
+    pick = np.arange(3)[None, None, :]
+    degree = (np.arange(50) % 7)[None, :, None]
+    want = partnersel.pick_index_np(node, tick, pick, degree, 2**31 + 1)
+    got = partnersel.pick_index_torch(torch.as_tensor(node), torch.as_tensor(tick),
+                                      torch.as_tensor(pick), torch.as_tensor(degree),
+                                      2**31 + 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    key = partnersel.pick_key(torch.as_tensor(node[0]), torch.as_tensor(pick[0]), 2**31 + 1)
+    for t in range(6):
+        np.testing.assert_array_equal(
+            partnersel.pick_from_key(key, t, torch.as_tensor(degree[0])).numpy(), want[t])
+
+
+@pytest.mark.parametrize("n,k,beta,seed", [(50, 4, 0.1, 0), (120, 6, 0.5, 3),
+                                           (30, 2, 1.0, 7), (200, 8, 0.0, 1)])
+def test_watts_strogatz_matches_jax(n, k, beta, seed):
+    _same_graph(topology.watts_strogatz(n, k, beta, seed=seed),
+                jtopo.watts_strogatz(n, k, beta, seed=seed))
+
+
+@pytest.mark.parametrize("rows,cols,torus", [(6, 7, False), (6, 7, True), (1, 5, False),
+                                             (2, 2, True), (3, 10, True)])
+def test_grid_graph_matches_jax(rows, cols, torus):
+    g = topology.grid_graph(rows, cols, torus=torus)
+    _same_graph(g, jtopo.grid_graph(rows, cols, torus=torus))
+    g.validate()
+
+
+@pytest.mark.parametrize("n", [2, 12, 65])
+def test_complete_graph_matches_jax(n):
+    g = topology.complete_graph(n)
+    _same_graph(g, jtopo.complete_graph(n))
+    assert (g.degree == n - 1).all()

@@ -227,8 +227,13 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
         bitmask.coverage_per_slot(words, 70), kernels.coverage_per_slot_plain(words, 70)
     )
     assert torch.equal(kernels.sector_occupancy(words), kernels.sector_occupancy_plain(words))
+    dst = torch.arange(50, dtype=torch.int32) % 7
+    out = torch.zeros((7, 3), dtype=torch.int32)
+    assert torch.equal(kernels.scatter_or(words, dst, out=out),
+                       kernels.scatter_or_plain(words, dst, None, None, torch.zeros_like(out)))
     assert kernels.launches == {
         "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
+        "scatter_or": 0,
     }
 
 
@@ -241,6 +246,9 @@ def test_no_kernel_for_other_devices():
         kernels.coverage_per_slot(words, 10)
     with pytest.raises(ValueError):
         kernels.sector_occupancy(words)
+    with pytest.raises(ValueError):
+        kernels.scatter_or(words, torch.zeros(2, dtype=torch.int32, device="meta"),
+                           out=torch.empty((3, 2), dtype=torch.int32, device="meta"))
 
 
 def test_gather_or_rejects_bad_arguments():
@@ -618,3 +626,108 @@ def test_gather_or_rejects_bad_up():
     for up in (torch.ones(4, dtype=torch.int32), torch.ones(3, dtype=torch.bool)):
         with pytest.raises(ValueError):
             kernels.gather_or(hist, 0, idx, mask, uniform_slot=0, up=up, out=out)
+
+
+# --- scatter_or (the XLA scatter-OR of ops/segment.py) -----------------------
+
+import jax  # noqa: E402
+
+from p2p_gossip_tpu.ops import segment as jsegment  # noqa: E402
+from p2p_gossip_tpu_torch.ops import segment  # noqa: E402
+
+
+def _scatter_case(seed, m, w, n_rows, hot=False):
+    """Payload rows with bit 31 and all-ones rows in play, colliding
+    destinations (every entry to row 1 when ``hot``) and a mask."""
+    rng = np.random.default_rng(seed)
+    payload = _ragged_words(seed, m, w) if m else np.zeros((0, w), np.uint32)
+    dst = np.full(m, 1, np.int32) if hot else rng.integers(0, n_rows, m).astype(np.int32)
+    mask = rng.random(m) < 0.7
+    return payload, dst, mask
+
+
+_JAX_SCATTERS = [jax.jit(f, static_argnums=0)
+                 for f in (jsegment.scatter_or, jsegment.scatter_or_bits)]
+
+
+@pytest.mark.parametrize("m,w,n_rows,hot,masked", [
+    (37, 1, 10, False, False), (100, 2, 16, False, True), (65, 3, 7, False, True),
+    (200, 8, 50, False, True), (33, 3, 5, True, False), (33, 3, 5, True, True),
+    (1, 2, 3, False, True),
+])
+def test_scatter_or_matches_jax(m, w, n_rows, hot, masked):
+    """The port's one entry point against both JAX variants (sort + scan,
+    and bit unpack + scatter-add) and a loop of ``|=``."""
+    payload, dst, mask = _scatter_case(m + w, m, w, n_rows, hot)
+    jmask = jnp.asarray(mask) if masked else None
+    got = segment.scatter_or(
+        n_rows, torch.as_tensor(dst), convert.bitmask_to_torch(payload),
+        torch.as_tensor(mask) if masked else None,
+    )
+    for impl in _JAX_SCATTERS:
+        want = np.asarray(impl(n_rows, jnp.asarray(dst), jnp.asarray(payload), jmask))
+        np.testing.assert_array_equal(convert.bitmask_to_numpy(got), want)
+    ref = np.zeros((n_rows, w), np.uint32)
+    for i in range(m):
+        if mask[i] or not masked:
+            ref[dst[i]] |= payload[i]
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(got), ref)
+
+
+def test_scatter_or_drops_out_of_range_destinations():
+    """dst >= n_rows is dropped by both packages. A negative destination is
+    dropped by the port too; the JAX scatter wraps it (its sentinel row
+    absorbs only -1), so the JAX side is fed the non-negative entries."""
+    payload, _, _ = _scatter_case(3, 12, 3, 6)
+    dst = np.array([0, 6, 7, 5, 100, 2, 2, -1, -2, -6, 1, 5], np.int32)
+    got = segment.scatter_or(6, torch.as_tensor(dst), convert.bitmask_to_torch(payload))
+    fwd = _JAX_SCATTERS[0]
+    nonneg, inside = dst >= 0, (dst >= 0) & (dst < 6)
+    want = np.asarray(fwd(6, jnp.asarray(dst[nonneg]), jnp.asarray(payload[nonneg])))
+    np.testing.assert_array_equal(
+        want, np.asarray(fwd(6, jnp.asarray(dst[inside]), jnp.asarray(payload[inside]))))
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(got), want)
+    empty = segment.scatter_or(6, torch.zeros(0, dtype=torch.int32),
+                               torch.zeros((0, 3), dtype=torch.int32))
+    assert empty.shape == (6, 3) and not empty.any()
+    # An int64 destination past 2^32 is dropped, not wrapped into range.
+    wide = torch.as_tensor(dst.astype(np.int64) + np.where(dst == 0, 2**32, 0))
+    got = segment.scatter_or(6, wide, convert.bitmask_to_torch(payload))
+    assert not got[0].any()
+
+
+def test_scatter_or_reads_table_rows_and_ors_into_out():
+    """The engine's form: payload rows read from a table through src_row
+    (rows outside the table dropped), ORed into an existing ``out``."""
+    rng = np.random.default_rng(8)
+    table = _ragged_words(8, 40, 4)
+    src_row = rng.integers(-2, 42, 90).astype(np.int32)
+    dst = rng.integers(0, 9, 90).astype(np.int32)
+    mask = rng.random(90) < 0.6
+    base = _ragged_words(9, 9, 4)
+    out = convert.bitmask_to_torch(base)
+    got = segment.scatter_or(9, torch.as_tensor(dst), convert.bitmask_to_torch(table),
+                             torch.as_tensor(mask), src_row=torch.as_tensor(src_row),
+                             out=out)
+    assert got is out
+    ok = mask & (src_row >= 0) & (src_row < 40)
+    want = np.asarray(_JAX_SCATTERS[0](9, jnp.asarray(dst[ok]),
+                                       jnp.asarray(table[src_row[ok]]))) | base
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(got), want)
+
+
+def test_scatter_or_kernel_wrapper_checks():
+    src = torch.zeros((4, 3), dtype=torch.int32)
+    out = torch.zeros((5, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.scatter_or(src, torch.zeros((2, 2), dtype=torch.int32), out=out)
+    with pytest.raises(ValueError):
+        kernels.scatter_or(src, torch.zeros(3, dtype=torch.int32), out=out[:, :2])
+    with pytest.raises(ValueError):
+        kernels.scatter_or(src, torch.zeros(3, dtype=torch.int32),
+                           mask=torch.ones(3, dtype=torch.int32), out=out)
+    assert "scatter_or" in kernels.launches
+    sig = build._SIGNATURES["gossip_scatter_or"]
+    assert len(sig) == 10
+    with open(build.SOURCE, encoding="utf-8") as f:
+        assert "int gossip_scatter_or(" in f.read()

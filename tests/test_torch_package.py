@@ -54,6 +54,10 @@ def _forbidden(module: str) -> bool:
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    names = {os.path.relpath(f, REPO) for f in files}
+    for module in ("models/protocols.py", "models/partnersel.py", "ops/segment.py",
+                   "utils/anim.py", "utils/cli.py"):
+        assert os.path.join("p2p_gossip_tpu_torch", module) in names
     bad = []
     for path in files:
         with open(path, encoding="utf-8") as f:
@@ -78,7 +82,8 @@ def test_library_path_is_keyed_by_source_hash():
     assert os.path.basename(path).startswith("libgossip_kernels_")
     with open(build.SOURCE, encoding="utf-8") as f:
         src = f.read()
-    for entry in ("gossip_gather_or", "gossip_popcount_rows", "gossip_coverage_per_slot"):
+    for entry in ("gossip_gather_or", "gossip_popcount_rows", "gossip_coverage_per_slot",
+                  "gossip_scatter_or"):
         assert f"int {entry}(" in src
         assert entry in build._SIGNATURES
 
