@@ -42,10 +42,15 @@ Phases (any failure raises and the script exits nonzero):
    run each, every run against its plain run (counters and coverage
    rows), and the push-pull run under ``torch.profiler``.
 
-Phase 3 also holds the ``scatter_or`` kernel against its plain version on
-ragged shapes and at the protocols' own shapes (M = N for push-pull,
-M = 2N for fanout 2, W = 256) over rings captured at rounds 10 and 40 of
-the phase-9 push-pull run. Phase 4 also runs the protocols (push-pull, pull,
+Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
+over a destination-sorted plan) against its plain version on ragged
+shapes (with a base, in place, the and-not frontier and pulled rows) and
+at the protocols' own shapes (M = N for push-pull, M = 2N for fanout 2,
+W = 256) over rings captured at rounds 10 and 40 of the phase-9 push-pull
+run, and on the push-pull round's own call (pulled rows + pushes over
+``seen``); it times the plan alone, and, as the same-call A/B, the
+previous atomic design (``scatter_or_atomic``) and the round as that
+design ran it. Phase 4 also runs the protocols (push-pull, pull,
 fanout push) with the kernels and with the plain versions on small graphs,
 with churn and loss, with coverage rows, and stopped after a chunk and
 resumed from a checkpoint; and the CLI's protocol, topology and
@@ -55,7 +60,8 @@ Kernel launch counts are zeroed just before the timed run of phase 5 and
 read after phase 6 (they must equal the option-free tick's), zeroed
 again just before the timed run of phase 7 and read after its coverage
 run, and zeroed again just before phase 9's timed runs and read after
-them. The second-to-last line is the kernels' JSON record; the last line
+them: there ``gather_or`` must not launch and ``scatter_or`` must launch
+once a round. The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,7 +85,7 @@ SNAPSHOTS = [8, 16, 24, 32]  # the options run's periodic-stats boundaries
 # The flood never scatters.
 LOSS_FREE_LAUNCHES = {
     "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 29, "coverage_per_slot": 7,
-    "scatter_or": 0,
+    "scatter_or": 0, "scatter_or_atomic": 0,
 }
 FLOOD_KERNELS = tuple(name for name, count in LOSS_FREE_LAUNCHES.items() if count)
 SOURCE = "p2p_gossip_tpu_torch/csrc/gossip_kernels.cu"
@@ -92,8 +98,9 @@ REPLACES = {
     "coverage_per_slot": "p2p_gossip_tpu/ops/pallas_kernels.py:122",
     "scatter_or": "p2p_gossip_tpu/ops/segment.py:41",
 }
-# The kernels the protocols' path runs (it keeps no occupancy ring).
-PROTOCOL_KERNELS = ("gather_or", "popcount_rows", "coverage_per_slot", "scatter_or")
+# The kernels the protocols' path runs: it keeps no occupancy ring, and its
+# pull rides in the round's one scatter_or call (no gather).
+PROTOCOL_KERNELS = ("popcount_rows", "coverage_per_slot", "scatter_or")
 PROTOCOL_CAPTURE_ROUND = 10
 PROTOCOL_DENSE_ROUND = 40  # push-pull near saturation: dense rows
 
@@ -625,20 +632,26 @@ def check_coverage_frontier(graph, dg, dev, reps):
 
 
 def check_scatter_ragged(dev, rng):
-    """scatter_or against its plain version on awkward shapes: M off a
-    multiple of 32 and of a block's 8 entries, W of 1, 3, 8 and 256 (4-
-    and 16-byte loads), bit 31 set in every source row, masked-out
-    entries, every entry to one destination, destinations and source rows
-    outside range (dropped), rows read through ``src_row`` and, where M
-    allows it, by identity; ``out`` already holds bits (it is ORed into)."""
+    """scatter_or (plan + kernel) against its plain version on awkward
+    shapes: M off a multiple of 32 and of a block's 8 rows, W of 1, 3, 8
+    and 256 (4- and 16-byte loads), bit 31 set in every source row,
+    masked-out entries, every entry to one destination (runs of 77, 513
+    and 4,099 entries: more than one 32-index load), destinations and
+    source rows outside range (dropped), rows read through ``src_row`` and,
+    where M allows it, by identity, M = 0; each plan with no base (``out``
+    starts as all ones, so a row the kernel should write and does not
+    shows), a base, the base as ``out`` itself (in place), the and-not
+    frontier, and pulled rows (-1 and out of range among them) over a
+    base. The atomic kernel (the previous design), ORing into zeros, must
+    give the no-base result."""
     import torch
 
-    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.ops import kernels, segment
 
     cases = (  # m, n_src, n_out, w, one destination
         (37, 50, 20, 1, False), (1001, 700, 333, 3, False), (77, 80, 9, 8, True),
         (4099, 5000, 4096, 256, False), (513, 600, 1, 256, True), (1, 1, 1, 3, False),
-        (0, 4, 4, 8, False),
+        (0, 4, 4, 8, False), (4099, 4500, 3, 256, True),
     )
     for m, n_src, n_out, w, hot in cases:
         src = random_words(rng, (n_src, w), dev)
@@ -649,39 +662,65 @@ def check_scatter_ragged(dev, rng):
                                   device=dev)
         mask = torch.as_tensor(rng.random(m) < 0.75, device=dev)
         base = sparse_words(rng, (n_out, w), dev)
+        pull = torch.as_tensor(rng.integers(-3, n_src + 3, n_out).astype(np.int32), device=dev)
         for rows_arg, mask_arg in ((src_row, mask), (src_row, None), (None, mask)):
             if rows_arg is None and m > n_src:
                 continue
+            offsets, entries = kernels.scatter_or_plan(dst, rows_arg, mask_arg, n_out, n_src)
+            label = (f"scatter_or[m={m} w={w} n_out={n_out} one_dst={hot} "
+                     f"src_row={rows_arg is not None} mask={mask_arg is not None}")
+            for opt in ("zeros", "base", "in place", "andnot", "pull"):
+                def run(plain, opt=opt, offsets=offsets, entries=entries):
+                    out = (base.clone() if opt == "in place"
+                           else torch.full_like(base, -1))
+                    b = {"zeros": None, "in place": out}.get(opt, base)
+                    return kernels.scatter_or(
+                        src, offsets, entries, pull_row=pull if opt == "pull" else None,
+                        base=b, andnot=opt == "andnot", out=out, plain=plain)
 
-            def run(plain, rows_arg=rows_arg, mask_arg=mask_arg):
-                return kernels.scatter_or(src, dst, src_row=rows_arg, mask=mask_arg,
-                                          out=base.clone(), plain=plain)
-
-            compare(f"scatter_or[m={m} w={w} n_out={n_out} one_dst={hot} "
-                    f"src_row={rows_arg is not None} mask={mask_arg is not None}]",
-                    run(False), run(True))
+                compare(f"{label} {opt}]", run(False), run(True))
+            want = kernels.scatter_or(src, offsets, entries, out=torch.empty_like(base))
+            compare(f"{label} segment]", segment.scatter_or(
+                n_out, dst, src, mask_arg, src_row=rows_arg), want)
+            compare(f"{label} atomic]", kernels.scatter_or_atomic(
+                src, dst, src_row=rows_arg, mask=mask_arg, out=torch.zeros_like(base)), want)
     log("scatter_or ragged shapes (M 0..4099, W 1/3/8/256, bit 31, masks, one "
-        "destination, out-of-range dst and rows, identity rows, ORed into out): "
-        "bitwise equal")
+        "destination of up to 4,099 entries, out-of-range dst and rows, identity rows; "
+        "no base, base, in place, and-not, pulled rows; via ops.segment; the atomic "
+        "kernel from zeros): bitwise equal")
+
+
+def scatter_or_bound_bytes(n_out, w, distinct_rows, entries, pull_rows, base):
+    """The least traffic of one `scatter_or` call: ``base`` read once if
+    given, each distinct kept source row read once, ``out`` written once,
+    4(n_out + 1) bytes of offsets and 4 bytes per entry and per pull row."""
+    rows = n_out * w * 4
+    return ((rows if base else 0) + distinct_rows * w * 4 + rows + 4 * (n_out + 1)
+            + 4 * entries + 4 * pull_rows)
 
 
 def check_scatter(graph, dg_edge, sched, dev, reps):
-    """scatter_or at the protocols' shapes: the push of round
-    PROTOCOL_CAPTURE_ROUND of the phase-9 push-pull run (M = N) and the
-    same ring pushed along two picks a node (M = 2N, fanout 2's shape),
-    sources read from the run's own (D*N, W) seen-ring; then the same at
-    PROTOCOL_DENSE_ROUND, where the rows are dense. Timed as
-    ``ops.segment.scatter_or`` runs it from zeros (zero fill + kernel). The
-    bound counts each distinct kept source row read once, ``out`` written
-    once, and the index and mask arrays (dst and src_row int32, mask
-    bool)."""
+    """scatter_or at the protocols' shapes, sources read from the phase-9
+    push-pull run's own (D*N, W) seen-ring as it stood at round
+    PROTOCOL_CAPTURE_ROUND and at PROTOCOL_DENSE_ROUND (dense rows): the
+    push of that round from zeros, M = N (push-pull's picks) and M = 2N
+    (two picks a node, fanout 2's shape), given its plan; then the
+    push-pull round's own call (pull rows and the push plan, ``base =
+    seen``, out = the round's ring slot). Each against its plain version,
+    bitwise; timed beside its bound (`scatter_or_bound_bytes`, from this
+    ring's distinct kept rows); the plan timed alone, as the round loop
+    makes it (16 rounds in one call, per round). The same call times the
+    previous design as the A/B: the atomic kernel (zero fill + kernel) on
+    the same pushes, and the round as that design ran it (the pull's
+    one-column gather_or, zero-filled atomic scatter, ``seen | incoming``
+    into the slot)."""
     import torch
 
     from p2p_gossip_tpu_torch.models import protocols
     from p2p_gossip_tpu_torch.models.partnersel import pick_key
-    from p2p_gossip_tpu_torch.ops.segment import scatter_or
+    from p2p_gossip_tpu_torch.ops import kernels
 
-    n = graph.n
+    n, ring = graph.n, dg_edge.ring_size
     w = CHUNK // 32
     origins, gen_ticks = sched.padded(CHUNK, HORIZON)
     nodes = torch.arange(n, dtype=torch.int64, device=dev)
@@ -694,38 +733,133 @@ def check_scatter(graph, dg_edge, sched, dev, reps):
             chunk_size=CHUNK, horizon=t, n_cov=None, plain=False,
         )
         flat = hist.view(-1, w)
+        tag = "" if t == PROTOCOL_CAPTURE_ROUND else f" round {t}"
         for label, fanout in (("pushpull M=N", 1), ("fanout2 M=2N", 2)):
             key = pick_key(nodes[:, None], torch.arange(fanout, device=dev)[None, :], SEED)
-            draw = protocols._draw_rounds(dg_edge, key, None, None, None, t, t + 1,
-                                          "pushpull")
-            dst = draw["partners"][0].reshape(-1).contiguous()
-            rows = draw["src"][0].reshape(-1).contiguous()
-            mask = draw["attempted"][0].reshape(-1).contiguous()
+            block = protocols._draw_rounds(dg_edge, key, None, None, None, t,
+                                           t + protocols.PICK_BLOCK, "pushk")
+            dst = block["partners"][0].reshape(-1).contiguous()
+            rows = block["src"][0].reshape(-1).contiguous()
+            mask = block["attempted"][0].reshape(-1).contiguous()
+            offsets, entries = block["plan"]  # round t's: the block's first
+            offsets = offsets[:n + 1]
 
-            def run(plain, dst=dst, rows=rows, mask=mask, flat=flat):
-                return scatter_or(n, dst, flat, mask, src_row=rows, plain=plain)
+            def run(plain, offsets=offsets, entries=entries):
+                out = torch.empty((n, w), dtype=torch.int32, device=dev)
+                return kernels.scatter_or(flat, offsets, entries, out=out, plain=plain)
+
+            def atomic(dst=dst, rows=rows, mask=mask):
+                out = torch.zeros((n, w), dtype=torch.int32, device=dev)
+                return kernels.scatter_or_atomic(flat, dst, src_row=rows, mask=mask, out=out)
+
+            def plan_block(block=block):
+                return protocols._push_plan(block["partners"], block["src"],
+                                            block["attempted"], n, ring)
 
             got = run(False)
             err = compare(f"scatter_or[{label} round {t}]", got, run(True))
+            compare(f"scatter_or_atomic[{label} round {t}]", atomic(), got)
             m = int(dst.numel())
+            kept = int(mask.sum())
             distinct = int(torch.unique(rows.long()[mask]).numel())
-            touched = int((got != 0).sum())
-            nbytes = distinct * w * 4 + n * w * 4 + m * 9
+            nbytes = scatter_or_bound_bytes(n, w, distinct, kept, 0, False)
+            atomic_bytes = distinct * w * 4 + n * w * 4 + m * 9
             ms = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
+            atomic_ms = time_ms(atomic, reps, calls=KERNEL_CALLS)
+            ms_again = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
             plain_ms = time_ms(lambda: run(True), max(2, reps // 4), warmup=1)
+            plan_ms = time_ms(plan_block, reps, calls=2) / protocols.PICK_BLOCK
+            # The plan's device time alone (the event time above includes
+            # the host's gaps between its ~15 small launches).
+            _, _, by_name, _ = device_events(lambda: [plan_block() for _ in range(4)])
+            plan_device_ms = (sum(by_name.values()) / 1e3 / 4 / protocols.PICK_BLOCK
+                              if by_name else None)
             nonzero = float((flat[rows.long()] != 0).float().mean())
-            name = label if t == PROTOCOL_CAPTURE_ROUND else f"{label} round {t}"
-            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms(nbytes))
+            results[label + tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms(nbytes), plan_ms=plan_ms,
+                                        plan_device_ms=plan_device_ms,
+                                        atomic_ms=atomic_ms, ms_again=ms_again)
             log(
-                f"scatter_or[{label}, round-{t} ring D={dg_edge.ring_size}] M={m} W={w}, "
-                f"{distinct} distinct source rows, {nonzero:.4f} of their words "
-                f"nonzero, {touched} words set: bitwise equal; zero fill + kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms(nbytes):.4f} ms "
-                f"({nbytes / 1e6:.1f} MB)"
+                f"scatter_or_atomic[{label}, round-{t} ring] (the previous kernel, the A/B "
+                f"baseline): zero fill + kernel {atomic_ms:.4f} ms, its bound "
+                f"{bound_ms(atomic_bytes):.4f} ms (unsorted indices, 9 bytes an entry); "
+                f"equal to scatter_or"
             )
+            log(
+                f"scatter_or[{label}, round-{t} ring D={ring}] M={m} kept={kept} W={w}, "
+                f"{distinct} distinct source rows, {nonzero:.4f} of their words nonzero: "
+                f"bitwise equal; kernel from zeros given its plan {ms:.4f} ms (again after "
+                f"the atomic: {ms_again:.4f} ms), plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB); plan (16 rounds a call) "
+                f"{plan_ms:.4f} ms a round by CUDA events, device time "
+                + ("not measured" if plan_device_ms is None else f"{plan_device_ms:.4f} ms")
+                + " a round (torch.profiler)"
+            )
+        results["round call" + tag] = check_round_call(dg_edge, hist, t, dev, reps)
         del hist, flat
     return results
+
+
+def check_round_call(dg, hist, t, dev, reps):
+    """The push-pull round's own `scatter_or` call on a captured ring:
+    pull rows and the push plan of round t from `_draw_rounds`, ``base``
+    = seen (slot t-1), out = slot t; against its plain version and, for
+    the A/B, against the three-pass round of the atomic design: the
+    pull's one-column gather_or (coin inside), the zero-filled atomic
+    scatter, and ``seen | incoming`` into the slot — three launches and a
+    fill."""
+    import torch
+
+    from p2p_gossip_tpu_torch.models import protocols
+    from p2p_gossip_tpu_torch.models.partnersel import pick_key
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    n, ring = dg.n, dg.ring_size
+    w = hist.shape[-1]
+    flat = hist.view(-1, w)
+    nodes = torch.arange(n, dtype=torch.int64, device=dev)
+    key = pick_key(nodes[:, None], torch.zeros((1, 1), dtype=torch.int64, device=dev), SEED)
+    draw = protocols._draw_rounds(dg, key, None, None, None, t, t + 1, "pushpull")
+    offsets, entries = draw["plan"]
+    pull_row = draw["pull_row"][0]
+    seen, row = hist[(t - 1) % ring], hist[t % ring]
+
+    def run(plain):
+        return kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
+                                  out=row, plain=plain)
+
+    partners, attempted = draw["partners"][0], draw["attempted"][0]
+    src_rows = draw["src"][0].reshape(-1)
+    # The picked edge's delay, back from its slot (t - delay) mod D.
+    delay = torch.remainder(t - draw["src"][0] // n, ring).to(torch.int32)
+
+    def three_pass_round():
+        incoming = torch.empty((n, w), dtype=torch.int32, device=dev)
+        kernels.gather_or(hist, t, partners, attempted, delay, out=incoming)
+        kernels.scatter_or_atomic(flat, partners.reshape(-1), src_row=src_rows,
+                                  mask=attempted.reshape(-1), out=incoming)
+        return torch.bitwise_or(seen, incoming, out=row)
+
+    want = run(True).clone()
+    err = compare(f"scatter_or[push-pull round call, round {t}]", run(False), want)
+    compare(f"three-pass round [round {t}]", three_pass_round(), want)
+    kept_pull = pull_row[pull_row >= 0].long()
+    kept_push = entries[: int(offsets[-1])].long()
+    distinct = int(torch.unique(torch.cat([kept_pull, kept_push])).numel())
+    nbytes = scatter_or_bound_bytes(n, w, distinct, int(kept_push.numel()), n, True)
+    ms = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
+    three_pass_ms = time_ms(three_pass_round, reps, calls=KERNEL_CALLS)
+    plain_ms = time_ms(lambda: run(True), max(2, reps // 4), warmup=1)
+    log(
+        f"scatter_or[push-pull round call, round-{t} ring D={ring}] pull rows "
+        f"{int(kept_pull.numel())}, push entries {int(kept_push.numel())}, {distinct} "
+        f"distinct source rows, base = seen, out = slot {t % ring}: bitwise equal to its "
+        f"plain version and to the three-pass round; one call {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB); the "
+        f"three-pass round (gather + fill + atomic scatter + OR) {three_pass_ms:.4f} ms"
+    )
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                three_pass_ms=three_pass_ms)
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -1109,11 +1243,10 @@ def options_path(graph, dg, sched, dev, base):
     return launches, dict(churn=churn, loss=loss, snapshot_ticks=SNAPSHOTS)
 
 
-def profile_device(label, run):
-    """Device time of ``run()`` by kernel name, from torch.profiler's CUDA
-    kernel events, and the share of the run's wall time the device was
-    busy (kernels run on one stream, so their durations add). ``run``
-    returns the number of ticks (rounds) it ran."""
+def device_events(run):
+    """Run ``run()`` under torch.profiler: (its result, wall seconds,
+    device microseconds by kernel name from the CUDA events, launches by
+    kernel name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1121,12 +1254,25 @@ def profile_device(label, run):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ticks = run()
+        result = run()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict[str, float] = {}
+    calls: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return result, wall, by_name, calls
+
+
+def profile_device(label, run, top=10):
+    """Device time of ``run()`` by kernel name, from torch.profiler's CUDA
+    kernel events, and the share of the run's wall time the device was
+    busy (kernels run on one stream, so their durations add). ``run``
+    returns the number of ticks (rounds) it ran. Each line gives the
+    kernel's device time, its share of the busy time and its launches."""
+    ticks, wall, by_name, calls = device_events(run)
     if not by_name:
         log("profile: no device events recorded; breakdown not measured")
         return
@@ -1135,8 +1281,11 @@ def profile_device(label, run):
         f"profile (profiled {label} run, {ticks} ticks, wall {wall * 1e3:.2f} ms): "
         f"device busy {busy_us / 1e3:.2f} ms = {busy_us / (wall * 1e6):.3f} of wall"
     )
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"  {us / 1e3:9.3f} ms  {us / busy_us:6.3f}  {name[:110]}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {us / 1e3:9.3f} ms  {us / busy_us:6.3f}  x{calls[name]:<5d} {name[:110]}")
+    rest = sorted(by_name.items(), key=lambda kv: -kv[1])[top:]
+    if rest:
+        log(f"  {sum(us for _, us in rest) / 1e3:9.3f} ms in {len(rest)} other kernels")
 
 
 def profile_flood(graph, sched, dg, dev, label="flood", **opts):
@@ -1154,12 +1303,11 @@ def profile_flood(graph, sched, dg, dev, label="flood", **opts):
 # --- phase 9 ------------------------------------------------------------------
 
 def pushpull_floor_bytes(n: int, w: int) -> int:
-    """A rough floor of one push-pull round's device-memory traffic, six
-    (N, W) int32 passes: the partners' rows read by the pull gather and
-    written into the round's ``incoming``, the pushed rows (``my_old``)
-    read, ``seen`` read and written, the ring slot written (the scatter's
-    read-modify-writes, the picks and the popcounts' reads not counted)."""
-    return 6 * n * w * 4
+    """A rough floor of one push-pull round's device-memory traffic, four
+    (N, W) int32 passes: ``seen`` read, the partners' pulled rows read, the
+    pushed rows read, the new ring row written (the picks, the plan, the
+    generations and the popcount's read not counted)."""
+    return 4 * n * w * 4
 
 
 def protocols_path(graph, dg_uni, dg_edge, sched, dev):
@@ -1203,6 +1351,13 @@ def protocols_path(graph, dg_uni, dg_edge, sched, dev):
     for name in PROTOCOL_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the protocols path")
+    rounds = len(runs) * HORIZON
+    if launches["scatter_or"] != rounds:
+        raise AssertionError(f"scatter_or launched {launches['scatter_or']} times in "
+                             f"{rounds} rounds: the round is one call")
+    for name in ("gather_or", "sector_occupancy", "scatter_or_atomic"):
+        if launches[name]:
+            raise AssertionError(f"{name} launched on the protocols path")
 
     plain_walls = []
     for (label, fn, sch, kw), ((stats, cov), _) in zip(runs, timed):
@@ -1245,7 +1400,7 @@ def protocols_path(graph, dg_uni, dg_edge, sched, dev):
         drive(runs[0][1], runs[0][2], runs[0][3])
         return HORIZON
 
-    profile_device("push-pull", run)
+    profile_device("push-pull", run, top=40)  # every kernel, the plan's sort among them
     return launches, results
 
 
@@ -1349,16 +1504,22 @@ def main() -> int:
                                   ms_frontier=frontier["ms"],
                                   bound_ms_frontier=frontier["bound_ms"],
                                   plain_ms_frontier=frontier["plain_ms"]),
-        # ms / bound_ms: the push-pull push (M = N) on the round-10 ring;
-        # fanout 2's beside it, and both on the dense round-40 ring.
+        # ms / bound_ms: the push-pull push (M = N) from zeros on the
+        # round-10 ring, given its plan; fanout 2's beside it, both on the
+        # dense round-40 ring, and the push-pull round's own call (pull +
+        # push, base = seen) on both rings. The atomic A/B is logged only.
         "scatter_or": dict(
-            scatter["pushpull M=N"],
+            {k: scatter["pushpull M=N"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "plan_ms",
+                                                     "plan_device_ms")},
             max_abs_err=max(r["max_abs_err"] for r in scatter.values()),
             **{f"{key}_{tag}": scatter[label][key]
                for tag, label in (
                    ("fanout2", "fanout2 M=2N"),
                    ("dense", f"pushpull M=N round {PROTOCOL_DENSE_ROUND}"),
-                   ("fanout2_dense", f"fanout2 M=2N round {PROTOCOL_DENSE_ROUND}"))
+                   ("fanout2_dense", f"fanout2 M=2N round {PROTOCOL_DENSE_ROUND}"),
+                   ("round_call", "round call"),
+                   ("round_call_dense", f"round call round {PROTOCOL_DENSE_ROUND}"))
                for key in ("ms", "bound_ms", "plain_ms")},
         ),
     }

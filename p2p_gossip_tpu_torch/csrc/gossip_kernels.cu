@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) kernels for the flood engine's tick and the
-// random-partner protocols' push.
+// random-partner protocols' round.
 //
 // Plain C interface, loaded with ctypes (p2p_gossip_tpu_torch/ops/kernels.py).
 // Every entry point launches on the stream it is given, allocates nothing,
@@ -29,6 +29,10 @@ __host__ __device__ inline int sector_words(int w) {
 __device__ inline uint32_t or_units(uint32_t a, uint32_t b) { return a | b; }
 __device__ inline uint4 or_units(uint4 a, uint4 b) {
   return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ inline uint32_t and_not_units(uint32_t a, uint32_t b) { return a & ~b; }
+__device__ inline uint4 and_not_units(uint4 a, uint4 b) {
+  return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
 }
 __device__ inline uint32_t shfl_xor(uint32_t v, int m) {
   return __shfl_xor_sync(kFullMask, v, m);
@@ -455,27 +459,127 @@ coverage_per_slot_kernel(const uint32_t* __restrict__ words, int n, int w,
 // Replaces: the XLA scatter-OR of the JAX package,
 //   p2p_gossip_tpu/ops/segment.py scatter_or (argsort by destination, a
 //   segmented associative OR-scan, a scatter of the segment tails) and its
-//   narrow-row twin scatter_or_bits (bit unpack + scatter-add). It has no
-//   Pallas source: XLA has no scatter-OR, and neither has torch.
+//   narrow-row twin scatter_or_bits (bit unpack + scatter-add), together
+//   with the OR the protocols build a round's row from,
+//   p2p_gossip_tpu/models/protocols.py:160 (remote | pushed) & ~seen, then
+//   ORed into seen. It has no Pallas source: XLA has no scatter-OR, and
+//   neither has torch.
+// Computes, for every destination row d < n_out:
+//   acc = base && !kAndNot ? base[d] : 0
+//   acc |= src[pull_row[d]]             when 0 <= pull_row[d] < n_src
+//   acc |= src[entries[e]]              for e in [offsets[d], offsets[d+1]),
+//                                       entries outside [0, n_src) dropped
+//   out[d] = kAndNot ? acc & ~base[d] : acc
+//   pull_row, base and offsets may be null (no pull, a zero base, no
+//   entries). Every row of out is written, once.
+// Precondition: no entry and no pull row names a row of `out` (src may be
+//   a ring that holds out as one slot; the protocols write slot t mod D and
+//   read slots t - d with 1 <= d <= D - 1). base == out is allowed: each
+//   warp reads its own row before it writes it.
+// Bound on the H100: bytes: base read once, each distinct kept source row
+//   read once (W*4 bytes), out written once, 4(n_out + 1) bytes of offsets
+//   and 4 bytes per entry and per pull row. The protocols read their rows
+//   straight out of the (D*N, W) history ring, so no (M, W) payload is
+//   built, and the round's new ring row is this one write.
+// Design: the transpose is done before the kernel: kernels.scatter_or_plan
+//   sorts each round's entries by destination (a sort in torch, index
+//   bookkeeping of a few MB against GBs of rows), so the scatter becomes a
+//   gather that one warp per destination row owns, eight rows a block. The
+//   warp ORs the base row, the pulled row and its entries' rows in
+//   registers and stores each word once: no atomics, no zero fill, and the
+//   result does not depend on the entries' order. Lanes stride the row in
+//   16-byte units when W % 4 == 0 and every table is 16-byte aligned (the
+//   entry point picks the instantiation), 4-byte words otherwise, two
+//   units a lane a pass; wider rows take more passes. The warp reads up to
+//   32 entry indices with one coalesced load and broadcasts them with
+//   __shfl_sync; a longer run (one hot destination) loops. Source rows are
+//   loaded kScatterBatch entries at a time before they are ORed, so a warp
+//   keeps several row loads in flight. Rows of src are read through the
+//   read-only path; base is read with plain loads, since it may be out.
+// ---------------------------------------------------------------------------
+constexpr int kScatterWarps = 8;
+constexpr int kScatterLaneUnits = 2;
+constexpr int kScatterBatch = 4;
+
+template <typename T, bool kAndNot>
+__global__ void __launch_bounds__(kScatterWarps * 32)
+scatter_or_kernel(const uint32_t* src, int n_src, int w,
+                  const int32_t* __restrict__ offsets,
+                  const int32_t* __restrict__ entries,
+                  const int32_t* __restrict__ pull_row, const uint32_t* base,
+                  int n_out, uint32_t* out) {
+  const int d = blockIdx.x * kScatterWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (d >= n_out) return;  // warp-uniform: only warp-level syncs follow
+  constexpr int kUnitWords = (int)(sizeof(T) / sizeof(uint32_t));
+  const int n_units = w / kUnitWords;
+  const T* rows = reinterpret_cast<const T*>(src);
+  const T* base_row =
+      base ? reinterpret_cast<const T*>(base + (size_t)d * (size_t)w) : nullptr;
+  T* out_row = reinterpret_cast<T*>(out + (size_t)d * (size_t)w);
+  const int e0 = offsets ? offsets[d] : 0;
+  const int e1 = offsets ? offsets[d + 1] : 0;
+  const int p = pull_row ? pull_row[d] : -1;
+  const bool pull = p >= 0 && p < n_src;  // warp-uniform
+
+  for (int c0 = 0; c0 < n_units; c0 += 32 * kScatterLaneUnits) {
+    T acc[kScatterLaneUnits];
+    T keep[kScatterLaneUnits];  // kAndNot: the base words to clear
+    bool ok[kScatterLaneUnits];
+#pragma unroll
+    for (int i = 0; i < kScatterLaneUnits; ++i) {
+      const int u = c0 + i * 32 + lane;
+      ok[i] = u < n_units;
+      const T b = base_row && ok[i] ? base_row[u] : zero_unit<T>();
+      acc[i] = kAndNot ? zero_unit<T>() : b;
+      keep[i] = b;
+      if (pull && ok[i]) acc[i] = or_units(acc[i], __ldg(rows + (size_t)p * n_units + u));
+    }
+    for (int eb = e0; eb < e1; eb += 32) {
+      const int n = e1 - eb < 32 ? e1 - eb : 32;
+      const int mine = lane < n ? entries[eb + lane] : -1;
+      for (int j = 0; j < n; j += kScatterBatch) {
+        T v[kScatterBatch][kScatterLaneUnits];
+#pragma unroll
+        for (int q = 0; q < kScatterBatch; ++q) {
+          const int s = __shfl_sync(kFullMask, mine, (j + q) & 31);
+          const bool live = j + q < n && s >= 0 && s < n_src;  // warp-uniform
+#pragma unroll
+          for (int i = 0; i < kScatterLaneUnits; ++i) {
+            const int u = c0 + i * 32 + lane;
+            v[q][i] = live && ok[i] ? __ldg(rows + (size_t)s * n_units + u) : zero_unit<T>();
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kScatterBatch; ++q)
+#pragma unroll
+          for (int i = 0; i < kScatterLaneUnits; ++i) acc[i] = or_units(acc[i], v[q][i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kScatterLaneUnits; ++i) {
+      if (!ok[i]) continue;
+      const int u = c0 + i * 32 + lane;
+      out_row[u] = kAndNot ? and_not_units(acc[i], keep[i]) : acc[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// scatter_or_atomic
+//
+// The scatter_or design this file had before the destination-owned one,
+// kept only as the same-call baseline that chip_smoke.py times the new
+// kernel against; no path of the package launches it.
 // Computes: out[dst[m], :] |= src[row(m), :] for every entry m < M with
 //   mask[m] (null: every entry), row(m) = src_row[m] (null: m),
 //   dst[m] in [0, n_out) and row(m) in [0, n_src); other entries are
-//   dropped, never wrapped. `out` is ORed into, not overwritten.
-// Bound on the H100: bytes: each distinct kept source row read once (W*4
-//   bytes), `out` written once, the index and mask arrays. The push
-//   protocols read their payload rows straight out of the history ring
-//   (src = the (D*N, W) flattened ring, src_row = slot*N + sender), so the
-//   (M, W) payload is never built.
-// Design: one warp per entry, eight entries per block; lanes stride the
-//   source row with 16-byte loads when W % 4 == 0 and both tables are
-//   16-byte aligned (the entry point picks the instantiation), 4 bytes
-//   otherwise. Each nonzero source word goes to `out` by one atomicOr,
-//   which is exact in any order because OR commutes and associates, so
-//   colliding destinations need no sort. A zero word sends nothing:
-//   fanout push sends frontier rows, which are mostly zero.
+//   dropped. `out` is ORed into, not overwritten.
+// Design: one warp per entry, eight entries per block, 16- or 4-byte
+//   loads as above; each nonzero source word goes to `out` by one
+//   atomicOr, exact in any order. Once rows saturate, every word is one
+//   atomic, most setting no new bit (PERF.md).
 // ---------------------------------------------------------------------------
-constexpr int kScatterWarps = 8;
-
 __device__ inline void or_word(uint32_t* p, uint32_t v) {
   if (v) atomicOr(p, v);
 }
@@ -489,11 +593,11 @@ __device__ inline void or_into(uint32_t* p, uint4 v) {
 
 template <typename T>
 __global__ void __launch_bounds__(kScatterWarps * 32)
-scatter_or_kernel(const uint32_t* __restrict__ src, int n_src, int w,
-                  const int32_t* __restrict__ src_row,
-                  const int32_t* __restrict__ dst,
-                  const uint8_t* __restrict__ mask, int m, int n_out,
-                  uint32_t* out) {
+scatter_or_atomic_kernel(const uint32_t* __restrict__ src, int n_src, int w,
+                         const int32_t* __restrict__ src_row,
+                         const int32_t* __restrict__ dst,
+                         const uint8_t* __restrict__ mask, int m, int n_out,
+                         uint32_t* out) {
   const long long e =
       (long long)blockIdx.x * kScatterWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -591,23 +695,53 @@ int gossip_coverage_per_slot(const void* words, int n, int w, long long ld,
   return (int)cudaGetLastError();
 }
 
+// `offsets`/`entries`, `pull_row` and `base` may each be null (no
+// entries, no pull, a zero base); `offsets` holds n_out + 1 positions into
+// `entries`. and_not != 0 writes acc & ~base. `src`, `base` and `out` are
+// row-major with W words a row.
+int gossip_scatter_or(const void* src, int n_src, int w, const void* offsets,
+                      const void* entries, const void* pull_row,
+                      const void* base, int and_not, int n_out, void* out,
+                      void* stream) {
+  const dim3 grid((unsigned)((n_out + kScatterWarps - 1) / kScatterWarps));
+  const bool vec = w % 4 == 0 && aligned16(src) && aligned16(out) &&
+                   (base == nullptr || aligned16(base));
+#define GOSSIP_SCATTER_LAUNCH(T, ANDNOT)                                           \
+  scatter_or_kernel<T, ANDNOT><<<grid, kScatterWarps * 32, 0, (cudaStream_t)stream>>>( \
+      (const uint32_t*)src, n_src, w, (const int32_t*)offsets,                     \
+      (const int32_t*)entries, (const int32_t*)pull_row, (const uint32_t*)base,    \
+      n_out, (uint32_t*)out)
+  if (vec && and_not) {
+    GOSSIP_SCATTER_LAUNCH(uint4, true);
+  } else if (vec) {
+    GOSSIP_SCATTER_LAUNCH(uint4, false);
+  } else if (and_not) {
+    GOSSIP_SCATTER_LAUNCH(uint32_t, true);
+  } else {
+    GOSSIP_SCATTER_LAUNCH(uint32_t, false);
+  }
+#undef GOSSIP_SCATTER_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 // `src_row` and `mask` may be null (row m reads src row m; every entry
 // kept). `src` and `out` are row-major with W words a row.
-int gossip_scatter_or(const void* src, int n_src, int w, const void* src_row,
-                      const void* dst, const void* mask, int m, int n_out,
-                      void* out, void* stream) {
+int gossip_scatter_or_atomic(const void* src, int n_src, int w,
+                             const void* src_row, const void* dst,
+                             const void* mask, int m, int n_out, void* out,
+                             void* stream) {
   const dim3 grid((unsigned)(((long long)m + kScatterWarps - 1) / kScatterWarps));
   const bool vec = w % 4 == 0 && aligned16(src) && aligned16(out);
-#define GOSSIP_SCATTER_LAUNCH(T)                                                 \
-  scatter_or_kernel<T><<<grid, kScatterWarps * 32, 0, (cudaStream_t)stream>>>(   \
+#define GOSSIP_SCATTER_ATOMIC_LAUNCH(T)                                          \
+  scatter_or_atomic_kernel<T><<<grid, kScatterWarps * 32, 0, (cudaStream_t)stream>>>( \
       (const uint32_t*)src, n_src, w, (const int32_t*)src_row,                  \
       (const int32_t*)dst, (const uint8_t*)mask, m, n_out, (uint32_t*)out)
   if (vec) {
-    GOSSIP_SCATTER_LAUNCH(uint4);
+    GOSSIP_SCATTER_ATOMIC_LAUNCH(uint4);
   } else {
-    GOSSIP_SCATTER_LAUNCH(uint32_t);
+    GOSSIP_SCATTER_ATOMIC_LAUNCH(uint32_t);
   }
-#undef GOSSIP_SCATTER_LAUNCH
+#undef GOSSIP_SCATTER_ATOMIC_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -16,15 +16,17 @@ ring of past rows: ``seen`` for push-pull and pull, the frontier (``newly
 | generated``) for fanout push; the slot is ``(t - delay) mod D`` with the
 picked edge's own delay, the one uniform delay, or 1 under
 ``partners_override``. The picks, loss coins and churn masks of 16 rounds
-are drawn in one pass (`_draw_rounds`). One round on the device:
+are drawn in one pass (`_draw_rounds`), and with them each round's pull
+rows and the block's push plan (the pushes sorted by destination,
+`ops.kernels.scatter_or_plan`). One round on the device:
 
-- the pull: a one-column `ops.kernels.gather_or` of the partner's row,
-  the link-loss coin ``drop(partner, node, t)`` applied inside it;
-- the push: `ops.segment.scatter_or` (the CUDA ``scatter_or`` kernel) of
-  the sender's ring row into the partner's, read straight out of the ring;
-- the new ring row (``seen | incoming``, or the frontier ``incoming &
-  ~seen``), the round's generations added into it, and its popcount from
-  the ``popcount_rows`` kernel into a (D, N) ring beside it: the digest
+- one `ops.kernels.scatter_or` call writes the new ring row: ``seen``
+  (slot t-1) ORed with the partner's row behind the pull coin
+  ``drop(partner, node, t)`` and the rows pushed to the node behind the
+  push coin — or, for fanout push, the frontier ``pushed & ~seen`` — all
+  read straight out of the ring;
+- the round's generations added into that row, and its popcount from the
+  ``popcount_rows`` kernel into a (D, N) ring beside it: the digest
   sizes later rounds charge to ``sent`` and, at the chunk's end, the
   ``received`` counts; with ``record_coverage`` the ``coverage_per_slot``
   kernel on ``seen``.
@@ -61,7 +63,6 @@ from p2p_gossip_tpu_torch.models.partnersel import (
 )
 from p2p_gossip_tpu_torch.models.topology import Graph
 from p2p_gossip_tpu_torch.ops import bitmask, kernels
-from p2p_gossip_tpu_torch.ops.segment import scatter_or
 from p2p_gossip_tpu_torch.utils.checkpoint import (
     checkpointed_chunks,
     make_checkpointer,
@@ -127,15 +128,19 @@ def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str):
     """The exchanges of rounds t0..t1-1, drawn in one pass, each (B, N, c)
     with B = t1 - t0: ``partners`` int32; ``src`` the sender's ring row
     ``slot * N + node`` and, for pull, ``served`` the partner's, int32;
-    ``delay`` the picked edges' int32 delays (None with one uniform slot a
-    round); ``attempted`` and ``push_ok`` bool; and ``up`` (B, N) bool
-    under churn (else None)."""
+    ``attempted`` bool; and ``up`` (B, N) bool under churn (else None).
+    What the round's `kernels.scatter_or` call reads: for push-pull and
+    pull, ``pull_row`` (B, N) int32, the partner's ring row at the picked
+    edge's delay where the pull coin ``drop(partner, node, t)`` keeps it,
+    else -1; for push-pull and fanout push, ``plan``, the block's pushes
+    (behind the coin ``drop(node, partner, t)``) sorted by round and
+    destination, round i's offsets at ``[i * N, (i + 1) * N]``."""
     n, ring, dev = dg.n, dg.ring_size, dg.device
+    b = t1 - t0
     ticks = torch.arange(t0, t1, dtype=torch.int64, device=dev)[:, None, None]
     rows = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
-    delay = None
     if override is not None:
-        partners = override[t0:t1].reshape(t1 - t0, n, -1)
+        partners = override[t0:t1].reshape(b, n, -1)
         slot = torch.remainder(ticks - 1, ring)
     else:
         k = pick_from_key(key, ticks, dg.degree[None, :, None])
@@ -143,25 +148,61 @@ def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str):
         if dg.uniform_delay is not None:
             slot = torch.remainder(ticks - dg.uniform_delay, ring)
         else:
-            delay = dg.ell_delay[rows, k]
-            slot = torch.remainder(ticks - delay, ring)
-    draw = dict(partners=partners, delay=delay, up=None)
+            slot = torch.remainder(ticks - dg.ell_delay[rows, k], ring)
+    draw = dict(partners=partners, up=None)
     draw["src"] = (slot * n + rows).expand(partners.shape).to(torch.int32).contiguous()
-    if mode == "pull":
-        draw["served"] = (slot * n + partners).to(torch.int32)
     attempted = (dg.degree > 0)[None, :, None]  # a degree-0 row never exchanges
     if churn is not None:
         down_start, down_end = churn
         up = ~((down_start <= ticks) & (ticks < down_end)).any(dim=-1)  # (B, N)
-        up_partner = up.gather(1, partners.reshape(t1 - t0, -1).to(torch.int64))
+        up_partner = up.gather(1, partners.reshape(b, -1).to(torch.int64))
         attempted = attempted & up[:, :, None] & up_partner.view(partners.shape)
         draw["up"] = up
     attempted = attempted.expand(partners.shape).contiguous()
-    push_ok = attempted
-    if loss is not None and mode != "pull":
-        push_ok = attempted & ~drop_mask_torch(rows, partners, ticks, *loss)
-    draw.update(attempted=attempted, push_ok=push_ok)
+    draw["attempted"] = attempted
+    if mode != "pushk":
+        served = slot * n + partners
+        pull_ok = attempted
+        if loss is not None:
+            pull_ok = attempted & ~drop_mask_torch(partners, rows, ticks, *loss)
+        draw["pull_row"] = torch.where(pull_ok, served, -1).to(torch.int32).reshape(b, n)
+        if mode == "pull":
+            draw["served"] = served.to(torch.int32)
+    if mode != "pull":
+        push_ok = attempted
+        if loss is not None:
+            push_ok = attempted & ~drop_mask_torch(rows, partners, ticks, *loss)
+        draw["plan"] = _push_plan(partners, draw["src"], push_ok, n, ring)
     return draw
+
+
+def _push_plan(partners, src, push_ok, n: int, ring: int):
+    """The (offsets, entries) of a block of B rounds' pushes, each (B, N,
+    c): the sender's ring row ``src`` to ``partners`` where ``push_ok``,
+    sorted by round and destination in one `kernels.scatter_or_plan`
+    call; round i's offsets are ``offsets[i * N:(i + 1) * N + 1]``."""
+    b = partners.shape[0]
+    rnd = torch.arange(b, dtype=torch.int64, device=partners.device)[:, None, None] * n
+    return kernels.scatter_or_plan(
+        partners.reshape(-1), src.reshape(-1), push_ok.reshape(-1), n, ring * n,
+        key_offset=rnd.expand(partners.shape).reshape(-1), rounds=b,
+    )
+
+
+def _check_ring_slots(dg: DeviceGraph, override) -> None:
+    """Round t writes ring slot t mod D in the same `kernels.scatter_or`
+    call that reads slots (t - d) mod D; none of those is slot t when
+    every delay a pick can carry lies in [1, D - 1]. Checked once a chunk,
+    so the kernel's precondition (no read row is a row it writes) holds."""
+    if override is not None:
+        lo = hi = 1
+    elif dg.uniform_delay is not None:
+        lo = hi = dg.uniform_delay
+    else:
+        delays = dg.ell_delay[dg.ell_mask]
+        lo, hi = (int(delays.min()), int(delays.max())) if delays.numel() else (1, 1)
+    if not 1 <= lo <= hi <= dg.ring_size - 1:
+        raise ValueError(f"delays [{lo}, {hi}] do not fit a ring of {dg.ring_size} slots")
 
 
 def _gen_events(origins: np.ndarray, gen_ticks: np.ndarray, horizon: int, w: int, dev):
@@ -230,25 +271,23 @@ def _run_chunk(
         cov = torch.zeros((horizon, n_cov), dtype=torch.int32, device=dev)
     cov_w = bitmask.num_words(n_cov or 0)
 
+    _check_ring_slots(dg, override)
     for t in range(horizon):
         i = t % PICK_BLOCK
         if i == 0:
             draw = _draw_rounds(dg, key, override, churn, loss, t,
                                 min(t + PICK_BLOCK, horizon), mode)
         partners, attempted = draw["partners"][i], draw["attempted"][i]
-        src = draw["src"][i]
-        if mode == "pushk":
-            incoming = torch.zeros((n, w), dtype=torch.int32, device=dev)
-        else:
-            # The pull: the partner's row, the coin drop(partner, node, t)
-            # applied inside the gather.
-            delay = None if draw["delay"] is None else draw["delay"][i]
-            incoming = torch.empty((n, w), dtype=torch.int32, device=dev)
-            kernels.gather_or(
-                hist, t, partners, attempted, delay,
-                uniform_slot=None if delay is not None else _uniform_slot(dg, override, t),
-                loss=loss, out=incoming, plain=plain,
-            )
+        offsets = entries = None
+        if "plan" in draw:
+            offsets, entries = draw["plan"]
+            offsets = offsets[i * n:(i + 1) * n + 1]
+        pull_row = draw["pull_row"][i] if "pull_row" in draw else None
+        row = hist[t % ring]
+        # The new ring row in one pass: push-pull and pull seen | pulled |
+        # pushed, fanout push the frontier pushed & ~seen.
+        kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
+                           andnot=mode == "pushk", out=row, plain=plain)
         if mode == "pull":
             # The responder transmits: each attempted pull credits the
             # partner with the size of the row it served, before the coin.
@@ -256,21 +295,12 @@ def _run_chunk(
             sent.index_add_(0, partners.view(-1).to(torch.int64),
                             served.view(-1).to(torch.int64))
         else:
-            scatter_or(
-                n, partners.view(-1), flat, draw["push_ok"][i].view(-1),
-                src_row=src.view(-1), out=incoming, plain=plain,
-            )
             # The sender counts every attempted send. The JAX package sums
             # a node's picks in int32 and adds the sum as a uint32: the
             # same value mod 2^32.
-            digest = torch.where(attempted, flat_cnt[src], 0)
+            digest = torch.where(attempted, flat_cnt[draw["src"][i]], 0)
             sent += digest.sum(dim=1, dtype=torch.int64) & _U32
 
-        row = hist[t % ring]
-        if mode == "pushk":
-            torch.bitwise_and(incoming, torch.bitwise_not(seen), out=row)  # newly
-        else:
-            torch.bitwise_or(seen, incoming, out=row)
         if t in spans:
             lo, hi = spans[t]
             vals, org = bits[lo:hi], gen_org[lo:hi]
@@ -290,13 +320,6 @@ def _run_chunk(
     final = bitmask.popcount_rows(seen, plain=plain) if mode == "pushk" else hcnt[
         (horizon - 1) % ring]
     return final - fired, sent, cov, hist
-
-
-def _uniform_slot(dg: DeviceGraph, override, t: int) -> int:
-    """The one ring slot round t reads: one round back under an override,
-    else the uniform delay back."""
-    back = 1 if override is not None else dg.uniform_delay
-    return (t - back) % dg.ring_size
 
 
 def _run_partnered_sim(

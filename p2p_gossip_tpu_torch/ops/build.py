@@ -44,8 +44,11 @@ _SIGNATURES = {
     "gossip_popcount_rows": (_P, _I, _I, _LL, _P, _P),
     # words, n, w, ld, n_slots, out, stream
     "gossip_coverage_per_slot": (_P, _I, _I, _LL, _I, _P, _P),
+    # src, n_src, w, offsets, entries, pull_row, base, and_not, n_out, out,
+    # stream
+    "gossip_scatter_or": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
     # src, n_src, w, src_row, dst, mask, m, n_out, out, stream
-    "gossip_scatter_or": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P),
+    "gossip_scatter_or_atomic": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P),
 }
 
 

@@ -7,7 +7,8 @@
 | `sector_occupancy`  | none: the gather's companion pass over each new slot    |
 | `popcount_rows`     | ops/pallas_kernels.py popcount_rows_pallas              |
 | `coverage_per_slot` | ops/pallas_kernels.py coverage_per_slot_pallas          |
-| `scatter_or`        | ops/segment.py scatter_or / scatter_or_bits (XLA)        |
+| `scatter_or`        | ops/segment.py scatter_or / scatter_or_bits (XLA) and   |
+|                     | the protocols' round OR (models/protocols.py:160)       |
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel (csrc/gossip_kernels.cu, built and bound by
@@ -35,7 +36,7 @@ WORD_BITS = 32
 
 launches = {
     "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
-    "scatter_or": 0,
+    "scatter_or": 0, "scatter_or_atomic": 0,
 }
 
 
@@ -341,36 +342,146 @@ def gather_or(
 
 # --- scatter_or -------------------------------------------------------------
 
-def scatter_or_plain(src, dst, src_row, mask, out):
-    """Exact and small in memory: sort the kept entries by destination,
-    rank each within its run of equal destinations, and for each rank OR
-    that rank's source rows into ``out`` — the rows of one rank have
-    distinct destinations, so a plain indexed ``|=`` is safe. (The JAX
-    package's bit-unpack form would build an (M, W, 32) tensor.)"""
-    n_src = src.shape[0]
-    n_out = out.shape[0]
+def scatter_or_plan(
+    dst: torch.Tensor,
+    src_row: torch.Tensor | None,
+    mask: torch.Tensor | None,
+    n_out: int,
+    n_src: int,
+    *,
+    key_offset: torch.Tensor | None = None,
+    rounds: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transpose of a scatter: unsorted entries ``m`` (``dst[m]`` gets
+    source row ``src_row[m]``, row m when ``src_row`` is None) into the
+    destination-sorted ``(offsets, entries)`` that `scatter_or` reads.
+
+    Masked entries, destinations outside ``[0, n_out)`` and source rows
+    outside ``[0, n_src)`` are dropped. The kept entries are stable-sorted
+    by key ``dst`` — or, with ``key_offset`` (M,) holding each entry's
+    round ``i < rounds`` times ``n_out``, by ``i * n_out + dst``, so one
+    call plans a block of rounds and round i reads the slice
+    ``offsets[i * n_out : (i + 1) * n_out + 1]``. ``offsets``
+    (rounds * n_out + 1,) int32 gives each key's run in ``entries`` (M,)
+    int32 (dropped entries sit past ``offsets[-1]``). Index bookkeeping in
+    torch (a sort and a binary search, no host sync); the OR of the words
+    is the kernel."""
+    _require(dst.dim() == 1, "dst must be (M,)")
+    m = dst.shape[0]
+    _require(m < 2**31, "more than 2^31 - 1 entries: int32 offsets would wrap")
+    _require(src_row is None or src_row.shape == (m,), "src_row must be (M,)")
+    _require(mask is None or (mask.shape == (m,) and mask.dtype == torch.bool),
+             "mask must be (M,) bool")
+    _require(key_offset is None or key_offset.shape == (m,), "key_offset must be (M,)")
+    n_keys = rounds * n_out
+    key_dtype = torch.int32 if n_keys < 2**31 - 1 else torch.int64
     d = dst.to(torch.int64)
-    s = (torch.arange(d.shape[0], device=d.device) if src_row is None
+    s = (torch.arange(m, device=dst.device) if src_row is None
          else src_row.to(torch.int64))
     keep = (d >= 0) & (d < n_out) & (s >= 0) & (s < n_src)
     if mask is not None:
         keep &= mask
-    d, order = torch.sort(d[keep], stable=True)
-    s = s[keep][order]
-    if not d.numel():
-        return out
-    pos = torch.arange(d.numel(), device=d.device)
-    head = torch.ones_like(d, dtype=torch.bool)
-    head[1:] = d[1:] != d[:-1]
-    rank = pos - torch.where(head, pos, 0).cummax(0).values
-    for r in range(int(rank.max()) + 1):
-        sel = rank == r
-        rows = d[sel]
-        out[rows] = out[rows] | torch.index_select(src, 0, s[sel])
-    return out
+    key = d if key_offset is None else d + key_offset
+    key = torch.where(keep, key, n_keys).to(key_dtype)  # dropped: past every key
+    key, order = torch.sort(key, stable=True)
+    entries = torch.where(keep, s, -1)[order].to(torch.int32)
+    bounds = torch.arange(n_keys + 1, dtype=key_dtype, device=dst.device)
+    offsets = torch.searchsorted(key, bounds, out_int32=True)
+    return offsets, entries
+
+
+def scatter_or_plain(src, offsets, entries, pull_row, base, andnot, out):
+    """Exact and small in memory: the base (or zeros), the pulled rows,
+    then for each rank r the r-th entry of every destination run longer
+    than r — the rows of one rank are distinct, so a plain indexed ``|=``
+    is safe. (The JAX package's bit-unpack form would build an (M, W, 32)
+    tensor.) Reads ``base`` before it writes ``out``, which may be it."""
+    n_src, w = src.shape
+    n_out = out.shape[0]
+    if base is None or andnot:
+        acc = torch.zeros((n_out, w), dtype=torch.int32, device=src.device)
+    else:
+        acc = base.clone()
+    if pull_row is not None and n_src:
+        p = pull_row.to(torch.int64)
+        ok = (p >= 0) & (p < n_src)
+        acc |= torch.index_select(src, 0, torch.where(ok, p, 0)) & -ok.to(torch.int32)[:, None]
+    if offsets is not None and n_out:
+        start = offsets[:-1].to(torch.int64)
+        count = offsets[1:].to(torch.int64) - start
+        for r in range(int(count.max())):
+            rows = torch.nonzero(count > r).squeeze(1)
+            s = entries[start[rows] + r].to(torch.int64)
+            ok = (s >= 0) & (s < n_src)
+            rows, s = rows[ok], s[ok]
+            acc[rows] = acc[rows] | torch.index_select(src, 0, s)
+    if andnot:
+        acc &= ~base
+    return out.copy_(acc)
 
 
 def scatter_or(
+    src: torch.Tensor,
+    offsets: torch.Tensor | None,
+    entries: torch.Tensor | None,
+    *,
+    pull_row: torch.Tensor | None = None,
+    base: torch.Tensor | None = None,
+    andnot: bool = False,
+    out: torch.Tensor,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Destination-owned scatter-OR of table rows, written into ``out``:
+
+        acc    = base[d] (zeros when base is None or andnot)
+               | src[pull_row[d]]                 (0 <= pull_row[d] < R)
+               | OR_{offsets[d] <= e < offsets[d+1]} src[entries[e]]
+        out[d] = andnot ? acc & ~base[d] : acc
+
+    ``src`` (R, W) int32 — for the protocols the flattened (D*N, W)
+    history ring; ``offsets`` (N + 1,) int32 and ``entries`` int32 from
+    `scatter_or_plan` (both None: no entries); ``pull_row`` (N,) int32
+    (-1 or out of range: nothing pulled); ``base`` (N, W) int32, which may
+    be ``out`` itself (in place: ``out |= ...``). Every row of ``out``
+    (N, W) int32 is written. Entries outside ``[0, R)`` are dropped.
+    Precondition: no entry and no pull row reads a row of ``out`` (src may
+    hold ``out``, as the ring holds its slot t). Returns ``out``."""
+    _require(src.dim() == 2 and out.dim() == 2 and src.shape[1] == out.shape[1],
+             "src and out must be (R, W) and (N, W)")
+    n_src, w = src.shape
+    n_out = out.shape[0]
+    _require((offsets is None) == (entries is None), "pass both offsets and entries, or neither")
+    _require(offsets is None or (offsets.dim() == 1 and offsets.shape[0] == n_out + 1),
+             "offsets must be (N + 1,)")
+    _require(entries is None or entries.dim() == 1, "entries must be 1-D")
+    _require(pull_row is None or pull_row.shape == (n_out,), "pull_row must be (N,)")
+    _require(base is None or base.shape == out.shape, "base must be shaped like out")
+    _require(not andnot or base is not None, "andnot needs a base")
+    if not _use_kernel(src, plain):
+        return scatter_or_plain(src, offsets, entries, pull_row, base, andnot, out)
+    tensors = [("src", src), ("out", out)]
+    for name, t in (("offsets", offsets), ("entries", entries), ("pull_row", pull_row),
+                    ("base", base)):
+        if t is not None:
+            tensors.append((name, t))
+    for name, t in tensors:
+        _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
+        _require(t.device == src.device, f"{name} is on {t.device}, not {src.device}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    if n_out and w:
+        _launch(
+            "scatter_or", _lib().gossip_scatter_or,
+            src.data_ptr(), n_src, w, ptr(offsets), ptr(entries), ptr(pull_row),
+            ptr(base), int(andnot), n_out, out.data_ptr(), _stream(src.device),
+        )
+    return out
+
+
+def scatter_or_atomic(
     src: torch.Tensor,
     dst: torch.Tensor,
     *,
@@ -379,16 +490,12 @@ def scatter_or(
     out: torch.Tensor,
     plain: bool = False,
 ) -> torch.Tensor:
-    """Scatter-OR of table rows into ``out``, in place:
-
-        out[dst[m]] |= src[src_row[m]]   for every m with mask[m]
-
-    ``src`` (R, W) int32 — for the push protocols the flattened history
-    ring; ``dst`` (M,) int32; ``src_row`` (M,) int32 (None: row m reads
-    src row m); ``mask`` (M,) bool (None: every entry). Entries whose
-    ``dst`` lies outside ``[0, len(out))`` or whose source row lies outside
-    ``[0, R)`` are dropped, never wrapped. ``out`` (N, W) int32 is ORed
-    into (zero it first for a plain scatter). Returns ``out``."""
+    """The previous scatter design, one warp per entry and one
+    ``atomicOr`` per nonzero word, in place: ``out[dst[m]] |=
+    src[src_row[m]]`` for every kept entry (dropping as `scatter_or_plan`
+    does). No path of the package calls it; chip_smoke.py times it beside
+    `scatter_or` on the same inputs. Its plain version is the plan and
+    `scatter_or_plain` with ``base=out``."""
     _require(src.dim() == 2 and out.dim() == 2 and src.shape[1] == out.shape[1],
              "src and out must be (R, W) and (N, W)")
     _require(dst.dim() == 1, "dst must be (M,)")
@@ -397,7 +504,8 @@ def scatter_or(
     _require(mask is None or (mask.shape == (m,) and mask.dtype == torch.bool),
              "mask must be (M,) bool")
     if not _use_kernel(src, plain):
-        return scatter_or_plain(src, dst, src_row, mask, out)
+        offsets, entries = scatter_or_plan(dst, src_row, mask, out.shape[0], src.shape[0])
+        return scatter_or_plain(src, offsets, entries, None, out, False, out)
     tensors = [("src", src, torch.int32), ("dst", dst, torch.int32),
                ("out", out, torch.int32)]
     if src_row is not None:
@@ -413,7 +521,7 @@ def scatter_or(
     n_src, w = src.shape
     if m and w:
         _launch(
-            "scatter_or", _lib().gossip_scatter_or,
+            "scatter_or_atomic", _lib().gossip_scatter_or_atomic,
             src.data_ptr(), n_src, w,
             None if src_row is None else src_row.data_ptr(), dst.data_ptr(),
             None if mask is None else mask.data_ptr(), m, out.shape[0],

@@ -6,6 +6,7 @@ CPU every port op runs its kernel's plain torch version; the JAX side runs
 its Pallas kernels in interpret mode, as tests/test_pallas.py does.
 """
 
+import ctypes
 import re
 
 import numpy as np
@@ -228,12 +229,19 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
     )
     assert torch.equal(kernels.sector_occupancy(words), kernels.sector_occupancy_plain(words))
     dst = torch.arange(50, dtype=torch.int32) % 7
-    out = torch.zeros((7, 3), dtype=torch.int32)
-    assert torch.equal(kernels.scatter_or(words, dst, out=out),
-                       kernels.scatter_or_plain(words, dst, None, None, torch.zeros_like(out)))
+    offsets, entries = kernels.scatter_or_plan(dst, None, None, 7, 50)
+    pull = torch.arange(7, dtype=torch.int32) * 3
+    base = words[:7].clone()
+    out = torch.empty((7, 3), dtype=torch.int32)
+    assert torch.equal(
+        kernels.scatter_or(words, offsets, entries, pull_row=pull, base=base, out=out),
+        kernels.scatter_or_plain(words, offsets, entries, pull, base, False,
+                                 torch.empty_like(out)))
+    assert torch.equal(kernels.scatter_or_atomic(words, dst, out=torch.zeros_like(out)),
+                       kernels.scatter_or(words, offsets, entries, out=out))
     assert kernels.launches == {
         "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
-        "scatter_or": 0,
+        "scatter_or": 0, "scatter_or_atomic": 0,
     }
 
 
@@ -247,8 +255,12 @@ def test_no_kernel_for_other_devices():
     with pytest.raises(ValueError):
         kernels.sector_occupancy(words)
     with pytest.raises(ValueError):
-        kernels.scatter_or(words, torch.zeros(2, dtype=torch.int32, device="meta"),
+        kernels.scatter_or(words, torch.zeros(4, dtype=torch.int32, device="meta"),
+                           torch.zeros(2, dtype=torch.int32, device="meta"),
                            out=torch.empty((3, 2), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        kernels.scatter_or_atomic(words, torch.zeros(2, dtype=torch.int32, device="meta"),
+                                  out=torch.empty((3, 2), dtype=torch.int32, device="meta"))
 
 
 def test_gather_or_rejects_bad_arguments():
@@ -650,28 +662,88 @@ _JAX_SCATTERS = [jax.jit(f, static_argnums=0)
                  for f in (jsegment.scatter_or, jsegment.scatter_or_bits)]
 
 
-@pytest.mark.parametrize("m,w,n_rows,hot,masked", [
-    (37, 1, 10, False, False), (100, 2, 16, False, True), (65, 3, 7, False, True),
-    (200, 8, 50, False, True), (33, 3, 5, True, False), (33, 3, 5, True, True),
-    (1, 2, 3, False, True),
-])
-def test_scatter_or_matches_jax(m, w, n_rows, hot, masked):
-    """The port's one entry point against both JAX variants (sort + scan,
-    and bit unpack + scatter-add) and a loop of ``|=``."""
+_SCATTER_CASES = [  # m, w, n_rows, hot, masked, option
+    (37, 1, 10, False, False, ""), (100, 2, 16, False, True, ""), (65, 3, 7, False, True, ""),
+    (200, 8, 50, False, True, ""), (33, 3, 5, True, False, ""), (33, 3, 5, True, True, ""),
+    (1, 2, 3, False, True, ""),
+    (100, 4, 6, True, False, ""),          # one destination, a run longer than 32
+    (0, 2, 4, False, False, ""),           # M = 0: every row still written
+    (90, 3, 9, False, True, "base"),       # ORed into out in place (base is out)
+    (90, 4, 9, False, True, "andnot"),     # the frontier: pushed & ~base
+    (90, 3, 9, False, True, "pull"),       # pulled rows, -1 and out of range among them
+    (120, 2, 7, False, True, "rounds3"),   # a block of 3 rounds planned in one call
+]
+
+
+def _scatter_id(case):
+    return "-".join(str(v) for v in case[:5]) + (f"-{case[5]}" if case[5] else "")
+
+
+@pytest.mark.parametrize("m,w,n_rows,hot,masked,opt", _SCATTER_CASES,
+                         ids=[_scatter_id(c) for c in _SCATTER_CASES])
+def test_scatter_or_matches_jax(m, w, n_rows, hot, masked, opt):
+    """The port's plan + kernel (its plain version here) against both JAX
+    variants (sort + scan, and bit unpack + scatter-add) and a loop of
+    ``|=``; with the kernel's options (a base ORed in place, the and-not
+    frontier, pulled rows, a block of rounds) against the JAX scatter
+    combined with them in numpy."""
     payload, dst, mask = _scatter_case(m + w, m, w, n_rows, hot)
-    jmask = jnp.asarray(mask) if masked else None
-    got = segment.scatter_or(
-        n_rows, torch.as_tensor(dst), convert.bitmask_to_torch(payload),
-        torch.as_tensor(mask) if masked else None,
-    )
-    for impl in _JAX_SCATTERS:
-        want = np.asarray(impl(n_rows, jnp.asarray(dst), jnp.asarray(payload), jmask))
-        np.testing.assert_array_equal(convert.bitmask_to_numpy(got), want)
-    ref = np.zeros((n_rows, w), np.uint32)
-    for i in range(m):
-        if mask[i] or not masked:
+    keep = mask if masked else np.ones(m, bool)
+    tmask = torch.as_tensor(mask) if masked else None
+    src = convert.bitmask_to_torch(payload)
+    rounds = 3 if opt == "rounds3" else 1
+    rnd = np.arange(m) % rounds  # each entry's round
+
+    def pushed(r):
+        """Round r's scatter by both JAX variants and by a loop."""
+        sel = rnd == r
+        ref = np.zeros((n_rows, w), np.uint32)
+        for i in np.flatnonzero(sel & keep):
             ref[dst[i]] |= payload[i]
-    np.testing.assert_array_equal(convert.bitmask_to_numpy(got), ref)
+        if not sel.any():
+            return ref
+        jmask = jnp.asarray(mask[sel]) if masked else None
+        for impl in _JAX_SCATTERS:
+            want = np.asarray(impl(n_rows, jnp.asarray(dst[sel]), jnp.asarray(payload[sel]),
+                                   jmask))
+            np.testing.assert_array_equal(want, ref)
+        return ref
+
+    if opt == "":
+        got = segment.scatter_or(n_rows, torch.as_tensor(dst), src, tmask)
+        np.testing.assert_array_equal(convert.bitmask_to_numpy(got), pushed(0))
+        return
+    offsets, entries = kernels.scatter_or_plan(
+        torch.as_tensor(dst), None, tmask, n_rows, m,
+        key_offset=torch.as_tensor(rnd * n_rows), rounds=rounds,
+    )
+    assert offsets.shape == (rounds * n_rows + 1,) and offsets.dtype == torch.int32
+    base = _ragged_words(m + 1, n_rows, w)
+    fresh = torch.full((n_rows, w), -1, dtype=torch.int32)  # every row must be written
+    if opt == "rounds3":
+        for r in range(rounds):
+            got = kernels.scatter_or(src, offsets[r * n_rows:(r + 1) * n_rows + 1], entries,
+                                     out=fresh.clone())
+            np.testing.assert_array_equal(convert.bitmask_to_numpy(got), pushed(r))
+        return
+    if opt == "base":
+        out = convert.bitmask_to_torch(base.copy())
+        got = kernels.scatter_or(src, offsets, entries, base=out, out=out)
+        assert got is out
+        want = base | pushed(0)
+    elif opt == "andnot":
+        got = kernels.scatter_or(src, offsets, entries, base=convert.bitmask_to_torch(base),
+                                 andnot=True, out=fresh)
+        want = pushed(0) & ~base
+    else:
+        pull = np.random.default_rng(m).integers(-3, m + 3, n_rows).astype(np.int32)
+        pull[:3] = (-1, m, -(2**31))
+        got = kernels.scatter_or(src, offsets, entries, pull_row=torch.as_tensor(pull),
+                                 base=convert.bitmask_to_torch(base), out=fresh)
+        ok = (pull >= 0) & (pull < m)
+        pulled = np.where(ok[:, None], payload[np.clip(pull, 0, m - 1)], 0)
+        want = base | pulled | pushed(0)
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(got), want)
 
 
 def test_scatter_or_drops_out_of_range_destinations():
@@ -719,15 +791,32 @@ def test_scatter_or_reads_table_rows_and_ors_into_out():
 def test_scatter_or_kernel_wrapper_checks():
     src = torch.zeros((4, 3), dtype=torch.int32)
     out = torch.zeros((5, 3), dtype=torch.int32)
+    offsets, entries = torch.zeros(6, dtype=torch.int32), torch.zeros(0, dtype=torch.int32)
+    bad = (
+        dict(offsets=torch.zeros(5, dtype=torch.int32)),      # not N + 1
+        dict(offsets=None),                                   # entries without offsets
+        dict(out=out[:, :2]),                                 # width differs from src
+        dict(pull_row=torch.zeros(4, dtype=torch.int32)),     # not (N,)
+        dict(base=torch.zeros((4, 3), dtype=torch.int32)),    # not shaped like out
+        dict(andnot=True),                                    # andnot without a base
+    )
+    for case in bad:
+        args = dict(offsets=offsets, entries=entries, out=out) | case
+        with pytest.raises(ValueError):
+            kernels.scatter_or(src, args.pop("offsets"), args.pop("entries"), **args)
+    with pytest.raises(ValueError):  # the plan's dst is 1-D
+        kernels.scatter_or_plan(torch.zeros((2, 2), dtype=torch.int32), None, None, 5, 4)
     with pytest.raises(ValueError):
-        kernels.scatter_or(src, torch.zeros((2, 2), dtype=torch.int32), out=out)
+        kernels.scatter_or_plan(torch.zeros(3, dtype=torch.int32), None,
+                                torch.ones(3, dtype=torch.int32), 5, 4)
     with pytest.raises(ValueError):
-        kernels.scatter_or(src, torch.zeros(3, dtype=torch.int32), out=out[:, :2])
-    with pytest.raises(ValueError):
-        kernels.scatter_or(src, torch.zeros(3, dtype=torch.int32),
-                           mask=torch.ones(3, dtype=torch.int32), out=out)
-    assert "scatter_or" in kernels.launches
+        kernels.scatter_or_atomic(src, torch.zeros(3, dtype=torch.int32), out=out[:, :2])
+    assert "scatter_or" in kernels.launches and "scatter_or_atomic" in kernels.launches
+    # src, n_src, w, offsets, entries, pull_row, base, and_not, n_out, out, stream
     sig = build._SIGNATURES["gossip_scatter_or"]
-    assert len(sig) == 10
+    assert len(sig) == 11 and sig[7] == sig[8] == ctypes.c_int
+    assert len(build._SIGNATURES["gossip_scatter_or_atomic"]) == 10
     with open(build.SOURCE, encoding="utf-8") as f:
-        assert "int gossip_scatter_or(" in f.read()
+        src_text = f.read()
+    assert "int gossip_scatter_or(" in src_text
+    assert "int gossip_scatter_or_atomic(" in src_text

@@ -151,3 +151,112 @@ def test_degree_zero_rows_never_exchange():
         stats = port[0]
         idle = g.degree == 0
         assert (stats.received[idle] == 0).all() and (stats.sent[idle] == 0).all()
+
+
+# --- one round's destination-owned call against the JAX package's round ---
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from p2p_gossip_tpu.engine.sync import DeviceGraph as JaxDeviceGraph  # noqa: E402
+from p2p_gossip_tpu.models.linkloss import drop_mask_jnp  # noqa: E402
+from p2p_gossip_tpu.ops import segment as jsegment  # noqa: E402
+from p2p_gossip_tpu_torch import convert  # noqa: E402
+from p2p_gossip_tpu_torch.engine.sync import DeviceGraph  # noqa: E402
+from p2p_gossip_tpu_torch.models.partnersel import pick_key  # noqa: E402
+from p2p_gossip_tpu_torch.ops import kernels  # noqa: E402
+
+ROUND = 9  # the round checked; the ring is the one rounds 0..8 left
+
+
+@pytest.mark.parametrize("mode", ["pushpull", "pull", "pushk"])
+def test_round_call_matches_jax_round(mode):
+    """On a ring the port's own rounds captured (log-normal per-edge
+    delays, D = 5, churn and loss p = 0.3), round 9's single
+    `kernels.scatter_or` call — pull rows and the push plan from
+    `_draw_rounds`, ``base = seen`` — equals the round the JAX package
+    builds from its own functions: partners from `_select_partners`, the
+    coins ``drop_mask_jnp`` in the order of its protocols.py:144-145, the
+    push by its `segment.scatter_or`; ``seen | remote | pushed`` (pull:
+    ``seen | remote``; fanout push k = 2: ``pushed & ~seen``)."""
+    case = _case("er", n=120, seed=7, delay="lognormal")
+    g, sched, seed = case["g"], case["sched"], 2**31 + 3
+    fanout = 2 if mode == "pushk" else 1
+    dg = DeviceGraph.build(g, case["d"], bucketed=False, device="cpu")
+    jdg = JaxDeviceGraph.build(case["jg"], case["jd"], bucketed=False)
+    n, ring = dg.n, dg.ring_size
+    cm = churn.random_churn(g.n, HORIZON, 0.3, 4.0, 2, seed=5)
+    jcm = jchurn.random_churn(g.n, HORIZON, 0.3, 4.0, 2, seed=5)
+    loss = LinkLossModel(0.3, seed=2**31 + 9).static_cfg
+    jloss = JaxLoss(0.3, seed=2**31 + 9).static_cfg
+    assert loss == jloss
+    nodes = torch.arange(n, dtype=torch.int64)
+    key = pick_key(nodes[:, None], torch.arange(fanout)[None, :], seed)
+    churn_dev = churn.to_device(cm, "cpu")
+    origins, gen_ticks = sched.chunk(64)[0].padded(64, ROUND)
+    _, _, _, hist = protocols._run_chunk(
+        dg, origins, gen_ticks, key, None, churn_dev, loss, mode=mode, chunk_size=64,
+        horizon=ROUND, n_cov=None, plain=False,
+    )
+    w = hist.shape[-1]
+    flat = hist.view(ring * n, w)
+    if mode == "pushk":  # any seen will do for the and-not: the ring's OR
+        seen = hist[0] | hist[1] | hist[2]
+    else:
+        seen = hist[(ROUND - 1) % ring]
+    assert seen.any()
+
+    draw = protocols._draw_rounds(dg, key, None, churn_dev, loss, ROUND, ROUND + 1, mode)
+    offsets, entries = draw["plan"] if "plan" in draw else (None, None)
+    pull_row = draw["pull_row"][0] if "pull_row" in draw else None
+    out = torch.full((n, w), -1, dtype=torch.int32)
+    got = kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
+                             andnot=mode == "pushk", out=out)
+
+    # The JAX package's round, from its own functions.
+    flat_np = convert.bitmask_to_numpy(flat)
+    seen_np = convert.bitmask_to_numpy(seen)
+    jseed, t = jnp.uint32(seed), jnp.int32(ROUND)
+    rows = jnp.arange(n, dtype=jnp.int32)
+    up = jchurn.up_mask_jnp(*jchurn.to_device(jcm), t)
+    if mode == "pushk":
+        partners, delay = jproto._select_fanout_partners(
+            jseed, t, jdg.ell_idx, jdg.ell_delay, jdg.degree, fanout)
+        attempted = (jdg.degree > 0)[:, None] & up[:, None] & up[partners]
+        senders = rows[:, None]
+    else:
+        partners, delay = jproto._select_partners(
+            jseed, t, jdg.ell_idx, jdg.ell_delay, jdg.degree)
+        attempted = (jdg.degree > 0) & up & up[partners]
+        senders = rows
+    slot = jnp.mod(t - delay, ring)
+    pull_ok = attempted & ~drop_mask_jnp(partners, senders, t, *jloss)
+    push_ok = attempted & ~drop_mask_jnp(senders, partners, t, *jloss)
+    remote = np.where(np.asarray(pull_ok)[..., None],
+                      flat_np[np.asarray(slot * n + partners)], 0)
+    my_old = flat_np[np.asarray(slot * n + senders)]
+    pushed = np.asarray(jsegment.scatter_or(
+        n, partners.reshape(-1),
+        jnp.where(push_ok[..., None], jnp.asarray(my_old), jnp.uint32(0)).reshape(-1, w)))
+    if mode == "pushpull":
+        want = seen_np | remote | pushed
+    elif mode == "pull":
+        want = seen_np | remote
+    else:
+        want = pushed & ~seen_np
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(got), want)
+    assert (np.asarray(pull_ok) != np.asarray(attempted)).any()  # the coin dropped some
+    assert (want != seen_np).any()
+
+
+def test_protocols_never_call_the_gather(monkeypatch):
+    """The round's pull rides in the destination-owned scatter: a push-pull
+    (and pull) run never reaches `kernels.gather_or`."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("gather_or called on the protocols' path")
+
+    monkeypatch.setattr(kernels, "gather_or", refuse)
+    case = _case("er", seed=6, delay="lognormal")
+    for mode in ("pushpull", "pull"):
+        port, want = _run(case, (mode, 1), seed=4, chunk_size=64)
+        _same(port[0], want[0])
