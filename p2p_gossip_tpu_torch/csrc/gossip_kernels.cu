@@ -1,5 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the flood engine's tick and the
-// random-partner protocols' round.
+// Hand-written Hopper (sm_90a) kernels for the flood engine's tick, the
+// random-partner protocols' round and the telemetry's per-tick digest.
 //
 // Plain C interface, loaded with ctypes (p2p_gossip_tpu_torch/ops/kernels.py).
 // Every entry point launches on the stream it is given, allocates nothing,
@@ -615,6 +615,106 @@ scatter_or_atomic_kernel(const uint32_t* __restrict__ src, int n_src, int w,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// tick_digest
+//
+// Replaces: p2p_gossip_tpu/telemetry/digest.py tick_digest (the XLA XOR
+//   fold _fold_sparse_jnp + lax.reduce(bitwise_xor)), the flight recorder's
+//   one uint32 per tick. PyTorch has no XOR reduction, so the port folds
+//   with this kernel.
+// Computes: *out ^= XOR over every nonzero entry of
+//     mix(seen[i,k] ^ k*SALT_WORD ^ i*SALT_NODE)        (words)
+//     mix(received[i] ^ i*SALT_NODE ^ SALT_RECV)         (counters; and
+//     mix(sent_lo[i] ^ i*SALT_NODE ^ SALT_SENT_LO)        sent_hi when it
+//     mix(sent_hi[i] ^ i*SALT_NODE ^ SALT_SENT_HI)        is not null)
+//   with mix = lowbias32, all in uint32. A zero entry contributes nothing
+//   (the JAX digest's pad-width invariance).
+// Bound on the H100: bytes (N*W*4 + 8*N, + 4*N with sent_hi, read once);
+//   the mix is ~12 integer operations a word, far below the integer rate.
+// Design: a grid-stride loop of one warp per row; 16-byte loads where the
+//   row allows them; each thread XORs in registers, then a shuffle fold in
+//   the warp, a shared-memory fold in the block and one atomicXor per block.
+//   XOR is associative and commutative, so the atomics give the same bits
+//   in any block order: unlike an atomic add, the result is deterministic.
+//   The slot must hold zero before the tick (a fresh ring, and each tick
+//   writes its slot once), so no fill launch is needed.
+// ---------------------------------------------------------------------------
+constexpr uint32_t kMixM1 = 0x21F0AAADu;
+constexpr uint32_t kMixM2 = 0xD35A2D97u;
+constexpr uint32_t kSaltNode = 0xB5297A4Du;
+constexpr uint32_t kSaltWord = 0x68E31DA4u;
+constexpr uint32_t kSaltRecv = 0x1B56C4E9u;
+constexpr uint32_t kSaltSentLo = 0x7F4A7C15u;
+constexpr uint32_t kSaltSentHi = 0x94D049BBu;
+constexpr int kDigestWarps = 8;
+
+__device__ inline uint32_t lowbias32(uint32_t x) {
+  x ^= x >> 16;
+  x *= kMixM1;
+  x ^= x >> 15;
+  x *= kMixM2;
+  x ^= x >> 15;
+  return x;
+}
+
+// The sparse fold's term: nothing for a zero value.
+__device__ inline uint32_t digest_term(uint32_t value, uint32_t salt) {
+  return value ? lowbias32(value ^ salt) : 0u;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kDigestWarps * 32)
+tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
+                   long long ld, const uint32_t* __restrict__ received,
+                   const uint32_t* __restrict__ sent_lo,
+                   const uint32_t* __restrict__ sent_hi,
+                   uint32_t* __restrict__ out) {
+  __shared__ uint32_t part[kDigestWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long n_warps = (long long)gridDim.x * kDigestWarps;
+  uint32_t acc = 0u;
+  for (long long row = (long long)blockIdx.x * kDigestWarps + warp; row < n;
+       row += n_warps) {
+    const uint32_t node_salt = (uint32_t)row * kSaltNode;
+    const uint32_t* p = seen + (size_t)row * (size_t)ld;
+    if (kVec) {  // w % 4 == 0 and every row 16-byte aligned
+      const uint4* q = reinterpret_cast<const uint4*>(p);
+      for (int u = lane; u < (w >> 2); u += 32) {
+        const uint4 v = __ldg(q + u);
+        const uint32_t k = (uint32_t)u << 2;
+        acc ^= digest_term(v.x, k * kSaltWord ^ node_salt);
+        acc ^= digest_term(v.y, (k + 1u) * kSaltWord ^ node_salt);
+        acc ^= digest_term(v.z, (k + 2u) * kSaltWord ^ node_salt);
+        acc ^= digest_term(v.w, (k + 3u) * kSaltWord ^ node_salt);
+      }
+    } else {
+      for (int c = lane; c < w; c += 32) {
+        acc ^= digest_term(__ldg(p + c), (uint32_t)c * kSaltWord ^ node_salt);
+      }
+    }
+    // The row's counters, one lane each.
+    if (lane == 0) {
+      acc ^= digest_term(__ldg(received + row), node_salt ^ kSaltRecv);
+    } else if (lane == 1) {
+      acc ^= digest_term(__ldg(sent_lo + row), node_salt ^ kSaltSentLo);
+    } else if (lane == 2 && sent_hi != nullptr) {
+      acc ^= digest_term(__ldg(sent_hi + row), node_salt ^ kSaltSentHi);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc ^= shfl_xor(acc, off);
+  if (lane == 0) part[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    acc = lane < kDigestWarps ? part[lane] : 0u;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc ^= shfl_xor(acc, off);
+    if (lane == 0 && acc != 0u) atomicXor(out, acc);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -742,6 +842,31 @@ int gossip_scatter_or_atomic(const void* src, int n_src, int w,
     GOSSIP_SCATTER_ATOMIC_LAUNCH(uint32_t);
   }
 #undef GOSSIP_SCATTER_ATOMIC_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+
+// `seen` is (n, w) with row stride ld words; `received`, `sent_lo` and
+// (when not null) `sent_hi` are (n,) 32-bit counters; `out` is one uint32
+// slot that the digest is XORed into.
+int gossip_tick_digest(const void* seen, int n, int w, long long ld,
+                       const void* received, const void* sent_lo,
+                       const void* sent_hi, void* out, void* stream) {
+  // Up to 8 resident blocks of 256 threads on each of the H100's 132 SMs,
+  // each warp striding over rows: one atomicXor per block.
+  long long blocks = ((long long)n + kDigestWarps - 1) / kDigestWarps;
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  if (blocks < 1) blocks = 1;
+  const bool vec = w % 4 == 0 && ld % 4 == 0 && aligned16(seen);
+  if (vec) {
+    tick_digest_kernel<true><<<(unsigned)blocks, kDigestWarps * 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)seen, n, w, ld, (const uint32_t*)received,
+        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, (uint32_t*)out);
+  } else {
+    tick_digest_kernel<false><<<(unsigned)blocks, kDigestWarps * 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)seen, n, w, ld, (const uint32_t*)received,
+        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, (uint32_t*)out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,11 @@ rows and the block's push plan (the pushes sorted by destination,
   ``received`` counts; with ``record_coverage`` the ``coverage_per_slot``
   kernel on ``seen``.
 
+With telemetry's rings on, each round also writes a metric row and a
+state digest (`_round_telemetry`), harvested once a chunk as the JAX
+package's ``ring`` and ``digest`` events; with them off a round launches
+nothing extra.
+
 Counter mapping (anti-entropy has no per-share forwarding): ``received``
 and ``forwarded`` count newly acquired shares; ``sent`` counts shares
 transmitted in digests. ``received`` is int32 and wraps as the JAX
@@ -51,6 +56,7 @@ from p2p_gossip_tpu_torch.engine.sync import (
     MIN_CHUNK_SHARES,
     DeviceGraph,
     _canonical_delays,
+    tel_chunk_rings,
 )
 from p2p_gossip_tpu_torch.models import churn as churn_mod
 from p2p_gossip_tpu_torch.models.churn import effective_generated
@@ -63,6 +69,11 @@ from p2p_gossip_tpu_torch.models.partnersel import (
 )
 from p2p_gossip_tpu_torch.models.topology import Graph
 from p2p_gossip_tpu_torch.ops import bitmask, kernels
+from p2p_gossip_tpu_torch.telemetry import digest as tel_digest
+from p2p_gossip_tpu_torch.telemetry import progress as tel_progress
+from p2p_gossip_tpu_torch.telemetry import rings as tel_rings
+from p2p_gossip_tpu_torch.telemetry import sink as tel_sink
+from p2p_gossip_tpu_torch.telemetry.spans import span
 from p2p_gossip_tpu_torch.utils.checkpoint import (
     checkpointed_chunks,
     make_checkpointer,
@@ -124,11 +135,15 @@ def _stage(graph, ell_delays, constant_delay, device_graph, device) -> DeviceGra
 PICK_BLOCK = 16
 
 
-def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str):
+def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str,
+                 coins: bool = False):
     """The exchanges of rounds t0..t1-1, drawn in one pass, each (B, N, c)
     with B = t1 - t0: ``partners`` int32; ``src`` the sender's ring row
     ``slot * N + node`` and, for pull, ``served`` the partner's, int32;
     ``attempted`` bool; and ``up`` (B, N) bool under churn (else None).
+    ``coins`` (telemetry on) also keeps ``served`` for push-pull and the
+    coins apart, ``pull_ok`` and ``push_ok`` (B, N, c) bool, for the
+    metric row's ``loss_dropped``.
     What the round's `kernels.scatter_or` call reads: for push-pull and
     pull, ``pull_row`` (B, N) int32, the partner's ring row at the picked
     edge's delay where the pull coin ``drop(partner, node, t)`` keeps it,
@@ -166,13 +181,17 @@ def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str):
         if loss is not None:
             pull_ok = attempted & ~drop_mask_torch(partners, rows, ticks, *loss)
         draw["pull_row"] = torch.where(pull_ok, served, -1).to(torch.int32).reshape(b, n)
-        if mode == "pull":
+        if mode == "pull" or coins:
             draw["served"] = served.to(torch.int32)
+        if coins:
+            draw["pull_ok"] = pull_ok
     if mode != "pull":
         push_ok = attempted
         if loss is not None:
             push_ok = attempted & ~drop_mask_torch(rows, partners, ticks, *loss)
         draw["plan"] = _push_plan(partners, draw["src"], push_ok, n, ring)
+        if coins:
+            draw["push_ok"] = push_ok
     return draw
 
 
@@ -238,13 +257,15 @@ def _run_chunk(
     horizon: int,
     n_cov: int | None,
     plain: bool,
+    rings: tuple | None = None,
 ):
     """``horizon`` rounds of one share chunk from t = 0 (the JAX package's
     ``_pushpull_scan`` and ``_pushk_scan``). A node makes c exchanges a
     round: c = 1 for push-pull and pull, the fanout for fanout push.
     Returns (received int32, sent int64, coverage (horizon, n_cov) int32
     or None, the (D, N, W) ring as the last round left it), on the
-    device.
+    device. ``rings`` (telemetry on): a fresh (metric ring, digest ring)
+    pair whose row t each round writes (`_round_telemetry`).
 
     For push-pull and pull the ring holds ``seen`` itself: round t reads
     its ``seen`` from slot t-1 and writes the new one into slot t, so no
@@ -270,13 +291,17 @@ def _run_chunk(
     if n_cov is not None:
         cov = torch.zeros((horizon, n_cov), dtype=torch.int32, device=dev)
     cov_w = bitmask.num_words(n_cov or 0)
+    tel = None
+    if rings is not None:
+        tel = _RoundTelemetry(rings, n, w, dev)
 
     _check_ring_slots(dg, override)
     for t in range(horizon):
         i = t % PICK_BLOCK
         if i == 0:
             draw = _draw_rounds(dg, key, override, churn, loss, t,
-                                min(t + PICK_BLOCK, horizon), mode)
+                                min(t + PICK_BLOCK, horizon), mode,
+                                coins=tel is not None)
         partners, attempted = draw["partners"][i], draw["attempted"][i]
         offsets = entries = None
         if "plan" in draw:
@@ -284,6 +309,8 @@ def _run_chunk(
             offsets = offsets[i * n:(i + 1) * n + 1]
         pull_row = draw["pull_row"][i] if "pull_row" in draw else None
         row = hist[t % ring]
+        if tel is not None:  # msgs_gathered: the round's arrivals, before the OR with seen
+            tel.gather(flat, offsets, entries, pull_row, plain)
         # The new ring row in one pass: push-pull and pull seen | pulled |
         # pushed, fanout push the frontier pushed & ~seen.
         kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
@@ -294,12 +321,14 @@ def _run_chunk(
             served = torch.where(attempted, flat_cnt[draw["served"][i]], 0)
             sent.index_add_(0, partners.view(-1).to(torch.int64),
                             served.view(-1).to(torch.int64))
+            or_work = served
         else:
             # The sender counts every attempted send. The JAX package sums
             # a node's picks in int32 and adds the sum as a uint32: the
             # same value mod 2^32.
             digest = torch.where(attempted, flat_cnt[draw["src"][i]], 0)
-            sent += digest.sum(dim=1, dtype=torch.int64) & _U32
+            or_work = digest.sum(dim=1, dtype=torch.int64) & _U32
+            sent += or_work
 
         if t in spans:
             lo, hi = spans[t]
@@ -315,11 +344,87 @@ def _run_chunk(
             seen |= row
         else:
             seen = row
+        if tel is not None:
+            tel.round(t, mode, draw, i, hcnt, ring, fired, or_work, seen, sent,
+                      loss is not None, plain)
         if cov is not None:
             cov[t] = bitmask.coverage_per_slot(seen[:, :cov_w], n_cov, plain=plain)
     final = bitmask.popcount_rows(seen, plain=plain) if mode == "pushk" else hcnt[
         (horizon - 1) % ring]
     return final - fired, sent, cov, hist
+
+
+class _RoundTelemetry:
+    """A chunk's per-round metric rows and digests (telemetry on), the JAX
+    package's ``_pushpull_scan`` / ``_pushk_scan`` rows value for value,
+    from what the round loop keeps:
+
+    - ``frontier_bits`` per node from the count ring: push-pull and pull
+      ``hcnt[t] - hcnt[t-1]`` (the ring holds ``seen``), fanout push
+      ``hcnt[t]`` (the ring holds the frontier); ``frontier_nodes`` the
+      nodes where it is above 0;
+    - ``received`` every round (the loop itself forms it only at the
+      chunk's end): ``seen``'s popcount less the generations fired so
+      far, ``seen``'s popcount being ``hcnt[t]`` (push-pull, pull) or the
+      running sum of the frontier rows' counts (fanout push: they are
+      disjoint); ``newly_infected`` its growth this round;
+    - ``msgs_gathered``: the bits of the round's arrivals before they meet
+      ``seen`` — one more `kernels.scatter_or` call on the round's plan and
+      pull rows, with no base, into a scratch (N, W) buffer;
+    - ``or_work``: the bits the round charges to ``sent``;
+    - ``loss_dropped``: the bits of the attempted pulls (push-pull, pull)
+      and pushes (push-pull, fanout push) that the coin dropped, sized by
+      the count ring (the JAX package's ``pc_remote`` and ``popcount
+      (my_old)``);
+    - the digest of (``seen``, ``received``, ``sent`` as its low and high
+      words)."""
+
+    def __init__(self, rings, n: int, w: int, dev):
+        self.met, self.dig = rings
+        self.scratch = torch.empty((n, w), dtype=torch.int32, device=dev)
+        self.received = torch.zeros((n,), dtype=torch.int32, device=dev)
+        self.seen_cnt = torch.zeros((n,), dtype=torch.int32, device=dev)  # fanout push
+        self.gathered = None
+
+    def gather(self, flat, offsets, entries, pull_row, plain: bool) -> None:
+        kernels.scatter_or(flat, offsets, entries, pull_row=pull_row,
+                           out=self.scratch, plain=plain)
+        self.gathered = tel_rings.total_bits(self.scratch, plain=plain)
+
+    def round(self, t, mode, draw, i, hcnt, ring, fired, or_work, seen, sent,
+              lossy: bool, plain: bool) -> None:
+        cnt = hcnt[t % ring]
+        if mode == "pushk":
+            frontier = cnt
+            self.seen_cnt += cnt
+            received = self.seen_cnt - fired
+        else:
+            frontier = cnt - hcnt[(t - 1) % ring]
+            received = cnt - fired
+        newly = received - self.received
+        self.received = received
+        dropped = 0
+        if lossy:
+            flat_cnt = hcnt.view(-1)
+            attempted = draw["attempted"][i]
+            if mode != "pushk":
+                lost = attempted & ~draw["pull_ok"][i]
+                dropped = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["served"][i]], 0))
+            if mode != "pull":
+                lost = attempted & ~draw["push_ok"][i]
+                pushed = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["src"][i]], 0))
+                dropped = (dropped + pushed) & _U32  # a uint32 add, as in JAX
+        tel_rings.write(self.met, t, tel_rings.row(
+            frontier_bits=tel_rings.u32sum(frontier),
+            frontier_nodes=tel_rings.u32sum(frontier > 0),
+            newly_infected=tel_rings.u32sum(newly),
+            msgs_gathered=self.gathered,
+            or_work=tel_rings.u32sum(or_work),
+            loss_dropped=dropped,
+            device=seen.device,
+        ))
+        tel_digest.write(self.dig, t, seen, received, *tel_digest.split_u64(sent),
+                         plain=plain)
 
 
 def _run_partnered_sim(
@@ -382,19 +487,37 @@ def _run_partnered_sim(
         ),
         {"received": received, "sent": sent},
     )
+    tel = tel_sink.rings_enabled()
+    name = f"models.protocols.{fingerprint_extra[0]}"
     cov_chunks = []
     chunks = schedule.chunk(chunk_size) or [schedule]
-    for _, chunk in checkpointed_chunks(chunks, checkpointer, stop_after_chunks):
+    for ci, chunk in checkpointed_chunks(chunks, checkpointer, stop_after_chunks):
         origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
-        r, s, cov, _ = _run_chunk(
-            dg, origins, gen_ticks, key, override, churn_dev, loss_cfg,
-            mode=mode, chunk_size=chunk_size, horizon=horizon_ticks,
-            n_cov=chunk.num_shares if record_coverage else None, plain=plain,
+        rings = tel_chunk_rings(horizon_ticks, dev) if tel else None
+        with span("dispatch", kernel=name, chunk=ci):
+            r, s, cov, _ = _run_chunk(
+                dg, origins, gen_ticks, key, override, churn_dev, loss_cfg,
+                mode=mode, chunk_size=chunk_size, horizon=horizon_ticks,
+                n_cov=chunk.num_shares if record_coverage else None, plain=plain,
+                rings=rings,
+            )
+        with span("d2h", chunk=ci):
+            received += r.cpu().numpy().astype(np.int64)
+            sent += s.cpu().numpy()
+            if record_coverage:
+                cov_chunks.append(cov.cpu().numpy())
+        digest_head = None
+        if tel:
+            met, dig = rings
+            tel_rings.emit_ring(name, met, t0=0, ticks=horizon_ticks, chunk=ci)
+            dvals = dig.cpu().numpy()
+            tel_digest.emit_digest(name, dvals, t0=0, ticks=horizon_ticks, chunk=ci)
+            if dvals.size:
+                digest_head = int(dvals[-1])
+        tel_progress.emit_progress(
+            name, chunk=ci, chunks_total=len(chunks),
+            ticks_done=horizon_ticks * (ci + 1), digest_head=digest_head,
         )
-        received += r.cpu().numpy().astype(np.int64)
-        sent += s.cpu().numpy()
-        if record_coverage:
-            cov_chunks.append(cov.cpu().numpy())
 
     generated = effective_generated(schedule, horizon_ticks, churn)
     stats = NodeStats(

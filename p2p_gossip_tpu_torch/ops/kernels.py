@@ -9,6 +9,7 @@
 | `coverage_per_slot` | ops/pallas_kernels.py coverage_per_slot_pallas          |
 | `scatter_or`        | ops/segment.py scatter_or / scatter_or_bits (XLA) and   |
 |                     | the protocols' round OR (models/protocols.py:160)       |
+| `tick_digest`       | telemetry/digest.py tick_digest (XLA XOR fold)          |
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel (csrc/gossip_kernels.cu, built and bound by
@@ -36,7 +37,7 @@ WORD_BITS = 32
 
 launches = {
     "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
-    "scatter_or": 0, "scatter_or_atomic": 0,
+    "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
 }
 
 
@@ -526,5 +527,124 @@ def scatter_or_atomic(
             None if src_row is None else src_row.data_ptr(), dst.data_ptr(),
             None if mask is None else mask.data_ptr(), m, out.shape[0],
             out.data_ptr(), _stream(src.device),
+        )
+    return out
+
+
+# --- tick_digest ------------------------------------------------------------
+
+# The digest's mix (lowbias32) and lane salts, the JAX package's
+# telemetry/digest.py constants; csrc/gossip_kernels.cu holds the same.
+MIX_M1 = 0x21F0AAAD
+MIX_M2 = 0xD35A2D97
+SALT_NODE = 0xB5297A4D
+SALT_WORD = 0x68E31DA4
+SALT_RECV = 0x1B56C4E9
+SALT_SENT_LO = 0x7F4A7C15
+SALT_SENT_HI = 0x94D049BB
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``x * m`` mod 2^32 for int64 ``x`` in [0, 2^32): the multiplier in
+    two 16-bit halves, so no product passes 2^48."""
+    lo = x * (m & 0xFFFF)
+    hi = ((x * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32 on int64 values holding uint32: every shift reads a value
+    masked to 32 bits, every multiply is masked back to 32 bits."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, MIX_M1)
+    x = x ^ (x >> 15)
+    x = _mul32(x, MIX_M2)
+    return x ^ (x >> 15)
+
+
+def _xor_fold(x: torch.Tensor) -> torch.Tensor:
+    """XOR of every element of an int64 tensor, as a 0-d int64, by halving:
+    ``x[:h] ^ x[h:2h]`` with the odd tail carried (log2 passes, no host
+    sync)."""
+    x = x.reshape(-1)
+    carry = torch.zeros((), dtype=torch.int64, device=x.device)
+    while x.numel() > 1:
+        h = x.numel() // 2
+        if x.numel() % 2:
+            carry = carry ^ x[2 * h]
+        x = x[:h] ^ x[h:2 * h]
+    return carry ^ x[0] if x.numel() else carry
+
+
+def _fold_sparse(values: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:
+    """XOR-fold of mix(value ^ salt) over the nonzero values (int64
+    holding uint32): a zero value contributes nothing."""
+    return _xor_fold(torch.where(values == 0, 0, _mix32(values ^ salt)))
+
+
+def tick_digest_plain(
+    seen: torch.Tensor,
+    received: torch.Tensor,
+    sent_lo: torch.Tensor,
+    sent_hi: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The digest as a 0-d int64 in [0, 2^32): (N, W) int32 ``seen`` and
+    the (N,) int32 counters, each entry read as its uint32 bit pattern,
+    salted by node id i, word index k and counter kind, mixed and
+    XOR-folded (the JAX package's ``tick_digest``)."""
+    n, w = seen.shape
+    dev = seen.device
+    node_salt = _mul32(torch.arange(n, dtype=torch.int64, device=dev), SALT_NODE)
+    word_salt = _mul32(torch.arange(w, dtype=torch.int64, device=dev), SALT_WORD)
+    h = _fold_sparse(seen.to(torch.int64) & _U32, word_salt[None, :] ^ node_salt[:, None])
+    for values, salt in ((received, SALT_RECV), (sent_lo, SALT_SENT_LO),
+                         (sent_hi, SALT_SENT_HI)):
+        if values is not None:
+            h = h ^ _fold_sparse(values.to(torch.int64) & _U32, node_salt ^ salt)
+    return h
+
+
+def tick_digest(
+    seen: torch.Tensor,
+    received: torch.Tensor,
+    sent_lo: torch.Tensor,
+    sent_hi: torch.Tensor | None = None,
+    *,
+    out: torch.Tensor | None = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """XOR one tick's state digest into ``out``, a (1,) int32 slot holding
+    the uint32 bit pattern (a fresh zeroed slot when None), and return it.
+
+    ``seen`` (N, W) int32 with contiguous rows (the row stride may exceed
+    W); ``received``, ``sent_lo`` and, when given, ``sent_hi`` (N,) int32
+    (an engine's int64 counter passes its low and high words). The engines
+    give each tick its own zeroed ring slot, so ``out`` ends holding that
+    tick's digest; emit it as ``v & 0xFFFFFFFF``."""
+    _require(seen.dim() == 2, "seen must be (N, W)")
+    n, _ = seen.shape
+    counters = [("received", received), ("sent_lo", sent_lo)]
+    if sent_hi is not None:
+        counters.append(("sent_hi", sent_hi))
+    for name, t in counters:
+        _require(t.shape == (n,), f"{name} must be (N,)")
+    if out is None:
+        out = torch.zeros((1,), dtype=torch.int32, device=seen.device)
+    _require(out.shape == (1,) and out.dtype == torch.int32, "out must be (1,) int32")
+    if not _use_kernel(seen, plain):
+        value = tick_digest_plain(seen, received, sent_lo, sent_hi)
+        return out.bitwise_xor_(torch.where(value >= 2**31, value - 2**32, value))
+    _int32_matrix(seen, "seen")
+    for name, t in counters + [("out", out)]:
+        _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
+        _require(t.device == seen.device, f"{name} is on {t.device}, not {seen.device}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    if n:
+        _launch(
+            "tick_digest", _lib().gossip_tick_digest,
+            seen.data_ptr(), n, seen.shape[1], seen.stride(0), received.data_ptr(),
+            sent_lo.data_ptr(), None if sent_hi is None else sent_hi.data_ptr(),
+            out.data_ptr(), _stream(seen.device),
         )
     return out

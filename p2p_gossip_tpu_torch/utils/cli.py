@@ -6,15 +6,16 @@ the JAX package CLI's single-device flags with that CLI's names, defaults,
 validation and messages: topologies, generation models, delay models,
 churn, link loss, the connect window, checkpoints, the flood-coverage
 experiment, the random-partner protocols (``--protocol pushpull|pull|
-pushk``), the ``--json`` line and the ``--anim`` NetAnim file. One tick is
-one link latency, and every random model derives from ``--seed`` as in the
-JAX package, so the same flags print the same report.
+pushk``), the ``--json`` line, the ``--anim`` NetAnim file, and the
+``--telemetry`` stream and ``--heartbeat`` file (`p2p_gossip_tpu_torch.
+telemetry`). One tick is one link latency, and every random model derives
+from ``--seed`` as in the JAX package, so the same flags print the same
+report (and, with ``--telemetry``, the same ring and digest events).
 
 Left for later: ``--backend`` (the JAX CLI's event, native and sharded
-engines), the mesh flags, ``--replicas``, ``--sweep``, ``--telemetry``,
-``--heartbeat``, ``--log``, ``--graphFile``, ``--graphBuilder``,
-``--refParallelLinks``, ``--linkQueueing``, ``--animMessages`` and
-``--degreeBlock``."""
+engines), the mesh flags, ``--replicas``, ``--sweep``, ``--log``,
+``--graphFile``, ``--graphBuilder``, ``--refParallelLinks``,
+``--linkQueueing``, ``--animMessages`` and ``--degreeBlock``."""
 
 from __future__ import annotations
 
@@ -163,6 +164,21 @@ def build_parser() -> argparse.ArgumentParser:
         "and wall time after the reference-format report",
     )
     p.add_argument(
+        "--telemetry", type=str, default="", metavar="OUT.jsonl",
+        help="Stream telemetry to this JSONL file: host spans "
+        "(build_graph/schedule/simulate/dispatch/d2h phases) plus per-tick "
+        "metric rows and state digests kept on the device and harvested at "
+        "chunk boundaries (the JAX package's event schema). Also honors "
+        "P2P_TELEMETRY=<path>. Off by default: disabled runs launch no "
+        "extra kernel",
+    )
+    p.add_argument(
+        "--heartbeat", type=str, default="", metavar="PATH",
+        help="Atomically rewrite this liveness file on every chunk "
+        "boundary: last chunk index, ticks done, coverage %%, digest head. "
+        "Works with telemetry off. Also honors P2P_HEARTBEAT=<path>",
+    )
+    p.add_argument(
         "--device", default="cuda",
         help="torch device (default cuda; cpu runs the plain torch versions)",
     )
@@ -244,6 +260,7 @@ def _run_flood_coverage_cli(args, g, horizon, delays, churn, loss) -> int:
     flooded or, with ``--protocol``, spread by that protocol; per-share
     time-to-``coverageFraction`` in ticks and seconds, the
     propagation-latency table and the redundancy line."""
+    from p2p_gossip_tpu_torch import telemetry
     from p2p_gossip_tpu_torch.engine.sync import run_flood_coverage, time_to_coverage
     from p2p_gossip_tpu_torch.models.generation import Schedule
     from p2p_gossip_tpu_torch.utils.analysis import (
@@ -256,20 +273,22 @@ def _run_flood_coverage_cli(args, g, horizon, delays, churn, loss) -> int:
     rng = np.random.default_rng(args.seed)
     origins = rng.integers(0, g.n, args.floodCoverage).astype(np.int32)
     t0 = time.perf_counter()
-    if args.protocol in PARTNERED:
-        sched = Schedule(g.n, origins, np.zeros(len(origins), dtype=np.int32))
-        if args.protocol == "pull":
-            err = _pull_credit_error(g, args.chunkSize, sched)
-            if err is not None:
-                return _error(err)
-        stats, coverage = _run_protocol(
-            args, g, sched, horizon, delays, churn, loss, record_coverage=True
-        )
-    else:
-        stats, coverage = run_flood_coverage(
-            g, origins, horizon, ell_delays=delays, churn=churn, loss=loss,
-            device=args.device,
-        )
+    with telemetry.span("simulate", device=args.device, protocol=args.protocol,
+                        experiment="flood_coverage"):
+        if args.protocol in PARTNERED:
+            sched = Schedule(g.n, origins, np.zeros(len(origins), dtype=np.int32))
+            if args.protocol == "pull":
+                err = _pull_credit_error(g, args.chunkSize, sched)
+                if err is not None:
+                    return _error(err)
+            stats, coverage = _run_protocol(
+                args, g, sched, horizon, delays, churn, loss, record_coverage=True
+            )
+        else:
+            stats, coverage = run_flood_coverage(
+                g, origins, horizon, ell_delays=delays, churn=churn, loss=loss,
+                device=args.device,
+            )
     wall = time.perf_counter() - t0
     ttc = time_to_coverage(coverage, g.n, args.coverageFraction)
     reached = ttc >= 0
@@ -338,6 +357,7 @@ def _run_flood_coverage_cli(args, g, horizon, delays, churn, loss) -> int:
 
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from p2p_gossip_tpu_torch import telemetry
     from p2p_gossip_tpu_torch.engine.sync import run_sync_sim
     from p2p_gossip_tpu_torch.models.churn import random_churn
     from p2p_gossip_tpu_torch.models.generation import (
@@ -356,19 +376,30 @@ def run(argv=None) -> int:
     # a negative --simTime run there (an all-zero report) and run here too.
     if args.numNodes < 1 or args.Latency <= 0 or args.chunkSize < 1:
         return _error("--numNodes must be >= 1, --Latency > 0, --chunkSize >= 1")
+    if args.telemetry:
+        # The flag wins over P2P_TELEMETRY (configure replaces an
+        # environment-initialized stream).
+        try:
+            telemetry.configure(args.telemetry, rings=True)
+        except OSError as e:
+            return _error(f"--telemetry: {e}")
+    if args.heartbeat:
+        telemetry.configure_heartbeat(args.heartbeat)  # wins over P2P_HEARTBEAT
     tick_dt = args.Latency / 1000.0
     horizon = int(round(args.simTime / tick_dt))
-    g = _build_graph(args)
+    with telemetry.span("build_graph", topology=args.topology):
+        g = _build_graph(args)
     if isinstance(g, str):
         return _error(g)
-    if args.genModel == "uniform":
-        sched = uniform_renewal_schedule(
-            g.n, args.simTime, tick_dt, args.genLo, args.genHi, seed=args.seed
-        )
-    else:
-        sched = poisson_schedule(
-            g.n, args.simTime, tick_dt, args.poissonRate, seed=args.seed
-        )
+    with telemetry.span("schedule", model=args.genModel):
+        if args.genModel == "uniform":
+            sched = uniform_renewal_schedule(
+                g.n, args.simTime, tick_dt, args.genLo, args.genHi, seed=args.seed
+            )
+        else:
+            sched = poisson_schedule(
+                g.n, args.simTime, tick_dt, args.poissonRate, seed=args.seed
+            )
 
     delays = None
     if args.delayModel == "lognormal":
@@ -460,14 +491,15 @@ def run(argv=None) -> int:
     ckpt = dict(
         checkpoint_path=args.checkpoint or None, checkpoint_every=args.checkpointEvery
     )
-    if args.protocol in PARTNERED:
-        stats, _ = _run_protocol(args, g, sched, horizon, delays, churn, loss, **ckpt)
-    else:
-        stats = run_sync_sim(
-            g, sched, horizon, ell_delays=delays, chunk_size=args.chunkSize,
-            churn=churn, snapshot_ticks=snapshot_ticks, loss=loss,
-            connect_tick=args.connectAtTick, device=args.device, **ckpt,
-        )
+    with telemetry.span("simulate", device=args.device, protocol=args.protocol):
+        if args.protocol in PARTNERED:
+            stats, _ = _run_protocol(args, g, sched, horizon, delays, churn, loss, **ckpt)
+        else:
+            stats = run_sync_sim(
+                g, sched, horizon, ell_delays=delays, chunk_size=args.chunkSize,
+                churn=churn, snapshot_ticks=snapshot_ticks, loss=loss,
+                connect_tick=args.connectAtTick, device=args.device, **ckpt,
+            )
     wall = time.perf_counter() - t0
     # Periodic reports (PrintPeriodicStats, p2pnetwork.cc:201-204); the
     # protocols keep no snapshots, as in the JAX package.
