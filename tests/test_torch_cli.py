@@ -221,3 +221,101 @@ def test_shared_validations_print_the_jax_error(args, capsys):
     got = capsys.readouterr().err
     assert got.startswith("error: ")
     assert got == want
+
+
+# --- the refusals repaired, and the ones kept -----------------------------------
+
+@pytest.mark.parametrize("args", [
+    ["--numNodes", "1", "--simTime", "2"],
+    ["--numNodes", "1", "--simTime", "2", "--protocol", "pushpull"],
+    ["--numNodes", "1", "--simTime", "2", "--floodCoverage", "2"],
+    ["--numNodes", "10", "--simTime", "-1"],
+])
+def test_degenerate_runs_print_the_jax_report(args, capsys):
+    """One node, and a negative simulated time: the JAX CLI runs them (an
+    all-zero report) and so does the port."""
+    want = _run_in_process(jax_cli.run, args, capsys)
+    port = _run_in_process(cli.run, args + ["--device", "cpu"], capsys)
+    _assert_same_report(port, want)
+    if "-1" in args:
+        assert "0 shares scheduled, -200 ticks (-1s at 5ms)" in port.splitlines()[0]
+    for total in ("generated", "received", "sent"):
+        assert f"Total shares {total}: 0" in port.splitlines()
+
+
+@pytest.mark.parametrize("args", [
+    ["--numNodes", "0"],
+    ["--Latency", "0"],
+    ["--chunkSize", "0"],
+])
+def test_crashing_flags_exit_2(args, capsys):
+    """Where the JAX CLI dies with a traceback, the port prints an error."""
+    assert cli.run(args + ["--device", "cpu"]) == 2
+    captured = capsys.readouterr()
+    assert captured.err.startswith("error: ") and captured.out == ""
+
+
+# --- --telemetry and --heartbeat -------------------------------------------------------
+
+@pytest.fixture
+def clean_telemetry(monkeypatch):
+    from p2p_gossip_tpu import telemetry as jax_tel
+    from p2p_gossip_tpu_torch import telemetry
+
+    monkeypatch.delenv("P2P_TELEMETRY", raising=False)
+    monkeypatch.delenv("P2P_HEARTBEAT", raising=False)
+    for tel in (telemetry, jax_tel):
+        tel.reset()
+        tel.configure_heartbeat(None)
+    yield
+    for tel in (telemetry, jax_tel):
+        tel.reset()
+        tel.configure_heartbeat(None)
+
+
+def _ring_and_digest_events(path):
+    with open(path, encoding="utf-8") as f:
+        events = [json.loads(line) for line in f]
+    assert events[0]["type"] == "meta"
+    return [e for e in events if e["type"] in ("ring", "digest")]
+
+
+@pytest.mark.parametrize("name,args", [
+    ("flood", ["--numNodes", "40", "--simTime", "6", "--chunkSize", "32",
+               "--lossProb", "0.1", "--churnProb", "0.2"]),
+    ("pushpull", PROTOCOL + ["--protocol", "pushpull", "--lossProb", "0.2",
+                             "--delayModel", "lognormal"]),
+])
+def test_telemetry_stream_equals_the_jax_clis(name, args, tmp_path, capsys, clean_telemetry):
+    """--telemetry leaves stdout as it was, and its ring and digest events
+    equal the JAX CLI's for the same flags."""
+    plain = _run_in_process(cli.run, args + ["--device", "cpu"], capsys)
+    port = _run_in_process(
+        cli.run, args + ["--device", "cpu", "--telemetry", str(tmp_path / "port.jsonl")],
+        capsys)
+    assert port.splitlines()[:-1] == plain.splitlines()[:-1]
+    want = _run_in_process(jax_cli.run, args + ["--telemetry", str(tmp_path / "jax.jsonl")],
+                           capsys)
+    _assert_same_report(port, want)
+    got_events = _ring_and_digest_events(tmp_path / "port.jsonl")
+    want_events = _ring_and_digest_events(tmp_path / "jax.jsonl")
+    assert got_events and got_events == want_events
+    kernel = "engine.sync.run_sync_sim" if name == "flood" else "models.protocols.pushpull"
+    assert {e["kernel"] for e in got_events} == {kernel}
+    with open(tmp_path / "port.jsonl", encoding="utf-8") as f:
+        spans = [e["name"] for e in map(json.loads, f) if e["type"] == "span"]
+    assert {"build_graph", "schedule", "simulate", "dispatch", "d2h"} <= set(spans)
+
+
+def test_heartbeat_flag_writes_its_file(tmp_path, capsys, clean_telemetry):
+    from p2p_gossip_tpu_torch.telemetry import progress
+
+    hb = tmp_path / "hb.json"
+    out = _run_in_process(
+        cli.run, ["--numNodes", "30", "--simTime", "4", "--device", "cpu",
+                  "--heartbeat", str(hb)], capsys)
+    assert "Total shares sent: " in out
+    data = progress.read_heartbeat(str(hb))
+    assert data["kernel"] == "engine.sync.run_sync_sim" and data["chunks_total"] == 1
+    assert "digest_head" not in data  # telemetry off: no digests
+    assert list(tmp_path.iterdir()) == [hb]

@@ -241,7 +241,7 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
                        kernels.scatter_or(words, offsets, entries, out=out))
     assert kernels.launches == {
         "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
-        "scatter_or": 0, "scatter_or_atomic": 0,
+        "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
     }
 
 
