@@ -41,6 +41,16 @@ Phases (any failure raises and the script exits nonzero):
    and a push-pull coverage run with 4,096 origins; one warm and one timed
    run each, every run against its plain run (counters and coverage
    rows), and the push-pull run under ``torch.profiler``.
+10. Telemetry (every phase above runs with it off): the ``tick_digest``
+   kernel against its plain version on ragged shapes, on dense random
+   words at 100,000 x 256 and on the phase-5 flood's own tick-10 state,
+   timed beside its bound; the phase-5 flood + coverage and the phase-9
+   push-pull (D = 6) with telemetry on, in turns with it off (off, on,
+   on, off): equal counters, the rings reconcile with them, one digest
+   launch per executed tick (round), and the last digest equals the plain
+   digest of the final state; and small-graph runs of the flood and the
+   three protocols under churn and loss whose ring and digest streams are
+   equal on the kernel and the plain path.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -61,13 +71,19 @@ read after phase 6 (they must equal the option-free tick's), zeroed
 again just before the timed run of phase 7 and read after its coverage
 run, and zeroed again just before phase 9's timed runs and read after
 them: there ``gather_or`` must not launch and ``scatter_or`` must launch
-once a round. The second-to-last line is the kernels' JSON record; the last line
+once a round. ``tick_digest`` must launch in none of those telemetry-off
+runs. Phase 10 zeroes the counts just before its telemetry-on flood and
+reads them after its coverage run (``tick_digest`` once per executed
+tick), and again around its telemetry-on push-pull run (``tick_digest``
+once a round, ``scatter_or`` twice: the round call and the row's
+``msgs_gathered``). The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -85,7 +101,7 @@ SNAPSHOTS = [8, 16, 24, 32]  # the options run's periodic-stats boundaries
 # The flood never scatters.
 LOSS_FREE_LAUNCHES = {
     "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 29, "coverage_per_slot": 7,
-    "scatter_or": 0, "scatter_or_atomic": 0,
+    "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
 }
 FLOOD_KERNELS = tuple(name for name, count in LOSS_FREE_LAUNCHES.items() if count)
 SOURCE = "p2p_gossip_tpu_torch/csrc/gossip_kernels.cu"
@@ -97,12 +113,16 @@ REPLACES = {
     "popcount_rows": "p2p_gossip_tpu/ops/pallas_kernels.py:152",
     "coverage_per_slot": "p2p_gossip_tpu/ops/pallas_kernels.py:122",
     "scatter_or": "p2p_gossip_tpu/ops/segment.py:41",
+    "tick_digest": "p2p_gossip_tpu/telemetry/digest.py:118",
 }
 # The kernels the protocols' path runs: it keeps no occupancy ring, and its
 # pull rides in the round's one scatter_or call (no gather).
 PROTOCOL_KERNELS = ("popcount_rows", "coverage_per_slot", "scatter_or")
 PROTOCOL_CAPTURE_ROUND = 10
 PROTOCOL_DENSE_ROUND = 40  # push-pull near saturation: dense rows
+# The kernel only the telemetry-on path (phase 10) runs.
+TELEMETRY_KERNELS = ("tick_digest",)
+U32 = 0xFFFFFFFF
 
 
 def log(msg: str) -> None:
@@ -384,10 +404,10 @@ def check_occupancy(n, w, dev, rng, reps):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
 
 
-def capture_ring(dg, sched, chunk, ticks, dev):
+def capture_state(dg, sched, chunk, ticks, dev):
     """Run the engine's own tick on one chunk of ``sched`` for ``ticks``
-    ticks from t = 0 and return its frontier ring, occupancy ring and the
-    last tick's new frontier."""
+    ticks from t = 0 and return its state: seen, the frontier ring, the
+    occupancy ring, received, sent and the last tick's new frontier."""
     import torch
 
     from p2p_gossip_tpu_torch.engine.sync import _chunk_state, _tick
@@ -401,6 +421,13 @@ def capture_ring(dg, sched, chunk, ticks, dev):
     for t in range(ticks):
         newly, _ = _tick(dg, t, seen, hist, occ, received, sent, origins, slots,
                          gen_ticks, False)
+    return seen, hist, occ, received, sent, newly
+
+
+def capture_ring(dg, sched, chunk, ticks, dev):
+    """`capture_state`'s frontier ring, occupancy ring and the last tick's
+    new frontier."""
+    _, hist, occ, _, _, newly = capture_state(dg, sched, chunk, ticks, dev)
     return hist, occ, newly
 
 
@@ -1209,6 +1236,8 @@ def options_path(graph, dg, sched, dev, base):
             raise AssertionError(f"kernel {name} never launched on the options path")
     if launches["scatter_or"]:
         raise AssertionError("scatter_or launched on the options path: the flood never scatters")
+    if launches["tick_digest"]:
+        raise AssertionError("tick_digest launched on the options path with telemetry off")
 
     t0 = time.perf_counter()
     plain = run_sync_sim(graph, sched, HORIZON, plain=True, **flood)
@@ -1358,6 +1387,8 @@ def protocols_path(graph, dg_uni, dg_edge, sched, dev):
     for name in ("gather_or", "sector_occupancy", "scatter_or_atomic"):
         if launches[name]:
             raise AssertionError(f"{name} launched on the protocols path")
+    if launches["tick_digest"]:
+        raise AssertionError("tick_digest launched on the protocols path with telemetry off")
 
     plain_walls = []
     for (label, fn, sch, kw), ((stats, cov), _) in zip(runs, timed):
@@ -1404,6 +1435,372 @@ def protocols_path(graph, dg_uni, dg_edge, sched, dev):
     return launches, results
 
 
+# --- phase 10 -----------------------------------------------------------------
+
+def digest_bytes(n: int, w: int, hi: bool) -> int:
+    """What the digest must read: every word of ``seen`` and each 32-bit
+    counter once (the slot's 4 bytes aside)."""
+    return n * w * 4 + 8 * n + (4 * n if hi else 0)
+
+
+def digest_inputs(rng, n, w, dev, *, hi=False, zero_share=0.0):
+    """Random words and counters (every bit in play, bit 31 included), a
+    ``zero_share`` of them zero (the sparse fold's skips)."""
+    import torch
+
+    def sparse(shape):
+        x = random_words(rng, shape, dev)
+        if zero_share:
+            x = torch.where(torch.as_tensor(rng.random(shape) < zero_share, device=dev), 0, x)
+        return x
+
+    return sparse((n, w)), sparse((n,)), sparse((n,)), sparse((n,)) if hi else None
+
+
+def digest_pair(seen, received, sent, sent_hi=None, slot=0):
+    """(kernel, plain) digests as uint32 ints; the kernel XORs into a slot
+    that holds ``slot`` first."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    out = torch.full((1,), slot - (1 << 32) if slot >= 1 << 31 else slot,
+                     dtype=torch.int32, device=seen.device)
+    got = int(kernels.tick_digest(seen, received, sent, sent_hi, out=out)[0]) & U32
+    want = int(kernels.tick_digest_plain(seen, received, sent, sent_hi)) ^ slot
+    return got, want
+
+
+def check_digest_ragged(dev, rng):
+    """tick_digest against its plain version on ragged shapes: W = 1, 3 and
+    5 (32-bit loads) and 4 and 8 (16-byte loads), N off the 8-row block and
+    past the grid's stride (1,056 blocks of 8 warps), with and without
+    sent_hi, 30% zero words and counters (the sparse fold); a column slice
+    (row stride 7 > W = 5) and one from an unaligned base; a slot that
+    holds bits already; an all-zero state (digest 0)."""
+    import torch
+
+    cases = 0
+    for n, w in ((1, 1), (13, 3), (1237, 5), (4099, 1), (9, 8), (20_011, 4),
+                 (140_001, 3), (100_003, 8)):
+        for hi in (False, True):
+            state = digest_inputs(rng, n, w, dev, hi=hi, zero_share=0.3)
+            got, want = digest_pair(*state)
+            if got != want:
+                raise AssertionError(f"tick_digest({n}, {w}, hi={hi}): {got:08x} != {want:08x}")
+            cases += 1
+    wide = random_words(rng, (3001, 7), dev)
+    seen, received, sent, hi = digest_inputs(rng, 3001, 7, dev, hi=True)
+    for label, words in (("column slice", wide[:, :5]), ("unaligned slice", wide[:, 1:6])):
+        got, want = digest_pair(words, received, sent, hi)
+        if got != want:
+            raise AssertionError(f"tick_digest[{label}]: {got:08x} != {want:08x}")
+        cases += 1
+    got, want = digest_pair(seen, received, sent, hi, slot=0x9E3779B9)
+    if got != want:
+        raise AssertionError("tick_digest into a nonzero slot differs")
+    zero = torch.zeros((5000, 4), dtype=torch.int32, device=dev)
+    zc = torch.zeros((5000,), dtype=torch.int32, device=dev)
+    if digest_pair(zero, zc, zc, zc) != (0, 0):
+        raise AssertionError("tick_digest of an all-zero state is not 0")
+    log(f"tick_digest ragged: {cases + 2} cases bitwise equal to the plain version "
+        "(W = 1, 3, 5 / 4, 8; N up to 140,001; with and without sent_hi; column slices; "
+        "a nonzero slot; the all-zero state digests to 0)")
+
+
+def check_digest(dg, sched, dev, rng, reps):
+    """tick_digest at the main path's shape (N = 100,000, W = 256): on dense
+    random words (the flood's lo-only fold, and with sent_hi as the
+    protocols fold), and on the phase-5 flood's own state after tick
+    CAPTURE_TICK. Each against its plain version, bitwise, timed beside its
+    bound (`digest_bytes` at 3.35 TB/s: the fold reads every word, zero or
+    not)."""
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    n, w = N_NODES, CHUNK // 32
+    seen, _, _, received, sent, _ = capture_state(dg, sched, CHUNK, CAPTURE_TICK, dev)
+    dense = digest_inputs(rng, n, w, dev, hi=True)
+    results = {}
+    for label, state in (("dense", dense[:3] + (None,)), ("dense_sent_hi", dense),
+                         ("captured", (seen, received, sent, None))):
+        got, want = digest_pair(*state)
+        if got != want:
+            raise AssertionError(f"tick_digest[{label}]: {got:08x} != {want:08x}")
+        slot = state[0].new_zeros((1,))
+        ms = time_ms(lambda: kernels.tick_digest(*state, out=slot), reps, calls=KERNEL_CALLS)
+        plain_ms = time_ms(lambda: kernels.tick_digest_plain(*state), max(2, reps // 4))
+        bound = bound_ms(digest_bytes(n, w, state[3] is not None))
+        nonzero = set_bits(state[0] != 0) / (n * w)
+        results[label] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        log(f"tick_digest[{label}] ({n}, {w}), {nonzero:.4f} of words nonzero: bitwise "
+            f"equal; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+            f"({digest_bytes(n, w, state[3] is not None) / 1e6:.1f} MB); digest {got:08x}")
+    return results
+
+
+def stream_events(kinds=("ring", "digest")):
+    from p2p_gossip_tpu_torch import telemetry
+
+    return [e for e in telemetry.events() if e["type"] in kinds]
+
+
+def ring_sum(events, kernel, col):
+    return sum(sum(e["metrics"][col]) for e in events
+               if e["type"] == "ring" and e["kernel"] == kernel)
+
+
+def check_reconciled(label, events, kernel, stats, frontier=True):
+    """The rings' newly_infected sums to the run's received, and (without
+    a connect window) frontier_bits to received + generated."""
+    received = int(stats.received.sum())
+    if ring_sum(events, kernel, "newly_infected") != received:
+        raise AssertionError(f"{label}: newly_infected does not sum to received {received}")
+    if frontier and ring_sum(events, kernel, "frontier_bits") != (
+            received + int(stats.generated.sum())):
+        raise AssertionError(f"{label}: frontier_bits does not sum to received + generated")
+
+
+def timed(run):
+    """(run(), host seconds): the clock starts after a synchronize and the
+    run ends in its device-to-host copies."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    return out, time.perf_counter() - t0
+
+
+def in_turns(run_off, run_on):
+    """Telemetry off, on, on, off. ``run_off()`` and ``run_on(first)``
+    return (result, seconds of the timed call); ``first`` is True for the
+    first on run, which also reads its launch counts and events. Returns
+    the off and the on results and walls."""
+    from p2p_gossip_tpu_torch import telemetry
+
+    results = {False: [], True: []}
+    walls = {False: [], True: []}
+    for i, on in enumerate((False, True, True, False)):
+        telemetry.reset()
+        if on:
+            telemetry.configure(None, rings=True)
+        out, wall = run_on(i == 1) if on else run_off()
+        results[on].append(out)
+        walls[on].append(wall)
+    telemetry.reset()
+    return results[False], results[True], walls[False], walls[True]
+
+
+def telemetry_flood(graph, dg, sched, dev):
+    """The phase-5 flood and coverage run with telemetry on, in turns with
+    it off. Launch counts are zeroed just before the first telemetry-on
+    flood and read after its coverage run."""
+    import torch
+
+    from p2p_gossip_tpu_torch.engine import sync
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
+    flood = dict(chunk_size=CHUNK, device_graph=dg, device=dev)
+    cov_kw = dict(device_graph=dg, device=dev)
+    first = {}
+
+    def run_off():
+        return timed(lambda: sync.run_sync_sim(graph, sched, HORIZON, **flood))
+
+    def run_on(first_run):
+        if first_run:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+        out = timed(lambda: sync.run_sync_sim(graph, sched, HORIZON, **flood))
+        if first_run:
+            first["coverage"], first["coverage_wall"] = timed(
+                lambda: sync.run_flood_coverage(graph, origins, HORIZON, **cov_kw))
+            first["launches"] = dict(kernels.launches)
+            first["events"] = stream_events()
+        return out
+
+    offs, ons, off_walls, on_walls = in_turns(run_off, run_on)
+    base = offs[0]
+    for stats in offs[1:] + ons:
+        if not (stats.equal_counts(base)
+                and stats.extra["ticks_executed"] == base.extra["ticks_executed"]):
+            raise AssertionError("telemetry flood: counters differ from the telemetry-off run")
+    ticks = base.extra["ticks_executed"]
+    events, launches = first["events"], first["launches"]
+    cstats, cov = first["coverage"]
+    off_cstats, off_cov = sync.run_flood_coverage(graph, origins, HORIZON, **cov_kw)
+    if not (cstats.equal_counts(off_cstats) and np.array_equal(cov, off_cov)):
+        raise AssertionError("telemetry coverage: results differ from the telemetry-off run")
+    check_reconciled("telemetry flood", events, "engine.sync.run_sync_sim", base)
+    check_reconciled("telemetry coverage", events, "engine.sync.run_flood_coverage", cstats)
+    (flood_digest,) = [e for e in events if e["type"] == "digest"
+                       and e["kernel"] == "engine.sync.run_sync_sim"]
+    (cov_digest,) = [e for e in events if e["type"] == "digest"
+                     and e["kernel"] == "engine.sync.run_flood_coverage"]
+    cov_ticks = sum(v != 0 for v in cov_digest["values"])
+    if flood_digest["ticks"] != ticks:
+        raise AssertionError(f"flood digest stream has {flood_digest['ticks']} ticks, not {ticks}")
+    if launches["tick_digest"] != ticks + cov_ticks:
+        raise AssertionError(f"tick_digest launched {launches['tick_digest']} times, not once "
+                             f"per executed tick ({ticks} + {cov_ticks})")
+    for name in FLOOD_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the telemetry path")
+
+    # The chunk's last digest against the plain digest of the state it ends in.
+    o, g = sched.padded(CHUNK, HORIZON)
+    live = g[g < HORIZON]
+    rings = sync.tel_chunk_rings(HORIZON, dg.device)
+    seen, received, sent, _, run_ticks = sync._run_chunk_while(
+        dg, torch.as_tensor(o.astype(np.int64), device=dev), torch.as_tensor(g, device=dev),
+        int(live.min()), int(live.max()), chunk_size=CHUNK, horizon=HORIZON, rings=rings,
+    )
+    stream = (rings[1].cpu().numpy().astype(np.int64) & U32).tolist()
+    t0 = int(live.min())
+    if stream[t0:t0 + run_ticks] != flood_digest["values"]:
+        raise AssertionError("the chunk's digest ring differs from the emitted stream")
+    last = stream[t0 + run_ticks - 1]
+    plain_last = int(kernels.tick_digest_plain(seen, received, sent))
+    if last != plain_last:
+        raise AssertionError(f"last digest {last:08x} != plain digest {plain_last:08x} "
+                             "of the final state")
+    off_ms = [w / ticks * 1e3 for w in off_walls]
+    on_ms = [w / ticks * 1e3 for w in on_walls]
+    log(f"telemetry flood: {ticks} ticks, ms/tick off {off_ms[0]:.3f} on {on_ms[0]:.3f} "
+        f"on {on_ms[1]:.3f} off {off_ms[1]:.3f} (on/off {np.mean(on_ms) / np.mean(off_ms):.3f}); "
+        f"coverage with telemetry {first['coverage_wall']:.4f} s ({cov_ticks} ticks); counters, "
+        f"ticks and coverage rows equal to the telemetry-off runs; rings reconcile "
+        f"(newly_infected = received, frontier_bits = received + generated); "
+        f"tick_digest x{launches['tick_digest']} = {ticks} + {cov_ticks} executed ticks; last "
+        f"digest {last:08x} = plain digest of the final state; launches {launches}")
+    return launches, dict(tick_ms_off=float(np.mean(off_ms)), tick_ms_on=float(np.mean(on_ms)))
+
+
+def telemetry_pushpull(graph, dg_edge, sched, dev):
+    """Phase 9's push-pull (log-normal per-edge delays, D = 6) with
+    telemetry on, in turns with it off; launch counts zeroed just before
+    the first telemetry-on run and read after it."""
+    import torch
+
+    from p2p_gossip_tpu_torch.engine.sync import tel_chunk_rings
+    from p2p_gossip_tpu_torch.models import protocols
+    from p2p_gossip_tpu_torch.models.partnersel import pick_key
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.telemetry import digest
+
+    kw = dict(device_graph=dg_edge, mode="pushpull", chunk_size=CHUNK, seed=SEED, device=dev)
+    first = {}
+
+    def run_off():
+        return timed(lambda: protocols.run_pushpull_sim(graph, sched, HORIZON, **kw))
+
+    def run_on(first_run):
+        if first_run:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+        out = timed(lambda: protocols.run_pushpull_sim(graph, sched, HORIZON, **kw))
+        if first_run:
+            first["launches"] = dict(kernels.launches)
+            first["events"] = stream_events()
+        return out
+
+    offs, ons, off_walls, on_walls = in_turns(run_off, run_on)
+    base = offs[0][0]
+    for stats, _ in offs[1:] + ons:
+        if not stats.equal_counts(base):
+            raise AssertionError("telemetry push-pull: counters differ from the telemetry-off run")
+    events, launches = first["events"], first["launches"]
+    kernel = "models.protocols.pushpull"
+    check_reconciled("telemetry push-pull", events, kernel, base)
+    if launches["tick_digest"] != HORIZON:
+        raise AssertionError(f"tick_digest launched {launches['tick_digest']} times in "
+                             f"{HORIZON} rounds")
+    if launches["scatter_or"] != 2 * HORIZON:
+        raise AssertionError(f"scatter_or launched {launches['scatter_or']} times in {HORIZON} "
+                             "rounds: the round call and msgs_gathered's, once each")
+    if launches["gather_or"] or launches["sector_occupancy"]:
+        raise AssertionError("the flood's kernels launched on the telemetry push-pull path")
+    (dstream,) = [e for e in events if e["type"] == "digest"]
+
+    # The last round's digest against the plain digest of the final state.
+    origins, gen_ticks = sched.padded(CHUNK, HORIZON)
+    nodes = torch.arange(graph.n, dtype=torch.int64, device=dev)
+    key = pick_key(nodes[:, None], torch.zeros((1, 1), dtype=torch.int64, device=dev), SEED)
+    rings = tel_chunk_rings(HORIZON, dev)
+    received, sent, _, hist = protocols._run_chunk(
+        dg_edge, origins, gen_ticks, key, None, None, None, mode="pushpull",
+        chunk_size=CHUNK, horizon=HORIZON, n_cov=None, plain=False, rings=rings,
+    )
+    stream = (rings[1].cpu().numpy().astype(np.int64) & U32).tolist()
+    if stream != dstream["values"]:
+        raise AssertionError("the chunk's digest ring differs from the emitted stream")
+    seen = hist[(HORIZON - 1) % dg_edge.ring_size]
+    plain_last = int(kernels.tick_digest_plain(seen, received, *digest.split_u64(sent)))
+    if stream[-1] != plain_last:
+        raise AssertionError(f"last digest {stream[-1]:08x} != plain digest {plain_last:08x}")
+    off_ms = [w / HORIZON * 1e3 for w in off_walls]
+    on_ms = [w / HORIZON * 1e3 for w in on_walls]
+    log(f"telemetry push-pull (D={dg_edge.ring_size}): {HORIZON} rounds, ms/round off "
+        f"{off_ms[0]:.3f} on {on_ms[0]:.3f} on {on_ms[1]:.3f} off {off_ms[1]:.3f} (on/off "
+        f"{np.mean(on_ms) / np.mean(off_ms):.3f}); counters equal to the telemetry-off runs; "
+        f"rings reconcile; tick_digest x{launches['tick_digest']}, scatter_or "
+        f"x{launches['scatter_or']}; last digest {stream[-1]:08x} = plain digest of the "
+        f"final state; launches {launches}")
+    return launches, dict(round_ms_off=float(np.mean(off_ms)), round_ms_on=float(np.mean(on_ms)))
+
+
+def check_telemetry_streams(dev):
+    """The flood (3 chunks) and the three protocols on ER 2,000 under churn
+    and loss p = 0.1, log-normal delays, telemetry on, with the kernels
+    and with the plain versions: equal ring and digest streams."""
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch import telemetry
+    from p2p_gossip_tpu_torch.engine.sync import run_sync_sim
+    from p2p_gossip_tpu_torch.models.protocols import run_pushk_sim, run_pushpull_sim
+
+    rng = np.random.default_rng(4)
+    g = pt.erdos_renyi(2000, 0.01, seed=4)
+    delays = pt.lognormal_delays(g, mean_ticks=2.0, sigma=0.5, max_ticks=5, seed=4)
+    rounds, horizon = 40, 120
+    models = dict(
+        churn=pt.random_churn(g.n, horizon, outage_prob=0.2, mean_down_ticks=4.0,
+                              max_outages=2, seed=pt.churn_stream_seed(4)),
+        loss=pt.LinkLossModel(0.1, seed=pt.loss_stream_seed(4)),
+    )
+    flood_sched = pt.Schedule(g.n, rng.integers(0, g.n, 700), rng.integers(0, 40, 700))
+    proto_sched = pt.Schedule(g.n, rng.integers(0, g.n, 600), rng.integers(0, 16, 600))
+    runs = (
+        ("flood", lambda **p: run_sync_sim(g, flood_sched, horizon, ell_delays=delays,
+                                           chunk_size=256, connect_tick=5, **models, **p)),
+        ("pushpull", lambda **p: run_pushpull_sim(g, proto_sched, rounds, ell_delays=delays,
+                                                  chunk_size=256, seed=2, mode="pushpull",
+                                                  record_coverage=True, **models, **p)),
+        ("pull", lambda **p: run_pushpull_sim(g, proto_sched, rounds, ell_delays=delays,
+                                              chunk_size=256, seed=2, mode="pull", **models,
+                                              **p)),
+        ("pushk", lambda **p: run_pushk_sim(g, proto_sched, rounds, fanout=2,
+                                            ell_delays=delays, chunk_size=256, seed=2,
+                                            **models, **p)),
+    )
+    for name, run in runs:
+        streams = []
+        for plain in (False, True):
+            telemetry.reset()
+            telemetry.configure(None, rings=True)
+            run(device=dev, plain=plain)
+            streams.append(stream_events())
+        telemetry.reset()
+        got, want = streams
+        digests = [e for e in got if e["type"] == "digest"]
+        if not digests or got != want:
+            raise AssertionError(f"telemetry[{name}]: kernel and plain streams differ")
+        dropped = sum(sum(e["metrics"]["loss_dropped"]) for e in got if e["type"] == "ring")
+        log(f"telemetry[{name}] ER 2000 churn + loss 0.1: {len(digests)} chunk streams, "
+            f"{sum(e['ticks'] for e in digests)} digests, loss_dropped {dropped}: kernel "
+            "streams == plain streams")
+
+
 def main() -> int:
     import torch
 
@@ -1422,6 +1819,10 @@ def main() -> int:
     from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
     from p2p_gossip_tpu_torch.ops import build
 
+    # Phases 3-9 measure and count the telemetry-off path; phase 10 turns
+    # telemetry on itself.
+    for var in ("P2P_TELEMETRY", "P2P_HEARTBEAT"):
+        os.environ.pop(var, None)
     dev = torch.device("cuda", 0)
     path, nvcc_s = build.build()
     build.load_library()
@@ -1472,6 +1873,11 @@ def main() -> int:
     profile_flood(graph, sched, dg, dev)
     profile_flood(graph, sched, dg, dev, "options flood", **option_models)
     protocol_launches, _ = protocols_path(graph, dgf, dgf_edge, sched, dev)
+    check_digest_ragged(dev, rng)
+    digest = check_digest(dg, sched, dev, rng, reps=20)
+    telemetry_launches, flood_cost = telemetry_flood(graph, dg, sched, dev)
+    pushpull_launches, round_cost = telemetry_pushpull(graph, dgf_edge, sched, dev)
+    check_telemetry_streams(dev)
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -1522,21 +1928,40 @@ def main() -> int:
                    ("round_call_dense", f"round call round {PROTOCOL_DENSE_ROUND}"))
                for key in ("ms", "bound_ms", "plain_ms")},
         ),
+        # ms / bound_ms: dense random words at 100,000 x 256, the flood's
+        # lo-only fold; with sent_hi (the protocols') and on the flood's own
+        # tick-10 state beside it, and the paths' ms/tick and ms/round with
+        # telemetry off and on (in turns, one call).
+        "tick_digest": dict(
+            digest["dense"],
+            **{f"{key}_{tag}": digest[label][key]
+               for tag, label in (("sent_hi", "dense_sent_hi"), ("captured", "captured"))
+               for key in ("ms", "bound_ms", "plain_ms")},
+            **flood_cost, **round_cost,
+            launches_telemetry_pushpull=pushpull_launches["tick_digest"],
+        ),
     }
     base_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     record = []
     for name, m in measured.items():
-        # `launches`: the path the kernel serves — the flood's main path, or
-        # for scatter_or (the protocols' kernel) the protocols' path.
-        flood = name in FLOOD_KERNELS
+        # `launches`: the path the kernel serves — the flood's main path, for
+        # scatter_or (the protocols' kernel) the protocols' path, for
+        # tick_digest the telemetry-on flood + coverage (phase 10).
+        if name in FLOOD_KERNELS:
+            path_launches = launches[name]
+        elif name in TELEMETRY_KERNELS:
+            path_launches = telemetry_launches[name]
+        else:
+            path_launches = protocol_launches[name]
         record.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
-            "launches": launches[name] if flood else protocol_launches[name],
+            "launches": path_launches,
             **{k: m[k] for k in base_keys},
             "bound_by": "bytes", "library_ms": None,
             "launches_options": options_launches[name],
             "launches_protocols": protocol_launches[name],
+            "launches_telemetry": telemetry_launches[name],
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))
