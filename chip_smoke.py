@@ -50,7 +50,8 @@ Phases (any failure raises and the script exits nonzero):
    launch per executed tick (round), and the last digest equals the plain
    digest of the final state; and small-graph runs of the flood and the
    three protocols under churn and loss whose ring and digest streams are
-   equal on the kernel and the plain path.
+   equal on the kernel and the plain path. The telemetry-on flood and
+   push-pull also run under ``torch.profiler``.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -1597,6 +1598,7 @@ def telemetry_flood(graph, dg, sched, dev):
     flood and read after its coverage run."""
     import torch
 
+    from p2p_gossip_tpu_torch import telemetry
     from p2p_gossip_tpu_torch.engine import sync
     from p2p_gossip_tpu_torch.ops import kernels
 
@@ -1674,6 +1676,9 @@ def telemetry_flood(graph, dg, sched, dev):
         f"(newly_infected = received, frontier_bits = received + generated); "
         f"tick_digest x{launches['tick_digest']} = {ticks} + {cov_ticks} executed ticks; last "
         f"digest {last:08x} = plain digest of the final state; launches {launches}")
+    telemetry.configure(None, rings=True)
+    profile_flood(graph, sched, dg, dev, "telemetry-on flood")
+    telemetry.reset()
     return launches, dict(tick_ms_off=float(np.mean(off_ms)), tick_ms_on=float(np.mean(on_ms)))
 
 
@@ -1683,6 +1688,7 @@ def telemetry_pushpull(graph, dg_edge, sched, dev):
     the first telemetry-on run and read after it."""
     import torch
 
+    from p2p_gossip_tpu_torch import telemetry
     from p2p_gossip_tpu_torch.engine.sync import tel_chunk_rings
     from p2p_gossip_tpu_torch.models import protocols
     from p2p_gossip_tpu_torch.models.partnersel import pick_key
@@ -1747,6 +1753,14 @@ def telemetry_pushpull(graph, dg_edge, sched, dev):
         f"rings reconcile; tick_digest x{launches['tick_digest']}, scatter_or "
         f"x{launches['scatter_or']}; last digest {stream[-1]:08x} = plain digest of the "
         f"final state; launches {launches}")
+
+    def run():
+        protocols.run_pushpull_sim(graph, sched, HORIZON, **kw)
+        return HORIZON
+
+    telemetry.configure(None, rings=True)
+    profile_device("telemetry-on push-pull", run, top=25)
+    telemetry.reset()
     return launches, dict(round_ms_off=float(np.mean(off_ms)), round_ms_on=float(np.mean(on_ms)))
 
 

@@ -72,12 +72,18 @@ def row(
     """Assemble one ring row in METRIC_COLUMNS order from 0-d tensors or
     ints, each taken as a uint32 value. ``exchange_words``, ``staleness``
     and ``stale_folds`` price the JAX package's sharded and async
-    exchanges, which a single device never makes: 0."""
+    exchanges, which a single device never makes: 0.
+
+    An int is written by a fill on the device, never copied from the
+    host: a copy from pageable host memory would wait for the stream,
+    a sync every tick."""
     vals = (frontier_bits, frontier_nodes, newly_infected, msgs_gathered,
             or_work, loss_dropped, exchange_words, staleness, stale_folds)
-    return torch.stack([
-        torch.as_tensor(v, dtype=torch.int64, device=device) & U32_MAX for v in vals
-    ])
+    out = torch.zeros((NUM_METRICS,), dtype=torch.int64, device=device)
+    for i, v in enumerate(vals):
+        if isinstance(v, torch.Tensor) or v:
+            out[i] = v
+    return out & U32_MAX
 
 
 def flood_row(
