@@ -32,7 +32,7 @@ rows and the block's push plan (the pushes sorted by destination,
   kernel on ``seen``.
 
 With telemetry's rings on, each round also writes a metric row and a
-state digest (`_round_telemetry`), harvested once a chunk as the JAX
+state digest (`_RoundTelemetry`), harvested once a chunk as the JAX
 package's ``ring`` and ``digest`` events; with them off a round launches
 nothing extra.
 
@@ -265,7 +265,7 @@ def _run_chunk(
     Returns (received int32, sent int64, coverage (horizon, n_cov) int32
     or None, the (D, N, W) ring as the last round left it), on the
     device. ``rings`` (telemetry on): a fresh (metric ring, digest ring)
-    pair whose row t each round writes (`_round_telemetry`).
+    pair whose row t each round writes (`_RoundTelemetry`).
 
     For push-pull and pull the ring holds ``seen`` itself: round t reads
     its ``seen`` from slot t-1 and writes the new one into slot t, so no
@@ -293,7 +293,7 @@ def _run_chunk(
     cov_w = bitmask.num_words(n_cov or 0)
     tel = None
     if rings is not None:
-        tel = _RoundTelemetry(rings, n, w, dev)
+        tel = _RoundTelemetry(rings, mode, hcnt, loss is not None, plain)
 
     _check_ring_slots(dg, override)
     for t in range(horizon):
@@ -310,7 +310,7 @@ def _run_chunk(
         pull_row = draw["pull_row"][i] if "pull_row" in draw else None
         row = hist[t % ring]
         if tel is not None:  # msgs_gathered: the round's arrivals, before the OR with seen
-            tel.gather(flat, offsets, entries, pull_row, plain)
+            tel.gather(flat, offsets, entries, pull_row)
         # The new ring row in one pass: push-pull and pull seen | pulled |
         # pushed, fanout push the frontier pushed & ~seen.
         kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
@@ -345,8 +345,7 @@ def _run_chunk(
         else:
             seen = row
         if tel is not None:
-            tel.round(t, mode, draw, i, hcnt, ring, fired, or_work, seen, sent,
-                      loss is not None, plain)
+            tel.round(t, draw, i, fired, or_work, seen, sent)
         if cov is not None:
             cov[t] = bitmask.coverage_per_slot(seen[:, :cov_w], n_cov, plain=plain)
     final = bitmask.popcount_rows(seen, plain=plain) if mode == "pushk" else hcnt[
@@ -379,22 +378,24 @@ class _RoundTelemetry:
     - the digest of (``seen``, ``received``, ``sent`` as its low and high
       words)."""
 
-    def __init__(self, rings, n: int, w: int, dev):
+    def __init__(self, rings, mode: str, hcnt, lossy: bool, plain: bool):
         self.met, self.dig = rings
-        self.scratch = torch.empty((n, w), dtype=torch.int32, device=dev)
-        self.received = torch.zeros((n,), dtype=torch.int32, device=dev)
-        self.seen_cnt = torch.zeros((n,), dtype=torch.int32, device=dev)  # fanout push
-        self.gathered = None
+        self.mode, self.hcnt, self.lossy, self.plain = mode, hcnt, lossy, plain
+        self.received = torch.zeros_like(hcnt[0])
+        self.seen_cnt = torch.zeros_like(hcnt[0])  # fanout push
+        self.scratch = self.gathered = None
 
-    def gather(self, flat, offsets, entries, pull_row, plain: bool) -> None:
+    def gather(self, flat, offsets, entries, pull_row) -> None:
+        if self.scratch is None:
+            self.scratch = flat.new_empty((self.hcnt.shape[1], flat.shape[1]))
         kernels.scatter_or(flat, offsets, entries, pull_row=pull_row,
-                           out=self.scratch, plain=plain)
-        self.gathered = tel_rings.total_bits(self.scratch, plain=plain)
+                           out=self.scratch, plain=self.plain)
+        self.gathered = tel_rings.total_bits(self.scratch, plain=self.plain)
 
-    def round(self, t, mode, draw, i, hcnt, ring, fired, or_work, seen, sent,
-              lossy: bool, plain: bool) -> None:
+    def round(self, t, draw, i, fired, or_work, seen, sent) -> None:
+        hcnt, ring = self.hcnt, self.hcnt.shape[0]
         cnt = hcnt[t % ring]
-        if mode == "pushk":
+        if self.mode == "pushk":
             frontier = cnt
             self.seen_cnt += cnt
             received = self.seen_cnt - fired
@@ -404,13 +405,13 @@ class _RoundTelemetry:
         newly = received - self.received
         self.received = received
         dropped = 0
-        if lossy:
+        if self.lossy:
             flat_cnt = hcnt.view(-1)
             attempted = draw["attempted"][i]
-            if mode != "pushk":
+            if self.mode != "pushk":
                 lost = attempted & ~draw["pull_ok"][i]
                 dropped = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["served"][i]], 0))
-            if mode != "pull":
+            if self.mode != "pull":
                 lost = attempted & ~draw["push_ok"][i]
                 pushed = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["src"][i]], 0))
                 dropped = (dropped + pushed) & _U32  # a uint32 add, as in JAX
@@ -424,7 +425,7 @@ class _RoundTelemetry:
             device=seen.device,
         ))
         tel_digest.write(self.dig, t, seen, received, *tel_digest.split_u64(sent),
-                         plain=plain)
+                         plain=self.plain)
 
 
 def _run_partnered_sim(
