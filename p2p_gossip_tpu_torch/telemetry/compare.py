@@ -153,4 +153,3 @@ def inject_fault(stream: dict, tick: int, bit: int = 0) -> dict:
     out = dict(stream)
     out[tick] = int(out[tick]) ^ (1 << (bit % 32))
     return out
-

@@ -65,4 +65,3 @@ def span(name: str, **attrs):
 
 def emit_counter(name: str, value) -> None:
     sink.emit({"type": "counter", "name": name, "value": value})
-
