@@ -75,7 +75,8 @@ them: there ``gather_or`` must not launch and ``scatter_or`` must launch
 once a round. ``tick_digest`` must launch in none of those telemetry-off
 runs. Phase 10 zeroes the counts just before its telemetry-on flood and
 reads them after its coverage run (``tick_digest`` once per executed
-tick), and again around its telemetry-on push-pull run (``tick_digest``
+tick, the coverage run's ticks counted by its ``coverage_per_slot``
+launches), and again around its telemetry-on push-pull run (``tick_digest``
 once a round, ``scatter_or`` twice: the round call and the row's
 ``msgs_gathered``). The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -1601,6 +1602,7 @@ def telemetry_flood(graph, dg, sched, dev):
     from p2p_gossip_tpu_torch import telemetry
     from p2p_gossip_tpu_torch.engine import sync
     from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.telemetry import rings as tel_rings
 
     origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
     flood = dict(chunk_size=CHUNK, device_graph=dg, device=dev)
@@ -1640,7 +1642,13 @@ def telemetry_flood(graph, dg, sched, dev):
                        and e["kernel"] == "engine.sync.run_sync_sim"]
     (cov_digest,) = [e for e in events if e["type"] == "digest"
                      and e["kernel"] == "engine.sync.run_flood_coverage"]
-    cov_ticks = sum(v != 0 for v in cov_digest["values"])
+    # The coverage run's executed ticks, counted apart from the digests:
+    # it launches coverage_per_slot once a tick, the flood never.
+    cov_ticks = launches["coverage_per_slot"]
+    cov_values = cov_digest["values"]
+    if not (all(cov_values[:cov_ticks]) and not any(cov_values[cov_ticks:])):
+        raise AssertionError(f"coverage digest stream: not one nonzero digest for each of its "
+                             f"{cov_ticks} executed ticks and zero after them")
     if flood_digest["ticks"] != ticks:
         raise AssertionError(f"flood digest stream has {flood_digest['ticks']} ticks, not {ticks}")
     if launches["tick_digest"] != ticks + cov_ticks:
@@ -1653,7 +1661,7 @@ def telemetry_flood(graph, dg, sched, dev):
     # The chunk's last digest against the plain digest of the state it ends in.
     o, g = sched.padded(CHUNK, HORIZON)
     live = g[g < HORIZON]
-    rings = sync.tel_chunk_rings(HORIZON, dg.device)
+    rings = tel_rings.chunk_rings(HORIZON, dg.device)
     seen, received, sent, _, run_ticks = sync._run_chunk_while(
         dg, torch.as_tensor(o.astype(np.int64), device=dev), torch.as_tensor(g, device=dev),
         int(live.min()), int(live.max()), chunk_size=CHUNK, horizon=HORIZON, rings=rings,
@@ -1689,11 +1697,11 @@ def telemetry_pushpull(graph, dg_edge, sched, dev):
     import torch
 
     from p2p_gossip_tpu_torch import telemetry
-    from p2p_gossip_tpu_torch.engine.sync import tel_chunk_rings
     from p2p_gossip_tpu_torch.models import protocols
     from p2p_gossip_tpu_torch.models.partnersel import pick_key
     from p2p_gossip_tpu_torch.ops import kernels
     from p2p_gossip_tpu_torch.telemetry import digest
+    from p2p_gossip_tpu_torch.telemetry import rings as tel_rings
 
     kw = dict(device_graph=dg_edge, mode="pushpull", chunk_size=CHUNK, seed=SEED, device=dev)
     first = {}
@@ -1733,7 +1741,7 @@ def telemetry_pushpull(graph, dg_edge, sched, dev):
     origins, gen_ticks = sched.padded(CHUNK, HORIZON)
     nodes = torch.arange(graph.n, dtype=torch.int64, device=dev)
     key = pick_key(nodes[:, None], torch.zeros((1, 1), dtype=torch.int64, device=dev), SEED)
-    rings = tel_chunk_rings(HORIZON, dev)
+    rings = tel_rings.chunk_rings(HORIZON, dev)
     received, sent, _, hist = protocols._run_chunk(
         dg_edge, origins, gen_ticks, key, None, None, None, mode="pushpull",
         chunk_size=CHUNK, horizon=HORIZON, n_cov=None, plain=False, rings=rings,

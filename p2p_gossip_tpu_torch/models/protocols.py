@@ -56,7 +56,6 @@ from p2p_gossip_tpu_torch.engine.sync import (
     MIN_CHUNK_SHARES,
     DeviceGraph,
     _canonical_delays,
-    tel_chunk_rings,
 )
 from p2p_gossip_tpu_torch.models import churn as churn_mod
 from p2p_gossip_tpu_torch.models.churn import effective_generated
@@ -415,15 +414,15 @@ class _RoundTelemetry:
                 lost = attempted & ~draw["push_ok"][i]
                 pushed = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["src"][i]], 0))
                 dropped = (dropped + pushed) & _U32  # a uint32 add, as in JAX
-        tel_rings.write(self.met, t, tel_rings.row(
+        tel_rings.row(
+            self.met, t,
             frontier_bits=tel_rings.u32sum(frontier),
             frontier_nodes=tel_rings.u32sum(frontier > 0),
             newly_infected=tel_rings.u32sum(newly),
             msgs_gathered=self.gathered,
             or_work=tel_rings.u32sum(or_work),
             loss_dropped=dropped,
-            device=seen.device,
-        ))
+        )
         tel_digest.write(self.dig, t, seen, received, *tel_digest.split_u64(sent),
                          plain=self.plain)
 
@@ -494,7 +493,7 @@ def _run_partnered_sim(
     chunks = schedule.chunk(chunk_size) or [schedule]
     for ci, chunk in checkpointed_chunks(chunks, checkpointer, stop_after_chunks):
         origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
-        rings = tel_chunk_rings(horizon_ticks, dev) if tel else None
+        rings = tel_rings.chunk_rings(horizon_ticks, dev) if tel else None
         with span("dispatch", kernel=name, chunk=ci):
             r, s, cov, _ = _run_chunk(
                 dg, origins, gen_ticks, key, override, churn_dev, loss_cfg,

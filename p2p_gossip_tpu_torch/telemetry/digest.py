@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from p2p_gossip_tpu_torch.ops import kernels
-from p2p_gossip_tpu_torch.ops.kernels import (  # noqa: F401 (the digest's constants)
+from p2p_gossip_tpu_torch.ops.kernels import (
     MIX_M1,
     MIX_M2,
     SALT_NODE,
@@ -56,15 +56,6 @@ from p2p_gossip_tpu_torch.ops.kernels import (  # noqa: F401 (the digest's const
 from p2p_gossip_tpu_torch.telemetry import sink
 
 _U32 = 0xFFFFFFFF
-
-
-def tick_digest(seen, received, sent_lo, sent_hi=None, *, out=None, plain=False):
-    """XOR one tick's digest into ``out`` (a (1,) int32 ring slot; a fresh
-    zeroed one when None) and return it: the ``tick_digest`` kernel on a
-    CUDA tensor, its plain version on the CPU or with ``plain=True``.
-    ``seen`` (n, w) int32; ``received``/``sent_lo``/``sent_hi`` (n,) int32
-    bit patterns. Omit ``sent_hi`` for the flood's int32 ``sent``."""
-    return kernels.tick_digest(seen, received, sent_lo, sent_hi, out=out, plain=plain)
 
 
 def split_u64(sent: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -85,8 +76,12 @@ def init(capacity: int, device) -> torch.Tensor:
 def write(ring: torch.Tensor, t: int, seen, received, sent_lo, sent_hi=None, *,
           plain: bool = False) -> None:
     """Digest the post-tick state into slot ``t`` of ``ring`` (zero
-    until now: each tick writes its slot once)."""
-    tick_digest(seen, received, sent_lo, sent_hi, out=ring[t:t + 1], plain=plain)
+    until now: each tick writes its slot once): the ``tick_digest``
+    kernel on a CUDA tensor, its plain version on the CPU or with
+    ``plain=True``. ``seen`` (n, w) int32; ``received``/``sent_lo``/
+    ``sent_hi`` (n,) int32 bit patterns. Omit ``sent_hi`` for the
+    flood's int32 ``sent``."""
+    kernels.tick_digest(seen, received, sent_lo, sent_hi, out=ring[t:t + 1], plain=plain)
 
 
 # --- host (numpy) twin -----------------------------------------------------------

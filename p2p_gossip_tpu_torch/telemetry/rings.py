@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from p2p_gossip_tpu_torch.ops import kernels
-from p2p_gossip_tpu_torch.telemetry import sink
+from p2p_gossip_tpu_torch.telemetry import digest, sink
 from p2p_gossip_tpu_torch.telemetry.schema import METRIC_COLUMNS, NUM_METRICS
 
 #: uint32 saturation sentinel: an aggregate that could not be
@@ -32,14 +32,11 @@ from p2p_gossip_tpu_torch.telemetry.schema import METRIC_COLUMNS, NUM_METRICS
 U32_MAX = 0xFFFFFFFF
 
 
-def init(capacity: int, device) -> torch.Tensor:
-    """Zeroed (capacity, NUM_METRICS) int64 ring."""
-    return torch.zeros((capacity, NUM_METRICS), dtype=torch.int64, device=device)
-
-
-def write(ring: torch.Tensor, t: int, row_: torch.Tensor) -> None:
-    """Write one (NUM_METRICS,) row at tick index ``t``."""
-    ring[t] = row_
+def chunk_rings(horizon: int, device):
+    """A chunk's fresh telemetry rings, one row per tick: the (horizon,
+    NUM_METRICS) metric ring and the (horizon,) digest ring, both zero."""
+    return (torch.zeros((horizon, NUM_METRICS), dtype=torch.int64, device=device),
+            digest.init(horizon, device))
 
 
 def u32sum(x: torch.Tensor) -> torch.Tensor:
@@ -57,36 +54,33 @@ def total_bits(words: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
 
 
 def row(
+    ring: torch.Tensor,
+    t: int,
     frontier_bits,
     frontier_nodes,
     newly_infected,
     msgs_gathered,
     or_work,
-    loss_dropped,
-    exchange_words=0,
-    staleness=0,
-    stale_folds=0,
-    *,
-    device,
-) -> torch.Tensor:
-    """Assemble one ring row in METRIC_COLUMNS order from 0-d tensors or
-    ints, each taken as a uint32 value. ``exchange_words``, ``staleness``
-    and ``stale_folds`` price the JAX package's sharded and async
-    exchanges, which a single device never makes: 0.
-
-    An int is written by a fill on the device, never copied from the
-    host: a copy from pageable host memory would wait for the stream,
-    a sync every tick."""
-    vals = (frontier_bits, frontier_nodes, newly_infected, msgs_gathered,
-            or_work, loss_dropped, exchange_words, staleness, stale_folds)
-    out = torch.zeros((NUM_METRICS,), dtype=torch.int64, device=device)
-    for i, v in enumerate(vals):
-        if isinstance(v, torch.Tensor) or v:
-            out[i] = v
-    return out & U32_MAX
+    loss_dropped=0,
+) -> None:
+    """Write one tick's row into row ``t`` of ``ring`` (zero until now:
+    each tick writes its row once), in METRIC_COLUMNS order. Each column
+    is a 0-d int64 tensor holding a uint32 value (`u32sum`,
+    `total_bits`); ``loss_dropped`` may be the int 0, which stays
+    unwritten. ``exchange_words``, ``staleness`` and ``stale_folds``
+    price the JAX package's sharded and async exchanges, which a single
+    device never makes: they stay 0. One stack and one copy, nothing
+    from the host: a copy from pageable host memory would wait for the
+    stream, a sync every tick."""
+    cols = [frontier_bits, frontier_nodes, newly_infected, msgs_gathered, or_work]
+    if isinstance(loss_dropped, torch.Tensor):
+        cols.append(loss_dropped)
+    ring[t, :len(cols)] = torch.stack(cols)
 
 
 def flood_row(
+    ring: torch.Tensor,
+    t: int,
     arrivals: torch.Tensor,        # (N, W) post-loss gather output, pre-churn
     newly_out: torch.Tensor,       # (N, W) the tick's new frontier (incl. gens)
     received_delta: torch.Tensor,  # (N,) first-time receives this tick
@@ -94,9 +88,9 @@ def flood_row(
     arrivals_lossless=None,        # (N, W) the same gather with loss off
     *,
     plain: bool = False,
-) -> torch.Tensor:
-    """The flood engine's per-tick row (the JAX package's ``flood_row``).
-    ``loss_dropped`` is the post-OR popcount delta between the lossless
+) -> None:
+    """Write the flood engine's row ``t`` into ``ring`` (the JAX
+    package's ``flood_row``). ``loss_dropped`` is the post-OR popcount delta between the lossless
     and actual gathers, exact in message *bits* (a bit dropped on every
     one of its arriving edges counts once); a uint32 difference, as
     there."""
@@ -105,14 +99,14 @@ def flood_row(
     dropped = 0
     if arrivals_lossless is not None:
         dropped = (total_bits(arrivals_lossless, plain=plain) - gathered) & U32_MAX
-    return row(
+    row(
+        ring, t,
         frontier_bits=u32sum(pc_new),
         frontier_nodes=u32sum(pc_new > 0),
         newly_infected=u32sum(received_delta),
         msgs_gathered=gathered,
         or_work=u32sum(torch.where(pc_new > 0, degree, 0)),
         loss_dropped=dropped,
-        device=newly_out.device,
     )
 
 
@@ -122,30 +116,23 @@ def emit_ring(
     *,
     t0: int = 0,
     ticks: int | None = None,
-    trim: bool = True,
     **provenance,
 ) -> None:
     """Harvest one ring into a ``ring`` event (the JAX package's slicing).
     ``ring`` is the (cap, NUM_METRICS) ring, a device tensor or a host
-    array; rows [t0, t0+ticks) are emitted. ``ticks=None`` infers the span
-    by trimming trailing all-zero rows past ``t0`` (a run that stops at
-    quiescence leaves them zero); ``trim`` also applies when ticks is
-    given, never trimming below 1 row. Extra keywords (chunk=, replica=,
-    seed=, shard=) ride along as provenance fields. No-op when telemetry
-    is off."""
+    array; rows [t0, t0+ticks) are emitted (all rows past ``t0`` when
+    ``ticks`` is None), less the trailing all-zero ones (a run that stops
+    at quiescence leaves them zero), never fewer than 1 row. Extra
+    keywords (chunk=, replica=, seed=, shard=) ride along as provenance
+    fields. No-op when telemetry is off."""
     if not sink.enabled():
         return
     if isinstance(ring, torch.Tensor):
         ring = ring.cpu().numpy()
     ring = np.asarray(ring)
-    if ticks is None:
-        nz = np.flatnonzero(ring[t0:].any(axis=1))
-        ticks = int(nz[-1]) + 1 if nz.size else 1
-    elif trim:
-        window = ring[t0 : t0 + int(ticks)]
-        nz = np.flatnonzero(window.any(axis=1))
-        ticks = max(int(nz[-1]) + 1 if nz.size else 1, 1)
-    rows = ring[t0 : t0 + int(ticks)]
+    window = ring[t0:] if ticks is None else ring[t0 : t0 + int(ticks)]
+    nz = np.flatnonzero(window.any(axis=1))
+    rows = ring[t0 : t0 + (int(nz[-1]) + 1 if nz.size else 1)]
     event = {
         "type": "ring",
         "kernel": kernel,

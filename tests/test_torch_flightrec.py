@@ -54,7 +54,7 @@ def _state(rng, n, w, zero_share=0.3):
 
 
 def _port_digest(seen, received, sent_lo, sent_hi=None) -> int:
-    got = digest.tick_digest(
+    got = kernels.tick_digest(
         torch.as_tensor(seen.view(np.int32)), torch.as_tensor(received),
         torch.as_tensor(sent_lo), None if sent_hi is None else torch.as_tensor(sent_hi),
     )
@@ -131,8 +131,8 @@ def test_digest_xors_into_its_slot_and_reads_a_column_slice():
     assert int(ring[0]) == int(ring[2]) == 0
     assert int(ring[1]) & 0xFFFFFFFF == want
     slot = torch.full((1,), 0x1234, dtype=torch.int32)
-    digest.tick_digest(torch.as_tensor(seen.view(np.int32))[:, :4],
-                       torch.as_tensor(received), torch.as_tensor(sent_lo), out=slot)
+    kernels.tick_digest(torch.as_tensor(seen.view(np.int32))[:, :4],
+                        torch.as_tensor(received), torch.as_tensor(sent_lo), out=slot)
     assert int(slot[0]) & 0xFFFFFFFF == want ^ 0x1234
 
 

@@ -26,6 +26,7 @@ from p2p_gossip_tpu import telemetry as jax_tel
 from p2p_gossip_tpu.engine import sync as jax_sync
 from p2p_gossip_tpu.models import protocols as jax_protocols
 from p2p_gossip_tpu.telemetry import chrometrace as jax_chrometrace
+from p2p_gossip_tpu.telemetry import rings as jax_rings
 from p2p_gossip_tpu.telemetry import schema as jax_schema
 from p2p_gossip_tpu_torch import telemetry
 from p2p_gossip_tpu_torch.engine import sync
@@ -218,7 +219,7 @@ def test_telemetry_off_computes_no_row_and_no_digest(monkeypatch):
     def boom(*args, **kwargs):
         raise AssertionError("telemetry work with telemetry off")
 
-    monkeypatch.setattr(digest, "tick_digest", boom)
+    monkeypatch.setattr(digest, "write", boom)
     monkeypatch.setattr(kernels, "tick_digest", boom)
     monkeypatch.setattr(rings, "flood_row", boom)
     monkeypatch.setattr(rings, "row", boom)
@@ -244,7 +245,7 @@ def test_last_digest_is_the_digest_of_the_final_state():
     _, sp = _schedules(shares=20)
     dg = sync.DeviceGraph.build(gp, device="cpu")
     origins, gen_ticks = sp.padded(32, HORIZON)
-    ring_pair = sync.tel_chunk_rings(HORIZON, dg.device)
+    ring_pair = rings.chunk_rings(HORIZON, dg.device)
     seen, received, sent, _, ticks = sync._run_chunk_while(
         dg, torch.as_tensor(origins.astype(np.int64)), torch.as_tensor(gen_ticks),
         int(gen_ticks.min()), int(gen_ticks[gen_ticks < HORIZON].max()),
@@ -368,3 +369,27 @@ def test_emit_ring_trims_trailing_zeros():
     rings.emit_ring("k", ring, t0=0)
     (ev,) = _stream(telemetry, ("ring",))
     assert ev["ticks"] == 2 and schema.validate_event(ev) == []
+
+
+@pytest.mark.parametrize("t0,ticks", [(0, None), (2, None), (0, 6), (2, 3), (3, 0), (6, 2)])
+def test_emit_ring_slices_as_the_jax_package(t0, ticks):
+    """Given or not, ``ticks`` is trimmed of trailing zero rows and never
+    below 1 row, as the JAX package's ``emit_ring`` slices."""
+    ring = np.zeros((8, schema.NUM_METRICS), dtype=np.int64)
+    ring[1], ring[3, 2], ring[4, 0] = 5, 7, 0xFFFFFFFF
+    for tel, emit in ((jax_tel, jax_rings.emit_ring), (telemetry, rings.emit_ring)):
+        tel.configure(None, rings=True)
+        emit("k", ring, t0=t0, ticks=ticks, chunk=1)
+    assert _stream(telemetry, ("ring",)) == _stream(jax_tel, ("ring",))
+
+
+def test_row_writes_its_columns_in_place():
+    """``row`` writes the five counted columns (and ``loss_dropped`` when it
+    is a tensor) into its row of the ring and leaves the rest zero."""
+    ring, _ = rings.chunk_rings(4, "cpu")
+    cols = [torch.tensor(v, dtype=torch.int64) for v in (9, 3, 2, 0xFFFFFFFF, 17)]
+    rings.row(ring, 1, *cols)
+    rings.row(ring, 2, *cols, loss_dropped=torch.tensor(4, dtype=torch.int64))
+    assert ring[1].tolist() == [9, 3, 2, 0xFFFFFFFF, 17, 0, 0, 0, 0]
+    assert ring[2].tolist() == [9, 3, 2, 0xFFFFFFFF, 17, 4, 0, 0, 0]
+    assert not ring[0].any() and not ring[3].any()
