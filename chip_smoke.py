@@ -52,6 +52,23 @@ Phases (any failure raises and the script exits nonzero):
    three protocols under churn and loss whose ring and digest streams are
    equal on the kernel and the plain path. The telemetry-on flood and
    push-pull also run under ``torch.profiler``.
+11. Monte-Carlo campaigns (``p2p_gossip_tpu_torch.batch``), R = 8 replicas
+   stacked along the rows of one state: ``gather_or`` with its replica
+   axis (B = 3 and 8, per-replica loss seeds, up mask) on ragged shapes
+   against its plain version and against B solo calls, and on the ring
+   the campaign tick built by tick 10 of campaign (b) and tick 2 of (a);
+   ``coverage_per_slot`` with B = 8 on dense words and on (a)'s tick-2
+   frontier, each timed beside its bound; small campaigns (ER 2,000, BA
+   300; R = 5 in batches of 2; ± churn and loss; every campaign kind)
+   equal on the kernel and the plain path; then at full width on the
+   phase-5 graph (a) ``run_coverage_campaign`` with 4,096 origins a
+   replica, (b) ``run_gossip_campaign`` with phase 5's schedule drawn
+   from each replica's seed and per-replica loss at p = 0.05, (c)
+   ``run_protocol_campaign`` push-pull on phase 9's D = 6 staging: one
+   warm and one timed run each, replicas 0 and 7 equal to the solo runs
+   with their seeds, ms/tick (ms/round) and node-updates/s beside the
+   solo run's, peak device memory, and (a) and (c) under
+   ``torch.profiler``.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -78,7 +95,11 @@ reads them after its coverage run (``tick_digest`` once per executed
 tick, the coverage run's ticks counted by its ``coverage_per_slot``
 launches), and again around its telemetry-on push-pull run (``tick_digest``
 once a round, ``scatter_or`` twice: the round call and the row's
-``msgs_gathered``). The second-to-last line is the kernels' JSON record; the last line
+``msgs_gathered``). Phase 11 zeroes the counts just before each timed
+campaign and reads them after it: a campaign tick launches ``gather_or``
+once per degree bucket and ``coverage_per_slot`` once for all eight
+replicas, a campaign round ``scatter_or`` once, ``tick_digest`` never.
+The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -124,6 +145,9 @@ PROTOCOL_CAPTURE_ROUND = 10
 PROTOCOL_DENSE_ROUND = 40  # push-pull near saturation: dense rows
 # The kernel only the telemetry-on path (phase 10) runs.
 TELEMETRY_KERNELS = ("tick_digest",)
+# Phase 11: replicas a campaign batch, and campaign (b)'s per-replica loss.
+CAMPAIGN_REPLICAS = 8
+CAMPAIGN_LOSS = 0.05
 U32 = 0xFFFFFFFF
 
 
@@ -1823,6 +1847,409 @@ def check_telemetry_streams(dev):
             "streams == plain streams")
 
 
+# --- phase 11 -----------------------------------------------------------------
+
+def campaign_replicas(graph, shares):
+    """Phase 11's gossip and protocol replica set: replica r draws its
+    schedule as `flood_schedule` does, from seed r (replica 0 is phase 5's
+    schedule): ``shares`` shares at random origins, generation ticks
+    uniform over the first GEN_WINDOW ticks."""
+    from p2p_gossip_tpu_torch.batch.campaign import ReplicaSet
+
+    seeds = np.arange(CAMPAIGN_REPLICAS, dtype=np.int64) + SEED
+    origins, gen_ticks = [], []
+    for s in seeds:
+        rng = np.random.default_rng(int(s))
+        o = rng.integers(0, graph.n, shares).astype(np.int32)
+        g = rng.integers(0, GEN_WINDOW, shares).astype(np.int32)
+        order = np.argsort(g, kind="stable")  # a Schedule's share order
+        origins.append(o[order])
+        gen_ticks.append(g[order])
+    return ReplicaSet(n=graph.n, origins=np.stack(origins), gen_ticks=np.stack(gen_ticks),
+                      seeds=seeds)
+
+
+def capture_campaign(dg, replicas, chunk, ticks, dev):
+    """Run the campaign tick (all replicas of ``replicas`` in one batch,
+    no options) for ``ticks`` ticks from t = 0 and return its stacked
+    state: the frontier ring, the occupancy ring and the last tick's new
+    frontier."""
+    from p2p_gossip_tpu_torch.batch.campaign import _Batch
+    from p2p_gossip_tpu_torch.engine.sync import _chunk_state, _share_slots, _tick
+
+    b, s = replicas.origins.shape
+    pad_o = np.zeros((b, chunk), dtype=np.int32)
+    pad_g = np.full((b, chunk), HORIZON, dtype=np.int32)
+    pad_o[:, :s], pad_g[:, :s] = replicas.origins, replicas.gen_ticks
+    staged = _Batch(dg, pad_o, pad_g, None, None, None)
+    rows, gen_ticks = staged.events(dev)
+    opts = staged.tick_options()
+    slots = _share_slots(chunk, b, dev)
+    seen, hist, occ, received, sent = _chunk_state(dg, chunk // 32, b)
+    newly = None
+    for t in range(ticks):
+        newly, _ = _tick(dg, t, seen, hist, occ, received, sent, rows, slots, gen_ticks,
+                         False, opts)
+    return hist, occ, newly
+
+
+def check_gather_replicas_ragged(dev, rng):
+    """gather_or with a replica axis (B = 3 and 8) on ragged shapes: per-
+    edge and uniform slots, W of 3, 5, 64 and 300, caps past one staging
+    round, identity and shuffled bucket rows (some outside [0, N)), each
+    without loss, with one loss seed (past 2^31) for every replica, and
+    with per-replica seeds, without and with an up mask (a fifth of the
+    rows down). Against the plain version, and against B solo kernel
+    calls on the replicas' own rows with their own seeds. ``out`` starts as
+    all ones."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    cases = (  # b, n, cap, w, ring, per_edge
+        (3, 1237, 7, 3, 4, True), (3, 513, 9, 64, 2, False), (8, 300, 9, 300, 6, True),
+        (8, 129, 129, 8, 2, False), (3, 400, 140, 5, 3, True), (8, 2000, 11, 64, 2, False),
+    )
+    checked = 0
+    for b, n, cap, w, ring, per_edge in cases:
+        hist = sparse_words(rng, (ring, b * n, w), dev)
+        occ = ring_occupancy(hist)
+        idx = torch.as_tensor(rng.integers(0, n, (n, cap)).astype(np.int32), device=dev)
+        mask = torch.as_tensor(rng.random((n, cap)) < 0.7, device=dev)
+        delay = (torch.as_tensor(rng.integers(1, ring, (n, cap)).astype(np.int32),
+                                 device=dev) if per_edge else None)
+        slot = None if per_edge else 1
+        up = torch.as_tensor(rng.random(b * n) >= 0.2, device=dev)
+        seeds_np = rng.integers(0, 2**32, b, dtype=np.uint64).astype(np.uint32)
+        seeds = torch.as_tensor(seeds_np.view(np.int32), device=dev)
+        shuffled = torch.as_tensor(rng.permutation(n + 6)[:n].astype(np.int32) - 3,
+                                   device=dev)
+        threshold = int(round(0.3 * 2**32))
+        for rows in (None, shuffled):
+            for loss in (None, (threshold, 2**31 + 17), (threshold, seeds)):
+                for up_arg in (None, up):
+                    def run(plain, rows=rows, loss=loss, up_arg=up_arg):
+                        out = torch.full((b * n, w), -1, dtype=torch.int32, device=dev)
+                        return kernels.gather_or(
+                            hist, 7, idx, mask, delay, uniform_slot=slot, rows=rows,
+                            occ=occ, loss=loss, up=up_arg, out=out, replicas=b,
+                            plain=plain)
+
+                    label = (f"gather_or[B={b} n={n} cap={cap} w={w} D={ring} "
+                             f"loss={'none' if loss is None else type(loss[1]).__name__} "
+                             f"up={up_arg is not None} rows={rows is not None}]")
+                    got = run(False)
+                    compare(label, got, run(True))
+                    for r in range(b):
+                        part = slice(r * n, (r + 1) * n)
+                        r_loss = loss
+                        if loss is not None and isinstance(loss[1], torch.Tensor):
+                            r_loss = (threshold, int(seeds_np[r]))
+                        solo = torch.full((n, w), -1, dtype=torch.int32, device=dev)
+                        kernels.gather_or(
+                            hist[:, part].contiguous(), 7, idx, mask, delay,
+                            uniform_slot=slot, rows=rows, occ=occ[:, part].contiguous(),
+                            loss=r_loss, up=None if up_arg is None else up_arg[part],
+                            out=solo)
+                        compare(f"{label} replica {r} vs solo call", got[part], solo)
+                    checked += 1
+    log(f"gather_or with replicas, ragged shapes: {checked} cases (B = 3 and 8; loss "
+        "none / one seed / per-replica seeds; up none / 80%; identity and shuffled "
+        "rows) bitwise equal to the plain version and to B solo kernel calls")
+
+
+def gather_replicas_bound_bytes(dg, hist, occ, tick, b, loss=None, up=None):
+    """What the B-replica gather of one tick must move on this ring: the
+    occupied sectors of each distinct (slot, stacked source row) of a kept
+    edge once, its occupancy word, the staged ELL and bucket rows once
+    (shared by the replicas), the up mask, the seeds and the output."""
+    import torch
+
+    from p2p_gossip_tpu_torch.models.linkloss import drop_mask_torch
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    n, w = dg.n, hist.shape[-1]
+    sw = kernels.sector_words(w)
+    rows_of = hist.shape[1]
+    keys, staged, rows_bytes = [], 0, 0
+    for rows, idx, mask, delay in dg.buckets:
+        if dg.uniform_delay is not None:
+            slot = torch.full_like(idx, (tick - dg.uniform_delay) % dg.ring_size,
+                                   dtype=torch.int64)
+        else:
+            slot = torch.remainder(tick - delay.long(), dg.ring_size)
+        staged += int(idx.numel())
+        rows_bytes += 4 * int(rows.numel())
+        for r in range(b):
+            keep = mask.clone()
+            if loss is not None:
+                seed = loss[1][r] if isinstance(loss[1], torch.Tensor) else loss[1]
+                keep &= ~drop_mask_torch(idx, rows.long()[:, None], tick, loss[0], seed)
+            if up is not None:
+                keep &= up[r * n + rows.long()][:, None]
+            keys.append((slot * rows_of + r * n + idx.long())[keep])
+    distinct = torch.unique(torch.cat(keys))
+    per_entry = 5 if dg.uniform_delay is not None else 9
+    return (set_bits(occ.reshape(-1)[distinct]) * sw * 4 + distinct.numel() * 4
+            + staged * per_entry + rows_bytes + (b * n if up is not None else 0)
+            + 4 * b + b * n * w * 4)
+
+
+def check_campaign_kernels(graph, dg, cov_set, gossip_set, dev, rng, reps):
+    """The replica-axis kernels at phase 11's shapes. gather_or (B = 8) on
+    the ring the campaign tick itself built by tick CAPTURE_TICK of the
+    gossip campaign (b), without options and with the per-replica loss
+    coins at p = 0.05 and 10% of the rows down; on the tick-2 ring of the
+    coverage campaign (a) (its flood is over by tick ~6, so its tick-10
+    ring is empty). coverage_per_slot (B = 8) on dense words (8, 100,000,
+    128) and on campaign (a)'s tick-2 frontier. Each bitwise against its
+    plain version and timed beside its bound."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.models.seeds import replica_loss_seeds
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.ops.ell import propagate_bucketed
+
+    b = CAMPAIGN_REPLICAS
+    out = {}
+    loss_model = pt.LinkLossModel(CAMPAIGN_LOSS, seed=0)
+    lseeds = np.asarray(replica_loss_seeds(gossip_set.seeds), dtype=np.int64)
+    seeds_dev = torch.as_tensor((lseeds & U32).astype(np.uint32).view(np.int32), device=dev)
+    for label, rset, chunk, tick in (("gossip tick 10", gossip_set, CHUNK, CAPTURE_TICK),
+                                     ("coverage tick 2", cov_set, COVERAGE_ORIGINS, 2)):
+        hist, occ, newly = capture_campaign(dg, rset, chunk, tick, dev)
+        up = torch.as_tensor(np.random.default_rng(SEED + 2).random(b * graph.n) >= 0.1,
+                             device=dev)
+        for opt_label, loss, up_arg in (("", None, None),
+                                        (" loss + up", (loss_model.threshold, seeds_dev), up)):
+            def run(plain, loss=loss, up_arg=up_arg, hist=hist, occ=occ, tick=tick):
+                return propagate_bucketed(
+                    hist, tick, dg.buckets, n_out=graph.n, ring_size=dg.ring_size,
+                    uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up_arg,
+                    replicas=b, plain=plain)
+
+            name = f"gather_or[B={b} {label}{opt_label}]"
+            err = compare(name, run(False), run(True))
+            nbytes = gather_replicas_bound_bytes(dg, hist, occ, tick, b, loss, up_arg)
+            ms = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
+            plain_ms = time_ms(lambda: run(True), 2, warmup=1)
+            log(f"{name} W={hist.shape[-1]}: bitwise equal; kernel {ms:.4f} ms (all "
+                f"{len(dg.buckets)} buckets, one launch each), plain {plain_ms:.3f} ms, "
+                f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)")
+            out[f"gather{opt_label.replace(' + ', '_').replace(' ', '_')}_{label.split()[0]}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
+        if label.startswith("coverage"):
+            words = newly.view(b, graph.n, -1)[:, :, : COVERAGE_ORIGINS // 32]
+            err = compare("coverage_per_slot[B=8 tick-2 frontier]",
+                          kernels.coverage_per_slot(words, COVERAGE_ORIGINS),
+                          kernels.coverage_per_slot_plain(words, COVERAGE_ORIGINS))
+            ms = time_ms(lambda: kernels.coverage_per_slot(words, COVERAGE_ORIGINS), reps,
+                         calls=KERNEL_CALLS)
+            plain_ms = time_ms(lambda: kernels.coverage_per_slot_plain(words, COVERAGE_ORIGINS),
+                               2, warmup=1)
+            nbytes = words.numel() * 4 + b * COVERAGE_ORIGINS * 4
+            log(f"coverage_per_slot[B=8 tick-2 frontier] {tuple(words.shape)}: bitwise "
+                f"equal; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms(nbytes):.4f} ms")
+            out["coverage_frontier"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                            bound_ms=bound_ms(nbytes))
+        del hist, occ, newly
+    words = random_words(rng, (b, graph.n, COVERAGE_ORIGINS // 32), dev)
+    slots = COVERAGE_ORIGINS
+    err = compare("coverage_per_slot[B=8 dense]", kernels.coverage_per_slot(words, slots),
+                  kernels.coverage_per_slot_plain(words, slots))
+    for r in range(b):  # the stacked launch against one solo launch a replica
+        compare(f"coverage_per_slot[B=8 dense] replica {r} vs solo call",
+                kernels.coverage_per_slot(words, slots)[r],
+                kernels.coverage_per_slot(words[r], slots))
+    ms = time_ms(lambda: kernels.coverage_per_slot(words, slots), reps, calls=KERNEL_CALLS)
+    plain_ms = time_ms(lambda: kernels.coverage_per_slot_plain(words, slots), 2, warmup=1)
+    nbytes = words.numel() * 4 + b * slots * 4
+    log(f"coverage_per_slot[B=8 dense] {tuple(words.shape)}: bitwise equal (and to 8 solo "
+        f"calls); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms(nbytes):.4f} ms")
+    out["coverage_dense"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms(nbytes))
+    return out
+
+
+def check_small_campaigns(dev):
+    """Campaigns on small graphs (ER 2,000 p = 0.006, BA 300 with
+    log-normal delays), R = 5 in batches of 2 (a padded last batch), plain
+    and with churn + per-replica loss: coverage, gossip (several 256-share
+    chunks) and the three protocols, each run with the kernels and with
+    the plain versions, equal in every counter and coverage row."""
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.batch import campaign as bc
+    from p2p_gossip_tpu_torch.models.seeds import replica_loss_seeds
+
+    horizon, seeds = 32, list(range(3, 8))
+    runs = 0
+    for gname, graph, delays in (
+        ("ER 2000", pt.erdos_renyi(2000, 0.006, seed=1), None),
+        ("BA 300", (ba := pt.barabasi_albert(300, m=2, seed=3)),
+         pt.lognormal_delays(ba, 2.0, 0.5, 4, seed=3)),
+    ):
+        for opts in ("plain", "churn+loss"):
+            churn_kw = dict(churn_prob=0.2, mean_down_ticks=3) if opts != "plain" else {}
+            loss = pt.LinkLossModel(0.1, seed=5) if opts != "plain" else None
+            lseeds = replica_loss_seeds(seeds) if loss is not None else None
+            flood = bc.flood_replicas(graph, 40, seeds, horizon, **churn_kw)
+            gossip = bc.gossip_replicas(graph, 0.06, 0.005, seeds, horizon, gen_lo=0.03,
+                                        gen_hi=0.06, **churn_kw)
+            kw = dict(ell_delays=delays, loss=loss, loss_seeds=lseeds, batch_size=2,
+                      device=dev)
+            drives = (
+                ("coverage", lambda p: bc.run_coverage_campaign(graph, flood, horizon,
+                                                                plain=p, **kw)),
+                ("gossip", lambda p: bc.run_gossip_campaign(graph, gossip, horizon,
+                                                            chunk_size=256, plain=p, **kw)),
+            ) + tuple(
+                (proto, lambda p, proto=proto: bc.run_protocol_campaign(
+                    graph, flood, horizon, protocol=proto, fanout=3, plain=p, **kw))
+                for proto in ("pushpull", "pull", "pushk")
+            )
+            for label, drive in drives:
+                got, want = drive(False), drive(True)
+                for key in ("generated", "received", "sent", "coverage"):
+                    a, b = getattr(got, key), getattr(want, key)
+                    if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+                        raise AssertionError(f"small campaign {gname} {opts} {label}: "
+                                             f"{key} differs between kernel and plain")
+                if got.received.sum() <= 0:
+                    raise AssertionError(f"small campaign {gname} {opts} {label}: nothing spread")
+                runs += 1
+    log(f"small campaigns (ER 2000, BA 300 log-normal; R = 5, batch 2; plain and churn + "
+        f"per-replica loss; coverage, gossip in 256-share chunks, push-pull, pull, fanout "
+        f"push k=3): {runs} campaigns, kernel == plain in every counter and coverage row")
+
+
+def campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev):
+    """Phase 11's main path: (a) the coverage campaign, (b) the gossip
+    campaign with per-replica loss, (c) the push-pull campaign, each one
+    warm and one timed run with launch counts zeroed just before the timed
+    runs and read after them; replicas 0 and 7 of each against the solo
+    runs with their seeds; (a) and (c) under torch.profiler; peak device
+    memory of each timed run."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.batch import campaign as bc
+    from p2p_gossip_tpu_torch.batch.stats import ensemble_summary
+    from p2p_gossip_tpu_torch.engine.sync import run_flood_coverage, run_sync_sim
+    from p2p_gossip_tpu_torch.models.protocols import run_pushpull_sim
+    from p2p_gossip_tpu_torch.models.seeds import replica_loss_seeds
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    b = CAMPAIGN_REPLICAS
+    lseeds = replica_loss_seeds(gossip_set.seeds)
+    loss = pt.LinkLossModel(CAMPAIGN_LOSS, seed=0)
+    drives = {
+        "coverage": lambda: bc.run_coverage_campaign(
+            graph, cov_set, HORIZON, device_graph=dg, device=dev),
+        "gossip": lambda: bc.run_gossip_campaign(
+            graph, gossip_set, HORIZON, loss=loss, loss_seeds=lseeds, chunk_size=CHUNK,
+            device_graph=dg, device=dev),
+        "pushpull": lambda: bc.run_protocol_campaign(
+            graph, gossip_set, HORIZON, protocol="pushpull", chunk_size=CHUNK,
+            device_graph=dgf_edge, device=dev),
+    }
+
+    def solo(kind, r):
+        sched = gossip_set.replica_schedule(r, HORIZON)
+        if kind == "coverage":
+            stats, cov = run_flood_coverage(graph, cov_set.origins[r], HORIZON,
+                                            device_graph=dg, device=dev)
+            return stats, cov
+        if kind == "gossip":
+            return run_sync_sim(graph, sched, HORIZON, chunk_size=CHUNK, device_graph=dg,
+                                loss=pt.LinkLossModel(CAMPAIGN_LOSS, seed=lseeds[r]),
+                                device=dev), None
+        return run_pushpull_sim(graph, sched, HORIZON, seed=int(gossip_set.seeds[r]),
+                                chunk_size=CHUNK, record_coverage=True,
+                                device_graph=dgf_edge, device=dev)
+
+    results, all_launches = {}, {}
+    for kind, drive in drives.items():
+        warm = drive()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = drive()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        all_launches[kind] = launches
+        for key in ("received", "sent", "coverage"):
+            a, w_ = getattr(res, key), getattr(warm, key)
+            if (a is None) != (w_ is None) or (a is not None and not np.array_equal(a, w_)):
+                raise AssertionError(f"campaign {kind}: timed run differs from the warm run")
+        ticks = HORIZON if kind == "pushpull" else launches["sector_occupancy"]
+        if kind == "pushpull":
+            if launches["scatter_or"] != HORIZON or launches["gather_or"]:
+                raise AssertionError(f"campaign {kind}: scatter_or must launch once a round "
+                                     f"for all {b} replicas, gather_or never: {launches}")
+        else:
+            want_gather = len(dg.buckets) * ticks
+            want_cov = ticks if kind == "coverage" else 0
+            if (launches["gather_or"] != want_gather or launches["popcount_rows"] != ticks
+                    or launches["coverage_per_slot"] != want_cov or launches["scatter_or"]):
+                raise AssertionError(
+                    f"campaign {kind}: a tick launches gather_or once per degree bucket "
+                    f"({want_gather} in {ticks} ticks), popcount_rows once and "
+                    f"coverage_per_slot {'once' if want_cov else 'never'}: {launches}")
+        if launches["tick_digest"]:
+            raise AssertionError(f"campaign {kind}: tick_digest launched with telemetry off")
+        for r in (0, b - 1):
+            stats, cov = solo(kind, r)
+            same = (np.array_equal(stats.received, res.received[r])
+                    and np.array_equal(stats.sent, res.sent[r])
+                    and np.array_equal(stats.generated, res.generated[r]))
+            if cov is not None:
+                same &= np.array_equal(cov, res.coverage[r])
+            if not same:
+                raise AssertionError(f"campaign {kind}: replica {r} differs from its solo run")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo_stats, _ = solo(kind, 0)
+        solo_wall = time.perf_counter() - t0
+        totals = res.totals_per_replica()
+        processed = int(totals["processed"].sum())
+        if processed <= int(totals["generated"].sum()):
+            raise AssertionError(f"campaign {kind}: nothing spread")
+        rate = processed / wall
+        solo_rate = solo_stats.totals()["processed"] / solo_wall
+        unit = "round" if kind == "pushpull" else "tick"
+        summary = ensemble_summary(res)
+        ttc = summary.get("ttc") or {}
+        log(f"campaign[{kind}] R={b} N={graph.n} S={res.coverage.shape[-1] if res.coverage is not None else gossip_set.shares_per_replica}: "
+            f"{ticks} {unit}s, wall {wall:.4f} s -> {wall / ticks * 1e3:.3f} ms/{unit}; "
+            f"{rate:.4e} node-updates/s summed over replicas; solo replica 0 "
+            f"{solo_wall:.4f} s ({solo_rate:.4e} node-updates/s; R x solo wall "
+            f"{b * solo_wall:.4f} s, campaign / (R x solo) {wall / (b * solo_wall):.3f}); "
+            f"peak device memory {peak / 2**30:.2f} GiB; replicas 0 and {b - 1} == solo "
+            f"runs; ttc reached {ttc.get('reached')}; launches {launches}")
+        results[kind] = dict(wall_s=wall, ticks=ticks, ms_per_tick=wall / ticks * 1e3,
+                             rate=rate, solo_wall_s=solo_wall, solo_rate=solo_rate,
+                             peak_gib=peak / 2**30)
+
+    def run_cov():
+        kernels.reset_launches()
+        drives["coverage"]()
+        return kernels.launches["sector_occupancy"]
+
+    profile_device("coverage campaign (a)", run_cov)
+
+    def run_pp():
+        drives["pushpull"]()
+        return HORIZON
+
+    profile_device("push-pull campaign (c)", run_pp, top=20)
+    return all_launches, results
+
+
 def main() -> int:
     import torch
 
@@ -1901,6 +2328,20 @@ def main() -> int:
     pushpull_launches, round_cost = telemetry_pushpull(graph, dgf_edge, sched, dev)
     check_telemetry_streams(dev)
 
+    from p2p_gossip_tpu_torch import telemetry
+    from p2p_gossip_tpu_torch.batch.campaign import flood_replicas
+
+    telemetry.reset()  # campaigns run with telemetry's rings off
+    cov_set = flood_replicas(graph, COVERAGE_ORIGINS, np.arange(CAMPAIGN_REPLICAS) + SEED,
+                             HORIZON)
+    gossip_set = campaign_replicas(graph, N_SHARES)
+    check_gather_replicas_ragged(dev, rng)
+    campaign_kernels = check_campaign_kernels(graph, dg, cov_set, gossip_set, dev, rng,
+                                              reps=10)
+    check_small_campaigns(dev)
+    campaign_launches, _ = campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev)
+    ck = campaign_kernels
+
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
         # ms / bound_ms: the random (dense) ring with uniform delay, the shape
@@ -1923,6 +2364,14 @@ def main() -> int:
             bound_ms_per_edge_captured_loss=ce["bound_ms_loss"],
             plain_ms_per_edge_captured_loss=ce["plain_ms_loss"],
             ms_per_edge_captured_again=ce["ms_again"],
+            # Phase 11: B = 8 replicas in one launch a bucket, on campaign
+            # (b)'s tick-10 ring and (a)'s tick-2 ring, (b)'s also with the
+            # per-replica loss coins and an up mask.
+            **{f"{key}_campaign{tag}": ck[label][key]
+               for tag, label in (("", "gather_gossip"), ("_loss_up", "gather_loss_up_gossip"),
+                                  ("_coverage", "gather_coverage"),
+                                  ("_coverage_loss_up", "gather_loss_up_coverage"))
+               for key in ("ms", "bound_ms", "plain_ms")},
         ),
         "sector_occupancy": dict(occupancy, ms_captured=cu["occupancy_ms"],
                                  plain_ms_captured=cu["occupancy_plain_ms"]),
@@ -1931,7 +2380,11 @@ def main() -> int:
                                                             frontier["max_abs_err"]),
                                   ms_frontier=frontier["ms"],
                                   bound_ms_frontier=frontier["bound_ms"],
-                                  plain_ms_frontier=frontier["plain_ms"]),
+                                  plain_ms_frontier=frontier["plain_ms"],
+                                  # Phase 11: (8, 100,000, 128) -> (8, 4,096).
+                                  **{f"{key}_campaign_{tag}": ck[f"coverage_{tag}"][key]
+                                     for tag in ("dense", "frontier")
+                                     for key in ("ms", "bound_ms", "plain_ms")}),
         # ms / bound_ms: the push-pull push (M = N) from zeros on the
         # round-10 ring, given its plan; fanout 2's beside it, both on the
         # dense round-40 ring, and the push-pull round's own call (pull +
@@ -1984,6 +2437,8 @@ def main() -> int:
             "launches_options": options_launches[name],
             "launches_protocols": protocol_launches[name],
             "launches_telemetry": telemetry_launches[name],
+            **{f"launches_campaign_{kind}": campaign_launches[kind][name]
+               for kind in campaign_launches},
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

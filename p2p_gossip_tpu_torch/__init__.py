@@ -10,7 +10,8 @@ options — node churn, link loss (its coin computed inside the gather
 kernel), the connect window, periodic snapshots and checkpoint/resume —
 follow the JAX engine's. The random-partner protocols (push-pull, pull,
 fanout push; ``models.protocols``) push through a hand-written CUDA
-scatter-OR kernel. Graphs, schedules, delays and the option models
+scatter-OR kernel. Monte-Carlo campaigns (``batch``) run R seed replicas
+stacked along the rows through the same kernels. Graphs, schedules, delays and the option models
 are numpy, built from a seed exactly as in the JAX package, of which this
 package imports nothing.
 """
@@ -43,7 +44,11 @@ from p2p_gossip_tpu_torch.models.latency import (
     serialization_delays,
 )
 from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
-from p2p_gossip_tpu_torch.models.seeds import churn_stream_seed, loss_stream_seed
+from p2p_gossip_tpu_torch.models.seeds import (
+    churn_stream_seed,
+    loss_stream_seed,
+    replica_loss_seeds,
+)
 from p2p_gossip_tpu_torch.utils.analysis import (
     format_propagation_report,
     message_redundancy,
@@ -59,6 +64,7 @@ from p2p_gossip_tpu_torch.models.protocols import (
 # The engines stay behind an explicit module import, as in the JAX package:
 #   from p2p_gossip_tpu_torch.engine.sync import run_sync_sim, run_flood_coverage
 #   from p2p_gossip_tpu_torch.models.protocols import run_pushpull_sim, run_pushk_sim
+#   from p2p_gossip_tpu_torch.batch import run_coverage_campaign, ensemble_summary
 
 __version__ = "0.1.0"
 
@@ -85,6 +91,7 @@ __all__ = [
     "LinkLossModel",
     "loss_stream_seed",
     "churn_stream_seed",
+    "replica_loss_seeds",
     "propagation_latency",
     "format_propagation_report",
     "message_redundancy",

@@ -114,6 +114,13 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   node up) is the churn model's destination mask, `drop` the link-loss
 //   coin of p2p_gossip_tpu/ops/ell.py _loss_keep (models/linkloss.py spec;
 //   the JAX package applies both in and after its gather).
+//   Replicas (Monte-Carlo campaigns): B independent rings stacked along
+//   the rows, hist (ring, B*n_src, w), occ (ring, B*n_src), out
+//   (B*n_out, w), up (B*n_out). Replica r = blockIdx.y reads source row
+//   r*n_src + s, writes row r*n_out + dst and tests up[r*n_out + dst];
+//   its coin hashes the node ids s and dst with loss_seeds[r] (loss_seed
+//   for every replica when loss_seeds is null). The ELL is shared. With
+//   B = 1 every offset is the solo kernel's.
 // Bound on the H100: bytes. The function must move each source row once
 //   (~0.1 GB at N = 100,000, W = 256), but each valid edge reads its source
 //   row again: ~100 edges per row turn that into ~10 GB of row reads per
@@ -153,7 +160,9 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   [0, n_out); bucket rows partition range(N), so no two warps write the
 //   same row. Offsets are size_t: ring*N*W passes 2^31 at real sizes.
 //   No tensor cores: an OR over a 0.1%-dense adjacency has no matrix-
-//   product form that pays.
+//   product form that pays. Replicas are grid y, so B replicas are one
+//   launch; a staged entry's row in the ring is slot * B*n_src + r*n_src +
+//   s, its word offset that row times w.
 //   Options (off: the kernel reads and writes what it did without them).
 //   The loss coin is a separate instantiation (kLoss), computed in the
 //   staging step: about a dozen integer operations in registers per valid
@@ -192,14 +201,16 @@ __device__ inline uint32_t mix32(uint32_t h) {
 template <typename T, bool kLoss>
 __global__ void __launch_bounds__(kGatherWarps * 32, kLoss ? kGatherMinBlocks : 0)
 gather_or_kernel(const uint32_t* __restrict__ hist,
-                 const uint32_t* __restrict__ occ, int n_src, int w, int sw,
+                 const uint32_t* __restrict__ occ, int n_src, int slot_rows,
+                 int w, int sw,
                  int ring, int tick, int uniform_slot,
                  const int32_t* __restrict__ idx,
                  const uint8_t* __restrict__ mask,
                  const int32_t* __restrict__ delay, int n_rows, int cap,
                  const int32_t* __restrict__ rows, int n_out,
                  const uint8_t* __restrict__ up, uint32_t loss_seed,
-                 uint32_t loss_limit, uint32_t* __restrict__ out) {
+                 uint32_t loss_limit, const uint32_t* __restrict__ loss_seeds,
+                 uint32_t* __restrict__ out) {
   __shared__ unsigned long long s_off[kGatherWarps][kGatherStage];
   __shared__ uint32_t s_occ[kGatherWarps][kGatherStage];
   const int warp = threadIdx.x >> 5;
@@ -214,20 +225,24 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
   const int sec_shift = __ffs(sw / kUnitWords) - 1;  // unit -> sector
   const int nsec = (w + sw - 1) / sw;
   const uint32_t all = nsec >= 32 ? kFullMask : ((1u << nsec) - 1u);
-  const size_t slot_words = (size_t)n_src * (size_t)w;
+  // slot_rows = B * n_src rows make one ring slot (< 2^31, as every row
+  // count here; a kernel argument, so the staging loop holds no more
+  // registers than with one replica). The word offsets stay size_t.
+  const int src_row0 = (int)blockIdx.y * n_src;  // the replica's first row
   const T* src = reinterpret_cast<const T*>(hist);
-  T* row_out = reinterpret_cast<T*>(out + (size_t)dst * (size_t)w);
+  const int dst_row = (int)blockIdx.y * n_out + dst;
+  T* row_out = reinterpret_cast<T*>(out + (size_t)dst_row * (size_t)w);
   const size_t e0 = (size_t)r * (size_t)cap;
   unsigned long long* off = s_off[warp];
   uint32_t* occ_of = s_occ[warp];
 
-  if (up && !up[dst]) {  // warp-uniform: a down node receives nothing
+  if (up && !up[dst_row]) {  // warp-uniform: a down node receives nothing
     for (int u = lane; u < n_units; u += 32) row_out[u] = zero_unit<T>();
     return;
   }
+  const uint32_t seed = loss_seeds ? loss_seeds[blockIdx.y] : loss_seed;
   const uint32_t coin_row =
-      kLoss ? loss_seed ^ ((uint32_t)dst * kCoinDst) ^ ((uint32_t)tick * kCoinTick)
-            : 0u;
+      kLoss ? seed ^ ((uint32_t)dst * kCoinDst) ^ ((uint32_t)tick * kCoinTick) : 0u;
 
   int k0 = 0;
   do {
@@ -241,7 +256,7 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
       unsigned long long o = 0;
       uint32_t oc = 0u;
       if (keep) {
-        const int s = idx[e0 + k];
+        const int s = idx[e0 + k];  // a node id: the coin hashes it
         if (kLoss && mix32(coin_row ^ ((uint32_t)s * kCoinSrc)) <= loss_limit) {
           keep = false;  // erased in flight: not staged, never read
         } else {
@@ -250,8 +265,9 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
             slot = (tick - delay[e0 + k]) % ring;
             if (slot < 0) slot += ring;
           }
-          o = ((size_t)slot * slot_words + (size_t)s * (size_t)w) / kUnitWords;
-          oc = occ ? (occ[(size_t)slot * (size_t)n_src + s] & all) : all;
+          const size_t row = (size_t)slot * (size_t)slot_rows + (size_t)(src_row0 + s);
+          o = row * (size_t)w / kUnitWords;
+          oc = occ ? (occ[row] & all) : all;
           keep = oc != 0u;
         }
       }
@@ -371,6 +387,9 @@ __global__ void popcount_rows_kernel(const uint32_t* __restrict__ words,
 //   flight. The block's 8 warps reduce their counts in shared memory, then
 //   one global atomicAdd per nonzero slot per block into the zeroed
 //   output: exact in any order.
+//   Replicas: grid z is the replica. Replica z counts its own n rows,
+//   starting rep_ld words after replica z - 1's, into out + z * n_slots,
+//   so B replicas' (B*N, W) frontier gives (B, S) counts in one launch.
 // ---------------------------------------------------------------------------
 constexpr int kCovPlanes = 8;
 constexpr int kCovFlush = (1 << kCovPlanes) - 1;
@@ -414,9 +433,11 @@ struct BitSlicedCounter {
 
 __global__ void __launch_bounds__(kCovWarps * 32)
 coverage_per_slot_kernel(const uint32_t* __restrict__ words, int n, int w,
-                         long long ld, int rows_per, int n_slots,
-                         int32_t* __restrict__ out) {
+                         long long ld, long long rep_ld, int rows_per,
+                         int n_slots, int32_t* __restrict__ out) {
   __shared__ int s_cnt[32 * 32];  // [bit][column of the block's tile]
+  words += (size_t)blockIdx.z * (size_t)rep_ld;
+  out += (size_t)blockIdx.z * (size_t)n_slots;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + lane;
@@ -737,21 +758,27 @@ int gossip_sector_occupancy(const void* words, int n, int w, long long ld,
 // `up` may be null (every node up). loss_on == 0 launches the loss-free
 // instantiation; otherwise an edge drops when its coin is <= loss_limit
 // (threshold - 1, so 0xFFFFFFFF drops every edge).
+// `replicas` stacked rings (grid y): n_src and n_out count one replica's
+// rows; `loss_seeds` (null: loss_seed for all) holds one seed a replica.
 int gossip_gather_or(const void* hist, const void* occ, int n_src, int w,
                      int ring, int tick, int uniform_slot, const void* idx,
                      const void* mask, const void* delay, int n_rows, int cap,
                      const void* rows, int n_out, const void* up, int loss_on,
                      unsigned int loss_seed, unsigned int loss_limit,
-                     void* out, void* stream) {
-  const dim3 grid((unsigned)((n_rows + kGatherWarps - 1) / kGatherWarps));
+                     const void* loss_seeds, int replicas, void* out,
+                     void* stream) {
+  const dim3 grid((unsigned)((n_rows + kGatherWarps - 1) / kGatherWarps),
+                  (unsigned)replicas);
   const int sw = sector_words(w);
   const bool vec = w % 4 == 0 && aligned16(hist) && aligned16(out);
 #define GOSSIP_GATHER_LAUNCH(T, LOSS)                                          \
   gather_or_kernel<T, LOSS><<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>( \
-      (const uint32_t*)hist, (const uint32_t*)occ, n_src, w, sw, ring, tick,   \
+      (const uint32_t*)hist, (const uint32_t*)occ, n_src, replicas * n_src, w, \
+      sw, ring, tick,                                                          \
       uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,                 \
       (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,         \
-      (const uint8_t*)up, loss_seed, loss_limit, (uint32_t*)out)
+      (const uint8_t*)up, loss_seed, loss_limit, (const uint32_t*)loss_seeds, \
+      (uint32_t*)out)
   if (vec && loss_on) {
     GOSSIP_GATHER_LAUNCH(uint4, true);
   } else if (vec) {
@@ -774,24 +801,29 @@ int gossip_popcount_rows(const void* words, int n, int w, long long ld,
   return (int)cudaGetLastError();
 }
 
+// `replicas` row blocks of n rows each, rep_ld words apart; out holds
+// replicas * n_slots counts.
 int gossip_coverage_per_slot(const void* words, int n, int w, long long ld,
-                             int n_slots, void* out, void* stream) {
+                             int replicas, long long rep_ld, int n_slots,
+                             void* out, void* stream) {
   // A block spans 32 word columns times 8 warps, each warp on every 8th row
   // of the block's run. The grid aims at one wave: ~4 resident blocks (64
-  // registers a thread) on each of the H100's 132 SMs. More blocks add
-  // global atomics per slot without adding loads in flight, and so does a
-  // wider block: spanning all 128 columns of a (100,000, 128) bitmask, each
-  // block holds every slot and the kernel took twice as long.
+  // registers a thread) on each of the H100's 132 SMs, shared out over the
+  // replicas. More blocks add global atomics per slot without adding loads
+  // in flight, and so does a wider block: spanning all 128 columns of a
+  // (100,000, 128) bitmask, each block holds every slot and the kernel
+  // took twice as long.
   const int grid_x = (w + 31) / 32;
-  long long grid_y = 132 * 4 / grid_x;
+  long long grid_y = 132 * 4 / ((long long)grid_x * replicas);
   const long long max_y = (n + kCovWarps - 1) / kCovWarps;
   if (grid_y > max_y) grid_y = max_y;
   if (grid_y > 65535) grid_y = 65535;
   if (grid_y < 1) grid_y = 1;
   const int rows_per = (int)((n + grid_y - 1) / grid_y);
-  const dim3 grid((unsigned)grid_x, (unsigned)((n + rows_per - 1) / rows_per));
+  const dim3 grid((unsigned)grid_x, (unsigned)((n + rows_per - 1) / rows_per),
+                  (unsigned)replicas);
   coverage_per_slot_kernel<<<grid, kCovWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, n, w, ld, rows_per, n_slots, (int32_t*)out);
+      (const uint32_t*)words, n, w, ld, rep_ld, rows_per, n_slots, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,12 @@ periodic snapshots (device copies of ``received`` at the boundary ticks)
 and checkpoint/resume between chunks (the JAX package's file format).
 
 Share counts of any size run in fixed-size chunks (shares are independent,
-counters add). Semantics are tick-exact against the JAX package's
+counters add). A Monte-Carlo campaign (`batch.campaign`) runs B replicas
+through the same tick at one common tick counter: their state is stacked
+along the rows (``seen`` (B*N, W), the ring (D, B*N, W)), each kernel
+launch covers all B (``gather_or`` hashes node ids with one loss seed a
+replica), and a replica past its own quiescence has an empty frontier, so
+its further ticks change nothing. With B = 1 the tick is the solo one. Semantics are tick-exact against the JAX package's
 ``engine/sync.py``: same graph + schedule + integer delays + option models
 give identical per-node counters, executed-tick counts, snapshots and
 coverage rows.
@@ -232,30 +237,41 @@ class TickOptions:
     default, and then the tick runs exactly the option-free work):
     ``churn`` the (N, K) int32 downtime intervals on the device
     (`models.churn.to_device`), ``loss`` the link-loss (threshold, seed)
-    pair, ``connect_tick`` the reference's socket warm-up window."""
+    pair, ``connect_tick`` the reference's socket warm-up window.
+
+    A campaign batch sets ``replicas`` B > 1 and ``degree``, the (B*N,)
+    int32 degree of every stacked row; its churn intervals are then (B*N,
+    K) and its loss seed may be a (B,) int32 tensor of per-replica seeds
+    (`ops.kernels.gather_or`)."""
 
     churn: tuple | None = None
     loss: tuple | None = None
     connect_tick: int = 0
+    replicas: int = 1
+    degree: torch.Tensor | None = None
 
 
 NO_OPTIONS = TickOptions()
 
 
-def _gather(dg: DeviceGraph, hist, occ, t: int, plain: bool, loss=None, up=None):
+def _gather(dg: DeviceGraph, hist, occ, t: int, plain: bool, loss=None, up=None,
+            replicas: int = 1):
     if dg.buckets is not None:
         return propagate_bucketed(
             hist, t, dg.buckets, n_out=dg.n, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up, plain=plain,
+            uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up,
+            replicas=replicas, plain=plain,
         )
     if dg.uniform_delay is not None:
         return propagate_uniform(
             hist, t, dg.ell_idx, dg.ell_mask, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up, plain=plain,
+            uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up,
+            replicas=replicas, plain=plain,
         )
     return propagate(
         hist, t, dg.ell_idx, dg.ell_delay, dg.ell_mask,
-        ring_size=dg.ring_size, occ=occ, loss=loss, up=up, plain=plain,
+        ring_size=dg.ring_size, occ=occ, loss=loss, up=up, replicas=replicas,
+        plain=plain,
     )
 
 
@@ -281,11 +297,15 @@ def _tick(
     The row's ``msgs_gathered`` is the post-loss, pre-churn gather, so
     under churn the gather runs without the up mask and the mask is
     applied after it (the same arrivals); ``loss_dropped`` needs a second,
-    loss-free gather. Both extra costs are paid only with telemetry on."""
+    loss-free gather. Both extra costs are paid only with telemetry on.
+
+    A campaign batch (``opts.replicas`` B > 1) stacks its replicas along
+    the rows of every tensor here: ``origins`` are stacked rows r*N +
+    origin, ``slots`` and ``gen_ticks`` the (B*S,) share slots and ticks."""
     n, w = seen.shape
     up = None if opts.churn is None else churn_mod.up_mask(*opts.churn, t)
     if rings is None:
-        arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up)
+        arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up, opts.replicas)
     else:
         wire = _gather(dg, hist, occ, t, plain, opts.loss)
         lossless = None if opts.loss is None else _gather(dg, hist, occ, t, plain)
@@ -301,8 +321,9 @@ def _tick(
     if pre_connect:
         live_bits, live_cnt = torch.zeros_like(gen_bits), torch.zeros_like(gen_cnt)
     slot = hist[t % dg.ring_size]
+    degree = dg.degree if opts.degree is None else opts.degree
     _, newly_out, _, _, newly_cnt = apply_tick_updates(
-        seen, arrivals, live_bits, live_cnt, received, sent, dg.degree,
+        seen, arrivals, live_bits, live_cnt, received, sent, degree,
         out=slot, plain=plain,
     )
     if pre_connect:
@@ -321,17 +342,24 @@ def _tick(
     return newly_out, nonzero
 
 
-def _chunk_state(dg: DeviceGraph, w: int):
+def _chunk_state(dg: DeviceGraph, w: int, replicas: int = 1):
     """Zeroed chunk state: seen (N, W), the frontier ring hist (D, N, W)
     with its sector occupancy occ (D, N) (all clear, as the ring is
-    zero), and the int32 counters received and sent (N,)."""
-    dev = dg.device
-    seen = torch.zeros((dg.n, w), dtype=torch.int32, device=dev)
-    hist = torch.zeros((dg.ring_size, dg.n, w), dtype=torch.int32, device=dev)
-    occ = torch.zeros((dg.ring_size, dg.n), dtype=torch.int32, device=dev)
-    received = torch.zeros((dg.n,), dtype=torch.int32, device=dev)
-    sent = torch.zeros((dg.n,), dtype=torch.int32, device=dev)
+    zero), and the int32 counters received and sent (N,); N is B*N for
+    ``replicas`` B stacked replicas."""
+    dev, n = dg.device, replicas * dg.n
+    seen = torch.zeros((n, w), dtype=torch.int32, device=dev)
+    hist = torch.zeros((dg.ring_size, n, w), dtype=torch.int32, device=dev)
+    occ = torch.zeros((dg.ring_size, n), dtype=torch.int32, device=dev)
+    received = torch.zeros((n,), dtype=torch.int32, device=dev)
+    sent = torch.zeros((n,), dtype=torch.int32, device=dev)
     return seen, hist, occ, received, sent
+
+
+def _share_slots(chunk_size: int, replicas: int, device) -> torch.Tensor:
+    """Each (stacked) generation event's share slot: (B*S,) int64."""
+    slots = torch.arange(chunk_size, dtype=torch.int64, device=device)
+    return slots if replicas == 1 else slots.repeat(replicas)
 
 
 def _run_chunk_while(
@@ -360,12 +388,18 @@ def _run_chunk_while(
     or after the exit tick. Device copies only, no host sync.
 
     ``rings`` (telemetry on): a fresh (metric ring, digest ring) pair from
-    `telemetry.rings.chunk_rings`, whose rows [t_start, exit) the ticks write."""
+    `telemetry.rings.chunk_rings`, whose rows [t_start, exit) the ticks write.
+
+    A campaign batch (``opts.replicas`` B > 1, JAX ``_run_while_batch``)
+    passes stacked (B*S,) ``origins`` (rows r*N + origin) and
+    ``gen_ticks``, and the batch's first and last live generation ticks;
+    the counters come back (B*N,) and the predicate holds for the batch."""
     w = bitmask.num_words(chunk_size)
-    slots = torch.arange(chunk_size, dtype=torch.int64, device=dg.device)
-    seen, hist, occ, received, sent = _chunk_state(dg, w)
+    slots = _share_slots(chunk_size, opts.replicas, dg.device)
+    seen, hist, occ, received, sent = _chunk_state(dg, w, opts.replicas)
     snap_ticks = snap_ticks or []
-    snaps = torch.zeros((len(snap_ticks), dg.n), dtype=torch.int32, device=dg.device)
+    snaps = torch.zeros((len(snap_ticks), seen.shape[0]), dtype=torch.int32,
+                        device=dg.device)
     in_flight = [False] * dg.ring_size
     t = t_start
     while t < horizon and (any(in_flight) or t <= last_gen):
@@ -397,24 +431,29 @@ def _run_chunk_coverage(
     plain: bool = False,
 ):
     """Coverage-recording run from t=0. Returns (seen, received, sent,
-    coverage) with coverage (horizon, S) int32 node counts per tick; rows
-    past quiescence hold the final value. ``opts`` as in `_tick`,
-    ``rings`` as in `_run_chunk_while`.
+    coverage) with coverage (B, horizon, S) int32 node counts per tick (B
+    = ``opts.replicas``, 1 for a solo run); rows past the exit tick hold
+    the final value (a replica's coverage stops changing at its own
+    quiescence). ``opts`` as in `_tick`, ``rings`` as in
+    `_run_chunk_while`; a campaign batch stacks its inputs as there (JAX
+    ``_run_coverage_batch``).
 
     Coverage accumulates incrementally: each (node, share) bit enters the
     tick's new frontier at most once, so per-tick coverage is a running
-    sum of the frontier's per-slot counts (the ``coverage_per_slot``
-    kernel over the first ``coverage_slots`` slots)."""
+    sum of the frontier's per-slot counts (one ``coverage_per_slot``
+    launch a tick for all B replicas, over the first ``coverage_slots``
+    slots)."""
     w = bitmask.num_words(chunk_size)
+    b = opts.replicas
     cov_slots = chunk_size if coverage_slots is None else coverage_slots
     cov_w = bitmask.num_words(cov_slots)
-    slots = torch.arange(chunk_size, dtype=torch.int64, device=dg.device)
+    slots = _share_slots(chunk_size, b, dg.device)
     g = gen_ticks.cpu().numpy()
     live = g[g < horizon]
     last_gen = int(live.max()) if live.size else 0
-    seen, hist, occ, received, sent = _chunk_state(dg, w)
-    cov_run = torch.zeros((cov_slots,), dtype=torch.int32, device=dg.device)
-    cov_hist = torch.zeros((horizon, cov_slots), dtype=torch.int32, device=dg.device)
+    seen, hist, occ, received, sent = _chunk_state(dg, w, b)
+    cov_run = torch.zeros((b, cov_slots), dtype=torch.int32, device=dg.device)
+    cov_hist = torch.zeros((b, horizon, cov_slots), dtype=torch.int32, device=dg.device)
     in_flight = [False] * dg.ring_size
     t = 0
     while t < horizon and (any(in_flight) or t <= last_gen):
@@ -423,12 +462,12 @@ def _run_chunk_coverage(
             plain, opts, rings,
         )
         cov_run += bitmask.coverage_per_slot(
-            newly_out[:, :cov_w], cov_slots, plain=plain
+            newly_out.view(b, dg.n, w)[:, :, :cov_w], cov_slots, plain=plain
         )
-        cov_hist[t] = cov_run
+        cov_hist[:, t] = cov_run
         in_flight[t % dg.ring_size] = bool(nonzero)
         t += 1
-    cov_hist[t:] = cov_run
+    cov_hist[:, t:] = cov_run[:, None]
     return seen, received, sent, cov_hist
 
 
@@ -683,7 +722,7 @@ def run_flood_coverage(
         processed=generated + received,
         degree=graph.degree.astype(np.int64),
     )
-    coverage = cov.cpu().numpy()[:, :s]
+    coverage = cov[0].cpu().numpy()[:, :s]
     tel_progress.emit_progress(
         name, chunk=0, chunks_total=1, ticks_done=int(coverage.shape[0]),
         coverage_pct=(

@@ -83,8 +83,11 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _MASK
 
 
-def drop_mask_torch(src, dst, tick, threshold: int, seed: int) -> torch.Tensor:
+def drop_mask_torch(src, dst, tick, threshold: int, seed) -> torch.Tensor:
     """The coin in torch, bit for bit `drop_mask_np`; shapes broadcast.
+    ``seed`` is an int, or a tensor of seeds (each read as its uint32 bit
+    pattern) that broadcasts with the edges: a campaign's one seed per
+    replica.
 
     torch's uint32 is not usable on the CPU and int32 ``>>`` sign-extends,
     so the hash runs in int64 on values masked to 32 bits: after every
@@ -98,7 +101,7 @@ def drop_mask_torch(src, dst, tick, threshold: int, seed: int) -> torch.Tensor:
         return x.to(torch.int64) & _MASK
 
     h = (
-        (int(seed) & _MASK)
+        (u32(seed) if isinstance(seed, torch.Tensor) else int(seed) & _MASK)
         ^ _mul32(u32(src), _C_SRC)
         ^ _mul32(u32(dst), _C_DST)
         ^ _mul32(u32(tick), _C_TICK)

@@ -55,11 +55,17 @@ def _term(x, c: int):
     return _mul32(x.to(torch.int64) & _MASK, c)
 
 
-def pick_key(node, pick, seed: int):
+def pick_key(node, pick, seed):
     """The tick-free part of the hash input, ``seed ^ node*C_NODE ^
     pick*C_PICK`` mod 2^32: a round loop computes it once per chunk and
-    hands it to `pick_from_key` every round."""
-    return (int(seed) & _MASK) ^ _term(node, _C_NODE) ^ _term(pick, _C_PICK)
+    hands it to `pick_from_key` every round. ``seed`` is an int, or a
+    tensor of seeds (uint32 bit patterns) that broadcasts with ``node``: a
+    campaign's one partner stream per replica."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(torch.int64) & _MASK
+    else:
+        seed = int(seed) & _MASK
+    return seed ^ _term(node, _C_NODE) ^ _term(pick, _C_PICK)
 
 
 def pick_from_key(key, tick, degree) -> torch.Tensor:

@@ -36,6 +36,13 @@ state digest (`_RoundTelemetry`), harvested once a chunk as the JAX
 package's ``ring`` and ``digest`` events; with them off a round launches
 nothing extra.
 
+A Monte-Carlo campaign (`batch.campaign.run_protocol_campaign`) runs B
+replicas through the same rounds (``replicas`` of `_run_chunk`): their
+rows are stacked, the ring is (D, B*N, W) and ring row ``slot*B*N + r*N +
+node`` is replica r's; picks and coins hash node ids with the replica's
+own partner and loss seeds, and one `ops.kernels.scatter_or` call a round
+covers every replica.
+
 Counter mapping (anti-entropy has no per-share forwarding): ``received``
 and ``forwarded`` count newly acquired shares; ``sent`` counts shares
 transmitted in digests. ``received`` is int32 and wraps as the JAX
@@ -135,11 +142,15 @@ PICK_BLOCK = 16
 
 
 def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str,
-                 coins: bool = False):
+                 coins: bool = False, replicas: int = 1):
     """The exchanges of rounds t0..t1-1, drawn in one pass, each (B, N, c)
     with B = t1 - t0: ``partners`` int32; ``src`` the sender's ring row
     ``slot * N + node`` and, for pull, ``served`` the partner's, int32;
     ``attempted`` bool; and ``up`` (B, N) bool under churn (else None).
+    With ``replicas`` R > 1 the N rows are the R*N stacked rows r*N + node
+    (and ``partners`` stacked rows too): ``key`` is (R*N, c), ``churn``
+    (R*N, K) and the loss seed broadcasts against (B, R*N, c); the picks
+    and coins hash node ids.
     ``coins`` (telemetry on) also keeps ``served`` for push-pull and the
     coins apart, ``pull_ok`` and ``push_ok`` (B, N, c) bool, for the
     metric row's ``loss_dropped``.
@@ -149,23 +160,30 @@ def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str,
     else -1; for push-pull and fanout push, ``plan``, the block's pushes
     (behind the coin ``drop(node, partner, t)``) sorted by round and
     destination, round i's offsets at ``[i * N, (i + 1) * N]``."""
-    n, ring, dev = dg.n, dg.ring_size, dg.device
+    ring, dev = dg.ring_size, dg.device
+    n = replicas * dg.n
     b = t1 - t0
     ticks = torch.arange(t0, t1, dtype=torch.int64, device=dev)[:, None, None]
     rows = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
+    node, degree = rows, dg.degree[None, :, None]
+    if replicas > 1:
+        node = rows % dg.n
+        degree = dg.degree[node]
     if override is not None:
-        partners = override[t0:t1].reshape(b, n, -1)
+        node_partners = partners = override[t0:t1].reshape(b, n, -1)
         slot = torch.remainder(ticks - 1, ring)
     else:
-        k = pick_from_key(key, ticks, dg.degree[None, :, None])
-        partners = dg.ell_idx[rows, k]
+        k = pick_from_key(key, ticks, degree)
+        node_partners = partners = dg.ell_idx[node, k]
+        if replicas > 1:
+            partners = partners + (rows - node)  # the partner's stacked row
         if dg.uniform_delay is not None:
             slot = torch.remainder(ticks - dg.uniform_delay, ring)
         else:
-            slot = torch.remainder(ticks - dg.ell_delay[rows, k], ring)
+            slot = torch.remainder(ticks - dg.ell_delay[node, k], ring)
     draw = dict(partners=partners, up=None)
     draw["src"] = (slot * n + rows).expand(partners.shape).to(torch.int32).contiguous()
-    attempted = (dg.degree > 0)[None, :, None]  # a degree-0 row never exchanges
+    attempted = degree > 0  # a degree-0 row never exchanges
     if churn is not None:
         down_start, down_end = churn
         up = ~((down_start <= ticks) & (ticks < down_end)).any(dim=-1)  # (B, N)
@@ -178,7 +196,7 @@ def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str,
         served = slot * n + partners
         pull_ok = attempted
         if loss is not None:
-            pull_ok = attempted & ~drop_mask_torch(partners, rows, ticks, *loss)
+            pull_ok = attempted & ~drop_mask_torch(node_partners, node, ticks, *loss)
         draw["pull_row"] = torch.where(pull_ok, served, -1).to(torch.int32).reshape(b, n)
         if mode == "pull" or coins:
             draw["served"] = served.to(torch.int32)
@@ -187,7 +205,7 @@ def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str,
     if mode != "pull":
         push_ok = attempted
         if loss is not None:
-            push_ok = attempted & ~drop_mask_torch(rows, partners, ticks, *loss)
+            push_ok = attempted & ~drop_mask_torch(node, node_partners, ticks, *loss)
         draw["plan"] = _push_plan(partners, draw["src"], push_ok, n, ring)
         if coins:
             draw["push_ok"] = push_ok
@@ -223,17 +241,21 @@ def _check_ring_slots(dg: DeviceGraph, override) -> None:
         raise ValueError(f"delays [{lo}, {hi}] do not fit a ring of {dg.ring_size} slots")
 
 
-def _gen_events(origins: np.ndarray, gen_ticks: np.ndarray, horizon: int, w: int, dev):
+def _gen_events(origins: np.ndarray, gen_ticks: np.ndarray, horizon: int, w: int, dev,
+                chunk_size: int | None = None):
     """A chunk's generation events that fire before ``horizon``, sorted by
     tick: each event's bitmask word (``origin * W + slot // 32``), its bit
     as the int32 pattern, and its origin, on the device; and for each
-    tick with events, its (start, end) range."""
+    tick with events, its (start, end) range. A campaign batch passes its
+    replicas' events stacked, ``origins`` as rows r*N + origin, event i
+    holding share slot ``i % chunk_size``."""
     live = np.flatnonzero(gen_ticks < horizon)
-    order = live[np.argsort(gen_ticks[live], kind="stable")]  # the share slots
+    order = live[np.argsort(gen_ticks[live], kind="stable")]  # the events
+    share = order if chunk_size is None else order % chunk_size  # their slots
     ticks = gen_ticks[order]
     org = origins[order].astype(np.int64)
-    word = org * w + order // 32
-    bit = (np.uint32(1) << (order % 32).astype(np.uint32)).view(np.int32)
+    word = org * w + share // 32
+    bit = (np.uint32(1) << (share % 32).astype(np.uint32)).view(np.int32)
     spans = {}
     for t in np.unique(ticks):
         spans[int(t)] = (int(np.searchsorted(ticks, t)),
@@ -257,14 +279,21 @@ def _run_chunk(
     n_cov: int | None,
     plain: bool,
     rings: tuple | None = None,
+    replicas: int = 1,
 ):
     """``horizon`` rounds of one share chunk from t = 0 (the JAX package's
     ``_pushpull_scan`` and ``_pushk_scan``). A node makes c exchanges a
     round: c = 1 for push-pull and pull, the fanout for fanout push.
-    Returns (received int32, sent int64, coverage (horizon, n_cov) int32
-    or None, the (D, N, W) ring as the last round left it), on the
+    Returns (received int32, sent int64, coverage (B, horizon, n_cov)
+    int32 or None, the (D, N, W) ring as the last round left it), on the
     device. ``rings`` (telemetry on): a fresh (metric ring, digest ring)
     pair whose row t each round writes (`_RoundTelemetry`).
+
+    ``replicas`` B > 1 runs a campaign batch (JAX ``_run_pushpull_replicas``
+    / ``_run_pushk_replicas``): ``origins`` and ``gen_ticks`` hold the B
+    replicas' events stacked (rows r*N + origin), ``key`` is (B*N, c),
+    ``churn`` (B*N, K), and every N above is B*N; the counters come back
+    (B*N,). B = 1 is the solo chunk.
 
     For push-pull and pull the ring holds ``seen`` itself: round t reads
     its ``seen`` from slot t-1 and writes the new one into slot t, so no
@@ -274,10 +303,12 @@ def _run_chunk(
     ``seen`` popcount less the generations that fired at it — the sum of
     the rounds' ``popcount(incoming & ~seen)`` (below 2^31: at most the
     chunk's shares)."""
-    n, dev = dg.n, dg.device
+    n, dev = replicas * dg.n, dg.device
     w = bitmask.num_words(chunk_size)
     ring = dg.ring_size
-    words, bits, gen_org, spans = _gen_events(origins, gen_ticks, horizon, w, dev)
+    words, bits, gen_org, spans = _gen_events(
+        origins, gen_ticks, horizon, w, dev, chunk_size if replicas > 1 else None
+    )
     hist = torch.zeros((ring, n, w), dtype=torch.int32, device=dev)
     hcnt = torch.zeros((ring, n), dtype=torch.int32, device=dev)  # rows' popcounts
     flat, flat_cnt = hist.view(ring * n, w), hcnt.view(-1)
@@ -288,7 +319,7 @@ def _run_chunk(
     sent = torch.zeros((n,), dtype=torch.int64, device=dev)
     cov = None
     if n_cov is not None:
-        cov = torch.zeros((horizon, n_cov), dtype=torch.int32, device=dev)
+        cov = torch.zeros((replicas, horizon, n_cov), dtype=torch.int32, device=dev)
     cov_w = bitmask.num_words(n_cov or 0)
     tel = None
     if rings is not None:
@@ -300,7 +331,7 @@ def _run_chunk(
         if i == 0:
             draw = _draw_rounds(dg, key, override, churn, loss, t,
                                 min(t + PICK_BLOCK, horizon), mode,
-                                coins=tel is not None)
+                                coins=tel is not None, replicas=replicas)
         partners, attempted = draw["partners"][i], draw["attempted"][i]
         offsets = entries = None
         if "plan" in draw:
@@ -346,7 +377,9 @@ def _run_chunk(
         if tel is not None:
             tel.round(t, draw, i, fired, or_work, seen, sent)
         if cov is not None:
-            cov[t] = bitmask.coverage_per_slot(seen[:, :cov_w], n_cov, plain=plain)
+            cov[:, t] = bitmask.coverage_per_slot(
+                seen.view(replicas, dg.n, w)[:, :, :cov_w], n_cov, plain=plain
+            )
     final = bitmask.popcount_rows(seen, plain=plain) if mode == "pushk" else hcnt[
         (horizon - 1) % ring]
     return final - fired, sent, cov, hist
@@ -505,7 +538,7 @@ def _run_partnered_sim(
             received += r.cpu().numpy().astype(np.int64)
             sent += s.cpu().numpy()
             if record_coverage:
-                cov_chunks.append(cov.cpu().numpy())
+                cov_chunks.append(cov[0].cpu().numpy())
         digest_head = None
         if tel:
             met, dig = rings

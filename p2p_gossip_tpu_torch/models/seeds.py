@@ -6,6 +6,9 @@ coins and churn intervals from the same ``--seed``.
 
 - link-loss erasure coins:   ``seed + LOSS_SEED_OFFSET``  (104729)
 - churn downtime sampling:   ``seed + CHURN_SEED_OFFSET`` (7919)
+- replica r of a campaign:   replica seed ``seed + r``, its loss stream
+  ``loss_stream_seed(seed + r)``: a solo run with the replica's seeds
+  reproduces the replica.
 """
 
 from __future__ import annotations
@@ -25,3 +28,9 @@ def loss_stream_seed(seed) -> int:
 def churn_stream_seed(seed) -> int:
     """The churn-sampling stream seed derived from a run seed."""
     return int(seed) + CHURN_SEED_OFFSET
+
+
+def replica_loss_seeds(seeds) -> list[int]:
+    """Per-replica loss stream seeds for a campaign's replica seed list:
+    ``loss_stream_seed(s)`` for each replica seed ``s``."""
+    return [loss_stream_seed(s) for s in seeds]

@@ -36,7 +36,8 @@ def coverage_per_slot(
     words: torch.Tensor, n_slots: int, *, plain: bool = False
 ) -> torch.Tensor:
     """Per-share coverage: (N, W) bitmask -> (n_slots,) int32 node counts,
-    the time-to-99%-coverage metric's per-tick reduction."""
+    the time-to-99%-coverage metric's per-tick reduction; B replicas'
+    (B, N, W) -> (B, n_slots)."""
     return kernels.coverage_per_slot(words, n_slots, plain=plain)
 
 

@@ -32,18 +32,18 @@ _LL = ctypes.c_longlong
 _U32 = ctypes.c_uint32  # values up to 0xFFFFFFFF (c_int raises from 2^31)
 _SIGNATURES = {
     # hist, occ, n_src, w, ring, tick, uniform_slot, idx, mask, delay,
-    # n_rows, cap, rows, n_out, up, loss_on, loss_seed, loss_limit, out,
-    # stream
+    # n_rows, cap, rows, n_out, up, loss_on, loss_seed, loss_limit,
+    # loss_seeds, replicas, out, stream
     "gossip_gather_or": (
         _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I,
-        _P, _I, _U32, _U32, _P, _P,
+        _P, _I, _U32, _U32, _P, _I, _P, _P,
     ),
     # words, n, w, ld, out, stream
     "gossip_sector_occupancy": (_P, _I, _I, _LL, _P, _P),
     # words, n, w, ld, out, stream
     "gossip_popcount_rows": (_P, _I, _I, _LL, _P, _P),
-    # words, n, w, ld, n_slots, out, stream
-    "gossip_coverage_per_slot": (_P, _I, _I, _LL, _I, _P, _P),
+    # words, n, w, ld, replicas, rep_ld, n_slots, out, stream
+    "gossip_coverage_per_slot": (_P, _I, _I, _LL, _I, _LL, _I, _P, _P),
     # src, n_src, w, offsets, entries, pull_row, base, and_not, n_out, out,
     # stream
     "gossip_scatter_or": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),

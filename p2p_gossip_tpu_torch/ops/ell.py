@@ -16,7 +16,10 @@ takes the two options the kernel applies: ``loss``, the link-loss model's
 edge by edge before the OR (dst is the output row's node id: its index in
 a full-width ELL, its bucket's ``rows`` entry in a bucketed one), and
 ``up``, the churn model's (N_out,) bool destination mask (a down node's
-arrivals are zero).
+arrivals are zero). ``replicas`` B stacks B rings along the rows, each
+variant still one launch per ELL (`kernels.gather_or`): the ring is (D,
+B*N_src, W), ``occ`` (D, B*N_src), ``up`` (B*N_out,), the arrivals (B*N_out,
+W), and the loss seed may be a (B,) int32 tensor, one seed a replica.
 
 The host planners (`bucket_rows_by_count`, `build_degree_buckets`,
 `detect_uniform_delay`) are this package's own copies of the JAX
@@ -59,19 +62,20 @@ def gather_or_frontier(
     occ: torch.Tensor | None = None,  # (N_src,) int32 sector occupancy
     loss: tuple | None = None,
     up: torch.Tensor | None = None,
+    replicas: int = 1,
     plain: bool = False,
 ) -> torch.Tensor:
     """OR-gather arrivals from a single source frontier: (N_out, W).
     ``tick`` is the arrival tick (the loss coin's input), whichever past
     slice ``frontier`` is."""
     out = torch.empty(
-        (ell_idx.shape[0], frontier.shape[-1]), dtype=torch.int32,
+        (replicas * ell_idx.shape[0], frontier.shape[-1]), dtype=torch.int32,
         device=frontier.device,
     )
     return kernels.gather_or(
         frontier.unsqueeze(0), tick, ell_idx, ell_mask, uniform_slot=0,
         occ=None if occ is None else occ.unsqueeze(0), loss=loss, up=up,
-        out=out, plain=plain,
+        out=out, replicas=replicas, plain=plain,
     )
 
 
@@ -86,6 +90,7 @@ def propagate_uniform(
     occ: torch.Tensor | None = None,
     loss: tuple | None = None,
     up: torch.Tensor | None = None,
+    replicas: int = 1,
     plain: bool = False,
 ) -> torch.Tensor:
     """Uniform per-edge delay: the delay-line slot is one scalar per tick,
@@ -95,7 +100,8 @@ def propagate_uniform(
     slot = (tick - uniform_delay) % ring_size
     return gather_or_frontier(
         hist[slot], tick, ell_idx, ell_mask,
-        occ=None if occ is None else occ[slot], loss=loss, up=up, plain=plain,
+        occ=None if occ is None else occ[slot], loss=loss, up=up,
+        replicas=replicas, plain=plain,
     )
 
 
@@ -110,17 +116,19 @@ def propagate(
     occ: torch.Tensor | None = None,
     loss: tuple | None = None,
     up: torch.Tensor | None = None,
+    replicas: int = 1,
     plain: bool = False,
 ) -> torch.Tensor:
     """Per-edge delays: arrivals (N_out, W) int32."""
     if hist.shape[0] != ring_size:
         raise ValueError("hist ring does not match ring_size")
     out = torch.empty(
-        (ell_idx.shape[0], hist.shape[-1]), dtype=torch.int32, device=hist.device
+        (replicas * ell_idx.shape[0], hist.shape[-1]), dtype=torch.int32,
+        device=hist.device,
     )
     return kernels.gather_or(
         hist, tick, ell_idx, ell_mask, ell_delay, occ=occ, loss=loss, up=up,
-        out=out, plain=plain,
+        out=out, replicas=replicas, plain=plain,
     )
 
 
@@ -135,6 +143,7 @@ def propagate_bucketed(
     occ: torch.Tensor | None = None,
     loss: tuple | None = None,
     up: torch.Tensor | None = None,
+    replicas: int = 1,
     plain: bool = False,
 ) -> torch.Tensor:
     """Gather-OR over degree buckets (see `build_degree_buckets`),
@@ -144,7 +153,7 @@ def propagate_bucketed(
     if hist.shape[0] != ring_size:
         raise ValueError("hist ring does not match ring_size")
     arrivals = torch.zeros(
-        (n_out, hist.shape[-1]), dtype=torch.int32, device=hist.device
+        (replicas * n_out, hist.shape[-1]), dtype=torch.int32, device=hist.device
     )
     uniform_slot = (
         None if uniform_delay is None else (tick - uniform_delay) % ring_size
@@ -154,7 +163,7 @@ def propagate_bucketed(
             hist, tick, b_idx, b_mask,
             None if uniform_delay is not None else b_delay,
             uniform_slot=uniform_slot, rows=rows, occ=occ, loss=loss, up=up,
-            out=arrivals, plain=plain,
+            out=arrivals, replicas=replicas, plain=plain,
         )
     return arrivals
 

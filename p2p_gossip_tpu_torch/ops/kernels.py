@@ -122,34 +122,38 @@ def popcount_rows(
 # --- coverage_per_slot ------------------------------------------------------
 
 def coverage_per_slot_plain(words: torch.Tensor, n_slots: int) -> torch.Tensor:
-    """32 per-bit column sums: (N, W) int32 -> (n_slots,) int32, slot s =
-    word s // 32, bit s % 32."""
+    """32 per-bit column sums: (..., N, W) int32 -> (..., n_slots) int32,
+    slot s = word s // 32, bit s % 32."""
     w = words.shape[-1]
     counts = torch.stack(
-        [((words >> b) & 1).sum(dim=0, dtype=torch.int32) for b in range(WORD_BITS)],
-        dim=1,
-    )  # (W, 32)
-    return counts.reshape(w * WORD_BITS)[:n_slots].contiguous()
+        [((words >> b) & 1).sum(dim=-2, dtype=torch.int32) for b in range(WORD_BITS)],
+        dim=-1,
+    )  # (..., W, 32)
+    return counts.reshape(*words.shape[:-2], w * WORD_BITS)[..., :n_slots].contiguous()
 
 
 def coverage_per_slot(
     words: torch.Tensor, n_slots: int, *, plain: bool = False
 ) -> torch.Tensor:
-    """Per-share coverage counts: (N, W) int32 bitmask -> (n_slots,) int32.
-    ``words`` may be a column slice (row stride > W) of a wider bitmask."""
+    """Per-share coverage counts: (N, W) int32 bitmask -> (n_slots,) int32,
+    or B replicas' (B, N, W) -> (B, n_slots) in one launch. ``words`` may
+    be a column slice (row stride > W) of a wider bitmask, and the
+    replicas any view whose rows are contiguous."""
     _require(0 <= n_slots <= words.shape[-1] * WORD_BITS, "n_slots out of range")
     if not _use_kernel(words, plain):
         return coverage_per_slot_plain(words, n_slots)
-    _int32_matrix(words, "words")
-    n, w = words.shape
-    out = torch.zeros((n_slots,), dtype=torch.int32, device=words.device)
-    if n and w and n_slots:
+    _require(words.dim() in (2, 3), "words must be (N, W) or (B, N, W)")
+    stacked = words if words.dim() == 3 else words.unsqueeze(0)
+    _int32_matrix(stacked[0], "words")
+    b, n, w = stacked.shape
+    out = torch.zeros((b, n_slots), dtype=torch.int32, device=words.device)
+    if b and n and w and n_slots:
         _launch(
             "coverage_per_slot", _lib().gossip_coverage_per_slot,
-            words.data_ptr(), n, w, words.stride(0), n_slots,
-            out.data_ptr(), _stream(words.device),
+            stacked.data_ptr(), n, w, stacked.stride(1), b, stacked.stride(0),
+            n_slots, out.data_ptr(), _stream(words.device),
         )
-    return out
+    return out if words.dim() == 3 else out[0]
 
 
 # --- sector_occupancy -------------------------------------------------------
@@ -209,6 +213,7 @@ def sector_occupancy(
 
 def gather_or_plain(
     hist, tick, idx, mask, delay, uniform_slot, rows, out, occ=None, loss=None, up=None,
+    replicas: int = 1,
 ):
     """A masked ``|=`` over the degree columns, then a write into node
     order that drops rows outside ``[0, len(out))``. The mask (with the
@@ -216,7 +221,22 @@ def gather_or_plain(
     (kept) or zero words, ``occ`` (when given) as an AND with each gathered
     row's expanded sector mask — exactly what the kernel reads, so a wrong
     occupancy shows here too — and ``up`` as an AND of each destination
-    row with all-ones (up) or zero (down)."""
+    row with all-ones (up) or zero (down). ``replicas`` stacked rings run
+    one after the other, each on its own rows and its own loss seed."""
+    if replicas > 1:
+        d, n_src, w = hist.shape[0], hist.shape[1] // replicas, hist.shape[2]
+        n_out = out.shape[0] // replicas
+        for r in range(replicas):
+            src, dst = slice(r * n_src, (r + 1) * n_src), slice(r * n_out, (r + 1) * n_out)
+            r_loss = loss
+            if loss is not None and isinstance(loss[1], torch.Tensor):
+                r_loss = (loss[0], loss[1][r])
+            gather_or_plain(
+                hist[:, src], tick, idx, mask, delay, uniform_slot, rows, out[dst],
+                None if occ is None else occ[:, src], r_loss,
+                None if up is None else up[dst],
+            )
+        return out
     d, n_src, w = hist.shape
     n_rows = idx.shape[0]
     dst = (torch.arange(n_rows, device=hist.device) if rows is None
@@ -263,9 +283,10 @@ def gather_or(
     uniform_slot: int | None = None,
     rows: torch.Tensor | None = None,
     occ: torch.Tensor | None = None,
-    loss: tuple[int, int] | None = None,
+    loss: tuple | None = None,
     up: torch.Tensor | None = None,
     out: torch.Tensor,
+    replicas: int = 1,
     plain: bool = False,
 ) -> torch.Tensor:
     """ELL gather-OR over a frontier-history ring, written into ``out``:
@@ -284,25 +305,45 @@ def gather_or(
     link-loss model's (threshold, seed) pair (`models.linkloss`; ``tick``
     is the arrival tick the coin hashes), None or threshold 0 for no loss.
     ``up`` (len(out),) bool is the churn model's up mask of destinations;
-    a down destination gets a zero row. Returns ``out``."""
+    a down destination gets a zero row.
+
+    ``replicas`` B > 1 stacks B independent rings along the rows (a
+    Monte-Carlo campaign): ``hist`` (D, B*N_src, W), ``occ`` (D, B*N_src),
+    ``out`` (B*N_out, W) and ``up`` (B*N_out,); replica r reads rows r*N_src
+    + idx, writes rows r*N_out + dst, and its coin hashes the node ids idx
+    and dst. The ELL (``idx``, ``mask``, ``delay``, ``rows``) is shared.
+    The loss seed is an int for every replica, or a (B,) int32 tensor
+    holding one uint32 seed a replica on ``hist``'s device. One launch
+    covers the B replicas. Returns ``out``."""
     _require(hist.dim() == 3, "hist must be (D, N, W)")
-    d, n_src, w = hist.shape
+    _require(replicas >= 1 and hist.shape[1] % replicas == 0
+             and out.shape[0] % replicas == 0,
+             "hist and out rows must split into the replicas")
+    _require(max(hist.shape[1], out.shape[0]) < 2**31, "more than 2^31 - 1 rows")
+    d, n_src, w = hist.shape[0], hist.shape[1] // replicas, hist.shape[2]
+    n_out = out.shape[0] // replicas
     _require(idx.shape == mask.shape, "idx and mask shapes differ")
     _require(delay is None or delay.shape == idx.shape, "delay shape differs")
     _require((delay is None) != (uniform_slot is None),
              "pass exactly one of delay and uniform_slot")
     _require(uniform_slot is None or 0 <= uniform_slot < d, "uniform_slot out of range")
     _require(out.dim() == 2 and out.shape[1] == w, "out must be (N_out, W)")
-    _require(rows is not None or idx.shape[0] == out.shape[0],
+    _require(rows is not None or idx.shape[0] == n_out,
              "identity rows need one ELL row per output row")
-    _require(occ is None or occ.shape == (d, n_src), "occ must be (D, N_src)")
+    _require(occ is None or occ.shape == hist.shape[:2], "occ must be (D, N_src)")
     _require(up is None or (up.shape == (out.shape[0],) and up.dtype == torch.bool),
              "up must be (N_out,) bool")
     if loss is not None and loss[0] <= 0:
         loss = None  # threshold 0: the coin never drops
+    seeds = None
+    if loss is not None and isinstance(loss[1], torch.Tensor):
+        seeds = loss[1]
+        _require(seeds.shape == (replicas,) and seeds.dtype == torch.int32,
+                 "per-replica loss seeds must be (B,) int32")
     if not _use_kernel(hist, plain):
         return gather_or_plain(
-            hist, tick, idx, mask, delay, uniform_slot, rows, out, occ, loss, up
+            hist, tick, idx, mask, delay, uniform_slot, rows, out, occ, loss, up,
+            replicas,
         )
     tensors = [("hist", hist, torch.int32), ("idx", idx, torch.int32),
                ("mask", mask, torch.bool), ("out", out, torch.int32)]
@@ -315,6 +356,8 @@ def gather_or(
         tensors.append(("occ", occ, torch.int32))
     if up is not None:
         tensors.append(("up", up, torch.bool))
+    if seeds is not None:
+        tensors.append(("loss seeds", seeds, torch.int32))
     for name, t, dtype in tensors:
         _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
         _require(t.device == hist.device, f"{name} is on {t.device}, not {hist.device}")
@@ -322,7 +365,8 @@ def gather_or(
     loss_seed = loss_limit = 0
     if loss is not None:
         threshold, seed = loss
-        loss_seed = int(seed) & 0xFFFFFFFF
+        if seeds is None:
+            loss_seed = int(seed) & 0xFFFFFFFF
         loss_limit = min(int(threshold), 1 << 32) - 1
     n_rows, cap = idx.shape
     if n_rows and w:
@@ -334,8 +378,9 @@ def gather_or(
             idx.data_ptr(), mask.data_ptr(),
             None if delay is None else delay.data_ptr(),
             n_rows, cap, None if rows is None else rows.data_ptr(),
-            out.shape[0], None if up is None else up.data_ptr(),
+            n_out, None if up is None else up.data_ptr(),
             int(loss is not None), loss_seed, loss_limit,
+            None if seeds is None else seeds.data_ptr(), replicas,
             out.data_ptr(), _stream(hist.device),
         )
     return out

@@ -6,16 +6,19 @@ the JAX package CLI's single-device flags with that CLI's names, defaults,
 validation and messages: topologies, generation models, delay models,
 churn, link loss, the connect window, checkpoints, the flood-coverage
 experiment, the random-partner protocols (``--protocol pushpull|pull|
-pushk``), the ``--json`` line, the ``--anim`` NetAnim file, and the
+pushk``), the ``--json`` line, the ``--anim`` NetAnim file, the
 ``--telemetry`` stream and ``--heartbeat`` file (`p2p_gossip_tpu_torch.
-telemetry`). One tick is one link latency, and every random model derives
-from ``--seed`` as in the JAX package, so the same flags print the same
-report (and, with ``--telemetry``, the same ring and digest events).
+telemetry`), Monte-Carlo campaigns (``--replicas R``: replica r runs with
+seed ``--seed + r``) and grid sweeps (``--sweep SPEC.json``,
+`p2p_gossip_tpu_torch.batch`). One tick is one link latency, and every
+random model derives from ``--seed`` as in the JAX package, so the same
+flags print the same report (and, with ``--telemetry``, the same ring and
+digest events). ``--degreeBlock`` is accepted and checked, and changes
+nothing: the CUDA gather has no degree block.
 
 Left for later: ``--backend`` (the JAX CLI's event, native and sharded
-engines), the mesh flags, ``--replicas``, ``--sweep``, ``--log``,
-``--graphFile``, ``--graphBuilder``, ``--refParallelLinks``,
-``--linkQueueing``, ``--animMessages`` and ``--degreeBlock``."""
+engines), the mesh flags, ``--log``, ``--graphFile``, ``--graphBuilder``,
+``--refParallelLinks``, ``--linkQueueing`` and ``--animMessages``."""
 
 from __future__ import annotations
 
@@ -132,6 +135,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--chunkSize", type=int, default=4096, help="Shares per device pass"
     )
     p.add_argument(
+        "--degreeBlock", type=int, default=0,
+        help="The JAX engine's degree-bucket block (0 = its default); "
+        "accepted for the same command lines, unused: the CUDA gather has "
+        "no degree block",
+    )
+    p.add_argument(
         "--perNodeStats", action="store_true", default=None,
         help="Print per-node lines (default: on for N <= 1000)",
     )
@@ -149,6 +158,22 @@ def build_parser() -> argparse.ArgumentParser:
         help="Coverage-time experiment instead of the gossip run: flood S "
         "shares from random origins at t=0 and report per-share "
         "time-to-99%% coverage",
+    )
+    p.add_argument(
+        "--replicas", type=int, default=1, metavar="R",
+        help="Monte-Carlo campaign: run R seed-ensemble replicas in batches "
+        "through the same kernels (p2p_gossip_tpu_torch.batch) and report "
+        "ensemble statistics (ttc percentiles, counter CIs) instead of one "
+        "run's numbers. Replica r uses seed (--seed + r), including its own "
+        "link-loss stream under --lossProb; composes with --floodCoverage, "
+        "--protocol and --checkpoint",
+    )
+    p.add_argument(
+        "--sweep", type=str, default="", metavar="SPEC.json",
+        help="Run a campaign sweep from a JSON grid spec (axes over "
+        "protocol/p/lossProb/churnProb/fanout x seeds), emitting one JSON "
+        "line per cell plus a campaign report on stderr. Ignores the "
+        "single-run flags; see examples/sweep_small.json",
     )
     p.add_argument(
         "--coverageFraction", type=float, default=0.99,
@@ -355,6 +380,149 @@ def _run_flood_coverage_cli(args, g, horizon, delays, churn, loss) -> int:
     return 0
 
 
+def _run_campaign_cli(args, g, horizon, delays, loss) -> int:
+    """``--replicas R``: a seed-ensemble campaign. Replica r's schedule,
+    churn and link-loss stream derive from seed (--seed + r) with the solo
+    CLI's stream offsets (`models.seeds`), so any replica is the solo run
+    ``--seed (--seed + r)``. Prints the JAX CLI's ensemble report."""
+    from p2p_gossip_tpu_torch import telemetry
+    from p2p_gossip_tpu_torch.batch.campaign import (
+        flood_replicas,
+        gossip_replicas,
+        run_coverage_campaign,
+        run_gossip_campaign,
+        run_protocol_campaign,
+    )
+    from p2p_gossip_tpu_torch.batch.stats import ensemble_summary
+    from p2p_gossip_tpu_torch.models.protocols import PullCreditBoundError
+    from p2p_gossip_tpu_torch.models.seeds import replica_loss_seeds
+
+    seeds = [args.seed + r for r in range(args.replicas)]
+    loss_seeds = replica_loss_seeds(seeds) if loss is not None else None
+    run_kw = dict(
+        checkpoint_path=args.checkpoint or None,
+        checkpoint_every=args.checkpointEvery,
+        device=args.device,
+    )
+    churn_kw = dict(
+        churn_prob=args.churnProb,
+        mean_down_ticks=max(args.churnDowntime / (args.Latency / 1000.0), 1.0),
+        max_outages=args.churnOutages,
+    )
+    with telemetry.span("replicas", count=args.replicas):
+        if args.floodCoverage:
+            replicas = flood_replicas(g, args.floodCoverage, seeds, horizon, **churn_kw)
+        else:
+            replicas = gossip_replicas(
+                g, args.simTime, args.Latency / 1000.0, seeds, horizon,
+                gen_lo=args.genLo, gen_hi=args.genHi, **churn_kw,
+            )
+    try:
+        with telemetry.span("simulate", device=args.device, protocol=args.protocol,
+                            experiment="campaign"):
+            if args.protocol in PARTNERED:
+                result = run_protocol_campaign(
+                    g, replicas, horizon, protocol=args.protocol,
+                    fanout=args.fanout, ell_delays=delays, loss=loss,
+                    loss_seeds=loss_seeds,
+                    record_coverage=bool(args.floodCoverage), **run_kw,
+                )
+            elif args.floodCoverage:
+                result = run_coverage_campaign(
+                    g, replicas, horizon, ell_delays=delays, loss=loss,
+                    loss_seeds=loss_seeds, **run_kw,
+                )
+            else:
+                result = run_gossip_campaign(
+                    g, replicas, horizon, ell_delays=delays, loss=loss,
+                    loss_seeds=loss_seeds, chunk_size=args.chunkSize, **run_kw,
+                )
+    except (PullCreditBoundError, NotImplementedError) as e:
+        return _error(str(e))
+    summary = ensemble_summary(result, args.coverageFraction)
+
+    kind = f"{args.floodCoverage} flood shares" if args.floodCoverage else "gossip schedule"
+    print(f"=== Campaign: {args.replicas} replicas x {kind}, {g.n} nodes ===")
+    ttc = summary.get("ttc")
+    if ttc is not None:
+        ticks = ttc.get("ticks")
+        if ticks:
+            print(
+                f"Time to {ttc['fraction']:.0%} coverage: mean "
+                f"{ticks['mean']:.1f} / p50 {ticks['p50']:g} / p95 "
+                f"{ticks['p95']:g} / p99 {ticks['p99']:g} ticks "
+                f"(p99 {ticks['p99'] * args.Latency:g} ms); "
+                f"{ttc['reached'] * 100:.1f}% of replica-shares reached"
+            )
+        else:
+            print(
+                f"Time to {ttc['fraction']:.0%} coverage: no replica-share "
+                f"reached within {horizon} ticks"
+            )
+    for name in ("processed", "received", "sent"):
+        c = summary["counters"][name]
+        ci = c["ci95"]
+        print(
+            f"Total {name} per replica: mean {c['mean']:.1f}"
+            + (f" (95% CI {ci[0]:.1f}-{ci[1]:.1f})" if ci else "")
+        )
+    red = summary["redundancy"]["sends_per_delivery"]
+    if red:
+        print(
+            f"Redundancy: {red['mean']:.2f} sends per delivery "
+            f"(p95 {red['p95']:.2f} across replicas)"
+        )
+    updates = summary["counters"]["processed"]["mean"] * args.replicas
+    print(
+        f"Campaign wall {result.wall_s:.3f}s (batch {result.batch_size}, "
+        f"device {args.device}; {updates / max(result.wall_s, 1e-9):.3g} "
+        "node-updates/s)"
+    )
+    if args.json:
+        print(json.dumps({
+            "config": {
+                "numNodes": g.n,
+                "edges": int(g.num_edges),
+                "protocol": args.protocol,
+                "device": args.device,
+                "replicas": args.replicas,
+                "floodCoverage": args.floodCoverage,
+                "lossProb": args.lossProb,
+                "churnProb": args.churnProb,
+                "Latency": args.Latency,
+                "seed": args.seed,
+            },
+            "summary": summary,
+        }))
+    return 0
+
+
+def _run_sweep_cli(args) -> int:
+    """``--sweep SPEC.json``: one JSON line per grid cell on stdout, the
+    campaign report on stderr (the JAX CLI's sweep branch)."""
+    import os
+
+    from p2p_gossip_tpu_torch.batch.stats import format_campaign_report
+    from p2p_gossip_tpu_torch.batch.sweep import run_sweep
+
+    if not os.path.exists(args.sweep):
+        return _error(f"--sweep {args.sweep} not found")
+    with open(args.sweep, encoding="utf-8") as f:
+        try:
+            spec = json.load(f)
+        except json.JSONDecodeError as e:
+            return _error(f"--sweep {args.sweep}: {e}")
+    try:
+        records = run_sweep(
+            spec, emit=lambda rec: print(json.dumps(rec), flush=True),
+            device=args.device,
+        )
+    except ValueError as e:
+        return _error(f"--sweep: {e}")
+    print(format_campaign_report(records), end="", file=sys.stderr)
+    return 0
+
+
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from p2p_gossip_tpu_torch import telemetry
@@ -387,6 +555,8 @@ def run(argv=None) -> int:
         telemetry.configure_heartbeat(args.heartbeat)  # wins over P2P_HEARTBEAT
     tick_dt = args.Latency / 1000.0
     horizon = int(round(args.simTime / tick_dt))
+    if args.sweep:
+        return _run_sweep_cli(args)
     with telemetry.span("build_graph", topology=args.topology):
         g = _build_graph(args)
     if isinstance(g, str):
@@ -421,6 +591,8 @@ def run(argv=None) -> int:
             file=sys.stderr,
         )
 
+    if args.degreeBlock < 0:
+        return _error("--degreeBlock must be >= 0")
     loss = None
     if not 0.0 <= args.lossProb <= 1.0:
         return _error(f"--lossProb must be in [0, 1], got {args.lossProb:g}")
@@ -469,6 +641,17 @@ def run(argv=None) -> int:
             "--floodCoverage (the warm-up window is a flood-gossip "
             "reference semantic)"
         )
+    if args.replicas < 1:
+        return _error(f"--replicas must be >= 1, got {args.replicas}")
+    if args.replicas > 1 and args.anim:
+        return _error(
+            "--replicas does not support --anim (per-replica artifacts are "
+            "a sweep-runner concern)"
+        )
+    if args.replicas > 1 and not args.floodCoverage and args.genModel != "uniform":
+        return _error(
+            "--replicas without --floodCoverage supports --genModel uniform only"
+        )
     if args.floodCoverage:
         if args.floodCoverage < 0:
             return _error(
@@ -479,6 +662,8 @@ def run(argv=None) -> int:
                 "--coverageFraction must be in (0, 1], got "
                 f"{args.coverageFraction:g}"
             )
+        if args.replicas > 1:
+            return _run_campaign_cli(args, g, horizon, delays, loss)
         return _run_flood_coverage_cli(args, g, horizon, delays, churn, loss)
     if args.checkpointEvery < 1:
         return _error("--checkpointEvery must be >= 1")
@@ -486,6 +671,8 @@ def run(argv=None) -> int:
         err = _pull_credit_error(g, args.chunkSize, sched)
         if err is not None:
             return _error(err)
+    if args.replicas > 1:
+        return _run_campaign_cli(args, g, horizon, delays, loss)
 
     t0 = time.perf_counter()
     ckpt = dict(

@@ -320,3 +320,141 @@ def test_heartbeat_flag_writes_its_file(tmp_path, capsys, clean_telemetry):
     assert data["kernel"] == "engine.sync.run_sync_sim" and data["chunks_total"] == 1
     assert "digest_head" not in data  # telemetry off: no digests
     assert list(tmp_path.iterdir()) == [hb]
+
+
+# --- --replicas, --sweep and --degreeBlock -------------------------------------------
+
+def _assert_same_campaign(port: str, want: str) -> None:
+    """A campaign report: the start line's backend/device suffix and the
+    ``Campaign wall`` line may differ; a trailing --json line is compared
+    as data, its engine key and wall time set aside."""
+    p, w = port.splitlines(), want.splitlines()
+    assert len(p) == len(w), (port, want)
+    if p[-1].startswith("{"):
+        got, exp = json.loads(p.pop()), json.loads(w.pop())
+        for rec in (got, exp):
+            rec["summary"].pop("wall_s")
+            assert rec["config"].pop("backend", None) or rec["config"].pop("device", None)
+        assert got == exp
+    def start(line):
+        return line.rsplit(", device=", 1)[0].rsplit(", backend=", 1)[0]
+
+    assert start(p[0]) == start(w[0])
+    (wall,) = [i for i, line in enumerate(w) if line.startswith("Campaign wall ")]
+    assert p[wall].startswith("Campaign wall ")
+    assert p[1:wall] + p[wall + 1:] == w[1:wall] + w[wall + 1:]
+    assert "=== Campaign: " in port
+
+
+CAMPAIGN_GOSSIP = ["--numNodes", "40", "--simTime", "0.5", "--genLo", "0.05",
+                   "--genHi", "0.1", "--replicas", "3"]
+
+
+@pytest.mark.parametrize("name,args", [
+    ("flood_coverage", ["--numNodes", "64", "--floodCoverage", "4", "--replicas", "4",
+                        "--simTime", "0.2"]),
+    ("coverage_options", ["--numNodes", "64", "--floodCoverage", "5", "--replicas", "3",
+                          "--simTime", "0.2", "--churnProb", "0.3", "--lossProb", "0.2",
+                          "--delayModel", "lognormal", "--coverageFraction", "0.9",
+                          "--degreeBlock", "16", "--json"]),
+    ("gossip", CAMPAIGN_GOSSIP + ["--chunkSize", "32", "--churnProb", "0.2",
+                                  "--lossProb", "0.1"]),
+    ("pushpull", PROTOCOL + ["--replicas", "3", "--protocol", "pushpull", "--lossProb", "0.1",
+                             "--delayModel", "lognormal", "--json"]),
+    ("pull_coverage", PROTOCOL + ["--replicas", "3", "--protocol", "pull",
+                                  "--floodCoverage", "6", "--churnProb", "0.2"]),
+    ("pushk", PROTOCOL + ["--replicas", "2", "--protocol", "pushk", "--fanout", "3",
+                          "--lossProb", "0.2", "--json"]),
+])
+def test_replicas_print_the_jax_campaign_report(name, args, capsys):
+    want = _run_in_process(jax_cli.run, args, capsys)
+    port = _run_in_process(cli.run, args + ["--device", "cpu"], capsys)
+    _assert_same_campaign(port, want)
+    if "--floodCoverage" in args:
+        assert "coverage: mean " in port
+
+
+def test_replicas_checkpoint_resumes(tmp_path, capsys):
+    """--replicas with --checkpoint: a second run resumes past the last
+    batch from the port's own file and prints the same report, and the
+    JAX CLI resumes the port's file."""
+    args = ["--numNodes", "64", "--floodCoverage", "4", "--replicas", "3", "--simTime",
+            "0.2", "--checkpoint", str(tmp_path / "campaign.npz")]
+    first = _run_in_process(cli.run, args + ["--device", "cpu"], capsys)
+    again = _run_in_process(cli.run, args + ["--device", "cpu"], capsys)
+    _assert_same_campaign(again, first)
+    resumed_by_jax = _run_in_process(jax_cli.run, args, capsys)
+    _assert_same_campaign(first, resumed_by_jax)
+
+
+def test_sweep_prints_the_jax_records(tmp_path, capsys):
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({
+        "numNodes": 40, "p": 0.15, "protocol": ["push", "pull"], "lossProb": [0.0, 0.2],
+        "replicas": 3, "shares": 3, "horizon": 20,
+    }))
+    assert jax_cli.run(["--sweep", str(spec)]) == 0
+    want = capsys.readouterr()
+    assert cli.run(["--sweep", str(spec), "--device", "cpu"]) == 0
+    got = capsys.readouterr()
+
+    def records(out):
+        recs = [json.loads(line) for line in out.splitlines()]
+        for rec in recs:
+            rec.pop("wall_s")
+            rec["summary"].pop("wall_s")
+        return recs
+
+    assert len(records(got.out)) == 4
+    assert records(got.out) == records(want.out)
+    assert got.err.endswith(want.err[want.err.index("=== Campaign Report ===\n"):])
+
+
+@pytest.mark.parametrize("args", [
+    ["--replicas", "0"],
+    ["--replicas", "2", "--anim", "x.xml"],
+    ["--replicas", "2", "--genModel", "poisson"],
+    ["--degreeBlock", "-1"],
+    ["--degreeBlock", "-3", "--replicas", "2", "--floodCoverage", "2"],
+    ["--sweep", "no-such-spec.json"],
+])
+def test_campaign_refusals_print_the_jax_error(args, capsys):
+    assert jax_cli.run(args) == 2
+    want = capsys.readouterr().err
+    assert cli.run(args + ["--device", "cpu"]) == 2
+    got = capsys.readouterr().err
+    assert got.startswith("error: ")
+    assert got == want
+
+
+@pytest.mark.parametrize("content,message", [
+    ("{not json", "error: --sweep "),
+    ('{"bogus": 1}', "error: --sweep: unknown sweep keys ['bogus']"),
+])
+def test_bad_sweep_specs_exit_2(content, message, tmp_path, capsys):
+    spec = tmp_path / "spec.json"
+    spec.write_text(content)
+    assert jax_cli.run(["--sweep", str(spec)]) == 2
+    want = capsys.readouterr().err
+    assert cli.run(["--sweep", str(spec), "--device", "cpu"]) == 2
+    got = capsys.readouterr().err
+    assert got == want and got.startswith(message)
+
+
+def test_degree_block_changes_nothing(capsys):
+    args = ["--numNodes", "30", "--simTime", "6"]
+    plain = _run_in_process(cli.run, args + ["--device", "cpu"], capsys)
+    blocked = _run_in_process(cli.run, args + ["--degreeBlock", "64", "--device", "cpu"],
+                              capsys)
+    assert plain.splitlines()[:-1] == blocked.splitlines()[:-1]
+
+
+def test_replicas_with_telemetry_refuse_until_campaign_telemetry(tmp_path, capsys,
+                                                                 clean_telemetry):
+    """Campaign telemetry is not ported: --replicas with --telemetry exits
+    2 naming the ROADMAP item, rather than running without the rings."""
+    args = ["--numNodes", "30", "--floodCoverage", "3", "--replicas", "2", "--simTime",
+            "0.1", "--device", "cpu", "--telemetry", str(tmp_path / "t.jsonl")]
+    assert cli.run(args) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("error: campaign telemetry") and "ROADMAP" in err
