@@ -5,6 +5,10 @@ Run from the repository root on a machine with one NVIDIA GPU (an H100):
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --north-star CACHE`` runs only phase 12's
+million-node steps on the north-star graph cached by ``python -m
+p2p_gossip_tpu_torch.scale --cache CACHE``.)
+
 Phases (any failure raises and the script exits nonzero):
 
 1. Print the card's name and power limit (``nvidia-smi``); no CUDA -> exit 1.
@@ -70,6 +74,22 @@ Phases (any failure raises and the script exits nonzero):
    solo run's, peak device memory, and (a) and (c) under
    ``torch.profiler``.
 
+12. A million nodes (``p2p_gossip_tpu_torch.runtime.native``, the graph
+   caches, the resident-memory model): build the C++ library from
+   ``native/gossip_native.cc``; for BA m = 3 and ER p = 1e-4 at N =
+   1,000,000, build the graph with the port's C++ builder, save it to an
+   npz cache under ``chiprun_out/`` and reload it (equal CSR), stage it
+   (time, peak host RSS, degree buckets), flood 4,096 origins from t = 0
+   (one warm, one timed run): full coverage, ttc99, ``gather_or`` launched
+   once per degree bucket per tick, and peak device memory within 20% of
+   ``engine.sync.flood_resident_hbm_bytes``; then the four flood kernels
+   on the tick-3 state, each held against its plain version on the first
+   50,000 rows (of every bucket, for the gather) and timed on the whole
+   state beside its bound. Last, the CLI on the card: ``--graphBuilder
+   native --graphFile`` (cold, then warm) against the CPU run, and
+   ``--backend event|native`` at the reference defaults against the card
+   run's counters.
+
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
 shapes (with a base, in place, the and-not frontier and pulled rows) and
@@ -99,6 +119,9 @@ once a round, ``scatter_or`` twice: the round call and the row's
 campaign and reads them after it: a campaign tick launches ``gather_or``
 once per degree bucket and ``coverage_per_slot`` once for all eight
 replicas, a campaign round ``scatter_or`` once, ``tick_digest`` never.
+Phase 12 zeroes them just before each million-node timed run and reads
+them after it: each flood kernel launched, ``gather_or`` once per degree
+bucket per tick.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -148,6 +171,15 @@ TELEMETRY_KERNELS = ("tick_digest",)
 # Phase 11: replicas a campaign batch, and campaign (b)'s per-replica loss.
 CAMPAIGN_REPLICAS = 8
 CAMPAIGN_LOSS = 0.05
+# Phase 12: a million nodes. BA m = 3 is BASELINE.json config 4 in full; ER
+# p = 1e-4 is the north star's graph (p = 0.001) cut to a tenth of its
+# edges, so its native build fits this script's time.
+SCALE_BA_M = 3
+SCALE_CONFIGS = (("ba", 1_000_000, 0.0), ("er", 1_000_000, 1e-4))
+SCALE_ORIGINS = 4096
+SCALE_CAPTURE_TICK = 3
+SCALE_SUBSET_ROWS = 50_000  # rows the plain versions check at a million nodes
+MEMORY_TOLERANCE = 0.20  # measured peak device memory against the model
 U32 = 0xFFFFFFFF
 
 
@@ -2250,6 +2282,348 @@ def campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev):
     return all_launches, results
 
 
+# --- phase 12 -----------------------------------------------------------------
+
+class PeakRss:
+    """Peak resident set of this process while the ``with`` block runs: a
+    thread samples /proc/self/statm every 5 ms (the chip machine's /proc
+    has no VmHWM). Where statm is missing, the process's lifetime peak
+    (``getrusage``) stands in, and ``scope`` says so."""
+
+    def __init__(self):
+        import threading
+
+        self.peak, self.scope = 0, "while staging"
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/statm", encoding="ascii") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        try:
+            self.peak = self._rss()
+        except OSError:
+            self._thread = None
+        if self._thread is not None:
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self._thread is None:
+            import resource
+
+            self.peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+            self.scope = "process lifetime"
+            return False
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self._rss())
+        return False
+
+
+def scale_graph(topology, nodes, prob, cache_dir):
+    """Build a SCALE_CONFIGS graph with the port's C++ builder, save it to an
+    npz cache, reload it and require the same CSR; returns the graph and the
+    timings. The cache file is removed afterwards (chiprun_out/ must stay
+    small)."""
+    from p2p_gossip_tpu_torch.models.topology import (
+        load_graph_cache,
+        load_or_build_graph_cache,
+        scale_graph_fingerprint,
+    )
+    from p2p_gossip_tpu_torch.runtime import native
+
+    os.makedirs(cache_dir, exist_ok=True)
+    cache = os.path.join(cache_dir, f"{topology}_{nodes}.npz")
+    if os.path.exists(cache):
+        os.remove(cache)
+    timing = {}
+
+    def build():
+        t0 = time.perf_counter()
+        if topology == "ba":
+            g = native.native_barabasi_albert(nodes, m=SCALE_BA_M, seed=SEED)
+        else:
+            g = native.native_erdos_renyi(nodes, prob, seed=SEED)
+        timing["build_s"] = time.perf_counter() - t0
+        return g
+
+    try:
+        t0 = time.perf_counter()
+        graph = load_or_build_graph_cache(
+            cache, topology=topology, nodes=nodes, prob=prob, ba_m=SCALE_BA_M, seed=SEED,
+            build=build, log=log,
+        )
+        timing["save_s"] = time.perf_counter() - t0 - timing["build_s"]
+        timing["cache_bytes"] = os.path.getsize(cache)
+        t0 = time.perf_counter()
+        loaded, fp = load_graph_cache(cache)
+        timing["load_s"] = time.perf_counter() - t0
+    finally:
+        if os.path.exists(cache):
+            os.remove(cache)
+    if fp != scale_graph_fingerprint(topology, nodes, prob, SCALE_BA_M, SEED):
+        raise AssertionError(f"{topology} cache: fingerprint {fp!r} is not the build's")
+    if not (loaded.n == graph.n and np.array_equal(loaded.indptr, graph.indptr)
+            and np.array_equal(loaded.indices, graph.indices)):
+        raise AssertionError(f"{topology} cache: the reloaded CSR differs from the built one")
+    if graph.indptr.dtype != np.int64 or graph.indices.dtype != np.int32:
+        raise AssertionError("native CSR must be int64 indptr, int32 indices")
+    del loaded
+    log(f"scale[{topology}] graph: N={graph.n} edges={graph.num_edges} "
+        f"dmax={graph.max_degree}; native build {timing['build_s']:.2f} s, cache save "
+        f"{timing['save_s']:.2f} s ({timing['cache_bytes'] / 1e6:.1f} MB), load "
+        f"{timing['load_s']:.2f} s, reloaded CSR equal")
+    return graph, timing
+
+
+def scale_kernels(dg, origins, dev, reps):
+    """The four flood kernels on the state the engine's own tick built by
+    SCALE_CAPTURE_TICK of the million-node coverage run: each held against
+    its plain version on the first SCALE_SUBSET_ROWS rows (of every degree
+    bucket, for gather_or; the plain versions do not scale to 10^6 rows)
+    and timed on the whole state beside its bound."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.ops.ell import propagate_bucketed
+
+    n, w, tick = dg.n, SCALE_ORIGINS // 32, SCALE_CAPTURE_TICK
+    sched = pt.Schedule(n, origins, np.zeros(len(origins), dtype=np.int32))
+    _, hist, occ, _, _, newly = capture_state(dg, sched, SCALE_ORIGINS, tick, dev)
+    sw = kernels.sector_words(w)
+    slot = (tick - dg.uniform_delay) % dg.ring_size
+    k = SCALE_SUBSET_ROWS
+    err = 0
+    for bi, (rows, idx, mask, _) in enumerate(dg.buckets):
+        got = torch.zeros((n, w), dtype=torch.int32, device=dev)
+        want = torch.zeros_like(got)
+        for out, plain in ((got, False), (want, True)):
+            kernels.gather_or(hist, tick, idx[:k], mask[:k], uniform_slot=slot,
+                              rows=rows[:k], occ=occ, out=out, plain=plain)
+        sub = rows[:k].long()
+        err = max(err, compare(f"gather_or[bucket {bi} rows :{k}]", got[sub], want[sub]))
+    del got, want
+
+    def gather():
+        return propagate_bucketed(hist, tick, dg.buckets, n_out=n, ring_size=dg.ring_size,
+                                  uniform_delay=dg.uniform_delay, occ=occ)
+
+    keys, staged, rows_bytes = [], 0, 0
+    for rows, idx, mask, _ in dg.buckets:
+        keys.append((slot * n + idx.long())[mask])
+        staged += int(idx.numel())
+        rows_bytes += 4 * int(rows.numel())
+    distinct = torch.unique(torch.cat(keys))
+    del keys
+    sectors = set_bits(occ.reshape(-1)[distinct])
+    gather_bytes = sectors * sw * 4 + distinct.numel() * 4 + staged * 5 + rows_bytes + n * w * 4
+    del distinct
+    out = {"gather_or": dict(
+        max_abs_err=err, ms=time_ms(gather, reps, calls=KERNEL_CALLS),
+        plain_ms=time_ms(lambda: [kernels.gather_or(
+            hist, tick, idx[:k], mask[:k], uniform_slot=slot, rows=rows[:k], occ=occ,
+            out=torch.zeros((n, w), dtype=torch.int32, device=dev), plain=True)
+            for rows, idx, mask, _ in dg.buckets], 2, warmup=1),
+        bound_ms=bound_ms(gather_bytes))}
+    frontier = newly  # the tick-(SCALE_CAPTURE_TICK - 1) slot
+    part = frontier[:k]
+    for name, fn, plain_fn, nbytes in (
+        ("sector_occupancy", kernels.sector_occupancy, kernels.sector_occupancy_plain,
+         n * w * 4 + n * 4),
+        ("popcount_rows", kernels.popcount_rows, kernels.popcount_rows_plain,
+         n * w * 4 + n * 4),
+        ("coverage_per_slot", lambda x: kernels.coverage_per_slot(x, SCALE_ORIGINS),
+         lambda x: kernels.coverage_per_slot_plain(x, SCALE_ORIGINS),
+         n * w * 4 + SCALE_ORIGINS * 4),
+    ):
+        e = compare(f"{name}[rows :{k}]", fn(part), plain_fn(part))
+        out[name] = dict(max_abs_err=e, ms=time_ms(lambda: fn(frontier), reps,
+                                                    calls=KERNEL_CALLS),
+                         plain_ms=time_ms(lambda: plain_fn(part), 2, warmup=1),
+                         bound_ms=bound_ms(nbytes))
+    occ_bits = set_bits(occ[(tick - 1) % dg.ring_size])
+    log(f"scale kernels on the tick-{tick} state (N={n}, W={w}, {len(dg.buckets)} "
+        f"buckets, {occ_bits} occupied sectors in the newest slot): every kernel == plain "
+        f"on the first {k} rows (gather_or on each bucket's); on the whole state: "
+        + "; ".join(f"{name} {m['ms']:.4f} ms (bound {m['bound_ms']:.4f}, plain on "
+                    f"{k} rows {m['plain_ms']:.3f})" for name, m in out.items()))
+    del hist, occ, newly, frontier, part
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_path(topology, nodes, prob, dev, cache_dir, graph=None):
+    """Phase 12 on one SCALE_CONFIGS graph: build, cache and reload it,
+    stage it (time, peak host RSS, buckets), flood SCALE_ORIGINS shares
+    from t = 0 (one warm, one timed run with launch counts and peak device
+    memory against the resident-memory model), then the kernels on the
+    tick-3 state (`scale_kernels`). A ``graph`` given (the north star's,
+    loaded from its cache) skips the build and cache steps."""
+    import torch
+
+    from p2p_gossip_tpu_torch.engine.sync import (
+        DeviceGraph,
+        flood_resident_hbm_bytes,
+        run_flood_coverage,
+        time_to_coverage,
+    )
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    timing = {}
+    if graph is None:
+        graph, timing = scale_graph(topology, nodes, prob, cache_dir)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with PeakRss() as host:
+        dg = DeviceGraph.build(graph, device=dev)
+        torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    rss = host.peak
+    staged_entries = sum(int(b[1].numel()) for b in dg.buckets)
+    log(f"scale[{topology}] staging: {stage_s:.2f} s, {len(dg.buckets)} degree buckets, "
+        f"{staged_entries} staged ELL entries (caps "
+        f"{[int(b[1].shape[1]) for b in dg.buckets]}), peak host RSS "
+        f"{rss / 2**30:.2f} GiB ({host.scope})")
+
+    origins = np.random.default_rng(SEED).integers(0, graph.n, SCALE_ORIGINS).astype(np.int32)
+    t0 = time.perf_counter()
+    warm, warm_cov = run_flood_coverage(graph, origins, HORIZON, device_graph=dg, device=dev)
+    warm_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats, cov = run_flood_coverage(graph, origins, HORIZON, device_graph=dg, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    model = flood_resident_hbm_bytes(graph.degree, SCALE_ORIGINS // 32,
+                                     ring_size=dg.ring_size)
+    peak = torch.cuda.max_memory_allocated() - base
+    processed = stats.totals()["processed"]
+    if processed != SCALE_ORIGINS * graph.n:
+        raise AssertionError(f"scale[{topology}]: processed {processed}, not full coverage")
+    if not (np.array_equal(cov, warm_cov) and stats.equal_counts(warm)):
+        raise AssertionError(f"scale[{topology}]: timed run differs from the warm run")
+    stats.check_conservation()
+    ticks = launches["coverage_per_slot"]
+    want = {"gather_or": len(dg.buckets) * ticks, "sector_occupancy": ticks,
+            "popcount_rows": ticks, "coverage_per_slot": ticks, "scatter_or": 0,
+            "scatter_or_atomic": 0, "tick_digest": 0}
+    if ticks == 0 or launches != want:
+        raise AssertionError(f"scale[{topology}]: launches {launches}, want {want} (gather_or "
+                             "once per degree bucket per tick)")
+    ttc = time_to_coverage(cov, graph.n, 0.99)
+    log(f"scale[{topology}] flood: {SCALE_ORIGINS} origins, {ticks} ticks, warm "
+        f"{warm_wall:.3f} s, timed {wall:.4f} s -> {wall / ticks * 1e3:.2f} ms/tick, "
+        f"{processed / wall:.4e} node-updates/s; full coverage, conservation holds; "
+        f"ttc99 median {float(np.median(ttc))} / max {int(ttc.max())} ticks; peak device "
+        f"memory {peak / 1e9:.3f} GB vs modeled {model / 1e9:.3f} GB "
+        f"(measured / model {peak / model:.3f}); launches {launches} "
+        f"({len(dg.buckets)} gather_or launches a tick)")
+    if abs(peak - model) > MEMORY_TOLERANCE * model:
+        raise AssertionError(f"scale[{topology}]: peak device memory {peak} is not within "
+                             f"{MEMORY_TOLERANCE:.0%} of the model's {model}")
+    kernels_1m = scale_kernels(dg, origins, dev, reps=5)
+    result = dict(timing, stage_s=stage_s, rss_peak=rss, buckets=len(dg.buckets),
+                  ticks=ticks, wall_s=wall, ms_per_tick=wall / ticks * 1e3,
+                  rate=processed / wall, peak_bytes=peak, model_bytes=model,
+                  ttc99_median=float(np.median(ttc)), ttc99_max=int(ttc.max()),
+                  launches=launches, kernels=kernels_1m)
+    del dg
+    torch.cuda.empty_cache()
+    return result
+
+
+def check_scale_cli(dev, cache_dir):
+    """Phase 12 (d): the CLI's C++ builder and graph file on the card (a cold
+    and a warm run, each the CPU run's report), and the event and native
+    backends at the reference defaults (the card run's counters)."""
+    import contextlib
+    import io
+
+    from p2p_gossip_tpu_torch.utils import cli
+
+    def report(args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.run(args)
+        if rc != 0:
+            raise AssertionError(f"CLI {args} exited {rc}")
+        return buf.getvalue().splitlines()
+
+    path = os.path.join(cache_dir, "cli_graph.npz")
+    args = ["--numNodes", "2000", "--connectionProb", "0.004", "--simTime", "2",
+            "--graphBuilder", "native", "--graphFile", path]
+    try:
+        if os.path.exists(path):
+            os.remove(path)
+        cold = report(args + ["--device", str(dev)])
+        warm = report(args + ["--device", str(dev)])
+        cpu = report(args + ["--device", "cpu"])
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    if not (cold[0].endswith("graph-builder=native") and warm[0].endswith("graph-builder=cache")
+            and cpu[0].endswith("graph-builder=cache")):
+        raise AssertionError("CLI --graphFile: cold run must build natively, warm runs load")
+    if not (cold[1:-1] == warm[1:-1] == cpu[1:-1]):
+        raise AssertionError("CLI --graphBuilder native --graphFile: reports differ")
+    card = report(["--device", str(dev)])
+    for backend in ("event", "native"):
+        host = report(["--backend", backend])
+        if host[1:-1] != card[1:-1] or f"backend={backend}" not in host[0]:
+            raise AssertionError(f"CLI --backend {backend}: counters differ from the card's")
+    log("cli[phase 12] --graphBuilder native --graphFile (N=2000): cold (built) and warm "
+        "(loaded) runs on the card print the CPU run's report; --backend event and "
+        "--backend native at the reference defaults print the card run's counters")
+
+
+def scale_phase(dev):
+    """Phase 12: the native library, BA and ER at a million nodes, the CLI."""
+    from p2p_gossip_tpu_torch.runtime import native
+
+    path, build_s = native.build()
+    native.load_library()
+    log(f"native library built in {build_s:.2f} s -> {path}")
+    cache_dir = os.path.join("chiprun_out", "phase12")
+    results = {}
+    for topology, nodes, prob in SCALE_CONFIGS:
+        results[topology] = scale_path(topology, nodes, prob, dev, cache_dir)
+    check_scale_cli(dev, cache_dir)
+    results["native_build_s"] = build_s
+    return results
+
+
+def north_star(cache: str, dev) -> None:
+    """``python3 chip_smoke.py --north-star CACHE``: phase 12's staging,
+    flood, memory check and kernel timings on the north-star graph (ER N =
+    1,000,000, p = 0.001, BASELINE.json config 3) loaded from the npz
+    cache ``python -m p2p_gossip_tpu_torch.scale --cache CACHE`` wrote."""
+    from p2p_gossip_tpu_torch.models.topology import (
+        load_graph_cache,
+        scale_graph_fingerprint,
+    )
+
+    t0 = time.perf_counter()
+    graph, fp = load_graph_cache(cache)
+    if fp != scale_graph_fingerprint("er", 1_000_000, 0.001, SCALE_BA_M, SEED):
+        raise AssertionError(f"{cache} is not the north star's graph")
+    log(f"north star: N={graph.n} edges={graph.num_edges} dmax={graph.max_degree}, "
+        f"loaded in {time.perf_counter() - t0:.1f} s")
+    result = scale_path("er", graph.n, 0.001, dev, "", graph=graph)
+    print(json.dumps({"north_star": {k: v for k, v in result.items()}}))
+
+
 def main() -> int:
     import torch
 
@@ -2273,6 +2647,10 @@ def main() -> int:
     for var in ("P2P_TELEMETRY", "P2P_HEARTBEAT"):
         os.environ.pop(var, None)
     dev = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--north-star"]:
+        build.build()
+        north_star(sys.argv[2], dev)
+        return 0
     path, nvcc_s = build.build()
     build.load_library()
     log(f"kernels built in {nvcc_s:.2f} s -> {path}")
@@ -2341,6 +2719,7 @@ def main() -> int:
     check_small_campaigns(dev)
     campaign_launches, _ = campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev)
     ck = campaign_kernels
+    scale = scale_phase(dev)
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -2416,6 +2795,14 @@ def main() -> int:
             launches_telemetry_pushpull=pushpull_launches["tick_digest"],
         ),
     }
+    # Phase 12: the four flood kernels on each million-node graph's tick-3
+    # state (plain_ms on SCALE_SUBSET_ROWS rows), and their launches a run.
+    for topology in (cfg[0] for cfg in SCALE_CONFIGS):
+        for name, m in scale[topology]["kernels"].items():
+            measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],
+                                                m["max_abs_err"])
+            measured[name].update({f"{key}_1m_{topology}": m[key]
+                                   for key in ("ms", "bound_ms", "plain_ms")})
     base_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
     record = []
     for name, m in measured.items():
@@ -2439,6 +2826,8 @@ def main() -> int:
             "launches_telemetry": telemetry_launches[name],
             **{f"launches_campaign_{kind}": campaign_launches[kind][name]
                for kind in campaign_launches},
+            **{f"launches_1m_{topology}": scale[topology]["launches"][name]
+               for topology in (cfg[0] for cfg in SCALE_CONFIGS)},
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

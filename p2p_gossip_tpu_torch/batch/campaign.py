@@ -33,7 +33,6 @@ ROADMAP §1 item 3); both raise NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import time
 
 import numpy as np
@@ -58,6 +57,7 @@ from p2p_gossip_tpu_torch.ops import bitmask
 from p2p_gossip_tpu_torch.telemetry import progress as tel_progress
 from p2p_gossip_tpu_torch.telemetry import sink as tel_sink
 from p2p_gossip_tpu_torch.telemetry.spans import span
+from p2p_gossip_tpu_torch.utils import logging as p2plog
 from p2p_gossip_tpu_torch.utils.checkpoint import (
     ChunkCheckpointer,
     checkpointed_chunks,
@@ -65,7 +65,7 @@ from p2p_gossip_tpu_torch.utils.checkpoint import (
 )
 from p2p_gossip_tpu_torch.utils.stats import NodeStats
 
-log = logging.getLogger("p2p_gossip_tpu_torch.batch.campaign")
+log = p2plog.get_logger("Batch.Campaign")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -482,8 +482,8 @@ def run_coverage_campaign(
     loss_cfg, lseed_arr = _resolve_loss(loss, loss_seeds, replicas.num_replicas)
     r_total = replicas.num_replicas
     log.info(
-        "coverage campaign: %d replicas x %d nodes x %d shares, batch %d, horizon %d",
-        r_total, graph.n, s, batch_size, horizon,
+        f"coverage campaign: {r_total} replicas x {graph.n} nodes x {s} "
+        f"shares, batch {batch_size}, horizon {horizon}"
     )
 
     received = np.zeros((r_total, graph.n), dtype=np.int64)
@@ -570,9 +570,9 @@ def run_gossip_campaign(
     r_total = replicas.num_replicas
     n_chunks = max(1, -(-s_max // chunk))
     log.info(
-        "gossip campaign: %d replicas x %d nodes, up to %d shares in %d chunk(s) "
-        "of %d, batch %d, horizon %d",
-        r_total, graph.n, s_max, n_chunks, chunk, batch_size, horizon,
+        f"gossip campaign: {r_total} replicas x {graph.n} nodes, up to "
+        f"{s_max} shares in {n_chunks} chunk(s) of {chunk}, batch "
+        f"{batch_size}, horizon {horizon}"
     )
 
     received = np.zeros((r_total, graph.n), dtype=np.int64)
@@ -692,9 +692,9 @@ def run_protocol_campaign(
     r_total = replicas.num_replicas
     n_chunks = max(1, -(-max(s, 1) // chunk))
     log.info(
-        "%s campaign: %d replicas x %d nodes x %d shares in %d chunk(s) of %d, "
-        "batch %d, horizon %d",
-        protocol, r_total, graph.n, s, n_chunks, chunk, batch_size, horizon,
+        f"{protocol} campaign: {r_total} replicas x {graph.n} nodes x {s} "
+        f"shares in {n_chunks} chunk(s) of {chunk}, batch {batch_size}, "
+        f"horizon {horizon}"
     )
 
     received = np.zeros((r_total, graph.n), dtype=np.int64)

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import itertools
 import json
-import logging
 import time
 
 import numpy as np
@@ -45,9 +44,10 @@ from p2p_gossip_tpu_torch.models import topology as topo
 from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
 from p2p_gossip_tpu_torch.models.seeds import loss_stream_seed
 from p2p_gossip_tpu_torch.telemetry.spans import span
+from p2p_gossip_tpu_torch.utils import logging as p2plog
 from p2p_gossip_tpu_torch.utils.device import resolve_device
 
-log = logging.getLogger("p2p_gossip_tpu_torch.batch.sweep")
+log = p2plog.get_logger("Batch.Sweep")
 
 # The grid axes a spec may vectorize, in report order.
 GRID_AXES = ("protocol", "p", "lossProb", "churnProb", "fanout")
@@ -220,14 +220,14 @@ def run_sweep(
     ``emit`` (optional callable) receives each record as it lands — the
     CLI streams them as JSON lines so a long campaign is tail-able."""
     cells = expand_grid(spec)
-    log.info("sweep: %d cells", len(cells))
+    log.info(f"sweep: {len(cells)} cells")
     records = []
     for i, cell in enumerate(cells):
         record, _ = run_cell(cell, batch_size=batch_size, mesh=mesh, device=device)
         log.info(
-            "cell %d/%d: %s p=%g loss=%g (%.2fs)", i + 1, len(cells),
-            record["cell"]["protocol"], record["cell"]["p"],
-            record["cell"]["lossProb"], record["wall_s"],
+            f"cell {i + 1}/{len(cells)}: {record['cell']['protocol']} "
+            f"p={record['cell']['p']:g} loss={record['cell']['lossProb']:g} "
+            f"({record['wall_s']:.2f}s)"
         )
         records.append(record)
         if emit is not None:

@@ -54,6 +54,8 @@ from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
 from p2p_gossip_tpu_torch.models.topology import Graph
 from p2p_gossip_tpu_torch.ops import bitmask, kernels
 from p2p_gossip_tpu_torch.ops.ell import (
+    DEFAULT_DEGREE_BLOCK,
+    bucket_rows_by_count,
     build_degree_buckets,
     detect_uniform_delay,
     propagate,
@@ -65,6 +67,7 @@ from p2p_gossip_tpu_torch.telemetry import progress as tel_progress
 from p2p_gossip_tpu_torch.telemetry import rings as tel_rings
 from p2p_gossip_tpu_torch.telemetry import sink as tel_sink
 from p2p_gossip_tpu_torch.telemetry.spans import span
+from p2p_gossip_tpu_torch.utils import logging as p2plog
 from p2p_gossip_tpu_torch.utils.checkpoint import (
     ChunkCheckpointer,
     checkpointed_chunks,
@@ -72,6 +75,8 @@ from p2p_gossip_tpu_torch.utils.checkpoint import (
 )
 from p2p_gossip_tpu_torch.utils.device import resolve_device
 from p2p_gossip_tpu_torch.utils.stats import NodeStats
+
+log = p2plog.get_logger("Engine.Sync")
 
 DEFAULT_CHUNK_SIZE = 4096
 
@@ -207,6 +212,133 @@ class DeviceGraph:
         src_rows = int(torch.unique(torch.cat(keys)).numel())
         gather = src_rows * (w + 1) * 4 + staged * (9 if per_edge else 5) + row_bytes
         return gather + self.n * (3 * w * 4 + 4 + 5 * 4)
+
+
+def _staged_graph_bytes(degree: np.ndarray, block: int, uniform_delay: bool) -> int:
+    """Bytes of every tensor `DeviceGraph.build` stages for a graph of this
+    degree array, counted from its own rules: the degree buckets of
+    `ops.ell.build_degree_buckets` (int32 ``rows``, int32 ``idx``, bool
+    ``mask`` and, with per-edge delays, int32 ``delay``, each bucket
+    padded to its block-rounded max degree) from 4096 nodes up, else the
+    full-width (N, dmax) ELL; the (1, 1) placeholders; ``degree``.
+    ``uniform_delay`` means a run with no delay array (the buckets are cut
+    from CSR at their full cap); per-edge delays cut the buckets from the
+    (N, dmax) ELL, so no bucket is wider than dmax."""
+    n = int(degree.shape[0])
+    per_entry = 5 if uniform_delay else 9
+    dmax = max(int(degree.max()) if n else 0, 1)
+    if n >= 4096:  # DeviceGraph.build's default staging
+        total = 4 + 4 + 1  # placeholders: ell_idx, ell_delay, ell_mask
+        for rows in bucket_rows_by_count(degree, block, 2048):  # min_rows default
+            cap = max(-(-int(degree[rows].max()) // block) * block, block)
+            if not uniform_delay:
+                cap = min(cap, dmax)
+            total += 4 * len(rows) + per_entry * len(rows) * cap
+    else:
+        total = n * dmax * per_entry + (4 if uniform_delay else 0)
+    return total + 4 * n
+
+
+def flood_resident_hbm_bytes(
+    degree: np.ndarray,
+    w: int,
+    block: int = DEFAULT_DEGREE_BLOCK,
+    ring_size: int = 2,
+    uniform_delay: bool = True,
+) -> int:
+    """Modeled peak device memory of one flood chunk at W words per row:
+    the fit check, computable from the host degree array before anything
+    is staged. The JAX package's function of the same name models XLA's
+    degree-blocked gather on a TPU; these are the port's own terms,
+    counted from its code (``block`` is the degree quantum of the bucket
+    planner, `ops.ell.DEFAULT_DEGREE_BLOCK`; the CUDA gather has no degree
+    block). All bytes:
+
+    - the staged graph (`_staged_graph_bytes`), resident for the run;
+    - the chunk state (`_chunk_state`): ``seen`` (N, W) int32, the
+      (D, N, W) frontier ring, its (D, N) int32 sector occupancy, the
+      (N,) int32 ``received`` and ``sent``;
+    - the tick's live temporaries at its peak, ``newly = arrivals &
+      ~seen`` in `apply_tick_updates`: ``arrivals`` (`ops.ell`'s output),
+      the generation bits (`ops.bitmask.slot_scatter`), ``~seen`` and
+      ``newly``, four (N, W) int32; and four (N,) int32 count vectors
+      (the generation counts, the newly counts and the two ``sent``
+      terms).
+
+    Per-share and per-tick buffers (origins, slots, coverage rows) are a
+    few MB and left out."""
+    degree = np.asarray(degree, dtype=np.int64)
+    n = int(degree.shape[0])
+    row = w * 4
+    staged = _staged_graph_bytes(degree, block, uniform_delay)
+    state = (1 + ring_size) * n * row + ring_size * n * 4 + 2 * n * 4
+    tick = 4 * n * row + 4 * n * 4
+    return staged + state + tick
+
+
+def auto_chunk_shares(
+    degree: np.ndarray,
+    shares: int,
+    block: int,
+    budget_bytes: float,
+    ring_size: int = 2,
+    uniform_delay: bool = True,
+    min_chunk: int = 512,
+) -> int | None:
+    """Bitmask pad width (in shares) whose modeled resident footprint
+    (`flood_resident_hbm_bytes`) fits ``budget_bytes``, or None when the
+    engine's default pad (``max(shares, MIN_CHUNK_SHARES)``, what
+    `run_flood_coverage` stages anyway) already fits or budgeting is off
+    (``budget_bytes`` falsy): None leaves ``chunk_size`` at its default.
+    Otherwise halves from the default pad as few times as it can, down to
+    ``min_chunk``; a floor that still does not fit (the staged graph alone
+    exceeds the budget) is returned with a RuntimeWarning. The value is a
+    pad target and may exceed ``shares``. The JAX package's halving rule,
+    floor, warning and None contract (`device_budget_bytes` gives the
+    port's budget)."""
+    if not budget_bytes:
+        return None
+    default_pad = max(32, shares, MIN_CHUNK_SHARES)
+    chunk = default_pad
+    while chunk > min_chunk:
+        w = bitmask.num_words(chunk)
+        if flood_resident_hbm_bytes(degree, w, block, ring_size, uniform_delay) <= budget_bytes:
+            break
+        chunk = max(min_chunk, chunk // 2)
+    if chunk < default_pad:
+        floor_model = flood_resident_hbm_bytes(
+            degree, bitmask.num_words(chunk), block, ring_size, uniform_delay
+        )
+        if floor_model > budget_bytes:
+            import warnings
+
+            warnings.warn(
+                f"auto_chunk_shares: budget {budget_bytes / 1e9:.1f} GB "
+                f"cannot be met — pad {chunk} still models "
+                f"{floor_model / 1e9:.1f} GB (fixed ELL terms dominate); "
+                "returning the floor anyway",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+    return None if chunk == default_pad else chunk
+
+
+def device_budget_bytes(device=None) -> float:
+    """The device-memory budget `auto_chunk_shares` sizes against:
+    ``P2P_HBM_BUDGET_GB`` (in 1e9 bytes) when set, else the card's free
+    memory now (`torch.cuda.mem_get_info`), so call it before staging.
+    (The JAX package's 10 GB default was sized for a 16 GB TPU.) A CPU
+    device has no budget: 0, budgeting off."""
+    import os
+
+    env = os.environ.get("P2P_HBM_BUDGET_GB")
+    if env:
+        return float(env) * 1e9
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return 0.0
+    free, _total = torch.cuda.mem_get_info(device)
+    return float(free)
 
 
 def apply_tick_updates(
@@ -583,6 +715,12 @@ def run_sync_sim(
     chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
     boundaries = filter_snapshot_boundaries(snapshot_ticks, horizon_ticks)
     snap_received = np.zeros((len(boundaries), graph.n), dtype=np.int64)
+    log.info(
+        f"starting sync simulation: {graph.n} nodes, {graph.num_edges} links, "
+        f"{schedule.num_shares} shares in chunks of {chunk_size}, horizon "
+        f"{horizon_ticks} ticks, ring {dg.ring_size}"
+        + (f", uniform delay {dg.uniform_delay}" if dg.uniform_delay else "")
+    )
     received = np.zeros(graph.n, dtype=np.int64)
     sent = np.zeros(graph.n, dtype=np.int64)
     ticks_executed = 0
@@ -616,6 +754,12 @@ def run_sync_sim(
             continue
         origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
         first_t = int(chunk.gen_ticks[live].min())
+        last_t = int(chunk.gen_ticks[live].max())
+        if log.enabled(p2plog.LOG_DEBUG):
+            log.debug(
+                f"chunk {ci}: {int(live.sum())} live shares, gen ticks "
+                f"[{first_t}, {last_t}]"
+            )
         rings = tel_rings.chunk_rings(horizon_ticks, dg.device) if tel else None
         with span("dispatch", kernel="engine.sync._run_chunk_while", chunk=ci):
             _, r, s, snaps, ticks = _run_chunk_while(
@@ -623,7 +767,7 @@ def run_sync_sim(
                 torch.as_tensor(origins.astype(np.int64), device=dg.device),
                 torch.as_tensor(gen_ticks, device=dg.device),
                 first_t,
-                int(chunk.gen_ticks[live].max()),
+                last_t,
                 chunk_size=chunk_size, horizon=horizon_ticks, opts=opts,
                 snap_ticks=boundaries, rings=rings, plain=plain,
             )
@@ -691,6 +835,9 @@ def run_flood_coverage(
     dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
     sched = Schedule(graph.n, origins, np.zeros(s, dtype=np.int32))
     o, g = sched.padded(chunk_size, horizon_ticks)
+    # The JAX engine logs here which coverage path a TPU run takes (its
+    # Pallas kernel or XLA); the port's coverage always runs its CUDA
+    # kernel on the card, so there is no such line.
     tel = tel_sink.rings_enabled()
     name = "engine.sync.run_flood_coverage"
     rings = tel_rings.chunk_rings(horizon_ticks, dg.device) if tel else None

@@ -76,21 +76,33 @@ class Graph:
         ell_mask[rows, pos] = True
         return ell_idx, ell_mask
 
-    def ell_rows(self, rows: np.ndarray, pad_to: int) -> tuple[np.ndarray, np.ndarray]:
+    def ell_rows(
+        self, rows: np.ndarray, pad_to: int, block_entries: int = 1 << 24
+    ) -> tuple[np.ndarray, np.ndarray]:
         """ELL form of a row subset straight from CSR, identical to
         ``self.ell()[...][rows, :pad_to]`` without building the global
-        (n, dmax) ELL."""
-        deg = self.degree[rows].astype(np.int64)
-        nnz = int(deg.sum())
-        rep = np.repeat(np.arange(len(rows), dtype=np.int64), deg)
-        pos = np.arange(nnz, dtype=np.int64) - np.repeat(
-            np.cumsum(deg) - deg, deg
-        )
-        src = self.indices[np.repeat(self.indptr[rows], deg) + pos]
+        (n, dmax) ELL. Rows are filled a block at a time (about
+        ``block_entries`` CSR entries a block), so the int64 index
+        temporaries stay a few hundred MB even when the subset holds 10^9
+        entries (a million-node ER graph's degree bucket)."""
+        rows = np.asarray(rows)
         ell_idx = np.zeros((len(rows), pad_to), dtype=np.int32)
         ell_mask = np.zeros((len(rows), pad_to), dtype=bool)
-        ell_idx[rep, pos] = src
-        ell_mask[rep, pos] = True
+        deg = self.degree[rows].astype(np.int64)
+        ends = np.cumsum(deg)
+        lo = 0
+        while lo < len(rows):
+            base = int(ends[lo - 1]) if lo else 0
+            hi = int(np.searchsorted(ends, base + block_entries, side="right"))
+            hi = min(max(hi, lo + 1), len(rows))
+            d = deg[lo:hi]
+            nnz = int(d.sum())
+            rep = np.repeat(np.arange(hi - lo, dtype=np.int64), d)
+            pos = np.arange(nnz, dtype=np.int64) - np.repeat(np.cumsum(d) - d, d)
+            src = self.indices[np.repeat(self.indptr[rows[lo:hi]], d) + pos]
+            ell_idx[lo:hi][rep, pos] = src
+            ell_mask[lo:hi][rep, pos] = True
+            lo = hi
         return ell_idx, ell_mask
 
     def edges(self) -> np.ndarray:
@@ -147,10 +159,16 @@ def _forced_edges(n: int, has_upper_edge: np.ndarray) -> np.ndarray:
     return np.array(out, dtype=np.int64).reshape(-1, 2)
 
 
-def erdos_renyi(n: int, p: float, seed: int = 0) -> Graph:
+def erdos_renyi(
+    n: int, p: float, seed: int = 0, return_parallel_extra: bool = False
+):
     """Erdős–Rényi G(n, p) with the reference's connectivity fix: dense
     upper-triangle Bernoulli(p) sampling for small n, per-row binomial
-    sampling (identical distribution) above ``_DENSE_ER_LIMIT``."""
+    sampling (identical distribution) above ``_DENSE_ER_LIMIT``.
+
+    ``return_parallel_extra`` also returns the (n,) int32 duplicate
+    peer-list entries of the reference's parallel-link quirk
+    (`parallel_link_extra`): ``(graph, extra)``."""
     if n <= 0:
         raise ValueError("n must be positive")
     rng = np.random.default_rng(seed)
@@ -173,9 +191,49 @@ def erdos_renyi(n: int, p: float, seed: int = 0) -> Graph:
             if srcs
             else np.zeros((0, 2), dtype=np.int64)
         )
-    return Graph.from_edges(
+    graph = Graph.from_edges(
         n, np.concatenate([edges, _forced_edges(n, has_upper)], axis=0)
     )
+    if not return_parallel_extra:
+        return graph
+    return graph, parallel_link_extra(n, edges, has_upper)
+
+
+def parallel_link_extra(
+    n: int, sampled_edges: np.ndarray, has_upper: np.ndarray
+) -> np.ndarray:
+    """Per-node duplicate peer-list entries under the reference's
+    parallel-link quirk (the CLI's ``--refParallelLinks``).
+
+    The reference keys its link map by the ordered pair passed to
+    `ConnectNodes` (p2pnetwork.cc:129): a sampled edge is (i-1, i) while
+    row i's forced fallback is (i, i-1) (p2pnetwork.cc:83), so both
+    physical links are built. The REGISTER reply handler appends a peer
+    without a membership check (p2pnode.cc:186), so both endpoints of a
+    doubled pair list each other twice and every broadcast sends that peer
+    two copies (p2pnode.cc:129); the receiver drops the second copy
+    without touching a counter (p2pnode.cc:189-193). The observable
+    effects are a doubled ``sent`` on those entries and an inflated "Peer
+    count" (`NodeStats.with_parallel_links`).
+
+    A pair {i-1, i} is doubled iff row i forced its fallback edge and the
+    (i-1, i) key exists: sampled by row i-1, or (for i == 1) forced by row
+    0's own fallback (0, 1)."""
+    extra = np.zeros(n, dtype=np.int32)
+    if n <= 1:
+        return extra
+    forced_rows = np.flatnonzero(~has_upper)
+    forced_rows = forced_rows[forced_rows >= 1]
+    if forced_rows.size == 0:
+        return extra
+    sampled_edges = np.asarray(sampled_edges, dtype=np.int64).reshape(-1, 2)
+    sampled_keys = set((sampled_edges[:, 0] * n + sampled_edges[:, 1]).tolist())
+    for i in forced_rows:
+        i = int(i)
+        if ((i - 1) * n + i) in sampled_keys or (i == 1 and not has_upper[0]):
+            extra[i - 1] += 1
+            extra[i] += 1
+    return extra
 
 
 def barabasi_albert(n: int, m: int = 3, seed: int = 0, batch: int = 1024) -> Graph:
@@ -283,3 +341,98 @@ def grid_graph(rows: int, cols: int, torus: bool = False) -> Graph:
         if rows > 2:
             edges.append(np.stack([ids[-1, :].ravel(), ids[0, :].ravel()], axis=1))
     return Graph.from_edges(n, np.concatenate(edges, axis=0))
+
+
+# --- npz graph caches (the JAX package's format: same keys, same
+# fingerprints, so a cache either package writes loads in the other) ------
+
+#: npz key prefix for derived per-graph arrays stored beside the CSR.
+AUX_PREFIX = "aux_"
+
+
+def save_graph_cache(
+    path: str, graph: Graph, fp: str = "", aux: dict | None = None
+) -> None:
+    """Atomic npz graph cache write (tmp + fsync + replace). ``fp`` is the
+    caller's build-parameter fingerprint, checked on load; ``aux`` arrays
+    ride along under ``aux_<name>`` keys."""
+    from p2p_gossip_tpu_torch.utils.checkpoint import atomic_savez
+
+    extra = {AUX_PREFIX + name: np.asarray(arr) for name, arr in (aux or {}).items()}
+    atomic_savez(
+        path, n=graph.n, indptr=graph.indptr, indices=graph.indices, fp=fp,
+        **extra,
+    )
+
+
+def load_graph_cache(path: str) -> tuple[Graph, str | None]:
+    """Load an npz graph cache -> (graph, fingerprint or None). Raises
+    ValueError with a readable message on an unreadable or non-graph
+    file."""
+    try:
+        with np.load(path) as d:
+            fp = str(d["fp"]) if "fp" in d else None
+            graph = Graph(n=int(d["n"]), indptr=d["indptr"], indices=d["indices"])
+    except Exception as e:  # any unreadable file: one message for the caller
+        raise ValueError(
+            f"{path} is not a readable graph cache "
+            f"({type(e).__name__}: {e}); delete it to rebuild"
+        ) from e
+    return graph, fp
+
+
+def scale_graph_fingerprint(
+    topology: str, nodes: int, prob: float, ba_m: int, seed: int
+) -> str:
+    """Build-parameter fingerprint of the big-graph caches (the JAX
+    package's ``scripts/scale_1m.py`` caches and the port's
+    ``p2p_gossip_tpu_torch.scale``). ``ba_m`` is pinned to 3 for non-BA
+    topologies, and the "scale_1m" prefix is kept, as in the JAX package."""
+    from p2p_gossip_tpu_torch.utils.checkpoint import fingerprint
+
+    return fingerprint(
+        "scale_1m", topology, nodes, prob, ba_m if topology == "ba" else 3, seed,
+    )
+
+
+def load_or_build_graph_cache(
+    cache: str,
+    *,
+    topology: str,
+    nodes: int,
+    prob: float,
+    ba_m: int,
+    seed: int,
+    build,
+    log,
+) -> Graph:
+    """Load ``cache`` if it exists and its fingerprint matches the build
+    parameters (a cache with no fingerprint loads with a warning), else
+    call ``build()`` and save the result under the fingerprint. ``cache``
+    may be empty (always build, never save). Raises SystemExit(2) after
+    ``log``-ging a message on an unreadable cache or a fingerprint
+    mismatch."""
+    import os
+    import time
+
+    fp = scale_graph_fingerprint(topology, nodes, prob, ba_m, seed)
+    if cache and os.path.exists(cache):
+        t0 = time.perf_counter()
+        try:
+            graph, cached_fp = load_graph_cache(cache)
+        except ValueError as e:
+            log(f"error: --cache {e}")
+            raise SystemExit(2)
+        if not cached_fp:  # None (no fp key) or "" (saved without one)
+            log(f"WARNING: {cache} predates cache fingerprints — "
+                "assuming it matches the requested topology flags")
+        elif cached_fp != fp:
+            log(f"error: {cache} was built with different topology "
+                "flags; delete it or match the original arguments")
+            raise SystemExit(2)
+        log(f"graph loaded from {cache}: {time.perf_counter()-t0:.1f}s")
+        return graph
+    graph = build()
+    if cache:
+        save_graph_cache(cache, graph, fp=fp)
+    return graph

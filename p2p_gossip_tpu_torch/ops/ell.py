@@ -261,8 +261,8 @@ def build_degree_buckets(
         buckets.append(
             (
                 rows.astype(np.int32),
-                b_idx.astype(np.int32),
-                b_mask.astype(bool),
+                b_idx.astype(np.int32, copy=False),
+                b_mask.astype(bool, copy=False),
                 np.ascontiguousarray(ell_delays[rows, :cap]).astype(np.int32)
                 if ell_delays is not None
                 else None,

@@ -3,7 +3,7 @@ the same graph writes the same bytes).
 
 Mirrors `SetupNetAnim` (p2pnetwork.cc:153-190): nodes on a ceil(sqrt(N)) grid
 at 100-unit spacing, colored by degree (>4 red, >2 green, else blue), written
-as a NetAnim-flavored XML file.
+as a NetAnim-flavored XML file, optionally with per-message packet events.
 """
 
 from __future__ import annotations
@@ -31,12 +31,21 @@ def _degree_color(degree: int) -> tuple[int, int, int]:
     return (0, 0, 255)
 
 
-def write_animation_xml(graph: Graph, path: str) -> None:
+def write_animation_xml(
+    graph: Graph, path: str, tick_dt: float = 1.0, messages=None
+) -> None:
     """Write a NetAnim-style XML trace (reference default file name:
     ``p2p-gossip-tcp-animation.xml``): the nodes on the reference's grid,
-    coloured by degree, and the links. The JAX package's function also
-    embeds coverage rows and per-message events, which no caller of the
-    port's passes; without them both write the same bytes."""
+    coloured by degree, and the links; optionally per-message packet
+    events, the analogue of NetAnim's ``EnablePacketMetadata``
+    (p2pnetwork.cc:187): one ``<p>``
+    element per transmission with NetAnim's packet attributes (fId/tId
+    sender/receiver, fbTx/fbRx first-bit times) plus the share id and the
+    outcome (delivered / duplicate / lost / down / horizon), from the
+    (src, dst, share, tx_tick, rx_tick, outcome) tuples of
+    ``run_event_sim(record_messages=True)``. (The JAX package's function
+    can also embed per-tick coverage rows, which no caller passes; without
+    them both write the same bytes.)"""
     pos = _grid_positions(graph.n)
     lines = ['<?xml version="1.0" encoding="UTF-8"?>', '<anim ver="netanim-3.108">']
     for i in range(graph.n):
@@ -49,6 +58,13 @@ def write_animation_xml(graph: Graph, path: str) -> None:
         )
     for a, b_ in graph.edges():
         lines.append(f'<link fromId="{int(a)}" toId="{int(b_)}"/>')
+    if messages is not None:
+        for src, dst, share, tx, rx, outcome in messages:
+            lines.append(
+                f'<p fId="{int(src)}" tId="{int(dst)}" '
+                f'fbTx="{tx * tick_dt:.6g}" fbRx="{rx * tick_dt:.6g}" '
+                f'share="{int(share)}" outcome="{outcome}"/>'
+            )
     lines.append("</anim>")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")

@@ -20,14 +20,15 @@ from __future__ import annotations
 import glob
 import hashlib
 import json
-import logging
 import os
 import time
 import zipfile
 
 import numpy as np
 
-log = logging.getLogger("p2p_gossip_tpu_torch.checkpoint")
+from p2p_gossip_tpu_torch.utils import logging as p2plog
+
+log = p2plog.get_logger("Checkpoint")
 
 _META_KEY = "__meta_json__"
 _FORMAT_VERSION = 1
@@ -105,7 +106,7 @@ def save_checkpoint(path: str, arrays: dict[str, np.ndarray], meta: dict) -> Non
         **arrays,
         **{_META_KEY: np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)},
     )
-    log.debug("saved checkpoint to %s: %s", path, meta)
+    log.debug(f"saved checkpoint to {path}: {meta}")
 
 
 def load_checkpoint(path: str) -> tuple[dict[str, np.ndarray], dict] | None:
@@ -120,12 +121,12 @@ def load_checkpoint(path: str) -> tuple[dict[str, np.ndarray], dict] | None:
         OSError, ValueError, KeyError, json.JSONDecodeError,
         zipfile.BadZipFile,
     ) as e:
-        log.warning("ignoring unreadable checkpoint %s: %s", path, e)
+        log.warn(f"ignoring unreadable checkpoint {path}: {e}")
         return None
     if meta.get("format_version") != _FORMAT_VERSION:
-        log.warning(
-            "ignoring checkpoint %s: format version %s != %s",
-            path, meta.get("format_version"), _FORMAT_VERSION,
+        log.warn(
+            f"ignoring checkpoint {path}: format version "
+            f"{meta.get('format_version')} != {_FORMAT_VERSION}"
         )
         return None
     return arrays, meta
@@ -159,11 +160,11 @@ class ChunkCheckpointer:
                 self.start_chunk = int(meta["next_chunk"])
                 for name, arr in arrays.items():
                     arr += saved[name].astype(arr.dtype)
-                log.info("resuming from %s at chunk %d", path, self.start_chunk)
+                log.info(f"resuming from {path} at chunk {self.start_chunk}")
             else:
-                log.warning(
-                    "checkpoint %s is from a different run (fingerprint "
-                    "mismatch); starting fresh", path,
+                log.warn(
+                    f"checkpoint {path} is from a different run "
+                    "(fingerprint mismatch); starting fresh"
                 )
 
     def save(self, next_chunk: int) -> None:

@@ -6,19 +6,25 @@ the JAX package CLI's single-device flags with that CLI's names, defaults,
 validation and messages: topologies, generation models, delay models,
 churn, link loss, the connect window, checkpoints, the flood-coverage
 experiment, the random-partner protocols (``--protocol pushpull|pull|
-pushk``), the ``--json`` line, the ``--anim`` NetAnim file, the
-``--telemetry`` stream and ``--heartbeat`` file (`p2p_gossip_tpu_torch.
-telemetry`), Monte-Carlo campaigns (``--replicas R``: replica r runs with
-seed ``--seed + r``) and grid sweeps (``--sweep SPEC.json``,
-`p2p_gossip_tpu_torch.batch`). One tick is one link latency, and every
-random model derives from ``--seed`` as in the JAX package, so the same
-flags print the same report (and, with ``--telemetry``, the same ring and
-digest events). ``--degreeBlock`` is accepted and checked, and changes
-nothing: the CUDA gather has no degree block.
+pushk``), the ``--json`` line, the ``--anim`` NetAnim file (with
+``--animMessages``' per-message events), the ``--telemetry`` stream and
+``--heartbeat`` file (`p2p_gossip_tpu_torch.telemetry`), Monte-Carlo
+campaigns (``--replicas R``: replica r runs with seed ``--seed + r``),
+grid sweeps (``--sweep SPEC.json``, `p2p_gossip_tpu_torch.batch`),
+component logs (``--log``, `utils.logging`), npz graph caches
+(``--graphFile``), the C++ graph builders (``--graphBuilder``), the
+reference's parallel-link quirk (``--refParallelLinks``) and the engines
+(``--backend``): ``tpu``, the default, is the device engine (the card, or
+``--device cpu``), named as in the JAX CLI so one command line runs in
+either package; ``event`` the Python event engine and ``native`` the C++
+one, both on the host (``--linkQueueing`` needs one of them). One tick is
+one link latency, and every random model derives from ``--seed`` as in the
+JAX package, so the same flags print the same report. ``--degreeBlock`` is
+accepted and checked, and changes nothing: the CUDA gather has no degree
+block.
 
-Left for later: ``--backend`` (the JAX CLI's event, native and sharded
-engines), the mesh flags, ``--log``, ``--graphFile``, ``--graphBuilder``,
-``--refParallelLinks``, ``--linkQueueing`` and ``--animMessages``."""
+Left for later: ``--backend sharded`` (exits 2) and the mesh flags
+(multi-GPU, ROADMAP.md queue 1 item 4)."""
 
 from __future__ import annotations
 
@@ -45,11 +51,38 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--Latency", type=float, default=5.0, help="latency in ms")
     p.add_argument(
+        "--backend", choices=("tpu", "sharded", "event", "native"),
+        default="tpu",
+        help="Execution engine: tpu = the device engine (default; the card, "
+        "or --device cpu), event = the Python event engine, native = the "
+        "C++ event engine (both on the host); sharded (multi-GPU) is not "
+        "ported yet",
+    )
+    p.add_argument(
         "--topology",
         choices=("er", "ba", "ring", "ws", "grid", "torus", "complete"),
         default="er",
         help="Topology family (er = reference's random topology; ws = "
         "Watts-Strogatz small-world; grid/torus = 2D lattice)",
+    )
+    p.add_argument(
+        "--refParallelLinks", action="store_true",
+        help="Model the reference's parallel-link REGISTER quirk: when a "
+        "forced connectivity edge duplicates a sampled one, both endpoints "
+        "list each other twice and every broadcast sends the duplicate an "
+        "extra copy (dropped by its seen-set on arrival, so dynamics are "
+        "unchanged). Reproduces the reference's inflated Total-sent and "
+        "Peer-count numbers (p2pnetwork.cc:83,129; p2pnode.cc:186). er "
+        "topology with the python graph builder only",
+    )
+    p.add_argument(
+        "--graphBuilder", choices=("auto", "native", "python"),
+        default="python",
+        help="Graph construction for er/ba: the C++ builder (built from "
+        "native/gossip_native.cc at first use) or numpy. The two draw from "
+        "different random streams, so one --seed gives a different (equally "
+        "valid) graph per builder. auto = native when the library builds. "
+        "Use native for million-node graphs",
     )
     p.add_argument("--baM", type=int, default=3, help="Edges per node for --topology ba")
     p.add_argument("--wsK", type=int, default=4, help="Lattice degree for --topology ws")
@@ -99,6 +132,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--bandwidthMbps", type=float, default=5.0,
         help="Link bandwidth for --delayModel serialization "
         "(reference: 5 Mbps, p2pnetwork.cc:113)",
+    )
+    p.add_argument(
+        "--linkQueueing", action="store_true",
+        help="FIFO link queueing (the reference's NS-3 DataRate queue, "
+        "p2pnetwork.cc:113): concurrent messages on one link serialize "
+        "through a per-link queue sized by --shareBytes / --bandwidthMbps, "
+        "on top of the propagation delay model. --backend event|native "
+        "with --protocol push only; not with --delayModel serialization",
     )
     p.add_argument(
         "--churnProb", type=float, default=0.0,
@@ -184,6 +225,23 @@ def build_parser() -> argparse.ArgumentParser:
         help="Write a NetAnim-style XML trace to this path",
     )
     p.add_argument(
+        "--animMessages", action="store_true",
+        help="Embed per-message packet events in the --anim trace (--backend "
+        "event with --protocol push only)",
+    )
+    p.add_argument(
+        "--log", type=str, default="",
+        help="NS_LOG-style component log spec, e.g. "
+        "'Engine.Event=debug:Engine.Sync=info' or '*=info' (also honors "
+        "the P2P_LOG environment variable); lines go to stderr",
+    )
+    p.add_argument(
+        "--graphFile", type=str, default="",
+        help="npz graph cache: load the topology from this file if it "
+        "exists, else build per --topology and save it (the JAX package's "
+        "format: a file either package writes loads in the other)",
+    )
+    p.add_argument(
         "--json", action="store_true",
         help="Emit one machine-readable JSON line with config, totals, "
         "and wall time after the reference-format report",
@@ -247,18 +305,32 @@ def _run_protocol(args, g, sched, horizon, delays, churn, loss, **kw):
     return run_pushpull_sim(g, sched, horizon, mode=args.protocol, **common)
 
 
-def _build_graph(args):
-    """The ``--topology`` graph, or an error message."""
+def _build_graph(args, use_native: bool):
+    """The ``--topology`` graph (with the parallel-link extra under
+    ``--refParallelLinks``, else None), or an error message."""
     from p2p_gossip_tpu_torch.models import topology as topo
 
+    if args.topology in ("er", "ba") and use_native:
+        from p2p_gossip_tpu_torch.runtime import native
+
+        if args.topology == "er":
+            return native.native_erdos_renyi(
+                args.numNodes, args.connectionProb, seed=args.seed
+            ), None
+        return native.native_barabasi_albert(args.numNodes, m=args.baM, seed=args.seed), None
     if args.topology == "er":
-        return topo.erdos_renyi(args.numNodes, args.connectionProb, seed=args.seed)
+        if args.refParallelLinks:
+            return topo.erdos_renyi(
+                args.numNodes, args.connectionProb, seed=args.seed,
+                return_parallel_extra=True,
+            )
+        return topo.erdos_renyi(args.numNodes, args.connectionProb, seed=args.seed), None
     if args.topology == "ba":
-        return topo.barabasi_albert(args.numNodes, m=args.baM, seed=args.seed)
+        return topo.barabasi_albert(args.numNodes, m=args.baM, seed=args.seed), None
     if args.topology == "ws":
         return topo.watts_strogatz(
             args.numNodes, k=args.wsK, beta=args.wsBeta, seed=args.seed
-        )
+        ), None
     if args.topology in ("grid", "torus"):
         if args.gridCols:
             cols = args.gridCols
@@ -274,10 +346,130 @@ def _build_graph(args):
                 f"--numNodes {args.numNodes} is not rows*cols (cols={cols}); "
                 "pass --gridCols"
             )
-        return topo.grid_graph(rows, cols, torus=args.topology == "torus")
+        return topo.grid_graph(rows, cols, torus=args.topology == "torus"), None
     if args.topology == "complete":
-        return topo.complete_graph(args.numNodes)
-    return topo.ring_graph(args.numNodes)
+        return topo.complete_graph(args.numNodes), None
+    return topo.ring_graph(args.numNodes), None
+
+
+def _load_graph_file(args):
+    """``--graphFile`` when the file exists: (graph, None), or (None, an
+    error message); (None, None) when there is no file to load. The cache
+    is keyed by the JAX CLI's fingerprint of every topology flag."""
+    import os
+
+    from p2p_gossip_tpu_torch.models.topology import load_graph_cache
+
+    if not (args.graphFile and os.path.exists(args.graphFile)):
+        return None, None
+    try:
+        graph, cached_fp = load_graph_cache(args.graphFile)
+    except ValueError as e:
+        return None, f"--graphFile {e}"
+    if cached_fp is not None and cached_fp != _graph_fingerprint(args):
+        return None, (
+            f"--graphFile {args.graphFile} was built with different topology "
+            "parameters; delete it or match the original flags"
+        )
+    if graph.n != args.numNodes:
+        return None, (
+            f"--graphFile holds a {graph.n}-node graph, --numNodes is "
+            f"{args.numNodes}"
+        )
+    return graph, None
+
+
+def _graph_fingerprint(args) -> str:
+    from p2p_gossip_tpu_torch.utils.checkpoint import fingerprint
+
+    return fingerprint(
+        "topology", args.topology, args.numNodes, args.connectionProb,
+        args.seed, args.baM, args.wsK, args.wsBeta, args.gridCols,
+        args.graphBuilder,
+    )
+
+
+def _graph_flag_error(args, loaded) -> str | None:
+    """The JAX CLI's refusals of ``--refParallelLinks`` and
+    ``--graphBuilder`` combinations, in its order."""
+    if args.refParallelLinks and (args.topology != "er" or loaded is not None):
+        return (
+            "--refParallelLinks needs a freshly built er topology (the quirk "
+            "depends on which forced edges duplicate sampled ones in the "
+            "builder's own sampling stream)"
+        )
+    if args.refParallelLinks and args.graphBuilder == "native":
+        return (
+            "--refParallelLinks requires --graphBuilder python (the native "
+            "builder uses a different RNG stream)"
+        )
+    if args.refParallelLinks and args.protocol != "push":
+        return (
+            "--refParallelLinks models the reference's broadcast quirk; it "
+            "only applies to --protocol push (flood)"
+        )
+    if args.refParallelLinks and args.connectAtTick:
+        # with_parallel_links charges extra sends for every broadcast,
+        # including warm-up ones the reference never sends.
+        return (
+            "--refParallelLinks cannot be combined with --connectAtTick (the "
+            "quirk's reporting transform charges extra sends for warm-up "
+            "broadcasts that the reference never sends)"
+        )
+    return None
+
+
+def _link_queueing_error(args) -> str | None:
+    """The JAX CLI's refusals of ``--linkQueueing``, in its order."""
+    if args.backend not in ("event", "native"):
+        return (
+            "--linkQueueing requires --backend event|native (per-message "
+            "engines; tick engines model serialization via --delayModel "
+            "serialization)"
+        )
+    if args.protocol != "push":
+        return (
+            "--linkQueueing supports --protocol push only (the partnered "
+            "protocols are round-based digests, not per-message transmissions)"
+        )
+    if args.delayModel == "serialization":
+        return (
+            "--linkQueueing is incompatible with --delayModel serialization "
+            "(it would charge the serialization time twice); use constant or "
+            "lognormal for the propagation part"
+        )
+    if args.shareBytes < 0 or args.bandwidthMbps <= 0:
+        return "--shareBytes must be >= 0 and --bandwidthMbps > 0"
+    return None
+
+
+def _run_host_engine(args, g, sched, horizon, delays, churn, loss, snapshot_ticks, fifo):
+    """``--backend event|native``: the Python or C++ event engine on the
+    host (the protocols through their host legs)."""
+    if args.backend == "native":
+        from p2p_gossip_tpu_torch.runtime import native
+
+        if args.protocol in PARTNERED:
+            return native.run_native_partnered_sim(
+                g, sched, horizon, protocol=args.protocol, fanout=args.fanout,
+                ell_delays=delays, seed=args.seed, churn=churn, loss=loss,
+            )
+        return native.run_native_sim(
+            g, sched, horizon, ell_delays=delays, snapshot_ticks=snapshot_ticks,
+            churn=churn, loss=loss, connect_tick=args.connectAtTick, fifo_links=fifo,
+        )
+    from p2p_gossip_tpu_torch.engine import event
+
+    if args.protocol in PARTNERED:
+        return event.run_event_partnered_sim(
+            g, sched, horizon, protocol=args.protocol, fanout=args.fanout,
+            seed=args.seed, churn=churn, loss=loss,
+        )
+    return event.run_event_sim(
+        g, sched, horizon, ell_delays=delays, snapshot_ticks=snapshot_ticks,
+        churn=churn, loss=loss, record_messages=args.animMessages,
+        connect_tick=args.connectAtTick, fifo_links=fifo,
+    )
 
 
 def _run_flood_coverage_cli(args, g, horizon, delays, churn, loss) -> int:
@@ -533,17 +725,31 @@ def run(argv=None) -> int:
         uniform_renewal_schedule,
     )
     from p2p_gossip_tpu_torch.models.latency import (
+        fifo_link_model,
         lognormal_delays,
         serialization_delays,
     )
     from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
     from p2p_gossip_tpu_torch.models.seeds import churn_stream_seed, loss_stream_seed
+    from p2p_gossip_tpu_torch.utils import logging as p2plog
     from p2p_gossip_tpu_torch.utils.stats import format_final_statistics
 
     # Refused only where the JAX CLI dies with a traceback; --numNodes 1 and
     # a negative --simTime run there (an all-zero report) and run here too.
     if args.numNodes < 1 or args.Latency <= 0 or args.chunkSize < 1:
         return _error("--numNodes must be >= 1, --Latency > 0, --chunkSize >= 1")
+    if args.backend == "sharded":
+        return _error(
+            "--backend sharded: the multi-GPU engine is not ported yet "
+            "(ROADMAP.md queue 1 item 4); use --backend tpu|event|native"
+        )
+    tick_dt = args.Latency / 1000.0
+    if args.log:
+        try:
+            p2plog.configure(args.log)
+        except ValueError as e:
+            return _error(f"--log: {e}")
+    p2plog.set_time_resolution(tick_dt)
     if args.telemetry:
         # The flag wins over P2P_TELEMETRY (configure replaces an
         # environment-initialized stream).
@@ -553,14 +759,44 @@ def run(argv=None) -> int:
             return _error(f"--telemetry: {e}")
     if args.heartbeat:
         telemetry.configure_heartbeat(args.heartbeat)  # wins over P2P_HEARTBEAT
-    tick_dt = args.Latency / 1000.0
     horizon = int(round(args.simTime / tick_dt))
     if args.sweep:
         return _run_sweep_cli(args)
+
+    loaded, err = _load_graph_file(args)
+    if err is None:
+        err = _graph_flag_error(args, loaded)
+    if err is not None:
+        return _error(err)
+    use_native = False
+    if (loaded is None and args.graphBuilder != "python"
+            and args.topology in ("er", "ba") and not args.refParallelLinks):
+        from p2p_gossip_tpu_torch.runtime import native
+
+        use_native = native.available()
+        if args.graphBuilder == "native" and not use_native:
+            return _error(
+                "--graphBuilder native: the native library is not built (run "
+                "`make -C native`)"
+            )
+    elif args.graphBuilder == "native" and loaded is None:
+        # A warm --graphFile cache needs no builder at all.
+        return _error(
+            f"--graphBuilder native has no {args.topology} builder (only er/ba)"
+        )
+    parallel_extra = None
     with telemetry.span("build_graph", topology=args.topology):
-        g = _build_graph(args)
-    if isinstance(g, str):
-        return _error(g)
+        if loaded is not None:
+            g = loaded
+        else:
+            built = _build_graph(args, use_native)
+            if isinstance(built, str):
+                return _error(built)
+            g, parallel_extra = built
+            if args.graphFile:
+                from p2p_gossip_tpu_torch.models.topology import save_graph_cache
+
+                save_graph_cache(args.graphFile, g, fp=_graph_fingerprint(args))
     with telemetry.span("schedule", model=args.genModel):
         if args.genModel == "uniform":
             sched = uniform_renewal_schedule(
@@ -590,6 +826,21 @@ def run(argv=None) -> int:
             f"-> {int(delays.max())} tick(s)/hop",
             file=sys.stderr,
         )
+    fifo = None
+    if args.linkQueueing:
+        err = _link_queueing_error(args)
+        if err is not None:
+            return _error(err)
+        fifo = fifo_link_model(
+            message_bytes=args.shareBytes, bandwidth_mbps=args.bandwidthMbps,
+            tick_dt=tick_dt,
+        )
+        print(
+            f"FIFO link queueing: {args.shareBytes} B at "
+            f"{args.bandwidthMbps:g} Mbps -> {fifo.ser_micro} micro-ticks "
+            "serialization per message per link",
+            file=sys.stderr,
+        )
 
     if args.degreeBlock < 0:
         return _error("--degreeBlock must be >= 0")
@@ -610,13 +861,19 @@ def run(argv=None) -> int:
             seed=churn_stream_seed(args.seed),
         )
 
-    # The JAX CLI names its numpy er/ba construction on the start line.
-    graph_note = ", graph-builder=python" if args.topology in ("er", "ba") else ""
+    # The JAX CLI names the er/ba construction on the start line.
+    if loaded is not None:
+        graph_note = ", graph-builder=cache"
+    elif args.topology in ("er", "ba"):
+        graph_note = f", graph-builder={'native' if use_native else 'python'}"
+    else:
+        graph_note = ""
+    engine = f"device={args.device}" if args.backend == "tpu" else f"backend={args.backend}"
     print(
         f"Starting gossip network simulation: {g.n} nodes, "
         f"{g.num_edges} links, {sched.num_shares} shares scheduled, "
         f"{horizon} ticks ({args.simTime:g}s at {args.Latency:g}ms), "
-        f"device={args.device}{graph_note}"
+        f"{engine}{graph_note}"
     )
     if churn is not None:
         n_outages = int((churn.down_end > churn.down_start).sum())
@@ -641,8 +898,22 @@ def run(argv=None) -> int:
             "--floodCoverage (the warm-up window is a flood-gossip "
             "reference semantic)"
         )
+    if args.animMessages and not (
+        args.anim and args.backend == "event" and args.protocol == "push"
+        and not args.floodCoverage
+    ):
+        return _error(
+            "--animMessages requires --anim with --backend event and "
+            "--protocol push (per-message recording lives in the exact event "
+            "path)"
+        )
     if args.replicas < 1:
         return _error(f"--replicas must be >= 1, got {args.replicas}")
+    if args.replicas > 1 and args.backend != "tpu":
+        return _error(
+            "--replicas requires --backend tpu (the vmapped campaign engine; "
+            "use --sweep for other-backend ensembles)"
+        )
     if args.replicas > 1 and args.anim:
         return _error(
             "--replicas does not support --anim (per-replica artifacts are "
@@ -657,6 +928,8 @@ def run(argv=None) -> int:
             return _error(
                 f"--floodCoverage must be positive, got {args.floodCoverage}"
             )
+        if args.backend != "tpu":
+            return _error("--floodCoverage requires --backend tpu|sharded")
         if not 0.0 < args.coverageFraction <= 1.0:
             return _error(
                 "--coverageFraction must be in (0, 1], got "
@@ -665,9 +938,20 @@ def run(argv=None) -> int:
         if args.replicas > 1:
             return _run_campaign_cli(args, g, horizon, delays, loss)
         return _run_flood_coverage_cli(args, g, horizon, delays, churn, loss)
+    if (args.protocol in PARTNERED and args.backend == "event"
+            and args.delayModel != "constant"):
+        return _error(
+            f"--protocol {args.protocol} --backend event supports only "
+            "--delayModel constant (the numpy oracle is the one-tick-delay "
+            "specification)"
+        )
+    if args.checkpoint and args.backend != "tpu":
+        return _error("--checkpoint requires --backend tpu|sharded")
     if args.checkpointEvery < 1:
         return _error("--checkpointEvery must be >= 1")
-    if args.protocol == "pull":
+    if args.protocol == "pull" and args.backend == "tpu":
+        # Only the bitmask engines carry the uint32 credit accumulator; the
+        # event and native engines accumulate sent in int64.
         err = _pull_credit_error(g, args.chunkSize, sched)
         if err is not None:
             return _error(err)
@@ -678,8 +962,13 @@ def run(argv=None) -> int:
     ckpt = dict(
         checkpoint_path=args.checkpoint or None, checkpoint_every=args.checkpointEvery
     )
-    with telemetry.span("simulate", device=args.device, protocol=args.protocol):
-        if args.protocol in PARTNERED:
+    with telemetry.span("simulate", device=args.device, protocol=args.protocol,
+                        backend=args.backend):
+        if args.backend != "tpu":
+            stats = _run_host_engine(
+                args, g, sched, horizon, delays, churn, loss, snapshot_ticks, fifo
+            )
+        elif args.protocol in PARTNERED:
             stats, _ = _run_protocol(args, g, sched, horizon, delays, churn, loss, **ckpt)
         else:
             stats = run_sync_sim(
@@ -688,6 +977,15 @@ def run(argv=None) -> int:
                 connect_tick=args.connectAtTick, device=args.device, **ckpt,
             )
     wall = time.perf_counter() - t0
+    if parallel_extra is not None:
+        # A reporting transform: the duplicate copies never change the
+        # dynamics (NodeStats.with_parallel_links).
+        stats = stats.with_parallel_links(parallel_extra)
+        print(
+            f"parallel-link quirk: {int(parallel_extra.sum()) // 2} doubled "
+            f"pair(s) across {int((parallel_extra > 0).sum())} node(s)",
+            file=sys.stderr,
+        )
     # Periodic reports (PrintPeriodicStats, p2pnetwork.cc:201-204); the
     # protocols keep no snapshots, as in the JAX package.
     for snap in stats.extra.get("snapshots", []):
@@ -714,6 +1012,7 @@ def run(argv=None) -> int:
                 "edges": int(g.num_edges),
                 "topology": args.topology,
                 "protocol": args.protocol,
+                "backend": args.backend,
                 "device": args.device,
                 "simTime": args.simTime,
                 "Latency": args.Latency,
@@ -726,7 +1025,9 @@ def run(argv=None) -> int:
     if args.anim:
         from p2p_gossip_tpu_torch.utils.anim import write_animation_xml
 
-        write_animation_xml(g, args.anim)
+        write_animation_xml(
+            g, args.anim, tick_dt=tick_dt, messages=stats.extra.get("messages")
+        )
         print(f"NetAnim trace written to {args.anim}")
     return 0
 

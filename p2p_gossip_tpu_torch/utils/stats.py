@@ -43,18 +43,47 @@ class NodeStats:
     def check_conservation(self) -> None:
         """Invariants implied by the reference semantics: every receive is
         forwarded, processed = generated + received, and every processed
-        share is sent once to each peer. Raises AssertionError."""
+        share is sent once to each peer (and once more to each duplicated
+        peer-list entry under the parallel-link quirk,
+        `with_parallel_links`). Raises AssertionError."""
         if not (self.received == self.forwarded).all():
             raise AssertionError("received != forwarded")
         if not (self.processed == self.generated + self.received).all():
             raise AssertionError("processed != generated + received")
-        if not (self.sent == (self.generated + self.forwarded) * self.degree).all():
+        fan = self.degree + self.extra.get("peer_extra", 0)
+        if not (self.sent == (self.generated + self.forwarded) * fan).all():
             raise AssertionError("sent != (generated + forwarded) * degree")
+
+    def with_parallel_links(self, peer_extra: np.ndarray) -> "NodeStats":
+        """Counters under the reference's parallel-link REGISTER quirk
+        (`models.topology.parallel_link_extra`). The quirk leaves the
+        gossip dynamics unchanged (the duplicate copy arrives the same tick
+        and is dropped by the seen-set, p2pnode.cc:189-193), so it is a
+        reporting transform: each broadcast charges one extra ``sent`` per
+        duplicated peer-list entry (p2pnode.cc:129-146), and "Peer count"
+        prints ``peers.size()`` with the duplicates while "Socket
+        connections" stays deduplicated (p2pnode.cc:248)."""
+        peer_extra = np.asarray(peer_extra, dtype=self.sent.dtype)
+        if peer_extra.shape != self.sent.shape:
+            raise ValueError("peer_extra must have one entry per node")
+        out = NodeStats(
+            generated=self.generated,
+            received=self.received,
+            forwarded=self.forwarded,
+            sent=self.sent + (self.generated + self.forwarded) * peer_extra,
+            processed=self.processed,
+            degree=self.degree,
+            extra=dict(self.extra),
+        )
+        out.extra["peer_extra"] = peer_extra
+        return out
 
     def __add__(self, other: "NodeStats") -> "NodeStats":
         """Chunk-wise accumulation (shares are independent, counters add).
         Scalar ``extra`` entries present on both sides are summed; an entry
-        on one side only is kept; array entries on both sides are dropped."""
+        on one side only is kept; array entries on both sides are dropped.
+        ``peer_extra`` is a property of the graph, not a counter: it must
+        be equal on both sides and is kept, never summed."""
         if not np.array_equal(self.degree, other.degree):
             raise ValueError("stats from different graphs")
         out = NodeStats(
@@ -67,8 +96,17 @@ class NodeStats:
         )
         for key in set(self.extra) | set(other.extra):
             a, b = self.extra.get(key), other.extra.get(key)
+            if key == "peer_extra" and (
+                a is None or b is None or not np.array_equal(a, b)
+            ):
+                raise ValueError(
+                    "peer_extra differs between operands: stats of different "
+                    "parallel-link transforms cannot be summed"
+                )
             if a is not None and b is not None:
-                if np.isscalar(a) and np.isscalar(b):
+                if key == "peer_extra":
+                    out.extra[key] = a
+                elif np.isscalar(a) and np.isscalar(b):
                     out.extra[key] = a + b
             else:
                 out.extra[key] = a if a is not None else b
@@ -88,6 +126,9 @@ def format_final_statistics(stats: NodeStats, per_node: bool = True) -> str:
     """The `PrintStatistics` report (p2pnetwork.cc:253-285)."""
     out = io.StringIO()
     out.write("=== P2P Gossip Network Simulation Statistics ===\n")
+    # Peer count = peers.size(), with the parallel-link quirk's duplicates
+    # when modeled; socket connections = the deduplicated peersockets map.
+    peer_count = stats.degree + stats.extra.get("peer_extra", 0)
     if per_node:
         for i in range(stats.n):
             out.write(
@@ -96,7 +137,7 @@ def format_final_statistics(stats: NodeStats, per_node: bool = True) -> str:
                 f", Forwarded {stats.forwarded[i]}"
                 f", Total sent {stats.sent[i]}"
                 f", Total processed {stats.processed[i]}"
-                f", Peer count {stats.degree[i]}"
+                f", Peer count {peer_count[i]}"
                 f", Socket connections {stats.degree[i]}\n"
             )
     t = stats.totals()

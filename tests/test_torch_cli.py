@@ -7,6 +7,7 @@ the JAX package on the CPU (``JAX_PLATFORMS=cpu``)."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -24,12 +25,19 @@ OPTIONS = [
 ]
 
 
+def _engine_free(start_line: str) -> str:
+    """The start line without its engine: ``backend=...`` in the JAX CLI;
+    ``device=...`` (the default engine) or ``backend=...`` (event, native)
+    in the port's. The graph-builder note after it stays."""
+    return re.sub(r", (backend|device)=[^,]*", "", start_line, count=1)
+
+
 def _assert_same_report(port: str, want: str) -> None:
     p, w = port.splitlines(), want.splitlines()
     assert len(p) == len(w), (port, want)
     start = "Starting gossip network simulation: "
     assert p[0].startswith(start) and w[0].startswith(start)
-    assert p[0].rsplit(", device=", 1)[0] == w[0].rsplit(", backend=", 1)[0]
+    assert _engine_free(p[0]) == _engine_free(w[0])
     assert p[-1].startswith("Simulated ") and w[-1].startswith("Simulated ")
     assert p[1:-1] == w[1:-1]
 
@@ -160,14 +168,14 @@ def test_topology_and_generation_flags_print_the_jax_report(name, args, capsys):
 
 
 def _json_line(out: str) -> dict:
-    """The --json line with its timing fields dropped and the engine key
-    (``backend`` in the JAX CLI, ``device`` in the port's) set aside."""
+    """The --json line with its timing fields dropped and the engine keys
+    (``backend`` in the JAX CLI, ``device`` too in the port's) set aside."""
     head, last = _split_tail(out, "{")
     record = json.loads(last)
     for key in ("wall_s", "node_updates_per_s"):
         record.pop(key, None)
     config = record["config"]
-    assert config.pop("backend", None) or config.pop("device", None)
+    assert [config.pop(key) for key in ("backend", "device") if key in config]
     return head, record
 
 
@@ -458,3 +466,219 @@ def test_replicas_with_telemetry_refuse_until_campaign_telemetry(tmp_path, capsy
     assert cli.run(args) == 2
     err = capsys.readouterr().err
     assert err.startswith("error: campaign telemetry") and "ROADMAP" in err
+
+
+# --- the host engines, graph files, the C++ builders, logs and the quirk --------
+
+@pytest.fixture
+def clean_logging():
+    """Both packages' component-log rules (module globals a --log run sets)
+    restored after the test."""
+    from p2p_gossip_tpu.utils import logging as jax_log
+    from p2p_gossip_tpu_torch.utils import logging as port_log
+
+    def reset():
+        for mod in (port_log, jax_log):
+            mod._RULES.clear()
+            for comp in mod._REGISTRY.values():
+                comp.level = mod._DEFAULT_LEVEL
+            mod.set_time_resolution(1.0)
+            mod.set_stream(None)
+
+    reset()
+    yield
+    reset()
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for the port's CPU tick engine: its (N, W) passes
+    above torch's parallel grain would otherwise wait on busy cores when
+    the suite runs in parallel workers (results are the same)."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _run_both(args, capsys, port_extra=("--device", "cpu")):
+    """(port stdout, port stderr), (JAX stdout, JAX stderr), both exit 0."""
+    assert jax_cli.run(list(args)) == 0
+    want = capsys.readouterr()
+    assert cli.run(list(args) + list(port_extra)) == 0
+    got = capsys.readouterr()
+    return (got.out, got.err), (want.out, want.err)
+
+
+LINK_QUEUEING = ["--numNodes", "16", "--connectionProb", "0.2", "--simTime", "10",
+                 "--seed", "2", "--linkQueueing", "--shareBytes", "8000"]
+PARALLEL = ["--numNodes", "14", "--connectionProb", "0.12", "--simTime", "6", "--seed", "2",
+            "--refParallelLinks"]
+
+
+@pytest.mark.parametrize("name,args", [
+    ("event_defaults", ["--backend", "event"]),
+    ("native_defaults", ["--backend", "native"]),
+    ("event_options", OPTIONS + ["--backend", "event"]),
+    ("native_options", OPTIONS + ["--backend", "native"]),
+    ("event_pushpull", PROTOCOL + ["--protocol", "pushpull", "--backend", "event"]),
+    ("event_pull", PROTOCOL + ["--protocol", "pull", "--lossProb", "0.2", "--churnProb",
+                               "0.3", "--backend", "event"]),
+    ("native_pushk", PROTOCOL + ["--protocol", "pushk", "--fanout", "3", "--lossProb", "0.1",
+                                 "--delayModel", "lognormal", "--backend", "native"]),
+    ("event_link_queueing", LINK_QUEUEING + ["--backend", "event"]),
+    ("native_link_queueing", LINK_QUEUEING + ["--backend", "native", "--delayModel",
+                                              "lognormal"]),
+    ("parallel_links", PARALLEL),
+    ("event_parallel_links", PARALLEL + ["--backend", "event"]),
+    ("native_builder_er", ["--numNodes", "300", "--connectionProb", "0.02", "--simTime", "4",
+                           "--graphBuilder", "native"]),
+    ("auto_builder_ba", ["--numNodes", "300", "--topology", "ba", "--simTime", "4",
+                         "--graphBuilder", "auto", "--backend", "native"]),
+])
+def test_backend_and_graph_flags_print_the_jax_report(name, args, capsys, one_thread):
+    """stdout and stderr equal the JAX CLI's for the host engines, FIFO link
+    queueing, the parallel-link quirk and the C++ graph builders."""
+    port_extra = ("--device", "cpu") if "--backend" not in args else ()
+    (out, err), (want_out, want_err) = _run_both(args, capsys, port_extra)
+    _assert_same_report(out, want_out)
+    assert err == want_err
+    first = out.splitlines()[0]
+    if "--backend" in args:
+        assert f"backend={args[args.index('--backend') + 1]}" in first
+    if "Builder" in name or "builder" in name:
+        assert first.endswith(", graph-builder=native")
+    if "link_queueing" in name:
+        assert "FIFO link queueing: 8000 B at 5 Mbps -> " in err
+    if "parallel" in name:
+        assert "parallel-link quirk: 1 doubled pair(s) across 2 node(s)" in err
+
+
+@pytest.mark.parametrize("backend", ["event", "native"])
+def test_host_backends_print_the_default_engines_counters(backend, capsys):
+    """The reference defaults: the event and native engines print the
+    per-node lines, periodic blocks and totals of the default engine."""
+    assert cli.run(["--device", "cpu"]) == 0
+    want = capsys.readouterr().out
+    assert cli.run(["--backend", backend]) == 0
+    got = capsys.readouterr().out
+    assert got.splitlines()[1:-1] == want.splitlines()[1:-1]
+
+
+@pytest.mark.parametrize("builder", ["python", "native"])
+def test_graph_file_cold_warm_and_across_packages(builder, tmp_path, capsys, one_thread):
+    """--graphFile: the cold run builds and saves, the warm run loads (the
+    start line says graph-builder=cache) and prints the same report; each
+    package's file serves the other's warm run."""
+    args = ["--numNodes", "2000", "--connectionProb", "0.004", "--simTime", "0.5",
+            "--graphBuilder", builder, "--perNodeStats"]
+    port_file, jax_file = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    cold = _run_in_process(cli.run, args + ["--graphFile", port_file, "--device", "cpu"],
+                           capsys)
+    jax_cold = _run_in_process(jax_cli.run, args + ["--graphFile", jax_file], capsys)
+    _assert_same_report(cold, jax_cold)
+    assert cold.splitlines()[0].endswith(f", graph-builder={builder}")
+    for graph_file in (jax_file, port_file):  # the JAX file first: across packages
+        (warm, _), (jax_warm, _) = _run_both(args + ["--graphFile", graph_file], capsys)
+        _assert_same_report(warm, jax_warm)
+        assert warm.splitlines()[0].endswith(", graph-builder=cache")
+        assert warm.splitlines()[1:-1] == cold.splitlines()[1:-1]
+
+
+@pytest.mark.parametrize("case", ["other_topology", "other_builder", "corrupt",
+                                  "other_nodes"])
+def test_graph_file_refusals_print_the_jax_error(case, tmp_path, capsys):
+    path = tmp_path / "g.npz"
+    base = ["--numNodes", "30", "--simTime", "1", "--graphFile", str(path)]
+    assert jax_cli.run(base + ["--seed", "2"]) == 0
+    capsys.readouterr()
+    args = {
+        "other_topology": base + ["--seed", "2", "--topology", "ring"],
+        "other_builder": base + ["--seed", "2", "--graphBuilder", "native"],
+        "corrupt": base + ["--seed", "2"],
+        "other_nodes": ["--numNodes", "31", "--graphFile", str(path)],
+    }[case]
+    if case == "corrupt":
+        path.write_bytes(b"not a zip")
+    assert jax_cli.run(args) == 2
+    want = capsys.readouterr().err
+    assert cli.run(args + ["--device", "cpu"]) == 2
+    got = capsys.readouterr().err
+    assert got.startswith("error: --graphFile") and got == want
+
+
+@pytest.mark.parametrize("args", [
+    ["--refParallelLinks", "--topology", "ring"],
+    ["--refParallelLinks", "--graphBuilder", "native"],
+    ["--refParallelLinks", "--protocol", "pushpull"],
+    ["--refParallelLinks", "--connectAtTick", "100"],
+    ["--graphBuilder", "native", "--topology", "ring"],
+    ["--linkQueueing"],
+    ["--linkQueueing", "--backend", "event", "--protocol", "pushpull"],
+    ["--linkQueueing", "--backend", "native", "--delayModel", "serialization"],
+    ["--linkQueueing", "--backend", "event", "--shareBytes", "-1"],
+    ["--animMessages", "--anim", "unused.xml"],
+    ["--animMessages", "--anim", "unused.xml", "--backend", "event", "--floodCoverage", "3"],
+    ["--floodCoverage", "4", "--backend", "event"],
+    ["--checkpoint", "unused.npz", "--backend", "native"],
+    ["--protocol", "pushpull", "--backend", "event", "--delayModel", "lognormal"],
+    ["--replicas", "2", "--backend", "native"],
+    ["--log", "Engine.Event=loud"],
+])
+def test_new_flag_refusals_print_the_jax_error(args, capsys, clean_logging):
+    assert jax_cli.run(args) == 2
+    want = capsys.readouterr().err
+    assert cli.run(args + ["--device", "cpu"]) == 2
+    got = capsys.readouterr().err
+    assert "error: " in got and got == want
+
+
+def test_sharded_backend_exits_2_naming_the_roadmap(capsys):
+    assert cli.run(["--backend", "sharded"]) == 2
+    captured = capsys.readouterr()
+    assert captured.out == ""
+    assert captured.err.startswith("error: --backend sharded: ")
+    assert "ROADMAP.md queue 1 item 4" in captured.err
+
+
+@pytest.mark.parametrize("name,args", [
+    ("event_logic", ["--numNodes", "8", "--simTime", "4", "--backend", "event",
+                     "--log", "*=logic"]),
+    ("sync_debug", ["--numNodes", "30", "--simTime", "4", "--chunkSize", "32",
+                    "--log", "*=debug"]),
+    ("native_info", ["--numNodes", "12", "--simTime", "1", "--backend", "native",
+                     "--log", "Engine.Event=info:*=warn"]),
+])
+def test_log_flag_prints_the_jax_lines(name, args, capsys, clean_logging):
+    """--log: the same component lines on stderr, line for line, with the
+    tick -> seconds prefixes."""
+    (out, err), (want_out, want_err) = _run_both(
+        args, capsys, () if "--backend" in args else ("--device", "cpu"))
+    _assert_same_report(out, want_out)
+    assert err.splitlines() == want_err.splitlines()
+    if name == "event_logic":
+        assert "[Engine.Event] INFO: starting event simulation: 8 nodes" in err
+        assert "s [Engine.Event] LOGIC: Node " in err
+    if name == "sync_debug":
+        assert "[Engine.Sync] DEBUG: chunk 0: " in err
+
+
+def test_anim_messages_file_is_byte_equal(tmp_path, capsys):
+    """--animMessages with the event engine: the NetAnim file with its
+    per-message <p> events equals the JAX CLI's byte for byte."""
+    args = ["--numNodes", "12", "--connectionProb", "0.3", "--simTime", "5",
+            "--backend", "event", "--seed", "2", "--lossProb", "0.2", "--churnProb",
+            "0.3", "--animMessages"]
+    (out, _), (want, _) = _run_both(
+        args + ["--anim", str(tmp_path / "port.xml")], capsys, ())
+    assert jax_cli.run(args + ["--anim", str(tmp_path / "jax.xml")]) == 0
+    want = capsys.readouterr().out
+    port_head, _ = _split_tail(out, "NetAnim trace written to ")
+    jax_head, _ = _split_tail(want, "NetAnim trace written to ")
+    _assert_same_report(port_head, jax_head)
+    text = (tmp_path / "port.xml").read_text()
+    assert text == (tmp_path / "jax.xml").read_text()
+    for outcome in ("delivered", "duplicate", "lost"):
+        assert f'outcome="{outcome}"' in text

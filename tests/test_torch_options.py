@@ -352,9 +352,10 @@ def test_checkpoint_crosses_packages(tmp_path, writer):
     assert got.extra["ticks_executed"] < want.extra["ticks_executed"]
 
 
-def test_checkpoint_of_another_run_starts_fresh(tmp_path, caplog):
+def test_checkpoint_of_another_run_starts_fresh(tmp_path, capsys):
     """A checkpoint from a different seed is ignored on both sides: each
-    package's run equals its uninterrupted run."""
+    package's run equals its uninterrupted run, and each resuming side
+    prints the ``Checkpoint`` component's warning to stderr."""
     case, opts = _ckpt_case()
     other_opts = dict(opts, loss=_loss_pair(0.1, 10))
     for stop, resume, label in (
@@ -365,4 +366,6 @@ def test_checkpoint_of_another_run_starts_fresh(tmp_path, caplog):
         got = resume(case, opts, checkpoint_path=ckpt)
         want = _jax_run(case, opts)
         _check(got, want)
-    assert "fingerprint mismatch" in caplog.text
+    warned = [ln for ln in capsys.readouterr().err.splitlines()
+              if "fingerprint mismatch" in ln]
+    assert len(warned) == 2 and all(ln.startswith("[Checkpoint] WARN: ") for ln in warned)

@@ -57,7 +57,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = {os.path.relpath(f, REPO) for f in files}
     for module in ("models/protocols.py", "models/partnersel.py", "ops/segment.py",
                    "utils/anim.py", "utils/cli.py", "batch/__init__.py",
-                   "batch/campaign.py", "batch/stats.py", "batch/sweep.py"):
+                   "batch/campaign.py", "batch/stats.py", "batch/sweep.py",
+                   "engine/event.py", "runtime/native.py", "utils/logging.py",
+                   "scale.py"):
         assert os.path.join("p2p_gossip_tpu_torch", module) in names
     bad = []
     for path in files:

@@ -195,7 +195,7 @@ def test_checkpoint_crosses_packages(tmp_path, writer, proto):
     _same(got, want)
 
 
-def test_checkpoint_of_another_protocol_starts_fresh(tmp_path, caplog):
+def test_checkpoint_of_another_protocol_starts_fresh(tmp_path, capsys):
     """A pull checkpoint does not resume a push-pull run (the protocol name
     is part of the fingerprint)."""
     (g, sched, port_kw), _ = _ckpt_case()
@@ -206,4 +206,4 @@ def test_checkpoint_of_another_protocol_starts_fresh(tmp_path, caplog):
                                         device="cpu", **port_kw)
     want, _ = protocols.run_pushpull_sim(g, sched, 20, device="cpu", **port_kw)
     _same(got, want)
-    assert "fingerprint mismatch" in caplog.text
+    assert "(fingerprint mismatch); starting fresh" in capsys.readouterr().err
