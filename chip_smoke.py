@@ -89,6 +89,24 @@ Phases (any failure raises and the script exits nonzero):
    native --graphFile`` (cold, then warm) against the CPU run, and
    ``--backend event|native`` at the reference defaults against the card
    run's counters.
+13. The gossip server (``p2p_gossip_tpu_torch.serve``): (a) ``tick_digest``
+   with its replica axis against its plain version and B solo calls on
+   ragged shapes (B = 1, 3, 8), and timed at B = 8 x 100,000 rows, W = 128
+   and 256, beside its bound; (b) ``serve.bench``'s mixed trace at full
+   width (24 requests on ER N = 100,000 p = 0.001 and BA m = 3, flood,
+   push-pull, pull, fanout push, a lossy and a churn flood; 4,096 shares,
+   horizon 64, replica counts 1/2/4) drained through one server of 8
+   slots: requests/s, p50/p99 turnaround, slot occupancy, ms a dispatch,
+   every request bitwise equal to its solo campaign on the card, and one
+   flood dispatch profiled (device-busy share); (c)
+   telemetry's rings on for one flood and one push-pull dispatch:
+   ``tick_digest`` once a tick (round) for all 8 replicas, and each
+   replica's ring and digest events equal to its solo telemetry-on run's;
+   (d) peak device memory of the trace's largest dispatch, and of the
+   largest of the other kind (flood or protocol), within 20% of the
+   admission model's dispatch bytes, and a request over an explicit
+   budget rejected; (e) a reduced trace (N = 2,000) on the card equal to
+   the same trace run with ``device="cpu"``.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -121,7 +139,10 @@ once per degree bucket and ``coverage_per_slot`` once for all eight
 replicas, a campaign round ``scatter_or`` once, ``tick_digest`` never.
 Phase 12 zeroes them just before each million-node timed run and reads
 them after it: each flood kernel launched, ``gather_or`` once per degree
-bucket per tick.
+bucket per tick. Phase 13 zeroes them just before the trace's drain and
+reads them just after it (``launches_serve``: every flood and protocol
+kernel launched, ``tick_digest`` never), and around each rings-on
+dispatch (``tick_digest`` once a tick or round for the 8 replicas).
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -180,6 +201,14 @@ SCALE_ORIGINS = 4096
 SCALE_CAPTURE_TICK = 3
 SCALE_SUBSET_ROWS = 50_000  # rows the plain versions check at a million nodes
 MEMORY_TOLERANCE = 0.20  # measured peak device memory against the model
+# Phase 13: the gossip server. The trace at full width (``serve.bench``'s,
+# 4,096 shares, horizon 64) in dispatches of 8 slots; the batched digest's
+# replicas; the reduced trace held between the card and the CPU.
+SERVE_SLOTS = 8
+SERVE_REQUESTS = 24
+SERVE_SHARES = 4096
+SERVE_REDUCED_NODES = 2000
+DIGEST_REPLICAS = 8
 U32 = 0xFFFFFFFF
 
 
@@ -2624,6 +2653,378 @@ def north_star(cache: str, dev) -> None:
     print(json.dumps({"north_star": {k: v for k, v in result.items()}}))
 
 
+# --- phase 13 -----------------------------------------------------------------
+
+def check_digest_batched_ragged(dev, rng):
+    """tick_digest with its replica axis against its plain version (the
+    per-replica fold) and against B calls of the solo kernel on each
+    replica's rows, on ragged shapes: B = 1, 3, 8; N off the 8-row block;
+    W odd (32-bit loads) and W = 4, 8 (16-byte loads); with and without
+    sent_hi; a row stride above W and a view 4 bytes off 16-byte alignment;
+    the slots a column of a (B, 5) ring (stride 5). At B = 1 the call is
+    today's solo call."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    cases = 0
+    for b in (1, 3, 8):
+        for n, w in ((13, 3), (1237, 5), (4099, 1), (9, 8), (20_011, 4), (999, 7)):
+            for hi in (False, True):
+                wide = random_words(rng, (b * n, w + 4), dev)
+                views = [("dense", wide[:, :w].contiguous())]
+                if w in (4, 8):
+                    views += [("stride", wide[:, :w]), ("unaligned", wide[:, 1:1 + w])]
+                _, received, sent, sent_hi = digest_inputs(rng, b * n, 1, dev, hi=hi,
+                                                           zero_share=0.3)
+                for label, seen in views:
+                    ring = torch.zeros((b, 5), dtype=torch.int32, device=dev)
+                    kernels.tick_digest(seen, received, sent, sent_hi, out=ring[:, 2],
+                                        replicas=b)
+                    got = [v & U32 for v in ring[:, 2].tolist()]
+                    want = kernels.tick_digest_plain(seen, received, sent, sent_hi,
+                                                     replicas=b).tolist()
+                    solo = []
+                    for r in range(b):
+                        part = slice(r * n, (r + 1) * n)
+                        one = kernels.tick_digest(seen[part], received[part], sent[part],
+                                                  None if sent_hi is None else sent_hi[part])
+                        solo.append(int(one[0]) & U32)
+                    if got != want or got != solo or ring[:, [0, 1, 3, 4]].any():
+                        raise AssertionError(
+                            f"tick_digest(B={b}, N={n}, W={w}, hi={hi}, {label}): kernel "
+                            f"{got} != plain {want} / solo {solo}")
+                    cases += 1
+    log(f"tick_digest replica axis ragged: {cases} cases bitwise equal to the per-replica "
+        "plain fold and to B solo calls (B = 1, 3, 8; N up to 20,011 a replica; W = 1, 3, "
+        "5, 7 / 4, 8; sent_hi; row stride > W, a view off 16-byte alignment; the slots a "
+        "strided ring column)")
+
+
+def check_digest_batched(dev, rng, reps):
+    """The batched tick_digest at B = DIGEST_REPLICAS replicas of N_NODES
+    rows, W = 128 (4,096 shares: the server's flood) and 256 (the flood
+    chunk): bitwise against its plain version, timed beside its bound
+    B * `digest_bytes` at 3.35 TB/s, and one launch for the B replicas."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    b, n = DIGEST_REPLICAS, N_NODES
+    results = {}
+    for w in (128, 256):
+        seen, received, sent, _ = digest_inputs(rng, b * n, w, dev)
+        out = torch.zeros((b,), dtype=torch.int32, device=dev)
+        kernels.reset_launches()
+        kernels.tick_digest(seen, received, sent, out=out, replicas=b)
+        launched = kernels.launches["tick_digest"]
+        got = [v & U32 for v in out.tolist()]
+        want = kernels.tick_digest_plain(seen, received, sent, replicas=b).tolist()
+        if got != want or launched != 1:
+            raise AssertionError(f"tick_digest(B={b}, W={w}): {got} != {want} "
+                                 f"or {launched} launches")
+        ms = time_ms(lambda: kernels.tick_digest(seen, received, sent, out=out, replicas=b),
+                     reps, calls=KERNEL_CALLS)
+        plain_ms = time_ms(lambda: kernels.tick_digest_plain(seen, received, sent,
+                                                             replicas=b), 2)
+        nbytes = b * digest_bytes(n, w, False)
+        bound = bound_ms(nbytes)
+        results[w] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        log(f"tick_digest[B={b}] ({b} x {n}, {w}): bitwise equal, one launch; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB; bound / kernel {bound / ms:.3f})")
+        del seen, received, sent
+    return results
+
+
+def serve_trace(nodes=None, requests=None, shares=None, horizon=None):
+    """``serve.bench``'s mixed trace (ER p = 0.001 at N = 100,000 and BA
+    m = 3; flood, push-pull, pull, fanout push with k = 2, a lossy and a
+    churn flood; replica counts cycling 1/2/4) from seed SEED; by default
+    N_NODES nodes, SERVE_REQUESTS requests, SERVE_SHARES shares, horizon
+    HORIZON."""
+    from p2p_gossip_tpu_torch.serve import bench
+
+    return bench.build_trace(requests or SERVE_REQUESTS, SEED, nodes or N_NODES,
+                             shares or SERVE_SHARES, horizon or HORIZON)
+
+
+def serve_graphs(graph, trace):
+    """Topology fingerprint -> host Graph for every topology of ``trace``:
+    the phase-5 graph where the trace names it (ER N = 100,000, p = 0.001,
+    seed 0 builds the same graph), the others built here, so the server's
+    graph cache starts full and no build falls inside a timed drain."""
+    from p2p_gossip_tpu_torch.serve.request import build_graph, topology_fingerprint
+
+    phase5 = {"family": "erdos_renyi", "n": graph.n, "p": EDGE_P, "seed": SEED}
+    graphs = {}
+    for d in trace:
+        fp = topology_fingerprint(d["topology"])
+        if fp not in graphs:
+            graphs[fp] = graph if d["topology"] == phase5 else build_graph(d["topology"])
+    return graphs
+
+
+def trace_graph(graphs, d):
+    from p2p_gossip_tpu_torch.serve.request import topology_fingerprint
+
+    return graphs[topology_fingerprint(d["topology"])]
+
+
+def serve_request(trace, protocol, seeds, rid, **extra):
+    """A request of ``protocol`` on the trace's first topology, with the
+    trace's shares and horizon and ``seeds``."""
+    base = next(d for d in trace if d["protocol"] == protocol and "loss_prob" not in d
+                and "churn_prob" not in d)
+    return dict(base, request_id=rid, seeds=list(seeds), **extra)
+
+
+def serve_main_path(graph, dev):
+    """Phase 13 (b): the mixed trace at full width through one server on
+    the card, launch counts zeroed just before the drain and read just
+    after it; every request against its solo campaign on the card; one
+    flood dispatch profiled."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.serve import bench
+
+    trace = serve_trace()
+    t0 = time.perf_counter()
+    graphs = serve_graphs(graph, trace)
+    log(f"serve: the trace's {len(graphs)} graphs ready in {time.perf_counter() - t0:.1f} s "
+        "(the phase-5 graph reused)")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    server, summary = bench.run_trace(trace, SERVE_SLOTS, dev, graphs=graphs, log=log)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in ("gather_or", "sector_occupancy", "popcount_rows", "coverage_per_slot",
+                 "scatter_or"):
+        if launches[name] == 0:
+            raise AssertionError(f"serve: {name} was not launched by the trace: {launches}")
+    if launches["tick_digest"] or launches["scatter_or_atomic"]:
+        raise AssertionError(f"serve: tick_digest or scatter_or_atomic launched: {launches}")
+    log(f"serve: launches over the drain {launches}")
+    t0 = time.perf_counter()
+    if bench.verify(server, trace, log=log):
+        raise AssertionError("serve: a request differs from its solo campaign")
+    log(f"serve: verification took {time.perf_counter() - t0:.1f} s")
+    server.submit(serve_request(trace, "flood", range(1000, 1000 + SERVE_SLOTS), "profiled"))
+    _, wall, by_name, calls = device_events(server.step)
+    if not by_name:
+        raise AssertionError("serve: the profiler recorded no device event")
+    busy_us = sum(by_name.values())
+    log(f"profile (profiled server flood dispatch, {SERVE_SLOTS} replicas, wall "
+        f"{wall * 1e3:.2f} ms): device busy {busy_us / 1e3:.2f} ms = "
+        f"{busy_us / (wall * 1e6):.3f} of wall")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  {us / 1e3:9.3f} ms  {us / busy_us:6.3f}  x{calls[name]:<5d} {name[:100]}")
+    summary = dict(summary, busy_share_flood_dispatch=busy_us / (wall * 1e6))
+    del server
+    torch.cuda.empty_cache()
+    return launches, summary, graphs
+
+
+def _request(d):
+    from p2p_gossip_tpu_torch.serve.request import SimRequest
+
+    return SimRequest.from_dict(d)
+
+
+def serve_rings(graphs, dev):
+    """Phase 13 (c): telemetry's rings on for one flood dispatch (the
+    trace's full width) and one push-pull dispatch (512 shares, four
+    128-share passes) of SERVE_SLOTS replicas: tick_digest launches once a
+    tick (round) for all replicas, as a solo run's once a tick; each
+    replica's ring and digest events equal its solo telemetry-on run's;
+    with the rings off no tick_digest launches."""
+    import torch
+
+    from p2p_gossip_tpu_torch import telemetry
+    from p2p_gossip_tpu_torch.engine.sync import run_flood_coverage
+    from p2p_gossip_tpu_torch.models.protocols import run_pushpull_sim
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.batch.campaign import flood_replicas
+    from p2p_gossip_tpu_torch.serve.server import GossipServer
+
+    trace = serve_trace()
+    seeds = list(range(2000, 2000 + SERVE_SLOTS))
+    cases = {"flood": serve_request(trace, "flood", seeds, "rings-flood"),
+             "pushpull": serve_request(trace, "pushpull", seeds, "rings-pushpull", shares=512)}
+    launches = {}
+    for kind, req in cases.items():
+        server = GossipServer(slots=SERVE_SLOTS, device=dev)
+        server._graphs.update(graphs)
+        telemetry.reset()
+        telemetry.configure(None, rings=True)
+        server.submit(req)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        server.step()
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)
+        camp = [e for e in telemetry.events() if e["type"] in ("ring", "digest")]
+        ticks = got["coverage_per_slot"]  # once a tick (round) for the batch
+        if got["tick_digest"] != ticks or ticks == 0:
+            raise AssertionError(f"serve rings[{kind}]: tick_digest launched "
+                                 f"{got['tick_digest']} times in {ticks} ticks")
+        g = trace_graph(graphs, req)
+        reps = flood_replicas(g, req["shares"], seeds, req["horizon"])
+        solo_ticks = []
+        for r, seed in enumerate(seeds):
+            telemetry.reset()
+            telemetry.configure(None, rings=True)
+            kernels.reset_launches()
+            if kind == "flood":
+                run_flood_coverage(g, reps.origins[r], req["horizon"],
+                                   device_graph=server._device_graph(_request(req)), device=dev)
+            else:
+                run_pushpull_sim(g, reps.replica_schedule(r, req["horizon"]), req["horizon"],
+                                 seed=seed, chunk_size=128, record_coverage=True,
+                                 device_graph=server._device_graph(_request(req)), device=dev)
+            solo_ticks.append((kernels.launches["tick_digest"],
+                               kernels.launches["coverage_per_slot"]))
+            solo = [e for e in telemetry.events() if e["type"] in ("ring", "digest")]
+            mine = [e for e in camp if e["replica"] == r]
+            same_events(f"serve rings[{kind}] replica {r}", solo, mine, seed)
+        if any(d != t for d, t in solo_ticks):
+            raise AssertionError(f"serve rings[{kind}]: a solo run's tick_digest launches "
+                                 f"are not its ticks: {solo_ticks}")
+        launches[kind] = got
+        log(f"serve rings[{kind}]: {SERVE_SLOTS} replicas, {ticks} "
+            f"{'ticks' if kind == 'flood' else 'rounds'}, tick_digest {got['tick_digest']} "
+            f"launches (solo runs: {solo_ticks[0][0]} in {solo_ticks[0][1]}); every replica's "
+            f"ring and digest events equal its solo telemetry-on run's")
+        del server
+    telemetry.reset()
+    return launches
+
+
+def same_events(label, solo, mine, seed):
+    """Replica events against a solo run's, chunk by chunk: ring rows
+    equal tick for tick (rows past the replica's own quiescence zero), the
+    digests equal over the solo run's executed ticks."""
+    def by_chunk(events, kind):
+        return {e.get("chunk", 0): e for e in events if e["type"] == kind}
+
+    for kind in ("ring", "digest"):
+        s, m = by_chunk(solo, kind), by_chunk(mine, kind)
+        if sorted(s) != sorted(m) or any(e["seed"] != seed for e in m.values()):
+            raise AssertionError(f"{label}: {kind} chunks {sorted(m)} != solo {sorted(s)}")
+        for chunk, want in s.items():
+            got = m[chunk]
+            if kind == "ring":
+                for col in want["metrics"]:
+                    a = {want["t0"] + i: v for i, v in enumerate(want["metrics"][col])}
+                    b = {got["t0"] + i: v for i, v in enumerate(got["metrics"][col])}
+                    if any(a.get(t, 0) != b.get(t, 0) for t in set(a) | set(b)):
+                        raise AssertionError(f"{label}: ring {col} of chunk {chunk} differs")
+            else:
+                a = {want["t0"] + i: v for i, v in enumerate(want["values"])}
+                b = {got["t0"] + i: v for i, v in enumerate(got["values"])}
+                last = max((t for t, v in a.items() if v), default=-1)
+                if any(b.get(t) != v for t, v in a.items() if t <= last):
+                    raise AssertionError(f"{label}: digests of chunk {chunk} differ")
+
+
+def serve_admission(graphs, dev):
+    """Phase 13 (d): the modeled dispatch bytes (`serve.scheduler.
+    modeled_request_cost`, staging included) of the trace's largest
+    dispatch, and of the largest of the other kind (flood or protocol),
+    against the card's peak device memory over each dispatch, staging
+    included: each within MEMORY_TOLERANCE. Then a request whose modeled
+    dispatch exceeds an explicit budget is rejected with a ``request``
+    event."""
+    import torch
+
+    from p2p_gossip_tpu_torch import telemetry
+    from p2p_gossip_tpu_torch.serve.scheduler import modeled_request_cost
+    from p2p_gossip_tpu_torch.serve.server import GossipServer
+
+    trace = serve_trace()
+    sized = sorted(((modeled_request_cost(_request(d), trace_graph(graphs, d).degree,
+                                          SERVE_SLOTS)["dispatch_bytes"], i, d)
+                    for i, d in enumerate(trace)), reverse=True)
+    largest = sized[0][2]
+    other = next(d for _, _, d in sized
+                 if (d["protocol"] == "flood") != (largest["protocol"] == "flood"))
+    results = {}
+    for label, d in (("largest", largest), ("other", other)):
+        req = dict(d, request_id=f"mem-{label}", seeds=list(range(3000, 3000 + SERVE_SLOTS)))
+        server = GossipServer(slots=SERVE_SLOTS, device=dev)
+        server._graphs.update(graphs)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        server.submit(req)
+        server.drain()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        model = server._states[req["request_id"]].cost["dispatch_bytes"]
+        tag = (f"{d['protocol']}{' lossy' if d.get('loss_prob') else ''}"
+               f"{' churn' if d.get('churn_prob') else ''} {d['topology']['family']}")
+        results[label] = dict(peak=peak, model=model, request=tag)
+        log(f"serve memory[{label}: {tag}, {SERVE_SLOTS} slots, staging included]: peak "
+            f"{peak / 1e9:.3f} GB vs modeled {model / 1e9:.3f} GB (measured / model "
+            f"{peak / model:.3f})")
+        del server
+        torch.cuda.empty_cache()
+        if abs(peak - model) > MEMORY_TOLERANCE * model:
+            raise AssertionError(f"serve: peak device memory {peak} of the {label} dispatch "
+                                 f"({tag}) is not within {MEMORY_TOLERANCE:.0%} of the "
+                                 f"model's {model}")
+    big = results["largest"]
+    telemetry.reset()
+    telemetry.configure(None, rings=False)
+    server = GossipServer(slots=SERVE_SLOTS, hbm_budget_bytes=big["model"] - 1, device=dev)
+    server._graphs.update(graphs)
+    rid = server.submit(dict(largest, request_id="over-budget"))
+    rejected = [e for e in telemetry.events() if e["type"] == "request"
+                and e["event"] == "rejected" and e["request_id"] == rid]
+    if server.status(rid) != "rejected" or not rejected or server.drain():
+        raise AssertionError("serve: a request over the explicit budget was not rejected")
+    log(f"serve admission: a request modeled at {big['model']} bytes against a budget of "
+        f"{big['model'] - 1} is rejected ({rejected[0]['reason']})")
+    telemetry.reset()
+    return results
+
+
+def serve_reduced(dev):
+    """Phase 13 (e): a reduced trace (N = SERVE_REDUCED_NODES, 256 shares,
+    horizon 32, one request a scenario) on the card and with
+    ``device="cpu"`` (the plain versions): every result bitwise equal."""
+    from p2p_gossip_tpu_torch.serve import bench
+
+    trace = serve_trace(SERVE_REDUCED_NODES, 10, 256, 32)
+    t0 = time.perf_counter()
+    card, _ = bench.run_trace(trace, SERVE_SLOTS, dev, log=lambda m: None)
+    cpu, _ = bench.run_trace(trace, SERVE_SLOTS, "cpu", log=lambda m: None)
+    for d in trace:
+        rid = d["request_id"]
+        if not bench.same_result(card.result(rid), cpu.result(rid)):
+            raise AssertionError(f"serve reduced: {rid} differs between the card and the CPU")
+    log(f"serve reduced (N={SERVE_REDUCED_NODES}, {len(trace)} requests): the card's results "
+        f"equal the CPU's bitwise ({time.perf_counter() - t0:.1f} s)")
+
+
+def serve_phase(graph, dev, rng):
+    """Phase 13: the batched tick_digest, then the gossip server on the
+    card."""
+    t0 = time.perf_counter()
+    check_digest_batched_ragged(dev, rng)
+    digest = check_digest_batched(dev, rng, reps=10)
+    launches, summary, graphs = serve_main_path(graph, dev)
+    rings = serve_rings(graphs, dev)
+    memory = serve_admission(graphs, dev)
+    serve_reduced(dev)
+    log(json.dumps({"serve": dict(summary, memory=memory)}))
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    return dict(digest=digest, launches=launches, summary=summary, rings=rings,
+                memory=memory)
+
+
 def main() -> int:
     import torch
 
@@ -2720,6 +3121,7 @@ def main() -> int:
     campaign_launches, _ = campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev)
     ck = campaign_kernels
     scale = scale_phase(dev)
+    serve = serve_phase(graph, dev, rng)
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -2793,6 +3195,11 @@ def main() -> int:
                for key in ("ms", "bound_ms", "plain_ms")},
             **flood_cost, **round_cost,
             launches_telemetry_pushpull=pushpull_launches["tick_digest"],
+            # Phase 13: B = 8 replicas of (100,000, W) in one launch.
+            **{f"{key}_b{DIGEST_REPLICAS}_w{w}": serve["digest"][w][key]
+               for w in (128, 256) for key in ("ms", "bound_ms", "plain_ms")},
+            **{f"launches_serve_rings_{kind}": serve["rings"][kind]["tick_digest"]
+               for kind in serve["rings"]},
         ),
     }
     # Phase 12: the four flood kernels on each million-node graph's tick-3
@@ -2828,6 +3235,7 @@ def main() -> int:
                for kind in campaign_launches},
             **{f"launches_1m_{topology}": scale[topology]["launches"][name]
                for topology in (cfg[0] for cfg in SCALE_CONFIGS)},
+            "launches_serve": serve["launches"][name],
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

@@ -25,9 +25,15 @@ campaigns checkpoint at batch boundaries in the JAX package's file format
 and fingerprint, so a campaign checkpoint either package writes, the
 other resumes.
 
-Not ported yet: the ``mesh`` argument (multi-GPU, ROADMAP §1 item 4) and
-campaign telemetry (the batched metric rings and per-replica digests,
-ROADMAP §1 item 3); both raise NotImplementedError.
+With telemetry's rings on, a batch carries one metric ring and one digest
+lane a replica ((B, horizon, NUM_METRICS) and (B, horizon)), written by the
+same launches a tick as one replica's; each live replica's ``ring`` and
+``digest`` events carry its ``replica`` index and ``seed`` (the JAX
+package's events, value for value), and the batch's ``progress`` beat its
+``digest_head``. Sentinel replicas emit nothing.
+
+Not ported yet: the ``mesh`` argument (multi-GPU, ROADMAP §1 item 4); it
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -54,7 +60,9 @@ from p2p_gossip_tpu_torch.models.partnersel import pick_key
 from p2p_gossip_tpu_torch.models.seeds import churn_stream_seed
 from p2p_gossip_tpu_torch.models.topology import Graph
 from p2p_gossip_tpu_torch.ops import bitmask
+from p2p_gossip_tpu_torch.telemetry import digest as tel_digest
 from p2p_gossip_tpu_torch.telemetry import progress as tel_progress
+from p2p_gossip_tpu_torch.telemetry import rings as tel_rings
 from p2p_gossip_tpu_torch.telemetry import sink as tel_sink
 from p2p_gossip_tpu_torch.telemetry.spans import span
 from p2p_gossip_tpu_torch.utils import logging as p2plog
@@ -365,12 +373,28 @@ def _resolve_batch(replicas: ReplicaSet, batch_size: int | None, mesh) -> int:
     return batch_size
 
 
-def _refuse_telemetry() -> None:
-    if tel_sink.rings_enabled():
-        raise NotImplementedError(
-            "campaign telemetry (batched metric rings and per-replica digests) "
-            "is not ported yet (ROADMAP §1 item 3); turn telemetry's rings off"
-        )
+def _emit_replica_telemetry(
+    name: str, rings, lo: int, live: int, seeds: np.ndarray, *, t0: int,
+    horizon: int, last_head: bool = False, **provenance,
+) -> int | None:
+    """Harvest a batch's rings (one copy each) into one ``ring`` and one
+    ``digest`` event per live replica, with its ``replica`` index and
+    ``seed`` (sentinel replicas emit nothing), and return the batch's
+    ``digest_head``: replica 0's last nonzero digest, or with ``last_head``
+    its last digest (the JAX package's protocol campaign), None without a
+    live replica."""
+    met, dig = (ring.cpu().numpy() for ring in rings)
+    for i in range(live):
+        tags = dict(provenance, replica=lo + i, seed=int(seeds[lo + i]))
+        tel_rings.emit_ring(name, met[i], t0=t0, **tags)
+        tel_digest.emit_digest(name, dig[i], t0=t0, ticks=horizon - t0, **tags)
+    if not live:
+        return None
+    head = dig[0].astype(np.int64) & 0xFFFFFFFF
+    if last_head:
+        return int(head[-1])
+    nz = np.flatnonzero(head)
+    return int(head[nz[-1]]) if nz.size else None
 
 
 def _campaign_generated(replicas: ReplicaSet, horizon: int) -> np.ndarray:
@@ -474,7 +498,6 @@ def run_coverage_campaign(
     the CUDA gather has no degree block. ``device=None`` means CUDA;
     ``plain=True`` runs the kernels' plain versions.
     """
-    _refuse_telemetry()
     batch_size = _resolve_batch(replicas, batch_size, mesh)
     s = replicas.shares_per_replica
     dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
@@ -495,6 +518,7 @@ def run_coverage_campaign(
         {"received": received, "sent": sent, "coverage": coverage},
     )
     name = "batch.campaign.run_coverage_campaign"
+    tel = tel_sink.rings_enabled()
     batches = list(_iter_batches(replicas, batch_size, horizon, lseed_arr))
     t0 = time.perf_counter()
     for bi, batch in checkpointed_chunks(batches, checkpointer, stop_after_batches):
@@ -505,16 +529,22 @@ def run_coverage_campaign(
         pad_g[:, :s] = gen_ticks
         staged = _Batch(dg, pad_o, pad_g, churn, lseeds, loss_cfg)
         rows, ticks = staged.events(dg.device)
+        rings = tel_rings.chunk_rings(horizon, dg.device, batch_size) if tel else None
         with span("dispatch", kernel="batch.campaign._run_coverage_batch", batch=bi):
             _, r, snt, cov = _run_chunk_coverage(
                 dg, rows, ticks, chunk_size=chunk, horizon=horizon,
-                coverage_slots=s, opts=staged.tick_options(), plain=plain,
+                coverage_slots=s, opts=staged.tick_options(), rings=rings, plain=plain,
             )
         with span("d2h", batch=bi):
             received[lo : lo + live] = r.view(batch_size, -1)[:live].cpu().numpy()
             sent[lo : lo + live] = snt.view(batch_size, -1)[:live].cpu().numpy()
             coverage[lo : lo + live] = cov[:live].cpu().numpy()
-        tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches))
+        head = None
+        if tel:
+            head = _emit_replica_telemetry(name, rings, lo, live, replicas.seeds, t0=0,
+                                           horizon=horizon)
+        tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
+                                   digest_head=head)
     wall = time.perf_counter() - t0
 
     return CampaignResult(
@@ -560,7 +590,6 @@ def run_gossip_campaign(
     last; a replica whose own window is narrower runs identity ticks at
     the edges. The rest as in `run_coverage_campaign` (checkpoints land
     at replica-batch boundaries, each batch running all its chunks)."""
-    _refuse_telemetry()
     batch_size = _resolve_batch(replicas, batch_size, mesh)
     s_max = replicas.shares_per_replica
     chunk = min(chunk_size, max(MIN_CHUNK_SHARES, s_max))
@@ -583,6 +612,7 @@ def run_gossip_campaign(
         {"received": received, "sent": sent},
     )
     name = "batch.campaign.run_gossip_campaign"
+    tel = tel_sink.rings_enabled()
     batches = list(_iter_batches(replicas, batch_size, horizon, lseed_arr))
     t0 = time.perf_counter()
     for bi, batch in checkpointed_chunks(batches, checkpointer, stop_after_batches):
@@ -597,19 +627,26 @@ def run_gossip_campaign(
             pad_o[:, : o_slice.shape[1]] = o_slice
             pad_g[:, : g_slice.shape[1]] = g_slice
             live_ticks = pad_g[pad_g < horizon]
+            t_start = int(live_ticks.min())
             staged = _Batch(dg, pad_o, pad_g, churn, lseeds, loss_cfg)
             rows, ticks = staged.events(dg.device)
+            rings = tel_rings.chunk_rings(horizon, dg.device, batch_size) if tel else None
             with span("dispatch", kernel="batch.campaign._run_while_batch",
                       batch=bi, chunk=ci):
                 _, r, snt, _, _ = _run_chunk_while(
-                    dg, rows, ticks, int(live_ticks.min()), int(live_ticks.max()),
+                    dg, rows, ticks, t_start, int(live_ticks.max()),
                     chunk_size=chunk, horizon=horizon, opts=staged.tick_options(),
-                    plain=plain,
+                    rings=rings, plain=plain,
                 )
             with span("d2h", batch=bi, chunk=ci):
                 received[lo : lo + live] += r.view(batch_size, -1)[:live].cpu().numpy()
                 sent[lo : lo + live] += snt.view(batch_size, -1)[:live].cpu().numpy()
-            tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches))
+            head = None
+            if tel:
+                head = _emit_replica_telemetry(name, rings, lo, live, replicas.seeds,
+                                               t0=t_start, horizon=horizon, chunk=ci)
+            tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
+                                       digest_head=head)
     wall = time.perf_counter() - t0
 
     return CampaignResult(
@@ -670,7 +707,6 @@ def run_protocol_campaign(
         raise ValueError(f"protocol must be pushpull|pull|pushk, got {protocol!r}")
     if protocol == "pushk" and fanout < 1:
         raise ValueError(f"fanout must be >= 1, got {fanout}")
-    _refuse_telemetry()
     batch_size = _resolve_batch(replicas, batch_size, mesh)
     dg = protocols._stage(graph, ell_delays, constant_delay, device_graph, device)
     if dg.ring_size * batch_size * dg.n >= 1 << 31:
@@ -712,7 +748,8 @@ def run_protocol_campaign(
     c = fanout if protocol == "pushk" else 1
     nodes = torch.arange(batch_size * dg.n, dtype=torch.int64, device=dev) % dg.n
     picks = torch.arange(c, dtype=torch.int64, device=dev)
-    name = "batch.campaign.run_protocol_campaign"
+    name = f"batch.campaign.run_protocol_campaign[{protocol}]"
+    tel = tel_sink.rings_enabled()
     batches = list(_iter_batches(replicas, batch_size, horizon, lseed_arr))
     t0 = time.perf_counter()
     for bi, batch in checkpointed_chunks(batches, checkpointer, stop_after_batches):
@@ -731,20 +768,26 @@ def run_protocol_campaign(
             rows = staged.rows.reshape(batch_size, s)
             pad_o[:, :live_s] = rows[:, lo_s:hi_s]
             pad_g[:, :live_s] = gen_ticks[:, lo_s:hi_s]
+            rings = tel_rings.chunk_rings(horizon, dev, batch_size) if tel else None
             with span("dispatch", kernel=f"batch.campaign.{protocol}_replicas",
                       batch=bi, chunk=ci):
-                r, snt, cov, _ = protocols._run_chunk(
+                r, snt, cov = protocols._run_chunk(
                     dg, pad_o.reshape(-1), pad_g.reshape(-1), key, None, staged.churn,
                     loss_dev, mode=protocol, chunk_size=chunk, horizon=horizon,
                     n_cov=live_s if record_coverage else None, plain=plain,
-                    replicas=batch_size,
-                )
+                    rings=rings, replicas=batch_size,
+                )[:3]  # the pass's ring is freed before the next pass allocates its own
             with span("d2h", batch=bi, chunk=ci):
                 received[lo : lo + live] += r.view(batch_size, -1)[:live].cpu().numpy()
                 sent[lo : lo + live] += snt.view(batch_size, -1)[:live].cpu().numpy()
                 if record_coverage:
                     coverage[lo : lo + live, :, lo_s:hi_s] = cov[:live].cpu().numpy()
-            tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches))
+            head = None
+            if tel:
+                head = _emit_replica_telemetry(name, rings, lo, live, replicas.seeds, t0=0,
+                                               horizon=horizon, last_head=True, chunk=ci)
+            tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
+                                       digest_head=head)
     wall = time.perf_counter() - t0
 
     return CampaignResult(

@@ -644,22 +644,28 @@ scatter_or_atomic_kernel(const uint32_t* __restrict__ src, int n_src, int w,
 //   fold _fold_sparse_jnp + lax.reduce(bitwise_xor)), the flight recorder's
 //   one uint32 per tick. PyTorch has no XOR reduction, so the port folds
 //   with this kernel.
-// Computes: *out ^= XOR over every nonzero entry of
+// Computes, for each replica r of B stacked along the rows (row r*N + i
+//   is node i of replica r): out[r] ^= XOR over every nonzero entry of
 //     mix(seen[i,k] ^ k*SALT_WORD ^ i*SALT_NODE)        (words)
 //     mix(received[i] ^ i*SALT_NODE ^ SALT_RECV)         (counters; and
 //     mix(sent_lo[i] ^ i*SALT_NODE ^ SALT_SENT_LO)        sent_hi when it
 //     mix(sent_hi[i] ^ i*SALT_NODE ^ SALT_SENT_HI)        is not null)
-//   with mix = lowbias32, all in uint32. A zero entry contributes nothing
-//   (the JAX digest's pad-width invariance).
-// Bound on the H100: bytes (N*W*4 + 8*N, + 4*N with sent_hi, read once);
-//   the mix is ~12 integer operations a word, far below the integer rate.
-// Design: a grid-stride loop of one warp per row; 16-byte loads where the
-//   row allows them; each thread XORs in registers, then a shuffle fold in
-//   the warp, a shared-memory fold in the block and one atomicXor per block.
-//   XOR is associative and commutative, so the atomics give the same bits
-//   in any block order: unlike an atomic add, the result is deterministic.
-//   The slot must hold zero before the tick (a fresh ring, and each tick
-//   writes its slot once), so no fill launch is needed.
+//   over replica r's rows, with mix = lowbias32, all in uint32. The salt is
+//   the node id i, never the stacked row, so replica r's digest is its solo
+//   run's. A zero entry contributes nothing (the JAX digest's pad-width
+//   invariance). B = 1 is the solo digest.
+// Bound on the H100: bytes (B*(N*W*4 + 8*N), + 4*N a replica with sent_hi,
+//   read once); the mix is ~12 integer operations a word, far below the
+//   integer rate.
+// Design: grid y selects the replica (as in gather_or), grid x a
+//   grid-stride loop of one warp per row over that replica's N rows; 16-byte
+//   loads where the row allows them; each thread XORs in registers, then a
+//   shuffle fold in the warp, a shared-memory fold in the block and one
+//   atomicXor per block into its replica's slot. XOR is associative and
+//   commutative, so the atomics give the same bits in any block order:
+//   unlike an atomic add, the result is deterministic. The slots must hold
+//   zero before the tick (a fresh ring, and each tick writes its slots
+//   once), so no fill launch is needed; one launch covers all B replicas.
 // ---------------------------------------------------------------------------
 constexpr uint32_t kMixM1 = 0x21F0AAADu;
 constexpr uint32_t kMixM2 = 0xD35A2D97u;
@@ -690,15 +696,17 @@ tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
                    long long ld, const uint32_t* __restrict__ received,
                    const uint32_t* __restrict__ sent_lo,
                    const uint32_t* __restrict__ sent_hi,
-                   uint32_t* __restrict__ out) {
+                   uint32_t* __restrict__ out, long long out_stride) {
   __shared__ uint32_t part[kDigestWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long n_warps = (long long)gridDim.x * kDigestWarps;
+  const long long first = (long long)blockIdx.y * n;  // replica's first row
   uint32_t acc = 0u;
-  for (long long row = (long long)blockIdx.x * kDigestWarps + warp; row < n;
-       row += n_warps) {
-    const uint32_t node_salt = (uint32_t)row * kSaltNode;
+  for (long long node = (long long)blockIdx.x * kDigestWarps + warp; node < n;
+       node += n_warps) {
+    const uint32_t node_salt = (uint32_t)node * kSaltNode;
+    const long long row = first + node;
     const uint32_t* p = seen + (size_t)row * (size_t)ld;
     if (kVec) {  // w % 4 == 0 and every row 16-byte aligned
       const uint4* q = reinterpret_cast<const uint4*>(p);
@@ -732,7 +740,7 @@ tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
     acc = lane < kDigestWarps ? part[lane] : 0u;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc ^= shfl_xor(acc, off);
-    if (lane == 0 && acc != 0u) atomicXor(out, acc);
+    if (lane == 0 && acc != 0u) atomicXor(out + (size_t)blockIdx.y * (size_t)out_stride, acc);
   }
 }
 
@@ -878,26 +886,33 @@ int gossip_scatter_or_atomic(const void* src, int n_src, int w,
 }
 
 
-// `seen` is (n, w) with row stride ld words; `received`, `sent_lo` and
-// (when not null) `sent_hi` are (n,) 32-bit counters; `out` is one uint32
-// slot that the digest is XORed into.
+// `seen` is (replicas * n, w) with row stride ld words, replica r's node i
+// at row r * n + i; `received`, `sent_lo` and (when not null) `sent_hi` are
+// (replicas * n,) 32-bit counters; `out` holds one uint32 slot a replica,
+// slot r at out[r * out_stride], that replica r's digest is XORed into.
 int gossip_tick_digest(const void* seen, int n, int w, long long ld,
                        const void* received, const void* sent_lo,
-                       const void* sent_hi, void* out, void* stream) {
+                       const void* sent_hi, int replicas, void* out,
+                       long long out_stride, void* stream) {
   // Up to 8 resident blocks of 256 threads on each of the H100's 132 SMs,
-  // each warp striding over rows: one atomicXor per block.
+  // shared among the replicas, each warp striding over its replica's rows:
+  // one atomicXor per block.
   long long blocks = ((long long)n + kDigestWarps - 1) / kDigestWarps;
-  if (blocks > 132 * 8) blocks = 132 * 8;
+  const long long cap = (132 * 8) / (replicas > 0 ? replicas : 1);
+  if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
+  const dim3 grid((unsigned)blocks, (unsigned)replicas);
   const bool vec = w % 4 == 0 && ld % 4 == 0 && aligned16(seen);
   if (vec) {
-    tick_digest_kernel<true><<<(unsigned)blocks, kDigestWarps * 32, 0, (cudaStream_t)stream>>>(
+    tick_digest_kernel<true><<<grid, kDigestWarps * 32, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)seen, n, w, ld, (const uint32_t*)received,
-        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, (uint32_t*)out);
+        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, (uint32_t*)out,
+        out_stride);
   } else {
-    tick_digest_kernel<false><<<(unsigned)blocks, kDigestWarps * 32, 0, (cudaStream_t)stream>>>(
+    tick_digest_kernel<false><<<grid, kDigestWarps * 32, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)seen, n, w, ld, (const uint32_t*)received,
-        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, (uint32_t*)out);
+        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, (uint32_t*)out,
+        out_stride);
   }
   return (int)cudaGetLastError();
 }

@@ -214,12 +214,14 @@ class DeviceGraph:
         return gather + self.n * (3 * w * 4 + 4 + 5 * 4)
 
 
-def _staged_graph_bytes(degree: np.ndarray, block: int, uniform_delay: bool) -> int:
+def _staged_graph_bytes(degree: np.ndarray, block: int, uniform_delay: bool,
+                        bucketed: bool | None = None) -> int:
     """Bytes of every tensor `DeviceGraph.build` stages for a graph of this
     degree array, counted from its own rules: the degree buckets of
     `ops.ell.build_degree_buckets` (int32 ``rows``, int32 ``idx``, bool
     ``mask`` and, with per-edge delays, int32 ``delay``, each bucket
-    padded to its block-rounded max degree) from 4096 nodes up, else the
+    padded to its block-rounded max degree) from 4096 nodes up (or as
+    ``bucketed`` says, `DeviceGraph.build`'s argument), else the
     full-width (N, dmax) ELL; the (1, 1) placeholders; ``degree``.
     ``uniform_delay`` means a run with no delay array (the buckets are cut
     from CSR at their full cap); per-edge delays cut the buckets from the
@@ -227,7 +229,9 @@ def _staged_graph_bytes(degree: np.ndarray, block: int, uniform_delay: bool) -> 
     n = int(degree.shape[0])
     per_entry = 5 if uniform_delay else 9
     dmax = max(int(degree.max()) if n else 0, 1)
-    if n >= 4096:  # DeviceGraph.build's default staging
+    if bucketed is None:
+        bucketed = n >= 4096  # DeviceGraph.build's default staging
+    if bucketed:
         total = 4 + 4 + 1  # placeholders: ell_idx, ell_delay, ell_mask
         for rows in bucket_rows_by_count(degree, block, 2048):  # min_rows default
             cap = max(-(-int(degree[rows].max()) // block) * block, block)
@@ -425,7 +429,9 @@ def _tick(
 
     ``rings`` (telemetry on) is the chunk's (metric ring, digest ring):
     the tick writes row ``t`` of each (`telemetry.rings.flood_row` and
-    the digest of the post-tick state, ``sent`` as its low word only).
+    the digest of the post-tick state, ``sent`` as its low word only); a
+    campaign batch's rings hold one lane a replica (`telemetry.rings.
+    chunk_rings` with ``replicas``), written by the same launches.
     The row's ``msgs_gathered`` is the post-loss, pre-churn gather, so
     under churn the gather runs without the up mask and the mask is
     applied after it (the same arrivals); ``loss_dropped`` needs a second,
@@ -439,8 +445,9 @@ def _tick(
     if rings is None:
         arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up, opts.replicas)
     else:
-        wire = _gather(dg, hist, occ, t, plain, opts.loss)
-        lossless = None if opts.loss is None else _gather(dg, hist, occ, t, plain)
+        wire = _gather(dg, hist, occ, t, plain, opts.loss, replicas=opts.replicas)
+        lossless = None if opts.loss is None else _gather(
+            dg, hist, occ, t, plain, replicas=opts.replicas)
         arrivals = wire if up is None else wire & -up.to(torch.int32)[:, None]
     gen_active = gen_ticks == t
     if up is not None:
@@ -463,7 +470,7 @@ def _tick(
     kernels.sector_occupancy(slot, out=occ[t % dg.ring_size], plain=plain)
     if rings is not None:
         met, dig = rings
-        tel_rings.flood_row(met, t, wire, newly_out, newly_cnt, dg.degree, lossless,
+        tel_rings.flood_row(met, t, wire, newly_out, newly_cnt, degree, lossless,
                             plain=plain)
         tel_digest.write(dig, t, seen, received, sent, plain=plain)
     # newly_out = newly | live_bits holds a bit iff a node newly processed a

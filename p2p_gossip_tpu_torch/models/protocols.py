@@ -408,11 +408,16 @@ class _RoundTelemetry:
       the count ring (the JAX package's ``pc_remote`` and ``popcount
       (my_old)``);
     - the digest of (``seen``, ``received``, ``sent`` as its low and high
-      words)."""
+      words).
+
+    A campaign batch's (B, capacity, ...) rings take every replica's row and
+    digest from the same launches, each total a reduction over a (B, N)
+    view of the stacked rows."""
 
     def __init__(self, rings, mode: str, hcnt, lossy: bool, plain: bool):
         self.met, self.dig = rings
         self.mode, self.hcnt, self.lossy, self.plain = mode, hcnt, lossy, plain
+        self.b = tel_rings.ring_replicas(self.met)
         self.received = torch.zeros_like(hcnt[0])
         self.seen_cnt = torch.zeros_like(hcnt[0])  # fanout push
         self.scratch = self.gathered = None
@@ -422,7 +427,7 @@ class _RoundTelemetry:
             self.scratch = flat.new_empty((self.hcnt.shape[1], flat.shape[1]))
         kernels.scatter_or(flat, offsets, entries, pull_row=pull_row,
                            out=self.scratch, plain=self.plain)
-        self.gathered = tel_rings.total_bits(self.scratch, plain=self.plain)
+        self.gathered = tel_rings.total_bits(self.scratch, self.b, plain=self.plain)
 
     def round(self, t, draw, i, fired, or_work, seen, sent) -> None:
         hcnt, ring = self.hcnt, self.hcnt.shape[0]
@@ -442,18 +447,20 @@ class _RoundTelemetry:
             attempted = draw["attempted"][i]
             if self.mode != "pushk":
                 lost = attempted & ~draw["pull_ok"][i]
-                dropped = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["served"][i]], 0))
+                dropped = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["served"][i]], 0),
+                                           self.b)
             if self.mode != "pull":
                 lost = attempted & ~draw["push_ok"][i]
-                pushed = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["src"][i]], 0))
+                pushed = tel_rings.u32sum(torch.where(lost, flat_cnt[draw["src"][i]], 0),
+                                          self.b)
                 dropped = (dropped + pushed) & _U32  # a uint32 add, as in JAX
         tel_rings.row(
             self.met, t,
-            frontier_bits=tel_rings.u32sum(frontier),
-            frontier_nodes=tel_rings.u32sum(frontier > 0),
-            newly_infected=tel_rings.u32sum(newly),
+            frontier_bits=tel_rings.u32sum(frontier, self.b),
+            frontier_nodes=tel_rings.u32sum(frontier > 0, self.b),
+            newly_infected=tel_rings.u32sum(newly, self.b),
             msgs_gathered=self.gathered,
-            or_work=tel_rings.u32sum(or_work),
+            or_work=tel_rings.u32sum(or_work, self.b),
             loss_dropped=dropped,
         )
         tel_digest.write(self.dig, t, seen, received, *tel_digest.split_u64(sent),

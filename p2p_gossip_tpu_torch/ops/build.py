@@ -49,8 +49,9 @@ _SIGNATURES = {
     "gossip_scatter_or": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
     # src, n_src, w, src_row, dst, mask, m, n_out, out, stream
     "gossip_scatter_or_atomic": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P),
-    # seen, n, w, ld, received, sent_lo, sent_hi, out, stream
-    "gossip_tick_digest": (_P, _I, _I, _LL, _P, _P, _P, _P, _P),
+    # seen, n, w, ld, received, sent_lo, sent_hi, replicas, out, out_stride,
+    # stream
+    "gossip_tick_digest": (_P, _I, _I, _LL, _P, _P, _P, _I, _P, _LL, _P),
 }
 
 

@@ -633,21 +633,30 @@ def tick_digest_plain(
     received: torch.Tensor,
     sent_lo: torch.Tensor,
     sent_hi: torch.Tensor | None = None,
+    replicas: int = 1,
 ) -> torch.Tensor:
-    """The digest as a 0-d int64 in [0, 2^32): (N, W) int32 ``seen`` and
-    the (N,) int32 counters, each entry read as its uint32 bit pattern,
-    salted by node id i, word index k and counter kind, mixed and
-    XOR-folded (the JAX package's ``tick_digest``)."""
-    n, w = seen.shape
+    """The digests as a (B,) int64 tensor of values in [0, 2^32), one per
+    replica of ``replicas`` B stacked along the rows: (B*N, W) int32
+    ``seen`` and the (B*N,) int32 counters, each entry read as its uint32
+    bit pattern, salted by node id i (row r*N + i holds node i of replica
+    r), word index k and counter kind, mixed and XOR-folded (the JAX
+    package's ``tick_digest``, once per replica)."""
+    rows, w = seen.shape
+    n = rows // replicas
     dev = seen.device
     node_salt = _mul32(torch.arange(n, dtype=torch.int64, device=dev), SALT_NODE)
     word_salt = _mul32(torch.arange(w, dtype=torch.int64, device=dev), SALT_WORD)
-    h = _fold_sparse(seen.to(torch.int64) & _U32, word_salt[None, :] ^ node_salt[:, None])
-    for values, salt in ((received, SALT_RECV), (sent_lo, SALT_SENT_LO),
-                         (sent_hi, SALT_SENT_HI)):
-        if values is not None:
-            h = h ^ _fold_sparse(values.to(torch.int64) & _U32, node_salt ^ salt)
-    return h
+    out = []
+    for r in range(replicas):
+        part = slice(r * n, (r + 1) * n)
+        h = _fold_sparse(seen[part].to(torch.int64) & _U32,
+                         word_salt[None, :] ^ node_salt[:, None])
+        for values, salt in ((received, SALT_RECV), (sent_lo, SALT_SENT_LO),
+                             (sent_hi, SALT_SENT_HI)):
+            if values is not None:
+                h = h ^ _fold_sparse(values[part].to(torch.int64) & _U32, node_salt ^ salt)
+        out.append(h)
+    return torch.stack(out)
 
 
 def tick_digest(
@@ -657,39 +666,49 @@ def tick_digest(
     sent_hi: torch.Tensor | None = None,
     *,
     out: torch.Tensor | None = None,
+    replicas: int = 1,
     plain: bool = False,
 ) -> torch.Tensor:
-    """XOR one tick's state digest into ``out``, a (1,) int32 slot holding
-    the uint32 bit pattern (a fresh zeroed slot when None), and return it.
+    """XOR one tick's state digest of each of ``replicas`` B stacked
+    replicas into ``out``, a (B,) int32 tensor of slots holding uint32 bit
+    patterns (any stride, so a column of a (B, capacity) ring; a fresh
+    zeroed one when None), and return it. One launch covers all B.
 
-    ``seen`` (N, W) int32 with contiguous rows (the row stride may exceed
-    W); ``received``, ``sent_lo`` and, when given, ``sent_hi`` (N,) int32
-    (an engine's int64 counter passes its low and high words). The engines
-    give each tick its own zeroed ring slot, so ``out`` ends holding that
-    tick's digest; emit it as ``v & 0xFFFFFFFF``."""
-    _require(seen.dim() == 2, "seen must be (N, W)")
-    n, _ = seen.shape
+    ``seen`` (B*N, W) int32 with contiguous rows (the row stride may exceed
+    W), row r*N + i holding node i of replica r; ``received``, ``sent_lo``
+    and, when given, ``sent_hi`` (B*N,) int32 (an engine's int64 counter
+    passes its low and high words). Replica r's digest salts node ids,
+    never stacked rows, so it equals its solo run's. The engines give each
+    tick its own zeroed ring slots, so ``out`` ends holding that tick's
+    digests; emit them as ``v & 0xFFFFFFFF``."""
+    _require(seen.dim() == 2, "seen must be (B*N, W)")
+    _require(replicas >= 1 and seen.shape[0] % replicas == 0,
+             f"seen's {seen.shape[0]} rows are not {replicas} replicas")
+    rows = seen.shape[0]
     counters = [("received", received), ("sent_lo", sent_lo)]
     if sent_hi is not None:
         counters.append(("sent_hi", sent_hi))
     for name, t in counters:
-        _require(t.shape == (n,), f"{name} must be (N,)")
+        _require(t.shape == (rows,), f"{name} must be (B*N,)")
     if out is None:
-        out = torch.zeros((1,), dtype=torch.int32, device=seen.device)
-    _require(out.shape == (1,) and out.dtype == torch.int32, "out must be (1,) int32")
+        out = torch.zeros((replicas,), dtype=torch.int32, device=seen.device)
+    _require(out.shape == (replicas,) and out.dtype == torch.int32,
+             f"out must be ({replicas},) int32")
     if not _use_kernel(seen, plain):
-        value = tick_digest_plain(seen, received, sent_lo, sent_hi)
-        return out.bitwise_xor_(torch.where(value >= 2**31, value - 2**32, value))
+        value = tick_digest_plain(seen, received, sent_lo, sent_hi, replicas)
+        return out.bitwise_xor_(torch.where(value >= 2**31, value - 2**32, value).to(torch.int32))
     _int32_matrix(seen, "seen")
-    for name, t in counters + [("out", out)]:
+    for name, t in counters:
         _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
         _require(t.device == seen.device, f"{name} is on {t.device}, not {seen.device}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    if n:
+    _require(out.device == seen.device, f"out is on {out.device}, not {seen.device}")
+    if rows:
         _launch(
             "tick_digest", _lib().gossip_tick_digest,
-            seen.data_ptr(), n, seen.shape[1], seen.stride(0), received.data_ptr(),
-            sent_lo.data_ptr(), None if sent_hi is None else sent_hi.data_ptr(),
-            out.data_ptr(), _stream(seen.device),
+            seen.data_ptr(), rows // replicas, seen.shape[1], seen.stride(0),
+            received.data_ptr(), sent_lo.data_ptr(),
+            None if sent_hi is None else sent_hi.data_ptr(), replicas,
+            out.data_ptr(), out.stride(0), _stream(seen.device),
         )
     return out

@@ -13,10 +13,11 @@ and the first differing index IS the first divergent tick
 both fold the same constants over the same state.
 
 The device digest ring is a (capacity,) int32 tensor holding uint32 bit
-patterns, created only when telemetry's rings are on; each tick XORs its
-digest into its own zeroed slot, and the ring is harvested once a chunk
-(`emit_digest`, as ``v & 0xFFFFFFFF``). With telemetry off no ring
-exists and the kernel never launches.
+patterns (a campaign batch's is (B, capacity), one lane a replica, all
+written by one launch a tick), created only when telemetry's rings are
+on; each tick XORs its digest into its own zeroed slot, and the ring is
+harvested once a chunk (`emit_digest`, as ``v & 0xFFFFFFFF``). With
+telemetry off no ring exists and the kernel never launches.
 
 Digest semantics (what is folded, per tick, after the tick's updates):
 
@@ -73,6 +74,12 @@ def init(capacity: int, device) -> torch.Tensor:
     return torch.zeros((capacity,), dtype=torch.int32, device=device)
 
 
+def init_batched(batch: int, capacity: int, device) -> torch.Tensor:
+    """Fresh (batch, capacity) int32 digest ring: one digest lane a replica
+    of a campaign batch (the JAX package's ``init_batched``)."""
+    return torch.zeros((batch, capacity), dtype=torch.int32, device=device)
+
+
 def write(ring: torch.Tensor, t: int, seen, received, sent_lo, sent_hi=None, *,
           plain: bool = False) -> None:
     """Digest the post-tick state into slot ``t`` of ``ring`` (zero
@@ -80,8 +87,20 @@ def write(ring: torch.Tensor, t: int, seen, received, sent_lo, sent_hi=None, *,
     kernel on a CUDA tensor, its plain version on the CPU or with
     ``plain=True``. ``seen`` (n, w) int32; ``received``/``sent_lo``/
     ``sent_hi`` (n,) int32 bit patterns. Omit ``sent_hi`` for the
-    flood's int32 ``sent``."""
-    kernels.tick_digest(seen, received, sent_lo, sent_hi, out=ring[t:t + 1], plain=plain)
+    flood's int32 ``sent``. A (B, capacity) campaign ring goes to
+    `write_batched`."""
+    batched = ring if ring.dim() == 2 else ring[None]
+    write_batched(batched, t, seen, received, sent_lo, sent_hi, plain=plain)
+
+
+def write_batched(ring: torch.Tensor, t: int, seen, received, sent_lo, sent_hi=None, *,
+                  plain: bool = False) -> None:
+    """`write` for a campaign batch: the (B, capacity) ``ring`` and the B
+    replicas' state stacked along the rows (``seen`` (B*n, w), the
+    counters (B*n,)); one ``tick_digest`` launch writes every replica's
+    slot ``t``, replica r's digest salted by node id as in its solo run."""
+    kernels.tick_digest(seen, received, sent_lo, sent_hi, out=ring[:, t],
+                        replicas=ring.shape[0], plain=plain)
 
 
 # --- host (numpy) twin -----------------------------------------------------------

@@ -32,25 +32,54 @@ from p2p_gossip_tpu_torch.telemetry.schema import METRIC_COLUMNS, NUM_METRICS
 U32_MAX = 0xFFFFFFFF
 
 
-def chunk_rings(horizon: int, device):
+def chunk_rings(horizon: int, device, replicas: int | None = None):
     """A chunk's fresh telemetry rings, one row per tick: the (horizon,
-    NUM_METRICS) metric ring and the (horizon,) digest ring, both zero."""
-    return (torch.zeros((horizon, NUM_METRICS), dtype=torch.int64, device=device),
-            digest.init(horizon, device))
+    NUM_METRICS) metric ring and the (horizon,) digest ring, both zero; for
+    a campaign batch of ``replicas`` B, the (B, horizon, NUM_METRICS) and
+    (B, horizon) rings of `init_batched` and `digest.init_batched`."""
+    if replicas is None:
+        return (torch.zeros((horizon, NUM_METRICS), dtype=torch.int64, device=device),
+                digest.init(horizon, device))
+    return init_batched(replicas, horizon, device), digest.init_batched(replicas, horizon, device)
 
 
-def u32sum(x: torch.Tensor) -> torch.Tensor:
+def init_batched(batch: int, capacity: int, device) -> torch.Tensor:
+    """Zeroed (batch, capacity, NUM_METRICS) ring: one metric ring a replica
+    of a campaign batch (the JAX package's ``init_batched``)."""
+    return torch.zeros((batch, capacity, NUM_METRICS), dtype=torch.int64, device=device)
+
+
+def write_batched(ring: torch.Tensor, t: int, rows: torch.Tensor) -> None:
+    """Write the (B, k) ``rows`` into the first k columns of row ``t`` of
+    each replica's ring in the (B, capacity, NUM_METRICS) ``ring`` (the JAX
+    package's ``write_batched``): one device copy."""
+    ring[:, t, :rows.shape[1]] = rows
+
+
+def ring_replicas(ring: torch.Tensor) -> int | None:
+    """B of a (B, capacity, NUM_METRICS) campaign ring; None for a solo
+    (capacity, NUM_METRICS) ring."""
+    return ring.shape[0] if ring.dim() == 3 else None
+
+
+def u32sum(x: torch.Tensor, replicas: int | None = None) -> torch.Tensor:
     """Saturating-uint32 total of an integer (or bool) tensor, as a 0-d
     int64: each entry read as its uint32 value, summed in int64 and
-    clamped at ``U32_MAX``."""
-    total = (x.to(torch.int64) & U32_MAX).sum()
+    clamped at ``U32_MAX``. With ``replicas`` B, ``x`` holds B replicas
+    stacked along its first axis and the result is the (B,) per-replica
+    totals, one reduction over a (B, -1) view."""
+    x = x.to(torch.int64) & U32_MAX
+    total = x.sum() if replicas is None else x.reshape(replicas, -1).sum(dim=1)
     return torch.clamp(total, max=U32_MAX)
 
 
-def total_bits(words: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+def total_bits(words: torch.Tensor, replicas: int | None = None, *,
+               plain: bool = False) -> torch.Tensor:
     """Popcount of a whole bitmask, through the ``popcount_rows`` kernel,
-    as a 0-d int64 uint32 value."""
-    return u32sum(kernels.popcount_rows(words.reshape(-1, words.shape[-1]), plain=plain))
+    as a 0-d int64 uint32 value; per replica, (B,), with ``replicas`` B
+    stacked along the rows."""
+    return u32sum(kernels.popcount_rows(words.reshape(-1, words.shape[-1]), plain=plain),
+                  replicas)
 
 
 def row(
@@ -66,16 +95,18 @@ def row(
     """Write one tick's row into row ``t`` of ``ring`` (zero until now:
     each tick writes its row once), in METRIC_COLUMNS order. Each column
     is a 0-d int64 tensor holding a uint32 value (`u32sum`,
-    `total_bits`); ``loss_dropped`` may be the int 0, which stays
-    unwritten. ``exchange_words``, ``staleness`` and ``stale_folds``
-    price the JAX package's sharded and async exchanges, which a single
-    device never makes: they stay 0. One stack and one copy, nothing
-    from the host: a copy from pageable host memory would wait for the
-    stream, a sync every tick."""
+    `total_bits`), or for a (B, capacity, NUM_METRICS) campaign ring a
+    (B,) tensor of every replica's value; ``loss_dropped`` may be the int
+    0, which stays unwritten. ``exchange_words``, ``staleness`` and
+    ``stale_folds`` price the JAX package's sharded and async exchanges,
+    which a single device never makes: they stay 0. One stack and one
+    copy, nothing from the host: a copy from pageable host memory would
+    wait for the stream, a sync every tick."""
     cols = [frontier_bits, frontier_nodes, newly_infected, msgs_gathered, or_work]
     if isinstance(loss_dropped, torch.Tensor):
         cols.append(loss_dropped)
-    ring[t, :len(cols)] = torch.stack(cols)
+    batched = ring if ring.dim() == 3 else ring[None]
+    write_batched(batched, t, torch.stack(cols, dim=-1).reshape(batched.shape[0], -1))
 
 
 def flood_row(
@@ -93,19 +124,23 @@ def flood_row(
     package's ``flood_row``). ``loss_dropped`` is the post-OR popcount delta between the lossless
     and actual gathers, exact in message *bits* (a bit dropped on every
     one of its arriving edges counts once); a uint32 difference, as
-    there."""
+    there. A campaign batch passes its (B, capacity, NUM_METRICS) ring and
+    its state stacked along the rows (every N above B*N): each replica's
+    row comes from reductions over a (B, N) view, so the tick's launches do
+    not grow with B, and replica r's row is its solo run's."""
+    b = ring_replicas(ring)
     pc_new = kernels.popcount_rows(newly_out, plain=plain)
-    gathered = total_bits(arrivals, plain=plain)
+    gathered = total_bits(arrivals, b, plain=plain)
     dropped = 0
     if arrivals_lossless is not None:
-        dropped = (total_bits(arrivals_lossless, plain=plain) - gathered) & U32_MAX
+        dropped = (total_bits(arrivals_lossless, b, plain=plain) - gathered) & U32_MAX
     row(
         ring, t,
-        frontier_bits=u32sum(pc_new),
-        frontier_nodes=u32sum(pc_new > 0),
-        newly_infected=u32sum(received_delta),
+        frontier_bits=u32sum(pc_new, b),
+        frontier_nodes=u32sum(pc_new > 0, b),
+        newly_infected=u32sum(received_delta, b),
         msgs_gathered=gathered,
-        or_work=u32sum(torch.where(pc_new > 0, degree, 0)),
+        or_work=u32sum(torch.where(pc_new > 0, degree, 0), b),
         loss_dropped=dropped,
     )
 

@@ -261,13 +261,19 @@ def rings_on():
 
 
 def test_campaigns_refuse_telemetry_rings(rings_on):
+    """The campaigns no longer refuse telemetry's rings: each runner emits
+    one ring and one digest event per replica (their values are held to
+    the JAX package's in tests/test_torch_campaign_telemetry.py)."""
     _, tg = _graphs()
     rs = tc.flood_replicas(tg, 3, SEEDS, HORIZON)
-    for run in (tc.run_coverage_campaign, tc.run_gossip_campaign):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run(tg, rs, HORIZON, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.run_protocol_campaign(tg, rs, HORIZON, device="cpu")
+    runs = (tc.run_coverage_campaign, tc.run_gossip_campaign, tc.run_protocol_campaign)
+    for run in runs:
+        run(tg, rs, HORIZON, device="cpu")
+    for kind in ("ring", "digest"):
+        tags = [(e["kernel"], e["replica"], e["seed"])
+                for e in telemetry.events() if e["type"] == kind]
+        assert len(tags) == len(runs) * len(SEEDS)
+        assert {t[1:] for t in tags} == set(enumerate(SEEDS))
 
 
 def test_campaign_validation():

@@ -459,13 +459,22 @@ def test_degree_block_changes_nothing(capsys):
 
 def test_replicas_with_telemetry_refuse_until_campaign_telemetry(tmp_path, capsys,
                                                                  clean_telemetry):
-    """Campaign telemetry is not ported: --replicas with --telemetry exits
-    2 naming the ROADMAP item, rather than running without the rings."""
+    """Campaign telemetry is ported, so --replicas with --telemetry no
+    longer refuses: it runs, its report is the JAX CLI's, and its ring and
+    digest events (one of each a replica, with ``replica`` and ``seed``)
+    equal the JAX CLI's for the same flags."""
     args = ["--numNodes", "30", "--floodCoverage", "3", "--replicas", "2", "--simTime",
-            "0.1", "--device", "cpu", "--telemetry", str(tmp_path / "t.jsonl")]
-    assert cli.run(args) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: campaign telemetry") and "ROADMAP" in err
+            "0.1"]
+    port = _run_in_process(
+        cli.run, args + ["--device", "cpu", "--telemetry", str(tmp_path / "port.jsonl")],
+        capsys)
+    want = _run_in_process(jax_cli.run, args + ["--telemetry", str(tmp_path / "jax.jsonl")],
+                           capsys)
+    _assert_same_campaign(port, want)
+    got = _ring_and_digest_events(tmp_path / "port.jsonl")
+    assert got and got == _ring_and_digest_events(tmp_path / "jax.jsonl")
+    assert sorted((e["type"], e["replica"]) for e in got) == [
+        ("digest", 0), ("digest", 1), ("ring", 0), ("ring", 1)]
 
 
 # --- the host engines, graph files, the C++ builders, logs and the quirk --------

@@ -59,7 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "utils/anim.py", "utils/cli.py", "batch/__init__.py",
                    "batch/campaign.py", "batch/stats.py", "batch/sweep.py",
                    "engine/event.py", "runtime/native.py", "utils/logging.py",
-                   "scale.py"):
+                   "scale.py", "serve/__init__.py", "serve/request.py",
+                   "serve/scheduler.py", "serve/server.py", "serve/bench.py"):
         assert os.path.join("p2p_gossip_tpu_torch", module) in names
     bad = []
     for path in files:
