@@ -107,6 +107,24 @@ Phases (any failure raises and the script exits nonzero):
    admission model's dispatch bytes, and a request over an explicit
    budget rejected; (e) a reduced trace (N = 2,000) on the card equal to
    the same trace run with ``device="cpu"``.
+14. The sharded flood (``p2p_gossip_tpu_torch.parallel``): (a)
+   ``compress_deltas`` and ``scatter_deltas`` against their plain versions
+   on a 4-shard split of the phase-5 flood's tick-3 and tick-10 frontiers
+   (W = 256; capacity from ``exchange.delta_capacity`` of the real cut, and
+   a forced overflow at capacity 64) and of phase 12's 1M BA tick-2 state
+   (W = 128; run from phase 12's hook), every shard's compress and every
+   receiver's scatter, timed beside the bound and ``torch.nonzero`` x k /
+   ``index_put_``; (b) ``run_sharded_sim`` and
+   ``run_sharded_flood_coverage`` on ``torch.cuda.device_count()`` NCCL
+   ranks (one rank: in this process) with the ring replicated and sharded
+   and the dense, delta, hub and async (K = 2) exchanges on phase 5's
+   flood and phase 6's coverage, then phase 12's 1M BA coverage on the
+   sharded ring with delta: counters, ticks and coverage rows equal the
+   single-device port's, ms/tick, launches, and each run's peak device
+   memory within 20% of ``stats.extra['resident_bytes']``, and a
+   replicated and a delta flood under ``torch.profiler``; (c) 2 and 4
+   gloo ranks on the one card (gloo chosen, not a fallback): the dense and
+   delta flood and coverage equal the single-device port's.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -143,6 +161,10 @@ bucket per tick. Phase 13 zeroes them just before the trace's drain and
 reads them just after it (``launches_serve``: every flood and protocol
 kernel launched, ``tick_digest`` never), and around each rings-on
 dispatch (``tick_digest`` once a tick or round for the 8 replicas).
+Phase 14 (b) zeroes them just before each mode's timed flood and reads
+them after its coverage run: every flood kernel launched, the exchange
+kernels once a tick exactly when the exchange is delta or hub (their
+record's ``launches`` is the delta run's), and around the 1M BA run.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -169,6 +191,7 @@ SNAPSHOTS = [8, 16, 24, 32]  # the options run's periodic-stats boundaries
 LOSS_FREE_LAUNCHES = {
     "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 29, "coverage_per_slot": 7,
     "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
+    "compress_deltas": 0, "scatter_deltas": 0,
 }
 FLOOD_KERNELS = tuple(name for name, count in LOSS_FREE_LAUNCHES.items() if count)
 SOURCE = "p2p_gossip_tpu_torch/csrc/gossip_kernels.cu"
@@ -181,6 +204,8 @@ REPLACES = {
     "coverage_per_slot": "p2p_gossip_tpu/ops/pallas_kernels.py:122",
     "scatter_or": "p2p_gossip_tpu/ops/segment.py:41",
     "tick_digest": "p2p_gossip_tpu/telemetry/digest.py:118",
+    "compress_deltas": "p2p_gossip_tpu/parallel/exchange.py:399",
+    "scatter_deltas": "p2p_gossip_tpu/parallel/exchange.py:469",
 }
 # The kernels the protocols' path runs: it keeps no occupancy ring, and its
 # pull rides in the round's one scatter_or call (no gather).
@@ -209,6 +234,21 @@ SERVE_REQUESTS = 24
 SERVE_SHARES = 4096
 SERVE_REDUCED_NODES = 2000
 DIGEST_REPLICAS = 8
+# Phase 14: the sharded flood. The exchange kernels on a 4-shard split at
+# the flood's tick-3 and tick-10 frontiers, and with a capacity forced to
+# overflow; the engine's modes on the card's NCCL ranks; gloo ranks on the
+# one card.
+SHARD_SPLIT = 4
+DELTA_TICKS = (3, 10)
+OVERFLOW_CAPACITY = 64
+SHARDED_MODES = (
+    ("replicated", dict(ring_mode="replicated")), ("sharded", dict(ring_mode="sharded")),
+    ("delta", dict(exchange="delta")), ("hub", dict(exchange="hub")),
+    ("async", dict(exchange="async", async_k=2)),
+)
+SHARDED_KERNELS = ("compress_deltas", "scatter_deltas")
+GLOO_RANKS = (2, 4)
+GLOO_DEVICE = "cuda:0"  # every gloo rank on the one card
 U32 = 0xFFFFFFFF
 
 
@@ -2413,7 +2453,7 @@ def scale_graph(topology, nodes, prob, cache_dir):
     return graph, timing
 
 
-def scale_kernels(dg, origins, dev, reps):
+def scale_kernels(dg, origins, dev, reps, hook=None):
     """The four flood kernels on the state the engine's own tick built by
     SCALE_CAPTURE_TICK of the million-node coverage run: each held against
     its plain version on the first SCALE_SUBSET_ROWS rows (of every degree
@@ -2479,6 +2519,8 @@ def scale_kernels(dg, origins, dev, reps):
                                                     calls=KERNEL_CALLS),
                          plain_ms=time_ms(lambda: plain_fn(part), 2, warmup=1),
                          bound_ms=bound_ms(nbytes))
+    if hook is not None:
+        hook(frontier)
     occ_bits = set_bits(occ[(tick - 1) % dg.ring_size])
     log(f"scale kernels on the tick-{tick} state (N={n}, W={w}, {len(dg.buckets)} "
         f"buckets, {occ_bits} occupied sectors in the newest slot): every kernel == plain "
@@ -2490,13 +2532,15 @@ def scale_kernels(dg, origins, dev, reps):
     return out
 
 
-def scale_path(topology, nodes, prob, dev, cache_dir, graph=None):
+def scale_path(topology, nodes, prob, dev, cache_dir, graph=None, hook=None):
     """Phase 12 on one SCALE_CONFIGS graph: build, cache and reload it,
     stage it (time, peak host RSS, buckets), flood SCALE_ORIGINS shares
     from t = 0 (one warm, one timed run with launch counts and peak device
     memory against the resident-memory model), then the kernels on the
     tick-3 state (`scale_kernels`). A ``graph`` given (the north star's,
-    loaded from its cache) skips the build and cache steps."""
+    loaded from its cache) skips the build and cache steps. ``hook(graph,
+    origins, stats, coverage, frontier)`` (phase 14's) sees the graph, the
+    timed flood's results and the state's newest frontier slot."""
     import torch
 
     from p2p_gossip_tpu_torch.engine.sync import (
@@ -2547,7 +2591,8 @@ def scale_path(topology, nodes, prob, dev, cache_dir, graph=None):
     ticks = launches["coverage_per_slot"]
     want = {"gather_or": len(dg.buckets) * ticks, "sector_occupancy": ticks,
             "popcount_rows": ticks, "coverage_per_slot": ticks, "scatter_or": 0,
-            "scatter_or_atomic": 0, "tick_digest": 0}
+            "scatter_or_atomic": 0, "tick_digest": 0, "compress_deltas": 0,
+            "scatter_deltas": 0}
     if ticks == 0 or launches != want:
         raise AssertionError(f"scale[{topology}]: launches {launches}, want {want} (gather_or "
                              "once per degree bucket per tick)")
@@ -2562,7 +2607,9 @@ def scale_path(topology, nodes, prob, dev, cache_dir, graph=None):
     if abs(peak - model) > MEMORY_TOLERANCE * model:
         raise AssertionError(f"scale[{topology}]: peak device memory {peak} is not within "
                              f"{MEMORY_TOLERANCE:.0%} of the model's {model}")
-    kernels_1m = scale_kernels(dg, origins, dev, reps=5)
+    kernels_1m = scale_kernels(
+        dg, origins, dev, reps=5,
+        hook=None if hook is None else (lambda f: hook(graph, origins, stats, cov, f)))
     result = dict(timing, stage_s=stage_s, rss_peak=rss, buckets=len(dg.buckets),
                   ticks=ticks, wall_s=wall, ms_per_tick=wall / ticks * 1e3,
                   rate=processed / wall, peak_bytes=peak, model_bytes=model,
@@ -2626,11 +2673,21 @@ def scale_phase(dev):
     log(f"native library built in {build_s:.2f} s -> {path}")
     cache_dir = os.path.join("chiprun_out", "phase12")
     results = {}
+    kept = {}
+
+    def keep_ba(graph, origins, stats, cov, frontier):
+        # Phase 14: the exchange kernels on a 4-shard split of this state,
+        # and this graph and flood for the sharded engine.
+        kept.update(graph=graph, origins=origins, stats=stats, coverage=cov,
+                    delta=check_delta_kernels(graph, [("tick-2", frontier)], dev, 5))
+
     for topology, nodes, prob in SCALE_CONFIGS:
-        results[topology] = scale_path(topology, nodes, prob, dev, cache_dir)
+        results[topology] = scale_path(topology, nodes, prob, dev, cache_dir,
+                                       hook=keep_ba if topology == "ba" else None)
+    kept["ms_per_tick"] = results["ba"]["ms_per_tick"]
     check_scale_cli(dev, cache_dir)
     results["native_build_s"] = build_s
-    return results
+    return results, kept
 
 
 def north_star(cache: str, dev) -> None:
@@ -3024,6 +3081,351 @@ def serve_phase(graph, dev, rng):
     return dict(digest=digest, launches=launches, summary=summary, rings=rings,
                 memory=memory)
 
+# --- phase 14 -----------------------------------------------------------------
+
+def delta_library_ms(changed, need, k, reps):
+    """``torch.nonzero`` on one destination's candidate mask (nonzero word,
+    row in the cut), times the k destinations: compress_deltas' one-call
+    PyTorch counterpart (it ranks the candidates, it packs nothing)."""
+    import torch
+
+    mask = ((changed != 0) & need[:, :1]).reshape(-1)
+    return k * time_ms(lambda: torch.nonzero(mask), reps, calls=KERNEL_CALLS)
+
+
+def check_delta_kernels(graph, frontiers, dev, reps):
+    """Phase 14 (a): compress_deltas and scatter_deltas on a SHARD_SPLIT-way
+    split of ``graph``'s rows. For each (tag, frontier (N, W)): every
+    shard's compress at the planned capacity (`exchange.delta_capacity` of
+    the cut, `exchange.plan_flood_exchange_csr`) and at OVERFLOW_CAPACITY,
+    and every receiver's scatter of the buffers the shards send it, each
+    held bitwise against its plain version; where nothing overflowed, the
+    rebuild equals the other shards' cut rows of the frontier. Timed on
+    shard 0 and receiver 0 of the last frontier at the planned capacity
+    (10 back-to-back calls), beside the bound (compress: the slice and the
+    cut read once, the buffers and counts written once; scatter: the
+    canvas written once, the buffers read once) and the one-call PyTorch
+    counterparts: ``torch.nonzero`` a destination x k, and ``index_put_``
+    into a fresh zero canvas."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import exchange as exch
+
+    k = SHARD_SPLIT
+    n_padded = graph.n + (-graph.n) % k
+    n_loc = n_padded // k
+    need_np = exch.plan_flood_exchange_csr(graph, n_padded, k)
+    cut = need_np.reshape(k, n_loc, k).sum(axis=1)
+    w = frontiers[0][1].shape[1]
+    cap = exch.delta_capacity(int(cut.max()), n_loc, w)
+    need = torch.as_tensor(need_np, device=dev)
+    err = {"compress_deltas": 0, "scatter_deltas": 0}
+    notes = []
+    for tag, frontier in frontiers:
+        padded = torch.zeros((n_padded, w), dtype=torch.int32, device=dev)
+        padded[: graph.n] = frontier
+        for capacity in (cap, OVERFLOW_CAPACITY):
+            sent = []
+            for sh in range(k):
+                rows = slice(sh * n_loc, (sh + 1) * n_loc)
+                got = kernels.compress_deltas(padded[rows], need[rows], capacity)
+                want = kernels.compress_deltas(padded[rows], need[rows], capacity, plain=True)
+                for a, b, part in zip(got, want, ("idx", "val", "counts")):
+                    err["compress_deltas"] = max(err["compress_deltas"], compare(
+                        f"compress_deltas[{tag} cap {capacity} shard {sh} {part}]", a, b))
+                sent.append(got)
+            over = max(int(c[2].max()) for c in sent)
+            for d in range(k):
+                ridx = torch.stack([c[0][d] for c in sent])
+                rval = torch.stack([c[1][d] for c in sent])
+                got = kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded)
+                want = kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded, plain=True)
+                err["scatter_deltas"] = max(err["scatter_deltas"], compare(
+                    f"scatter_deltas[{tag} cap {capacity} receiver {d}]", got, want))
+                if over <= capacity:
+                    cut_rows = torch.where(need[:, d:d + 1], padded, 0)
+                    compare(f"rebuild[{tag} receiver {d}]", got, cut_rows)
+            notes.append(f"{tag} cap {capacity}: largest count {over}"
+                         f"{' (overflow)' if over > capacity else ''}")
+    changed, need0 = padded[:n_loc], need[:n_loc]
+    idx, val, counts = kernels.compress_deltas(changed, need0, cap)
+    compress = dict(
+        max_abs_err=err["compress_deltas"],
+        ms=time_ms(lambda: kernels.compress_deltas(changed, need0, cap), reps,
+                   calls=KERNEL_CALLS),
+        plain_ms=time_ms(lambda: kernels.compress_deltas(changed, need0, cap, plain=True), 3),
+        bound_ms=bound_ms(n_loc * w * 4 + n_loc * k + 2 * k * cap * 4 + k * 4),
+        library_ms=delta_library_ms(changed, need0, k, reps),
+        capacity=cap, entries=int(counts.clamp(max=cap).sum()),
+    )
+    sent = [kernels.compress_deltas(padded[sh * n_loc:(sh + 1) * n_loc],
+                                    need[sh * n_loc:(sh + 1) * n_loc], cap)
+            for sh in range(k)]
+    ridx = torch.stack([c[0][0] for c in sent])
+    rval = torch.stack([c[1][0] for c in sent])
+    canvas = torch.empty((n_padded, w), dtype=torch.int32, device=dev)
+    offsets = torch.arange(k, dtype=torch.int64, device=dev)[:, None] * (n_loc * w)
+    kept = ridx >= 0
+    gidx, gval = (ridx.long() + offsets)[kept], rval[kept]
+    scatter = dict(
+        max_abs_err=err["scatter_deltas"],
+        ms=time_ms(lambda: kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded, out=canvas),
+                   reps, calls=KERNEL_CALLS),
+        plain_ms=time_ms(lambda: kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded,
+                                                        out=canvas, plain=True), 3),
+        bound_ms=bound_ms(n_padded * w * 4 + 2 * k * cap * 4),
+        library_ms=time_ms(lambda: torch.zeros(n_padded * w, dtype=torch.int32, device=dev)
+                           .index_put_((gidx,), gval), reps, calls=KERNEL_CALLS),
+        entries=int(kept.sum()),
+    )
+    log(f"exchange kernels, {k}-shard split of N={graph.n} (n_loc {n_loc}, W={w}, cut "
+        f"{int(cut.max())} rows, capacity {cap}): kernel == plain for every shard and "
+        f"receiver; {'; '.join(notes)}. Shard 0 / receiver 0 of the last frontier: "
+        f"compress {compress['ms']:.4f} ms (bound {compress['bound_ms']:.4f}, nonzero x {k} "
+        f"{compress['library_ms']:.4f}, plain {compress['plain_ms']:.3f}; "
+        f"{compress['entries']} entries); scatter {scatter['ms']:.4f} ms (bound "
+        f"{scatter['bound_ms']:.4f}, index_put_ {scatter['library_ms']:.4f}, plain "
+        f"{scatter['plain_ms']:.3f}; {scatter['entries']} entries)")
+    del padded, canvas, sent
+    torch.cuda.empty_cache()
+    return {"compress_deltas": compress, "scatter_deltas": scatter}
+
+
+def sharded_worker(graph, sched, ba, device):
+    """Phase 14 (b), on every rank: the mesh of all ranks on the nodes axis,
+    phase 5's flood and phase 6's coverage in every SHARDED_MODES mode (a
+    warm flood, then the timed flood and coverage between a launch-count
+    reset and a read, each with its peak device memory against
+    ``stats.extra['resident_bytes']``), and with ``ba`` (graph, origins)
+    the million-node BA coverage on the sharded ring with the delta
+    exchange. A run's peak counts from before its graph's first run, so it
+    includes the staged arrays the graph keeps on the card (as
+    ``resident_bytes`` does). The first rank then profiles a replicated and
+    a delta flood. Returns host values only."""
+    import torch
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel.engine_sharded import (
+        run_sharded_flood_coverage,
+        run_sharded_sim,
+        stage_sharded_graph,
+    )
+    from p2p_gossip_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(device if device else f"cuda:{dist.get_rank()}")
+    mesh = make_mesh(device=dev)
+
+    def measured(run, base):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sg = stage_sharded_graph(graph, mesh)
+    out = {"stage_s": time.perf_counter() - t0, "shape": mesh.shape}
+    origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
+    for mode, kw in SHARDED_MODES:
+        flood = dict(chunk_size=CHUNK, sharded_graph=sg, **kw)
+        run_sharded_sim(graph, sched, HORIZON, mesh, **flood)
+        kernels.reset_launches()
+        stats, wall, peak = measured(
+            lambda: run_sharded_sim(graph, sched, HORIZON, mesh, **flood), base)
+        (cstats, cov), cwall, cpeak = measured(lambda: run_sharded_flood_coverage(
+            graph, origins, HORIZON, mesh, sharded_graph=sg, **kw), base)
+        out[mode] = dict(
+            stats=stats, wall=wall, peak=peak, coverage=cov, cov_stats=cstats,
+            cov_wall=cwall, cov_peak=cpeak, launches=dict(kernels.launches))
+    if mesh.is_first:
+        for mode in ("replicated", "delta"):
+            kw = dict(SHARDED_MODES)[mode]
+            profile_device(f"sharded {mode} flood", lambda: run_sharded_sim(
+                graph, sched, HORIZON, mesh, chunk_size=CHUNK, sharded_graph=sg,
+                **kw).extra["ticks_executed"])
+    if ba is not None:
+        ba_graph, ba_origins = ba
+        del sg
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sg = stage_sharded_graph(ba_graph, mesh)
+        stage_s = time.perf_counter() - t0
+        ba_kw = dict(ring_mode="sharded", exchange="delta", sharded_graph=sg)
+        _, warm_wall, warm_peak = measured(lambda: run_sharded_flood_coverage(
+            ba_graph, ba_origins, HORIZON, mesh, **ba_kw), base)
+        kernels.reset_launches()
+        (stats, cov), wall, peak = measured(lambda: run_sharded_flood_coverage(
+            ba_graph, ba_origins, HORIZON, mesh, **ba_kw), base)
+        out["ba"] = dict(stats=stats, coverage=cov, wall=wall, peak=peak, stage_s=stage_s,
+                         warm_wall=warm_wall, warm_peak=warm_peak,
+                         launches=dict(kernels.launches))
+    return out
+
+
+def same_counts(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("generated", "received", "sent", "processed"))
+
+
+def check_resident(label, peak, model):
+    log(f"  {label}: peak device memory {peak / 1e9:.3f} GB vs modeled {model / 1e9:.3f} GB "
+        f"(measured / model {peak / model:.3f})")
+    if abs(peak - model) > MEMORY_TOLERANCE * model:
+        raise AssertionError(f"{label}: peak device memory {peak} is not within "
+                             f"{MEMORY_TOLERANCE:.0%} of the model's {model}")
+
+
+def sharded_phase(graph, dg, sched, ba, dev):
+    """Phase 14: (a) the exchange kernels at 100K (the flood's tick-3 and
+    tick-10 frontiers; the 1M BA split ran in phase 12's hook), (b) the
+    sharded flood on ``torch.cuda.device_count()`` NCCL ranks against the
+    single-device port, (c) 2 and 4 gloo ranks on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.engine.sync import run_flood_coverage, run_sync_sim
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import launch
+    from p2p_gossip_tpu_torch.parallel.mesh import initialize_multihost
+
+    t_phase = time.perf_counter()
+    frontiers = [(f"tick-{t}", capture_ring(dg, sched, CHUNK, t + 1, dev)[2].clone())
+                 for t in DELTA_TICKS]
+    torch.cuda.empty_cache()
+    kernels_100k = check_delta_kernels(graph, frontiers, dev, reps=10)
+    del frontiers
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = run_sync_sim(graph, sched, HORIZON, chunk_size=CHUNK, device_graph=dg, device=dev)
+    ref_tick_ms = (time.perf_counter() - t0) / ref.extra["ticks_executed"] * 1e3
+    origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
+    ref_cov_stats, ref_cov = run_flood_coverage(graph, origins, HORIZON, device_graph=dg,
+                                                device=dev)
+    ranks = torch.cuda.device_count()
+    ba_args = (ba["graph"], ba["origins"])
+    if ranks == 1:
+        initialize_multihost(backend="nccl", device=dev)
+        try:
+            runs = sharded_worker(graph, sched, ba_args, str(dev))
+        finally:
+            dist.destroy_process_group()
+    else:
+        runs = launch.spawn(sharded_worker, ranks, graph, sched, ba_args, None,
+                            backend="nccl")[0]
+    log(f"sharded flood (b): {ranks} NCCL rank(s), mesh {runs['shape']}, host staging "
+        f"{runs['stage_s']:.2f} s; single-device reference {ref.extra['ticks_executed']} "
+        f"ticks, {ref_tick_ms:.3f} ms/tick in this phase (each sharded wall below is the "
+        f"whole call: the plan, the run's set-up and the final gathers included)")
+    base_tick = None
+    for mode, _ in SHARDED_MODES:
+        r = runs[mode]
+        st, cst = r["stats"], r["cov_stats"]
+        ticks = st.extra["ticks_executed"]
+        # Async K's ring holds max(dmax, K) + 1 slots: its stop test may
+        # run an empty tick more than the synchronous engine's.
+        if not (same_counts(st, ref) and (ticks == ref.extra["ticks_executed"]
+                                          or mode == "async")):
+            raise AssertionError(f"sharded flood [{mode}]: counters or ticks differ from the "
+                                 "single-device port's")
+        if not (np.array_equal(r["coverage"], ref_cov) and same_counts(cst, ref_cov_stats)):
+            raise AssertionError(f"sharded coverage [{mode}]: rows or counters differ from "
+                                 "the single-device port's")
+        tick_ms = r["wall"] / ticks * 1e3
+        base_tick = base_tick or tick_ms
+        launched = {k: v for k, v in r["launches"].items() if v}
+        log(f"  {mode}: flood {ticks} ticks, {r['wall']:.4f} s -> {tick_ms:.3f} ms/tick "
+            f"({tick_ms / ref_tick_ms:.3f} of the single-device run's; "
+            f"{st.totals()['processed'] / r['wall']:.4e} node-updates/s); coverage "
+            f"{r['cov_wall']:.4f} s; == single-device (counters, ticks, coverage rows); "
+            f"exchange {st.extra['exchange']['mode']}; launches (flood + coverage) "
+            f"{launched}")
+        for name in FLOOD_KERNELS:
+            if r["launches"][name] == 0:
+                raise AssertionError(f"sharded [{mode}]: {name} never launched")
+        delta = st.extra["exchange"]["mode"] in ("delta", "hub")
+        for name in SHARDED_KERNELS:
+            if delta != (r["launches"][name] > 0):
+                raise AssertionError(f"sharded [{mode}]: {name} launched "
+                                     f"{r['launches'][name]} times")
+        check_resident(f"{mode} flood", r["peak"], st.extra["resident_bytes"])
+        check_resident(f"{mode} coverage", r["cov_peak"], cst.extra["resident_bytes"])
+    b = runs["ba"]
+    bticks = b["launches"]["coverage_per_slot"]
+    if not (np.array_equal(b["coverage"], ba["coverage"]) and same_counts(b["stats"],
+                                                                          ba["stats"])):
+        raise AssertionError("sharded 1M BA coverage: differs from phase 12's single-device run")
+    log(f"  1M BA m=3 coverage, sharded ring, delta: host staging {b['stage_s']:.2f} s, "
+        f"first run {b['warm_wall']:.4f} s (the card copy and the cut plan made), timed "
+        f"{bticks} ticks, {b['wall']:.4f} s -> {b['wall'] / bticks * 1e3:.2f} ms/tick (phase "
+        f"12's single-device run: {ba['ms_per_tick']:.2f}); == phase 12's single-device run; "
+        f"launches {({k: v for k, v in b['launches'].items() if v})}")
+    check_resident("1M BA coverage (first run)", b["warm_peak"], b["stats"].extra["resident_bytes"])
+    check_resident("1M BA coverage", b["peak"], b["stats"].extra["resident_bytes"])
+
+    gloo = gloo_ranks(graph, sched, origins, ref, ref_cov)
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(kernels_100k=kernels_100k, kernels_1m=ba["delta"], runs=runs, gloo=gloo,
+                ref_tick_ms=ref_tick_ms)
+
+
+def gloo_ranks(graph, sched, origins, ref, ref_cov):
+    """Phase 14 (c): GLOO_RANKS ranks on the one card (cuda:0 for every
+    rank) over gloo, gloo's explicit choice (it stages CUDA tensors through
+    the host), on phase 5's flood and coverage with the dense and delta
+    exchanges: counters and coverage rows equal to the single-device
+    port's, and the delta run's report its planned capacity with entries
+    used. Walls are transport over the host and say nothing of a
+    multi-GPU machine's speed."""
+    from p2p_gossip_tpu_torch.parallel import exchange as exch
+    from p2p_gossip_tpu_torch.parallel import launch
+
+    sim = "p2p_gossip_tpu_torch.parallel.engine_sharded:run_sharded_sim"
+    cov = "p2p_gossip_tpu_torch.parallel.engine_sharded:run_sharded_flood_coverage"
+    calls, labels = [], []
+    for n in GLOO_RANKS:
+        for mode, kw in (("dense", dict(ring_mode="sharded")), ("delta", dict(exchange="delta"))):
+            calls.append((n, 1, sim, (graph, sched, HORIZON), dict(chunk_size=CHUNK, **kw)))
+            calls.append((n, 1, cov, (graph, origins, HORIZON), kw))
+            labels.append((n, mode))
+    t0 = time.perf_counter()
+    ranks = launch.spawn(launch.call_on_meshes, max(GLOO_RANKS), calls, GLOO_DEVICE,
+                         backend="gloo")
+    wall = time.perf_counter() - t0
+    out = {}
+    for i, (n, mode) in enumerate(labels):
+        stats, (cstats, cov_rows) = ranks[0][2 * i], ranks[0][2 * i + 1]
+        for r in ranks[1:n]:
+            if not same_counts(r[2 * i], stats):
+                raise AssertionError(f"gloo {n} ranks [{mode}]: ranks disagree")
+        if not (same_counts(stats, ref) and np.array_equal(cov_rows, ref_cov)):
+            raise AssertionError(f"gloo {n} ranks [{mode}]: differs from the single-device port")
+        ex = stats.extra["exchange"]
+        if mode == "delta":
+            n_padded = graph.n + (-graph.n) % n
+            need = exch.plan_flood_exchange_csr(graph, n_padded, n)
+            cut = int(need.reshape(n, n_padded // n, n).sum(axis=1).max())
+            cap = exch.delta_capacity(cut, n_padded // n, CHUNK // 32)
+            if not (ex["capacity"] == cap and ex["achieved_used_entries"] > 0
+                    and ex["exchange_ticks"] == stats.extra["ticks_executed"]):
+                raise AssertionError(f"gloo {n} ranks: exchange report {ex}")
+        out[f"{n}_{mode}"] = dict(ticks=stats.extra["ticks_executed"], exchange=ex)
+        log(f"  gloo (c) {n} ranks on one card [{mode}]: == single-device (counters, "
+            f"coverage rows), {stats.extra['ticks_executed']} ticks; exchange {ex}")
+    log(f"gloo (c): {len(calls)} runs on {max(GLOO_RANKS)} spawned ranks in {wall:.1f} s "
+        "(host transport, not a speed)")
+    return out
+
+
 
 def main() -> int:
     import torch
@@ -3120,8 +3522,9 @@ def main() -> int:
     check_small_campaigns(dev)
     campaign_launches, _ = campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev)
     ck = campaign_kernels
-    scale = scale_phase(dev)
+    scale, ba = scale_phase(dev)
     serve = serve_phase(graph, dev, rng)
+    sharded = sharded_phase(graph, dg, sched, ba, dev)
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -3210,24 +3613,37 @@ def main() -> int:
                                                 m["max_abs_err"])
             measured[name].update({f"{key}_1m_{topology}": m[key]
                                    for key in ("ms", "bound_ms", "plain_ms")})
-    base_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
+    # Phase 14 (a): the exchange kernels on a 4-shard split of the 100K
+    # flood's tick-10 frontier (the timed call; tick 3 and the overflow
+    # capacity checked too) and of the 1M BA tick-2 state.
+    for name in SHARDED_KERNELS:
+        m1 = sharded["kernels_1m"][name]
+        measured[name] = dict(
+            sharded["kernels_100k"][name],
+            max_abs_err=max(sharded["kernels_100k"][name]["max_abs_err"], m1["max_abs_err"]),
+            **{f"{key}_1m_ba": m1[key]
+               for key in ("ms", "bound_ms", "plain_ms", "library_ms")})
+    base_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
     record = []
     for name, m in measured.items():
         # `launches`: the path the kernel serves — the flood's main path, for
         # scatter_or (the protocols' kernel) the protocols' path, for
-        # tick_digest the telemetry-on flood + coverage (phase 10).
+        # tick_digest the telemetry-on flood + coverage (phase 10), for the
+        # exchange kernels the sharded delta flood + coverage (phase 14 (b)).
         if name in FLOOD_KERNELS:
             path_launches = launches[name]
         elif name in TELEMETRY_KERNELS:
             path_launches = telemetry_launches[name]
+        elif name in SHARDED_KERNELS:
+            path_launches = sharded["runs"]["delta"]["launches"][name]
         else:
             path_launches = protocol_launches[name]
         record.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
             "launches": path_launches,
-            **{k: m[k] for k in base_keys},
-            "bound_by": "bytes", "library_ms": None,
+            **{k: m.get(k) for k in base_keys},
+            "bound_by": "bytes",
             "launches_options": options_launches[name],
             "launches_protocols": protocol_launches[name],
             "launches_telemetry": telemetry_launches[name],
@@ -3236,6 +3652,9 @@ def main() -> int:
             **{f"launches_1m_{topology}": scale[topology]["launches"][name]
                for topology in (cfg[0] for cfg in SCALE_CONFIGS)},
             "launches_serve": serve["launches"][name],
+            **{f"launches_sharded_{mode}": sharded["runs"][mode]["launches"][name]
+               for mode, _ in SHARDED_MODES},
+            "launches_sharded_1m_ba": sharded["runs"]["ba"]["launches"][name],
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

@@ -32,8 +32,9 @@ same launches a tick as one replica's; each live replica's ``ring`` and
 package's events, value for value), and the batch's ``progress`` beat its
 ``digest_head``. Sentinel replicas emit nothing.
 
-Not ported yet: the ``mesh`` argument (multi-GPU, ROADMAP §1 item 4); it
-raises NotImplementedError.
+Not ported yet: the ``mesh`` argument (the sharded campaigns,
+``batch/campaign_sharded``, the next multi-GPU slice of ROADMAP §1 item 4);
+it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -364,7 +365,9 @@ def _campaign_checkpointer(
 def _resolve_batch(replicas: ReplicaSet, batch_size: int | None, mesh) -> int:
     if mesh is not None:
         raise NotImplementedError(
-            "campaigns over a device mesh wait for multi-GPU (ROADMAP §1 item 4)"
+            "campaigns over a device mesh wait for the next multi-GPU slice "
+            "(ROADMAP §1 item 4: batch/campaign_sharded after protocols_sharded; "
+            "the sharded flood itself is parallel.engine_sharded)"
         )
     if batch_size is None:
         batch_size = replicas.num_replicas

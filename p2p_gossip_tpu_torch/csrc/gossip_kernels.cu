@@ -114,6 +114,9 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   node up) is the churn model's destination mask, `drop` the link-loss
 //   coin of p2p_gossip_tpu/ops/ell.py _loss_keep (models/linkloss.py spec;
 //   the JAX package applies both in and after its gather).
+//   Node ids: the coin hashes dst + id_offset, the destination's GLOBAL
+//   node id (a node shard of the sharded engine passes its first row's
+//   id; 0 everywhere else). Source ids are idx values, global already.
 //   Replicas (Monte-Carlo campaigns): B independent rings stacked along
 //   the rows, hist (ring, B*n_src, w), occ (ring, B*n_src), out
 //   (B*n_out, w), up (B*n_out). Replica r = blockIdx.y reads source row
@@ -210,7 +213,7 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
                  const int32_t* __restrict__ rows, int n_out,
                  const uint8_t* __restrict__ up, uint32_t loss_seed,
                  uint32_t loss_limit, const uint32_t* __restrict__ loss_seeds,
-                 uint32_t* __restrict__ out) {
+                 int id_offset, uint32_t* __restrict__ out) {
   __shared__ unsigned long long s_off[kGatherWarps][kGatherStage];
   __shared__ uint32_t s_occ[kGatherWarps][kGatherStage];
   const int warp = threadIdx.x >> 5;
@@ -242,7 +245,8 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
   }
   const uint32_t seed = loss_seeds ? loss_seeds[blockIdx.y] : loss_seed;
   const uint32_t coin_row =
-      kLoss ? seed ^ ((uint32_t)dst * kCoinDst) ^ ((uint32_t)tick * kCoinTick) : 0u;
+      kLoss ? seed ^ ((uint32_t)(dst + id_offset) * kCoinDst) ^ ((uint32_t)tick * kCoinTick)
+            : 0u;
 
   int k0 = 0;
   do {
@@ -653,7 +657,10 @@ scatter_or_atomic_kernel(const uint32_t* __restrict__ src, int n_src, int w,
 //   over replica r's rows, with mix = lowbias32, all in uint32. The salt is
 //   the node id i, never the stacked row, so replica r's digest is its solo
 //   run's. A zero entry contributes nothing (the JAX digest's pad-width
-//   invariance). B = 1 is the solo digest.
+//   invariance). B = 1 is the solo digest. A node shard of the sharded
+//   engine passes id_offset, its first row's global id, so i above is
+//   the global node id and the XOR of the shards' digests is the solo
+//   digest (telemetry/digest.py tick_digest_sharded).
 // Bound on the H100: bytes (B*(N*W*4 + 8*N), + 4*N a replica with sent_hi,
 //   read once); the mix is ~12 integer operations a word, far below the
 //   integer rate.
@@ -695,7 +702,7 @@ __global__ void __launch_bounds__(kDigestWarps * 32)
 tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
                    long long ld, const uint32_t* __restrict__ received,
                    const uint32_t* __restrict__ sent_lo,
-                   const uint32_t* __restrict__ sent_hi,
+                   const uint32_t* __restrict__ sent_hi, int id_offset,
                    uint32_t* __restrict__ out, long long out_stride) {
   __shared__ uint32_t part[kDigestWarps];
   const int lane = threadIdx.x & 31;
@@ -705,7 +712,7 @@ tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
   uint32_t acc = 0u;
   for (long long node = (long long)blockIdx.x * kDigestWarps + warp; node < n;
        node += n_warps) {
-    const uint32_t node_salt = (uint32_t)node * kSaltNode;
+    const uint32_t node_salt = (uint32_t)(node + id_offset) * kSaltNode;
     const long long row = first + node;
     const uint32_t* p = seen + (size_t)row * (size_t)ld;
     if (kVec) {  // w % 4 == 0 and every row 16-byte aligned
@@ -744,6 +751,158 @@ tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// compress_deltas
+//
+// Replaces: p2p_gossip_tpu/parallel/exchange.py compress_deltas (XLA: a
+//   (k, n_loc*W) candidate mask, its cumsum ranks and two scatters into
+//   (k, capacity + 1) buffers with a trash slot).
+// Computes, for each destination shard d < k: the words j (flat index over
+//   the (n_loc, W) row-major `changed` slice) with changed[j] != 0 and
+//   need[j / W, d], in ascending j: idx[d, r] = j and val[d, r] =
+//   changed[j] for the r-th of them while r < capacity; counts[d] = how
+//   many there are (the true count, past capacity too). The caller fills
+//   idx with -1 and val with 0 first, so unused slots are the JAX padding.
+// Bound on the H100: bytes (the slice and `need` read once, the buffers
+//   written once); the ranking is a few integer operations a word.
+// Design: an ordered stream compaction in two passes over the same
+//   partition of the words into blocks of `iters` x 256 words (at most
+//   ~1024 blocks). Pass 1 counts each block's candidates per destination
+//   (a warp ballot a destination, a shared-memory sum). Pass 2 starts each
+//   block at the sum of the earlier blocks' counts (the exclusive scan,
+//   read from pass 1's per-block counts: at most ~1024 x k words a block),
+//   then walks its words in order, 256 at a time: a ballot a destination
+//   gives each lane its rank in the warp, the warps' counts in shared
+//   memory give the warp's rank in the step, and a running base carries
+//   over the steps. A word whose rank is below capacity is stored; a block
+//   whose every buffer is full stops. Pass 1 reads the slice once more than
+//   the bound: simple first. Not the JAX dense (k, n_loc*W) rank arrays:
+//   at a 4-shard split of 100,000 x 256 they are k x 25.6 MB a tick.
+// ---------------------------------------------------------------------------
+constexpr int kCompressThreads = 256;
+constexpr int kCompressWarps = kCompressThreads / 32;
+constexpr int kMaxDests = 32;
+
+// Row `row`'s destinations as bits: bit d = need[row, d].
+__device__ inline uint32_t dest_bits(const uint8_t* __restrict__ need, long long row,
+                                     int k) {
+  uint32_t m = 0u;
+  for (int d = 0; d < k; ++d) m |= (uint32_t)(need[row * k + d] != 0) << d;
+  return m;
+}
+
+__global__ void __launch_bounds__(kCompressThreads)
+compress_count_kernel(const uint32_t* __restrict__ changed, long long n_words, int w,
+                      const uint8_t* __restrict__ need, int k, int iters,
+                      int32_t* __restrict__ block_counts) {
+  __shared__ int s_cnt[kMaxDests];
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < k) s_cnt[threadIdx.x] = 0;
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * kCompressThreads * iters;
+  for (int it = 0; it < iters; ++it) {
+    const long long j0 = base + (long long)it * kCompressThreads;
+    if (j0 >= n_words) break;  // block-uniform
+    const long long j = j0 + threadIdx.x;
+    uint32_t bits = 0u;
+    if (j < n_words && __ldg(changed + j) != 0u) bits = dest_bits(need, j / w, k);
+    for (int d = 0; d < k; ++d) {
+      const unsigned b = __ballot_sync(kFullMask, (bits >> d) & 1u);
+      if (lane == 0 && b) atomicAdd(&s_cnt[d], __popc(b));
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < k)
+    block_counts[(long long)blockIdx.x * k + threadIdx.x] = s_cnt[threadIdx.x];
+}
+
+__global__ void __launch_bounds__(kCompressThreads)
+compress_write_kernel(const uint32_t* __restrict__ changed, long long n_words, int w,
+                      const uint8_t* __restrict__ need, int k, int iters,
+                      const int32_t* __restrict__ block_counts, int capacity,
+                      int32_t* __restrict__ idx, uint32_t* __restrict__ val,
+                      int32_t* __restrict__ counts) {
+  __shared__ int s_base[kMaxDests];
+  __shared__ int s_warp[kCompressWarps][kMaxDests];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // The block's first rank per destination: the earlier blocks' counts.
+  for (int d = warp; d < k; d += kCompressWarps) {
+    long long s = 0;
+    for (int b = lane; b < (int)blockIdx.x; b += 32) s += block_counts[(long long)b * k + d];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(kFullMask, s, m);
+    if (lane == 0) {
+      s_base[d] = s < capacity ? (int)s : capacity;  // ranks >= capacity are dropped
+      if (blockIdx.x == gridDim.x - 1)
+        counts[d] = (int)(s + block_counts[(long long)blockIdx.x * k + d]);
+    }
+  }
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * kCompressThreads * iters;
+  const unsigned below = (1u << lane) - 1u;
+  for (int it = 0; it < iters; ++it) {
+    bool full = true;
+    for (int d = 0; d < k; ++d) full = full && s_base[d] >= capacity;
+    const long long j0 = base + (long long)it * kCompressThreads;
+    if (full || j0 >= n_words) break;  // block-uniform
+    const long long j = j0 + threadIdx.x;
+    uint32_t v = 0u, bits = 0u;
+    if (j < n_words) {
+      v = __ldg(changed + j);
+      if (v != 0u) bits = dest_bits(need, j / w, k);
+    }
+    for (int d = 0; d < k; ++d) {
+      const unsigned b = __ballot_sync(kFullMask, (bits >> d) & 1u);
+      if (lane == 0) s_warp[warp][d] = __popc(b);
+    }
+    __syncthreads();
+    for (int d = 0; d < k; ++d) {
+      const unsigned b = __ballot_sync(kFullMask, (bits >> d) & 1u);
+      if ((bits >> d) & 1u) {
+        int r = s_base[d] + __popc(b & below);
+        for (int u = 0; u < warp; ++u) r += s_warp[u][d];
+        if (r < capacity) {
+          idx[(long long)d * capacity + r] = (int32_t)j;
+          val[(long long)d * capacity + r] = v;
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < k) {
+      int r = s_base[threadIdx.x];
+      for (int u = 0; u < kCompressWarps; ++u) r += s_warp[u][threadIdx.x];
+      s_base[threadIdx.x] = r < capacity ? r : capacity;
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// scatter_deltas
+//
+// Replaces: p2p_gossip_tpu/parallel/exchange.py scatter_deltas (XLA: a
+//   scatter-set into a zero (n_padded * W,) canvas, mode="drop").
+// Computes: out[s * src_words + idx[s, e]] = val[s, e] for every entry with
+//   idx >= 0 whose word falls inside the canvas (the caller zeroes it).
+// Bound on the H100: bytes (the canvas written once, the buffers read once).
+// Design: one thread an entry; sources own disjoint rows, so no two
+//   entries store to one word and no atomics are needed.
+// ---------------------------------------------------------------------------
+__global__ void scatter_deltas_kernel(const int32_t* __restrict__ idx,
+                                      const uint32_t* __restrict__ val,
+                                      long long n_entries, int capacity,
+                                      long long src_words, long long canvas_words,
+                                      uint32_t* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_entries) return;
+  const int i = __ldg(idx + e);
+  if (i < 0) return;
+  const long long g = (e / capacity) * src_words + i;
+  if (g < canvas_words) out[g] = __ldg(val + e);
+}
+
 }  // namespace
 
 extern "C" {
@@ -768,13 +927,14 @@ int gossip_sector_occupancy(const void* words, int n, int w, long long ld,
 // (threshold - 1, so 0xFFFFFFFF drops every edge).
 // `replicas` stacked rings (grid y): n_src and n_out count one replica's
 // rows; `loss_seeds` (null: loss_seed for all) holds one seed a replica.
+// `id_offset` is added to each destination row's node id in the coin.
 int gossip_gather_or(const void* hist, const void* occ, int n_src, int w,
                      int ring, int tick, int uniform_slot, const void* idx,
                      const void* mask, const void* delay, int n_rows, int cap,
                      const void* rows, int n_out, const void* up, int loss_on,
                      unsigned int loss_seed, unsigned int loss_limit,
-                     const void* loss_seeds, int replicas, void* out,
-                     void* stream) {
+                     const void* loss_seeds, int replicas, int id_offset,
+                     void* out, void* stream) {
   const dim3 grid((unsigned)((n_rows + kGatherWarps - 1) / kGatherWarps),
                   (unsigned)replicas);
   const int sw = sector_words(w);
@@ -786,7 +946,7 @@ int gossip_gather_or(const void* hist, const void* occ, int n_src, int w,
       uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,                 \
       (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,         \
       (const uint8_t*)up, loss_seed, loss_limit, (const uint32_t*)loss_seeds, \
-      (uint32_t*)out)
+      id_offset, (uint32_t*)out)
   if (vec && loss_on) {
     GOSSIP_GATHER_LAUNCH(uint4, true);
   } else if (vec) {
@@ -889,11 +1049,12 @@ int gossip_scatter_or_atomic(const void* src, int n_src, int w,
 // `seen` is (replicas * n, w) with row stride ld words, replica r's node i
 // at row r * n + i; `received`, `sent_lo` and (when not null) `sent_hi` are
 // (replicas * n,) 32-bit counters; `out` holds one uint32 slot a replica,
-// slot r at out[r * out_stride], that replica r's digest is XORed into.
+// slot r at out[r * out_stride], that replica r's digest is XORed into;
+// node i is salted as node i + id_offset.
 int gossip_tick_digest(const void* seen, int n, int w, long long ld,
                        const void* received, const void* sent_lo,
-                       const void* sent_hi, int replicas, void* out,
-                       long long out_stride, void* stream) {
+                       const void* sent_hi, int replicas, int id_offset,
+                       void* out, long long out_stride, void* stream) {
   // Up to 8 resident blocks of 256 threads on each of the H100's 132 SMs,
   // shared among the replicas, each warp striding over its replica's rows:
   // one atomicXor per block.
@@ -906,14 +1067,62 @@ int gossip_tick_digest(const void* seen, int n, int w, long long ld,
   if (vec) {
     tick_digest_kernel<true><<<grid, kDigestWarps * 32, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)seen, n, w, ld, (const uint32_t*)received,
-        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, (uint32_t*)out,
+        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, id_offset, (uint32_t*)out,
         out_stride);
   } else {
     tick_digest_kernel<false><<<grid, kDigestWarps * 32, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)seen, n, w, ld, (const uint32_t*)received,
-        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, (uint32_t*)out,
+        (const uint32_t*)sent_lo, (const uint32_t*)sent_hi, id_offset, (uint32_t*)out,
         out_stride);
   }
+  return (int)cudaGetLastError();
+}
+
+
+// `changed` is (n_loc, w) row-major, n_loc * w < 2^31 words; `need` is
+// (n_loc, k) bytes, k <= 32; `block_counts` holds scratch for
+// compress_blocks(n_loc * w) x k ints; idx/val (k, capacity) are filled
+// with -1/0 by the caller; `counts` (k,) is written here.
+int gossip_compress_blocks(long long n_words, int* iters) {
+  long long it = (n_words + 1024LL * kCompressThreads - 1) / (1024LL * kCompressThreads);
+  if (it < 32) it = 32;
+  *iters = (int)it;
+  const long long per = it * kCompressThreads;
+  return (int)((n_words + per - 1) / per);
+}
+
+int gossip_compress_deltas(const void* changed, int n_loc, int w, const void* need, int k,
+                           int capacity, void* block_counts, void* idx, void* val,
+                           void* counts, void* stream) {
+  if (k < 1 || k > kMaxDests) return (int)cudaErrorInvalidValue;
+  const long long n_words = (long long)n_loc * w;
+  int iters = 0;
+  const int blocks = gossip_compress_blocks(n_words, &iters);
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  compress_count_kernel<<<blocks, kCompressThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)changed, n_words, w, (const uint8_t*)need, k, iters,
+      (int32_t*)block_counts);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  compress_write_kernel<<<blocks, kCompressThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)changed, n_words, w, (const uint8_t*)need, k, iters,
+      (const int32_t*)block_counts, capacity, (int32_t*)idx, (uint32_t*)val,
+      (int32_t*)counts);
+  return (int)cudaGetLastError();
+}
+
+// `idx`/`val` are (n_srcs, capacity); source s's entries land at word
+// s * src_words + idx of the (zeroed) canvas of canvas_words words.
+int gossip_scatter_deltas(const void* idx, const void* val, int n_srcs, int capacity,
+                          long long src_words, long long canvas_words, void* out,
+                          void* stream) {
+  const long long n = (long long)n_srcs * capacity;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  if (blocks > 0)
+    scatter_deltas_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)idx, (const uint32_t*)val, n, capacity, src_words, canvas_words,
+        (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -436,3 +436,200 @@ def load_or_build_graph_cache(
     if cache:
         save_graph_cache(cache, graph, fp=fp)
     return graph
+
+
+# --- derived per-graph arrays and node orderings (the JAX package's
+# models/topology.py: same aux keys and fingerprints, so either package
+# reads the other's aux cache) --------------------------------------------
+
+def load_graph_cache_aux(path: str) -> dict:
+    """The ``aux_<name>`` arrays of an npz graph cache as {name: array}.
+    Missing file or no aux keys -> {}; unreadable file raises ValueError
+    like `load_graph_cache`."""
+    import os
+
+    if not os.path.exists(path):
+        return {}
+    try:
+        with np.load(path) as d:
+            return {
+                key[len(AUX_PREFIX):]: d[key]
+                for key in d.files
+                if key.startswith(AUX_PREFIX)
+            }
+    except Exception as e:
+        raise ValueError(
+            f"{path} is not a readable graph cache "
+            f"({type(e).__name__}: {e}); delete it to rebuild"
+        ) from e
+
+
+def load_or_compute_graph_aux(
+    cache: str, name: str, fp: str, compute, log
+) -> np.ndarray:
+    """Load derived array ``name`` (partition labels, an RCM permutation)
+    from the graph cache if the cache's fingerprint matches ``fp``, else
+    ``compute()`` it and persist it back into the npz (atomic rewrite
+    preserving every existing key). The point: 1M-node partitioning and
+    RCM run host-side in minutes — they must run ONCE per graph build,
+    not once per scale-run invocation. ``cache`` may be empty or
+    fingerprint-mismatched (always compute, never save — the mismatch
+    error stays `load_or_build_graph_cache`'s job)."""
+    import os
+
+    cached: dict = {}
+    cache_ok = False
+    if cache and os.path.exists(cache):
+        try:
+            _, cached_fp = load_graph_cache(cache)
+            cached = load_graph_cache_aux(cache)
+        except ValueError:
+            cached_fp = None
+        cache_ok = bool(cached_fp) and cached_fp == fp
+        if cache_ok and name in cached:
+            log(f"aux '{name}' loaded from {cache}")
+            return cached[name]
+    arr = np.asarray(compute())
+    if cache_ok:
+        graph, _ = load_graph_cache(cache)
+        cached[name] = arr
+        save_graph_cache(cache, graph, fp=fp, aux=cached)
+        log(f"aux '{name}' computed and persisted to {cache}")
+    return arr
+
+
+def partition_labels(graph: Graph, n_parts: int, seed: int = 0) -> np.ndarray:
+    """Greedy BFS-growing graph partitioning over the ``nodes`` mesh axis:
+    ``labels[node] = partition`` in [0, n_parts).
+
+    Partition-centric layout (PAPERS.md: Partition-Centric PageRank): each
+    partition grows breadth-first from a low-degree seed, absorbing whole
+    neighborhoods until it reaches the shard row budget, so most edges
+    land inside a partition and the cross-shard cut — the rows the sparse
+    frontier-delta exchange must ship — stays small. Sizes are pinned to
+    the engines' contiguous-block sharding: every partition holds exactly
+    ``ceil(n / n_parts)`` rows (the last takes the remainder), matching
+    ``pad_to_multiple``'s end-padding, so ``partition_order`` relabeling
+    aligns partition p with node shard p bit-for-bit.
+
+    Deterministic for a given graph (ties break on node id; ``seed`` only
+    rotates the first seed choice). Pure numpy level-synchronous BFS —
+    O(edges) per pass, fine at 1M nodes host-side, and persisted via
+    `load_or_compute_graph_aux` so it runs once per graph build."""
+    n = graph.n
+    if n_parts <= 0:
+        raise ValueError(f"n_parts must be >= 1, got {n_parts}")
+    cap = -(-n // n_parts)  # == n_loc after pad_to_multiple(n, n_parts)
+    labels = np.full(n, -1, dtype=np.int32)
+    degree = graph.degree
+    # Low-degree-first seed order: peripheral nodes first keeps dense
+    # cores intact inside one partition (classic BFS-growth heuristic).
+    seed_order = np.argsort(degree, kind="stable").astype(np.int64)
+    if seed != 0 and n:
+        seed_order = np.roll(seed_order, -(seed % n))
+    seed_pos = 0
+    for part in range(n_parts):
+        # Shard p owns padded rows [p*cap, (p+1)*cap); the pad lives at
+        # the END (pad_to_multiple), so trailing partitions absorb it.
+        remaining = max(0, min(cap, n - cap * part))
+        frontier = np.empty(0, dtype=np.int64)
+        while remaining > 0:
+            if frontier.size == 0:
+                while (
+                    seed_pos < n and labels[seed_order[seed_pos]] >= 0
+                ):
+                    seed_pos += 1
+                if seed_pos >= n:
+                    break
+                frontier = seed_order[seed_pos: seed_pos + 1]
+                labels[frontier] = part
+                remaining -= 1
+                continue
+            # Level-synchronous expansion: all unvisited neighbors of the
+            # current frontier, deduped, id-sorted for determinism.
+            starts = graph.indptr[frontier]
+            counts = graph.indptr[frontier + 1] - starts
+            gather = np.repeat(starts, counts) + (
+                np.arange(int(counts.sum()), dtype=np.int64)
+                - np.repeat(np.cumsum(counts) - counts, counts)
+            )
+            nxt = np.unique(graph.indices[gather].astype(np.int64))
+            nxt = nxt[labels[nxt] < 0]
+            if nxt.size > remaining:
+                nxt = nxt[:remaining]
+            labels[nxt] = part
+            remaining -= nxt.size
+            frontier = nxt
+    assert (labels >= 0).all()
+    return labels
+
+
+def partition_order(labels: np.ndarray) -> np.ndarray:
+    """Partition labels -> node renumbering for `relabel_graph`:
+    ``order[new_id] = old_id``, stable within a partition so each
+    partition occupies one contiguous block of new ids (= one node shard
+    after `pad_to_multiple`)."""
+    return np.argsort(np.asarray(labels), kind="stable").astype(np.int64)
+
+
+def edge_cut(graph: Graph, labels: np.ndarray) -> int:
+    """Undirected edges crossing partitions — the rows the sharded
+    engines' frontier exchange must move when their owners change."""
+    labels = np.asarray(labels)
+    src = np.repeat(
+        np.arange(graph.n, dtype=np.int64),
+        np.diff(graph.indptr).astype(np.int64),
+    )
+    return int((labels[src] != labels[graph.indices]).sum()) // 2
+
+
+def rcm_order(graph: Graph) -> np.ndarray:
+    """Reverse Cuthill–McKee node ordering: ``order[new_id] = old_id``.
+
+    A gather-locality lever, not a correctness feature: the tick engine's
+    hot op gathers neighbors' frontier rows by node id
+    (`ops/ell.py propagate_bucketed`), so renumbering nodes to cluster
+    neighborhoods turns random HBM row reads into nearer ones. Gains are
+    topology-dependent — lattices/small-world graphs reorder well, while
+    the ER benchmark graph is an expander whose bandwidth RCM provably
+    cannot reduce much — which is why this ships as a measurement
+    candidate rather than a default.
+    Gossip dynamics are label-invariant, so results are bitwise-equal
+    after unrelabeling (tested in tests/test_topology.py)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    m = csr_matrix(
+        (np.ones(graph.indices.shape[0], dtype=np.int8), graph.indices,
+         graph.indptr),
+        shape=(graph.n, graph.n),
+    )
+    return np.asarray(reverse_cuthill_mckee(m, symmetric_mode=True),
+                      dtype=np.int64)
+
+
+def relabel_graph(graph: Graph, order: np.ndarray) -> tuple[Graph, np.ndarray]:
+    """Apply a node renumbering: ``order[new_id] = old_id``.
+
+    Returns ``(relabeled, inv)`` where ``inv[old_id] = new_id``. Per-node
+    result arrays computed on the relabeled graph map back to original
+    ids as ``arr_new[inv]`` (the JAX package's tests verify it bitwise for the
+    flood engines)."""
+    order = np.asarray(order, dtype=np.int64)
+    assert order.shape == (graph.n,)
+    inv = np.empty(graph.n, dtype=np.int64)
+    inv[order] = np.arange(graph.n, dtype=np.int64)
+    deg = graph.degree.astype(np.int64)[order]
+    indptr = np.zeros(graph.n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    # Neighbor lists of row new_i are old row order[new_i]'s neighbors,
+    # renumbered, and re-sorted to keep the CSR per-row sort invariant.
+    gather_idx = np.repeat(graph.indptr[:-1][order], deg) + (
+        np.arange(indptr[-1], dtype=np.int64)
+        - np.repeat(indptr[:-1], deg)
+    )
+    indices = inv[graph.indices[gather_idx]].astype(np.int32)
+    rows = np.repeat(np.arange(graph.n, dtype=np.int64), deg)
+    indices = indices[np.lexsort((indices, rows))]
+    relabeled = Graph(n=graph.n, indptr=indptr, indices=indices)
+    return relabeled, inv

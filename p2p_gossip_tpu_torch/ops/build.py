@@ -33,10 +33,10 @@ _U32 = ctypes.c_uint32  # values up to 0xFFFFFFFF (c_int raises from 2^31)
 _SIGNATURES = {
     # hist, occ, n_src, w, ring, tick, uniform_slot, idx, mask, delay,
     # n_rows, cap, rows, n_out, up, loss_on, loss_seed, loss_limit,
-    # loss_seeds, replicas, out, stream
+    # loss_seeds, replicas, id_offset, out, stream
     "gossip_gather_or": (
         _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I,
-        _P, _I, _U32, _U32, _P, _I, _P, _P,
+        _P, _I, _U32, _U32, _P, _I, _I, _P, _P,
     ),
     # words, n, w, ld, out, stream
     "gossip_sector_occupancy": (_P, _I, _I, _LL, _P, _P),
@@ -49,9 +49,16 @@ _SIGNATURES = {
     "gossip_scatter_or": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
     # src, n_src, w, src_row, dst, mask, m, n_out, out, stream
     "gossip_scatter_or_atomic": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P),
-    # seen, n, w, ld, received, sent_lo, sent_hi, replicas, out, out_stride,
+    # seen, n, w, ld, received, sent_lo, sent_hi, replicas, id_offset, out,
+    # out_stride, stream
+    "gossip_tick_digest": (_P, _I, _I, _LL, _P, _P, _P, _I, _I, _P, _LL, _P),
+    # n_words, iters (out) -> blocks
+    "gossip_compress_blocks": (_LL, _P),
+    # changed, n_loc, w, need, k, capacity, block_counts, idx, val, counts,
     # stream
-    "gossip_tick_digest": (_P, _I, _I, _LL, _P, _P, _P, _I, _P, _LL, _P),
+    "gossip_compress_deltas": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P),
+    # idx, val, n_srcs, capacity, src_words, canvas_words, out, stream
+    "gossip_scatter_deltas": (_P, _P, _I, _I, _LL, _LL, _P, _P),
 }
 
 

@@ -22,8 +22,10 @@ B*N_src, W), ``occ`` (D, B*N_src), ``up`` (B*N_out,), the arrivals (B*N_out,
 W), and the loss seed may be a (B,) int32 tensor, one seed a replica.
 
 The host planners (`bucket_rows_by_count`, `build_degree_buckets`,
-`detect_uniform_delay`) are this package's own copies of the JAX
-package's, so both stage identical buckets.
+`detect_uniform_delay`, and the sharded engine's `split_ell_by_delay` and
+`shard_bucket_ell`) are this package's own copies of the JAX package's,
+so both stage identical buckets; `shard_buckets` cuts one shard's
+buckets straight from CSR.
 """
 
 from __future__ import annotations
@@ -268,4 +270,99 @@ def build_degree_buckets(
                 else None,
             )
         )
+    return tuple(buckets)
+
+
+def split_ell_by_delay(ell_idx, ell_delay, ell_mask):
+    """Partition ELL columns by delay value — the sharded-ring read plan
+    (the JAX package's ``split_ell_by_delay``). One (idx, mask) pair per
+    distinct delay of a valid edge, each packed left (valid edges first,
+    in column order) and trimmed to its own max row count; padding slots
+    hold index 0 under a False mask. Returns a tuple of ``(delay, idx_d,
+    mask_d)``; the masks partition the valid entries of ``ell_mask``. With
+    no valid edge, one vacuous pair ``(1, idx[:, :1], False)``."""
+    ell_idx = np.asarray(ell_idx)
+    ell_delay = np.asarray(ell_delay)
+    ell_mask = np.asarray(ell_mask)
+    values = np.unique(ell_delay[ell_mask])
+    if values.size == 0:
+        return ((1, ell_idx[:, :1], np.zeros_like(ell_mask[:, :1])),)
+    n = ell_idx.shape[0]
+    out = []
+    for d in values:
+        # O(nnz) packing through the nonzero coordinates (row-major, so
+        # each row keeps its column order); no (N, dmax) permutation.
+        m = ell_delay == d
+        m &= ell_mask
+        counts = m.sum(axis=1, dtype=np.int64)
+        cap = max(int(counts.max()), 1)
+        rows, cols = np.nonzero(m)
+        pos = np.arange(rows.shape[0], dtype=np.int64) - (np.cumsum(counts) - counts)[rows]
+        idx_d = np.zeros((n, cap), dtype=ell_idx.dtype)
+        msk_d = np.zeros((n, cap), dtype=bool)
+        idx_d[rows, pos] = ell_idx[rows, cols]
+        msk_d[rows, pos] = True
+        out.append((int(d), idx_d, msk_d))
+    return tuple(out)
+
+
+def shard_bucket_ell(ell_idx, ell_mask, n_shards: int, *,
+                     block: int = DEFAULT_DEGREE_BLOCK, min_rows: int = 2048):
+    """Degree buckets of one ELL (idx, mask) pair for each of ``n_shards``
+    node shards, with shard-uniform shapes (the JAX package's
+    ``shard_bucket_ell``): rows grouped by valid-entry count with the
+    `bucket_rows_by_count` policy over ``min_rows * n_shards`` rows, each
+    bucket's row capacity the max over shards. Returns a tuple of ``(rows,
+    idx, mask)`` with a leading shard axis: rows (S, R) int32 LOCAL row
+    ids padded with ``n_loc`` (out of range: dropped), idx/mask (S, R, C)
+    from the pair's leading columns (idx holds GLOBAL source ids).
+    Zero-count rows appear in no bucket."""
+    ell_idx = np.asarray(ell_idx)
+    ell_mask = np.asarray(ell_mask)
+    return shard_buckets(
+        ell_mask.sum(axis=1).astype(np.int64), ell_idx.shape[1],
+        lambda rows, cap: (ell_idx[rows, :cap], ell_mask[rows, :cap]),
+        n_shards, block=block, min_rows=min_rows,
+    )
+
+
+def shard_buckets(cnt, width: int, rows_fn, n_shards: int, *,
+                  block: int = DEFAULT_DEGREE_BLOCK, min_rows: int = 2048,
+                  shard: int | None = None):
+    """`shard_bucket_ell` from per-row valid-entry counts ``cnt``
+    (n_padded,), the ELL ``width`` and ``rows_fn(global_rows, cap) ->
+    (idx, mask)`` (an ELL slice, or `Graph.ell_rows` straight from CSR, so
+    no global ELL is built). With ``shard`` set, only that shard's arrays
+    are built and returned without the shard axis: rows (R,), idx/mask (R,
+    C), the same values as the stacked arrays' row ``shard``."""
+    cnt = np.asarray(cnt, dtype=np.int64)
+    n_padded = cnt.shape[0]
+    assert n_padded % n_shards == 0, (n_padded, n_shards)
+    n_loc = n_padded // n_shards
+    nz = np.flatnonzero(cnt > 0)
+    row_groups = (
+        [nz[g] for g in bucket_rows_by_count(cnt[nz], block, min_rows * n_shards)]
+        if nz.size
+        else [np.zeros(0, dtype=np.int64)]
+    )
+    shards = range(n_shards) if shard is None else (shard,)
+    buckets = []
+    for grows in row_groups:
+        grp_max = int(cnt[grows].max()) if grows.size else 1
+        cap = min(max(-(-grp_max // block) * block, 1), width)
+        owner = grows // n_loc
+        r_cap = max(max(int((owner == s).sum()) for s in range(n_shards)), 1)
+        rows_arr = np.full((len(shards), r_cap), n_loc, dtype=np.int32)
+        idx_arr = np.zeros((len(shards), r_cap, cap), dtype=np.int32)
+        msk_arr = np.zeros((len(shards), r_cap, cap), dtype=bool)
+        for i, s in enumerate(shards):
+            gsl = grows[owner == s]
+            if not gsl.size:
+                continue
+            rows_arr[i, : gsl.size] = gsl - s * n_loc
+            idx_arr[i, : gsl.size], msk_arr[i, : gsl.size] = rows_fn(gsl, cap)
+        if shard is None:
+            buckets.append((rows_arr, idx_arr, msk_arr))
+        else:
+            buckets.append((rows_arr[0], idx_arr[0], msk_arr[0]))
     return tuple(buckets)

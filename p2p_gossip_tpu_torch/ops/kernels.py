@@ -10,6 +10,9 @@
 | `scatter_or`        | ops/segment.py scatter_or / scatter_or_bits (XLA) and   |
 |                     | the protocols' round OR (models/protocols.py:160)       |
 | `tick_digest`       | telemetry/digest.py tick_digest (XLA XOR fold)          |
+| `compress_deltas`   | parallel/exchange.py compress_deltas (XLA cumsum ranks  |
+|                     | and scatters into capacity + 1 buffers)                 |
+| `scatter_deltas`    | parallel/exchange.py scatter_deltas (XLA scatter-set)   |
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel (csrc/gossip_kernels.cu, built and bound by
@@ -38,6 +41,7 @@ WORD_BITS = 32
 launches = {
     "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
     "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
+    "compress_deltas": 0, "scatter_deltas": 0,
 }
 
 
@@ -213,7 +217,7 @@ def sector_occupancy(
 
 def gather_or_plain(
     hist, tick, idx, mask, delay, uniform_slot, rows, out, occ=None, loss=None, up=None,
-    replicas: int = 1,
+    replicas: int = 1, id_offset: int = 0,
 ):
     """A masked ``|=`` over the degree columns, then a write into node
     order that drops rows outside ``[0, len(out))``. The mask (with the
@@ -222,7 +226,8 @@ def gather_or_plain(
     row's expanded sector mask — exactly what the kernel reads, so a wrong
     occupancy shows here too — and ``up`` as an AND of each destination
     row with all-ones (up) or zero (down). ``replicas`` stacked rings run
-    one after the other, each on its own rows and its own loss seed."""
+    one after the other, each on its own rows and its own loss seed; the
+    coin reads destination ids plus ``id_offset``."""
     if replicas > 1:
         d, n_src, w = hist.shape[0], hist.shape[1] // replicas, hist.shape[2]
         n_out = out.shape[0] // replicas
@@ -234,7 +239,7 @@ def gather_or_plain(
             gather_or_plain(
                 hist[:, src], tick, idx, mask, delay, uniform_slot, rows, out[dst],
                 None if occ is None else occ[:, src], r_loss,
-                None if up is None else up[dst],
+                None if up is None else up[dst], id_offset=id_offset,
             )
         return out
     d, n_src, w = hist.shape
@@ -242,7 +247,7 @@ def gather_or_plain(
     dst = (torch.arange(n_rows, device=hist.device) if rows is None
            else rows.to(torch.int64))
     if loss is not None:
-        mask = mask & ~drop_mask_torch(idx, dst[:, None], tick, *loss)
+        mask = mask & ~drop_mask_torch(idx, dst[:, None] + id_offset, tick, *loss)
     acc = torch.zeros((n_rows, w), dtype=torch.int32, device=hist.device)
     keep = (-mask.to(torch.int32)).t().contiguous()
     if delay is None:
@@ -287,6 +292,7 @@ def gather_or(
     up: torch.Tensor | None = None,
     out: torch.Tensor,
     replicas: int = 1,
+    id_offset: int = 0,
     plain: bool = False,
 ) -> torch.Tensor:
     """ELL gather-OR over a frontier-history ring, written into ``out``:
@@ -314,7 +320,12 @@ def gather_or(
     and dst. The ELL (``idx``, ``mask``, ``delay``, ``rows``) is shared.
     The loss seed is an int for every replica, or a (B,) int32 tensor
     holding one uint32 seed a replica on ``hist``'s device. One launch
-    covers the B replicas. Returns ``out``."""
+    covers the B replicas.
+
+    ``id_offset`` is added to every destination node id the coin hashes: a
+    node shard of the sharded engine gathers its local rows (``dst`` local)
+    and passes its first row's global id, so its coins are the
+    single-device engine's. Returns ``out``."""
     _require(hist.dim() == 3, "hist must be (D, N, W)")
     _require(replicas >= 1 and hist.shape[1] % replicas == 0
              and out.shape[0] % replicas == 0,
@@ -343,7 +354,7 @@ def gather_or(
     if not _use_kernel(hist, plain):
         return gather_or_plain(
             hist, tick, idx, mask, delay, uniform_slot, rows, out, occ, loss, up,
-            replicas,
+            replicas, id_offset,
         )
     tensors = [("hist", hist, torch.int32), ("idx", idx, torch.int32),
                ("mask", mask, torch.bool), ("out", out, torch.int32)]
@@ -380,7 +391,7 @@ def gather_or(
             n_rows, cap, None if rows is None else rows.data_ptr(),
             n_out, None if up is None else up.data_ptr(),
             int(loss is not None), loss_seed, loss_limit,
-            None if seeds is None else seeds.data_ptr(), replicas,
+            None if seeds is None else seeds.data_ptr(), replicas, int(id_offset),
             out.data_ptr(), _stream(hist.device),
         )
     return out
@@ -634,17 +645,20 @@ def tick_digest_plain(
     sent_lo: torch.Tensor,
     sent_hi: torch.Tensor | None = None,
     replicas: int = 1,
+    id_offset: int = 0,
 ) -> torch.Tensor:
     """The digests as a (B,) int64 tensor of values in [0, 2^32), one per
     replica of ``replicas`` B stacked along the rows: (B*N, W) int32
     ``seen`` and the (B*N,) int32 counters, each entry read as its uint32
     bit pattern, salted by node id i (row r*N + i holds node i of replica
     r), word index k and counter kind, mixed and XOR-folded (the JAX
-    package's ``tick_digest``, once per replica)."""
+    package's ``tick_digest``, once per replica). Node i is salted as node
+    ``i + id_offset``."""
     rows, w = seen.shape
     n = rows // replicas
     dev = seen.device
-    node_salt = _mul32(torch.arange(n, dtype=torch.int64, device=dev), SALT_NODE)
+    node_salt = _mul32(torch.arange(id_offset, id_offset + n, dtype=torch.int64, device=dev)
+                       & _U32, SALT_NODE)
     word_salt = _mul32(torch.arange(w, dtype=torch.int64, device=dev), SALT_WORD)
     out = []
     for r in range(replicas):
@@ -667,6 +681,7 @@ def tick_digest(
     *,
     out: torch.Tensor | None = None,
     replicas: int = 1,
+    id_offset: int = 0,
     plain: bool = False,
 ) -> torch.Tensor:
     """XOR one tick's state digest of each of ``replicas`` B stacked
@@ -680,7 +695,9 @@ def tick_digest(
     passes its low and high words). Replica r's digest salts node ids,
     never stacked rows, so it equals its solo run's. The engines give each
     tick its own zeroed ring slots, so ``out`` ends holding that tick's
-    digests; emit them as ``v & 0xFFFFFFFF``."""
+    digests; emit them as ``v & 0xFFFFFFFF``. ``id_offset`` shifts the
+    node ids (a node shard's first global row), so the XOR of every
+    shard's digest is the whole state's."""
     _require(seen.dim() == 2, "seen must be (B*N, W)")
     _require(replicas >= 1 and seen.shape[0] % replicas == 0,
              f"seen's {seen.shape[0]} rows are not {replicas} replicas")
@@ -695,7 +712,7 @@ def tick_digest(
     _require(out.shape == (replicas,) and out.dtype == torch.int32,
              f"out must be ({replicas},) int32")
     if not _use_kernel(seen, plain):
-        value = tick_digest_plain(seen, received, sent_lo, sent_hi, replicas)
+        value = tick_digest_plain(seen, received, sent_lo, sent_hi, replicas, id_offset)
         return out.bitwise_xor_(torch.where(value >= 2**31, value - 2**32, value).to(torch.int32))
     _int32_matrix(seen, "seen")
     for name, t in counters:
@@ -708,7 +725,115 @@ def tick_digest(
             "tick_digest", _lib().gossip_tick_digest,
             seen.data_ptr(), rows // replicas, seen.shape[1], seen.stride(0),
             received.data_ptr(), sent_lo.data_ptr(),
-            None if sent_hi is None else sent_hi.data_ptr(), replicas,
+            None if sent_hi is None else sent_hi.data_ptr(), replicas, int(id_offset),
             out.data_ptr(), out.stride(0), _stream(seen.device),
+        )
+    return out
+
+
+# --- compress_deltas / scatter_deltas ---------------------------------------
+
+def compress_deltas_plain(changed: torch.Tensor, need: torch.Tensor, capacity: int):
+    """The JAX package's formula: each destination's candidate words
+    (nonzero, row in its cut) ranked by a cumsum in flat-index order,
+    scattered into (k, capacity + 1) buffers whose last slot takes every
+    rank >= capacity and is cut off."""
+    n_loc, w = changed.shape
+    k = need.shape[1]
+    flat = changed.reshape(-1)
+    cand = (flat != 0)[None, :] & need.t().repeat_interleave(w, dim=1)
+    rank = torch.cumsum(cand.to(torch.int64), dim=1) - 1
+    slot = torch.where(cand & (rank < capacity), rank, capacity)
+    ids = torch.arange(n_loc * w, dtype=torch.int32, device=changed.device)
+    idx = torch.full((k, capacity + 1), -1, dtype=torch.int32, device=changed.device)
+    val = torch.zeros((k, capacity + 1), dtype=torch.int32, device=changed.device)
+    idx.scatter_(1, slot, ids.expand(k, -1))
+    val.scatter_(1, slot, flat.expand(k, -1))
+    counts = cand.sum(dim=1, dtype=torch.int32)
+    return idx[:, :capacity].contiguous(), val[:, :capacity].contiguous(), counts
+
+
+def compress_deltas(
+    changed: torch.Tensor, need: torch.Tensor, capacity: int, *, plain: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pack each destination's nonzero words into a fixed-capacity buffer:
+    ``changed`` (n_loc, W) int32 and ``need`` (n_loc, k) bool (row r is in
+    destination d's cut) -> idx (k, capacity) int32 flat word indices in
+    ascending order (-1 padding), val (k, capacity) int32 the words (0
+    padding), counts (k,) int32 the true candidate counts (above capacity
+    when a buffer truncated). Two launches of the CUDA kernel pair (count,
+    then write) on the card."""
+    _require(changed.dim() == 2 and need.dim() == 2 and need.shape[0] == changed.shape[0],
+             "changed must be (n_loc, W) and need (n_loc, k)")
+    _require(need.dtype == torch.bool, f"need must be bool, got {need.dtype}")
+    _require(capacity >= 1, "capacity must be >= 1")
+    n_loc, w = changed.shape
+    k = need.shape[1]
+    _require(n_loc * w < 2**31, "more than 2^31 - 1 words: int32 indices would wrap")
+    if not _use_kernel(changed, plain):
+        return compress_deltas_plain(changed, need, capacity)
+    _int32_matrix(changed, "changed")
+    _require(1 <= k <= 32, f"the kernel takes 1..32 destinations, got {k}")
+    for name, t in (("changed", changed), ("need", need)):
+        _require(t.device == changed.device and t.is_contiguous(),
+                 f"{name} must be contiguous on the changed words' device")
+    dev = changed.device
+    idx = torch.full((k, capacity), -1, dtype=torch.int32, device=dev)
+    val = torch.zeros((k, capacity), dtype=torch.int32, device=dev)
+    counts = torch.zeros((k,), dtype=torch.int32, device=dev)
+    if n_loc * w:
+        lib = _lib()
+        iters = ctypes.c_int(0)
+        blocks = lib.gossip_compress_blocks(n_loc * w, ctypes.byref(iters))
+        scratch = torch.empty((blocks, k), dtype=torch.int32, device=dev)
+        _launch(
+            "compress_deltas", lib.gossip_compress_deltas,
+            changed.data_ptr(), n_loc, w, need.data_ptr(), k, int(capacity),
+            scratch.data_ptr(), idx.data_ptr(), val.data_ptr(), counts.data_ptr(),
+            _stream(dev),
+        )
+    return idx, val, counts
+
+
+def scatter_deltas_plain(idx, val, n_loc, w, n_padded, out):
+    """The JAX package's formula: source s's id i is canvas word s*n_loc*W
+    + i, and -1 (or anything past the canvas) is dropped."""
+    n_srcs = idx.shape[0]
+    offsets = torch.arange(n_srcs, dtype=torch.int64, device=idx.device)[:, None] * (n_loc * w)
+    gidx = idx.to(torch.int64) + offsets
+    keep = (idx >= 0) & (gidx < n_padded * w)
+    flat = out.view(-1)
+    flat.zero_()
+    flat[gidx[keep]] = val[keep]
+    return out
+
+
+def scatter_deltas(
+    idx: torch.Tensor, val: torch.Tensor, n_loc: int, w: int, n_padded: int, *,
+    out: torch.Tensor | None = None, plain: bool = False,
+) -> torch.Tensor:
+    """Rebuild the global (n_padded, W) int32 slice from received delta
+    buffers ``idx``/``val`` (n_srcs, capacity) int32 (axis 0 = source
+    shard): word ``s * n_loc * W + idx[s, e]`` gets ``val[s, e]``, -1 and
+    out-of-canvas entries are dropped, every other word is zero. ``out``
+    is reused when given. One launch of the CUDA kernel on the card, after
+    a zero fill of the canvas."""
+    _require(idx.dim() == 2 and val.shape == idx.shape, "idx and val must be (n_srcs, capacity)")
+    if out is None:
+        out = torch.empty((n_padded, w), dtype=torch.int32, device=idx.device)
+    _require(out.shape == (n_padded, w) and out.dtype == torch.int32 and out.is_contiguous(),
+             "out must be a contiguous (n_padded, W) int32 tensor")
+    if not _use_kernel(idx, plain):
+        return scatter_deltas_plain(idx, val, n_loc, w, n_padded, out)
+    for name, t in (("idx", idx), ("val", val), ("out", out)):
+        _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
+        _require(t.device == idx.device and t.is_contiguous(),
+                 f"{name} must be contiguous on the idx device")
+    out.zero_()
+    if idx.numel():
+        _launch(
+            "scatter_deltas", _lib().gossip_scatter_deltas,
+            idx.data_ptr(), val.data_ptr(), idx.shape[0], idx.shape[1],
+            n_loc * w, n_padded * w, out.data_ptr(), _stream(idx.device),
         )
     return out

@@ -32,7 +32,8 @@ stagings per (fingerprint, bucketing): one build and one staging per
 distinct topology, however many requests name it.
 
 Not ported: the JAX server's ``mesh`` (its sharded dispatch waits for
-multi-GPU, ROADMAP §1 item 4; a mesh raises NotImplementedError).
+the sharded campaigns, the next multi-GPU slice of ROADMAP §1 item 4; a
+mesh raises NotImplementedError).
 ``exchange`` and ``async_k`` configure only that sharded dispatch, and
 are accepted and unused, as in a JAX server without a mesh.
 """
@@ -131,7 +132,9 @@ class GossipServer:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "a server over a device mesh waits for multi-GPU (ROADMAP §1 item 4)"
+                "a server over a device mesh waits for the next multi-GPU slice "
+                "(ROADMAP §1 item 4: the server's mesh= branch, after "
+                "protocols_sharded and campaign_sharded)"
             )
         self.device = resolve_device(device)
         self.slots = int(slots)

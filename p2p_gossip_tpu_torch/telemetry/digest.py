@@ -103,6 +103,30 @@ def write_batched(ring: torch.Tensor, t: int, seen, received, sent_lo, sent_hi=N
                         replicas=ring.shape[0], plain=plain)
 
 
+def tick_digest_sharded(seen, received, sent_lo, *, id_offset: int, group,
+                        sent_hi=None, plain: bool = False) -> torch.Tensor:
+    """One node shard's part of the tick digest, XOR-combined over the
+    nodes process ``group`` (the JAX package's ``tick_digest_sharded``):
+    the shard folds its rows with GLOBAL node ids (``id_offset`` + local
+    row) through the ``tick_digest`` kernel, then one all_gather of the
+    (1,) partials and an XOR of them — a SUM collective cannot XOR. Equal
+    to the digest of the whole state, because XOR is order-free. Returns
+    a 0-d int32 device tensor (uint32 bits)."""
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.parallel.mesh import all_gather_rows
+
+    part = kernels.tick_digest(seen, received, sent_lo, sent_hi, id_offset=id_offset,
+                               plain=plain)
+    parts = torch.empty((dist.get_world_size(group),), dtype=torch.int32,
+                        device=part.device)
+    all_gather_rows(parts, part, group)
+    h = parts[0]
+    for i in range(1, parts.shape[0]):
+        h = h ^ parts[i]
+    return h
+
+
 # --- host (numpy) twin -----------------------------------------------------------
 
 def _mix_np(x: np.ndarray) -> np.ndarray:

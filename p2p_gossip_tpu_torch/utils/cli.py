@@ -16,15 +16,20 @@ component logs (``--log``, `utils.logging`), npz graph caches
 reference's parallel-link quirk (``--refParallelLinks``) and the engines
 (``--backend``): ``tpu``, the default, is the device engine (the card, or
 ``--device cpu``), named as in the JAX CLI so one command line runs in
-either package; ``event`` the Python event engine and ``native`` the C++
-one, both on the host (``--linkQueueing`` needs one of them). One tick is
-one link latency, and every random model derives from ``--seed`` as in the
-JAX package, so the same flags print the same report. ``--degreeBlock`` is
-accepted and checked, and changes nothing: the CUDA gather has no degree
-block.
+either package; ``sharded`` the sharded flood engine over a (shares,
+nodes) mesh of ``torch.distributed`` ranks (``--meshNodes``,
+``--meshShares``, ``--ringMode``; under ``torchrun --nproc-per-node K``
+rank 0 prints the report, run plainly it is a world of one); ``event``
+the Python event engine and ``native`` the C++ one, both on the host
+(``--linkQueueing`` needs one of them). One tick is one link latency, and
+every random model derives from ``--seed`` as in the JAX package, so the
+same flags print the same report. ``--degreeBlock`` changes no result:
+the CUDA gather has no degree block (the sharded engine's bucket planner
+quantizes its rows by it, as the JAX package's does).
 
-Left for later: ``--backend sharded`` (exits 2) and the mesh flags
-(multi-GPU, ROADMAP.md queue 1 item 4)."""
+Left for later: ``--protocol pushpull|pull|pushk`` with ``--backend
+sharded`` (exits 2; the sharded protocols are ROADMAP.md §1 item 4's next
+slice)."""
 
 from __future__ import annotations
 
@@ -54,9 +59,26 @@ def build_parser() -> argparse.ArgumentParser:
         "--backend", choices=("tpu", "sharded", "event", "native"),
         default="tpu",
         help="Execution engine: tpu = the device engine (default; the card, "
-        "or --device cpu), event = the Python event engine, native = the "
-        "C++ event engine (both on the host); sharded (multi-GPU) is not "
-        "ported yet",
+        "or --device cpu), sharded = the sharded flood engine over a mesh of "
+        "torch.distributed ranks (torchrun --nproc-per-node K; one rank when "
+        "run plainly), event = the Python event engine, native = the C++ "
+        "event engine (both on the host)",
+    )
+    p.add_argument(
+        "--meshNodes", type=int, default=0,
+        help="Node-axis shards for --backend sharded (default: all ranks)",
+    )
+    p.add_argument(
+        "--meshShares", type=int, default=1,
+        help="Share-axis shards for --backend sharded",
+    )
+    p.add_argument(
+        "--ringMode", choices=("auto", "replicated", "sharded"),
+        default="auto",
+        help="History-ring layout for --backend sharded: replicated "
+        "(full ring per rank, write-time all_gather) or sharded "
+        "(per-rank rows, read-time slice all_gathers — fits rings the "
+        "replicated layout can't). auto picks by delay model and size.",
     )
     p.add_argument(
         "--topology",
@@ -178,8 +200,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--degreeBlock", type=int, default=0,
         help="The JAX engine's degree-bucket block (0 = its default); "
-        "accepted for the same command lines, unused: the CUDA gather has "
-        "no degree block",
+        "changes no result: the CUDA gather has no degree block (the "
+        "sharded engine's bucket planner quantizes by it)",
     )
     p.add_argument(
         "--perNodeStats", action="store_true", default=None,
@@ -492,6 +514,10 @@ def _run_flood_coverage_cli(args, g, horizon, delays, churn, loss) -> int:
     t0 = time.perf_counter()
     with telemetry.span("simulate", device=args.device, protocol=args.protocol,
                         experiment="flood_coverage"):
+        if args.backend == "sharded":
+            err = _print_mesh(args)
+            if err is not None:
+                return err
         if args.protocol in PARTNERED:
             sched = Schedule(g.n, origins, np.zeros(len(origins), dtype=np.int32))
             if args.protocol == "pull":
@@ -500,6 +526,16 @@ def _run_flood_coverage_cli(args, g, horizon, delays, churn, loss) -> int:
                     return _error(err)
             stats, coverage = _run_protocol(
                 args, g, sched, horizon, delays, churn, loss, record_coverage=True
+            )
+        elif args.backend == "sharded":
+            from p2p_gossip_tpu_torch.parallel.engine_sharded import (
+                run_sharded_flood_coverage,
+            )
+
+            stats, coverage = run_sharded_flood_coverage(
+                g, origins, horizon, args.mesh, ell_delays=delays,
+                chunk_size=args.chunkSize, block=args.degreeBlock or None,
+                churn=churn, loss=loss, ring_mode=args.ringMode,
             )
         else:
             stats, coverage = run_flood_coverage(
@@ -715,8 +751,67 @@ def _run_sweep_cli(args) -> int:
     return 0
 
 
+def _sharded_protocol_error(args) -> int:
+    return _error(
+        f"--protocol {args.protocol} --backend sharded: the sharded protocols are "
+        "not ported yet (ROADMAP.md §1 item 4, the next slice: protocols_sharded); "
+        "use --backend tpu"
+    )
+
+
+def _print_mesh(args) -> int | None:
+    """Build the ``--meshNodes`` x ``--meshShares`` mesh into ``args.mesh``
+    and print the JAX CLI's mesh line. Returns the exit code when this
+    rank is done: 2 when the mesh does not fit the world (the JAX CLI dies
+    with a traceback there), 0 on a rank the mesh leaves out (it idles,
+    as a device outside a JAX mesh does)."""
+    from p2p_gossip_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        args.mesh = make_mesh(args.meshNodes or None, args.meshShares,
+                              device=args.mesh_device)
+    except ValueError as e:
+        return _error(f"--meshNodes/--meshShares: {e}")
+    if args.mesh.coordinate is None:
+        return 0
+    print(
+        f"Mesh: {args.mesh.shape['shares']} share-shards x "
+        f"{args.mesh.shape['nodes']} node-shards"
+    )
+    return None
+
+
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.backend != "sharded":
+        return _run(args)
+    # SPMD: every rank runs the whole CLI (each collective needs them
+    # all) and rank 0 prints the report. Run plainly, a world of one.
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.parallel.mesh import initialize_multihost, local_device
+
+    try:
+        args.mesh_device = local_device(None if args.device == "cuda" else args.device)
+    except (RuntimeError, ValueError) as e:
+        return _error(f"--device: {e}")
+    owned = not dist.is_initialized()
+    rank, _ = initialize_multihost(device=args.mesh_device)
+    if rank:  # rank 0 writes the files; the ranks agree on telemetry's rings
+        args.telemetry = args.heartbeat = args.anim = ""
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    try:
+        with quiet:
+            return _run(args)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
     from p2p_gossip_tpu_torch import telemetry
     from p2p_gossip_tpu_torch.engine.sync import run_sync_sim
     from p2p_gossip_tpu_torch.models.churn import random_churn
@@ -738,11 +833,6 @@ def run(argv=None) -> int:
     # a negative --simTime run there (an all-zero report) and run here too.
     if args.numNodes < 1 or args.Latency <= 0 or args.chunkSize < 1:
         return _error("--numNodes must be >= 1, --Latency > 0, --chunkSize >= 1")
-    if args.backend == "sharded":
-        return _error(
-            "--backend sharded: the multi-GPU engine is not ported yet "
-            "(ROADMAP.md queue 1 item 4); use --backend tpu|event|native"
-        )
     tick_dt = args.Latency / 1000.0
     if args.log:
         try:
@@ -844,6 +934,10 @@ def run(argv=None) -> int:
 
     if args.degreeBlock < 0:
         return _error("--degreeBlock must be >= 0")
+    if args.meshNodes < 0 or args.meshShares < 1:
+        return _error("--meshNodes must be >= 0 and --meshShares >= 1")
+    if args.backend == "sharded" and args.protocol in PARTNERED:
+        return _sharded_protocol_error(args)
     loss = None
     if not 0.0 <= args.lossProb <= 1.0:
         return _error(f"--lossProb must be in [0, 1], got {args.lossProb:g}")
@@ -928,7 +1022,7 @@ def run(argv=None) -> int:
             return _error(
                 f"--floodCoverage must be positive, got {args.floodCoverage}"
             )
-        if args.backend != "tpu":
+        if args.backend not in ("tpu", "sharded"):
             return _error("--floodCoverage requires --backend tpu|sharded")
         if not 0.0 < args.coverageFraction <= 1.0:
             return _error(
@@ -945,11 +1039,11 @@ def run(argv=None) -> int:
             "--delayModel constant (the numpy oracle is the one-tick-delay "
             "specification)"
         )
-    if args.checkpoint and args.backend != "tpu":
+    if args.checkpoint and args.backend not in ("tpu", "sharded"):
         return _error("--checkpoint requires --backend tpu|sharded")
     if args.checkpointEvery < 1:
         return _error("--checkpointEvery must be >= 1")
-    if args.protocol == "pull" and args.backend == "tpu":
+    if args.protocol == "pull" and args.backend in ("tpu", "sharded"):
         # Only the bitmask engines carry the uint32 credit accumulator; the
         # event and native engines accumulate sent in int64.
         err = _pull_credit_error(g, args.chunkSize, sched)
@@ -964,7 +1058,19 @@ def run(argv=None) -> int:
     )
     with telemetry.span("simulate", device=args.device, protocol=args.protocol,
                         backend=args.backend):
-        if args.backend != "tpu":
+        if args.backend == "sharded":
+            err = _print_mesh(args)
+            if err is not None:
+                return err
+            from p2p_gossip_tpu_torch.parallel.engine_sharded import run_sharded_sim
+
+            stats = run_sharded_sim(
+                g, sched, horizon, args.mesh, ell_delays=delays,
+                chunk_size=args.chunkSize, block=args.degreeBlock or None,
+                churn=churn, snapshot_ticks=snapshot_ticks, loss=loss,
+                connect_tick=args.connectAtTick, ring_mode=args.ringMode, **ckpt,
+            )
+        elif args.backend != "tpu":
             stats = _run_host_engine(
                 args, g, sched, horizon, delays, churn, loss, snapshot_ticks, fifo
             )
@@ -999,7 +1105,8 @@ def run(argv=None) -> int:
     per_node = args.perNodeStats if args.perNodeStats is not None else g.n <= 1000
     totals = stats.totals()
     print(format_final_statistics(stats, per_node=per_node), end="")
-    executed = stats.extra.get("ticks_executed")
+    # The JAX sharded engine reports no executed-tick count.
+    executed = None if args.backend == "sharded" else stats.extra.get("ticks_executed")
     print(
         f"Simulated {args.simTime:g}s ({horizon} ticks"
         f"{'' if executed is None else f', {executed} executed'}) in {wall:.3f}s "

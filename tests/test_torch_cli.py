@@ -645,11 +645,69 @@ def test_new_flag_refusals_print_the_jax_error(args, capsys, clean_logging):
 
 
 def test_sharded_backend_exits_2_naming_the_roadmap(capsys):
-    assert cli.run(["--backend", "sharded"]) == 2
+    """The sharded flood runs (below); the sharded protocols are the next
+    slice, and ``--protocol`` with ``--backend sharded`` says so."""
+    assert cli.run(["--backend", "sharded", "--protocol", "pushpull", "--device", "cpu"]) == 2
     captured = capsys.readouterr()
     assert captured.out == ""
-    assert captured.err.startswith("error: --backend sharded: ")
-    assert "ROADMAP.md queue 1 item 4" in captured.err
+    assert captured.err.startswith("error: --protocol pushpull --backend sharded: ")
+    assert "ROADMAP.md §1 item 4" in captured.err and "protocols_sharded" in captured.err
+
+
+SHARDED = {
+    "flood_2_node_shards": ["--numNodes", "40", "--simTime", "1", "--genLo", "0.1",
+                            "--genHi", "0.4", "--backend", "sharded", "--meshNodes", "2",
+                            "--chunkSize", "64"],
+    "coverage_sharded_ring": ["--numNodes", "60", "--simTime", "1", "--backend", "sharded",
+                              "--meshNodes", "2", "--floodCoverage", "8",
+                              "--ringMode", "sharded"],
+    "options_2_share_shards": ["--numNodes", "60", "--simTime", "1", "--statsInterval", "0.25",
+                               "--genLo", "0.1", "--genHi", "0.4",
+                               "--backend", "sharded", "--meshNodes", "1", "--meshShares", "2",
+                               "--ringMode", "replicated", "--delayModel", "lognormal",
+                               "--churnProb", "0.2", "--lossProb", "0.1", "--chunkSize", "64"],
+}
+
+
+@pytest.fixture(scope="module")
+def sharded_cli():
+    """Each SHARDED command line's (exit code, stdout, stderr) on each of
+    two spawned gloo ranks."""
+    from p2p_gossip_tpu_torch.parallel import launch
+
+    argvs = [args + ["--device", "cpu"] for args in SHARDED.values()]
+    ranks = launch.spawn(launch.capture_cli, 2, argvs, timeout_s=120.0)
+    return {name: [r[i] for r in ranks] for i, name in enumerate(SHARDED)}
+
+
+@pytest.mark.parametrize("name", list(SHARDED))
+def test_sharded_backend_prints_the_jax_report(name, sharded_cli, capsys):
+    """Rank 0 prints the JAX CLI's stdout at the same mesh shape, its mesh
+    line included; rank 1 prints nothing."""
+    want = _run_in_process(jax_cli.run, SHARDED[name], capsys)
+    (rc0, out0, _), (rc1, out1, _) = sharded_cli[name]
+    assert rc0 == 0 and rc1 == 0
+    _assert_same_report(out0, want)
+    mesh = [ln for ln in out0.splitlines() if ln.startswith("Mesh: ")]
+    shares = SHARDED[name][SHARDED[name].index("--meshShares") + 1] if (
+        "--meshShares" in SHARDED[name]) else "1"
+    nodes = SHARDED[name][SHARDED[name].index("--meshNodes") + 1]
+    assert mesh == [f"Mesh: {shares} share-shards x {nodes} node-shards"]
+    assert "Total shares generated: 0" not in out0
+    assert out1 == ""
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--meshNodes", "2"], "mesh 1x2 needs 2 ranks, have 1"),
+    (["--meshShares", "0"], "--meshNodes must be >= 0 and --meshShares >= 1"),
+    (["--meshNodes", "-1"], "--meshNodes must be >= 0 and --meshShares >= 1"),
+])
+def test_sharded_mesh_refusals_exit_2(args, message, capsys):
+    """A mesh larger than the world (one rank here) and the JAX CLI's
+    mesh-flag validation exit 2."""
+    assert cli.run(["--backend", "sharded", "--device", "cpu", "--numNodes", "8",
+                    "--simTime", "0.1"] + args) == 2
+    assert message in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("name,args", [

@@ -239,9 +239,17 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
                                  torch.empty_like(out)))
     assert torch.equal(kernels.scatter_or_atomic(words, dst, out=torch.zeros_like(out)),
                        kernels.scatter_or(words, offsets, entries, out=out))
+    need = torch.arange(50)[:, None] % torch.tensor([2, 3]) == 0
+    idx, val, counts = kernels.compress_deltas(words, need, 16)
+    for a, b in zip((idx, val, counts), kernels.compress_deltas_plain(words, need, 16)):
+        assert torch.equal(a, b)
+    assert torch.equal(kernels.scatter_deltas(idx, val, 25, 3, 50),
+                       kernels.scatter_deltas_plain(idx, val, 25, 3, 50,
+                                                    torch.empty((50, 3), dtype=torch.int32)))
     assert kernels.launches == {
         "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
         "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
+        "compress_deltas": 0, "scatter_deltas": 0,
     }
 
 
