@@ -60,7 +60,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "batch/campaign.py", "batch/stats.py", "batch/sweep.py",
                    "engine/event.py", "runtime/native.py", "utils/logging.py",
                    "scale.py", "serve/__init__.py", "serve/request.py",
-                   "serve/scheduler.py", "serve/server.py", "serve/bench.py"):
+                   "serve/scheduler.py", "serve/server.py", "serve/bench.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
+                   "parallel/exchange.py", "parallel/async_ticks.py",
+                   "parallel/engine_sharded.py"):
         assert os.path.join("p2p_gossip_tpu_torch", module) in names
     bad = []
     for path in files:
