@@ -3192,17 +3192,20 @@ def check_delta_kernels(graph, frontiers, dev, reps):
     return {"compress_deltas": compress, "scatter_deltas": scatter}
 
 
-def sharded_worker(graph, sched, ba, device):
+def sharded_worker(graph, sched, origins, ba, device):
     """Phase 14 (b), on every rank: the mesh of all ranks on the nodes axis,
-    phase 5's flood and phase 6's coverage in every SHARDED_MODES mode (a
-    warm flood, then the timed flood and coverage between a launch-count
-    reset and a read, each with its peak device memory against
-    ``stats.extra['resident_bytes']``), and with ``ba`` (graph, origins)
-    the million-node BA coverage on the sharded ring with the delta
-    exchange. A run's peak counts from before its graph's first run, so it
-    includes the staged arrays the graph keeps on the card (as
-    ``resident_bytes`` does). The first rank then profiles a replicated and
-    a delta flood. Returns host values only."""
+    phase 5's flood and phase 6's coverage (of ``origins``) in every
+    SHARDED_MODES mode (a warm flood, then the timed flood and coverage
+    between a launch-count reset and a read, each with its peak device
+    memory against ``stats.extra['resident_bytes']``), a replicated and a
+    delta flood more (the first rank's under the profiler), and with
+    ``ba`` (graph, origins) the million-node BA coverage on the sharded
+    ring with the delta exchange. Every rank runs every call, so the
+    collectives pair up across the mesh. A run's peak counts from before
+    its graph's first run, so it includes the staged arrays the graph
+    keeps on the card (as ``resident_bytes`` does). ``device`` None means
+    ``cuda:<rank>``; on the CPU nothing is profiled and no memory is
+    read (peaks 0). Returns host values only."""
     import torch
     import torch.distributed as dist
 
@@ -3215,23 +3218,31 @@ def sharded_worker(graph, sched, ba, device):
     from p2p_gossip_tpu_torch.parallel.mesh import make_mesh
 
     dev = torch.device(device if device else f"cuda:{dist.get_rank()}")
+    cuda = dev.type == "cuda"
     mesh = make_mesh(device=dev)
 
-    def measured(run, base):
+    def allocated():
+        if not cuda:
+            return 0
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def measured(run, base):
+        if cuda:
+            allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = run()
+        if not cuda:
+            return result, time.perf_counter() - t0, 0
         torch.cuda.synchronize()
         return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
 
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
+    base = allocated()
     t0 = time.perf_counter()
     sg = stage_sharded_graph(graph, mesh)
     out = {"stage_s": time.perf_counter() - t0, "shape": mesh.shape}
-    origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
     for mode, kw in SHARDED_MODES:
         flood = dict(chunk_size=CHUNK, sharded_graph=sg, **kw)
         run_sharded_sim(graph, sched, HORIZON, mesh, **flood)
@@ -3243,18 +3254,20 @@ def sharded_worker(graph, sched, ba, device):
         out[mode] = dict(
             stats=stats, wall=wall, peak=peak, coverage=cov, cov_stats=cstats,
             cov_wall=cwall, cov_peak=cpeak, launches=dict(kernels.launches))
-    if mesh.is_first:
-        for mode in ("replicated", "delta"):
-            kw = dict(SHARDED_MODES)[mode]
-            profile_device(f"sharded {mode} flood", lambda: run_sharded_sim(
-                graph, sched, HORIZON, mesh, chunk_size=CHUNK, sharded_graph=sg,
-                **kw).extra["ticks_executed"])
+    for mode in ("replicated", "delta"):
+        flood = dict(chunk_size=CHUNK, sharded_graph=sg, **dict(SHARDED_MODES)[mode])
+
+        def run():
+            return run_sharded_sim(graph, sched, HORIZON, mesh, **flood).extra["ticks_executed"]
+
+        if mesh.is_first and cuda:
+            profile_device(f"sharded {mode} flood", run)
+        else:
+            run()
     if ba is not None:
         ba_graph, ba_origins = ba
         del sg
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
+        base = allocated()
         t0 = time.perf_counter()
         sg = stage_sharded_graph(ba_graph, mesh)
         stage_s = time.perf_counter() - t0
@@ -3281,6 +3294,45 @@ def check_resident(label, peak, model):
     if abs(peak - model) > MEMORY_TOLERANCE * model:
         raise AssertionError(f"{label}: peak device memory {peak} is not within "
                              f"{MEMORY_TOLERANCE:.0%} of the model's {model}")
+
+
+def sharded_references(graph, sched, origins, ranks, ref, ref_cov, dev):
+    """What each SHARDED_MODES run on ``ranks`` node shards must equal:
+    mode -> (flood stats, coverage stats, coverage rows) of the
+    single-device port. ``ref`` and ``ref_cov`` are its flood and coverage
+    at the graph's own delays. Async K replays the synchronous engine with
+    cross-shard delays clamped to K (`async_ticks.clamp_flood_delays`): on
+    several ranks its reference runs those delays; on one rank no edge
+    crosses a shard and it shares the others'."""
+    from p2p_gossip_tpu_torch.engine.sync import run_flood_coverage, run_sync_sim
+    from p2p_gossip_tpu_torch.parallel.async_ticks import clamp_flood_delays
+
+    refs = {}
+    for mode, kw in SHARDED_MODES:
+        refs[mode] = (ref, *ref_cov)
+        if ranks > 1 and kw.get("async_k", 0) > 1:
+            d = clamp_flood_delays(graph, ranks, kw["async_k"])
+            refs[mode] = (
+                run_sync_sim(graph, sched, HORIZON, chunk_size=CHUNK, ell_delays=d, device=dev),
+                *run_flood_coverage(graph, origins, HORIZON, ell_delays=d, device=dev))
+    return refs
+
+
+def check_sharded_mode(mode, run, want):
+    """Phase 14 (b)'s equality of one rank's SHARDED_MODES ``run`` (a
+    `sharded_worker` entry) with its reference ``want`` (a
+    `sharded_references` entry): counters, ticks and coverage rows."""
+    stats, cov_stats, cov = want
+    st = run["stats"]
+    # Async K's ring holds max(dmax, K) + 1 slots: its stop test may run an
+    # empty tick more than the synchronous engine's.
+    if not (same_counts(st, stats) and (st.extra["ticks_executed"] == stats.extra[
+            "ticks_executed"] or mode == "async")):
+        raise AssertionError(f"sharded flood [{mode}]: counters or ticks differ from the "
+                             "single-device port's")
+    if not (np.array_equal(run["coverage"], cov) and same_counts(run["cov_stats"], cov_stats)):
+        raise AssertionError(f"sharded coverage [{mode}]: rows or counters differ from the "
+                             "single-device port's")
 
 
 def sharded_phase(graph, dg, sched, ba, dev):
@@ -3312,36 +3364,27 @@ def sharded_phase(graph, dg, sched, ba, dev):
     ref_cov_stats, ref_cov = run_flood_coverage(graph, origins, HORIZON, device_graph=dg,
                                                 device=dev)
     ranks = torch.cuda.device_count()
+    refs = sharded_references(graph, sched, origins, ranks, ref, (ref_cov_stats, ref_cov), dev)
     ba_args = (ba["graph"], ba["origins"])
     if ranks == 1:
         initialize_multihost(backend="nccl", device=dev)
         try:
-            runs = sharded_worker(graph, sched, ba_args, str(dev))
+            runs = sharded_worker(graph, sched, origins, ba_args, str(dev))
         finally:
             dist.destroy_process_group()
     else:
-        runs = launch.spawn(sharded_worker, ranks, graph, sched, ba_args, None,
+        runs = launch.spawn(sharded_worker, ranks, graph, sched, origins, ba_args, None,
                             backend="nccl")[0]
     log(f"sharded flood (b): {ranks} NCCL rank(s), mesh {runs['shape']}, host staging "
         f"{runs['stage_s']:.2f} s; single-device reference {ref.extra['ticks_executed']} "
         f"ticks, {ref_tick_ms:.3f} ms/tick in this phase (each sharded wall below is the "
         f"whole call: the plan, the run's set-up and the final gathers included)")
-    base_tick = None
     for mode, _ in SHARDED_MODES:
         r = runs[mode]
         st, cst = r["stats"], r["cov_stats"]
         ticks = st.extra["ticks_executed"]
-        # Async K's ring holds max(dmax, K) + 1 slots: its stop test may
-        # run an empty tick more than the synchronous engine's.
-        if not (same_counts(st, ref) and (ticks == ref.extra["ticks_executed"]
-                                          or mode == "async")):
-            raise AssertionError(f"sharded flood [{mode}]: counters or ticks differ from the "
-                                 "single-device port's")
-        if not (np.array_equal(r["coverage"], ref_cov) and same_counts(cst, ref_cov_stats)):
-            raise AssertionError(f"sharded coverage [{mode}]: rows or counters differ from "
-                                 "the single-device port's")
+        check_sharded_mode(mode, r, refs[mode])
         tick_ms = r["wall"] / ticks * 1e3
-        base_tick = base_tick or tick_ms
         launched = {k: v for k, v in r["launches"].items() if v}
         log(f"  {mode}: flood {ticks} ticks, {r['wall']:.4f} s -> {tick_ms:.3f} ms/tick "
             f"({tick_ms / ref_tick_ms:.3f} of the single-device run's; "

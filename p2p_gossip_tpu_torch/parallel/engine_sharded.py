@@ -177,7 +177,6 @@ class ShardedGraph:
     groups: list            # ("direct", idx, mask) | ("buckets", [(rows, idx, mask)])
     bucket_counts: tuple
     degree: np.ndarray      # this shard's rows
-    ell: tuple | None       # the padded (idx, mask) pair; None when staged from CSR
     _cut: dict = dataclasses.field(default_factory=dict)
     _device: dict = dataclasses.field(default_factory=dict)
 
@@ -195,12 +194,8 @@ class ShardedGraph:
         then planned anew: the hub splits go with it)."""
         if aux_cache or "plan" not in self._cut:
             self._cut.clear()
-            if self.ell is None:
-                plan = exch.cached_flood_plan(None, None, self.k, aux_cache=aux_cache,
-                                              graph=self.graph, n_padded=self.n_padded)
-            else:
-                plan = exch.cached_flood_plan(*self.ell, self.k, aux_cache=aux_cache)
-            self._cut["plan"] = plan
+            self._cut["plan"] = exch.cached_flood_plan(self.graph, self.n_padded, self.k,
+                                                       aux_cache=aux_cache)
         return self._cut["plan"]
 
     def hub_split(self, w: int, delay_splits: int, hub_rows):
@@ -296,7 +291,7 @@ def stage_sharded_graph(graph, mesh, ell_delays=None, constant_delay: int = 1,
     return ShardedGraph(
         graph=graph, k=k, shard=shard, n_padded=n_padded, uniform=uniform, ring=ring,
         delay_values=delay_values, groups=groups, bucket_counts=tuple(bucket_counts),
-        degree=degree[shard * n_loc:(shard + 1) * n_loc], ell=ell,
+        degree=degree[shard * n_loc:(shard + 1) * n_loc],
     )
 
 
@@ -500,8 +495,8 @@ class _Runner:
         """A slot's remote rows from its received delta buffers (and hub
         block); own rows zero."""
         p = self.plan
-        canvas = exch.scatter_deltas(st["didx"][slot], st["dval"][slot], p.n_loc, p.w,
-                                     p.n_padded, plain=self.plain)
+        canvas = kernels.scatter_deltas(st["didx"][slot], st["dval"][slot], p.n_loc, p.w,
+                                        p.n_padded, plain=self.plain)
         if self.hub is not None:
             exch.overlay_hub(canvas, self.hub[1], st["hub"][slot])
         return canvas
@@ -690,8 +685,8 @@ class _Runner:
             vec.zero_()
             vec[0] = (newly_cnt.sum() + live_cnt.sum()) > 0
             if p.delta:
-                cidx, cval, counts = exch.compress_deltas(newly_out, self.need, p.capacity,
-                                                          plain=plain)
+                cidx, cval, counts = kernels.compress_deltas(newly_out, self.need,
+                                                             p.capacity, plain=plain)
                 dist.all_to_all_single(st["didx"][slot_w].view(-1), cidx.view(-1),
                                        group=self.nodes)
                 dist.all_to_all_single(st["dval"][slot_w].view(-1), cval.view(-1),

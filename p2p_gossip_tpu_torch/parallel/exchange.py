@@ -5,18 +5,20 @@ The dense exchange moves whole bitmask slices: one all_gather of (n_loc,
 W) rows per distinct delay value per tick, however little changed. The
 sparse alternative, exact by OR-monotonicity:
 
-- **compress** (`compress_deltas`, a CUDA kernel): each tick, each shard
-  packs the nonzero words of its new frontier slice into fixed-capacity
-  (idx, val) buffers, one per destination shard, restricted by the static
-  cut (`plan_flood_exchange`: which of MY rows does each destination's
-  ELL read). The true counts come back, so the caller can flag overflow.
+- **compress** (`ops.kernels.compress_deltas`, a CUDA kernel): each
+  tick, each shard packs the nonzero words of its new frontier slice
+  into fixed-capacity (idx, val) buffers, one per destination shard,
+  restricted by the static cut (`plan_flood_exchange`: which of MY rows
+  does each destination's ELL read). The true counts come back, so the
+  caller can flag overflow.
 - **exchange**: the per-destination buffers ride ONE ``all_to_all_single``
   of idx and one of val per tick — 2 words per entry on the wire against
   n_loc x W words per dense slice.
-- **reconstruct** (`scatter_deltas`, a CUDA kernel): the receiver stores
-  the entries into a zeroed (n_padded, W) canvas and overlays its own
-  slice. Rows nobody sent stay zero — exact, because the gather masks the
-  rows it reads by the cut, and ring slots hold newly-frontier words.
+- **reconstruct** (`ops.kernels.scatter_deltas`, a CUDA kernel): the
+  receiver stores the entries into a zeroed (n_padded, W) canvas and
+  overlays its own slice. Rows nobody sent stay zero — exact, because
+  the gather masks the rows it reads by the cut, and ring slots hold
+  newly-frontier words.
 - **fallback**: when any shard's count exceeds capacity, the slot's
   overflow flag (a SUM over the nodes group, read on the host, so every
   rank takes the same branch) sends readers to the dense all_gather.
@@ -38,8 +40,6 @@ from __future__ import annotations
 import numpy as np
 
 import torch
-
-from p2p_gossip_tpu_torch.ops import kernels
 
 
 def plan_flood_exchange(
@@ -156,9 +156,9 @@ def modeled_pack_index_words(
 
 
 def choose_aggregate(n_dests: int, capacity: int) -> bool:
-    """Host-side per-fingerprint default for ``compress_deltas``'s
-    ``aggregate`` flag: True whenever the modeled aggregated pack is
-    strictly cheaper than the unaggregated one. The outputs are
+    """Host-side per-fingerprint default for the JAX package's
+    ``compress_deltas`` ``aggregate`` flag: True whenever the modeled
+    aggregated pack is strictly cheaper than the unaggregated one. The outputs are
     bitwise-identical either way (the JAX package's tests pin it), so
     this is purely a cost-model decision — recorded by the engines in
     ``stats.extra['exchange']['aggregated']``."""
@@ -274,16 +274,14 @@ def plan_hub_split(
 
 
 def cached_flood_plan(
-    ell_idx: np.ndarray,
-    ell_mask: np.ndarray,
+    graph,
+    n_padded: int,
     n_node_shards: int,
     aux_cache: tuple | None = None,
-    *,
-    graph=None,
-    n_padded: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """`plan_flood_exchange` (or, given ``graph`` and ``n_padded`` in place
-    of the ELL pair, `plan_flood_exchange_csr`), optionally persisted through the
+    """``(need, need_counts)`` of `plan_flood_exchange_csr` (the cut
+    `plan_flood_exchange` plans from the padded ELL, from the graph's CSR
+    with rows padded to ``n_padded``), optionally persisted through the
     fingerprinted npz graph aux cache
     (models/topology.load_or_compute_graph_aux) so the 100K/1M-node cut
     scans run ONCE per graph build, like the partition labels they
@@ -292,9 +290,7 @@ def cached_flood_plan(
     shard count, partition relabel seed — the caller owns that policy
     (the JAX package's scripts/mesh_rehearsal.py)."""
     def compute() -> np.ndarray:
-        if graph is not None:
-            return plan_flood_exchange_csr(graph, n_padded, n_node_shards)
-        return plan_flood_exchange(ell_idx, ell_mask, n_node_shards)[0]
+        return plan_flood_exchange_csr(graph, n_padded, n_node_shards)
 
     if aux_cache:
         from p2p_gossip_tpu_torch.models.topology import load_or_compute_graph_aux
@@ -326,44 +322,3 @@ def overlay_hub(
     hub rows. Returns ``recon``."""
     return recon.index_copy_(0, hub_global.reshape(-1), hub_block)
 
-
-def compress_deltas(
-    changed: torch.Tensor,  # (n_loc, w) int32 — this tick's delta words
-    need: torch.Tensor,     # (n_loc, n_dests) bool — cut membership
-    capacity: int,
-    aggregate: bool = False,
-    *,
-    plain: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pack nonzero words into per-destination fixed-capacity buffers:
-    ``(idx, val, counts)`` with idx (n_dests, capacity) int32 local flat
-    word indices ascending (-1 padding), val (n_dests, capacity) int32
-    word bits (0 padding), counts (n_dests,) int32 TRUE candidate counts
-    (> capacity: the buffer truncated and the caller flags overflow). The
-    ``compress_deltas`` CUDA kernel on the card (`ops.kernels`).
-
-    ``aggregate`` is the JAX package's choice between two packings of the
-    same scatter; both give these bits (its tests pin it, and the port's
-    tests hold this output to both), so it changes nothing here and is
-    kept for the report (``stats.extra['exchange']['aggregated']``)."""
-    del aggregate
-    return kernels.compress_deltas(changed, need, capacity, plain=plain)
-
-
-def scatter_deltas(
-    idx: torch.Tensor,   # (n_srcs, capacity) int32 — src-local flat word ids
-    val: torch.Tensor,   # (n_srcs, capacity) int32
-    n_loc: int,
-    w: int,
-    n_padded: int,
-    *,
-    out: torch.Tensor | None = None,
-    plain: bool = False,
-) -> torch.Tensor:
-    """Rebuild a global (n_padded, w) slice from received delta buffers
-    (axis 0 = source shard): source s's local flat id i names global word
-    ``s*n_loc*w + i``; -1 padding (and anything past the canvas) is
-    dropped; every other word is zero. Sources own disjoint rows, so the
-    stores never collide. The ``scatter_deltas`` CUDA kernel on the card
-    (`ops.kernels`); ``out`` (n_padded, w) int32 is reused when given."""
-    return kernels.scatter_deltas(idx, val, n_loc, w, n_padded, out=out, plain=plain)

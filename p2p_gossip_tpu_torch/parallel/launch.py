@@ -47,14 +47,14 @@ def _child(rank, world_size, store, backend, timeout_s, fn, args, results):
 
 
 def spawn(fn, world_size: int, *args, backend: str = "gloo",
-          timeout_s: float = DEFAULT_TIMEOUT_S, deadline_s: float | None = None) -> list:
+          timeout_s: float = DEFAULT_TIMEOUT_S) -> list:
     """Run ``fn(*args)`` on ranks 0..world_size-1 of a fresh world (each
     in its own spawned process, its default process group started) and
     return the list of their results in rank order. ``fn`` and ``args``
     must pickle (``fn`` a module-level function). A rank that raises, or
     dies, makes `spawn` stop every rank and raise RuntimeError with that
-    rank's traceback; past ``deadline_s`` (default ``timeout_s`` + 60 s)
-    it stops them all and raises TimeoutError."""
+    rank's traceback; past a deadline of ``timeout_s`` + 60 s it stops
+    them all and raises TimeoutError."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -66,7 +66,7 @@ def spawn(fn, world_size: int, *args, backend: str = "gloo",
                     args=(r, world_size, store, backend, timeout_s, fn, args, results))
         for r in range(world_size)
     ]
-    deadline = time.monotonic() + (timeout_s + 60.0 if deadline_s is None else deadline_s)
+    deadline = time.monotonic() + timeout_s + 60.0
     out: dict = {}
     try:
         for p in procs:

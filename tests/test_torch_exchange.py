@@ -52,8 +52,7 @@ def test_compress_deltas_equals_jax(n_loc, w, k, cap, aggregate):
     the JAX function (so the port's one layout is both), overflow and
     all-empty destinations included."""
     changed, need = _random_delta(n_loc * w + k, n_loc, w, k)
-    idx, val, counts = exchange.compress_deltas(_t(changed), torch.from_numpy(need), cap,
-                                                aggregate=aggregate)
+    idx, val, counts = kernels.compress_deltas(_t(changed), torch.from_numpy(need), cap)
     j_idx, j_val, j_counts = jax_exch.compress_deltas(
         jnp.asarray(changed), jnp.asarray(need), cap, aggregate=aggregate)
     assert np.array_equal(idx.numpy(), np.asarray(j_idx))
@@ -83,19 +82,19 @@ def test_scatter_deltas_equals_jax(n_srcs, n_loc, w, cap):
         idx[s, : row.size] = np.where(rng.random(row.size) < 0.7, row, -1)
     idx[-1, 0] = n_loc * w + 1  # past the canvas: dropped
     val = rng.integers(0, 2**32, (n_srcs, cap), dtype=np.uint64).astype(np.uint32)
-    got = exchange.scatter_deltas(torch.from_numpy(idx), _t(val), n_loc, w, n_padded)
+    got = kernels.scatter_deltas(torch.from_numpy(idx), _t(val), n_loc, w, n_padded)
     want = jax_exch.scatter_deltas(jnp.asarray(idx), jnp.asarray(val), n_loc, w, n_padded)
     assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
     out = torch.full((n_padded, w), 7, dtype=torch.int32)  # reused canvas: rezeroed
-    exchange.scatter_deltas(torch.from_numpy(idx), _t(val), n_loc, w, n_padded, out=out)
+    kernels.scatter_deltas(torch.from_numpy(idx), _t(val), n_loc, w, n_padded, out=out)
     assert torch.equal(out, got)
 
 
 def test_compress_then_scatter_rebuilds_the_cut():
     changed, need = _random_delta(4, 12, 3, 3)
-    idx, val, _ = exchange.compress_deltas(_t(changed), torch.from_numpy(need), 40)
+    idx, val, _ = kernels.compress_deltas(_t(changed), torch.from_numpy(need), 40)
     for d in range(3):
-        canvas = exchange.scatter_deltas(idx[d:d + 1], val[d:d + 1], 12, 3, 12)
+        canvas = kernels.scatter_deltas(idx[d:d + 1], val[d:d + 1], 12, 3, 12)
         assert np.array_equal(canvas.numpy().view(np.uint32),
                               np.where(need[:, d:d + 1], changed, 0))
 
@@ -155,21 +154,31 @@ def test_flood_plans_equal_jax(k):
 
 def test_cached_flood_plan_reads_either_packages_aux_cache(tmp_path):
     """A cut persisted through the npz aux cache by one package loads in
-    the other (same aux key, same fingerprint gate)."""
+    the other (same aux key, same fingerprint gate): a reader handed
+    another graph (the port) or blank ELLs (JAX) still gets the cut of the
+    graph the writer planned. The port plans it from CSR, the same bits
+    as the JAX ELL planner."""
     g = pt.erdos_renyi(64, 0.1, seed=3)
     jg = pg.erdos_renyi(64, 0.1, seed=3)
     idx, msk = _padded_ell(g, 4)
-    for writer, reader, name in ((jax_exch, exchange, "a.npz"), (exchange, jax_exch, "b.npz")):
+    want = exchange.plan_flood_exchange(idx, msk, 4)
+    other = pt.erdos_renyi(64, 0.3, seed=9)
+    assert not np.array_equal(exchange.cached_flood_plan(other, idx.shape[0], 4)[0], want[0])
+    for name, writer, reader in (
+        ("a.npz", lambda aux: jax_exch.cached_flood_plan(idx, msk, 4, aux_cache=aux),
+         lambda aux: exchange.cached_flood_plan(other, idx.shape[0], 4, aux_cache=aux)),
+        ("b.npz", lambda aux: exchange.cached_flood_plan(g, idx.shape[0], 4, aux_cache=aux),
+         lambda aux: jax_exch.cached_flood_plan(np.zeros_like(idx), np.zeros_like(msk), 4,
+                                                aux_cache=aux)),
+    ):
         path = str(tmp_path / name)
         jax_topo.save_graph_cache(path, jg, fp="fp")
-        writer.cached_flood_plan(idx, msk, 4, aux_cache=(path, "fp", "cut4"))
+        writer((path, "fp", "cut4"))
         assert "cut4" in topology.load_graph_cache_aux(path)
-        got = reader.cached_flood_plan(np.zeros_like(idx), np.zeros_like(msk), 4,
-                                       aux_cache=(path, "fp", "cut4"))
-        want = exchange.plan_flood_exchange(idx, msk, 4)
+        got = reader((path, "fp", "cut4"))
         assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
-    csr = exchange.cached_flood_plan(None, None, 4, graph=g, n_padded=idx.shape[0])
-    assert np.array_equal(csr[0], exchange.plan_flood_exchange(idx, msk, 4)[0])
+    csr = exchange.cached_flood_plan(g, idx.shape[0], 4)
+    assert np.array_equal(csr[0], want[0]) and np.array_equal(csr[1], want[1])
 
 
 # --- async ticks -----------------------------------------------------------------
