@@ -125,6 +125,29 @@ Phases (any failure raises and the script exits nonzero):
    replicated and a delta flood under ``torch.profiler``; (c) 2 and 4
    gloo ranks on the one card (gloo chosen, not a fallback): the dense and
    delta flood and coverage equal the single-device port's.
+15. The sharded protocols (``parallel.protocols_sharded``): (a) the
+   ``or_fold`` kernel (the fold of ``_reduce_scatter_or``) against its
+   plain version on ragged shapes (k up to 8, W = 1, 3, 256, n_loc not a
+   multiple of 4, slices off 16-byte alignment, the top bit set) and on a
+   4-shard split of the phase-9 push-pull's pushes at rounds 10 and 40
+   (each rank group's ``scatter_or`` into a global-width buffer, restacked
+   per destination and folded: equal to the single-device round's pushed
+   rows), timed beside its bound; (b) ``run_sharded_partnered_sim`` on
+   ``torch.cuda.device_count()`` NCCL ranks (one rank: in this process) on
+   phase 9's graph and schedule: push-pull (D = 6) on the replicated and
+   sharded rings and with the delta, hub (64 hub rows a shard) and async
+   (K = 2) exchanges, pull replicated and delta, fanout push (k = 2)
+   replicated and sharded, push-pull coverage (4,096 origins) with delta:
+   counters and coverage rows equal to phase 9's single-device runs (async
+   to the run on the delays clamped to max(d, K)), ms/round (whole call,
+   and past a one-round call's set-up) beside phase 9's, launches, each
+   run's peak device memory within 20% of
+   ``stats.extra['resident_bytes']``, and a push-pull run under
+   ``torch.profiler``; (c) 2 and 4 gloo ranks on the one card at N =
+   10,000: push-pull dense and delta and fanout push equal to the
+   single-device port, every rank folding with the kernel once a round;
+   (d) ``--protocol pushpull|pull|pushk --backend sharded`` on the card
+   and on the CPU: the same report.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -165,6 +188,11 @@ Phase 14 (b) zeroes them just before each mode's timed flood and reads
 them after its coverage run: every flood kernel launched, the exchange
 kernels once a tick exactly when the exchange is delta or hub (their
 record's ``launches`` is the delta run's), and around the 1M BA run.
+Phase 15 (b) zeroes them just before each run's timed call and reads them
+after it (``launches_sharded_protocols_<run>``): ``or_fold`` once a round
+on push-pull and fanout push, never on pull (its record's ``launches`` is
+the replicated push-pull's), the exchange kernels exactly on delta and
+hub; every other path's counts carry ``or_fold: 0``.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -191,7 +219,7 @@ SNAPSHOTS = [8, 16, 24, 32]  # the options run's periodic-stats boundaries
 LOSS_FREE_LAUNCHES = {
     "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 29, "coverage_per_slot": 7,
     "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
-    "compress_deltas": 0, "scatter_deltas": 0,
+    "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0,
 }
 FLOOD_KERNELS = tuple(name for name, count in LOSS_FREE_LAUNCHES.items() if count)
 SOURCE = "p2p_gossip_tpu_torch/csrc/gossip_kernels.cu"
@@ -206,6 +234,7 @@ REPLACES = {
     "tick_digest": "p2p_gossip_tpu/telemetry/digest.py:118",
     "compress_deltas": "p2p_gossip_tpu/parallel/exchange.py:399",
     "scatter_deltas": "p2p_gossip_tpu/parallel/exchange.py:469",
+    "or_fold": "p2p_gossip_tpu/parallel/protocols_sharded.py:104",
 }
 # The kernels the protocols' path runs: it keeps no occupancy ring, and its
 # pull rides in the round's one scatter_or call (no gather).
@@ -241,6 +270,7 @@ DIGEST_REPLICAS = 8
 SHARD_SPLIT = 4
 DELTA_TICKS = (3, 10)
 OVERFLOW_CAPACITY = 64
+PINNED_HUB_ROWS = 64  # hub rows a shard: overlay_hub's timing (14 (a)), 15 (b)'s hub run
 SHARDED_MODES = (
     ("replicated", dict(ring_mode="replicated")), ("sharded", dict(ring_mode="sharded")),
     ("delta", dict(exchange="delta")), ("hub", dict(exchange="hub")),
@@ -249,6 +279,27 @@ SHARDED_MODES = (
 SHARDED_KERNELS = ("compress_deltas", "scatter_deltas")
 GLOO_RANKS = (2, 4)
 GLOO_DEVICE = "cuda:0"  # every gloo rank on the one card
+# Phase 15: the sharded protocols. or_fold on ragged shapes (k x W x
+# n_loc) and on a SHARD_SPLIT-way split of the phase-9 push-pull's pushes;
+# the runs on the card's NCCL ranks, each (label, protocol, phase 9's
+# log-normal delays or the uniform delay, coverage rows, options); gloo
+# ranks on the one card at a reduced size; the CLI.
+OR_FOLD_RAGGED = ((1, 1, 1001), (2, 3, 37), (3, 256, 5), (4, 3, 1000), (8, 1, 13),
+                  (8, 256, 3), (3, 1, 4096))
+SHARDED_PROTOCOL_RUNS = (
+    ("pushpull-replicated", "pushpull", True, False, dict(ring_mode="replicated")),
+    ("pushpull-sharded", "pushpull", True, False, dict(ring_mode="sharded")),
+    ("pushpull-delta", "pushpull", True, False, dict(exchange="delta")),
+    ("pushpull-hub", "pushpull", True, False,
+     dict(exchange="hub", hub_rows=PINNED_HUB_ROWS)),
+    ("pushpull-async", "pushpull", True, False, dict(exchange="async", async_k=2)),
+    ("pull-replicated", "pull", False, False, dict(ring_mode="replicated")),
+    ("pull-delta", "pull", False, False, dict(exchange="delta")),
+    ("pushk-replicated", "pushk", False, False, dict(ring_mode="replicated")),
+    ("pushk-sharded", "pushk", False, False, dict(ring_mode="sharded")),
+    ("coverage-delta", "pushpull", True, True, dict(exchange="delta")),
+)
+PROTOCOL_GLOO_NODES, PROTOCOL_GLOO_SHARES, PROTOCOL_GLOO_HORIZON = 10_000, 1024, 32
 U32 = 0xFFFFFFFF
 
 
@@ -1471,7 +1522,10 @@ def protocols_path(graph, dg_uni, dg_edge, sched, dev):
     the phase-5 graph and schedule (one 8,192-share chunk, 64 rounds).
     Warm runs of all four first; then every launch count is zeroed, the
     four timed runs go, and the counts are read. Every run is held
-    against its warm run and its plain run (counters and coverage rows)."""
+    against its warm run and its plain run (counters and coverage rows).
+    Returns the launches, each run's ms/round and rate by label, and each
+    run's (stats, coverage) by kind ("pushpull", "pull", "pushk",
+    "coverage": phase 15's single-device references)."""
     import torch
 
     import p2p_gossip_tpu_torch as pt
@@ -1527,6 +1581,7 @@ def protocols_path(graph, dg_uni, dg_edge, sched, dev):
             raise AssertionError(f"{label}: kernel and plain runs differ")
     w = CHUNK // 32
     results = {}
+    refs = dict(zip(("pushpull", "pull", "pushk", "coverage"), warm))
     for (label, _, sch, kw), (wstats, wcov), ((stats, cov), wall), plain_wall in zip(
             runs, warm, timed, plain_walls):
         if not stats.equal_counts(wstats) or (cov is not None and not np.array_equal(cov, wcov)):
@@ -1553,13 +1608,14 @@ def protocols_path(graph, dg_uni, dg_edge, sched, dev):
             f" of {sch.num_shares * graph.n}, sent {totals['sent']}{extra}; kernel == "
             f"warm == plain (plain run {plain_wall:.2f} s)")
         results[label] = dict(round_ms=round_ms, rate=rate)
+    results.update({kind: results[label] for kind, (label, *_) in zip(refs, runs)})
 
     def run():
         drive(runs[0][1], runs[0][2], runs[0][3])
         return HORIZON
 
     profile_device("push-pull", run, top=40)  # every kernel, the plan's sort among them
-    return launches, results
+    return launches, results, refs
 
 
 # --- phase 10 -----------------------------------------------------------------
@@ -2589,10 +2645,8 @@ def scale_path(topology, nodes, prob, dev, cache_dir, graph=None, hook=None):
         raise AssertionError(f"scale[{topology}]: timed run differs from the warm run")
     stats.check_conservation()
     ticks = launches["coverage_per_slot"]
-    want = {"gather_or": len(dg.buckets) * ticks, "sector_occupancy": ticks,
-            "popcount_rows": ticks, "coverage_per_slot": ticks, "scatter_or": 0,
-            "scatter_or_atomic": 0, "tick_digest": 0, "compress_deltas": 0,
-            "scatter_deltas": 0}
+    want = dict(dict.fromkeys(LOSS_FREE_LAUNCHES, 0), gather_or=len(dg.buckets) * ticks,
+                sector_occupancy=ticks, popcount_rows=ticks, coverage_per_slot=ticks)
     if ticks == 0 or launches != want:
         raise AssertionError(f"scale[{topology}]: launches {launches}, want {want} (gather_or "
                              "once per degree bucket per tick)")
@@ -3166,8 +3220,14 @@ def check_delta_kernels(graph, frontiers, dev, reps):
     rval = torch.stack([c[1][0] for c in sent])
     canvas = torch.empty((n_padded, w), dtype=torch.int32, device=dev)
     offsets = torch.arange(k, dtype=torch.int64, device=dev)[:, None] * (n_loc * w)
-    kept = ridx >= 0
-    gidx, gval = (ridx.long() + offsets)[kept], rval[kept]
+
+    def library_scatter():
+        # index_put_'s route does the kernel's work: it finds the live
+        # entries (idx >= 0) and their canvas words inside the timer.
+        live = ridx >= 0
+        return torch.zeros(n_padded * w, dtype=torch.int32, device=dev).index_put_(
+            ((ridx.long() + offsets)[live],), rval[live])
+
     scatter = dict(
         max_abs_err=err["scatter_deltas"],
         ms=time_ms(lambda: kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded, out=canvas),
@@ -3175,10 +3235,10 @@ def check_delta_kernels(graph, frontiers, dev, reps):
         plain_ms=time_ms(lambda: kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded,
                                                         out=canvas, plain=True), 3),
         bound_ms=bound_ms(n_padded * w * 4 + 2 * k * cap * 4),
-        library_ms=time_ms(lambda: torch.zeros(n_padded * w, dtype=torch.int32, device=dev)
-                           .index_put_((gidx,), gval), reps, calls=KERNEL_CALLS),
-        entries=int(kept.sum()),
+        library_ms=time_ms(library_scatter, reps, calls=KERNEL_CALLS),
+        entries=int((ridx >= 0).sum()),
     )
+    hub = check_overlay_hub(need_np, cut, padded, k, n_loc, canvas, reps)
     log(f"exchange kernels, {k}-shard split of N={graph.n} (n_loc {n_loc}, W={w}, cut "
         f"{int(cut.max())} rows, capacity {cap}): kernel == plain for every shard and "
         f"receiver; {'; '.join(notes)}. Shard 0 / receiver 0 of the last frontier: "
@@ -3189,7 +3249,36 @@ def check_delta_kernels(graph, frontiers, dev, reps):
         f"{scatter['plain_ms']:.3f}; {scatter['entries']} entries)")
     del padded, canvas, sent
     torch.cuda.empty_cache()
-    return {"compress_deltas": compress, "scatter_deltas": scatter}
+    return {"compress_deltas": compress, "scatter_deltas": scatter, "overlay_hub": hub}
+
+
+def check_overlay_hub(need_np, cut, padded, k, n_loc, canvas, reps):
+    """``exchange.overlay_hub`` (torch ``index_copy_``, the hub exchange's
+    row set) on the SHARD_SPLIT-way split with a pinned hub count
+    (`exchange.plan_hub_split`, PINNED_HUB_ROWS a shard): every shard's
+    hub rows of the frontier overlaid onto a canvas, held against the rows
+    themselves, timed beside its bound (the k*h-row block read once, those
+    rows written once, their int64 ids read once)."""
+    import torch
+
+    from p2p_gossip_tpu_torch.parallel import exchange as exch
+
+    w = padded.shape[1]
+    split = exch.plan_hub_split(need_np, cut, k, n_loc, w, hub_rows=PINNED_HUB_ROWS)
+    rows = torch.as_tensor(split["hub_global"].reshape(-1).astype(np.int64), device=padded.device)
+    block = padded[rows].contiguous()
+    canvas.zero_()
+    exch.overlay_hub(canvas, rows, block)
+    compare("overlay_hub[hub rows]", canvas[rows], block)
+    if int(canvas.count_nonzero()) != int(block.count_nonzero()):
+        raise AssertionError("overlay_hub wrote outside the hub rows")
+    h = split["hub_count"]
+    nbytes = 2 * k * h * w * 4 + k * h * 8
+    out = dict(ms=time_ms(lambda: exch.overlay_hub(canvas, rows, block), reps, calls=KERNEL_CALLS),
+               bound_ms=bound_ms(nbytes), hub_rows=h)
+    log(f"overlay_hub ({k} shards x {h} hub rows, W={w}): == the hub rows; "
+        f"{out['ms']:.4f} ms, bound {out['bound_ms']:.6f} ms ({nbytes / 1e6:.3f} MB)")
+    return out
 
 
 def sharded_worker(graph, sched, origins, ba, device):
@@ -3221,25 +3310,7 @@ def sharded_worker(graph, sched, origins, ba, device):
     cuda = dev.type == "cuda"
     mesh = make_mesh(device=dev)
 
-    def allocated():
-        if not cuda:
-            return 0
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return torch.cuda.memory_allocated()
-
-    def measured(run, base):
-        if cuda:
-            allocated()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        result = run()
-        if not cuda:
-            return result, time.perf_counter() - t0, 0
-        torch.cuda.synchronize()
-        return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
-
-    base = allocated()
+    base = device_allocated(cuda)
     t0 = time.perf_counter()
     sg = stage_sharded_graph(graph, mesh)
     out = {"stage_s": time.perf_counter() - t0, "shape": mesh.shape}
@@ -3247,10 +3318,10 @@ def sharded_worker(graph, sched, origins, ba, device):
         flood = dict(chunk_size=CHUNK, sharded_graph=sg, **kw)
         run_sharded_sim(graph, sched, HORIZON, mesh, **flood)
         kernels.reset_launches()
-        stats, wall, peak = measured(
-            lambda: run_sharded_sim(graph, sched, HORIZON, mesh, **flood), base)
-        (cstats, cov), cwall, cpeak = measured(lambda: run_sharded_flood_coverage(
-            graph, origins, HORIZON, mesh, sharded_graph=sg, **kw), base)
+        stats, wall, peak = measured_run(
+            lambda: run_sharded_sim(graph, sched, HORIZON, mesh, **flood), base, cuda)
+        (cstats, cov), cwall, cpeak = measured_run(lambda: run_sharded_flood_coverage(
+            graph, origins, HORIZON, mesh, sharded_graph=sg, **kw), base, cuda)
         out[mode] = dict(
             stats=stats, wall=wall, peak=peak, coverage=cov, cov_stats=cstats,
             cov_wall=cwall, cov_peak=cpeak, launches=dict(kernels.launches))
@@ -3267,20 +3338,48 @@ def sharded_worker(graph, sched, origins, ba, device):
     if ba is not None:
         ba_graph, ba_origins = ba
         del sg
-        base = allocated()
+        base = device_allocated(cuda)
         t0 = time.perf_counter()
         sg = stage_sharded_graph(ba_graph, mesh)
         stage_s = time.perf_counter() - t0
         ba_kw = dict(ring_mode="sharded", exchange="delta", sharded_graph=sg)
-        _, warm_wall, warm_peak = measured(lambda: run_sharded_flood_coverage(
-            ba_graph, ba_origins, HORIZON, mesh, **ba_kw), base)
+        _, warm_wall, warm_peak = measured_run(lambda: run_sharded_flood_coverage(
+            ba_graph, ba_origins, HORIZON, mesh, **ba_kw), base, cuda)
         kernels.reset_launches()
-        (stats, cov), wall, peak = measured(lambda: run_sharded_flood_coverage(
-            ba_graph, ba_origins, HORIZON, mesh, **ba_kw), base)
+        (stats, cov), wall, peak = measured_run(lambda: run_sharded_flood_coverage(
+            ba_graph, ba_origins, HORIZON, mesh, **ba_kw), base, cuda)
         out["ba"] = dict(stats=stats, coverage=cov, wall=wall, peak=peak, stage_s=stage_s,
                          warm_wall=warm_wall, warm_peak=warm_peak,
                          launches=dict(kernels.launches))
     return out
+
+
+def device_allocated(cuda: bool) -> int:
+    """Bytes allocated on the card after a sync and a cache flush (0 off
+    the card)."""
+    import torch
+
+    if not cuda:
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def measured_run(run, base: int, cuda: bool):
+    """(``run()``'s result, its wall seconds ending in a sync, its peak
+    device memory above ``base``; 0 off the card)."""
+    import torch
+
+    if cuda:
+        device_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = run()
+    if not cuda:
+        return result, time.perf_counter() - t0, 0
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
 
 
 def same_counts(a, b) -> bool:
@@ -3470,6 +3569,392 @@ def gloo_ranks(graph, sched, origins, ref, ref_cov):
 
 
 
+# --- phase 15 -----------------------------------------------------------------
+
+def or_fold_case(label, stack, dev, reps=0):
+    """``kernels.or_fold`` of ``stack`` against its plain version (bitwise);
+    with ``reps``, timed (10 back-to-back calls) beside its bound: the k
+    slices read once, the (n_loc, W) result written once."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    k, n, w = stack.shape
+    out = torch.empty((n, w), dtype=torch.int32, device=dev)
+    got = kernels.or_fold(stack, out=out)
+    want = kernels.or_fold(stack, plain=True)
+    result = dict(max_abs_err=compare(f"or_fold[{label}]", got, want))
+    if reps:
+        result.update(
+            ms=time_ms(lambda: kernels.or_fold(stack, out=out), reps, calls=KERNEL_CALLS),
+            plain_ms=time_ms(lambda: kernels.or_fold(stack, plain=True), reps,
+                             calls=KERNEL_CALLS),
+            bound_ms=bound_ms((k + 1) * n * w * 4))
+    return result, got
+
+
+def check_or_fold_ragged(dev, rng):
+    """or_fold on OR_FOLD_RAGGED's (k, W, n_loc): random words with every bit
+    in play (the top bit set), the vector path where n_loc x W is a
+    multiple of 4 and the scalar one where not, and a stack whose slices
+    start 4 bytes past 16-byte alignment."""
+    err = 0
+    for k, w, n in OR_FOLD_RAGGED:
+        stack = random_words(rng, (k, n, w), dev)
+        stack.view(-1)[0] |= -(1 << 31)
+        err = max(err, or_fold_case(f"k={k} W={w} n_loc={n}", stack, dev)[0]["max_abs_err"])
+        skewed = random_words(rng, (k * n * w + 1,), dev)[1:].view(k, n, w)
+        err = max(err, or_fold_case(f"k={k} W={w} n_loc={n}, unaligned", skewed,
+                                    dev)[0]["max_abs_err"])
+    log(f"or_fold ragged: {len(OR_FOLD_RAGGED)} shapes, aligned and unaligned, "
+        f"== plain (max_abs_err {err})")
+    return err
+
+
+def check_or_fold_split(graph, dg_edge, sched, dev, reps):
+    """or_fold on a SHARD_SPLIT-way split of the phase-9 push-pull's pushes
+    at rounds PROTOCOL_CAPTURE_ROUND and PROTOCOL_DENSE_ROUND: the senders
+    in SHARD_SPLIT rank groups, each group's `scatter_or` of its pushes
+    into a (n_padded, W) buffer, the buffers restacked per destination
+    shard and folded; the folded shards equal the single-device round's
+    pushed rows (one `scatter_or` of every push). Timed on destination 0's
+    stack of the dense round."""
+    import torch
+
+    from p2p_gossip_tpu_torch.models import protocols
+    from p2p_gossip_tpu_torch.models.partnersel import pick_key
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    n, w, k = graph.n, CHUNK // 32, SHARD_SPLIT
+    n_padded = n + (-n) % k
+    n_loc = n_padded // k
+    origins, gen_ticks = sched.padded(CHUNK, HORIZON)
+    nodes = torch.arange(n, dtype=torch.int64, device=dev)
+    key = pick_key(nodes[:, None], torch.zeros((1, 1), dtype=torch.int64, device=dev), SEED)
+    err, timed = 0, None
+    for t in (PROTOCOL_CAPTURE_ROUND, PROTOCOL_DENSE_ROUND):
+        _, _, _, hist = protocols._run_chunk(
+            dg_edge, origins, gen_ticks, key, None, None, None, mode="pushpull",
+            chunk_size=CHUNK, horizon=t, n_cov=None, plain=False)
+        flat = hist.view(-1, w)
+        draw = protocols._draw_rounds(dg_edge, key, None, None, None, t, t + 1, "pushpull")
+        dst, src, ok = (draw[f][0].reshape(-1) for f in ("partners", "src", "attempted"))
+        offsets, entries = kernels.scatter_or_plan(dst, src, ok, n_padded, flat.shape[0])
+        pushed = kernels.scatter_or(flat, offsets, entries,
+                                    out=torch.empty((n_padded, w), dtype=torch.int32,
+                                                    device=dev))
+        buffers = []
+        for g in range(k):
+            rows = slice(g * n_loc, min((g + 1) * n_loc, n))
+            offsets, entries = kernels.scatter_or_plan(dst[rows], src[rows], ok[rows],
+                                                       n_padded, flat.shape[0])
+            buffers.append(kernels.scatter_or(
+                flat, offsets, entries,
+                out=torch.empty((n_padded, w), dtype=torch.int32, device=dev)))
+        for d in range(k):
+            mine = slice(d * n_loc, (d + 1) * n_loc)
+            stack = torch.stack([b[mine] for b in buffers])
+            case, got = or_fold_case(f"round {t}, destination {d}", stack, dev,
+                                     reps if (t, d) == (PROTOCOL_DENSE_ROUND, 0) else 0)
+            err = max(err, case["max_abs_err"])
+            compare(f"or_fold[round {t}, destination {d}] vs the single-device pushes",
+                    got, pushed[mine])
+            if "ms" in case:
+                timed = case
+        del hist, flat, buffers, pushed
+    torch.cuda.empty_cache()
+    timed["max_abs_err"] = err
+    log(f"or_fold, {k}-shard split of the phase-9 push-pull's pushes (rounds "
+        f"{PROTOCOL_CAPTURE_ROUND} and {PROTOCOL_DENSE_ROUND}, n_loc {n_loc}, W={w}): every "
+        f"destination's fold == plain == the single-device pushed rows; destination 0 of "
+        f"round {PROTOCOL_DENSE_ROUND}: {timed['ms']:.4f} ms (bound {timed['bound_ms']:.4f}, "
+        f"plain {timed['plain_ms']:.4f})")
+    return timed
+
+
+def protocol_run_kwargs(protocol, per_edge, coverage, delays, kw):
+    return dict(protocol=protocol, fanout=2, ell_delays=delays if per_edge else None,
+                chunk_size=CHUNK, seed=SEED, record_coverage=coverage, **kw)
+
+
+def sharded_protocols_worker(graph, sched, cov_sched, delays, device):
+    """Phase 15 (b), on every rank: the mesh of all ranks on the nodes axis
+    and every SHARDED_PROTOCOL_RUNS run (a warm run, then the timed run
+    between a launch-count reset and a read, with its peak device memory
+    above what was allocated before it, then a one-round call for the
+    set-up's share of the wall), then the replicated push-pull once more
+    (the first rank's under the profiler). Every rank runs every
+    call. ``device`` None means ``cuda:<rank>``; on the CPU nothing is
+    profiled and no memory is read. Returns host values only."""
+    import torch
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel.mesh import make_mesh
+    from p2p_gossip_tpu_torch.parallel.protocols_sharded import run_sharded_partnered_sim
+
+    dev = torch.device(device if device else f"cuda:{dist.get_rank()}")
+    cuda = dev.type == "cuda"
+    mesh = make_mesh(device=dev)
+    out = {"shape": mesh.shape}
+    for label, protocol, per_edge, coverage, kw in SHARDED_PROTOCOL_RUNS:
+        call = protocol_run_kwargs(protocol, per_edge, coverage, delays, kw)
+        sch = cov_sched if coverage else sched
+
+        def run(sch=sch, call=call):
+            return run_sharded_partnered_sim(graph, sch, HORIZON, mesh, **call)
+
+        run()
+        base = device_allocated(cuda)
+        kernels.reset_launches()
+        result, wall, peak = measured_run(run, base, cuda)
+        stats, cov = result if coverage else (result, None)
+        launches = dict(kernels.launches)
+        # A one-round call: its wall is the call's set-up (host staging,
+        # plan, final gathers) and one round, so the rounds' own time is the
+        # difference over HORIZON - 1.
+        one_round = measured_run(lambda sch=sch, call=call: run_sharded_partnered_sim(
+            graph, sch, 1, mesh, **call), base, cuda)[1]
+        out[label] = dict(stats=stats, coverage=cov, wall=wall, peak=peak,
+                          launches=launches, one_round=one_round)
+
+    def profiled():
+        run_sharded_partnered_sim(graph, sched, HORIZON, mesh, **protocol_run_kwargs(
+            *SHARDED_PROTOCOL_RUNS[0][1:4], delays, SHARDED_PROTOCOL_RUNS[0][4]))
+        return HORIZON
+
+    if mesh.is_first and cuda:
+        profile_device("sharded push-pull (replicated ring)", profiled, top=15)
+    else:
+        profiled()
+    return out
+
+
+def protocol_references(graph, sched, cov_sched, delays, dev, base=None):
+    """What each SHARDED_PROTOCOL_RUNS run must equal: label -> (stats,
+    coverage or None) of the single-device port. ``base`` maps "pushpull",
+    "pull", "pushk" and "coverage" to phase 9's runs (computed here when
+    None); an async run is held to the single-device run on its delays
+    clamped to max(d, K) (`async_ticks.clamp_partner_delays`)."""
+    from p2p_gossip_tpu_torch.models.protocols import run_pushk_sim, run_pushpull_sim
+    from p2p_gossip_tpu_torch.parallel.async_ticks import clamp_partner_delays
+
+    def single(protocol, per_edge, coverage, d=None):
+        kw = dict(ell_delays=(delays if d is None else d) if per_edge else None, seed=SEED,
+                  device=dev, record_coverage=coverage)
+        s = cov_sched if coverage else sched
+        if not coverage:
+            kw["chunk_size"] = CHUNK
+        if protocol == "pushk":
+            return run_pushk_sim(graph, s, HORIZON, fanout=2, **kw)
+        return run_pushpull_sim(graph, s, HORIZON, mode=protocol, **kw)
+
+    if base is None:
+        base = {"pushpull": single("pushpull", True, False), "pull": single("pull", False, False),
+                "pushk": single("pushk", False, False),
+                "coverage": single("pushpull", True, True)}
+    refs = {}
+    for label, protocol, per_edge, coverage, kw in SHARDED_PROTOCOL_RUNS:
+        k = kw.get("async_k", 0)
+        if k:
+            refs[label] = single(protocol, per_edge, coverage, clamp_partner_delays(delays, k))
+        else:
+            refs[label] = base["coverage" if coverage else protocol]
+    return refs
+
+
+def check_protocol_run(label, run, want):
+    """Phase 15 (b)'s equality of one rank's `sharded_protocols_worker` entry
+    with its `protocol_references` entry: counters and coverage rows."""
+    stats, cov = want
+    if not same_counts(run["stats"], stats):
+        raise AssertionError(f"sharded protocols [{label}]: counters differ from the "
+                             "single-device port's")
+    if cov is not None and not np.array_equal(run["coverage"], cov):
+        raise AssertionError(f"sharded protocols [{label}]: coverage rows differ")
+
+
+def check_protocol_launches(label, protocol, run):
+    """Phase 15 (b)'s launch counts of one run: or_fold once a round of the
+    run's one pass where it pushes (push-pull, fanout push) and never on
+    pull; the exchange kernels exactly on delta and hub; the round's other
+    kernels launched; no flood or telemetry kernel."""
+    launches = run["launches"]
+    pushes = protocol != "pull"
+    if launches["or_fold"] != (HORIZON if pushes else 0):
+        raise AssertionError(f"sharded protocols [{label}]: or_fold launched "
+                             f"{launches['or_fold']} times in {HORIZON} rounds")
+    needed = ["popcount_rows"] + (["scatter_or"] if pushes else [])
+    needed += ["coverage_per_slot"] if run["coverage"] is not None else []
+    delta = run["stats"].extra["exchange"]["mode"] in ("delta", "hub")
+    for name in needed + (list(SHARDED_KERNELS) if delta else []):
+        if launches[name] == 0:
+            raise AssertionError(f"sharded protocols [{label}]: {name} never launched")
+    if not delta and any(launches[name] for name in SHARDED_KERNELS):
+        raise AssertionError(f"sharded protocols [{label}]: exchange kernels launched")
+    if launches["gather_or"] or launches["tick_digest"]:
+        raise AssertionError(f"sharded protocols [{label}]: a flood or telemetry kernel ran")
+
+
+def sharded_protocols_phase(graph, sched, delays, dg_edge, phase9, phase9_refs, dev, rng):
+    """Phase 15: (a) or_fold on ragged shapes and on a 4-shard split of the
+    phase-9 push-pull's pushes, timed beside its bound; (b) the sharded
+    protocols at full width on ``torch.cuda.device_count()`` NCCL ranks
+    (one rank: in this process) against phase 9's single-device runs; (c)
+    2 and 4 gloo ranks on the one card at a reduced size; (d) the CLI on
+    the card against the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.parallel import launch
+    from p2p_gossip_tpu_torch.parallel.mesh import initialize_multihost
+
+    t_phase = time.perf_counter()
+    ragged_err = check_or_fold_ragged(dev, rng)
+    fold = check_or_fold_split(graph, dg_edge, sched, dev, reps=10)
+    fold["max_abs_err"] = max(fold["max_abs_err"], ragged_err)
+
+    origins = np.random.default_rng(SEED + 1).integers(0, graph.n, COVERAGE_ORIGINS)
+    cov_sched = pt.Schedule(graph.n, origins, np.zeros(COVERAGE_ORIGINS, dtype=np.int32))
+    refs = protocol_references(graph, sched, cov_sched, delays, dev, phase9_refs)
+    ranks = torch.cuda.device_count()
+    if ranks == 1:
+        initialize_multihost(backend="nccl", device=dev)
+        try:
+            runs = sharded_protocols_worker(graph, sched, cov_sched, delays, str(dev))
+        finally:
+            dist.destroy_process_group()
+    else:
+        runs = launch.spawn(sharded_protocols_worker, ranks, graph, sched, cov_sched, delays,
+                            None, backend="nccl")[0]
+    log(f"sharded protocols (b): {ranks} NCCL rank(s), mesh {runs['shape']}; each wall is "
+        "the whole call (staging, plan, set-up and the final gathers included)")
+    for label, protocol, _, coverage, _ in SHARDED_PROTOCOL_RUNS:
+        r = runs[label]
+        check_protocol_run(label, r, refs[label])
+        check_protocol_launches(label, protocol, r)
+        st = r["stats"]
+        round_ms = r["wall"] / HORIZON * 1e3
+        loop_ms = (r["wall"] - r["one_round"]) / (HORIZON - 1) * 1e3
+        solo_ms = phase9["coverage" if coverage else protocol]["round_ms"]
+        launched = {k: v for k, v in r["launches"].items() if v}
+        log(f"  {label}: {HORIZON} rounds, whole call {r['wall']:.4f} s -> {round_ms:.3f} "
+            f"ms/round; a one-round call {r['one_round']:.4f} s, so {loop_ms:.3f} ms a round "
+            f"past the set-up (phase 9's single-device run, staged beforehand: "
+            f"{solo_ms:.3f}, {loop_ms / solo_ms:.3f}x); == single-device (counters"
+            f"{', coverage rows' if coverage else ''}); ring {st.extra['ring']['mode']}, "
+            f"exchange {st.extra['exchange']['mode']}; launches {launched}")
+        check_resident(label, r["peak"], st.extra["resident_bytes"])
+    gloo = gloo_protocol_ranks(dev)
+    check_sharded_protocol_cli(dev)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 15 took {seconds:.1f} s")
+    return dict(or_fold=fold, runs=runs, gloo=gloo, seconds=seconds)
+
+
+def gloo_protocols_worker(calls, device):
+    """Phase 15 (c), on every rank: each call of ``calls`` (as
+    `launch.call_on_meshes` takes them) between a launch-count reset and a
+    read: (result, or_fold launches) a call."""
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import launch
+
+    out = []
+    for call in calls:
+        kernels.reset_launches()
+        out.append((launch.call_on_meshes([call], device)[0], kernels.launches["or_fold"]))
+    return out
+
+
+def gloo_protocol_ranks(dev):
+    """Phase 15 (c): GLOO_RANKS gloo ranks on the one card (gloo chosen, not
+    a fallback) run push-pull with the dense and the delta exchange and
+    fanout push on the sharded ring, at PROTOCOL_GLOO_NODES nodes: each
+    equal to the single-device port on the card, each rank folding its k =
+    2 or 4 stack with the or_fold kernel once a round. Walls are host
+    transport and say nothing of a multi-GPU machine's speed."""
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.models.protocols import run_pushk_sim, run_pushpull_sim
+    from p2p_gossip_tpu_torch.parallel import launch
+
+    graph = pt.erdos_renyi(PROTOCOL_GLOO_NODES, EDGE_P, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    sched = pt.Schedule(graph.n, rng.integers(0, graph.n, PROTOCOL_GLOO_SHARES).astype(np.int32),
+                        rng.integers(0, GEN_WINDOW, PROTOCOL_GLOO_SHARES).astype(np.int32))
+    delays = pt.lognormal_delays(graph, mean_ticks=2.0, sigma=0.5, max_ticks=5, seed=SEED)
+    h = PROTOCOL_GLOO_HORIZON
+    sim = "p2p_gossip_tpu_torch.parallel.protocols_sharded:run_sharded_partnered_sim"
+    modes = (("pushpull-dense", dict(protocol="pushpull", ell_delays=delays,
+                                     ring_mode="sharded")),
+             ("pushpull-delta", dict(protocol="pushpull", ell_delays=delays, exchange="delta")),
+             ("pushk-sharded", dict(protocol="pushk", fanout=2, ring_mode="sharded")))
+    want = {"pushpull": run_pushpull_sim(graph, sched, h, ell_delays=delays, seed=SEED,
+                                         device=dev)[0],
+            "pushk": run_pushk_sim(graph, sched, h, fanout=2, seed=SEED, device=dev)[0]}
+    calls, labels = [], []
+    for n in GLOO_RANKS:
+        for mode, kw in modes:
+            calls.append((n, 1, sim, (graph, sched, h), dict(seed=SEED, **kw)))
+            labels.append((n, mode))
+    t0 = time.perf_counter()
+    ranks = launch.spawn(gloo_protocols_worker, max(GLOO_RANKS), calls, GLOO_DEVICE,
+                         backend="gloo")
+    wall = time.perf_counter() - t0
+    for i, (n, mode) in enumerate(labels):
+        if not all(same_counts(r[i][0], want[mode.split("-")[0]]) for r in ranks[:n]):
+            raise AssertionError(f"gloo {n} ranks [{mode}]: differs from the single-device port")
+    out = {}
+    for i, (n, mode) in enumerate(labels):
+        stats = ranks[0][i][0]
+        folds = [r[i][1] for r in ranks[:n]]
+        if folds != [h] * n:
+            raise AssertionError(f"gloo {n} ranks [{mode}]: or_fold launched {folds} times "
+                                 f"on the ranks in {h} rounds")
+        out[f"{n}_{mode}"] = dict(exchange=stats.extra["exchange"]["mode"])
+        log(f"  gloo (c) {n} ranks on one card [{mode}]: == single-device (counters), "
+            f"or_fold once a round on every rank; exchange {stats.extra['exchange']['mode']}")
+    log(f"gloo (c): {len(calls)} protocol runs (N={graph.n}, {PROTOCOL_GLOO_SHARES} shares, "
+        f"{h} rounds) on {max(GLOO_RANKS)} spawned ranks in {wall:.1f} s (host transport, "
+        "not a speed)")
+    return out
+
+
+def check_sharded_protocol_cli(dev):
+    """Phase 15 (d): ``--protocol pushpull|pull|pushk --backend sharded``
+    (with and without ``--floodCoverage``) on the card and on the CPU: the
+    same report apart from the wall-time line."""
+    import contextlib
+    import io
+
+    from p2p_gossip_tpu_torch.utils import cli
+
+    small = ["--numNodes", "60", "--simTime", "2", "--Latency", "50", "--backend", "sharded"]
+    configs = (
+        ("pushpull lognormal", small + ["--protocol", "pushpull", "--delayModel", "lognormal"]),
+        ("pull coverage, churn + loss", small + ["--protocol", "pull", "--floodCoverage", "20",
+                                                 "--churnProb", "0.2", "--lossProb", "0.1"]),
+        ("pushk coverage, replicated ring", small + ["--protocol", "pushk", "--fanout", "3",
+                                                     "--floodCoverage", "12", "--ringMode",
+                                                     "replicated"]),
+        ("pushk", small + ["--protocol", "pushk", "--lossProb", "0.1"]),
+    )
+    for label, args in configs:
+        lines = {}
+        for device in (str(dev), "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.run(args + ["--device", device])
+            if rc != 0:
+                raise AssertionError(f"CLI {label} on {device} exited {rc}")
+            lines[device] = buf.getvalue().splitlines()
+        got, want = lines[str(dev)], lines["cpu"]
+        if len(got) != len(want) or got[:-1] != want[:-1] or not any(
+                ln.startswith("Mesh: ") for ln in got):
+            raise AssertionError(f"CLI {label} --backend sharded: report differs from the CPU's")
+        log(f"cli[sharded {label}] on {dev} and on the CPU: equal reports ({len(got)} lines)")
+
+
 def main() -> int:
     import torch
 
@@ -3497,6 +3982,7 @@ def main() -> int:
         build.build()
         north_star(sys.argv[2], dev)
         return 0
+    t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
     log(f"kernels built in {nvcc_s:.2f} s -> {path}")
@@ -3545,7 +4031,7 @@ def main() -> int:
     options_launches, option_models = options_path(graph, dg, sched, dev, base)
     profile_flood(graph, sched, dg, dev)
     profile_flood(graph, sched, dg, dev, "options flood", **option_models)
-    protocol_launches, _ = protocols_path(graph, dgf, dgf_edge, sched, dev)
+    protocol_launches, phase9, phase9_refs = protocols_path(graph, dgf, dgf_edge, sched, dev)
     check_digest_ragged(dev, rng)
     digest = check_digest(dg, sched, dev, rng, reps=20)
     telemetry_launches, flood_cost = telemetry_flood(graph, dg, sched, dev)
@@ -3568,6 +4054,9 @@ def main() -> int:
     scale, ba = scale_phase(dev)
     serve = serve_phase(graph, dev, rng)
     sharded = sharded_phase(graph, dg, sched, ba, dev)
+    protocols15 = sharded_protocols_phase(graph, sched, delays, dgf_edge, phase9, phase9_refs,
+                                          dev, rng)
+    log(f"chip_smoke phases 1-15 took {time.perf_counter() - t_start:.1f} s")
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -3666,19 +4155,31 @@ def main() -> int:
             max_abs_err=max(sharded["kernels_100k"][name]["max_abs_err"], m1["max_abs_err"]),
             **{f"{key}_1m_ba": m1[key]
                for key in ("ms", "bound_ms", "plain_ms", "library_ms")})
+    # exchange.overlay_hub (a torch index_copy_, no kernel of its own) beside
+    # the scatter it completes, on the same split with pinned hub rows.
+    measured["scatter_deltas"].update(
+        {f"overlay_hub_{key}": sharded["kernels_100k"]["overlay_hub"][key]
+         for key in ("ms", "bound_ms", "hub_rows")})
+    # Phase 15 (a): or_fold on destination 0's stack of the 4-shard split
+    # of the phase-9 push-pull's round-40 pushes (ragged shapes checked too);
+    # no torch call OR-reduces int32 words over an axis: library_ms null.
+    measured["or_fold"] = dict(protocols15["or_fold"], library_ms=None)
     base_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
     record = []
     for name, m in measured.items():
         # `launches`: the path the kernel serves — the flood's main path, for
         # scatter_or (the protocols' kernel) the protocols' path, for
         # tick_digest the telemetry-on flood + coverage (phase 10), for the
-        # exchange kernels the sharded delta flood + coverage (phase 14 (b)).
+        # exchange kernels the sharded delta flood + coverage (phase 14 (b)),
+        # for or_fold the sharded push-pull on the replicated ring (15 (b)).
         if name in FLOOD_KERNELS:
             path_launches = launches[name]
         elif name in TELEMETRY_KERNELS:
             path_launches = telemetry_launches[name]
         elif name in SHARDED_KERNELS:
             path_launches = sharded["runs"]["delta"]["launches"][name]
+        elif name == "or_fold":
+            path_launches = protocols15["runs"]["pushpull-replicated"]["launches"][name]
         else:
             path_launches = protocol_launches[name]
         record.append({
@@ -3698,6 +4199,9 @@ def main() -> int:
             **{f"launches_sharded_{mode}": sharded["runs"][mode]["launches"][name]
                for mode, _ in SHARDED_MODES},
             "launches_sharded_1m_ba": sharded["runs"]["ba"]["launches"][name],
+            **{f"launches_sharded_protocols_{label}":
+               protocols15["runs"][label]["launches"][name]
+               for label, *_ in SHARDED_PROTOCOL_RUNS},
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

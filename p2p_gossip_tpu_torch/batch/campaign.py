@@ -33,7 +33,7 @@ package's events, value for value), and the batch's ``progress`` beat its
 ``digest_head``. Sentinel replicas emit nothing.
 
 Not ported yet: the ``mesh`` argument (the sharded campaigns,
-``batch/campaign_sharded``, the next multi-GPU slice of ROADMAP §1 item 4);
+``batch/campaign_sharded``, the next multi-GPU slice, ROADMAP §1 item 2);
 it raises NotImplementedError.
 """
 
@@ -366,8 +366,8 @@ def _resolve_batch(replicas: ReplicaSet, batch_size: int | None, mesh) -> int:
     if mesh is not None:
         raise NotImplementedError(
             "campaigns over a device mesh wait for the next multi-GPU slice "
-            "(ROADMAP §1 item 4: batch/campaign_sharded after protocols_sharded; "
-            "the sharded flood itself is parallel.engine_sharded)"
+            "(ROADMAP §1 item 2: batch/campaign_sharded; the sharded flood and "
+            "protocols themselves are parallel.engine_sharded and protocols_sharded)"
         )
     if batch_size is None:
         batch_size = replicas.num_replicas

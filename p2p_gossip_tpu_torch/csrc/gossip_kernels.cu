@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the flood engine's tick, the
-// random-partner protocols' round and the telemetry's per-tick digest.
+// random-partner protocols' round, the sharded engines' exchange and the
+// telemetry's per-tick digest.
 //
 // Plain C interface, loaded with ctypes (p2p_gossip_tpu_torch/ops/kernels.py).
 // Every entry point launches on the stream it is given, allocates nothing,
@@ -903,6 +904,30 @@ __global__ void scatter_deltas_kernel(const int32_t* __restrict__ idx,
   if (g < canvas_words) out[g] = __ldg(val + e);
 }
 
+// ---------------------------------------------------------------------------
+// or_fold
+//
+// Replaces: p2p_gossip_tpu/parallel/protocols_sharded.py _reduce_scatter_or
+//   (XLA: lax.reduce with bitwise_or over axis 0 of the all_to_all's
+//   (k, n_loc, W) stack of pushed rows).
+// Computes: out[i] = OR over j < k of stack[j * n + i], n = n_loc * W words
+//   (k >= 1: k = 1 is a copy).
+// Bound on the H100: bytes (k * n words read once, n words written once).
+// Design: one thread per 16-byte unit of the output, k 16-byte loads (one
+//   from each slice, n words apart) and one 16-byte store; no shared memory,
+//   no reduction tree. When n is not a multiple of 4 the slices are not
+//   16-byte aligned, and the scalar instantiation takes one word a thread.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(256)
+or_fold_kernel(const T* __restrict__ stack, long long items, int k, T* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= items) return;
+  T acc = __ldg(stack + i);
+  for (int j = 1; j < k; ++j) acc = or_units(acc, __ldg(stack + (long long)j * items + i));
+  out[i] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1123,6 +1148,25 @@ int gossip_scatter_deltas(const void* idx, const void* val, int n_srcs, int capa
     scatter_deltas_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)idx, (const uint32_t*)val, n, capacity, src_words, canvas_words,
         (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// `stack` is (k, n_words) row-major, k >= 1; out holds n_words words.
+int gossip_or_fold(const void* stack, long long n_words, int k, void* out, void* stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const bool vec = n_words % 4 == 0 && aligned16(stack) && aligned16(out);
+  const long long items = vec ? n_words / 4 : n_words;
+  const long long blocks = (items + threads - 1) / threads;
+  if (blocks > 0) {
+    if (vec) {
+      or_fold_kernel<uint4><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+          (const uint4*)stack, items, k, (uint4*)out);
+    } else {
+      or_fold_kernel<uint32_t><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)stack, items, k, (uint32_t*)out);
+    }
+  }
   return (int)cudaGetLastError();
 }
 

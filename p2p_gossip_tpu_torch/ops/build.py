@@ -59,6 +59,8 @@ _SIGNATURES = {
     "gossip_compress_deltas": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P),
     # idx, val, n_srcs, capacity, src_words, canvas_words, out, stream
     "gossip_scatter_deltas": (_P, _P, _I, _I, _LL, _LL, _P, _P),
+    # stack, n_words, k, out, stream
+    "gossip_or_fold": (_P, _LL, _I, _P, _P),
 }
 
 

@@ -13,6 +13,8 @@
 | `compress_deltas`   | parallel/exchange.py compress_deltas (XLA cumsum ranks  |
 |                     | and scatters into capacity + 1 buffers)                 |
 | `scatter_deltas`    | parallel/exchange.py scatter_deltas (XLA scatter-set)   |
+| `or_fold`           | parallel/protocols_sharded.py _reduce_scatter_or (XLA   |
+|                     | OR reduce of the all_to_all's stack)                    |
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel (csrc/gossip_kernels.cu, built and bound by
@@ -41,7 +43,7 @@ WORD_BITS = 32
 launches = {
     "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
     "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
-    "compress_deltas": 0, "scatter_deltas": 0,
+    "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0,
 }
 
 
@@ -836,4 +838,39 @@ def scatter_deltas(
             idx.data_ptr(), val.data_ptr(), idx.shape[0], idx.shape[1],
             n_loc * w, n_padded * w, out.data_ptr(), _stream(idx.device),
         )
+    return out
+
+
+# --- or_fold ------------------------------------------------------------------
+
+def or_fold_plain(stack: torch.Tensor) -> torch.Tensor:
+    """Slice 0 copied, then slices 1..k-1 ORed into it: (k, n, W) -> (n, W)."""
+    out = stack[0].clone()
+    for j in range(1, stack.shape[0]):
+        out.bitwise_or_(stack[j])
+    return out
+
+
+def or_fold(
+    stack: torch.Tensor, *, out: torch.Tensor | None = None, plain: bool = False
+) -> torch.Tensor:
+    """The OR of a (k, n, W) int32 stack of bitmasks over its first axis,
+    ``out[r, w] = OR_j stack[j, r, w]``, written into ``out`` (n, W) when
+    given (a fresh tensor otherwise) and returned: the fold of the sharded
+    protocols' push, whose all_to_all leaves each node shard the k shards'
+    pushes into its rows. One launch for any k >= 1 (k = 1 copies)."""
+    _require(stack.dim() == 3 and stack.shape[0] >= 1, "stack must be (k >= 1, n, W)")
+    k, n, w = stack.shape
+    if out is None:
+        out = torch.empty((n, w), dtype=torch.int32, device=stack.device)
+    _require(out.shape == (n, w) and out.dtype == torch.int32, "out must be (n, W) int32")
+    if not _use_kernel(stack, plain):
+        return out.copy_(or_fold_plain(stack))
+    _require(stack.dtype == torch.int32, f"stack must be int32, got {stack.dtype}")
+    for name, t in (("stack", stack), ("out", out)):
+        _require(t.device == stack.device and t.is_contiguous(),
+                 f"{name} must be contiguous on the stack's device")
+    if n * w:
+        _launch("or_fold", _lib().gossip_or_fold, stack.data_ptr(), n * w, k, out.data_ptr(),
+                _stream(stack.device))
     return out

@@ -22,8 +22,11 @@ Exact semantics (the contract every parity test pins down):
   under churn and link loss: the loss coin hashes (tick, global ids) and
   the churn up-gate reads the current tick — neither reads delays — so
   arrival-tick equality implies coin-for-coin equality.
-- **Partnered protocols**: not ported yet (their clamp,
-  ``clamp_partner_delays``, comes with the sharded protocols).
+- **Partnered protocols** (parallel/protocols_sharded.py): partners are
+  global-random, so async(K) is the same protocol with EVERY partner-read
+  delay clamped to ``max(d, K)`` (`clamp_partner_delays`), applied before
+  staging; `protocol_staleness_amounts` keeps the pre-clamp lateness for
+  the telemetry's ``staleness`` column.
 
 Why stale reads are SAFE here (the OR-monotonicity argument,
 the JAX package's docs/OBSERVABILITY.md): gossip state is a monotone join-semilattice —
@@ -158,6 +161,37 @@ def clamp_flood_delays(
     return np.where(
         cross, np.maximum(delays, np.int32(async_k)), delays
     ).astype(np.int32)
+
+
+def clamp_partner_delays(ell_delays: np.ndarray, async_k: int) -> np.ndarray:
+    """The partnered-protocol clamp: all partner-read delays become
+    ``max(d, K)`` (partners are global-random — no intra/cross split to
+    preserve). Applied host-side BEFORE staging, so the runner, the
+    checkpoint fingerprint (which hashes the delay array), and the
+    synchronous parity reference all see the same delays."""
+    if async_k <= 1:
+        return np.asarray(ell_delays, dtype=np.int32)
+    return np.maximum(np.asarray(ell_delays, dtype=np.int32), np.int32(async_k))
+
+
+def protocol_staleness_amounts(original_delays, async_k: int) -> tuple[tuple, tuple]:
+    """(clamped distinct delays, per-value staleness amounts) for the
+    partnered runner's telemetry column. The runner only ever sees the
+    CLAMPED delay array, so the added-staleness bookkeeping is computed
+    here, pre-clamp: for each clamped distinct value v, the amount is ``v -
+    min(original d mapped into v)`` — the worst-case added ticks in that
+    bucket (only the ``v == K`` bucket can fold several original delays
+    together; every other value maps from itself, amount 0)."""
+    orig = np.unique(np.asarray(original_delays, dtype=np.int64))
+    if orig.size == 0:
+        return (), ()
+    k = max(int(async_k), 1)
+    buckets: dict[int, int] = {}
+    for d in orig.tolist():
+        v = max(int(d), k)
+        buckets[v] = min(buckets.get(v, v), int(d))
+    values = tuple(sorted(buckets))
+    return values, tuple(v - buckets[v] for v in values)
 
 
 def in_flight(hist, landed=None) -> bool:

@@ -30,9 +30,11 @@ moves at most half the dense words.
 Degree-split hub/tail transport (``exchange="hub"``, `plan_hub_split`):
 a static set of high-fan-out rows ships every tick as an index-free
 all_gather block (`overlay_hub`), the sparse tail stays on the delta
-buffers with a smaller capacity. The numpy planners are the JAX
-package's, so both packages plan the same capacities and report the same
-modeled words.
+buffers with a smaller capacity. The random-partner protocols
+(`parallel.protocols_sharded`) need every row on every shard, so their
+split ranks rows by degree (`plan_partnered_hub_split`). The numpy
+planners are the JAX package's, so both packages plan the same capacities
+and report the same modeled words.
 """
 
 from __future__ import annotations
@@ -265,6 +267,61 @@ def plan_hub_split(
             hub_count=h,
         ),
         # The pure-delta point of the same curve — what h beats.
+        "modeled_delta_words_per_tick": words[0],
+    }
+    return {
+        "hub_count": h, "hub_local": hub_local, "hub_global": hub_global,
+        "need_tail": need_tail, "capacity": capacity, "report": report,
+    }
+
+
+def plan_partnered_hub_split(
+    degree: np.ndarray,        # (>= n_padded,) node degrees (0-padded)
+    n_node_shards: int,
+    n_loc: int,
+    w: int,
+    delay_splits: int = 1,
+    hub_rows: int | None = None,
+) -> dict:
+    """Degree-split for the partnered protocols' ``exchange="hub"``.
+
+    Anti-entropy partner picks are global-random, so every shard needs
+    every row (``need`` is all-ones) and fan-out cannot rank the split;
+    node DEGREE does — hub rows are the ones whose delta words stay hot.
+    The tail's worst case is uniform (``n_loc - h`` rows per shard), so
+    the cost curve only rewards a hub once ``(n_loc - h) * w`` drops
+    under the capacity clamp; the search is honest about that (h = 0
+    wins on most shapes) and ``hub_rows`` pins h for the parity tests.
+    Same return contract as `plan_hub_split` with ``need_tail`` shaped
+    (n_padded, 1) — the partnered compress's single-destination cut mask."""
+    k = n_node_shards
+    n_padded = k * n_loc
+    deg = np.zeros(n_padded, dtype=np.int64)
+    m = min(n_padded, len(degree))
+    deg[:m] = np.asarray(degree[:m], dtype=np.int64)
+    order = np.argsort(-deg.reshape(k, n_loc), axis=1, kind="stable")
+
+    def tail_worst(h: int) -> int:
+        return n_loc - h
+
+    cands, words, crossover = _hub_cost_curve(tail_worst, k, n_loc, w, delay_splits)
+    if hub_rows is not None:
+        h = max(0, min(int(hub_rows), n_loc))
+    else:
+        h = cands[int(np.argmin(words))]
+    hub_local = order[:, :h].astype(np.int32)
+    hub_global = hub_local + np.arange(k, dtype=np.int32)[:, None] * n_loc
+    need_tail = np.ones((n_padded, 1), dtype=bool)
+    if h:
+        need_tail[hub_global.reshape(-1), :] = False
+    capacity = delta_capacity(max(1, n_loc - h), n_loc, w, delay_splits)
+    report = {
+        "hub_count": h,
+        "hub_rows_forced": hub_rows is not None,
+        "crossover_h": crossover,
+        "modeled_hub_words_per_tick": modeled_exchange_words_per_tick(
+            "hub", n_shards=k, n_loc=n_loc, w=w, capacity=capacity, hub_count=h,
+        ),
         "modeled_delta_words_per_tick": words[0],
     }
     return {

@@ -16,20 +16,17 @@ component logs (``--log``, `utils.logging`), npz graph caches
 reference's parallel-link quirk (``--refParallelLinks``) and the engines
 (``--backend``): ``tpu``, the default, is the device engine (the card, or
 ``--device cpu``), named as in the JAX CLI so one command line runs in
-either package; ``sharded`` the sharded flood engine over a (shares,
-nodes) mesh of ``torch.distributed`` ranks (``--meshNodes``,
-``--meshShares``, ``--ringMode``; under ``torchrun --nproc-per-node K``
-rank 0 prints the report, run plainly it is a world of one); ``event``
+either package; ``sharded`` the sharded flood engine, or with
+``--protocol`` the sharded protocols, over a (shares, nodes) mesh of
+``torch.distributed`` ranks (``--meshNodes``, ``--meshShares``,
+``--ringMode``; under ``torchrun --nproc-per-node K`` rank 0 prints the
+report, run plainly it is a world of one); ``event``
 the Python event engine and ``native`` the C++ one, both on the host
 (``--linkQueueing`` needs one of them). One tick is one link latency, and
 every random model derives from ``--seed`` as in the JAX package, so the
 same flags print the same report. ``--degreeBlock`` changes no result:
 the CUDA gather has no degree block (the sharded engine's bucket planner
-quantizes its rows by it, as the JAX package's does).
-
-Left for later: ``--protocol pushpull|pull|pushk`` with ``--backend
-sharded`` (exits 2; the sharded protocols are ROADMAP.md §1 item 4's next
-slice)."""
+quantizes its rows by it, as the JAX package's does)."""
 
 from __future__ import annotations
 
@@ -59,10 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--backend", choices=("tpu", "sharded", "event", "native"),
         default="tpu",
         help="Execution engine: tpu = the device engine (default; the card, "
-        "or --device cpu), sharded = the sharded flood engine over a mesh of "
-        "torch.distributed ranks (torchrun --nproc-per-node K; one rank when "
-        "run plainly), event = the Python event engine, native = the C++ "
-        "event engine (both on the host)",
+        "or --device cpu), sharded = the sharded flood engine (with --protocol, "
+        "the sharded protocols) over a mesh of torch.distributed ranks (torchrun "
+        "--nproc-per-node K; one rank when run plainly), event = the Python "
+        "event engine, native = the C++ event engine (both on the host)",
     )
     p.add_argument(
         "--meshNodes", type=int, default=0,
@@ -314,14 +311,26 @@ def _pull_credit_error(g, chunk_size, sched) -> str | None:
 
 
 def _run_protocol(args, g, sched, horizon, delays, churn, loss, **kw):
-    """``--protocol pushpull|pull|pushk`` through the port's protocols;
-    returns (stats, coverage or None)."""
+    """``--protocol pushpull|pull|pushk`` through the port's protocols, on
+    the mesh under ``--backend sharded``; returns (stats, coverage or
+    None)."""
     from p2p_gossip_tpu_torch.models.protocols import run_pushk_sim, run_pushpull_sim
 
     common = dict(
         ell_delays=delays, seed=args.seed, chunk_size=args.chunkSize,
-        churn=churn, loss=loss, device=args.device, **kw,
+        churn=churn, loss=loss, **kw,
     )
+    if args.backend == "sharded":
+        from p2p_gossip_tpu_torch.parallel.protocols_sharded import (
+            run_sharded_partnered_sim,
+        )
+
+        out = run_sharded_partnered_sim(
+            g, sched, horizon, args.mesh, protocol=args.protocol, fanout=args.fanout,
+            ring_mode=args.ringMode, **common,
+        )
+        return out if kw.get("record_coverage") else (out, None)
+    common["device"] = args.device
     if args.protocol == "pushk":
         return run_pushk_sim(g, sched, horizon, fanout=args.fanout, **common)
     return run_pushpull_sim(g, sched, horizon, mode=args.protocol, **common)
@@ -751,14 +760,6 @@ def _run_sweep_cli(args) -> int:
     return 0
 
 
-def _sharded_protocol_error(args) -> int:
-    return _error(
-        f"--protocol {args.protocol} --backend sharded: the sharded protocols are "
-        "not ported yet (ROADMAP.md §1 item 4, the next slice: protocols_sharded); "
-        "use --backend tpu"
-    )
-
-
 def _print_mesh(args) -> int | None:
     """Build the ``--meshNodes`` x ``--meshShares`` mesh into ``args.mesh``
     and print the JAX CLI's mesh line. Returns the exit code when this
@@ -936,8 +937,6 @@ def _run(args) -> int:
         return _error("--degreeBlock must be >= 0")
     if args.meshNodes < 0 or args.meshShares < 1:
         return _error("--meshNodes must be >= 0 and --meshShares >= 1")
-    if args.backend == "sharded" and args.protocol in PARTNERED:
-        return _sharded_protocol_error(args)
     loss = None
     if not 0.0 <= args.lossProb <= 1.0:
         return _error(f"--lossProb must be in [0, 1], got {args.lossProb:g}")
@@ -1062,6 +1061,9 @@ def _run(args) -> int:
             err = _print_mesh(args)
             if err is not None:
                 return err
+        if args.backend in ("tpu", "sharded") and args.protocol in PARTNERED:
+            stats, _ = _run_protocol(args, g, sched, horizon, delays, churn, loss, **ckpt)
+        elif args.backend == "sharded":
             from p2p_gossip_tpu_torch.parallel.engine_sharded import run_sharded_sim
 
             stats = run_sharded_sim(
@@ -1074,8 +1076,6 @@ def _run(args) -> int:
             stats = _run_host_engine(
                 args, g, sched, horizon, delays, churn, loss, snapshot_ticks, fifo
             )
-        elif args.protocol in PARTNERED:
-            stats, _ = _run_protocol(args, g, sched, horizon, delays, churn, loss, **ckpt)
         else:
             stats = run_sync_sim(
                 g, sched, horizon, ell_delays=delays, chunk_size=args.chunkSize,

@@ -644,16 +644,6 @@ def test_new_flag_refusals_print_the_jax_error(args, capsys, clean_logging):
     assert "error: " in got and got == want
 
 
-def test_sharded_backend_exits_2_naming_the_roadmap(capsys):
-    """The sharded flood runs (below); the sharded protocols are the next
-    slice, and ``--protocol`` with ``--backend sharded`` says so."""
-    assert cli.run(["--backend", "sharded", "--protocol", "pushpull", "--device", "cpu"]) == 2
-    captured = capsys.readouterr()
-    assert captured.out == ""
-    assert captured.err.startswith("error: --protocol pushpull --backend sharded: ")
-    assert "ROADMAP.md §1 item 4" in captured.err and "protocols_sharded" in captured.err
-
-
 SHARDED = {
     "flood_2_node_shards": ["--numNodes", "40", "--simTime", "1", "--genLo", "0.1",
                             "--genHi", "0.4", "--backend", "sharded", "--meshNodes", "2",
@@ -666,6 +656,18 @@ SHARDED = {
                                "--backend", "sharded", "--meshNodes", "1", "--meshShares", "2",
                                "--ringMode", "replicated", "--delayModel", "lognormal",
                                "--churnProb", "0.2", "--lossProb", "0.1", "--chunkSize", "64"],
+    "pushpull_2_node_shards": ["--numNodes", "40", "--simTime", "1", "--Latency", "50",
+                               "--genLo", "0.1", "--genHi", "0.4", "--protocol", "pushpull",
+                               "--backend", "sharded", "--meshNodes", "2", "--chunkSize", "64",
+                               "--delayModel", "lognormal", "--lossProb", "0.1"],
+    "pull_coverage": ["--numNodes", "40", "--simTime", "1", "--Latency", "50",
+                      "--protocol", "pull", "--backend", "sharded", "--meshNodes", "2",
+                      "--floodCoverage", "8", "--churnProb", "0.2"],
+    "pushk_2_share_shards": ["--numNodes", "40", "--simTime", "1", "--Latency", "50",
+                             "--genLo", "0.1", "--genHi", "0.4", "--protocol", "pushk",
+                             "--fanout", "3", "--backend", "sharded", "--meshNodes", "1",
+                             "--meshShares", "2", "--ringMode", "replicated",
+                             "--chunkSize", "64"],
 }
 
 

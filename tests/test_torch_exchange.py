@@ -353,3 +353,85 @@ def test_digest_id_offset_xors_to_the_whole_digest():
                                    torch.from_numpy(sent[lo:hi]), id_offset=lo)
         h ^= int(part[0]) & 0xFFFFFFFF
     assert h == want
+
+
+# --- the sharded protocols' planners --------------------------------------------
+
+@pytest.mark.parametrize("k,n_loc,w,splits,hub_rows", [
+    (1, 26, 4, 1, None), (2, 52, 2, 3, None), (4, 26, 8, 4, 8), (4, 26, 1, 1, 0),
+    (3, 40, 256, 2, None), (2, 9, 3, 1, 20),
+])
+def test_partnered_hub_split_equals_jax(k, n_loc, w, splits, hub_rows):
+    """`plan_partnered_hub_split` on random degrees (a short, unpadded
+    degree array among them): every output equal to the JAX planner's."""
+    rng = np.random.default_rng(k * 100 + n_loc)
+    degree = rng.integers(0, 40, k * n_loc - (k > 2)).astype(np.int32)
+    got = exchange.plan_partnered_hub_split(degree, k, n_loc, w, splits, hub_rows)
+    want = jax_exch.plan_partnered_hub_split(degree, k, n_loc, w, splits, hub_rows)
+    assert got.keys() == want.keys()
+    for key in ("hub_local", "hub_global", "need_tail"):
+        assert got[key].dtype == want[key].dtype
+        assert np.array_equal(got[key], want[key]), key
+    assert got["hub_count"] == want["hub_count"] and got["capacity"] == want["capacity"]
+    assert got["report"] == want["report"]
+
+
+@pytest.mark.parametrize("async_k", [0, 1, 2, 3, 7])
+def test_partner_clamp_helpers_equal_jax(async_k):
+    """`clamp_partner_delays` and `protocol_staleness_amounts` on random
+    per-edge delays (and an empty array) equal the JAX helpers."""
+    rng = np.random.default_rng(async_k)
+    delays = rng.integers(1, 6, (37, 9)).astype(np.int32)
+    got = async_ticks.clamp_partner_delays(delays, async_k)
+    want = jax_async.clamp_partner_delays(delays, async_k)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert (async_ticks.protocol_staleness_amounts(delays, async_k)
+            == jax_async.protocol_staleness_amounts(delays, async_k))
+    empty = np.zeros((0, 3), dtype=np.int32)
+    assert (async_ticks.protocol_staleness_amounts(empty, async_k)
+            == jax_async.protocol_staleness_amounts(empty, async_k) == ((), ()))
+
+
+_RESOLUTIONS = [
+    ("dense", "auto", 1, None, 0), ("dense", "replicated", 4, None, 0),
+    ("auto", "auto", 4, None, 0), ("delta", "replicated", 2, None, 0),
+    ("hub", "auto", 4, 8, 0), ("hub", "auto", 4, None, 0), ("auto", "sharded", 2, None, 2),
+    ("delta", "sharded", 4, None, 3),
+]
+
+
+# Fanout push refuses an async exchange before it resolves one.
+@pytest.mark.parametrize("protocol,exch_mode,ring_mode,k,hub_rows,k_async", [
+    (protocol, *case) for protocol in ("pushpull", "pull", "pushk") for case in _RESOLUTIONS
+    if not (protocol == "pushk" and case[-1])
+])
+def test_partnered_exchange_resolution_equals_jax(protocol, exch_mode, ring_mode, k, hub_rows,
+                                                  k_async):
+    """The ring layout, delay groups, capacity, hub split and the whole
+    ``stats.extra['exchange']`` skeleton the sharded protocols resolve equal
+    the JAX package's resolution (with async K's pre-clamp bookkeeping)."""
+    from p2p_gossip_tpu.parallel.protocols_sharded import (
+        _resolve_partnered_exchange as jax_resolve,
+    )
+
+    from p2p_gossip_tpu_torch.parallel.protocols_sharded import _resolve_partnered_exchange
+
+    rng = np.random.default_rng(k)
+    n_padded = 104
+    delays = rng.integers(1, 5, (n_padded, 7)).astype(np.int32)
+    degree = rng.integers(0, 12, n_padded).astype(np.int32)
+    values, amounts = (jax_async.protocol_staleness_amounts(delays, k_async) if k_async
+                       else ((), ()))
+    args = (exch_mode, protocol, ring_mode, delays, 6, n_padded, k, 2, degree, k_async,
+            values, amounts, hub_rows)
+    got, want = _resolve_partnered_exchange(*args), jax_resolve(*args)
+    (ring, ring_bytes, delay_values, resolved, capacity, hub_plan, delta_on, extra,
+     staleness) = got
+    assert (ring, ring_bytes, delay_values, resolved, capacity) == want[:5]
+    assert (delta_on, extra, staleness) == (want[7], want[8], want[9])
+    jax_hub = want[5]
+    assert (hub_plan is None) == (jax_hub is None)
+    if hub_plan is not None:
+        assert hub_plan["hub_count"] == jax_hub[0]
+        for key, jax_value in zip(("need_tail", "hub_local", "hub_global"), jax_hub[1:]):
+            assert np.array_equal(hub_plan[key], jax_value)

@@ -246,10 +246,12 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
     assert torch.equal(kernels.scatter_deltas(idx, val, 25, 3, 50),
                        kernels.scatter_deltas_plain(idx, val, 25, 3, 50,
                                                     torch.empty((50, 3), dtype=torch.int32)))
+    stack = words.view(2, 25, 3)
+    assert torch.equal(kernels.or_fold(stack), kernels.or_fold_plain(stack))
     assert kernels.launches == {
         "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
         "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
-        "compress_deltas": 0, "scatter_deltas": 0,
+        "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0,
     }
 
 
@@ -828,3 +830,43 @@ def test_scatter_or_kernel_wrapper_checks():
         src_text = f.read()
     assert "int gossip_scatter_or(" in src_text
     assert "int gossip_scatter_or_atomic(" in src_text
+
+
+# --- or_fold (the sharded protocols' reduce-scatter OR) ------------------------------
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("n,w", [(1, 1), (7, 3), (5, 256), (13, 1)])
+def test_or_fold_plain_equals_numpy(k, n, w):
+    """The plain fold of a (k, n, W) stack equals ``np.bitwise_or.reduce``
+    over axis 0 on ragged shapes with every bit in play (the top bit
+    included), into a fresh tensor and into ``out``."""
+    rng = np.random.default_rng(k * 1000 + n * w)
+    words = rng.integers(0, 2**32, (k, n, w), dtype=np.uint64).astype(np.uint32)
+    words[rng.random((k, n, w)) < 0.3] = 0
+    words[0, 0, 0] |= np.uint32(1 << 31)
+    stack = torch.as_tensor(words.view(np.int32))
+    want = np.bitwise_or.reduce(words, axis=0)
+    got = kernels.or_fold(stack)
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(got), want)
+    out = torch.full((n, w), -1, dtype=torch.int32)
+    assert kernels.or_fold(stack, out=out) is out
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(out), want)
+    np.testing.assert_array_equal(convert.bitmask_to_numpy(kernels.or_fold_plain(stack)), want)
+    assert (convert.bitmask_to_numpy(got) >> 31).any() and kernels.launches["or_fold"] == 0
+
+
+def test_or_fold_wrapper_checks():
+    with pytest.raises(ValueError):
+        kernels.or_fold(torch.zeros((0, 3, 2), dtype=torch.int32))  # k = 0
+    with pytest.raises(ValueError):
+        kernels.or_fold(torch.zeros((3, 2), dtype=torch.int32))     # not a stack
+    with pytest.raises(ValueError):
+        kernels.or_fold(torch.zeros((2, 3, 2), dtype=torch.int32),
+                        out=torch.zeros((3, 3), dtype=torch.int32))
+    # stack, n_words, k, out, stream
+    sig = build._SIGNATURES["gossip_or_fold"]
+    assert sig == (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p)
+    with open(build.SOURCE, encoding="utf-8") as f:
+        src_text = f.read()
+    assert "int gossip_or_fold(" in src_text and "or_fold_kernel" in src_text
