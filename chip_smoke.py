@@ -7,7 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU (an H100):
 
 (``python3 chip_smoke.py --north-star CACHE`` runs only phase 12's
 million-node steps on the north-star graph cached by ``python -m
-p2p_gossip_tpu_torch.scale --cache CACHE``.)
+p2p_gossip_tpu_torch.scale --cache CACHE``; ``python3 chip_smoke.py
+--phase 16`` runs phase 16 alone, with phase 11's campaigns as its
+references.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -148,6 +150,26 @@ Phases (any failure raises and the script exits nonzero):
    single-device port, every rank folding with the kernel once a round;
    (d) ``--protocol pushpull|pull|pushk --backend sharded`` on the card
    and on the CPU: the same report.
+16. The sharded campaigns (``batch.campaign_sharded``): (a)
+   ``compress_deltas`` and ``scatter_deltas`` with a replica axis (B = 8 in
+   one launch) against their plain versions on ragged (B, n_loc, W, k,
+   capacity) and on the 4-shard split of phase 11's eight replicas'
+   tick-3 and tick-10 frontiers (W = 256), with one replica alone over a
+   capacity of 64; timed beside the bound (B x the one-run bytes), B
+   launches of the one-run kernel and the one-call torch counterparts;
+   (b) ``run_sharded_campaign`` (coverage, phase 11 (a)'s 8 x 4,096
+   origins) in every phase-14 mode and ``run_sharded_protocol_campaign``
+   push-pull (phase 11 (c)'s set, D = 6) replicated and delta, on
+   ``torch.cuda.device_count()`` NCCL ranks (one rank: a 1 x 1 mesh with
+   rb = 8, in this process): every replica equal to phase 11's
+   single-device campaign (counters and coverage rows), wall / (R x
+   replica 0's solo sharded wall), launches, peaks within 20% of
+   ``extra['resident_bytes']``, and a delta campaign under
+   ``torch.profiler``; (c) gloo ranks on the one card at N = 10,000,
+   (replicas x nodes) 2 x 2 and 1 x 4 on 4 ranks: dense and delta
+   coverage campaigns and the push-pull campaign equal to the
+   single-device campaigns; (d) ``run_coverage_campaign(mesh=)`` over the
+   NCCL ranks equal to the call without a mesh.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -193,6 +215,11 @@ after it (``launches_sharded_protocols_<run>``): ``or_fold`` once a round
 on push-pull and fanout push, never on pull (its record's ``launches`` is
 the replicated push-pull's), the exchange kernels exactly on delta and
 hub; every other path's counts carry ``or_fold: 0``.
+Phase 16 (b) zeroes them just before each timed campaign and reads them
+after it (``launches_sharded_campaign_<mode>``): ``gather_or`` once per
+degree bucket a tick for the local batch, ``coverage_per_slot`` and
+``popcount_rows`` once a tick, the exchange kernels once a tick exactly on
+delta and hub; ``or_fold`` and ``scatter_or`` once a round on push-pull.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -300,6 +327,18 @@ SHARDED_PROTOCOL_RUNS = (
     ("coverage-delta", "pushpull", True, True, dict(exchange="delta")),
 )
 PROTOCOL_GLOO_NODES, PROTOCOL_GLOO_SHARES, PROTOCOL_GLOO_HORIZON = 10_000, 1024, 32
+# Phase 16: the sharded campaigns. The exchange kernels with B = 8 on the
+# 4-shard split of phase 11's replicas (replica ALONE the only one over the
+# overflow capacity) and on ragged (B, n_loc, W, k, capacity); the
+# campaigns on the card's NCCL ranks; gloo ranks on the one card.
+ALONE = 5
+EXCHANGE_RAGGED = ((1, 1001, 5, 3, 100), (3, 37, 256, 4, 64), (8, 5000, 1, 1, 7),
+                   (5, 333, 13, 32, 50), (2, 64, 300, 2, 1))
+CAMPAIGN_PROTOCOL_MODES = (("pushpull-replicated", dict(ring_mode="replicated")),
+                           ("pushpull-delta", dict(exchange="delta")))
+GLOO_CAMPAIGN_NODES, GLOO_CAMPAIGN_REPLICAS = 10_000, 4
+GLOO_CAMPAIGN_SHARES, GLOO_CAMPAIGN_HORIZON = 256, 32
+GLOO_CAMPAIGN_MESHES = ((2, 2), (1, 4))  # (replicas, nodes) on 4 ranks
 U32 = 0xFFFFFFFF
 
 
@@ -2390,7 +2429,7 @@ def campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev):
             f"runs; ttc reached {ttc.get('reached')}; launches {launches}")
         results[kind] = dict(wall_s=wall, ticks=ticks, ms_per_tick=wall / ticks * 1e3,
                              rate=rate, solo_wall_s=solo_wall, solo_rate=solo_rate,
-                             peak_gib=peak / 2**30)
+                             peak_gib=peak / 2**30, campaign=res)
 
     def run_cov():
         kernels.reset_launches()
@@ -3955,6 +3994,456 @@ def check_sharded_protocol_cli(dev):
         log(f"cli[sharded {label}] on {dev} and on the CPU: equal reports ({len(got)} lines)")
 
 
+# --- phase 16 -----------------------------------------------------------------
+
+def exchange_replicas_ragged(dev, rng):
+    """Phase 16 (a): compress_deltas and scatter_deltas with a replica axis
+    on ragged (B, n_loc, W, k, capacity): each B-replica launch bitwise
+    its plain version (the per-replica loop of the one-run formulas), the
+    rebuild from the exchanged (k, B, capacity) buffers too."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    cases = 0
+    for b, n_loc, w, k, cap in EXCHANGE_RAGGED:
+        changed = sparse_words(rng, (b * n_loc, w), dev, p_sector=0.3)
+        need = torch.as_tensor(rng.random((n_loc, k)) < 0.6, device=dev)
+        got = kernels.compress_deltas(changed, need, cap, replicas=b)
+        want = kernels.compress_deltas(changed, need, cap, replicas=b, plain=True)
+        for a, c, part in zip(got, want, ("idx", "val", "counts")):
+            compare(f"compress_deltas[B={b} n_loc={n_loc} W={w} k={k} cap={cap} {part}]", a, c)
+        ridx, rval = (x.transpose(0, 1).contiguous() for x in got[:2])
+        canvas = kernels.scatter_deltas(ridx, rval, n_loc, w, k * n_loc, replicas=b)
+        plain = kernels.scatter_deltas(ridx, rval, n_loc, w, k * n_loc, replicas=b, plain=True)
+        compare(f"scatter_deltas[B={b} n_loc={n_loc} W={w} k={k} cap={cap}]", canvas, plain)
+        cases += 1
+    log(f"exchange kernels, replica axis: {cases} ragged (B, n_loc, W, k, capacity) cases, "
+        "kernel == plain")
+
+
+def check_exchange_replicas(graph, dg, gossip_set, dev, reps):
+    """Phase 16 (a): compress_deltas and scatter_deltas with B = 8 replicas
+    in one launch, on the SHARD_SPLIT-way split of the eight phase-11
+    replicas' tick-3 and tick-10 frontiers (W = 256): every shard's
+    compress at the planned capacity and at OVERFLOW_CAPACITY with one
+    replica alone overflowing (the others' frontiers cut to a few words),
+    and every receiver's rebuild of the (k, B, capacity) buffers the
+    shards send it, bitwise against the plain versions. Timed on shard 0
+    / receiver 0 of the tick-10 split at the planned capacity beside the
+    bound (B x the one-run bytes; `need` read once), B launches of the
+    one-run kernel, and the one-call torch counterparts."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import exchange as exch
+
+    b, k = CAMPAIGN_REPLICAS, SHARD_SPLIT
+    n_padded = graph.n + (-graph.n) % k
+    n_loc = n_padded // k
+    need_np = exch.plan_flood_exchange_csr(graph, n_padded, k)
+    cut = need_np.reshape(k, n_loc, k).sum(axis=1)
+    need = torch.as_tensor(need_np, device=dev)
+    notes = []
+    for t in DELTA_TICKS:
+        frontier = capture_campaign(dg, gossip_set, CHUNK, t + 1, dev)[2]
+        w = frontier.shape[1]
+        padded = torch.zeros((b, n_padded, w), dtype=torch.int32, device=dev)
+        padded[:, :graph.n] = frontier.view(b, graph.n, w)
+        del frontier
+        cap = exch.delta_capacity(int(cut.max()), n_loc, w)
+        # The overflow case: replica ALONE keeps its frontier, the others a
+        # few words, so only ALONE's counts pass OVERFLOW_CAPACITY.
+        few = torch.zeros_like(padded)
+        few[:, :16, 0] = 1
+        few[ALONE] = padded[ALONE]
+        for tag, batch, capacity in ((f"tick-{t}", padded, cap),
+                                     (f"tick-{t} one replica over", few, OVERFLOW_CAPACITY)):
+            sent = []
+            over = []
+            for sh in range(k):
+                changed = batch[:, sh * n_loc:(sh + 1) * n_loc].reshape(b * n_loc, w)
+                rows = need[sh * n_loc:(sh + 1) * n_loc]
+                got = kernels.compress_deltas(changed, rows, capacity, replicas=b)
+                want = kernels.compress_deltas(changed, rows, capacity, replicas=b, plain=True)
+                for a, c, part in zip(got, want, ("idx", "val", "counts")):
+                    compare(f"compress_deltas B={b} [{tag} shard {sh} {part}]", a, c)
+                sent.append(got)
+                over.append((got[2] > capacity).any(dim=1))
+            over = torch.stack(over).any(dim=0).tolist()
+            if capacity == OVERFLOW_CAPACITY and over != [r == ALONE for r in range(b)]:
+                raise AssertionError(f"{tag}: replicas over capacity {over}, want {ALONE} alone")
+            for d in range(k):
+                ridx = torch.stack([c[0][:, d] for c in sent])  # (k sources, B, cap)
+                rval = torch.stack([c[1][:, d] for c in sent])
+                got = kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded, replicas=b)
+                want = kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded, replicas=b,
+                                              plain=True)
+                compare(f"scatter_deltas B={b} [{tag} receiver {d}]", got, want)
+            notes.append(f"{tag} cap {capacity}: replicas over {sum(over)}")
+        del few
+    changed = padded[:, :n_loc].reshape(b * n_loc, w)
+    need0 = need[:n_loc]
+    solo_changed = [changed[r * n_loc:(r + 1) * n_loc] for r in range(b)]
+    per = n_loc * w * 4 + 2 * k * cap * 4 + k * 4  # a replica's slice, buffers, counts
+    # compress_deltas' one-call counterpart (as phase 14's): torch.nonzero on
+    # one destination's candidate mask over the batch, times k.
+    mask = ((changed != 0) & need0[:, :1].repeat(b, 1)).reshape(-1)
+    idx, val, counts = kernels.compress_deltas(changed, need0, cap, replicas=b)
+    compress = dict(
+        ms=time_ms(lambda: kernels.compress_deltas(changed, need0, cap, replicas=b), reps,
+                   calls=KERNEL_CALLS),
+        solo_launches_ms=time_ms(lambda: [kernels.compress_deltas(c, need0, cap)
+                                          for c in solo_changed], reps),
+        plain_ms=time_ms(lambda: kernels.compress_deltas(changed, need0, cap, replicas=b,
+                                                         plain=True), 3),
+        bound_ms=bound_ms(b * per + n_loc * k),
+        library_ms=k * time_ms(lambda: torch.nonzero(mask), reps, calls=KERNEL_CALLS),
+        entries=int(counts.clamp(max=cap).sum()),
+    )
+    sent = [kernels.compress_deltas(padded[:, sh * n_loc:(sh + 1) * n_loc].reshape(b * n_loc, w),
+                                    need[sh * n_loc:(sh + 1) * n_loc], cap, replicas=b)
+            for sh in range(k)]
+    ridx = torch.stack([c[0][:, 0] for c in sent])
+    rval = torch.stack([c[1][:, 0] for c in sent])
+    canvas = torch.empty((b, n_padded, w), dtype=torch.int32, device=dev)
+    solo_idx = [ridx[:, r].contiguous() for r in range(b)]
+    solo_val = [rval[:, r].contiguous() for r in range(b)]
+    offsets = (torch.arange(k, dtype=torch.int64, device=dev)[:, None, None] * (n_loc * w)
+               + torch.arange(b, dtype=torch.int64, device=dev)[None, :, None] * (n_padded * w))
+
+    def library_scatter():
+        live = ridx >= 0
+        return torch.zeros(b * n_padded * w, dtype=torch.int32, device=dev).index_put_(
+            ((ridx.long() + offsets)[live],), rval[live])
+
+    scatter = dict(
+        ms=time_ms(lambda: kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded, out=canvas,
+                                                  replicas=b), reps, calls=KERNEL_CALLS),
+        solo_launches_ms=time_ms(lambda: [kernels.scatter_deltas(
+            solo_idx[r], solo_val[r], n_loc, w, n_padded, out=canvas[r]) for r in range(b)],
+            reps),
+        plain_ms=time_ms(lambda: kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded,
+                                                        out=canvas, replicas=b, plain=True), 3),
+        bound_ms=bound_ms(b * (n_padded * w * 4 + 2 * k * cap * 4)),
+        library_ms=time_ms(library_scatter, reps, calls=KERNEL_CALLS),
+        entries=int((ridx >= 0).sum()),
+    )
+    log(f"exchange kernels B={b} ({k}-shard split of {b} replicas x N={graph.n}, W={w}, "
+        f"capacity {cap}): kernel == plain for every shard and receiver; {'; '.join(notes)}. "
+        f"Shard 0 / receiver 0 of tick {DELTA_TICKS[-1]}: compress {compress['ms']:.4f} ms "
+        f"(bound {compress['bound_ms']:.4f}; {b} one-run launches "
+        f"{compress['solo_launches_ms']:.4f}; nonzero x {k} {compress['library_ms']:.4f}; "
+        f"plain {compress['plain_ms']:.3f}; {compress['entries']} entries); scatter "
+        f"{scatter['ms']:.4f} ms (bound {scatter['bound_ms']:.4f}; {b} one-run launches "
+        f"{scatter['solo_launches_ms']:.4f}; index_put_ {scatter['library_ms']:.4f}; plain "
+        f"{scatter['plain_ms']:.3f}; {scatter['entries']} entries)")
+    del padded, canvas, sent, changed, solo_changed
+    torch.cuda.empty_cache()
+    return {"compress_deltas": compress, "scatter_deltas": scatter}
+
+
+def campaign_run_kwargs(kw):
+    return dict(record_coverage=True, **kw)
+
+
+def sharded_campaign_worker(graph, cov_set, pp_set, delays, device, dg=None):
+    """Phase 16 (b) and (d), on every rank: the (replicas, nodes) mesh of
+    all ranks on the nodes axis (rb = every replica), the coverage
+    campaign in every SHARDED_MODES mode (a warm run, then the timed run
+    between a launch-count reset and a read, with its peak device memory,
+    then replica 0's solo sharded coverage for the wall ratio), the
+    push-pull campaign in CAMPAIGN_PROTOCOL_MODES (timed, then replica
+    0's solo sharded run), a delta coverage campaign more (the first
+    rank's under the profiler), and (d) ``run_coverage_campaign(...,
+    mesh=)`` over the (shares, nodes) mesh of the same ranks. Every rank
+    runs every call. ``device`` None means ``cuda:<rank>``; on the CPU
+    nothing is profiled and no memory is read. Returns host values."""
+    import torch
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.batch.campaign import run_coverage_campaign
+    from p2p_gossip_tpu_torch.batch.campaign_sharded import (
+        run_sharded_campaign,
+        run_sharded_protocol_campaign,
+    )
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel.engine_sharded import (
+        run_sharded_flood_coverage,
+        stage_sharded_graph,
+    )
+    from p2p_gossip_tpu_torch.parallel.mesh import make_mesh
+    from p2p_gossip_tpu_torch.parallel.protocols_sharded import run_sharded_partnered_sim
+
+    dev = torch.device(device if device else f"cuda:{dist.get_rank()}")
+    cuda = dev.type == "cuda"
+    rmesh = make_mesh(replicas=1, device=dev)
+    smesh = make_mesh(device=dev)
+    base = device_allocated(cuda)
+    sg = stage_sharded_graph(graph, rmesh)
+    gathers = sum(max(1, c) for c in sg.bucket_counts)
+    out = {"shape": rmesh.shape, "gathers_per_tick": gathers}
+    for mode, kw in SHARDED_MODES:
+        def camp(kw=kw):
+            return run_sharded_campaign(graph, cov_set, HORIZON, rmesh, sharded_graph=sg,
+                                        **campaign_run_kwargs(kw))
+
+        camp()
+        kernels.reset_launches()
+        res, wall, peak = measured_run(camp, base, cuda)
+        launches = dict(kernels.launches)
+        solo_wall = measured_run(lambda kw=kw: run_sharded_flood_coverage(
+            graph, cov_set.origins[0], HORIZON, smesh, sharded_graph=sg, **kw), base, cuda)[1]
+        out[mode] = dict(result=res, wall=wall, peak=peak, launches=launches,
+                         solo_wall=solo_wall)
+    for label, kw in CAMPAIGN_PROTOCOL_MODES:
+        kernels.reset_launches()
+        res, wall, peak = measured_run(lambda kw=kw: run_sharded_protocol_campaign(
+            graph, pp_set, HORIZON, rmesh, protocol="pushpull", ell_delays=delays,
+            record_coverage=True, **kw), base, cuda)
+        launches = dict(kernels.launches)
+        solo_wall = measured_run(lambda kw=kw: run_sharded_partnered_sim(
+            graph, pp_set.replica_schedule(0, HORIZON), HORIZON, smesh, protocol="pushpull",
+            ell_delays=delays, chunk_size=pp_set.shares_per_replica,
+            seed=int(pp_set.seeds[0]), record_coverage=True, **kw), base, cuda)[1]
+        out[label] = dict(result=res, wall=wall, peak=peak, launches=launches,
+                          solo_wall=solo_wall)
+
+    def profiled():
+        kernels.reset_launches()
+        run_sharded_campaign(graph, cov_set, HORIZON, rmesh, sharded_graph=sg,
+                             **campaign_run_kwargs(dict(SHARDED_MODES)["delta"]))
+        return kernels.launches["coverage_per_slot"]
+
+    if rmesh.is_first and cuda:
+        profile_device("sharded delta coverage campaign", profiled, top=15)
+    else:
+        profiled()
+    del sg
+    out["meshed"] = run_coverage_campaign(graph, cov_set, HORIZON, mesh=smesh,
+                                          device_graph=dg)
+    return out
+
+
+def same_campaign(a, b, coverage=True) -> bool:
+    return (np.array_equal(a.received, b.received) and np.array_equal(a.sent, b.sent)
+            and np.array_equal(a.generated, b.generated)
+            and (not coverage or np.array_equal(a.coverage, b.coverage)))
+
+
+def gloo_campaign_ranks(graph, ranks, meshes, dev):
+    """Phase 16 (c): ``ranks`` gloo ranks on the one card (gloo chosen, not
+    a fallback), each (replicas, nodes) mesh of ``meshes``: the dense and
+    delta coverage campaigns and the push-pull campaign (delta), every
+    replica equal to the single-device campaign on the card. Walls are host
+    transport, not a speed."""
+    from p2p_gossip_tpu_torch.batch import campaign as bc
+    from p2p_gossip_tpu_torch.parallel import launch
+
+    cov_set = bc.flood_replicas(graph, GLOO_CAMPAIGN_SHARES,
+                                np.arange(GLOO_CAMPAIGN_REPLICAS) + SEED, GLOO_CAMPAIGN_HORIZON)
+    h = GLOO_CAMPAIGN_HORIZON
+    want = {"coverage": bc.run_coverage_campaign(graph, cov_set, h, device=dev),
+            "pushpull": bc.run_protocol_campaign(graph, cov_set, h, protocol="pushpull",
+                                                 device=dev)}
+    camp = "p2p_gossip_tpu_torch.batch.campaign_sharded:run_sharded_campaign"
+    pcamp = "p2p_gossip_tpu_torch.batch.campaign_sharded:run_sharded_protocol_campaign"
+    runs = (("dense", "coverage", camp, dict(ring_mode="sharded", record_coverage=True)),
+            ("delta", "coverage", camp, dict(exchange="delta", record_coverage=True)),
+            ("pushpull-delta", "pushpull", pcamp,
+             dict(protocol="pushpull", exchange="delta", record_coverage=True)))
+    calls, labels = [], []
+    for r_shards, nodes in meshes:
+        for label, ref, target, kw in runs:
+            calls.append((dict(n_node_shards=nodes, replicas=r_shards), target,
+                          (graph, cov_set, h), kw))
+            labels.append((f"{r_shards}x{nodes}", label, ref))
+    t0 = time.perf_counter()
+    results = launch.spawn(launch.call_on_replica_meshes, ranks, calls, GLOO_DEVICE,
+                           backend="gloo")
+    wall = time.perf_counter() - t0
+    out = {}
+    for i, (shape, label, ref) in enumerate(labels):
+        got = [r[i] for r in results if r[i] is not None]
+        if not got or not all(same_campaign(g, want[ref]) for g in got):
+            raise AssertionError(f"gloo {shape} [{label}]: differs from the single-device "
+                                 "campaign")
+        ex = got[0].extra["exchange"]
+        out[f"{shape}_{label}"] = dict(mesh=got[0].extra["mesh"], exchange=ex["mode"])
+        log(f"  gloo (c) {shape} (replicas x nodes) [{label}]: every replica == the "
+            f"single-device campaign (counters, coverage rows); mesh {got[0].extra['mesh']}, "
+            f"exchange {ex['mode']}"
+            + (f", {ex['achieved_used_entries']} entries" if "achieved_used_entries" in ex
+               else ""))
+    log(f"gloo (c): {len(calls)} campaigns (N={graph.n}, R={GLOO_CAMPAIGN_REPLICAS}, "
+        f"{GLOO_CAMPAIGN_SHARES} shares, horizon {h}) on {ranks} spawned ranks in {wall:.1f} s "
+        "(host transport, not a speed)")
+    return out
+
+
+def campaign_references(graph, cov_set, ranks, phase11, dev):
+    """What phase 16 (b)'s runs on ``ranks`` node shards must equal: kind ->
+    CampaignResult of the single-device campaigns, phase 11's
+    (``phase11``), and for async (K = 2) on several node shards the
+    coverage campaign on the delays clamped to max(d, K) across shards
+    (`async_ticks.clamp_flood_delays`; on one shard no edge crosses)."""
+    from p2p_gossip_tpu_torch.batch.campaign import run_coverage_campaign
+    from p2p_gossip_tpu_torch.parallel.async_ticks import clamp_flood_delays
+
+    refs = dict(phase11, async_coverage=phase11["coverage"])
+    k = dict(SHARDED_MODES)["async"]["async_k"]
+    if ranks > 1:
+        refs["async_coverage"] = run_coverage_campaign(
+            graph, cov_set, HORIZON, ell_delays=clamp_flood_delays(graph, ranks, k), device=dev)
+    return refs
+
+
+def check_campaign_results(runs, refs, ref_meshed):
+    """Phase 16 (b) and (d)'s equality of one rank's `sharded_campaign_worker`
+    result with the single-device campaigns (``refs``, from
+    `campaign_references`) and with the call without a mesh
+    (``ref_meshed``): every replica's counters and coverage rows."""
+    for mode, _ in SHARDED_MODES:
+        want = refs["async_coverage" if mode == "async" else "coverage"]
+        if not same_campaign(runs[mode]["result"], want):
+            raise AssertionError(f"sharded campaign [{mode}]: a replica differs from phase "
+                                 "11's single-device campaign")
+    for label, _ in CAMPAIGN_PROTOCOL_MODES:
+        if not same_campaign(runs[label]["result"], refs["pushpull"]):
+            raise AssertionError(f"sharded campaign [{label}]: a replica differs from phase "
+                                 "11's single-device push-pull campaign")
+    if not same_campaign(runs["meshed"], ref_meshed):
+        raise AssertionError("run_coverage_campaign(mesh=) differs from the call without one")
+
+
+def check_campaign_launches(runs, b):
+    """Phase 16 (b)'s launches: gather_or once per degree bucket a tick for
+    the local batch, popcount_rows once a tick (the ticks counted by
+    coverage_per_slot, once a tick), compress_deltas and scatter_deltas
+    once a tick exactly on delta and hub (scatter fewer only after an
+    overflow), or_fold and scatter_or once a round on the push-pull
+    campaigns."""
+    for mode, _ in SHARDED_MODES:
+        r = runs[mode]
+        res = r["result"]
+        n = r["launches"]
+        ticks = n["coverage_per_slot"]
+        ex = res.extra["exchange"]
+        delta = ex["mode"] in ("delta", "hub")
+        want = {"gather_or": runs["gathers_per_tick"] * ticks, "popcount_rows": ticks,
+                "compress_deltas": ticks if delta else 0,
+                "scatter_deltas": ticks if delta and not ex["overflow_write_ticks"] else None}
+        for name, count in want.items():
+            if count is not None and n[name] != count:
+                raise AssertionError(f"sharded campaign [{mode}]: {name} launched {n[name]} "
+                                     f"times in {ticks} ticks, want {count}: {n}")
+        if delta and n["scatter_deltas"] > ticks:
+            raise AssertionError(f"sharded campaign [{mode}]: scatter_deltas {n}")
+    for label, _ in CAMPAIGN_PROTOCOL_MODES:
+        r = runs[label]
+        res = r["result"]
+        n = r["launches"]
+        ex = res.extra["exchange"]
+        if n["or_fold"] != HORIZON or n["scatter_or"] != HORIZON or n["gather_or"]:
+            raise AssertionError(f"sharded campaign [{label}]: or_fold and scatter_or must "
+                                 f"launch once a round for all {b} replicas: {n}")
+        groups = res.extra["ring"]["delay_splits"]
+        if ex["mode"] == "delta" and (n["compress_deltas"] != HORIZON or n["scatter_deltas"]
+                                      > HORIZON * groups):
+            raise AssertionError(f"sharded campaign [{label}]: exchange kernels {n}")
+
+
+def sharded_campaign_phase(graph, dg, dgf_edge, cov_set, gossip_set, delays, phase11, dev, rng):
+    """Phase 16: (a) the exchange kernels with a replica axis, (b) the
+    sharded campaigns on ``torch.cuda.device_count()`` NCCL ranks (one
+    rank: a 1 x 1 mesh with rb = 8, in this process) against phase 11's
+    single-device campaigns (``phase11``: kind -> CampaignResult, None to
+    run them here), (c) gloo ranks on the one card, (d) the coverage
+    campaign's ``mesh=``."""
+    import torch
+    import torch.distributed as dist
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.batch import campaign as bc
+    from p2p_gossip_tpu_torch.parallel import launch
+    from p2p_gossip_tpu_torch.parallel.mesh import initialize_multihost
+
+    t_phase = time.perf_counter()
+    b = CAMPAIGN_REPLICAS
+    exchange_replicas_ragged(dev, rng)
+    kernels_b8 = check_exchange_replicas(graph, dg, gossip_set, dev, reps=10)
+    if phase11 is None:
+        phase11 = {
+            "coverage": bc.run_coverage_campaign(graph, cov_set, HORIZON, device_graph=dg,
+                                                 device=dev),
+            "pushpull": bc.run_protocol_campaign(graph, gossip_set, HORIZON,
+                                                 protocol="pushpull", chunk_size=CHUNK,
+                                                 device_graph=dgf_edge, device=dev),
+        }
+    ranks = torch.cuda.device_count()
+    if ranks == 1:
+        initialize_multihost(backend="nccl", device=dev)
+        try:
+            runs = sharded_campaign_worker(graph, cov_set, gossip_set, delays, str(dev), dg)
+        finally:
+            dist.destroy_process_group()
+    else:
+        runs = launch.spawn(sharded_campaign_worker, ranks, graph, cov_set, gossip_set, delays,
+                            None, backend="nccl")[0]
+    refs = campaign_references(graph, cov_set, ranks, phase11, dev)
+    check_campaign_results(runs, refs, phase11["coverage"])
+    check_campaign_launches(runs, b)
+    log(f"sharded campaigns (b): {ranks} NCCL rank(s), mesh {runs['shape']}, R={b} (local "
+        f"replicas {runs[SHARDED_MODES[0][0]]['result'].extra['mesh']['local_replicas']}); "
+        "every replica == phase 11's single-device campaign (counters, coverage rows); walls "
+        "are whole calls")
+    for mode, _ in SHARDED_MODES + CAMPAIGN_PROTOCOL_MODES:
+        r = runs[mode]
+        res = r["result"]
+        launched = {k: v for k, v in r["launches"].items() if v}
+        log(f"  {mode}: wall {r['wall']:.4f} s, replica 0's solo sharded run "
+            f"{r['solo_wall']:.4f} s, wall / (R x solo) {r['wall'] / (b * r['solo_wall']):.3f}; "
+            f"exchange {res.extra['exchange']['mode']}; launches {launched}")
+        check_resident(f"{mode} campaign", r["peak"], res.extra["resident_bytes"])
+    log("  (d) run_coverage_campaign(mesh=) over the NCCL ranks == the call without a mesh")
+    gloo_graph = pt.erdos_renyi(GLOO_CAMPAIGN_NODES, EDGE_P * N_NODES / GLOO_CAMPAIGN_NODES,
+                                seed=SEED)
+    gloo = gloo_campaign_ranks(gloo_graph, 4, GLOO_CAMPAIGN_MESHES, dev)
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(kernels=kernels_b8, runs=runs, gloo=gloo)
+
+
+def phase_16_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 16``: phase 16 by itself, on its own
+    graph and stagings, with phase 11's single-device campaigns run here as
+    its references. Prints the exchange kernels' B = 8 record; the default
+    run (every phase) is the script's contract."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.batch.campaign import flood_replicas
+    from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+    from p2p_gossip_tpu_torch.ops import build
+
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    graph = pt.erdos_renyi(N_NODES, EDGE_P, seed=SEED)
+    dg = DeviceGraph.build(graph, device=dev)
+    delays = pt.lognormal_delays(graph, mean_ticks=2.0, sigma=0.5, max_ticks=5, seed=SEED)
+    dgf_edge = DeviceGraph.build(graph, delays, bucketed=False, device=dev)
+    cov_set = flood_replicas(graph, COVERAGE_ORIGINS, np.arange(CAMPAIGN_REPLICAS) + SEED,
+                             HORIZON)
+    gossip_set = campaign_replicas(graph, N_SHARES)
+    out = sharded_campaign_phase(graph, dg, dgf_edge, cov_set, gossip_set, delays, None, dev,
+                                 np.random.default_rng(SEED))
+    print(json.dumps({"phase16_kernels": out["kernels"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3982,6 +4471,8 @@ def main() -> int:
         build.build()
         north_star(sys.argv[2], dev)
         return 0
+    if sys.argv[1:3] == ["--phase", "16"]:
+        return phase_16_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -4049,14 +4540,17 @@ def main() -> int:
     campaign_kernels = check_campaign_kernels(graph, dg, cov_set, gossip_set, dev, rng,
                                               reps=10)
     check_small_campaigns(dev)
-    campaign_launches, _ = campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev)
+    campaign_launches, phase11 = campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev)
     ck = campaign_kernels
     scale, ba = scale_phase(dev)
     serve = serve_phase(graph, dev, rng)
     sharded = sharded_phase(graph, dg, sched, ba, dev)
     protocols15 = sharded_protocols_phase(graph, sched, delays, dgf_edge, phase9, phase9_refs,
                                           dev, rng)
-    log(f"chip_smoke phases 1-15 took {time.perf_counter() - t_start:.1f} s")
+    campaigns16 = sharded_campaign_phase(
+        graph, dg, dgf_edge, cov_set, gossip_set, delays,
+        {kind: phase11[kind]["campaign"] for kind in ("coverage", "pushpull")}, dev, rng)
+    log(f"chip_smoke phases 1-16 took {time.perf_counter() - t_start:.1f} s")
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -4164,6 +4658,12 @@ def main() -> int:
     # of the phase-9 push-pull's round-40 pushes (ragged shapes checked too);
     # no torch call OR-reduces int32 words over an axis: library_ms null.
     measured["or_fold"] = dict(protocols15["or_fold"], library_ms=None)
+    # Phase 16 (a): B = 8 replicas in one launch on the split of phase 11's
+    # replicas' tick-10 frontiers, beside B launches of the one-run kernel.
+    for name in SHARDED_KERNELS:
+        measured[name].update({f"{key}_b{CAMPAIGN_REPLICAS}": campaigns16["kernels"][name][key]
+                               for key in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                           "solo_launches_ms")})
     base_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
     record = []
     for name, m in measured.items():
@@ -4202,6 +4702,8 @@ def main() -> int:
             **{f"launches_sharded_protocols_{label}":
                protocols15["runs"][label]["launches"][name]
                for label, *_ in SHARDED_PROTOCOL_RUNS},
+            **{f"launches_sharded_campaign_{mode}": campaigns16["runs"][mode]["launches"][name]
+               for mode, _ in SHARDED_MODES + CAMPAIGN_PROTOCOL_MODES},
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

@@ -32,9 +32,14 @@ same launches a tick as one replica's; each live replica's ``ring`` and
 package's events, value for value), and the batch's ``progress`` beat its
 ``digest_head``. Sentinel replicas emit nothing.
 
-Not ported yet: the ``mesh`` argument (the sharded campaigns,
-``batch/campaign_sharded``, the next multi-GPU slice, ROADMAP §1 item 2);
-it raises NotImplementedError.
+With ``mesh`` (a `parallel.mesh` mesh of ``torch.distributed`` ranks,
+every rank calling the runner), a batch's replica axis splits over every
+rank of the mesh (the JAX package's sharding over the flattened mesh):
+the batch rounds up to a multiple of the rank count (sentinel padding),
+each rank runs its B / ranks replicas through the same batch engine on
+its own device, and the results are all_gathered to every rank, so every
+rank returns the whole campaign. `batch.campaign_sharded` shards each
+replica's graph rows instead.
 """
 
 from __future__ import annotations
@@ -339,7 +344,7 @@ def _resolve_loss(loss, loss_seeds, r_total: int):
 def _campaign_checkpointer(
     checkpoint_path, checkpoint_every, kind: str, graph, replicas: ReplicaSet,
     horizon: int, chunk: int, dg: DeviceGraph, batch_size: int,
-    loss_cfg, loss_seed_arr, arrays: dict, extra: tuple = (),
+    loss_cfg, loss_seed_arr, arrays: dict, extra: tuple = (), writer: bool = True,
 ):
     """Batch-boundary checkpointing shared by every campaign runner: the
     accumulated per-replica arrays (counters, and coverage rows — a
@@ -359,21 +364,65 @@ def _campaign_checkpointer(
         *(["lseeds", loss_seed_arr] if loss_seed_arr is not None else []),
         *extra,
     )
+    if not writer:  # a mesh rank other than the first: resumes, never writes
+        from p2p_gossip_tpu_torch.parallel.engine_sharded import _ReadOnlyCheckpointer
+
+        return _ReadOnlyCheckpointer(checkpoint_path, fp, arrays, checkpoint_every)
     return ChunkCheckpointer(checkpoint_path, fp, arrays, checkpoint_every)
 
 
 def _resolve_batch(replicas: ReplicaSet, batch_size: int | None, mesh) -> int:
-    if mesh is not None:
-        raise NotImplementedError(
-            "campaigns over a device mesh wait for the next multi-GPU slice "
-            "(ROADMAP §1 item 2: batch/campaign_sharded; the sharded flood and "
-            "protocols themselves are parallel.engine_sharded and protocols_sharded)"
-        )
+    """The batch size, rounded up to a multiple of the mesh's rank count
+    when a ``mesh`` splits the replica axis (sentinel replicas fill it)."""
     if batch_size is None:
         batch_size = replicas.num_replicas
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if mesh is not None:
+        n = len(mesh.ranks)
+        batch_size += (-batch_size) % n
     return batch_size
+
+
+class _ReplicaSplit:
+    """A batch's replica axis over every rank of a ``mesh`` (each rank its
+    own contiguous B / ranks replicas, in mesh order), or, without one,
+    the whole batch on this process."""
+
+    def __init__(self, mesh, batch_size: int):
+        self.mesh = mesh
+        self.n, self.i = 1, 0
+        if mesh is not None:
+            import torch.distributed as dist
+
+            if mesh.coordinate is None:
+                raise ValueError("this rank is not in the mesh")
+            self.n, self.i = len(mesh.ranks), mesh.ranks.index(dist.get_rank())
+        self.size = batch_size // self.n
+
+    @property
+    def first(self) -> bool:
+        """This process writes the checkpoints and emits the events."""
+        return self.mesh is None or self.mesh.is_first
+
+    def part(self, a):
+        """This rank's replicas of a (B, ...) array (or a tuple of them)."""
+        if a is None:
+            return None
+        if isinstance(a, tuple):
+            return tuple(self.part(x) for x in a)
+        return a[self.i * self.size:(self.i + 1) * self.size]
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's (B / ranks, ...) tensor, in batch order: (B, ...)."""
+        if self.mesh is None:
+            return t
+        from p2p_gossip_tpu_torch.parallel.mesh import all_gather_rows
+
+        out = torch.empty((self.n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        all_gather_rows(out, t.contiguous(), self.mesh.group)
+        return out
 
 
 def _emit_replica_telemetry(
@@ -499,11 +548,16 @@ def run_coverage_campaign(
     batch-boundary snapshots and resume (``stop_after_batches`` ends the
     call early). ``block`` (the JAX degree block) is accepted and unused:
     the CUDA gather has no degree block. ``device=None`` means CUDA;
-    ``plain=True`` runs the kernels' plain versions.
+    ``plain=True`` runs the kernels' plain versions. ``mesh`` splits each
+    batch's replicas over the mesh's ranks (every rank calls the runner;
+    the mesh's device is the run's), and every rank returns the whole
+    campaign.
     """
     batch_size = _resolve_batch(replicas, batch_size, mesh)
+    split = _ReplicaSplit(mesh, batch_size)
     s = replicas.shares_per_replica
-    dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
+    dg = _stage(graph, ell_delays, constant_delay, device_graph,
+                device if mesh is None else mesh.device)
     chunk = _packed_chunk(chunk_size, s)
     loss_cfg, lseed_arr = _resolve_loss(loss, loss_seeds, replicas.num_replicas)
     r_total = replicas.num_replicas
@@ -518,7 +572,7 @@ def run_coverage_campaign(
     checkpointer = _campaign_checkpointer(
         checkpoint_path, checkpoint_every, "coverage", graph, replicas,
         horizon, chunk, dg, batch_size, loss_cfg, lseed_arr,
-        {"received": received, "sent": sent, "coverage": coverage},
+        {"received": received, "sent": sent, "coverage": coverage}, writer=split.first,
     )
     name = "batch.campaign.run_coverage_campaign"
     tel = tel_sink.rings_enabled()
@@ -526,28 +580,32 @@ def run_coverage_campaign(
     t0 = time.perf_counter()
     for bi, batch in checkpointed_chunks(batches, checkpointer, stop_after_batches):
         lo, live, origins, gen_ticks, churn, _seeds, lseeds = batch
-        pad_o = np.zeros((batch_size, chunk), dtype=np.int32)
-        pad_g = np.full((batch_size, chunk), horizon, dtype=np.int32)
-        pad_o[:, :s] = origins
-        pad_g[:, :s] = gen_ticks
-        staged = _Batch(dg, pad_o, pad_g, churn, lseeds, loss_cfg)
+        pad_o = np.zeros((split.size, chunk), dtype=np.int32)
+        pad_g = np.full((split.size, chunk), horizon, dtype=np.int32)
+        pad_o[:, :s] = split.part(origins)
+        pad_g[:, :s] = split.part(gen_ticks)
+        staged = _Batch(dg, pad_o, pad_g, split.part(churn), split.part(lseeds), loss_cfg)
         rows, ticks = staged.events(dg.device)
-        rings = tel_rings.chunk_rings(horizon, dg.device, batch_size) if tel else None
+        rings = tel_rings.chunk_rings(horizon, dg.device, split.size) if tel else None
         with span("dispatch", kernel="batch.campaign._run_coverage_batch", batch=bi):
             _, r, snt, cov = _run_chunk_coverage(
                 dg, rows, ticks, chunk_size=chunk, horizon=horizon,
                 coverage_slots=s, opts=staged.tick_options(), rings=rings, plain=plain,
             )
+        r, snt = (split.gather(x.view(split.size, -1)) for x in (r, snt))
+        cov = split.gather(cov)
+        rings = None if rings is None else tuple(split.gather(x) for x in rings)
         with span("d2h", batch=bi):
-            received[lo : lo + live] = r.view(batch_size, -1)[:live].cpu().numpy()
-            sent[lo : lo + live] = snt.view(batch_size, -1)[:live].cpu().numpy()
+            received[lo : lo + live] = r[:live].cpu().numpy()
+            sent[lo : lo + live] = snt[:live].cpu().numpy()
             coverage[lo : lo + live] = cov[:live].cpu().numpy()
         head = None
-        if tel:
+        if tel and split.first:
             head = _emit_replica_telemetry(name, rings, lo, live, replicas.seeds, t0=0,
                                            horizon=horizon)
-        tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
-                                   digest_head=head)
+        if split.first:
+            tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
+                                       digest_head=head)
     wall = time.perf_counter() - t0
 
     return CampaignResult(
@@ -594,10 +652,12 @@ def run_gossip_campaign(
     the edges. The rest as in `run_coverage_campaign` (checkpoints land
     at replica-batch boundaries, each batch running all its chunks)."""
     batch_size = _resolve_batch(replicas, batch_size, mesh)
+    split = _ReplicaSplit(mesh, batch_size)
     s_max = replicas.shares_per_replica
     chunk = min(chunk_size, max(MIN_CHUNK_SHARES, s_max))
     chunk = bitmask.num_words(chunk) * bitmask.WORD_BITS
-    dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
+    dg = _stage(graph, ell_delays, constant_delay, device_graph,
+                device if mesh is None else mesh.device)
     loss_cfg, lseed_arr = _resolve_loss(loss, loss_seeds, replicas.num_replicas)
     r_total = replicas.num_replicas
     n_chunks = max(1, -(-s_max // chunk))
@@ -612,7 +672,7 @@ def run_gossip_campaign(
     checkpointer = _campaign_checkpointer(
         checkpoint_path, checkpoint_every, "gossip", graph, replicas,
         horizon, chunk, dg, batch_size, loss_cfg, lseed_arr,
-        {"received": received, "sent": sent},
+        {"received": received, "sent": sent}, writer=split.first,
     )
     name = "batch.campaign.run_gossip_campaign"
     tel = tel_sink.rings_enabled()
@@ -629,11 +689,13 @@ def run_gossip_campaign(
             pad_g = np.full((batch_size, chunk), horizon, dtype=np.int32)
             pad_o[:, : o_slice.shape[1]] = o_slice
             pad_g[:, : g_slice.shape[1]] = g_slice
+            # The whole batch's first and last live ticks, on every rank.
             live_ticks = pad_g[pad_g < horizon]
             t_start = int(live_ticks.min())
-            staged = _Batch(dg, pad_o, pad_g, churn, lseeds, loss_cfg)
+            staged = _Batch(dg, split.part(pad_o), split.part(pad_g), split.part(churn),
+                            split.part(lseeds), loss_cfg)
             rows, ticks = staged.events(dg.device)
-            rings = tel_rings.chunk_rings(horizon, dg.device, batch_size) if tel else None
+            rings = tel_rings.chunk_rings(horizon, dg.device, split.size) if tel else None
             with span("dispatch", kernel="batch.campaign._run_while_batch",
                       batch=bi, chunk=ci):
                 _, r, snt, _, _ = _run_chunk_while(
@@ -641,15 +703,18 @@ def run_gossip_campaign(
                     chunk_size=chunk, horizon=horizon, opts=staged.tick_options(),
                     rings=rings, plain=plain,
                 )
+            r, snt = (split.gather(x.view(split.size, -1)) for x in (r, snt))
+            rings = None if rings is None else tuple(split.gather(x) for x in rings)
             with span("d2h", batch=bi, chunk=ci):
-                received[lo : lo + live] += r.view(batch_size, -1)[:live].cpu().numpy()
-                sent[lo : lo + live] += snt.view(batch_size, -1)[:live].cpu().numpy()
+                received[lo : lo + live] += r[:live].cpu().numpy()
+                sent[lo : lo + live] += snt[:live].cpu().numpy()
             head = None
-            if tel:
+            if tel and split.first:
                 head = _emit_replica_telemetry(name, rings, lo, live, replicas.seeds,
                                                t0=t_start, horizon=horizon, chunk=ci)
-            tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
-                                       digest_head=head)
+            if split.first:
+                tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
+                                           digest_head=head)
     wall = time.perf_counter() - t0
 
     return CampaignResult(
@@ -711,8 +776,10 @@ def run_protocol_campaign(
     if protocol == "pushk" and fanout < 1:
         raise ValueError(f"fanout must be >= 1, got {fanout}")
     batch_size = _resolve_batch(replicas, batch_size, mesh)
-    dg = protocols._stage(graph, ell_delays, constant_delay, device_graph, device)
-    if dg.ring_size * batch_size * dg.n >= 1 << 31:
+    split = _ReplicaSplit(mesh, batch_size)
+    dg = protocols._stage(graph, ell_delays, constant_delay, device_graph,
+                          device if mesh is None else mesh.device)
+    if dg.ring_size * split.size * dg.n >= 1 << 31:
         raise ValueError("ring slots x replicas x nodes must stay below 2^31 "
                          "(int32 ring rows): lower batch_size")
     s = replicas.shares_per_replica
@@ -745,11 +812,12 @@ def run_protocol_campaign(
     checkpointer = _campaign_checkpointer(
         checkpoint_path, checkpoint_every, "protocol", graph, replicas,
         horizon, chunk, dg, batch_size, loss_cfg, lseed_arr, arrays,
-        extra=(protocol, fanout if protocol == "pushk" else None),
+        extra=(protocol, fanout if protocol == "pushk" else None), writer=split.first,
     )
     dev = dg.device
     c = fanout if protocol == "pushk" else 1
-    nodes = torch.arange(batch_size * dg.n, dtype=torch.int64, device=dev) % dg.n
+    b = split.size
+    nodes = torch.arange(b * dg.n, dtype=torch.int64, device=dev) % dg.n
     picks = torch.arange(c, dtype=torch.int64, device=dev)
     name = f"batch.campaign.run_protocol_campaign[{protocol}]"
     tel = tel_sink.rings_enabled()
@@ -757,6 +825,8 @@ def run_protocol_campaign(
     t0 = time.perf_counter()
     for bi, batch in checkpointed_chunks(batches, checkpointer, stop_after_batches):
         lo, live, origins, gen_ticks, churn, seeds, lseeds = batch
+        origins, gen_ticks, churn, seeds, lseeds = (
+            split.part(x) for x in (origins, gen_ticks, churn, seeds, lseeds))
         row_seeds = _u32_tensor(seeds, dev).repeat_interleave(dg.n)
         key = pick_key(nodes[:, None], picks[None, :], row_seeds[:, None])
         loss_dev = None
@@ -766,31 +836,36 @@ def run_protocol_campaign(
         for ci in range(n_chunks):
             lo_s, hi_s = ci * chunk, min((ci + 1) * chunk, s)
             live_s = hi_s - lo_s
-            pad_o = np.zeros((batch_size, chunk), dtype=np.int64)
-            pad_g = np.full((batch_size, chunk), horizon, dtype=np.int32)
-            rows = staged.rows.reshape(batch_size, s)
+            pad_o = np.zeros((b, chunk), dtype=np.int64)
+            pad_g = np.full((b, chunk), horizon, dtype=np.int32)
+            rows = staged.rows.reshape(b, s)
             pad_o[:, :live_s] = rows[:, lo_s:hi_s]
             pad_g[:, :live_s] = gen_ticks[:, lo_s:hi_s]
-            rings = tel_rings.chunk_rings(horizon, dev, batch_size) if tel else None
+            rings = tel_rings.chunk_rings(horizon, dev, b) if tel else None
             with span("dispatch", kernel=f"batch.campaign.{protocol}_replicas",
                       batch=bi, chunk=ci):
                 r, snt, cov = protocols._run_chunk(
                     dg, pad_o.reshape(-1), pad_g.reshape(-1), key, None, staged.churn,
                     loss_dev, mode=protocol, chunk_size=chunk, horizon=horizon,
                     n_cov=live_s if record_coverage else None, plain=plain,
-                    rings=rings, replicas=batch_size,
+                    rings=rings, replicas=b,
                 )[:3]  # the pass's ring is freed before the next pass allocates its own
+            r, snt = (split.gather(x.view(b, -1)) for x in (r, snt))
+            if record_coverage:
+                cov = split.gather(cov)
+            rings = None if rings is None else tuple(split.gather(x) for x in rings)
             with span("d2h", batch=bi, chunk=ci):
-                received[lo : lo + live] += r.view(batch_size, -1)[:live].cpu().numpy()
-                sent[lo : lo + live] += snt.view(batch_size, -1)[:live].cpu().numpy()
+                received[lo : lo + live] += r[:live].cpu().numpy()
+                sent[lo : lo + live] += snt[:live].cpu().numpy()
                 if record_coverage:
                     coverage[lo : lo + live, :, lo_s:hi_s] = cov[:live].cpu().numpy()
             head = None
-            if tel:
+            if tel and split.first:
                 head = _emit_replica_telemetry(name, rings, lo, live, replicas.seeds, t0=0,
                                                horizon=horizon, last_head=True, chunk=ci)
-            tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
-                                       digest_head=head)
+            if split.first:
+                tel_progress.emit_progress(name, chunk=bi, chunks_total=len(batches),
+                                           digest_head=head)
     wall = time.perf_counter() - t0
 
     return CampaignResult(

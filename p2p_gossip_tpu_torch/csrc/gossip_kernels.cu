@@ -759,12 +759,14 @@ tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
 // Replaces: p2p_gossip_tpu/parallel/exchange.py compress_deltas (XLA: a
 //   (k, n_loc*W) candidate mask, its cumsum ranks and two scatters into
 //   (k, capacity + 1) buffers with a trash slot).
-// Computes, for each destination shard d < k: the words j (flat index over
-//   the (n_loc, W) row-major `changed` slice) with changed[j] != 0 and
-//   need[j / W, d], in ascending j: idx[d, r] = j and val[d, r] =
-//   changed[j] for the r-th of them while r < capacity; counts[d] = how
-//   many there are (the true count, past capacity too). The caller fills
-//   idx with -1 and val with 0 first, so unused slots are the JAX padding.
+// Computes, for each replica b < B and destination shard d < k: the words j
+//   (flat index over replica b's (n_loc, W) row-major slice of the (B *
+//   n_loc, W) `changed` rows) with changed[b, j] != 0 and need[j / W, d]
+//   (`need` is shared by the replicas), in ascending j: idx[b, d, r] = j
+//   and val[b, d, r] = changed[b, j] for the r-th of them while r <
+//   capacity; counts[b, d] = how many there are (the true count, past
+//   capacity too). The caller fills idx with -1 and val with 0 first, so
+//   unused slots are the JAX padding. B = 1 is the one-run exchange.
 // Bound on the H100: bytes (the slice and `need` read once, the buffers
 //   written once); the ranking is a few integer operations a word.
 // Design: an ordered stream compaction in two passes over the same
@@ -779,7 +781,10 @@ tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
 //   over the steps. A word whose rank is below capacity is stored; a block
 //   whose every buffer is full stops. Pass 1 reads the slice once more than
 //   the bound: simple first. Not the JAX dense (k, n_loc*W) rank arrays:
-//   at a 4-shard split of 100,000 x 256 they are k x 25.6 MB a tick.
+//   at a 4-shard split of 100,000 x 256 they are k x 25.6 MB a tick. The
+//   replica is grid y: each replica has its own blocks, its own (blocks, k)
+//   row of per-block counts and its own buffers, so one launch of each pass
+//   covers the batch and the flat indices stay per replica (below 2^31).
 // ---------------------------------------------------------------------------
 constexpr int kCompressThreads = 256;
 constexpr int kCompressWarps = kCompressThreads / 32;
@@ -799,6 +804,8 @@ compress_count_kernel(const uint32_t* __restrict__ changed, long long n_words, i
                       int32_t* __restrict__ block_counts) {
   __shared__ int s_cnt[kMaxDests];
   const int lane = threadIdx.x & 31;
+  changed += (long long)blockIdx.y * n_words;
+  block_counts += (long long)blockIdx.y * gridDim.x * k;
   if (threadIdx.x < k) s_cnt[threadIdx.x] = 0;
   __syncthreads();
   const long long base = (long long)blockIdx.x * kCompressThreads * iters;
@@ -828,6 +835,12 @@ compress_write_kernel(const uint32_t* __restrict__ changed, long long n_words, i
   __shared__ int s_warp[kCompressWarps][kMaxDests];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // Replica blockIdx.y's slice, per-block counts, buffers and counts.
+  changed += (long long)blockIdx.y * n_words;
+  block_counts += (long long)blockIdx.y * gridDim.x * k;
+  idx += (long long)blockIdx.y * k * capacity;
+  val += (long long)blockIdx.y * k * capacity;
+  counts += (long long)blockIdx.y * k;
   // The block's first rank per destination: the earlier blocks' counts.
   for (int d = warp; d < k; d += kCompressWarps) {
     long long s = 0;
@@ -885,11 +898,13 @@ compress_write_kernel(const uint32_t* __restrict__ changed, long long n_words, i
 //
 // Replaces: p2p_gossip_tpu/parallel/exchange.py scatter_deltas (XLA: a
 //   scatter-set into a zero (n_padded * W,) canvas, mode="drop").
-// Computes: out[s * src_words + idx[s, e]] = val[s, e] for every entry with
-//   idx >= 0 whose word falls inside the canvas (the caller zeroes it).
+// Computes, for each replica b < B: out[b, s * src_words + idx[s, b, e]] =
+//   val[s, b, e] for every entry with idx >= 0 whose word falls inside
+//   replica b's canvas of canvas_words words (the caller zeroes the (B,
+//   canvas_words) output). B = 1 is the one-run rebuild.
 // Bound on the H100: bytes (the canvas written once, the buffers read once).
-// Design: one thread an entry; sources own disjoint rows, so no two
-//   entries store to one word and no atomics are needed.
+// Design: one thread an entry, the replica on grid y; sources own disjoint
+//   rows, so no two entries store to one word and no atomics are needed.
 // ---------------------------------------------------------------------------
 __global__ void scatter_deltas_kernel(const int32_t* __restrict__ idx,
                                       const uint32_t* __restrict__ val,
@@ -897,11 +912,13 @@ __global__ void scatter_deltas_kernel(const int32_t* __restrict__ idx,
                                       long long src_words, long long canvas_words,
                                       uint32_t* __restrict__ out) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_entries) return;
-  const int i = __ldg(idx + e);
+  if (e >= n_entries) return;  // n_entries = n_srcs * capacity, a replica's
+  const long long s = e / capacity;
+  const long long at = (s * gridDim.y + blockIdx.y) * capacity + (e - s * capacity);
+  const int i = __ldg(idx + at);
   if (i < 0) return;
-  const long long g = (e / capacity) * src_words + i;
-  if (g < canvas_words) out[g] = __ldg(val + e);
+  const long long g = s * src_words + i;
+  if (g < canvas_words) out[(long long)blockIdx.y * canvas_words + g] = __ldg(val + at);
 }
 
 // ---------------------------------------------------------------------------
@@ -1104,10 +1121,11 @@ int gossip_tick_digest(const void* seen, int n, int w, long long ld,
 }
 
 
-// `changed` is (n_loc, w) row-major, n_loc * w < 2^31 words; `need` is
-// (n_loc, k) bytes, k <= 32; `block_counts` holds scratch for
-// compress_blocks(n_loc * w) x k ints; idx/val (k, capacity) are filled
-// with -1/0 by the caller; `counts` (k,) is written here.
+// `changed` is (replicas * n_loc, w) row-major, n_loc * w < 2^31 words; `need`
+// is (n_loc, k) bytes, k <= 32, shared by the replicas; `block_counts` holds
+// scratch for replicas x compress_blocks(n_loc * w) x k ints; idx/val
+// (replicas, k, capacity) are filled with -1/0 by the caller; `counts`
+// (replicas, k) is written here.
 int gossip_compress_blocks(long long n_words, int* iters) {
   long long it = (n_words + 1024LL * kCompressThreads - 1) / (1024LL * kCompressThreads);
   if (it < 32) it = 32;
@@ -1118,34 +1136,39 @@ int gossip_compress_blocks(long long n_words, int* iters) {
 
 int gossip_compress_deltas(const void* changed, int n_loc, int w, const void* need, int k,
                            int capacity, void* block_counts, void* idx, void* val,
-                           void* counts, void* stream) {
-  if (k < 1 || k > kMaxDests) return (int)cudaErrorInvalidValue;
+                           void* counts, int replicas, void* stream) {
+  if (k < 1 || k > kMaxDests || replicas < 1 || replicas > 65535)
+    return (int)cudaErrorInvalidValue;
   const long long n_words = (long long)n_loc * w;
   int iters = 0;
   const int blocks = gossip_compress_blocks(n_words, &iters);
   if (blocks < 1) return (int)cudaErrorInvalidValue;
-  compress_count_kernel<<<blocks, kCompressThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid(blocks, replicas);
+  compress_count_kernel<<<grid, kCompressThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)changed, n_words, w, (const uint8_t*)need, k, iters,
       (int32_t*)block_counts);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  compress_write_kernel<<<blocks, kCompressThreads, 0, (cudaStream_t)stream>>>(
+  compress_write_kernel<<<grid, kCompressThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)changed, n_words, w, (const uint8_t*)need, k, iters,
       (const int32_t*)block_counts, capacity, (int32_t*)idx, (uint32_t*)val,
       (int32_t*)counts);
   return (int)cudaGetLastError();
 }
 
-// `idx`/`val` are (n_srcs, capacity); source s's entries land at word
-// s * src_words + idx of the (zeroed) canvas of canvas_words words.
+// `idx`/`val` are (n_srcs, replicas, capacity); replica b's source s's
+// entries land at word s * src_words + idx of replica b's (zeroed) canvas of
+// canvas_words words, the canvases one after another in `out`.
 int gossip_scatter_deltas(const void* idx, const void* val, int n_srcs, int capacity,
-                          long long src_words, long long canvas_words, void* out,
-                          void* stream) {
+                          long long src_words, long long canvas_words, int replicas,
+                          void* out, void* stream) {
+  if (replicas < 1 || replicas > 65535) return (int)cudaErrorInvalidValue;
   const long long n = (long long)n_srcs * capacity;
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
   if (blocks > 0)
-    scatter_deltas_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+    scatter_deltas_kernel<<<dim3((unsigned)blocks, replicas), threads, 0,
+                            (cudaStream_t)stream>>>(
         (const int32_t*)idx, (const uint32_t*)val, n, capacity, src_words, canvas_words,
         (uint32_t*)out);
   return (int)cudaGetLastError();

@@ -55,10 +55,10 @@ _SIGNATURES = {
     # n_words, iters (out) -> blocks
     "gossip_compress_blocks": (_LL, _P),
     # changed, n_loc, w, need, k, capacity, block_counts, idx, val, counts,
-    # stream
-    "gossip_compress_deltas": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P),
-    # idx, val, n_srcs, capacity, src_words, canvas_words, out, stream
-    "gossip_scatter_deltas": (_P, _P, _I, _I, _LL, _LL, _P, _P),
+    # replicas, stream
+    "gossip_compress_deltas": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P),
+    # idx, val, n_srcs, capacity, src_words, canvas_words, replicas, out, stream
+    "gossip_scatter_deltas": (_P, _P, _I, _I, _LL, _LL, _I, _P, _P),
     # stack, n_words, k, out, stream
     "gossip_or_fold": (_P, _LL, _I, _P, _P),
 }

@@ -735,11 +735,19 @@ def tick_digest(
 
 # --- compress_deltas / scatter_deltas ---------------------------------------
 
-def compress_deltas_plain(changed: torch.Tensor, need: torch.Tensor, capacity: int):
+def compress_deltas_plain(changed: torch.Tensor, need: torch.Tensor, capacity: int,
+                          replicas: int | None = None):
     """The JAX package's formula: each destination's candidate words
     (nonzero, row in its cut) ranked by a cumsum in flat-index order,
     scattered into (k, capacity + 1) buffers whose last slot takes every
-    rank >= capacity and is cut off."""
+    rank >= capacity and is cut off. ``replicas`` B: the formula on each
+    replica's (n_loc, W) rows in turn, stacked to (B, k, capacity) and
+    (B, k)."""
+    if replicas is not None:
+        n_loc = changed.shape[0] // replicas
+        parts = [compress_deltas_plain(changed[b * n_loc:(b + 1) * n_loc], need, capacity)
+                 for b in range(replicas)]
+        return tuple(torch.stack(p) for p in zip(*parts))
     n_loc, w = changed.shape
     k = need.shape[1]
     flat = changed.reshape(-1)
@@ -756,7 +764,8 @@ def compress_deltas_plain(changed: torch.Tensor, need: torch.Tensor, capacity: i
 
 
 def compress_deltas(
-    changed: torch.Tensor, need: torch.Tensor, capacity: int, *, plain: bool = False
+    changed: torch.Tensor, need: torch.Tensor, capacity: int, *,
+    replicas: int | None = None, plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pack each destination's nonzero words into a fixed-capacity buffer:
     ``changed`` (n_loc, W) int32 and ``need`` (n_loc, k) bool (row r is in
@@ -764,42 +773,58 @@ def compress_deltas(
     ascending order (-1 padding), val (k, capacity) int32 the words (0
     padding), counts (k,) int32 the true candidate counts (above capacity
     when a buffer truncated). Two launches of the CUDA kernel pair (count,
-    then write) on the card."""
-    _require(changed.dim() == 2 and need.dim() == 2 and need.shape[0] == changed.shape[0],
-             "changed must be (n_loc, W) and need (n_loc, k)")
+    then write) on the card.
+
+    ``replicas`` B stacks B independent slices along the rows (a campaign
+    batch): ``changed`` (B*n_loc, W), the shared ``need`` (n_loc, k), and
+    idx, val (B, k, capacity) and counts (B, k), replica b's indices flat
+    over its own slice. The same two launches cover the B replicas."""
+    _require(changed.dim() == 2 and need.dim() == 2, "changed and need must be 2-D")
     _require(need.dtype == torch.bool, f"need must be bool, got {need.dtype}")
     _require(capacity >= 1, "capacity must be >= 1")
-    n_loc, w = changed.shape
+    b = 1 if replicas is None else replicas
+    _require(b >= 1 and changed.shape[0] == b * need.shape[0],
+             "changed must be (B*n_loc, W) over need's (n_loc, k)")
+    n_loc, w = need.shape[0], changed.shape[1]
     k = need.shape[1]
-    _require(n_loc * w < 2**31, "more than 2^31 - 1 words: int32 indices would wrap")
+    _require(n_loc * w < 2**31, "more than 2^31 - 1 words a replica: int32 indices would wrap")
     if not _use_kernel(changed, plain):
-        return compress_deltas_plain(changed, need, capacity)
+        return compress_deltas_plain(changed, need, capacity, replicas)
     _int32_matrix(changed, "changed")
     _require(1 <= k <= 32, f"the kernel takes 1..32 destinations, got {k}")
+    _require(b <= 65535, "at most 65535 replicas a launch")
     for name, t in (("changed", changed), ("need", need)):
         _require(t.device == changed.device and t.is_contiguous(),
                  f"{name} must be contiguous on the changed words' device")
     dev = changed.device
-    idx = torch.full((k, capacity), -1, dtype=torch.int32, device=dev)
-    val = torch.zeros((k, capacity), dtype=torch.int32, device=dev)
-    counts = torch.zeros((k,), dtype=torch.int32, device=dev)
+    idx = torch.full((b, k, capacity), -1, dtype=torch.int32, device=dev)
+    val = torch.zeros((b, k, capacity), dtype=torch.int32, device=dev)
+    counts = torch.zeros((b, k), dtype=torch.int32, device=dev)
     if n_loc * w:
         lib = _lib()
         iters = ctypes.c_int(0)
         blocks = lib.gossip_compress_blocks(n_loc * w, ctypes.byref(iters))
-        scratch = torch.empty((blocks, k), dtype=torch.int32, device=dev)
+        scratch = torch.empty((b, blocks, k), dtype=torch.int32, device=dev)
         _launch(
             "compress_deltas", lib.gossip_compress_deltas,
             changed.data_ptr(), n_loc, w, need.data_ptr(), k, int(capacity),
-            scratch.data_ptr(), idx.data_ptr(), val.data_ptr(), counts.data_ptr(),
+            scratch.data_ptr(), idx.data_ptr(), val.data_ptr(), counts.data_ptr(), b,
             _stream(dev),
         )
+    if replicas is None:
+        return idx[0], val[0], counts[0]
     return idx, val, counts
 
 
-def scatter_deltas_plain(idx, val, n_loc, w, n_padded, out):
+def scatter_deltas_plain(idx, val, n_loc, w, n_padded, out, replicas=None):
     """The JAX package's formula: source s's id i is canvas word s*n_loc*W
-    + i, and -1 (or anything past the canvas) is dropped."""
+    + i, and -1 (or anything past the canvas) is dropped. ``replicas`` B:
+    the formula on each replica's (n_srcs, capacity) buffers in turn, into
+    its (n_padded, W) canvas of ``out`` (B, n_padded, W)."""
+    if replicas is not None:
+        for b in range(replicas):
+            scatter_deltas_plain(idx[:, b], val[:, b], n_loc, w, n_padded, out[b])
+        return out
     n_srcs = idx.shape[0]
     offsets = torch.arange(n_srcs, dtype=torch.int64, device=idx.device)[:, None] * (n_loc * w)
     gidx = idx.to(torch.int64) + offsets
@@ -812,31 +837,41 @@ def scatter_deltas_plain(idx, val, n_loc, w, n_padded, out):
 
 def scatter_deltas(
     idx: torch.Tensor, val: torch.Tensor, n_loc: int, w: int, n_padded: int, *,
-    out: torch.Tensor | None = None, plain: bool = False,
+    out: torch.Tensor | None = None, replicas: int | None = None, plain: bool = False,
 ) -> torch.Tensor:
     """Rebuild the global (n_padded, W) int32 slice from received delta
     buffers ``idx``/``val`` (n_srcs, capacity) int32 (axis 0 = source
     shard): word ``s * n_loc * W + idx[s, e]`` gets ``val[s, e]``, -1 and
     out-of-canvas entries are dropped, every other word is zero. ``out``
     is reused when given. One launch of the CUDA kernel on the card, after
-    a zero fill of the canvas."""
-    _require(idx.dim() == 2 and val.shape == idx.shape, "idx and val must be (n_srcs, capacity)")
+    a zero fill of the canvas.
+
+    ``replicas`` B: ``idx``/``val`` (n_srcs, B, capacity), as an exchange
+    of `compress_deltas`' (B, k, capacity) buffers leaves them, rebuilt
+    into ``out`` (B, n_padded, W), replica b's canvas from its own
+    entries. One launch covers the B replicas."""
+    b = 1 if replicas is None else replicas
+    shape = (n_padded, w) if replicas is None else (b, n_padded, w)
+    _require(idx.dim() == (2 if replicas is None else 3) and val.shape == idx.shape
+             and (replicas is None or idx.shape[1] == b),
+             "idx and val must be (n_srcs, capacity), or (n_srcs, B, capacity)")
     if out is None:
-        out = torch.empty((n_padded, w), dtype=torch.int32, device=idx.device)
-    _require(out.shape == (n_padded, w) and out.dtype == torch.int32 and out.is_contiguous(),
-             "out must be a contiguous (n_padded, W) int32 tensor")
+        out = torch.empty(shape, dtype=torch.int32, device=idx.device)
+    _require(out.shape == shape and out.dtype == torch.int32 and out.is_contiguous(),
+             f"out must be a contiguous {shape} int32 tensor")
     if not _use_kernel(idx, plain):
-        return scatter_deltas_plain(idx, val, n_loc, w, n_padded, out)
+        return scatter_deltas_plain(idx, val, n_loc, w, n_padded, out, replicas)
     for name, t in (("idx", idx), ("val", val), ("out", out)):
         _require(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
         _require(t.device == idx.device and t.is_contiguous(),
                  f"{name} must be contiguous on the idx device")
+    _require(b <= 65535, "at most 65535 replicas a launch")
     out.zero_()
     if idx.numel():
         _launch(
             "scatter_deltas", _lib().gossip_scatter_deltas,
-            idx.data_ptr(), val.data_ptr(), idx.shape[0], idx.shape[1],
-            n_loc * w, n_padded * w, out.data_ptr(), _stream(idx.device),
+            idx.data_ptr(), val.data_ptr(), idx.shape[0], idx.shape[-1],
+            n_loc * w, n_padded * w, b, out.data_ptr(), _stream(idx.device),
         )
     return out
 

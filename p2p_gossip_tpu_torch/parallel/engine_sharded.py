@@ -41,6 +41,11 @@ rank's own.
 Counters, coverage rows, snapshots and ``stats.extra['exchange']`` equal
 the JAX sharded engine's and the single-device engine's, bit for bit, for
 every mesh shape, ring mode and exchange.
+
+Campaign mode (the JAX package's ``replica_axis``; `batch.campaign_sharded`
+drives it): on a (replicas, nodes) mesh a rank runs rb local replicas at
+once, stacked along the rows of every state tensor, with one overflow
+flag and one set of exchange counters a replica in the same mesh vector.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ from p2p_gossip_tpu_torch.ops.ell import (
 )
 from p2p_gossip_tpu_torch.parallel import async_ticks
 from p2p_gossip_tpu_torch.parallel import exchange as exch
-from p2p_gossip_tpu_torch.parallel.mesh import all_gather_rows, pad_to_multiple
+from p2p_gossip_tpu_torch.parallel.mesh import SHARES_AXIS, all_gather_rows, pad_to_multiple
 from p2p_gossip_tpu_torch.telemetry import digest as tel_digest
 from p2p_gossip_tpu_torch.telemetry import progress as tel_progress
 from p2p_gossip_tpu_torch.telemetry import rings as tel_rings
@@ -414,28 +419,62 @@ def _padded_churn(churn, n_padded: int, k: int, shard: int):
 
 # --- the per-rank runner -------------------------------------------------------
 
+def replica_major(gathered: torch.Tensor, k: int, rb: int) -> torch.Tensor:
+    """An all_gather over k node shards of rb stacked replicas' rows lands
+    rank-major, (k, rb, n_loc, ...); return it replica-major, (rb, k *
+    n_loc, ...) flattened, replica b's global slice at rows b * n_padded (a
+    copy when rb > 1 and k > 1; the same tensor otherwise)."""
+    if rb == 1 or k == 1:
+        return gathered
+    rest = tuple(gathered.shape[1:])
+    return (gathered.view((k, rb, -1) + rest).transpose(0, 1)
+            .reshape((gathered.shape[0],) + rest))
+
+
+def gather_first(local: torch.Tensor, s: int, group) -> np.ndarray:
+    """Every first-axis shard's ``local`` tensor (all_gathered over the
+    first axis' ``group`` of ``s`` ranks), stacked on the host."""
+    out = torch.empty((s * local.shape[0],) + tuple(local.shape[1:]), dtype=local.dtype,
+                      device=local.device)
+    all_gather_rows(out, local.contiguous(), group)
+    return out.view((s,) + tuple(local.shape)).cpu().numpy()
+
+
 class _Runner:
-    """One rank's staged operands and its pass loop."""
+    """One rank's staged operands and its pass loop.
+
+    ``replicas`` > 0 is campaign mode (the JAX package's ``replica_axis`` /
+    ``local_replicas``): the mesh's first axis carries replica shards, and
+    this rank runs ``replicas`` rb local replicas of its node shard at
+    once, their state stacked along the rows (``seen`` (rb*n_loc, W), the
+    ring (ring, rb*rows, W), the counters (rb*n_loc,)), each with its own
+    schedule, churn rows and loss seed (given per pass). Every launch
+    covers the local batch; each replica keeps its own delta flags and
+    exchange counters. 0 is the one-run engine (rb = 1)."""
 
     def __init__(self, plan: _Plan, mesh, sg: ShardedGraph, need, hub, churn, loss,
-                 connect_tick: int, telemetry_on: bool, plain: bool):
+                 connect_tick: int, telemetry_on: bool, plain: bool, replicas: int = 0):
         self.plan, self.mesh, self.plain = plan, mesh, plain
         self.dev = dev = mesh.device
         self.q, self.p = mesh.coordinate
         self.row_offset = self.p * plan.n_loc
         self.nodes = mesh.nodes_group
-        self.shares = mesh.shares_group
+        self.first = mesh.first_group
+        self.campaign = replicas > 0
+        self.rb = rb = max(1, replicas)
 
         def i32(a):
             return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
 
         self.groups, self.degree = sg.on_device(dev)
+        self.degree_rb = self.degree.repeat(rb) if rb > 1 else self.degree
         self.need = None if need is None else torch.as_tensor(need, device=dev)
         self.hub = None if hub is None else (
             torch.as_tensor(hub[0].astype(np.int64), device=dev),
             torch.as_tensor(hub[1].astype(np.int64), device=dev))
         self.churn = None if churn is None else tuple(i32(c) for c in churn)
-        self.loss = None if loss is None else loss.static_cfg
+        self.loss = None if loss is None else (
+            loss if isinstance(loss, tuple) else loss.static_cfg)
         self.connect_tick = int(connect_tick)
         self.tel = telemetry_on
         staged = [self.degree]
@@ -444,65 +483,77 @@ class _Runner:
         staged += [t for t in (self.need, *(self.hub or ()), *(self.churn or ()))
                    if t is not None]
         self.staged_bytes = sum(t.numel() * t.element_size() for t in staged)
+        if rb > 1:
+            self.staged_bytes += self.degree_rb.numel() * 4
+        self.pass_bytes = 0  # a campaign pass's own operands (churn rows), the largest
         # Groups reading one landed offset share its canvas.
         self.uses = {off: plan.off_index.count(i) for i, off in enumerate(plan.offs)}
 
     def resident_bytes(self, horizon: int, cov_slots: int | None = None) -> int:
         """Modeled peak device memory of this rank over a call (the per-rank
         form of `engine.sync.flood_resident_hbm_bytes`), counted from the
-        code: the staged operands (``staged_bytes``); the pass state —
-        ``seen``, the ring (local rows, or all rows when replicated, then
-        with its occupancy ring), the counters, the delta rings and hub
-        ring, the coverage rows; and the tick's peak in
-        `apply_tick_updates`: four (n_loc, W) temporaries (arrivals, the
-        generation bits, ~seen, newly) and, when gathers read a sharded
-        ring, the read canvas (n_padded, W) with its occupancy, or the
-        landed canvases under async (two an offset on the dense
-        transport: this tick's and the next's in flight)."""
-        p = self.plan
+        code: the staged operands (``staged_bytes``, and a campaign pass's
+        churn rows); the pass state — ``seen``, the ring (local rows, or all
+        rows when replicated, then with its occupancy ring), the counters,
+        the delta rings and hub ring, the coverage rows — each rb times in
+        campaign mode; and the tick's peak in `apply_tick_updates`: four
+        (rb*n_loc, W) temporaries (arrivals, the generation bits, ~seen,
+        newly) and, when gathers read a sharded ring, the read canvas
+        (rb*n_padded, W) with its occupancy, or the landed canvases under
+        async (two an offset on the dense transport: this tick's and the
+        next's in flight). With rb > 1 on several node shards an all_gather
+        lands rank-major and is copied replica-major: one canvas more."""
+        p, rb = self.plan, self.rb
         row = p.w * 4
         rows = p.n_padded if not p.sharded_ring else p.n_loc
-        state = (p.ring * rows + p.n_loc) * row + 2 * p.n_loc * 4
+        state = rb * ((p.ring * rows + p.n_loc) * row + 2 * p.n_loc * 4)
         if not p.sharded_ring:
-            state += p.ring * rows * 4
+            state += rb * p.ring * rows * 4
         if p.delta:
-            state += 2 * p.ring * p.k * p.capacity * 4 + p.ring * p.k * p.hub_count * row
+            state += rb * (2 * p.ring * p.k * p.capacity * 4 + p.ring * p.k * p.hub_count * row)
         if cov_slots:
-            state += (p.s + 1) * horizon * cov_slots * 4
-        tick = 4 * p.n_loc * row
+            state += rb * (p.s + 1) * horizon * cov_slots * 4
+        loc, glob = rb * p.n_loc * row, rb * p.n_padded * row
+        tick = 4 * loc
         if len(self.groups) > 1:
-            tick += p.n_loc * row
+            tick += loc
+        transpose = rb > 1 and p.k > 1
         if not p.sharded_ring and p.k > 1:
-            tick += p.n_loc * row
+            tick += loc + (glob if transpose else 0)
         if p.sharded_ring:
             canvases = len(p.offs) * (1 if p.delta else 2) if p.offs else 1
-            tick += canvases * p.n_padded * row + p.n_padded * 4
-        return self.staged_bytes + state + tick
+            tick += canvases * glob + rb * p.n_padded * 4 + (glob if transpose else 0)
+        return self.staged_bytes + self.pass_bytes + state + tick
 
     # -- collectives ----------------------------------------------------------
 
     def _gather_rows(self, local: torch.Tensor, async_op: bool = False):
-        """all_gather of a (n_loc, ...) local slice over the nodes group into
-        a fresh (n_padded, ...) tensor (and the work handle when async)."""
-        out = torch.empty((self.plan.n_padded,) + tuple(local.shape[1:]),
+        """all_gather of a (rb*n_loc, ...) local slice over the nodes group
+        into a fresh (rb*n_padded, ...) replica-major tensor; async, the
+        rank-major buffer and the work handle (`replica_major` after the
+        wait)."""
+        out = torch.empty((self.plan.k * local.shape[0],) + tuple(local.shape[1:]),
                           dtype=local.dtype, device=self.dev)
         work = all_gather_rows(out, local, self.nodes, async_op=async_op)
-        return (out, work) if async_op else out
+        return (out, work) if async_op else replica_major(out, self.plan.k, self.rb)
 
     # -- the read side ----------------------------------------------------------
 
     def _rebuild(self, st, slot: int) -> torch.Tensor:
         """A slot's remote rows from its received delta buffers (and hub
-        block); own rows zero."""
+        block), (rb*n_padded, W); own rows zero."""
         p = self.plan
         canvas = kernels.scatter_deltas(st["didx"][slot], st["dval"][slot], p.n_loc, p.w,
-                                        p.n_padded, plain=self.plain)
+                                        p.n_padded, replicas=self.rb, plain=self.plain)
         if self.hub is not None:
-            exch.overlay_hub(canvas, self.hub[1], st["hub"][slot])
-        return canvas
+            exch.overlay_hub(canvas, self.hub[1], st["hub"][slot], replicas=self.rb)
+        return canvas.view(self.rb * p.n_padded, p.w)
 
     def _overlay_own(self, canvas, st, slot: int) -> torch.Tensor:
-        canvas[self.row_offset:self.row_offset + self.plan.n_loc] = st["hist"][slot]
+        p = self.plan
+        lo = self.row_offset
+        canvas.view(self.rb, p.n_padded, p.w)[:, lo:lo + p.n_loc] = (
+            st["hist"][slot].view(self.rb, p.n_loc, p.w))
         return canvas
 
     def _landed(self, st, off: int) -> torch.Tensor:
@@ -513,20 +564,26 @@ class _Runner:
         kind, value = st["landed"].get(off, ("zero", None))
         if kind == "dense":
             value[1].wait()
-            value = value[0]
+            value = replica_major(value[0], self.plan.k, self.rb)
         elif kind == "delta":
             value = self._rebuild(st, value)
         elif kind == "zero":
-            value = torch.zeros((self.plan.n_padded, self.plan.w), dtype=torch.int32,
-                                device=self.dev)
+            value = torch.zeros((self.rb * self.plan.n_padded, self.plan.w),
+                                dtype=torch.int32, device=self.dev)
         st["landed"][off] = ("canvas", value)
         return value
+
+    def _flagged(self, st, slot: int) -> bool:
+        """Any local replica's overflow flag on ``slot``: the dense read then
+        serves the whole local batch (its values equal the rebuild's for
+        every row a gather reads)."""
+        return any(f[slot] for f in st["flags"][self.q])
 
     def _read(self, st, t: int, g: int):
         """The global (t - d) frontier slice group ``g`` reads, as (ring,
         occ, slot index) for `kernels.gather_or`, and for a landed read
-        with added staleness, whether the landed canvas holds a remote bit
-        (else None)."""
+        with added staleness, whether each local replica's landed canvas
+        holds a remote bit ((rb,) bool; else None)."""
         p = self.plan
         d = p.group_delays[g]
         slot = (t - d) % p.ring
@@ -539,9 +596,11 @@ class _Runner:
             base = self._landed(st, off)
             if self.tel and p.amounts[g] > 0:
                 lo, hi = self.row_offset, self.row_offset + p.n_loc
-                pending = (base[:lo] != 0).any() | (base[hi:] != 0).any()
+                v = base.view(self.rb, p.n_padded, p.w)
+                pending = ((v[:, :lo] != 0).flatten(1).any(1)
+                           | (v[:, hi:] != 0).flatten(1).any(1))
             canvas = self._overlay_own(base.clone() if self.uses[off] > 1 else base, st, slot)
-        elif p.delta and not st["flags"][self.q][slot]:
+        elif p.delta and not self._flagged(st, slot):
             canvas = self._overlay_own(self._rebuild(st, slot), st, slot)
         else:
             canvas = self._gather_rows(st["hist"][slot])
@@ -558,16 +617,16 @@ class _Runner:
         landed = {}
         for off in p.offs:
             slot = (t + 1 - off) % p.ring
-            if p.delta and not st["flags"][self.q][slot]:
+            if p.delta and not self._flagged(st, slot):
                 landed[off] = ("delta", slot)
             else:
                 landed[off] = ("dense", self._gather_rows(st["hist"][slot], async_op=True))
         return landed
 
     def _gather(self, src, occ, slot, t, g, out, loss, up):
-        """Group g's gather-OR of ``src`` into ``out`` (n_loc, W)."""
+        """Group g's gather-OR of ``src`` into ``out`` (rb*n_loc, W)."""
         kind = self.groups[g][0]
-        kw = dict(uniform_slot=slot, occ=occ, loss=loss, up=up, out=out,
+        kw = dict(uniform_slot=slot, occ=occ, loss=loss, up=up, out=out, replicas=self.rb,
                   id_offset=self.row_offset, plain=self.plain)
         if kind == "direct":
             _, idx, msk = self.groups[g]
@@ -581,74 +640,97 @@ class _Runner:
     # -- one pass ----------------------------------------------------------------
 
     def run_pass(self, origins, gen_ticks, t_start, last_gen, horizon, snap_ticks,
-                 cov_slots=None):
+                 cov_slots=None, churn=None, loss_seeds=None):
         """Run one pass (this rank's share shard's ``origins``/``gen_ticks``,
-        (chunk,) int32 numpy) from ``t_start`` to quiescence or the
-        horizon. Returns a dict of host values, identical on every rank:
-        the global counters, the tick count, the exchange counters and,
-        when recorded, every share shard's coverage rows and rings."""
-        p, dev, plain = self.plan, self.dev, self.plain
+        (chunk,) int32 numpy; in campaign mode its local replicas' (rb,
+        chunk), with their ``churn`` (rb*n_loc, K) int32 device rows and
+        ``loss_seeds`` (rb,) int32 device tensor) from ``t_start`` to
+        quiescence of every run on the mesh, or the horizon. Returns a dict
+        of host values, identical on every rank: the global counters, the
+        tick count, the exchange counters (and ``exchange_per``, one
+        (used, overflow ticks, fallbacks, ticks) row a replica of the
+        first axis) and, when recorded, every first-axis shard's coverage
+        rows and rings."""
+        p, dev, plain, rb = self.plan, self.dev, self.plain, self.rb
         n_loc, w, ring = p.n_loc, p.w, p.ring
         rows = p.n_padded if not p.sharded_ring else n_loc
+        churn = self.churn if churn is None else churn
+        loss = self.loss
+        if loss is not None and loss_seeds is not None:
+            loss = (loss[0], loss_seeds)
+        if churn is not None and self.campaign:
+            self.pass_bytes = max(self.pass_bytes,
+                                  sum(c.numel() * c.element_size() for c in churn))
         st = {
-            "hist": torch.zeros((ring, rows, w), dtype=torch.int32, device=dev),
-            "flags": [[False] * ring for _ in range(p.s)],
+            "hist": torch.zeros((ring, rb * rows, w), dtype=torch.int32, device=dev),
+            # Each (first-axis shard, local replica)'s overflow flag a slot.
+            "flags": [[[False] * ring for _ in range(rb)] for _ in range(p.s)],
             "landed": {},
         }
         if not p.sharded_ring:
-            st["occ"] = torch.zeros((ring, rows), dtype=torch.int32, device=dev)
+            st["occ"] = torch.zeros((ring, rb * rows), dtype=torch.int32, device=dev)
         if p.delta:
-            st["didx"] = torch.full((ring, p.k, p.capacity), -1, dtype=torch.int32, device=dev)
-            st["dval"] = torch.zeros((ring, p.k, p.capacity), dtype=torch.int32, device=dev)
+            # Received buffers as the all_to_all leaves them: (source, replica).
+            st["didx"] = torch.full((ring, p.k, rb, p.capacity), -1, dtype=torch.int32,
+                                    device=dev)
+            st["dval"] = torch.zeros((ring, p.k, rb, p.capacity), dtype=torch.int32,
+                                     device=dev)
             if self.hub is not None:
-                st["hub"] = torch.zeros((ring, p.k * p.hub_count, w), dtype=torch.int32,
+                st["hub"] = torch.zeros((ring, p.k, rb, p.hub_count, w), dtype=torch.int32,
                                         device=dev)
-        seen = torch.zeros((n_loc, w), dtype=torch.int32, device=dev)
-        received = torch.zeros((n_loc,), dtype=torch.int32, device=dev)
-        sent = torch.zeros((n_loc,), dtype=torch.int32, device=dev)
-        snaps = torch.zeros((len(snap_ticks), n_loc), dtype=torch.int32, device=dev)
+        seen = torch.zeros((rb * n_loc, w), dtype=torch.int32, device=dev)
+        received = torch.zeros((rb * n_loc,), dtype=torch.int32, device=dev)
+        sent = torch.zeros((rb * n_loc,), dtype=torch.int32, device=dev)
+        snaps = torch.zeros((len(snap_ticks), rb * n_loc), dtype=torch.int32, device=dev)
+        origins = np.asarray(origins).reshape(rb, -1)
         local = origins.astype(np.int64) - self.row_offset
         in_shard = (local >= 0) & (local < n_loc)
-        local_rows = torch.as_tensor(np.where(in_shard, local, 0), device=dev)
-        in_shard = torch.as_tensor(in_shard, device=dev)
-        gen_ticks = torch.as_tensor(gen_ticks, device=dev)
-        slots = torch.arange(p.chunk, dtype=torch.int64, device=dev)
+        stacked = np.where(in_shard, local, 0) + np.arange(rb)[:, None] * n_loc
+        local_rows = torch.as_tensor(stacked.reshape(-1), device=dev)
+        in_shard = torch.as_tensor(in_shard.reshape(-1), device=dev)
+        gen_ticks = torch.as_tensor(np.ascontiguousarray(np.asarray(gen_ticks).reshape(-1)),
+                                    device=dev)
+        slots = torch.arange(p.chunk, dtype=torch.int64, device=dev).repeat(rb)
         record = cov_slots is not None
         if record:
             cov_w = bitmask.num_words(cov_slots)
-            cov_run = torch.zeros((cov_slots,), dtype=torch.int32, device=dev)
-            cov_hist = torch.zeros((horizon, cov_slots), dtype=torch.int32, device=dev)
-        rings = tel_rings.chunk_rings(horizon, dev) if self.tel else None
-        newly_buf = (torch.empty((n_loc, w), dtype=torch.int32, device=dev)
+            cov_run = torch.zeros((rb, cov_slots), dtype=torch.int32, device=dev)
+            cov_hist = torch.zeros((rb, horizon, cov_slots), dtype=torch.int32, device=dev)
+        rings = (tel_rings.chunk_rings(horizon, dev, rb if self.campaign else None)
+                 if self.tel else None)
+        newly_buf = (torch.empty((rb * n_loc, w), dtype=torch.int32, device=dev)
                      if not p.sharded_ring and p.k > 1 else None)
-        vec = torch.zeros((1 + 2 * p.s,), dtype=torch.int64, device=dev)
-        used = ovf_ticks = fallbacks = 0
+        n_flags = p.s * rb
+        vec = torch.zeros((1 + 2 * n_flags,), dtype=torch.int64, device=dev)
+        mine = slice(1 + self.q * rb, 1 + (self.q + 1) * rb)
+        mine_used = slice(1 + n_flags + self.q * rb, 1 + n_flags + (self.q + 1) * rb)
+        used, ovf_ticks, fallbacks = ([0] * n_flags for _ in range(3))
         in_flight = [False] * ring
         t = t_start
         while t < horizon and (any(in_flight) or t <= last_gen):
-            fb = [sum(st["flags"][q][(t - d) % ring] for d in p.read_backs)
-                  for q in range(p.s)] if p.delta else None
+            fb = [[sum(st["flags"][q][b][(t - d) % ring] for d in p.read_backs)
+                   for b in range(rb)] for q in range(p.s)] if p.delta else None
             landed_next = self._prefetch(st, t) if p.offs else None
             for i, b in enumerate(snap_ticks):
                 if b == t:
                     snaps[i].copy_(received)
-            up = None if self.churn is None else churn_mod.up_mask(*self.churn, t)
-            arrivals = torch.empty((n_loc, w), dtype=torch.int32, device=dev)
+            up = None if churn is None else churn_mod.up_mask(*churn, t)
+            arrivals = torch.empty((rb * n_loc, w), dtype=torch.int32, device=dev)
             part = torch.empty_like(arrivals) if len(self.groups) > 1 else None
             if self.tel:
                 wire = arrivals
-                lossless = (torch.empty_like(arrivals) if self.loss is not None else None)
+                lossless = (torch.empty_like(arrivals) if loss is not None else None)
                 part_nl = (torch.empty_like(arrivals)
-                           if self.loss is not None and part is not None else None)
-                stale = folds = torch.zeros((), dtype=torch.int64, device=dev)
+                           if loss is not None and part is not None else None)
+                stale = folds = torch.zeros((rb,), dtype=torch.int64, device=dev)
             for g in range(len(self.groups)):
                 src, occ, slot, pending = self._read(st, t, g)
                 gather_up = None if self.tel else up
                 out = arrivals if g == 0 else part
-                self._gather(src, occ, slot, t, g, out, self.loss, gather_up)
+                self._gather(src, occ, slot, t, g, out, loss, gather_up)
                 if g:
                     arrivals |= part
-                if self.tel and self.loss is not None:
+                if self.tel and loss is not None:
                     out_nl = lossless if g == 0 else part_nl
                     self._gather(src, occ, slot, t, g, out_nl, None, None)
                     if g:
@@ -662,8 +744,8 @@ class _Runner:
             gen_active = (gen_ticks == t) & in_shard
             if up is not None:
                 gen_active &= up[local_rows]
-            gen_bits = bitmask.slot_scatter(n_loc, w, local_rows, slots, gen_active)
-            gen_cnt = torch.zeros((n_loc,), dtype=torch.int32, device=dev)
+            gen_bits = bitmask.slot_scatter(rb * n_loc, w, local_rows, slots, gen_active)
+            gen_cnt = torch.zeros((rb * n_loc,), dtype=torch.int32, device=dev)
             gen_cnt.index_add_(0, local_rows, gen_active.to(torch.int32))
             pre_connect = t < self.connect_tick
             live_bits, live_cnt = gen_bits, gen_cnt
@@ -672,34 +754,43 @@ class _Runner:
             slot_w = t % ring
             out = newly_buf if newly_buf is not None else st["hist"][slot_w]
             _, newly_out, _, _, newly_cnt = apply_tick_updates(
-                seen, arrivals, live_bits, live_cnt, received, sent, self.degree,
+                seen, arrivals, live_bits, live_cnt, received, sent, self.degree_rb,
                 out=out, plain=plain,
             )
             if pre_connect:
                 seen |= gen_bits
             if not p.sharded_ring:
                 if newly_buf is not None:
-                    all_gather_rows(st["hist"][slot_w], newly_out, self.nodes)
+                    if rb == 1:
+                        all_gather_rows(st["hist"][slot_w], newly_out, self.nodes)
+                    else:
+                        st["hist"][slot_w].copy_(self._gather_rows(newly_out))
                 kernels.sector_occupancy(st["hist"][slot_w], out=st["occ"][slot_w],
                                          plain=plain)
             vec.zero_()
             vec[0] = (newly_cnt.sum() + live_cnt.sum()) > 0
             if p.delta:
-                cidx, cval, counts = kernels.compress_deltas(newly_out, self.need,
-                                                             p.capacity, plain=plain)
-                dist.all_to_all_single(st["didx"][slot_w].view(-1), cidx.view(-1),
+                cidx, cval, counts = kernels.compress_deltas(newly_out, self.need, p.capacity,
+                                                             replicas=rb, plain=plain)
+                # Destination-major for the all_to_all: (k, rb, capacity).
+                dist.all_to_all_single(st["didx"][slot_w].view(-1),
+                                       cidx.transpose(0, 1).contiguous().view(-1),
                                        group=self.nodes)
-                dist.all_to_all_single(st["dval"][slot_w].view(-1), cval.view(-1),
+                dist.all_to_all_single(st["dval"][slot_w].view(-1),
+                                       cval.transpose(0, 1).contiguous().view(-1),
                                        group=self.nodes)
                 if self.hub is not None:
-                    all_gather_rows(st["hub"][slot_w], newly_out[self.hub[0]], self.nodes)
-                vec[1 + self.q] = (counts > p.capacity).any()
-                vec[1 + p.s + self.q] = counts.clamp(max=p.capacity).sum()
+                    block = newly_out.view(rb, n_loc, w)[:, self.hub[0]].contiguous()
+                    all_gather_rows(st["hub"][slot_w].view(-1, w), block.view(-1, w),
+                                    self.nodes)
+                vec[mine] = (counts > p.capacity).any(dim=1)
+                vec[mine_used] = counts.clamp(max=p.capacity).sum(dim=1)
             if record:
-                cov = bitmask.coverage_per_slot(newly_out[:, :cov_w], cov_slots, plain=plain)
+                cov = bitmask.coverage_per_slot(newly_out.view(rb, n_loc, w)[:, :, :cov_w],
+                                                cov_slots, plain=plain)
                 dist.all_reduce(cov, group=self.nodes)
                 cov_run += cov
-                cov_hist[t] = cov_run
+                cov_hist[:, t] = cov_run
             if self.tel:
                 self._telemetry_row(rings, t, wire, newly_out, newly_cnt, lossless, fb,
                                     stale, folds, seen, received, sent)
@@ -707,11 +798,12 @@ class _Runner:
             host = vec.tolist()  # the tick's one host read, mesh-uniform
             in_flight[slot_w] = host[0] > 0
             if p.delta:
-                for q in range(p.s):
-                    st["flags"][q][slot_w] = host[1 + q] > 0
-                used += sum(host[1 + p.s:])
-                ovf_ticks += sum(1 for q in range(p.s) if host[1 + q] > 0)
-                fallbacks += sum(fb)
+                for i in range(n_flags):
+                    flag = host[1 + i] > 0
+                    st["flags"][i // rb][i % rb][slot_w] = flag
+                    used[i] += host[1 + n_flags + i]
+                    ovf_ticks[i] += int(flag)
+                    fallbacks[i] += fb[i // rb][i % rb]
             if landed_next is not None:
                 st["landed"] = landed_next
             t += 1
@@ -722,60 +814,74 @@ class _Runner:
             if b >= t:
                 snaps[i].copy_(received)
         if record:
-            cov_hist[t:] = cov_run
+            cov_hist[:, t:] = cov_run[:, None]
         # Global counters on every rank: own rows into a zero canvas, one
-        # SUM over the mesh (disjoint over nodes, added over shares; int32
-        # wraps as the JAX psum does).
-        counters = torch.zeros((2 + len(snap_ticks), p.n_padded), dtype=torch.int32,
-                               device=dev)
+        # SUM over the mesh (disjoint over nodes; added over share shards,
+        # or each replica shard at its own place; int32 wraps as the JAX
+        # psum does).
+        places = p.s if self.campaign else 1
+        counters = torch.zeros((places, rb, 2 + len(snap_ticks), p.n_padded),
+                               dtype=torch.int32, device=dev)
         own = slice(self.row_offset, self.row_offset + n_loc)
-        counters[0, own] = received
-        counters[1, own] = sent
-        counters[2:, own] = snaps
+        here = counters[self.q if self.campaign else 0]
+        here[:, 0, own] = received.view(rb, n_loc)
+        here[:, 1, own] = sent.view(rb, n_loc)
+        here[:, 2:, own] = snaps.view(len(snap_ticks), rb, n_loc).transpose(0, 1)
         dist.all_reduce(counters, group=self.mesh.group)
+        ticks = t - t_start
+        per = np.array([used, ovf_ticks, fallbacks, [ticks] * n_flags],
+                       dtype=np.int64).T.reshape(n_flags, 4)
         out = {
-            "counters": counters.cpu().numpy(), "ticks": t - t_start,
-            "exchange": (used, ovf_ticks, fallbacks, p.s * (t - t_start)),
+            "counters": (counters.view(places * rb, 2 + len(snap_ticks), p.n_padded)
+                         .cpu().numpy()),
+            "ticks": ticks,
+            "exchange": (sum(used), sum(ovf_ticks), sum(fallbacks), p.s * ticks),
+            "exchange_per": per,
         }
+        if not self.campaign:
+            out["counters"] = out["counters"][0]
         if record:
-            out["coverage"] = self._gather_shares(cov_hist)
+            cov = gather_first(cov_hist, p.s, self.first)  # (s, rb, horizon, S)
+            out["coverage"] = cov.reshape((-1,) + cov.shape[2:]) if self.campaign else cov[:, 0]
         if self.tel:
-            out["rings"] = tuple(self._gather_shares(r) for r in rings)
+            out["rings"] = tuple(gather_first(r, p.s, self.first) for r in rings)
+            if self.campaign:
+                out["rings"] = tuple(r.reshape((-1,) + r.shape[2:]) for r in out["rings"])
         return out
-
-    def _gather_shares(self, local: torch.Tensor) -> np.ndarray:
-        """Every share shard's ``local`` tensor, stacked on the host."""
-        out = torch.empty((self.plan.s * local.shape[0],) + tuple(local.shape[1:]),
-                          dtype=local.dtype, device=self.dev)
-        all_gather_rows(out, local, self.shares)
-        return out.view((self.plan.s,) + tuple(local.shape)).cpu().numpy()
 
     def _telemetry_row(self, rings, t, wire, newly_out, received_delta, lossless, fb,
                        stale, folds, seen, received, sent):
-        """Row t of the metric ring, SUMmed over the nodes group (uint32
-        wrap), and the digest of the post-tick state over the node shards
-        (`telemetry.digest.tick_digest_sharded`)."""
-        p = self.plan
+        """Row t of the metric ring (each local replica's), SUMmed over the
+        nodes group (uint32 wrap), and the digest of the post-tick state
+        over the node shards (`telemetry.digest.tick_digest_sharded`)."""
+        p, rb = self.plan, self.rb
         met, dig = rings
-        tel_rings.flood_row(met, t, wire, newly_out, received_delta, self.degree, lossless,
+        tel_rings.flood_row(met, t, wire, newly_out, received_delta, self.degree_rb, lossless,
                             plain=self.plain)
         k1 = p.k - 1
         if p.delta:
-            words = k1 * (2 * p.capacity + p.hub_count * p.w) + fb[self.q] * k1 * p.n_loc * p.w
+            fbs = torch.tensor(fb[self.q], dtype=torch.int64, device=self.dev)
+            words = k1 * (2 * p.capacity + p.hub_count * p.w) + fbs * (k1 * p.n_loc * p.w)
         elif p.sharded_ring:
             reads = (len(p.offs) + sum(1 for i in p.off_index if i < 0)
                      if p.async_k else len(p.group_delays))
             words = reads * k1 * p.n_loc * p.w
         else:
             words = k1 * p.n_loc * p.w
-        met[t, 6] = words & _U32
-        met[t, 7] = stale
-        met[t, 8] = folds
-        dist.all_reduce(met[t], group=self.nodes)
-        met[t] &= _U32
-        dig[t] = tel_digest.tick_digest_sharded(
+        mets = met if met.dim() == 3 else met[None]
+        mets[:, t, 6] = words & _U32
+        mets[:, t, 7] = stale
+        mets[:, t, 8] = folds
+        row = mets[:, t].contiguous()
+        dist.all_reduce(row, group=self.nodes)
+        mets[:, t] = row & _U32
+        value = tel_digest.tick_digest_sharded(
             seen, received, sent, id_offset=self.row_offset, group=self.nodes,
-            plain=self.plain)
+            replicas=rb if self.campaign else None, plain=self.plain)
+        if self.campaign:
+            dig[:, t] = value
+        else:
+            dig[t] = value
 
 
 def _agree(mesh, flag: bool) -> bool:
@@ -789,6 +895,9 @@ def _agree(mesh, flag: bool) -> bool:
 def _setup(graph, mesh, ell_delays, constant_delay, chunk_size, ring_mode, exchange,
            async_k, hub_rows, aux_cache, block, bucket_min_rows, churn, loss,
            connect_tick, plain, sharded_graph):
+    if mesh.first_axis != SHARES_AXIS:
+        raise ValueError("the sharded engine runs on a (shares, nodes) mesh; a (replicas, "
+                         "nodes) mesh is batch.campaign_sharded's")
     if sharded_graph is None:
         sharded_graph = stage_sharded_graph(graph, mesh, ell_delays, constant_delay, block,
                                             bucket_min_rows)

@@ -371,11 +371,22 @@ def overlay_hub(
     recon: torch.Tensor,       # (n_padded, w) int32 scattered tail canvas
     hub_global: torch.Tensor,  # (k, h) int64 global hub row ids
     hub_block: torch.Tensor,   # (k * h, w) int32 all_gathered hub rows
+    replicas: int | None = None,
 ) -> torch.Tensor:
     """Overlay the all_gathered hub block onto a scattered tail canvas, in
     place (a row set, ``index_copy_``). Exact: the tail plan excludes hub
     rows, so the two row sets are disjoint, and the reader's own-slice
     overlay (when it runs) lands last with identical values for its own
-    hub rows. Returns ``recon``."""
-    return recon.index_copy_(0, hub_global.reshape(-1), hub_block)
+    hub rows. ``replicas`` B: a campaign batch's (B, n_padded, w) canvases
+    and the (k, B, h, w) block its all_gather leaves, every replica's hub
+    rows set in the one ``index_copy_``. Returns ``recon``."""
+    if replicas is None:
+        return recon.index_copy_(0, hub_global.reshape(-1), hub_block)
+    n_padded, w = recon.shape[-2], recon.shape[-1]
+    rows = (torch.arange(replicas, dtype=torch.int64, device=recon.device)[:, None]
+            * n_padded + hub_global.reshape(1, -1)).reshape(-1)
+    k = hub_block.shape[0]
+    block = hub_block.view(k, replicas, -1, w).transpose(0, 1).reshape(-1, w)
+    recon.view(-1, w).index_copy_(0, rows, block)
+    return recon
 

@@ -120,15 +120,40 @@ def call_on_meshes(calls, device="cpu") -> list:
     outside that mesh. A call with ``events`` true runs with telemetry and
     its device rings on (in memory), and its entry is ``(result, the
     events it emitted)``."""
-    from p2p_gossip_tpu_torch import telemetry
     from p2p_gossip_tpu_torch.parallel.mesh import make_mesh
+
+    return _call_all([(lambda n=nodes, s=shares: make_mesh(n, s, device=device), (nodes, shares),
+                       *rest) for nodes, shares, *rest in calls])
+
+
+def call_on_replica_meshes(calls, device="cpu") -> list:
+    """`call_on_meshes` for the factorized meshes of the sharded campaigns:
+    each call is ``(mesh_kwargs, target, args, kwargs[, events])``, its mesh
+    ``make_mesh(**mesh_kwargs, device=device)`` (``replicas=`` and the rest,
+    built once per distinct kwargs, in order of first use). A shape the
+    world cannot hold raises ValueError before any collective, on every
+    rank alike: its entry is then ``("ValueError", message)``."""
+    from p2p_gossip_tpu_torch.parallel.mesh import make_mesh
+
+    return _call_all([(lambda kw=mesh_kw: make_mesh(**kw, device=device),
+                       tuple(sorted(mesh_kw.items())), *rest) for mesh_kw, *rest in calls])
+
+
+def _call_all(calls) -> list:
+    from p2p_gossip_tpu_torch import telemetry
 
     meshes: dict = {}
     out = []
-    for nodes, shares, target, args, kwargs, *events in calls:
-        if (nodes, shares) not in meshes:
-            meshes[nodes, shares] = make_mesh(nodes, shares, device=device)
-        mesh = meshes[nodes, shares]
+    for build, key, target, args, kwargs, *events in calls:
+        if key not in meshes:
+            try:
+                meshes[key] = build()
+            except ValueError as e:
+                meshes[key] = ("ValueError", str(e))
+        mesh = meshes[key]
+        if isinstance(mesh, tuple):
+            out.append(mesh)
+            continue
         if mesh.coordinate is None:
             out.append(None)
             continue

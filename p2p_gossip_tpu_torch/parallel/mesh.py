@@ -9,6 +9,11 @@ its own slice. Two logical axes, as in the JAX package's mesh:
 - ``shares`` partitions share chunks (independent work); counters SUM
   over it once per pass.
 
+`make_mesh(replicas=...)` builds the factorized ``(replicas, nodes)`` mesh
+of the sharded campaigns (`batch.campaign_sharded`) instead: seed replicas
+on the first axis (no traffic between replica shards but the mesh-wide
+stop flag), graph rows on the second.
+
 `make_mesh` lays ranks out as the JAX package lays devices out: rank r of
 the mesh's rank list sits at coordinate ``(r // nodes, r % nodes)``.
 """
@@ -28,6 +33,7 @@ from p2p_gossip_tpu_torch.utils.device import resolve_device
 
 NODES_AXIS = "nodes"
 SHARES_AXIS = "shares"
+REPLICAS_AXIS = "replicas"
 
 #: Seconds a collective may wait for a peer before the process group
 #: raises (every spawn and every init passes it).
@@ -36,20 +42,23 @@ DEFAULT_TIMEOUT_S = 300.0
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A (shares, nodes) mesh of ranks and the tensors' device on this
-    rank. ``coordinate`` is None on a rank outside the mesh (a mesh may
-    cover the first ``shares * nodes`` ranks of a larger world)."""
+    """A (shares, nodes) mesh of ranks — or with ``first_axis`` REPLICAS_AXIS
+    a (replicas, nodes) one, whose first axis size ``n_share_shards`` then
+    holds — and the tensors' device on this rank. ``coordinate`` is None
+    on a rank outside the mesh (a mesh may cover the first ``shares *
+    nodes`` ranks of a larger world)."""
 
     device_mesh: object  # torch.distributed.device_mesh.DeviceMesh
     device: torch.device
     ranks: tuple
-    n_share_shards: int
+    n_share_shards: int  # the first axis' size
     n_node_shards: int
     group: object  # the whole mesh's process group
+    first_axis: str = SHARES_AXIS
 
     @property
     def shape(self) -> dict:
-        return {SHARES_AXIS: self.n_share_shards, NODES_AXIS: self.n_node_shards}
+        return {self.first_axis: self.n_share_shards, NODES_AXIS: self.n_node_shards}
 
     @property
     def coordinate(self) -> tuple[int, int] | None:
@@ -66,6 +75,15 @@ class Mesh:
     @property
     def shares_group(self):
         return self.device_mesh.get_group(SHARES_AXIS)
+
+    @property
+    def replicas_group(self):
+        return self.device_mesh.get_group(REPLICAS_AXIS)
+
+    @property
+    def first_group(self):
+        """The process group along the first axis, shares or replicas."""
+        return self.device_mesh.get_group(self.first_axis)
 
     @property
     def is_first(self) -> bool:
@@ -120,6 +138,9 @@ def make_mesh(
     n_share_shards: int = 1,
     ranks=None,
     device=None,
+    replicas: int | str | None = None,
+    node_bytes: int | None = None,
+    hbm_bytes: int | None = None,
 ) -> Mesh:
     """Build a (shares, nodes) mesh over ``ranks`` (default: every rank of
     the world; the first ``shares * nodes`` of them are used). Defaults
@@ -127,18 +148,42 @@ def make_mesh(
     calls it, in the same order as every other mesh it builds. Raises
     ValueError, as the JAX package does, when the shape needs more ranks
     than there are. ``device`` is this rank's tensor device (default:
-    `local_device`)."""
+    `local_device`).
+
+    ``replicas`` builds the factorized (replicas, nodes) mesh of the
+    sharded campaigns instead (the JAX package's ``make_mesh(replicas=)``):
+    an int is the replica-shard count (node shards default to the other
+    ranks), ``"auto"`` takes the split `auto_axis_split` chooses for
+    ``node_bytes`` (one replica's whole-graph bytes, `campaign_node_bytes`)
+    against ``hbm_bytes`` a rank; an explicit ``n_node_shards`` wins."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not dist.is_initialized():
         raise RuntimeError("no process group: call initialize_multihost() first")
     ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    first_axis = SHARES_AXIS
+    if replicas is not None:
+        first_axis = REPLICAS_AXIS
+        if replicas == "auto":
+            n_share_shards, auto_nodes = auto_axis_split(len(ranks), node_bytes=node_bytes,
+                                                         hbm_bytes=hbm_bytes)
+            if n_node_shards is not None:  # an explicit node count wins
+                n_share_shards = len(ranks) // n_node_shards
+            else:
+                n_node_shards = auto_nodes
+        else:
+            n_share_shards = int(replicas)
+            if n_share_shards < 1:
+                raise ValueError(f"replicas must be >= 1 or 'auto', got {replicas!r}")
+            if n_node_shards is None:
+                n_node_shards = len(ranks) // n_share_shards
     if n_node_shards is None:
         n_node_shards = len(ranks) // n_share_shards
     want = n_node_shards * n_share_shards
     if n_node_shards < 1 or n_share_shards < 1 or want > len(ranks):
+        kind = " (replicas x nodes)" if replicas is not None else ""
         raise ValueError(
-            f"mesh {n_share_shards}x{n_node_shards} needs {want} ranks, "
+            f"mesh {n_share_shards}x{n_node_shards}{kind} needs {want} ranks, "
             f"have {len(ranks)}"
         )
     device = local_device(device)
@@ -147,14 +192,30 @@ def make_mesh(
     mesh_ranks = tuple(int(r) for r in ranks[:want])
     device_mesh = DeviceMesh(
         device.type, torch.tensor(mesh_ranks).reshape(n_share_shards, n_node_shards),
-        mesh_dim_names=(SHARES_AXIS, NODES_AXIS),
+        mesh_dim_names=(first_axis, NODES_AXIS),
     )
     if want == dist.get_world_size():
         group = dist.group.WORLD
     else:
         group = dist.new_group(list(mesh_ranks))
     return Mesh(device_mesh, device, mesh_ranks, int(n_share_shards),
-                int(n_node_shards), group)
+                int(n_node_shards), group, first_axis)
+
+
+def campaign_node_bytes(n_nodes: int, ell_slots: int, shares: int, ring_size: int = 2) -> int:
+    """One sharded-campaign replica's whole-graph device bytes, the terms
+    of the sharded flood runner's ``resident_bytes`` on one node shard
+    with the replicated ring: the staged ELL (an int32 index and a bool
+    mask a slot, ``ell_slots`` slots over the degree buckets) and degrees;
+    ``seen``, the (ring, N, W) ring and its occupancy ring, the counters;
+    the tick's four (N, W) temporaries. ``W`` = ``shares`` / 32 words.
+    Feed it to ``make_mesh(replicas="auto", node_bytes=...)`` (JAX's TPU
+    pricing, ``estimate_node_bytes``, is not this card's)."""
+    w = -(-max(1, shares) // 32)
+    row = 4 * w
+    staged = 5 * ell_slots + 4 * n_nodes
+    state = (ring_size + 1) * n_nodes * row + ring_size * n_nodes * 4 + 2 * n_nodes * 4
+    return staged + state + 4 * n_nodes * row
 
 
 def auto_axis_split(

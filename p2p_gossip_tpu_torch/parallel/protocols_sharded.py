@@ -46,7 +46,9 @@ What differs from the JAX design:
 - ``sent`` is one int64 a node (JAX: a uint32 (lo, hi) pair), SUMmed over
   the mesh on the device at a pass's end; ``received`` stays int32 and
   wraps as JAX's does.
-- Campaign mode (JAX's ``replica_axis``) is not here.
+- Campaign mode (JAX's ``replica_axis``, `batch.campaign_sharded`): a
+  rank runs its replica shard's local replicas stacked along the rows,
+  every launch and collective covering the batch (`_Runner`).
 
 Counters, coverage rows, ``stats.extra['ring']`` / ``['exchange']``,
 checkpoints (JAX's fingerprint: either package resumes the other's) and
@@ -77,9 +79,11 @@ from p2p_gossip_tpu_torch.parallel.engine_sharded import (
     _achieved_exchange_report,
     _agree,
     _ReadOnlyCheckpointer,
+    gather_first,
+    replica_major,
     resolve_ring_mode,
 )
-from p2p_gossip_tpu_torch.parallel.mesh import all_gather_rows, pad_to_multiple
+from p2p_gossip_tpu_torch.parallel.mesh import SHARES_AXIS, all_gather_rows, pad_to_multiple
 from p2p_gossip_tpu_torch.telemetry import digest as tel_digest
 from p2p_gossip_tpu_torch.telemetry import progress as tel_progress
 from p2p_gossip_tpu_torch.telemetry import rings as tel_rings
@@ -222,6 +226,7 @@ class _Plan:
     hub_count: int
     async_k: int
     staleness: tuple        # pre-clamp lateness, one amount a delay value
+    transport: str = "dense"  # the resolved exchange argument (the fingerprints')
 
     @property
     def n_loc(self) -> int:
@@ -243,17 +248,28 @@ class _Plan:
 
 
 class _Runner:
-    """One rank's staged operands and its pass loop."""
+    """One rank's staged operands and its pass loop.
+
+    ``replicas`` > 0 is campaign mode (the JAX package's ``replica_axis`` /
+    ``local_replicas``): the mesh's first axis carries replica shards and
+    this rank runs ``replicas`` rb local replicas of its node shard at
+    once, stacked along the rows (``seen`` (rb*n_loc, W), the ring (ring,
+    rb*rows, W), replica-major), each with its own partner-pick seed, loss
+    seed and churn intervals (`set_replicas`, once a batch). Every launch
+    covers the local batch; each replica keeps its own delta flags and
+    exchange counters. 0 is the one-run protocols (rb = 1)."""
 
     def __init__(self, plan: _Plan, mesh, ell_idx, delays, degree, hub_plan, churn, loss,
-                 seed: int, telemetry_on: bool, plain: bool):
+                 seed: int, telemetry_on: bool, plain: bool, replicas: int = 0):
         p = self.plan = plan
         self.mesh, self.plain, self.tel = mesh, plain, telemetry_on
         self.dev = dev = mesh.device
         self.q, shard = mesh.coordinate
         self.row_offset = lo = shard * p.n_loc
         mine = slice(lo, lo + p.n_loc)
-        self.nodes, self.shares = mesh.nodes_group, mesh.shares_group
+        self.nodes, self.first = mesh.nodes_group, mesh.first_group
+        self.campaign = replicas > 0
+        self.rb = rb = max(1, replicas)
 
         def on_dev(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=dev)
@@ -264,12 +280,13 @@ class _Runner:
         self.live = self.degree > 0                          # padding rows never exchange
         self.rows = torch.arange(p.n_loc, dtype=torch.int64, device=dev)
         self.node_ids = self.rows + lo
-        picks = torch.arange(p.picks, dtype=torch.int64, device=dev)
-        self.key = pick_key(self.node_ids[:, None], picks[None, :], seed)  # (n_loc, picks)
         self.churn = None if churn is None else (
             on_dev(pad_to_multiple(churn.down_start, p.k), np.int32),
             on_dev(pad_to_multiple(churn.down_end, p.k), np.int32))
         self.loss = loss.static_cfg if loss is not None and loss.threshold > 0 else None
+        self.key = None
+        if not self.campaign:
+            self._set_key(seed)
         self.need = self.hub = None
         if p.delta:
             need = (np.ones((p.n_padded, 1), dtype=bool) if hub_plan is None
@@ -282,76 +299,126 @@ class _Runner:
                   self.node_ids, self.key, *(self.churn or ()), *(self.hub or ())]
         if self.need is not None:
             staged.append(self.need)
-        self.staged_bytes = sum(t.numel() * t.element_size() for t in staged)
+        self.stacked = None
+        if rb > 1:
+            # The local replicas' stacked rows: degree, liveness, global node
+            # ids, and each row's replica offset into replica-major rows.
+            self.stacked = dict(
+                degree=self.degree.repeat(rb), live=self.live.repeat(rb),
+                node_ids=self.node_ids.repeat(rb),
+                base=torch.arange(rb, dtype=torch.int64, device=dev).repeat_interleave(
+                    p.n_loc) * p.n_padded,
+                rows=torch.arange(rb * p.n_loc, dtype=torch.int64, device=dev))
+            staged += list(self.stacked.values())
+        self.staged_bytes = sum(t.numel() * t.element_size() for t in staged if t is not None)
+        if self.campaign:
+            # Set per batch (`set_replicas`): the (rb*n_loc, picks) int64 keys
+            # and the loss coins' row seeds.
+            self.staged_bytes += rb * p.n_loc * (p.picks + 1) * 8
+        self.batch_bytes = 0
+
+    def _set_key(self, seeds):
+        """The partner-pick keys, (rb*n_loc, picks): one seed for the run,
+        or a (rb,) int64 tensor of the local replicas' seeds (uint32)."""
+        p = self.plan
+        picks = torch.arange(p.picks, dtype=torch.int64, device=self.dev)
+        ids = self.node_ids.repeat(self.rb) if self.rb > 1 else self.node_ids
+        if isinstance(seeds, torch.Tensor):
+            seeds = seeds.repeat_interleave(p.n_loc)[:, None]
+        self.key = pick_key(ids[:, None], picks[None, :], seeds)
+
+    def set_replicas(self, seeds, churn, loss_seeds):
+        """A campaign batch's local replicas: their pick ``seeds`` and
+        ``loss_seeds`` ((rb,) uint32 numpy, the latter None without loss)
+        and ``churn`` intervals (rb, n_padded, K) int32 numpy, or None."""
+        p, dev = self.plan, self.dev
+        self._set_key(torch.as_tensor(np.asarray(seeds, dtype=np.int64), device=dev))
+        self.churn = None
+        if churn is not None:
+            self.churn = tuple(
+                torch.as_tensor(np.ascontiguousarray(c.reshape(-1, c.shape[-1]), dtype=np.int32),
+                                device=dev) for c in churn)
+        if self.loss is not None:
+            ls = torch.as_tensor(np.asarray(loss_seeds, dtype=np.int64), device=dev)
+            self.loss = (self.loss[0], ls.repeat_interleave(p.n_loc))
+        self.batch_bytes = max(self.batch_bytes, sum(
+            t.numel() * t.element_size() for t in (*(self.churn or ()),)))
 
     def resident_bytes(self, horizon: int, record_coverage: bool = False) -> int:
         """Modeled peak device memory of this rank over a call (telemetry
-        off), counted from the code: the staged operands (``staged_bytes``)
-        and the pass state — ``seen``, the ring (this shard's rows, or all
-        rows when replicated), the counters, the delta state (per-delay
-        mirrors, the received (idx, val) rings, the hub ring, the rebuild
-        canvas) or the async landed slices, the coverage rows — plus the
-        largest of the round's transient peaks, each the (n_loc, W) or
-        (n_padded, W) tensors alive at one point of the round:
+        off), counted from the code: the staged operands (``staged_bytes``,
+        a campaign batch's churn rows) and the pass state — ``seen``, the
+        ring (this shard's rows, or all rows when replicated), the
+        counters, the delta state (per-delay mirrors, the received (idx,
+        val) rings, the hub ring, the rebuild canvas) or the async landed
+        slices, the coverage rows, each rb times in campaign mode — plus
+        the largest of the round's transient peaks, each the (rb*n_loc, W)
+        or (rb*n_padded, W) tensors alive at one point of the round:
 
         - the read: the own (t - d) rows, and the pulled rows as they are
           assembled (on the sharded ring the old and the new pulled rows,
           one slice's selected rows and, on the dense transport, that
-          gathered slice);
+          gathered slice, with its replica-major copy when rb > 1 on
+          several node shards);
         - the push: the own and pulled rows, the global-width push buffer,
-          the received (k, n_loc, W) stack and the folded rows;
+          the received (k, rb*n_loc, W) stack and the folded rows;
         - the update: the arrivals, the generation bits and ``~seen``;
         - the delta exchange: the new rows, the changed words and ``~`` of
-          the previous slot, then the two (1, capacity) buffers;
+          the previous slot, then the two (rb, capacity) buffers;
         - the async prefetch: the new rows and the next round's landed
           slices in flight beside this round's."""
-        p = self.plan
+        p, rb = self.plan, self.rb
         row = p.w * 4
-        loc, glob = p.n_loc * row, p.n_padded * row
+        loc, glob = rb * p.n_loc * row, rb * p.n_padded * row
         groups = len(p.delay_values) if p.delay_values else 1
         rows = p.n_loc if p.sharded_ring else p.n_padded
-        state = p.ring * rows * row + loc + p.n_loc * (4 + 8)
+        state = rb * p.ring * rows * row + loc + rb * p.n_loc * (4 + 8)
         if p.delta:
-            state += (groups + 1) * glob + 2 * p.ring * p.k * p.capacity * 4
-            state += p.ring * p.k * p.hub_count * row
+            state += (groups + 1) * glob + rb * 2 * p.ring * p.k * p.capacity * 4
+            state += rb * p.ring * p.k * p.hub_count * row
         elif p.landed:
             state += groups * glob
         if record_coverage:
-            state += (1 + p.s) * horizon * p.chunk * 4
+            state += rb * (1 + p.s) * horizon * p.chunk * 4
+        transpose = glob if rb > 1 and p.k > 1 else 0
         own = 0 if p.protocol == "pull" else p.picks * loc
         pulled = loc if p.anti else 0
         read = pulled
         if p.anti and p.sharded_ring:
-            read = 3 * loc + (0 if p.delta or p.landed else glob)
-        peaks = [own + read, 3 * loc + (p.n_padded * 8 if p.protocol == "pull" else 0)]
+            read = 3 * loc + (0 if p.delta or p.landed else glob + transpose)
+        peaks = [own + read, 3 * loc + (rb * p.n_padded * 8 if p.protocol == "pull" else 0)]
         if p.protocol != "pull":
             peaks.append(own + pulled + 2 * glob + loc)
         if p.delta:
-            peaks.append(2 * loc + max(loc, 2 * p.capacity * 4))
+            peaks.append(2 * loc + max(loc, 2 * rb * p.capacity * 4))
         if p.landed:
-            peaks.append(loc + groups * glob)
-        return self.staged_bytes + state + max(peaks)
+            peaks.append(loc + groups * glob + transpose)
+        if not p.sharded_ring and p.k > 1:
+            peaks.append(loc + 2 * glob if rb > 1 else loc)
+        return self.staged_bytes + self.batch_bytes + state + max(peaks)
 
     # -- collectives ----------------------------------------------------------
 
     def _gather_rows(self, local: torch.Tensor, async_op: bool = False):
-        """all_gather of a (n_loc, W) slice over the nodes group into a
-        fresh (n_padded, W) tensor (and the work handle when async)."""
-        out = torch.empty((self.plan.n_padded, self.plan.w), dtype=local.dtype,
+        """all_gather of a (rb*n_loc, W) slice over the nodes group into a
+        fresh (rb*n_padded, W) replica-major tensor; async, the rank-major
+        buffer and the work handle (`replica_major` after the wait)."""
+        out = torch.empty((self.plan.k * local.shape[0], self.plan.w), dtype=local.dtype,
                           device=self.dev)
         work = all_gather_rows(out, local, self.nodes, async_op=async_op)
-        return (out, work) if async_op else out
+        return (out, work) if async_op else replica_major(out, self.plan.k, self.rb)
 
     # -- the round's parts ------------------------------------------------------
 
     def _pull(self, st, t: int, partners, delay, slot):
-        """The partners' (t - d) rows, (n_loc, W), a fresh tensor; under
-        async with telemetry on, also adds each late view's staleness (a
+        """The partners' (t - d) rows, (rb*n_loc, W), a fresh tensor;
+        ``partners`` are replica-major global rows. Under async with
+        telemetry on, also adds each replica's late views' staleness (a
         remote row holding any bit) into ``st['stale']``."""
-        p = self.plan
+        p, rb = self.plan, self.rb
         if not p.sharded_ring:
-            return st["flat"][slot * p.n_padded + partners]
-        remote = torch.zeros((p.n_loc, p.w), dtype=torch.int32, device=self.dev)
+            return st["flat"][slot * (rb * p.n_padded) + partners]
+        remote = torch.zeros((rb * p.n_loc, p.w), dtype=torch.int32, device=self.dev)
         lo, hi = self.row_offset, self.row_offset + p.n_loc
         for j, dv in enumerate(p.delay_values):
             if p.delta:
@@ -360,10 +427,14 @@ class _Runner:
                 view, work = st["landed"][j]
                 if work is not None:
                     work.wait()
+                    view = replica_major(view, p.k, rb)
+                    st["landed"][j] = (view, None)
             else:
                 view = self._gather_rows(st["hist"][(t - dv) % p.ring])
             if self.tel and p.async_k and p.staleness[j] > 0:
-                pending = ((view[:lo] != 0).any() | (view[hi:] != 0).any()).to(torch.int64)
+                v = view.view(rb, p.n_padded, p.w)
+                pending = ((v[:, :lo] != 0).flatten(1).any(1)
+                           | (v[:, hi:] != 0).flatten(1).any(1)).to(torch.int64)
                 st["stale"] = st["stale"] + p.staleness[j] * pending
                 st["folds"] = st["folds"] + pending
             remote = torch.where((delay == dv)[:, None], view[partners], remote)
@@ -371,97 +442,123 @@ class _Runner:
         return remote
 
     def _push(self, dst, src_rows, ok):
-        """The pushes of ``src_rows`` (M, W) to global rows ``dst`` (M,)
-        where ``ok``: one `kernels.scatter_or` into the (n_padded, W) push
-        buffer, then `_reduce_scatter_or` into this shard's (n_loc, W)."""
-        p = self.plan
-        offsets, entries = kernels.scatter_or_plan(dst, None, ok, p.n_padded, src_rows.shape[0])
-        pushed = torch.empty((p.n_padded, p.w), dtype=torch.int32, device=self.dev)
+        """The pushes of ``src_rows`` (M, W) to replica-major global rows
+        ``dst`` (M,) where ``ok``: one `kernels.scatter_or` into the
+        (rb*n_padded, W) push buffer laid out destination-shard-major
+        ((k, rb, n_loc) rows), then `_reduce_scatter_or` into this shard's
+        (rb*n_loc, W)."""
+        p, rb = self.plan, self.rb
+        if rb > 1:
+            b, g = dst // p.n_padded, dst % p.n_padded
+            dst = (g // p.n_loc) * (rb * p.n_loc) + b * p.n_loc + g % p.n_loc
+        offsets, entries = kernels.scatter_or_plan(dst, None, ok, rb * p.n_padded,
+                                                   src_rows.shape[0])
+        pushed = torch.empty((rb * p.n_padded, p.w), dtype=torch.int32, device=self.dev)
         kernels.scatter_or(src_rows, offsets, entries, out=pushed, plain=self.plain)
-        out = torch.empty((p.n_loc, p.w), dtype=torch.int32, device=self.dev)
+        out = torch.empty((rb * p.n_loc, p.w), dtype=torch.int32, device=self.dev)
         return _reduce_scatter_or(pushed, self.nodes, out, self.plain)
 
-    def _advance(self, st, t: int, d_words) -> int:
+    def _advance(self, st, t: int, d_words):
         """The delta exchange of round t's changed words ``d_words`` and the
         mirrors' advance to the slices round t + 1 reads (u = t + 1 - d):
-        a flagged slot resets from a dense all_gather (the ring slot IS the
-        cumulative slice), any other ORs in its rebuilt deltas (an
+        a slot flagged in any local replica resets from a dense all_gather
+        (the ring slot IS the cumulative slice, so the reset equals every
+        replica's advance), any other ORs in its rebuilt deltas (an
         unwritten slot holds -1 indices: a no-op, as the all-zero
-        pre-history). Returns the round's dense fallback reads."""
-        p, plain = self.plan, self.plain
+        pre-history). Returns each local replica's dense fallback reads
+        (its own flags), a list."""
+        p, plain, rb = self.plan, self.plain, self.rb
         slot_w = t % p.ring
         cidx, cval, counts = kernels.compress_deltas(d_words, self.need, p.capacity,
-                                                     plain=plain)
-        all_gather_rows(st["didx"][slot_w], cidx, self.nodes)
-        all_gather_rows(st["dval"][slot_w], cval, self.nodes)
+                                                     replicas=rb, plain=plain)
+        for ring_, buf in ((st["didx"], cidx), (st["dval"], cval)):
+            all_gather_rows(ring_[slot_w].view(-1, p.capacity), buf.view(rb, p.capacity),
+                            self.nodes)
         if self.hub is not None:
-            all_gather_rows(st["hub"][slot_w], d_words[self.hub[0]], self.nodes)
-        vec = torch.stack([(counts > p.capacity).any().to(torch.int64),
-                           counts.clamp(max=p.capacity).sum(dtype=torch.int64)])
+            block = d_words.view(rb, p.n_loc, p.w)[:, self.hub[0]].contiguous()
+            all_gather_rows(st["hub"][slot_w].view(-1, p.w), block.view(-1, p.w), self.nodes)
+        vec = torch.cat([(counts > p.capacity).any(dim=1).to(torch.int64),
+                         counts.clamp(max=p.capacity).sum(dim=1, dtype=torch.int64)])
         dist.all_reduce(vec, group=self.nodes)
-        ovf, used = vec.tolist()  # the round's one host read, uniform over the group
-        st["flags"][slot_w] = ovf > 0
-        fallbacks = 0
+        host = vec.tolist()  # the round's one host read, uniform over the group
+        flags = [v > 0 for v in host[:rb]]
+        st["flags"][slot_w] = flags
+        fallbacks = [0] * rb
         for j, dv in enumerate(p.delay_values):
             slot_u = (t + 1 - dv) % p.ring
-            if st["flags"][slot_u]:
-                all_gather_rows(st["mirrors"][j], st["hist"][slot_u], self.nodes)
-                fallbacks += 1
+            if any(st["flags"][slot_u]):
+                st["mirrors"][j].copy_(self._gather_rows(st["hist"][slot_u]))
+                for b in range(rb):
+                    fallbacks[b] += int(st["flags"][slot_u][b])
                 continue
             canvas = kernels.scatter_deltas(st["didx"][slot_u], st["dval"][slot_u], p.n_loc,
-                                            p.w, p.n_padded, out=st["canvas"], plain=plain)
+                                            p.w, p.n_padded, out=st["canvas"], replicas=rb,
+                                            plain=plain)
             if self.hub is not None:
-                exch.overlay_hub(canvas, self.hub[1], st["hub"][slot_u])
-            st["mirrors"][j] |= canvas
-        st["counters"][0] += used
-        st["counters"][1] += int(ovf > 0)
-        st["counters"][2] += fallbacks
+                exch.overlay_hub(canvas, self.hub[1], st["hub"][slot_u], replicas=rb)
+            st["mirrors"][j] |= canvas.view(rb * p.n_padded, p.w)
+        for b in range(rb):
+            st["counters"][b][0] += host[rb + b]
+            st["counters"][b][1] += int(flags[b])
+            st["counters"][b][2] += fallbacks[b]
         return fallbacks
 
     # -- one pass ----------------------------------------------------------------
 
     def run_pass(self, origins, gen_ticks, horizon: int, record_coverage: bool) -> dict:
         """``horizon`` rounds of one pass (this rank's share shard's
-        ``origins``/``gen_ticks``, (chunk,) int32 numpy). Returns host
-        values, identical on every rank: the global counters, the exchange
-        counters and, when recorded, every share shard's coverage rows and
-        rings."""
-        p, dev = self.plan, self.dev
+        ``origins``/``gen_ticks``, (chunk,) int32 numpy; in campaign mode
+        its local replicas' (rb, chunk)). Returns host values, identical on
+        every rank: the global counters, the exchange counters (and
+        ``exchange_per``, one (used, overflow rounds, fallbacks, rounds) row
+        a replica of the first axis) and, when recorded, every first-axis
+        shard's coverage rows and rings."""
+        p, dev, rb = self.plan, self.dev, self.rb
         n_loc, w, ring = p.n_loc, p.w, p.ring
         rows = n_loc if p.sharded_ring else p.n_padded
-        hist = torch.zeros((ring, rows, w), dtype=torch.int32, device=dev)
+        hist = torch.zeros((ring, rb * rows, w), dtype=torch.int32, device=dev)
+        origins = np.asarray(origins).reshape(rb, -1)
+        gen_ticks = np.asarray(gen_ticks).reshape(rb, -1)
         local = origins.astype(np.int64) - self.row_offset
         in_shard = (local >= 0) & (local < n_loc)
+        stacked = np.where(in_shard, local, 0) + np.arange(rb)[:, None] * n_loc
+        base = np.arange(rb)[:, None] * p.n_padded
         st = {
-            "hist": hist, "flat": hist.view(ring * rows, w), "counters": [0, 0, 0],
+            "hist": hist, "flat": hist.view(ring * rb * rows, w),
+            "counters": [[0, 0, 0] for _ in range(rb)],
             "stale": 0, "folds": 0,
-            "seen": torch.zeros((n_loc, w), dtype=torch.int32, device=dev),
-            "received": torch.zeros((n_loc,), dtype=torch.int32, device=dev),
-            "sent": torch.zeros((n_loc,), dtype=torch.int64, device=dev),
+            "seen": torch.zeros((rb * n_loc, w), dtype=torch.int32, device=dev),
+            "received": torch.zeros((rb * n_loc,), dtype=torch.int32, device=dev),
+            "sent": torch.zeros((rb * n_loc,), dtype=torch.int64, device=dev),
             "ticks": torch.arange(horizon, dtype=torch.int64, device=dev),
             # The generations: this shard's rounds with one, and each share's
-            # local row, origin, liveness and tick.
+            # stacked local row, replica-major origin, liveness and tick.
             "gen_rounds": set(np.unique(gen_ticks[in_shard]).tolist()),
-            "gen": tuple(torch.as_tensor(a, device=dev) for a in (
-                local, origins.astype(np.int64), in_shard, gen_ticks)),
-            "slots": torch.arange(p.chunk, dtype=torch.int64, device=dev),
-            "cov": (torch.zeros((horizon, p.chunk), dtype=torch.int32, device=dev)
+            "gen": tuple(torch.as_tensor(np.ascontiguousarray(a).reshape(-1), device=dev)
+                         for a in (stacked, origins.astype(np.int64) + base, in_shard,
+                                   gen_ticks)),
+            "slots": torch.arange(p.chunk, dtype=torch.int64, device=dev).repeat(rb),
+            "cov": (torch.zeros((rb, horizon, p.chunk), dtype=torch.int32, device=dev)
                     if record_coverage else None),
-            "rings": tel_rings.chunk_rings(horizon, dev) if self.tel else None,
+            "rings": (tel_rings.chunk_rings(horizon, dev, rb if self.campaign else None)
+                      if self.tel else None),
         }
         groups = len(p.delay_values) if p.delay_values else 1
         if p.delta:
-            st["mirrors"] = torch.zeros((groups, p.n_padded, w), dtype=torch.int32, device=dev)
-            st["didx"] = torch.full((ring, p.k, p.capacity), -1, dtype=torch.int32, device=dev)
-            st["dval"] = torch.zeros((ring, p.k, p.capacity), dtype=torch.int32, device=dev)
-            st["canvas"] = torch.empty((p.n_padded, w), dtype=torch.int32, device=dev)
-            st["flags"] = [False] * ring
+            st["mirrors"] = torch.zeros((groups, rb * p.n_padded, w), dtype=torch.int32,
+                                        device=dev)
+            st["didx"] = torch.full((ring, p.k, rb, p.capacity), -1, dtype=torch.int32,
+                                    device=dev)
+            st["dval"] = torch.zeros((ring, p.k, rb, p.capacity), dtype=torch.int32,
+                                     device=dev)
+            st["canvas"] = torch.empty((rb, p.n_padded, w), dtype=torch.int32, device=dev)
+            st["flags"] = [[False] * rb for _ in range(ring)]
             if self.hub is not None:
-                st["hub"] = torch.zeros((ring, p.k * p.hub_count, w), dtype=torch.int32,
+                st["hub"] = torch.zeros((ring, p.k, rb, p.hub_count, w), dtype=torch.int32,
                                         device=dev)
         if p.landed:  # round 0 reads pre-history: zero slices
-            st["landed"] = [(torch.zeros((p.n_padded, w), dtype=torch.int32, device=dev), None)
-                            for _ in range(groups)]
+            st["landed"] = [(torch.zeros((rb * p.n_padded, w), dtype=torch.int32, device=dev),
+                             None) for _ in range(groups)]
         for t in range(horizon):
             self._round(st, t)  # its temporaries go when it returns
         for _, work in st.get("landed", ()):
@@ -472,52 +569,72 @@ class _Runner:
     def _round(self, st, t: int) -> None:
         """Round t of a pass: picks, the pull and the push, the counters,
         the generations, the ring write, the exchange and the rows."""
-        p, dev, plain = self.plan, self.dev, self.plain
+        p, dev, plain, rb = self.plan, self.dev, self.plain, self.rb
         n_loc, w, ring = p.n_loc, p.w, p.ring
         anti, lo = p.anti, self.row_offset
         seen, hist = st["seen"], st["hist"]
         tt = st["ticks"][t]  # a device scalar: no host copy a round
+        sk = self.stacked
+        degree, node_ids, live = ((self.degree, self.node_ids, self.live) if sk is None
+                                  else (sk["degree"], sk["node_ids"], sk["live"]))
         if anti:
-            kidx = pick_from_key(self.key[:, 0], tt, self.degree)[:, None]
+            kidx = pick_from_key(self.key[:, 0], tt, degree)[:, None]
         else:
-            kidx = pick_from_key(self.key, tt, self.degree[:, None])
-        partners = self.ell_idx.gather(1, kidx).to(torch.int64)
-        delay = self.ell_delay.gather(1, kidx)
+            kidx = pick_from_key(self.key, tt, degree[:, None])
+        if sk is None:
+            gpart = self.ell_idx.gather(1, kidx).to(torch.int64)  # global partner ids
+            delay = self.ell_delay.gather(1, kidx)
+        else:  # replica b's row r reads ELL row r
+            at = (sk["rows"] % n_loc)[:, None] * self.ell_idx.shape[1] + kidx
+            gpart = self.ell_idx.view(-1)[at].to(torch.int64)
+            delay = self.ell_delay.view(-1)[at]
         if anti:
-            partners, delay = partners[:, 0], delay[:, 0]
+            gpart, delay = gpart[:, 0], delay[:, 0]
+        base = None if sk is None else (sk["base"] if anti else sk["base"][:, None])
+
+        def stacked_rows(ids):  # global ids -> replica-major rows
+            return ids if base is None else ids + base
+
+        partners = stacked_rows(gpart)
         slot = torch.remainder(tt - delay, ring)
         my_old = None  # the own (t - d) rows the round pushes
         if p.protocol != "pull":
             rows = n_loc if p.sharded_ring else p.n_padded
-            own = self.rows if p.sharded_ring else self.node_ids
-            my_old = st["flat"][slot * rows + (own if anti else own[:, None])]
+            if p.sharded_ring:
+                own = self.rows if sk is None else sk["rows"]
+            else:
+                own = node_ids if sk is None else node_ids + sk["base"]
+            my_old = st["flat"][slot * (rb * rows) + (own if anti else own[:, None])]
         remote = self._pull(st, t, partners, delay, slot) if anti else None
 
-        self_ids = self.node_ids if anti else self.node_ids[:, None]
-        attempted = (self.live if anti else self.live[:, None]).expand(partners.shape)
+        self_ids = node_ids if anti else node_ids[:, None]
+        attempted = (live if anti else live[:, None]).expand(gpart.shape)
         up = None if self.churn is None else churn_mod.up_mask(*self.churn, t)
         if up is not None:
-            attempted = attempted & up[self_ids] & up[partners]
+            attempted = attempted & up[stacked_rows(self_ids)] & up[partners]
         pull_ok = push_ok = attempted
         if self.loss is not None:
             thr, lseed = self.loss
-            push_ok = attempted & ~drop_mask_torch(self_ids, partners, tt, thr, lseed)
+            if isinstance(lseed, torch.Tensor) and not anti:
+                lseed = lseed[:, None]
+            push_ok = attempted & ~drop_mask_torch(self_ids, gpart, tt, thr, lseed)
             if anti:
-                pull_ok = attempted & ~drop_mask_torch(partners, self.node_ids, tt, thr, lseed)
+                pull_ok = attempted & ~drop_mask_torch(gpart, node_ids, tt, thr, lseed)
         dropped = 0
+        rep = rb if self.campaign else None
         if anti:
             pc_remote = bitmask.popcount_rows(remote, plain=plain)  # before the coin
             remote.masked_fill_(~pull_ok[:, None], 0)
             if self.tel and self.loss is not None:
-                dropped = tel_rings.u32sum(torch.where(attempted & ~pull_ok, pc_remote, 0))
+                dropped = tel_rings.u32sum(torch.where(attempted & ~pull_ok, pc_remote, 0), rep)
             if p.protocol == "pull":
                 # Each attempted pull credits its (possibly remote) responder
                 # with the row it served, lost or not.
-                credit = torch.zeros((p.n_padded,), dtype=torch.int64, device=dev)
+                credit = torch.zeros((rb * p.n_padded,), dtype=torch.int64, device=dev)
                 credit.index_add_(0, partners,
                                   torch.where(attempted, pc_remote, 0).to(torch.int64))
                 dist.all_reduce(credit, group=self.nodes)
-                sent_add = credit[lo:lo + n_loc]
+                sent_add = credit.view(rb, p.n_padded)[:, lo:lo + n_loc].reshape(-1)
                 arrivals = remote
             else:
                 arrivals = self._push(partners, my_old, push_ok)
@@ -525,7 +642,8 @@ class _Runner:
                 my_cnt = bitmask.popcount_rows(my_old, plain=plain)
                 sent_add = torch.where(attempted, my_cnt, 0)
                 if self.tel and self.loss is not None:
-                    pushed_lost = tel_rings.u32sum(torch.where(attempted & ~push_ok, my_cnt, 0))
+                    pushed_lost = tel_rings.u32sum(torch.where(attempted & ~push_ok, my_cnt, 0),
+                                                   rep)
                     dropped = (dropped + pushed_lost) & _U32  # a uint32 add, as in JAX
             del remote
         else:
@@ -535,7 +653,7 @@ class _Runner:
             # JAX sums a node's picks in int32 and adds the sum as uint32.
             sent_add = torch.where(attempted, pick_cnt, 0).sum(dim=1, dtype=torch.int64) & _U32
             if self.tel and self.loss is not None:
-                dropped = tel_rings.u32sum(torch.where(attempted & ~push_ok, pick_cnt, 0))
+                dropped = tel_rings.u32sum(torch.where(attempted & ~push_ok, pick_cnt, 0), rep)
         del my_old
         st["sent"] += sent_add
 
@@ -545,8 +663,8 @@ class _Runner:
             gen_active = (gen_ticks == t) & gen_live
             if up is not None:
                 gen_active &= up[gen_origins]
-            gen_bits = bitmask.slot_scatter(n_loc, w, gen_rows, st["slots"], gen_active)
-        gathered = tel_rings.total_bits(arrivals, plain=plain) if self.tel else None
+            gen_bits = bitmask.slot_scatter(rb * n_loc, w, gen_rows, st["slots"], gen_active)
+        gathered = tel_rings.total_bits(arrivals, rep, plain=plain) if self.tel else None
         newly = arrivals.bitwise_and_(~seen)  # incoming (anti) / newly (fanout push)
         newly_cnt = bitmask.popcount_rows(newly, plain=plain)
         st["received"] += newly_cnt
@@ -560,15 +678,17 @@ class _Runner:
         exchange = seen if anti else newly  # the ring holds seen, or the frontier
 
         slot_w = t % ring
-        fallbacks = 0
+        fallbacks = [0] * rb
         if p.delta:
             # This round's change against the previous slot, read before the
             # write (ring >= 2 slots).
             d_words = exchange & ~hist[(t - 1) % ring]
         if p.sharded_ring:
             hist[slot_w].copy_(exchange)
-        else:
+        elif rb == 1:
             all_gather_rows(hist[slot_w], exchange, self.nodes)
+        else:
+            hist[slot_w].copy_(self._gather_rows(exchange))
         if p.delta:
             fallbacks = self._advance(st, t, d_words)
         if p.landed:
@@ -577,9 +697,9 @@ class _Runner:
             st["landed"] = [self._gather_rows(hist[(t + 1 - dv) % ring], async_op=True)
                             for dv in p.delay_values]
         if st["cov"] is not None:
-            cov = bitmask.coverage_per_slot(seen, p.chunk, plain=plain)
+            cov = bitmask.coverage_per_slot(seen.view(rb, n_loc, w), p.chunk, plain=plain)
             dist.all_reduce(cov, group=self.nodes)
-            st["cov"][t] = cov
+            st["cov"][:, t] = cov
         if self.tel:
             self._telemetry_row(st, t, newbits, newly_cnt, gathered, sent_add, dropped,
                                 fallbacks)
@@ -587,65 +707,138 @@ class _Runner:
 
     def _finish(self, st, horizon: int) -> dict:
         """The pass's counters SUMmed over the mesh (own rows into a zero
-        int64 canvas: disjoint over nodes, added over shares), the exchange
-        counters over the share shards, and every share shard's coverage
-        rows and rings."""
-        p, dev = self.plan, self.dev
-        counters = torch.zeros((2, p.n_padded), dtype=torch.int64, device=dev)
+        int64 canvas: disjoint over nodes; added over share shards, or each
+        replica shard at its own place), the exchange counters, and every
+        first-axis shard's coverage rows and rings."""
+        p, dev, rb = self.plan, self.dev, self.rb
+        places = p.s if self.campaign else 1
+        counters = torch.zeros((places, rb, 2, p.n_padded), dtype=torch.int64, device=dev)
         own = slice(self.row_offset, self.row_offset + p.n_loc)
-        counters[0, own] = st["received"]  # int32, as JAX's host sum of the shards' stacks
-        counters[1, own] = st["sent"]
+        here = counters[self.q if self.campaign else 0]
+        here[:, 0, own] = st["received"].view(rb, p.n_loc)  # int32, as JAX's host sum
+        here[:, 1, own] = st["sent"].view(rb, p.n_loc)
         dist.all_reduce(counters, group=self.mesh.group)
-        ex = torch.tensor(st["counters"] + [horizon if p.delta else 0], dtype=torch.int64,
-                          device=dev)
-        dist.all_reduce(ex, group=self.shares)
-        out = {"counters": counters.cpu().numpy(), "exchange": tuple(ex.tolist())}
+        rounds = horizon if p.delta else 0
+        per = torch.zeros((p.s, rb, 4), dtype=torch.int64, device=dev)
+        per[self.q] = torch.tensor([c + [rounds] for c in st["counters"]], dtype=torch.int64,
+                                   device=dev)
+        dist.all_reduce(per, group=self.first)
+        per = per.view(p.s * rb, 4).cpu().numpy()
+        counters = counters.view(places * rb, 2, p.n_padded).cpu().numpy()
+        out = {"counters": counters if self.campaign else counters[0],
+               "exchange": tuple(int(v) for v in per.sum(axis=0)), "exchange_per": per}
         if st["cov"] is not None:
-            out["coverage"] = self._gather_shares(st["cov"])
+            cov = gather_first(st["cov"], p.s, self.first)
+            out["coverage"] = cov.reshape((-1,) + cov.shape[2:]) if self.campaign else cov[:, 0]
         if st["rings"] is not None:
-            out["rings"] = tuple(self._gather_shares(r) for r in st["rings"])
+            out["rings"] = tuple(gather_first(r, p.s, self.first) for r in st["rings"])
+            if self.campaign:
+                out["rings"] = tuple(r.reshape((-1,) + r.shape[2:]) for r in out["rings"])
         return out
-
-    def _gather_shares(self, local: torch.Tensor) -> np.ndarray:
-        """Every share shard's ``local`` tensor, stacked on the host."""
-        out = torch.empty((self.plan.s * local.shape[0],) + tuple(local.shape[1:]),
-                          dtype=local.dtype, device=self.dev)
-        all_gather_rows(out, local, self.shares)
-        return out.view((self.plan.s,) + tuple(local.shape)).cpu().numpy()
 
     def _telemetry_row(self, st, t, newbits, newly_cnt, gathered, sent_add, dropped,
                        fallbacks):
-        """Row t of the metric ring, SUMmed over the nodes group (uint32
-        wrap), and the digest of the post-round state XORed over it (the
-        JAX package's sharded protocol rows, column for column)."""
-        p = self.plan
+        """Row t of the metric ring (each local replica's), SUMmed over the
+        nodes group (uint32 wrap), and the digest of the post-round state
+        XORed over it (the JAX package's sharded protocol rows, column for
+        column)."""
+        p, rb = self.plan, self.rb
+        rep = rb if self.campaign else None
         met, dig = st["rings"]
         pc_new = bitmask.popcount_rows(newbits, plain=self.plain)
         tel_rings.row(
             met, t,
-            frontier_bits=tel_rings.u32sum(pc_new),
-            frontier_nodes=tel_rings.u32sum(pc_new > 0),
-            newly_infected=tel_rings.u32sum(newly_cnt),
+            frontier_bits=tel_rings.u32sum(pc_new, rep),
+            frontier_nodes=tel_rings.u32sum(pc_new > 0, rep),
+            newly_infected=tel_rings.u32sum(newly_cnt, rep),
             msgs_gathered=gathered,
-            or_work=tel_rings.u32sum(sent_add),
+            or_work=tel_rings.u32sum(sent_add, rep),
             loss_dropped=dropped,
         )
         k1 = p.k - 1
         if p.delta:
-            words = k1 * (2 * p.capacity + p.hub_count * p.w) + fallbacks * k1 * p.n_loc * p.w
+            fbs = torch.tensor(fallbacks, dtype=torch.int64, device=self.dev)
+            words = k1 * (2 * p.capacity + p.hub_count * p.w) + fbs * (k1 * p.n_loc * p.w)
         elif p.sharded_ring:
             words = (len(p.delay_values) if p.anti else 0) * k1 * p.n_loc * p.w
         else:
             words = k1 * p.n_loc * p.w
-        met[t, 6] = words & _U32
-        met[t, 7] = st["stale"]
-        met[t, 8] = st["folds"]
-        dist.all_reduce(met[t], group=self.nodes)
-        met[t] &= _U32
+        mets = met if met.dim() == 3 else met[None]
+        mets[:, t, 6] = words & _U32
+        mets[:, t, 7] = st["stale"]
+        mets[:, t, 8] = st["folds"]
+        row = mets[:, t].contiguous()
+        dist.all_reduce(row, group=self.nodes)
+        mets[:, t] = row & _U32
         sent_lo, sent_hi = tel_digest.split_u64(st["sent"])
-        dig[t] = tel_digest.tick_digest_sharded(
+        value = tel_digest.tick_digest_sharded(
             st["seen"], st["received"], sent_lo, sent_hi=sent_hi, id_offset=self.row_offset,
-            group=self.nodes, plain=self.plain)
+            group=self.nodes, replicas=rep, plain=self.plain)
+        if self.campaign:
+            dig[:, t] = value
+        else:
+            dig[t] = value
+
+
+def stage_partnered(graph: Graph, mesh, protocol: str, fanout: int, ell_delays,
+                    constant_delay: int, chunk: int, ring_mode: str, exchange: str,
+                    async_k: int, hub_rows: int | None):
+    """The host staging and plan of a sharded protocol run (or campaign)
+    on ``mesh`` with a ``chunk``-share pass (the JAX package's staging,
+    shared by `run_sharded_partnered_sim` and the sharded campaigns):
+    partner picks index the real per-edge delays, padding rows fill with
+    delay 1 (degree 0: they never exchange); async clamps the delays
+    first. Returns ``(plan, (ell_idx, delays, degree, hub_plan),
+    ring_extra, exchange_extra)``."""
+    if protocol == "pushk" and fanout < 1:
+        raise ValueError(f"fanout must be >= 1, got {fanout}")
+    transport, k_async = async_ticks.parse_exchange(exchange, async_k)
+    if k_async:
+        if protocol == "pushk":
+            raise ValueError(
+                "async exchange needs an anti-entropy protocol (pushpull/pull): fanout "
+                "push exchanges same-round digests — there is nothing to overlap"
+            )
+        ring_mode = "sharded"
+    if mesh.coordinate is None:
+        raise ValueError("this rank is not in the mesh")
+    k, s = mesh.n_node_shards, mesh.n_share_shards
+    w = bitmask.num_words(chunk)
+    ell_idx, _ = graph.ell()
+    if ell_delays is None:
+        ell_delays = np.full(ell_idx.shape, constant_delay, dtype=np.int32)
+    ring = (int(ell_delays.max()) if ell_delays.size else 1) + 1
+    ell_idx = pad_to_multiple(ell_idx, k)
+    delays = pad_to_multiple(ell_delays, k, fill=1)
+    degree = pad_to_multiple(graph.degree.astype(np.int32), k)
+    n_padded = degree.shape[0]
+    stale_values = stale_amounts = ()
+    if k_async:
+        # Before everything downstream — the distinct delays, the ring, the
+        # fingerprint — so the synchronous run on the clamped delays is the
+        # bitwise reference.
+        stale_values, stale_amounts = async_ticks.protocol_staleness_amounts(delays, k_async)
+        delays = async_ticks.clamp_partner_delays(delays, k_async)
+        ring = async_ticks.effective_ring(ring, k_async)
+    # The distinct delays come from the padded array: a superset of the
+    # live ones, the same on every rank (each rank issues the same gathers).
+    (ring_mode, ring_bytes, delay_values, transport, capacity, hub_plan, delta_on,
+     exchange_extra, staleness) = _resolve_partnered_exchange(
+        transport, protocol, ring_mode, delays, ring, n_padded, k, w, degree, k_async,
+        stale_values, stale_amounts, hub_rows,
+    )
+    plan = _Plan(
+        protocol=protocol, picks=fanout if protocol == "pushk" else 1, n_padded=n_padded,
+        k=k, s=s, chunk=chunk, w=w, ring=ring, ring_mode=ring_mode,
+        delay_values=delay_values, delta=delta_on, capacity=capacity,
+        hub_count=hub_plan["hub_count"] if hub_plan else 0, async_k=k_async,
+        staleness=staleness, transport=transport,
+    )
+    ring_extra = {
+        "mode": ring_mode, "bytes_per_chip": ring_bytes, "slots": ring,
+        "delay_splits": len(delay_values) if delay_values else 1,
+    }
+    return plan, (ell_idx, delays, degree, hub_plan), ring_extra, exchange_extra
 
 
 def run_sharded_partnered_sim(
@@ -704,56 +897,15 @@ def run_sharded_partnered_sim(
         raise ValueError(f"unknown protocol {protocol!r}")
     if protocol == "pull":
         _check_pull_credit_bound(graph, chunk_size, schedule)
-    if protocol == "pushk" and fanout < 1:
-        raise ValueError(f"fanout must be >= 1, got {fanout}")
-    transport, k_async = async_ticks.parse_exchange(exchange, async_k)
-    if k_async:
-        if protocol == "pushk":
-            raise ValueError(
-                "async exchange needs an anti-entropy protocol (pushpull/pull): fanout "
-                "push exchanges same-round digests — there is nothing to overlap"
-            )
-        ring_mode = "sharded"
-    if mesh.coordinate is None:
-        raise ValueError("this rank is not in the mesh")
-    k, s = mesh.n_node_shards, mesh.n_share_shards
+    if mesh.first_axis != SHARES_AXIS:
+        raise ValueError("the sharded protocols run on a (shares, nodes) mesh; a (replicas, "
+                         "nodes) mesh is batch.campaign_sharded's")
     chunk_size = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
     chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
-    w = bitmask.num_words(chunk_size)
-
-    # The JAX package's staging: partner picks index the real per-edge
-    # delays, padding rows fill with delay 1 (degree 0: they never
-    # exchange).
-    ell_idx, _ = graph.ell()
-    if ell_delays is None:
-        ell_delays = np.full(ell_idx.shape, constant_delay, dtype=np.int32)
-    ring = (int(ell_delays.max()) if ell_delays.size else 1) + 1
-    ell_idx = pad_to_multiple(ell_idx, k)
-    delays = pad_to_multiple(ell_delays, k, fill=1)
-    degree = pad_to_multiple(graph.degree.astype(np.int32), k)
-    n_padded = degree.shape[0]
-    stale_values = stale_amounts = ()
-    if k_async:
-        # Before everything downstream — the distinct delays, the ring, the
-        # fingerprint — so the synchronous run on the clamped delays is the
-        # bitwise reference.
-        stale_values, stale_amounts = async_ticks.protocol_staleness_amounts(delays, k_async)
-        delays = async_ticks.clamp_partner_delays(delays, k_async)
-        ring = async_ticks.effective_ring(ring, k_async)
-    # The distinct delays come from the padded array: a superset of the
-    # live ones, the same on every rank (each rank issues the same gathers).
-    (ring_mode, ring_bytes, delay_values, _, capacity, hub_plan, delta_on, exchange_extra,
-     staleness) = _resolve_partnered_exchange(
-        transport, protocol, ring_mode, delays, ring, n_padded, k, w, degree, k_async,
-        stale_values, stale_amounts, hub_rows,
-    )
-    picks = fanout if protocol == "pushk" else 1
-    plan = _Plan(
-        protocol=protocol, picks=picks, n_padded=n_padded, k=k, s=s, chunk=chunk_size, w=w,
-        ring=ring, ring_mode=ring_mode, delay_values=delay_values, delta=delta_on,
-        capacity=capacity, hub_count=hub_plan["hub_count"] if hub_plan else 0,
-        async_k=k_async, staleness=staleness,
-    )
+    plan, (ell_idx, delays, degree, hub_plan), ring_extra, exchange_extra = stage_partnered(
+        graph, mesh, protocol, fanout, ell_delays, constant_delay, chunk_size, ring_mode,
+        exchange, async_k, hub_rows)
+    k, s, w, n_padded, picks = plan.k, plan.s, plan.w, plan.n_padded, plan.picks
     received = np.zeros(n_padded, dtype=np.int64)
     sent = np.zeros(n_padded, dtype=np.int64)
     checkpointer = None
@@ -817,14 +969,11 @@ def run_sharded_partnered_sim(
         generated=generated, received=received, forwarded=received.copy(), sent=sent,
         processed=generated + received, degree=graph.degree.astype(np.int64),
     )
-    stats.extra["ring"] = {
-        "mode": ring_mode, "bytes_per_chip": ring_bytes, "slots": ring,
-        "delay_splits": len(delay_values) if delay_values else 1,
-    }
-    if delta_on:
+    stats.extra["ring"] = ring_extra
+    if plan.delta:
         used, ovf, fallbacks, ticks = (int(v) for v in exch_totals)
         exchange_extra = _achieved_exchange_report(
-            exchange_extra, (used, ovf, fallbacks), ticks, k, plan.n_loc, w, capacity,
+            exchange_extra, (used, ovf, fallbacks), ticks, k, plan.n_loc, w, plan.capacity,
             hub_count=plan.hub_count)
     stats.extra["exchange"] = exchange_extra
     stats.extra["resident_bytes"] = runner.resident_bytes(horizon_ticks, record_coverage)

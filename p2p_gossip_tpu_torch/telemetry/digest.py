@@ -104,27 +104,31 @@ def write_batched(ring: torch.Tensor, t: int, seen, received, sent_lo, sent_hi=N
 
 
 def tick_digest_sharded(seen, received, sent_lo, *, id_offset: int, group,
-                        sent_hi=None, plain: bool = False) -> torch.Tensor:
+                        sent_hi=None, replicas: int | None = None,
+                        plain: bool = False) -> torch.Tensor:
     """One node shard's part of the tick digest, XOR-combined over the
     nodes process ``group`` (the JAX package's ``tick_digest_sharded``):
     the shard folds its rows with GLOBAL node ids (``id_offset`` + local
     row) through the ``tick_digest`` kernel, then one all_gather of the
-    (1,) partials and an XOR of them — a SUM collective cannot XOR. Equal
-    to the digest of the whole state, because XOR is order-free. Returns
-    a 0-d int32 device tensor (uint32 bits)."""
+    partials and an XOR of them — a SUM collective cannot XOR. Equal to
+    the digest of the whole state, because XOR is order-free. Returns a
+    0-d int32 device tensor (uint32 bits); with ``replicas`` B (state
+    stacked along the rows, one launch) the (B,) digests."""
     import torch.distributed as dist
 
     from p2p_gossip_tpu_torch.parallel.mesh import all_gather_rows
 
+    b = 1 if replicas is None else replicas
     part = kernels.tick_digest(seen, received, sent_lo, sent_hi, id_offset=id_offset,
-                               plain=plain)
-    parts = torch.empty((dist.get_world_size(group),), dtype=torch.int32,
+                               replicas=b, plain=plain)
+    parts = torch.empty((dist.get_world_size(group) * b,), dtype=torch.int32,
                         device=part.device)
     all_gather_rows(parts, part, group)
+    parts = parts.view(-1, b)
     h = parts[0]
     for i in range(1, parts.shape[0]):
         h = h ^ parts[i]
-    return h
+    return h[0] if replicas is None else h
 
 
 # --- host (numpy) twin -----------------------------------------------------------

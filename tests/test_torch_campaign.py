@@ -280,8 +280,6 @@ def test_campaign_validation():
     _, tg = _graphs()
     rs = tc.flood_replicas(tg, 3, SEEDS, HORIZON)
     loss = pt.LinkLossModel(0.1)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tc.run_coverage_campaign(tg, rs, HORIZON, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="requires a loss model"):
         tc.run_coverage_campaign(tg, rs, HORIZON, loss_seeds=SEEDS, device="cpu")
     with pytest.raises(ValueError, match="one seed per replica"):

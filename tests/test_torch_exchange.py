@@ -99,6 +99,42 @@ def test_compress_then_scatter_rebuilds_the_cut():
                               np.where(need[:, d:d + 1], changed, 0))
 
 
+@pytest.mark.parametrize("b,n_loc,w,k,cap", [(1, 12, 3, 3, 40), (3, 16, 2, 4, 8),
+                                             (5, 5, 1, 2, 8), (2, 7, 3, 1, 64)])
+def test_replica_axis_exchange_equals_a_replica_loop(b, n_loc, w, k, cap):
+    """``replicas`` B: compress_deltas on (B*n_loc, W) is B calls of the
+    one-run version on each replica's rows, stacked; scatter_deltas of the
+    (n_srcs, B, capacity) buffers an exchange leaves is B one-run rebuilds;
+    overlay_hub over (B, n_padded, W) canvases and a (k, B, h, W) block is
+    B one-run overlays. Overflowing and empty destinations included."""
+    rng = np.random.default_rng(b * 100 + cap)
+    changed = np.concatenate([_random_delta(r + n_loc, n_loc, w, k)[0] for r in range(b)])
+    need = torch.from_numpy(_random_delta(b, n_loc, w, k)[1])
+    idx, val, counts = kernels.compress_deltas(_t(changed), need, cap, replicas=b)
+    assert idx.shape == val.shape == (b, k, cap) and counts.shape == (b, k)
+    for r in range(b):
+        one = kernels.compress_deltas(_t(changed[r * n_loc:(r + 1) * n_loc]), need, cap)
+        for got, want in zip((idx[r], val[r], counts[r]), one):
+            assert torch.equal(got, want)
+    # The all_to_all leaves source-major buffers: (n_srcs = k, B, capacity).
+    ridx, rval = idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous()
+    n_padded = k * n_loc
+    canvas = kernels.scatter_deltas(ridx, rval, n_loc, w, n_padded, replicas=b)
+    assert canvas.shape == (b, n_padded, w)
+    for r in range(b):
+        assert torch.equal(canvas[r], kernels.scatter_deltas(ridx[:, r], rval[:, r], n_loc, w,
+                                                             n_padded))
+    h = 1
+    hub_global = torch.stack([torch.from_numpy(rng.choice(n_loc, h, replace=False) + s * n_loc)
+                              for s in range(k)]).long()
+    block = _t(rng.integers(0, 2**32, (k, b, h, w), dtype=np.uint64).astype(np.uint32))
+    want = [exchange.overlay_hub(canvas[r].clone(), hub_global,
+                                 block[:, r].reshape(k * h, w)) for r in range(b)]
+    exchange.overlay_hub(canvas, hub_global, block, replicas=b)
+    for r in range(b):
+        assert torch.equal(canvas[r], want[r])
+
+
 def test_overlay_hub_equals_jax():
     rng = np.random.default_rng(5)
     k, n_loc, w, h = 3, 6, 2, 2

@@ -57,7 +57,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = {os.path.relpath(f, REPO) for f in files}
     for module in ("models/protocols.py", "models/partnersel.py", "ops/segment.py",
                    "utils/anim.py", "utils/cli.py", "batch/__init__.py",
-                   "batch/campaign.py", "batch/stats.py", "batch/sweep.py",
+                   "batch/campaign.py", "batch/campaign_sharded.py", "batch/stats.py",
+                   "batch/sweep.py",
                    "engine/event.py", "runtime/native.py", "utils/logging.py",
                    "scale.py", "serve/__init__.py", "serve/request.py",
                    "serve/scheduler.py", "serve/server.py", "serve/bench.py",
