@@ -9,7 +9,8 @@ Run from the repository root on a machine with one NVIDIA GPU (an H100):
 million-node steps on the north-star graph cached by ``python -m
 p2p_gossip_tpu_torch.scale --cache CACHE``; ``python3 chip_smoke.py
 --phase 16`` runs phase 16 alone, with phase 11's campaigns as its
-references.)
+references; ``python3 chip_smoke.py --phase 14a`` runs phases 14 (a) and
+16 (a) alone, the exchange kernels' checks and timings.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -110,13 +111,20 @@ Phases (any failure raises and the script exits nonzero):
    budget rejected; (e) a reduced trace (N = 2,000) on the card equal to
    the same trace run with ``device="cpu"``.
 14. The sharded flood (``p2p_gossip_tpu_torch.parallel``): (a)
-   ``compress_deltas`` and ``scatter_deltas`` against their plain versions
+   ``compress_deltas`` against its plain version on edge cases (all-zero
+   and all-nonzero slices, capacity 1, a count at capacity and one past
+   it, k = 1 and 32, a slice not a whole number of tiles, B = 3 with one
+   replica over capacity), ``compress_deltas`` and ``scatter_deltas``
+   against their plain versions
    on a 4-shard split of the phase-5 flood's tick-3 and tick-10 frontiers
    (W = 256; capacity from ``exchange.delta_capacity`` of the real cut, and
    a forced overflow at capacity 64) and of phase 12's 1M BA tick-2 state
    (W = 128; run from phase 12's hook), every shard's compress and every
    receiver's scatter, timed beside the bound and ``torch.nonzero`` x k /
-   ``index_put_``; (b) ``run_sharded_sim`` and
+   ``index_put_``; and a look-back stress case (shard 0 of the 1M BA
+   split at the flood's first eight frontiers as B = 8, ~7,800 tiles a
+   replica: equal to the plain version, and ten more calls each equal to
+   the first); (b) ``run_sharded_sim`` and
    ``run_sharded_flood_coverage`` on ``torch.cuda.device_count()`` NCCL
    ranks (one rank: in this process) with the ring replicated and sharded
    and the dense, delta, hub and async (K = 2) exchanges on phase 5's
@@ -621,10 +629,11 @@ def check_occupancy(n, w, dev, rng, reps):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
 
 
-def capture_state(dg, sched, chunk, ticks, dev):
+def capture_state(dg, sched, chunk, ticks, dev, frontiers=None):
     """Run the engine's own tick on one chunk of ``sched`` for ``ticks``
     ticks from t = 0 and return its state: seen, the frontier ring, the
-    occupancy ring, received, sent and the last tick's new frontier."""
+    occupancy ring, received, sent and the last tick's new frontier. A
+    ``frontiers`` list gets a copy of every tick's new frontier."""
     import torch
 
     from p2p_gossip_tpu_torch.engine.sync import _chunk_state, _tick
@@ -638,6 +647,8 @@ def capture_state(dg, sched, chunk, ticks, dev):
     for t in range(ticks):
         newly, _ = _tick(dg, t, seen, hist, occ, received, sent, origins, slots,
                          gen_ticks, False)
+        if frontiers is not None:
+            frontiers.append(newly.clone())
     return seen, hist, occ, received, sent, newly
 
 
@@ -2634,8 +2645,9 @@ def scale_path(topology, nodes, prob, dev, cache_dir, graph=None, hook=None):
     memory against the resident-memory model), then the kernels on the
     tick-3 state (`scale_kernels`). A ``graph`` given (the north star's,
     loaded from its cache) skips the build and cache steps. ``hook(graph,
-    origins, stats, coverage, frontier)`` (phase 14's) sees the graph, the
-    timed flood's results and the state's newest frontier slot."""
+    dg, origins, stats, coverage, frontier)`` (phase 14's) sees the graph,
+    its staging, the timed flood's results and the state's newest frontier
+    slot."""
     import torch
 
     from p2p_gossip_tpu_torch.engine.sync import (
@@ -2702,7 +2714,7 @@ def scale_path(topology, nodes, prob, dev, cache_dir, graph=None, hook=None):
                              f"{MEMORY_TOLERANCE:.0%} of the model's {model}")
     kernels_1m = scale_kernels(
         dg, origins, dev, reps=5,
-        hook=None if hook is None else (lambda f: hook(graph, origins, stats, cov, f)))
+        hook=None if hook is None else (lambda f: hook(graph, dg, origins, stats, cov, f)))
     result = dict(timing, stage_s=stage_s, rss_peak=rss, buckets=len(dg.buckets),
                   ticks=ticks, wall_s=wall, ms_per_tick=wall / ticks * 1e3,
                   rate=processed / wall, peak_bytes=peak, model_bytes=model,
@@ -2768,11 +2780,11 @@ def scale_phase(dev):
     results = {}
     kept = {}
 
-    def keep_ba(graph, origins, stats, cov, frontier):
+    def keep_ba(graph, dg, origins, stats, cov, frontier):
         # Phase 14: the exchange kernels on a 4-shard split of this state,
         # and this graph and flood for the sharded engine.
         kept.update(graph=graph, origins=origins, stats=stats, coverage=cov,
-                    delta=check_delta_kernels(graph, [("tick-2", frontier)], dev, 5))
+                    **ba_exchange(graph, dg, origins, frontier, dev))
 
     for topology, nodes, prob in SCALE_CONFIGS:
         results[topology] = scale_path(topology, nodes, prob, dev, cache_dir,
@@ -3186,6 +3198,120 @@ def delta_library_ms(changed, need, k, reps):
     return k * time_ms(lambda: torch.nonzero(mask), reps, calls=KERNEL_CALLS)
 
 
+# compress_deltas' edge cases, as tests/test_torch_exchange.py holds the
+# plain version to JAX: (label, B or None, n_loc, W, k, capacity, fill);
+# a capacity "at" is destination 0's count, "past" one below it; fill as
+# `compress_case`. "ragged-tiles": n_loc*W = 9,000 words, not a multiple of
+# the kernel's 4,096-word tile.
+COMPRESS_EDGES = (
+    ("all-zero", None, 20, 8, 3, 50, "zero"), ("all-nonzero", None, 20, 8, 3, 50, "full"),
+    ("capacity-1", None, 10, 4, 2, 1, "random"),
+    ("count-at-capacity", None, 16, 3, 3, "at", "random"),
+    ("count-past-capacity", None, 16, 3, 3, "past", "random"),
+    ("k-1", None, 30, 5, 1, 64, "random"), ("k-32", None, 33, 5, 32, 20, "random"),
+    ("ragged-tiles", None, 1000, 9, 4, 3000, "random"),
+    ("B-3-one-over", 3, 40, 6, 4, 12, "random"),
+)
+COMPRESS_REPEATS = 10  # calls on one input whose outputs must all be equal
+STRESS_TICKS = 8  # the 1M BA flood's frontiers stacked as B = 8 replicas
+
+
+def compress_case(rng, b, n_loc, w, k, fill):
+    """A (B*n_loc, W) slice and its (n_loc, k) cut: fill "random" (60% zero
+    words), "zero" or "full" (no zero word); with B replicas, replica 1
+    keeps its words and the others only their first row's."""
+    rows = (b or 1) * n_loc
+    changed = rng.integers(1, 2**32, (rows, w), dtype=np.uint64).astype(np.uint32)
+    if fill == "zero":
+        changed[:] = 0
+    elif fill == "random":
+        changed[rng.random((rows, w)) < 0.6] = 0
+    if b:
+        changed.reshape(b, n_loc, w)[[r for r in range(b) if r != 1], 1:] = 0
+    return changed.view(np.int32), rng.random((n_loc, k)) < 0.5
+
+
+def check_compress_edges(dev, rng):
+    """Phase 14 (a): compress_deltas on COMPRESS_EDGES, each bitwise its plain
+    version (the padding, the counts past capacity and the one replica
+    over included)."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    for label, b, n_loc, w, k, cap, fill in COMPRESS_EDGES:
+        changed, need = compress_case(rng, b, n_loc, w, k, fill)
+        if isinstance(cap, str):
+            count0 = int(((changed != 0) & need[:, :1]).sum())
+            cap = count0 if cap == "at" else count0 - 1
+        changed = torch.as_tensor(changed, device=dev)
+        need = torch.as_tensor(need, device=dev)
+        got = kernels.compress_deltas(changed, need, cap, replicas=b)
+        want = kernels.compress_deltas(changed, need, cap, replicas=b, plain=True)
+        for a, c, part in zip(got, want, ("idx", "val", "counts")):
+            compare(f"compress_deltas[{label} {part}]", a, c)
+        if b and (got[2] > cap).any(dim=1).tolist() != [r == 1 for r in range(b)]:
+            raise AssertionError(f"compress_deltas[{label}]: not replica 1 alone over")
+    log(f"compress_deltas edge cases: {len(COMPRESS_EDGES)} cases "
+        f"({', '.join(e[0] for e in COMPRESS_EDGES)}), kernel == plain")
+
+
+def check_compress_stress(graph, dg, origins, dev, reps):
+    """Phase 14 (a) on the 1M BA graph: shard 0 of its SHARD_SPLIT-way split
+    at the new frontiers of ticks 0..STRESS_TICKS-1 of the coverage flood
+    of ``origins``, stacked as B = STRESS_TICKS replicas (thousands of
+    tiles a replica, so the look-back crosses many windows): bitwise the
+    plain version, then COMPRESS_REPEATS calls on the same input each
+    bitwise the first (tile scheduling changes nothing); timed beside the
+    bound and ``torch.nonzero`` x k."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.ops.build import load_library
+    from p2p_gossip_tpu_torch.parallel import exchange as exch
+
+    k, b = SHARD_SPLIT, STRESS_TICKS
+    n_padded = graph.n + (-graph.n) % k
+    n_loc = n_padded // k
+    need_np = exch.plan_flood_exchange_csr(graph, n_padded, k)
+    cut = need_np.reshape(k, n_loc, k).sum(axis=1)
+    sched = pt.Schedule(graph.n, origins, np.zeros(len(origins), dtype=np.int32))
+    fronts = []
+    capture_state(dg, sched, len(origins), b, dev, frontiers=fronts)
+    w = fronts[0].shape[1]
+    changed = torch.cat([f[:n_loc] for f in fronts])  # (b * n_loc, W)
+    del fronts
+    need0 = torch.as_tensor(need_np[:n_loc], device=dev)
+    cap = exch.delta_capacity(int(cut.max()), n_loc, w)
+    got = kernels.compress_deltas(changed, need0, cap, replicas=b)
+    want = kernels.compress_deltas(changed, need0, cap, replicas=b, plain=True)
+    for a, c, part in zip(got, want, ("idx", "val", "counts")):
+        compare(f"compress_deltas[1M BA stress B={b} {part}]", a, c)
+    del want
+    for i in range(COMPRESS_REPEATS):
+        again = kernels.compress_deltas(changed, need0, cap, replicas=b)
+        for a, c, part in zip(again, got, ("idx", "val", "counts")):
+            compare(f"compress_deltas[1M BA stress call {i + 2} {part}]", a, c)
+    del again
+    tiles = load_library().gossip_compress_tiles(n_loc * w)
+    mask = ((changed != 0) & need0[:, :1].repeat(b, 1)).reshape(-1)
+    out = dict(
+        ms=time_ms(lambda: kernels.compress_deltas(changed, need0, cap, replicas=b), reps,
+                   calls=KERNEL_CALLS),
+        bound_ms=bound_ms(b * (n_loc * w * 4 + 2 * k * cap * 4 + k * 4) + n_loc * k),
+        library_ms=k * time_ms(lambda: torch.nonzero(mask), reps, calls=KERNEL_CALLS),
+        entries=int(got[2].clamp(max=cap).sum()), tiles=tiles)
+    log(f"compress_deltas look-back stress: shard 0 of the 1M BA {k}-way split (n_loc "
+        f"{n_loc}, W={w}, capacity {cap}, {tiles} tiles a replica), ticks 0-{b - 1}'s "
+        f"frontiers as B={b}: == plain, {COMPRESS_REPEATS} more calls each == the first; "
+        f"{out['ms']:.4f} ms (bound {out['bound_ms']:.4f}, nonzero x {k} "
+        f"{out['library_ms']:.4f}; {out['entries']} entries)")
+    del changed, got, mask
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_delta_kernels(graph, frontiers, dev, reps):
     """Phase 14 (a): compress_deltas and scatter_deltas on a SHARD_SPLIT-way
     split of ``graph``'s rows. For each (tag, frontier (N, W)): every
@@ -3338,6 +3464,7 @@ def sharded_worker(graph, sched, origins, ba, device):
     import torch.distributed as dist
 
     from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import launch
     from p2p_gossip_tpu_torch.parallel.engine_sharded import (
         run_sharded_flood_coverage,
         run_sharded_sim,
@@ -3364,6 +3491,7 @@ def sharded_worker(graph, sched, origins, ba, device):
         out[mode] = dict(
             stats=stats, wall=wall, peak=peak, coverage=cov, cov_stats=cstats,
             cov_wall=cwall, cov_peak=cpeak, launches=dict(kernels.launches))
+        launch.progress()
     for mode in ("replicated", "delta"):
         flood = dict(chunk_size=CHUNK, sharded_graph=sg, **dict(SHARDED_MODES)[mode])
 
@@ -3374,6 +3502,7 @@ def sharded_worker(graph, sched, origins, ba, device):
             profile_device(f"sharded {mode} flood", run)
         else:
             run()
+        launch.progress()
     if ba is not None:
         ba_graph, ba_origins = ba
         del sg
@@ -3473,9 +3602,25 @@ def check_sharded_mode(mode, run, want):
                              "single-device port's")
 
 
+def delta_frontiers(dg, sched, dev):
+    """Phase 14 (a)'s frontiers: the main-path flood's new frontier at each
+    of DELTA_TICKS, as (tag, (N, W))."""
+    return [(f"tick-{t}", capture_ring(dg, sched, CHUNK, t + 1, dev)[2].clone())
+            for t in DELTA_TICKS]
+
+
+def ba_exchange(graph, dg, origins, frontier, dev):
+    """Phase 14 (a) on the 1M BA graph: the exchange kernels on the 4-way
+    split of its tick-2 frontier, and compress_deltas' look-back stress
+    case."""
+    return dict(delta=check_delta_kernels(graph, [("tick-2", frontier)], dev, 5),
+                stress=check_compress_stress(graph, dg, origins, dev, 5))
+
+
 def sharded_phase(graph, dg, sched, ba, dev):
-    """Phase 14: (a) the exchange kernels at 100K (the flood's tick-3 and
-    tick-10 frontiers; the 1M BA split ran in phase 12's hook), (b) the
+    """Phase 14: (a) the exchange kernels at 100K (compress_deltas' edge
+    cases, the flood's tick-3 and tick-10 frontiers; the 1M BA split and
+    the look-back stress case ran in phase 12's hook), (b) the
     sharded flood on ``torch.cuda.device_count()`` NCCL ranks against the
     single-device port, (c) 2 and 4 gloo ranks on the one card."""
     import torch
@@ -3487,11 +3632,8 @@ def sharded_phase(graph, dg, sched, ba, dev):
     from p2p_gossip_tpu_torch.parallel.mesh import initialize_multihost
 
     t_phase = time.perf_counter()
-    frontiers = [(f"tick-{t}", capture_ring(dg, sched, CHUNK, t + 1, dev)[2].clone())
-                 for t in DELTA_TICKS]
-    torch.cuda.empty_cache()
-    kernels_100k = check_delta_kernels(graph, frontiers, dev, reps=10)
-    del frontiers
+    check_compress_edges(dev, np.random.default_rng(SEED))
+    kernels_100k = check_delta_kernels(graph, delta_frontiers(dg, sched, dev), dev, reps=10)
     torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
@@ -3555,8 +3697,8 @@ def sharded_phase(graph, dg, sched, ba, dev):
 
     gloo = gloo_ranks(graph, sched, origins, ref, ref_cov)
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(kernels_100k=kernels_100k, kernels_1m=ba["delta"], runs=runs, gloo=gloo,
-                ref_tick_ms=ref_tick_ms)
+    return dict(kernels_100k=kernels_100k, kernels_1m=ba["delta"], stress=ba["stress"],
+                runs=runs, gloo=gloo, ref_tick_ms=ref_tick_ms)
 
 
 def gloo_ranks(graph, sched, origins, ref, ref_cov):
@@ -3729,6 +3871,7 @@ def sharded_protocols_worker(graph, sched, cov_sched, delays, device):
     import torch.distributed as dist
 
     from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import launch
     from p2p_gossip_tpu_torch.parallel.mesh import make_mesh
     from p2p_gossip_tpu_torch.parallel.protocols_sharded import run_sharded_partnered_sim
 
@@ -3756,6 +3899,7 @@ def sharded_protocols_worker(graph, sched, cov_sched, delays, device):
             graph, sch, 1, mesh, **call), base, cuda)[1]
         out[label] = dict(stats=stats, coverage=cov, wall=wall, peak=peak,
                           launches=launches, one_round=one_round)
+        launch.progress()
 
     def profiled():
         run_sharded_partnered_sim(graph, sched, HORIZON, mesh, **protocol_run_kwargs(
@@ -4168,6 +4312,7 @@ def sharded_campaign_worker(graph, cov_set, pp_set, delays, device, dg=None):
         run_sharded_protocol_campaign,
     )
     from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import launch
     from p2p_gossip_tpu_torch.parallel.engine_sharded import (
         run_sharded_flood_coverage,
         stage_sharded_graph,
@@ -4196,6 +4341,7 @@ def sharded_campaign_worker(graph, cov_set, pp_set, delays, device, dg=None):
             graph, cov_set.origins[0], HORIZON, smesh, sharded_graph=sg, **kw), base, cuda)[1]
         out[mode] = dict(result=res, wall=wall, peak=peak, launches=launches,
                          solo_wall=solo_wall)
+        launch.progress()
     for label, kw in CAMPAIGN_PROTOCOL_MODES:
         kernels.reset_launches()
         res, wall, peak = measured_run(lambda kw=kw: run_sharded_protocol_campaign(
@@ -4208,6 +4354,7 @@ def sharded_campaign_worker(graph, cov_set, pp_set, delays, device, dg=None):
             seed=int(pp_set.seeds[0]), record_coverage=True, **kw), base, cuda)[1]
         out[label] = dict(result=res, wall=wall, peak=peak, launches=launches,
                           solo_wall=solo_wall)
+        launch.progress()
 
     def profiled():
         kernels.reset_launches()
@@ -4219,6 +4366,7 @@ def sharded_campaign_worker(graph, cov_set, pp_set, delays, device, dg=None):
         profile_device("sharded delta coverage campaign", profiled, top=15)
     else:
         profiled()
+    launch.progress()
     del sg
     out["meshed"] = run_coverage_campaign(graph, cov_set, HORIZON, mesh=smesh,
                                           device_graph=dg)
@@ -4444,6 +4592,60 @@ def phase_16_alone(dev) -> int:
     return 0
 
 
+def phase_14a_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 14a``: the exchange kernels' checks and
+    timings by themselves: phase 14 (a) (compress_deltas' edge cases, the
+    4-way split of the 100K flood's frontiers, the 1M BA split and the
+    look-back stress case) and phase 16 (a) (the replica axis), on their
+    own graphs and stagings. Prints their records; the default run (every
+    phase) is the script's contract."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+    from p2p_gossip_tpu_torch.ops import build
+    from p2p_gossip_tpu_torch.runtime import native
+
+    t_start = time.perf_counter()
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    rng = np.random.default_rng(SEED)
+    graph = pt.erdos_renyi(N_NODES, EDGE_P, seed=SEED)
+    dg = DeviceGraph.build(graph, device=dev)
+    check_compress_edges(dev, rng)
+    k100 = check_delta_kernels(graph, delta_frontiers(dg, flood_schedule(graph), dev), dev,
+                               reps=10)
+    native.build()
+    topology, nodes, _ = SCALE_CONFIGS[0]
+    ba = native.native_barabasi_albert(nodes, m=SCALE_BA_M, seed=SEED)
+    ba_dg = DeviceGraph.build(ba, device=dev)
+    origins = np.random.default_rng(SEED).integers(0, ba.n, SCALE_ORIGINS).astype(np.int32)
+    frontier = capture_state(ba_dg, pt.Schedule(ba.n, origins, np.zeros(len(origins),
+                                                                        dtype=np.int32)),
+                             SCALE_ORIGINS, SCALE_CAPTURE_TICK, dev)[5]
+    k1m = ba_exchange(ba, ba_dg, origins, frontier, dev)
+    del ba_dg, frontier
+    torch.cuda.empty_cache()
+    exchange_replicas_ragged(dev, rng)
+    k16 = check_exchange_replicas(graph, dg, campaign_replicas(graph, N_SHARES), dev, reps=10)
+    log(f"--phase 14a took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase14a_kernels": {
+        name: dict(k100[name], **{f"{key}_1m_{topology}": k1m["delta"][name][key]
+                                  for key in ("ms", "bound_ms", "plain_ms", "library_ms")},
+                   **{f"{key}_b{CAMPAIGN_REPLICAS}": k16[name][key]
+                      for key in ("ms", "bound_ms", "plain_ms", "library_ms",
+                                  "solo_launches_ms")},
+                   **({f"{key}_stress_b{STRESS_TICKS}_1m_{topology}": k1m["stress"][key]
+                       for key in ("ms", "bound_ms", "library_ms", "tiles")}
+                      if name == "compress_deltas" else {}))
+        for name in SHARDED_KERNELS}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4473,6 +4675,8 @@ def main() -> int:
         return 0
     if sys.argv[1:3] == ["--phase", "16"]:
         return phase_16_alone(dev)
+    if sys.argv[1:3] == ["--phase", "14a"]:
+        return phase_14a_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -4649,6 +4853,11 @@ def main() -> int:
             max_abs_err=max(sharded["kernels_100k"][name]["max_abs_err"], m1["max_abs_err"]),
             **{f"{key}_1m_ba": m1[key]
                for key in ("ms", "bound_ms", "plain_ms", "library_ms")})
+    # compress_deltas' look-back stress case: shard 0 of the 1M BA split,
+    # eight frontiers as B = 8.
+    measured["compress_deltas"].update(
+        {f"{key}_stress_b{STRESS_TICKS}_1m_ba": sharded["stress"][key]
+         for key in ("ms", "bound_ms", "library_ms", "tiles")})
     # exchange.overlay_hub (a torch index_copy_, no kernel of its own) beside
     # the scatter it completes, on the same split with pinned hub rows.
     measured["scatter_deltas"].update(

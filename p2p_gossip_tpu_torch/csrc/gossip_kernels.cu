@@ -765,132 +765,391 @@ tick_digest_kernel(const uint32_t* __restrict__ seen, int n, int w,
 //   (`need` is shared by the replicas), in ascending j: idx[b, d, r] = j
 //   and val[b, d, r] = changed[b, j] for the r-th of them while r <
 //   capacity; counts[b, d] = how many there are (the true count, past
-//   capacity too). The caller fills idx with -1 and val with 0 first, so
-//   unused slots are the JAX padding. B = 1 is the one-run exchange.
+//   capacity too); every slot from min(count, capacity) on holds the JAX
+//   padding, -1 and 0. B = 1 is the one-run exchange.
 // Bound on the H100: bytes (the slice and `need` read once, the buffers
-//   written once); the ranking is a few integer operations a word.
-// Design: an ordered stream compaction in two passes over the same
-//   partition of the words into blocks of `iters` x 256 words (at most
-//   ~1024 blocks). Pass 1 counts each block's candidates per destination
-//   (a warp ballot a destination, a shared-memory sum). Pass 2 starts each
-//   block at the sum of the earlier blocks' counts (the exclusive scan,
-//   read from pass 1's per-block counts: at most ~1024 x k words a block),
-//   then walks its words in order, 256 at a time: a ballot a destination
-//   gives each lane its rank in the warp, the warps' counts in shared
-//   memory give the warp's rank in the step, and a running base carries
-//   over the steps. A word whose rank is below capacity is stored; a block
-//   whose every buffer is full stops. Pass 1 reads the slice once more than
-//   the bound: simple first. Not the JAX dense (k, n_loc*W) rank arrays:
-//   at a 4-shard split of 100,000 x 256 they are k x 25.6 MB a tick. The
-//   replica is grid y: each replica has its own blocks, its own (blocks, k)
-//   row of per-block counts and its own buffers, so one launch of each pass
-//   covers the batch and the flat indices stay per replica (below 2^31).
+//   and counts written once); the ranking is a few integer operations a
+//   word.
+// Design: one pass over the slice, an ordered stream compaction with a
+//   decoupled look-back across tiles (Merrill & Garland, "Single-pass
+//   Parallel Prefix Scan with Decoupled Look-back", 2016).
+//   - A block takes a tile of kCompressTileWords words from an atomic
+//     ticket (the replica folded into it), so every earlier tile's block
+//     has started and the look-back always advances.
+//   - The tile goes to shared memory by 16-byte cp.async copies (thread t:
+//     words 4t..4t+3 of each 1,024-word step), so no register holds it
+//     between phases; each of its rows' k `need` bytes become one k-bit
+//     mask in shared memory, read once for the row's W words.
+//   - Ranks: a thread counts its words' candidates four destinations to a
+//     32-bit word, a byte each (spread4); a shuffle scan ranks them in the
+//     warp; one warp a destination scans the (step, warp) totals.
+//   - That warp publishes the tile's count (a status word: flag and count
+//     in 64 bits), looks back over its predecessors (an aggregate adds and
+//     the look-back goes on, an inclusive prefix adds and ends it, a tile
+//     not yet published is read again), and publishes the inclusive
+//     prefix. The newest inclusive prefix trails a starting tile by about
+//     a hundred tiles, so the warp reads kLookBackWindows windows of 32 in
+//     one round trip. The loads and stores are relaxed at gpu scope: no
+//     other data is published through a status word, and the flag and the
+//     count travel in one word; an acquire load would hold back the loads
+//     after it, and the window's loads are meant to be in flight together.
+//   - Each slot is written once. The tile's kept candidates (ranks below
+//     capacity) go to a shared stage, destination-major in rank order, and
+//     each destination's run of slots is written with coalesced stores.
+//     The last tile of a replica writes its counts; a second small launch
+//     writes the padding slots [min(count, capacity), capacity) from the
+//     counts alone (compress_pad_kernel). A tile with no rank below
+//     capacity still counts but writes nothing.
+//   - The replica's status words are its own, and its flat indices stay
+//     below 2^31.
 // ---------------------------------------------------------------------------
 constexpr int kCompressThreads = 256;
 constexpr int kCompressWarps = kCompressThreads / 32;
+constexpr int kCompressSteps = 4;
+constexpr int kCompressStepWords = kCompressThreads * 4;
+constexpr int kCompressTileWords = kCompressSteps * kCompressStepWords;  // 4,096
+constexpr int kCompressParts = kCompressSteps * kCompressWarps;  // (step, warp) parts
+constexpr int kPartsPerLane = kCompressParts / 32;
+constexpr int kLookBackWindows = 4;  // windows of 32 predecessors read at once
 constexpr int kMaxDests = 32;
+constexpr unsigned long long kTileAggregate = 1ull << 32;
+constexpr unsigned long long kTilePrefix = 2ull << 32;
+constexpr int kPadSlots = 4096;  // padding slots a block of compress_pad_kernel
+static_assert(kCompressParts % 32 == 0, "whole (step, warp) parts a scan lane");
 
-// Row `row`'s destinations as bits: bit d = need[row, d].
-__device__ inline uint32_t dest_bits(const uint8_t* __restrict__ need, long long row,
-                                     int k) {
-  uint32_t m = 0u;
-  for (int d = 0; d < k; ++d) m |= (uint32_t)(need[row * k + d] != 0) << d;
-  return m;
+__device__ inline void store_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ inline unsigned long long load_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ inline void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// Four destination bits (bit e of x, x < 16) as four byte counts (byte e).
+__device__ inline uint32_t spread4(uint32_t x) { return (x * 0x00204081u) & 0x01010101u; }
+
+__device__ inline uint32_t warp_sum(uint32_t x) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(kFullMask, x, m);
+  return x;
 }
 
-__global__ void __launch_bounds__(kCompressThreads)
-compress_count_kernel(const uint32_t* __restrict__ changed, long long n_words, int w,
-                      const uint8_t* __restrict__ need, int k, int iters,
-                      int32_t* __restrict__ block_counts) {
-  __shared__ int s_cnt[kMaxDests];
-  const int lane = threadIdx.x & 31;
-  changed += (long long)blockIdx.y * n_words;
-  block_counts += (long long)blockIdx.y * gridDim.x * k;
-  if (threadIdx.x < k) s_cnt[threadIdx.x] = 0;
-  __syncthreads();
-  const long long base = (long long)blockIdx.x * kCompressThreads * iters;
-  for (int it = 0; it < iters; ++it) {
-    const long long j0 = base + (long long)it * kCompressThreads;
-    if (j0 >= n_words) break;  // block-uniform
-    const long long j = j0 + threadIdx.x;
-    uint32_t bits = 0u;
-    if (j < n_words && __ldg(changed + j) != 0u) bits = dest_bits(need, j / w, k);
-    for (int d = 0; d < k; ++d) {
-      const unsigned b = __ballot_sync(kFullMask, (bits >> d) & 1u);
-      if (lane == 0 && b) atomicAdd(&s_cnt[d], __popc(b));
+__device__ inline uint32_t warp_inclusive_scan(uint32_t x, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t t = __shfl_up_sync(kFullMask, x, off);
+    if (lane >= off) x += t;
+  }
+  return x;
+}
+
+// The tile's exclusive prefix for one destination, from the status words
+// `st` of its predecessors 0..tile-1 (all lanes of one warp call it). Lane
+// l reads predecessor end-l of each of kLookBackWindows windows of 32 at
+// once (one round trip), then walks the windows nearest first.
+__device__ uint32_t look_back(const unsigned long long* st, int tile, int lane) {
+  uint32_t sum = 0u;
+  for (int end = tile - 1;; end -= 32 * kLookBackWindows) {
+    unsigned long long s[kLookBackWindows];
+#pragma unroll
+    for (int i = 0; i < kLookBackWindows; ++i) {
+      const int at = end - 32 * i - lane;
+      s[i] = at >= 0 ? load_relaxed(st + at) : kTilePrefix;
+    }
+#pragma unroll
+    for (int i = 0; i < kLookBackWindows; ++i) {
+      const int at = end - 32 * i - lane;
+      unsigned pre;
+      for (;;) {
+        // Only the lanes up to the nearest inclusive prefix (all 32 without
+        // one) have to be published; the lanes past it are counted in it.
+        pre = __ballot_sync(kFullMask, (s[i] & kTilePrefix) != 0ull);
+        const unsigned upto = pre ? (2u << (__ffs(pre) - 1)) - 1u : kFullMask;
+        if ((__ballot_sync(kFullMask, s[i] < kTileAggregate) & upto) == 0u) break;
+        if (s[i] < kTileAggregate) s[i] = load_relaxed(st + at);
+      }
+      const int stop = pre ? __ffs(pre) - 1 : 31;
+      sum += warp_sum(lane <= stop ? (uint32_t)s[i] : 0u);
+      if (pre) return sum;
     }
   }
-  __syncthreads();
-  if (threadIdx.x < k)
-    block_counts[(long long)blockIdx.x * k + threadIdx.x] = s_cnt[threadIdx.x];
 }
 
+// The destinations of a step's four words j..j+3 (bit d of m[q]: word q
+// is nonzero and its row is in destination d's cut), from the tile's row
+// masks: one division a step, none where the four words are zero.
+__device__ inline void step_dests(uint4 u, uint32_t j, int w, int row0,
+                                  const uint32_t* s_mask, uint32_t (&m)[4]) {
+  const uint32_t v[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) m[q] = 0u;
+  if ((u.x | u.y | u.z | u.w) == 0u) return;
+  uint32_t row = j / (uint32_t)w;
+  uint32_t col = j - row * (uint32_t)w;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (v[q] != 0u) m[q] = s_mask[row - row0];
+    if (++col == (uint32_t)w) {
+      col = 0u;
+      ++row;
+    }
+  }
+}
+
+// KP 32-bit words of byte counts cover destinations 0..4*KP-1.
+template <bool kVec, int KP>
 __global__ void __launch_bounds__(kCompressThreads)
-compress_write_kernel(const uint32_t* __restrict__ changed, long long n_words, int w,
-                      const uint8_t* __restrict__ need, int k, int iters,
-                      const int32_t* __restrict__ block_counts, int capacity,
-                      int32_t* __restrict__ idx, uint32_t* __restrict__ val,
-                      int32_t* __restrict__ counts) {
-  __shared__ int s_base[kMaxDests];
-  __shared__ int s_warp[kCompressWarps][kMaxDests];
+compress_deltas_kernel(const uint32_t* __restrict__ changed, int n_words, int w,
+                       const uint8_t* __restrict__ need, int k, int tiles, int capacity,
+                       unsigned long long* __restrict__ scratch, int32_t* __restrict__ idx,
+                       uint32_t* __restrict__ val, int32_t* __restrict__ counts) {
+  // Dynamic (compress_smem_bytes): the tile's words, the stage of kept
+  // candidates (word positions in the tile), the tile's rows' masks.
+  extern __shared__ uint4 s_dyn[];
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_dyn);
+  uint32_t* s_stage = s_words + kCompressTileWords;
+  uint32_t* s_mask = s_stage + kCompressTileWords;
+  __shared__ uint32_t s_before[kCompressSteps][KP][kCompressThreads];  // see below
+  __shared__ uint32_t s_total[kCompressParts][KP];  // (step, warp) -> a byte a destination
+  __shared__ int s_rank[kCompressParts][4 * KP];    // (step, warp), d -> first rank in tile
+  __shared__ int s_first[kMaxDests];                // d -> the tile's first rank
+  __shared__ int s_keep[kMaxDests];                 // d -> its ranks below capacity
+  __shared__ int s_off[kMaxDests + 1];              // d -> its first slot in s_stage
+  __shared__ int s_ticket;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // Replica blockIdx.y's slice, per-block counts, buffers and counts.
-  changed += (long long)blockIdx.y * n_words;
-  block_counts += (long long)blockIdx.y * gridDim.x * k;
-  idx += (long long)blockIdx.y * k * capacity;
-  val += (long long)blockIdx.y * k * capacity;
-  counts += (long long)blockIdx.y * k;
-  // The block's first rank per destination: the earlier blocks' counts.
-  for (int d = warp; d < k; d += kCompressWarps) {
-    long long s = 0;
-    for (int b = lane; b < (int)blockIdx.x; b += 32) s += block_counts[(long long)b * k + d];
+  if (threadIdx.x == 0) s_ticket = (int)atomicAdd(scratch, 1ull);
+  __syncthreads();
+  const int b = s_ticket / tiles;
+  const int tile = s_ticket - b * tiles;
+  // Replica b's slice, status words, buffers and counts.
+  changed += (long long)b * n_words;
+  unsigned long long* status = scratch + 1 + (long long)b * k * tiles;
+  idx += (long long)b * k * capacity;
+  val += (long long)b * k * capacity;
+  counts += (long long)b * k;
+
+  // Step s, thread t: words j0 + s * 1024 + 4t .. + 3, at the same place of
+  // s_words (zeros past the slice).
+  const int j0 = tile * kCompressTileWords;
+  const uint32_t jt = (uint32_t)j0 + 4u * threadIdx.x;
+  uint4* s_words4 = reinterpret_cast<uint4*>(s_words);
 #pragma unroll
-    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(kFullMask, s, m);
-    if (lane == 0) {
-      s_base[d] = s < capacity ? (int)s : capacity;  // ranks >= capacity are dropped
-      if (blockIdx.x == gridDim.x - 1)
-        counts[d] = (int)(s + block_counts[(long long)blockIdx.x * k + d]);
+  for (int s = 0; s < kCompressSteps; ++s) {
+    const long long j = (long long)jt + s * kCompressStepWords;
+    uint4* dst = s_words4 + s * kCompressThreads + threadIdx.x;
+    if (kVec) {
+      if (j < n_words) cp_async16(dst, changed + j);
+      else *dst = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      uint32_t* d4 = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d4[q] = j + q < n_words ? __ldg(changed + j + q) : 0u;
+    }
+  }
+  const int row0 = j0 / w;
+  const long long j_last = min((long long)j0 + kCompressTileWords, (long long)n_words) - 1;
+  const int rows = (int)(j_last / w) - row0 + 1;
+  for (int r = threadIdx.x; r < rows; r += kCompressThreads) {
+    const uint8_t* p = need + (long long)(row0 + r) * k;
+    uint32_t m = 0u;
+    for (int d = 0; d < k; ++d) m |= (uint32_t)(__ldg(p + d) != 0) << d;
+    s_mask[r] = m;
+  }
+  if (kVec) cp_async_wait_all();
+  __syncthreads();
+
+  // s_before: the candidates of the warp's earlier threads in each step, a
+  // byte a destination; s_total: the (step, warp) totals.
+#pragma unroll 1
+  for (int s = 0; s < kCompressSteps; ++s) {
+    uint32_t m[4];
+    step_dests(s_words4[s * kCompressThreads + threadIdx.x], jt + s * kCompressStepWords, w,
+               row0, s_mask, m);
+#pragma unroll
+    for (int p = 0; p < KP; ++p) {
+      uint32_t own = 0u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) own += spread4((m[q] >> (4 * p)) & 0xFu);
+      const uint32_t inc = warp_inclusive_scan(own, lane);  // bytes <= 128: no carry
+      s_before[s][p][threadIdx.x] = inc - own;
+      if (lane == 31) s_total[s * kCompressWarps + warp][p] = inc;
     }
   }
   __syncthreads();
-  const long long base = (long long)blockIdx.x * kCompressThreads * iters;
-  const unsigned below = (1u << lane) - 1u;
-  for (int it = 0; it < iters; ++it) {
-    bool full = true;
-    for (int d = 0; d < k; ++d) full = full && s_base[d] >= capacity;
-    const long long j0 = base + (long long)it * kCompressThreads;
-    if (full || j0 >= n_words) break;  // block-uniform
-    const long long j = j0 + threadIdx.x;
-    uint32_t v = 0u, bits = 0u;
-    if (j < n_words) {
-      v = __ldg(changed + j);
-      if (v != 0u) bits = dest_bits(need, j / w, k);
+
+  // One warp a destination: the scan of the tile's (step, warp) totals
+  // (kPartsPerLane a lane), the look-back, the inclusive prefix published.
+  for (int d = warp; d < k; d += kCompressWarps) {
+    uint32_t c[kPartsPerLane];
+    uint32_t mine = 0u;
+#pragma unroll
+    for (int i = 0; i < kPartsPerLane; ++i) {
+      c[i] = (s_total[lane * kPartsPerLane + i][d >> 2] >> (8 * (d & 3))) & 0xFFu;
+      mine += c[i];
     }
-    for (int d = 0; d < k; ++d) {
-      const unsigned b = __ballot_sync(kFullMask, (bits >> d) & 1u);
-      if (lane == 0) s_warp[warp][d] = __popc(b);
+    const uint32_t inc = warp_inclusive_scan(mine, lane);
+    const uint32_t agg = __shfl_sync(kFullMask, inc, 31);
+    unsigned long long* st = status + (long long)d * tiles;
+    uint32_t prefix = 0u;
+    if (tile > 0) {
+      if (lane == 0) store_relaxed(st + tile, kTileAggregate | agg);
+      prefix = look_back(st, tile, lane);
     }
-    __syncthreads();
-    for (int d = 0; d < k; ++d) {
-      const unsigned b = __ballot_sync(kFullMask, (bits >> d) & 1u);
-      if ((bits >> d) & 1u) {
-        int r = s_base[d] + __popc(b & below);
-        for (int u = 0; u < warp; ++u) r += s_warp[u][d];
-        if (r < capacity) {
-          idx[(long long)d * capacity + r] = (int32_t)j;
-          val[(long long)d * capacity + r] = v;
+    if (lane == 0) {
+      store_relaxed(st + tile, kTilePrefix | (prefix + agg));
+      if (tile == tiles - 1) counts[d] = (int32_t)(prefix + agg);
+      s_first[d] = (int)prefix;
+      s_keep[d] = prefix >= (uint32_t)capacity ? 0 : (int)min(agg, capacity - prefix);
+    }
+    uint32_t first = inc - mine;
+#pragma unroll
+    for (int i = 0; i < kPartsPerLane; ++i) {
+      s_rank[lane * kPartsPerLane + i][d] = (int)first;
+      first += c[i];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int keep = lane < k ? s_keep[lane] : 0;
+    const int inc = (int)warp_inclusive_scan((uint32_t)keep, lane);
+    if (lane < k) s_off[lane] = inc - keep;
+    if (lane == k - 1) s_off[k] = inc;
+  }
+  __syncthreads();
+  if (s_off[k] == 0) return;  // block-uniform: nothing below capacity
+
+  // Destinations d_lo..d_hi-1 whose kept runs fit the stage at once (all of
+  // them, unless the tile is dense): stage, then write each run.
+  for (int d_lo = 0; d_lo < k;) {
+    int d_hi = d_lo + 1;
+    while (d_hi < k && s_off[d_hi + 1] - s_off[d_lo] <= kCompressTileWords) ++d_hi;
+#pragma unroll 1
+    for (int s = 0; s < kCompressSteps; ++s) {
+      uint32_t m[4];
+      step_dests(s_words4[s * kCompressThreads + threadIdx.x], jt + s * kCompressStepWords, w,
+                 row0, s_mask, m);
+      if ((m[0] | m[1] | m[2] | m[3]) == 0u) continue;
+      const int pos = s * kCompressStepWords + 4 * threadIdx.x;  // the word's place in the tile
+      const int* rank = s_rank[s * kCompressWarps + warp];
+#pragma unroll
+      for (int p = 0; p < KP; ++p) {
+        uint32_t run = s_before[s][p][threadIdx.x];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t bits = (m[q] >> (4 * p)) & 0xFu;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int d = 4 * p + e;
+            if (((bits >> e) & 1u) && d >= d_lo && d < d_hi) {
+              const int r = rank[d] + (int)((run >> (8 * e)) & 0xFFu);
+              if (r < s_keep[d]) s_stage[s_off[d] - s_off[d_lo] + r] = (uint32_t)(pos + q);
+            }
+          }
+          run += spread4(bits);
         }
       }
     }
     __syncthreads();
-    if (threadIdx.x < k) {
-      int r = s_base[threadIdx.x];
-      for (int u = 0; u < kCompressWarps; ++u) r += s_warp[u][threadIdx.x];
-      s_base[threadIdx.x] = r < capacity ? r : capacity;
+    for (int d = d_lo; d < d_hi; ++d) {
+      const int from = s_off[d] - s_off[d_lo];
+      const long long at = (long long)d * capacity + s_first[d];
+      for (int i = threadIdx.x; i < s_keep[d]; i += kCompressThreads) {
+        const uint32_t pos = s_stage[from + i];
+        idx[at + i] = j0 + (int32_t)pos;
+        val[at + i] = s_words[pos];
+      }
     }
-    __syncthreads();
+    d_lo = d_hi;
+    if (d_lo < k) __syncthreads();  // before the stage fills again
   }
+}
+
+// The padding of each (replica, destination) buffer row: slots from
+// min(counts[row], capacity) on get -1 and 0. A block covers kPadSlots
+// slots of one row (16-byte stores where the row allows them).
+template <bool kVec>
+__global__ void __launch_bounds__(256)
+compress_pad_kernel(const int32_t* __restrict__ counts, int capacity, int chunks,
+                    int32_t* __restrict__ idx, uint32_t* __restrict__ val) {
+  const long long row = blockIdx.x / chunks;
+  const int s0 = (int)(blockIdx.x - row * chunks) * kPadSlots;
+  const int s1 = min(s0 + kPadSlots, capacity);
+  const int from = max(s0, min(__ldg(counts + row), capacity));
+  if (from >= s1) return;
+  idx += row * capacity;
+  val += row * capacity;
+  if (kVec) {
+    // Scalar up to the first 16-byte boundary, then four slots a store.
+    const int head = min((from + 3) & ~3, s1);
+    for (int s = from + threadIdx.x; s < head; s += blockDim.x) {
+      idx[s] = -1;
+      val[s] = 0u;
+    }
+    for (int s = head + 4 * threadIdx.x; s < s1; s += 4 * blockDim.x) {
+      if (s + 4 <= s1) {
+        *reinterpret_cast<int4*>(idx + s) = make_int4(-1, -1, -1, -1);
+        *reinterpret_cast<uint4*>(val + s) = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        for (int t = s; t < s1; ++t) {
+          idx[t] = -1;
+          val[t] = 0u;
+        }
+      }
+    }
+  } else {
+    for (int s = from + threadIdx.x; s < s1; s += blockDim.x) {
+      idx[s] = -1;
+      val[s] = 0u;
+    }
+  }
+}
+
+// compress_deltas_kernel's dynamic shared memory for rows of w words: the
+// tile, the stage and one mask a row the tile touches.
+int compress_smem_bytes(int w) {
+  const int rows = kCompressTileWords / w + 2;
+  return (2 * kCompressTileWords + (rows < kCompressTileWords ? rows : kCompressTileWords)) *
+         (int)sizeof(uint32_t);
+}
+
+constexpr int kMaxDevices = 64;
+
+// The main kernel's instantiation for k <= 4 * kp destinations.
+template <bool kVec>
+void launch_compress(int kp, unsigned blocks, cudaStream_t stream,
+                     const uint32_t* changed, int n_words, int w, const uint8_t* need,
+                     int k, int tiles, int capacity, unsigned long long* scratch,
+                     int32_t* idx, uint32_t* val, int32_t* counts) {
+  const int smem = compress_smem_bytes(w);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  // The opt-in above 48 KB (rows of 1 or 2 words), once a device and kernel.
+#define GOSSIP_COMPRESS(KP)                                                          \
+  {                                                                                  \
+    static bool opted[kMaxDevices];                                                  \
+    if (dev >= kMaxDevices || !opted[dev]) {                                         \
+      cudaFuncSetAttribute(compress_deltas_kernel<kVec, KP>,                         \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,              \
+                           compress_smem_bytes(1));                                  \
+      if (dev < kMaxDevices) opted[dev] = true;                                      \
+    }                                                                                \
+    compress_deltas_kernel<kVec, KP><<<blocks, kCompressThreads, smem, stream>>>(    \
+        changed, n_words, w, need, k, tiles, capacity, scratch, idx, val, counts);   \
+  }
+  switch (kp) {
+    case 1: GOSSIP_COMPRESS(1) break;
+    case 2: GOSSIP_COMPRESS(2) break;
+    case 4: GOSSIP_COMPRESS(4) break;
+    default: GOSSIP_COMPRESS(8) break;
+  }
+#undef GOSSIP_COMPRESS
 }
 
 // ---------------------------------------------------------------------------
@@ -1122,37 +1381,49 @@ int gossip_tick_digest(const void* seen, int n, int w, long long ld,
 
 
 // `changed` is (replicas * n_loc, w) row-major, n_loc * w < 2^31 words; `need`
-// is (n_loc, k) bytes, k <= 32, shared by the replicas; `block_counts` holds
-// scratch for replicas x compress_blocks(n_loc * w) x k ints; idx/val
-// (replicas, k, capacity) are filled with -1/0 by the caller; `counts`
-// (replicas, k) is written here.
-int gossip_compress_blocks(long long n_words, int* iters) {
-  long long it = (n_words + 1024LL * kCompressThreads - 1) / (1024LL * kCompressThreads);
-  if (it < 32) it = 32;
-  *iters = (int)it;
-  const long long per = it * kCompressThreads;
-  return (int)((n_words + per - 1) / per);
+// is (n_loc, k) bytes, k <= 32, shared by the replicas; `scratch` holds 1 +
+// replicas x k x gossip_compress_tiles(n_loc * w) 64-bit words (the ticket
+// and the tiles' status words, zeroed here); idx/val (replicas, k,
+// capacity) and `counts` (replicas, k) are written here, every slot once.
+int gossip_compress_tiles(long long n_words) {
+  return (int)((n_words + kCompressTileWords - 1) / kCompressTileWords);
 }
 
 int gossip_compress_deltas(const void* changed, int n_loc, int w, const void* need, int k,
-                           int capacity, void* block_counts, void* idx, void* val,
+                           int capacity, void* scratch, void* idx, void* val,
                            void* counts, int replicas, void* stream) {
-  if (k < 1 || k > kMaxDests || replicas < 1 || replicas > 65535)
-    return (int)cudaErrorInvalidValue;
   const long long n_words = (long long)n_loc * w;
-  int iters = 0;
-  const int blocks = gossip_compress_blocks(n_words, &iters);
-  if (blocks < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks, replicas);
-  compress_count_kernel<<<grid, kCompressThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)changed, n_words, w, (const uint8_t*)need, k, iters,
-      (int32_t*)block_counts);
-  const cudaError_t err = cudaGetLastError();
+  if (k < 1 || k > kMaxDests || replicas < 1 || capacity < 1 || n_loc < 0 || w < 0 ||
+      n_words >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = gossip_compress_tiles(n_words);
+  const long long pad_chunks = (capacity + kPadSlots - 1) / kPadSlots;
+  if (tiles * replicas > 0x7fffffffLL || pad_chunks * k * replicas > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (tiles == 0) {
+    err = cudaMemsetAsync(counts, 0, (size_t)replicas * k * sizeof(int32_t), s);
+  } else {
+    err = cudaMemsetAsync(scratch, 0, (size_t)(1 + replicas * k * tiles) * 8, s);
+    if (err != cudaSuccess) return (int)err;
+    const int kp = k <= 4 ? 1 : k <= 8 ? 2 : k <= 16 ? 4 : 8;
+    const bool vec = n_words % 4 == 0 && aligned16(changed);
+    (vec ? launch_compress<true> : launch_compress<false>)(
+        kp, (unsigned)(tiles * replicas), s, (const uint32_t*)changed, (int)n_words, w,
+        (const uint8_t*)need, k, (int)tiles, capacity, (unsigned long long*)scratch,
+        (int32_t*)idx, (uint32_t*)val, (int32_t*)counts);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
-  compress_write_kernel<<<grid, kCompressThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)changed, n_words, w, (const uint8_t*)need, k, iters,
-      (const int32_t*)block_counts, capacity, (int32_t*)idx, (uint32_t*)val,
-      (int32_t*)counts);
+  const unsigned pad_blocks = (unsigned)(pad_chunks * k * replicas);
+  if (capacity % 4 == 0 && aligned16(idx) && aligned16(val)) {
+    compress_pad_kernel<true><<<pad_blocks, 256, 0, s>>>(
+        (const int32_t*)counts, capacity, (int)pad_chunks, (int32_t*)idx, (uint32_t*)val);
+  } else {
+    compress_pad_kernel<false><<<pad_blocks, 256, 0, s>>>(
+        (const int32_t*)counts, capacity, (int)pad_chunks, (int32_t*)idx, (uint32_t*)val);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -52,9 +52,9 @@ _SIGNATURES = {
     # seen, n, w, ld, received, sent_lo, sent_hi, replicas, id_offset, out,
     # out_stride, stream
     "gossip_tick_digest": (_P, _I, _I, _LL, _P, _P, _P, _I, _I, _P, _LL, _P),
-    # n_words, iters (out) -> blocks
-    "gossip_compress_blocks": (_LL, _P),
-    # changed, n_loc, w, need, k, capacity, block_counts, idx, val, counts,
+    # n_words -> tiles
+    "gossip_compress_tiles": (_LL,),
+    # changed, n_loc, w, need, k, capacity, scratch, idx, val, counts,
     # replicas, stream
     "gossip_compress_deltas": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P),
     # idx, val, n_srcs, capacity, src_words, canvas_words, replicas, out, stream

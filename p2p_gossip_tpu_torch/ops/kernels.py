@@ -772,13 +772,15 @@ def compress_deltas(
     destination d's cut) -> idx (k, capacity) int32 flat word indices in
     ascending order (-1 padding), val (k, capacity) int32 the words (0
     padding), counts (k,) int32 the true candidate counts (above capacity
-    when a buffer truncated). Two launches of the CUDA kernel pair (count,
-    then write) on the card.
+    when a buffer truncated). On the card: one pass of the CUDA kernel
+    over the slice (an ordered compaction with a decoupled look-back
+    across tiles) that writes every slot once, then a small launch that
+    writes the padding from the counts; nothing is pre-filled.
 
     ``replicas`` B stacks B independent slices along the rows (a campaign
     batch): ``changed`` (B*n_loc, W), the shared ``need`` (n_loc, k), and
     idx, val (B, k, capacity) and counts (B, k), replica b's indices flat
-    over its own slice. The same two launches cover the B replicas."""
+    over its own slice. The same launches cover the B replicas."""
     _require(changed.dim() == 2 and need.dim() == 2, "changed and need must be 2-D")
     _require(need.dtype == torch.bool, f"need must be bool, got {need.dtype}")
     _require(capacity >= 1, "capacity must be >= 1")
@@ -792,25 +794,23 @@ def compress_deltas(
         return compress_deltas_plain(changed, need, capacity, replicas)
     _int32_matrix(changed, "changed")
     _require(1 <= k <= 32, f"the kernel takes 1..32 destinations, got {k}")
-    _require(b <= 65535, "at most 65535 replicas a launch")
     for name, t in (("changed", changed), ("need", need)):
         _require(t.device == changed.device and t.is_contiguous(),
                  f"{name} must be contiguous on the changed words' device")
     dev = changed.device
-    idx = torch.full((b, k, capacity), -1, dtype=torch.int32, device=dev)
-    val = torch.zeros((b, k, capacity), dtype=torch.int32, device=dev)
-    counts = torch.zeros((b, k), dtype=torch.int32, device=dev)
-    if n_loc * w:
-        lib = _lib()
-        iters = ctypes.c_int(0)
-        blocks = lib.gossip_compress_blocks(n_loc * w, ctypes.byref(iters))
-        scratch = torch.empty((b, blocks, k), dtype=torch.int32, device=dev)
-        _launch(
-            "compress_deltas", lib.gossip_compress_deltas,
-            changed.data_ptr(), n_loc, w, need.data_ptr(), k, int(capacity),
-            scratch.data_ptr(), idx.data_ptr(), val.data_ptr(), counts.data_ptr(), b,
-            _stream(dev),
-        )
+    idx = torch.empty((b, k, capacity), dtype=torch.int32, device=dev)
+    val = torch.empty((b, k, capacity), dtype=torch.int32, device=dev)
+    counts = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib = _lib()
+    # The tiles' ticket and status words, zeroed by the launch.
+    scratch = torch.empty((1 + b * k * lib.gossip_compress_tiles(n_loc * w),),
+                          dtype=torch.int64, device=dev)
+    _launch(
+        "compress_deltas", lib.gossip_compress_deltas,
+        changed.data_ptr(), n_loc, w, need.data_ptr(), k, int(capacity),
+        scratch.data_ptr(), idx.data_ptr(), val.data_ptr(), counts.data_ptr(), b,
+        _stream(dev),
+    )
     if replicas is None:
         return idx[0], val[0], counts[0]
     return idx, val, counts

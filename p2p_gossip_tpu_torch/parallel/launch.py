@@ -6,10 +6,15 @@ users).
 Every world rendezvouses through a ``file://`` store in a fresh temporary
 directory (no TCP port, so concurrent worlds never collide), passes
 ``timeout=`` to ``init_process_group`` (a collective waiting on a dead
-peer raises), and is joined under a deadline: `spawn` returns each rank's
-result, or raises with the failing rank's traceback, and never waits past
-the deadline. Workers are spawned (not forked) and import only this
-package and torch.
+peer raises), and is joined under a deadline that counts from the world's
+last progress: a rank reports progress with `progress` (the workers here
+do after every call), so a world that keeps working is never stopped for
+being slow under load, and one in which no rank has reported for
+``timeout_s`` + ``grace`` seconds is. A rank's start (a fresh interpreter
+importing torch, slow on a loaded host) has an allowance of its own.
+`spawn` returns each rank's result, or raises with the failing rank's
+traceback. Workers are spawned (not forked) and import only this package
+and torch.
 """
 
 from __future__ import annotations
@@ -27,17 +32,37 @@ import traceback
 
 from p2p_gossip_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
 
+# A rank's start (a fresh interpreter importing torch and this package)
+# may take this long on a loaded host before the deadline applies to it.
+STARTUP_S = 300.0
+# In a rank that `spawn` started: (its rank, the queue to the parent).
+_reporter = None
+
+
+def progress() -> None:
+    """Report to `spawn`'s parent that this rank is making progress: the
+    world's deadline then counts afresh from now. Call it between units
+    of work (a run, a call). Outside a rank that `spawn` started (the
+    parent's own process, a ``torchrun`` rank) it does nothing."""
+    if _reporter is not None:
+        rank, results = _reporter
+        results.put((rank, None, None))
+
 
 def _child(rank, world_size, store, backend, timeout_s, fn, args, results):
+    global _reporter
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
+    _reporter = (rank, results)
+    progress()  # started: its imports are done
     try:
         dist.init_process_group(
             backend, init_method=f"file://{store}", rank=rank,
             world_size=world_size, timeout=datetime.timedelta(seconds=timeout_s),
         )
+        progress()
         results.put((rank, True, fn(*args)))
     except BaseException:  # the parent re-raises it with this traceback
         results.put((rank, False, traceback.format_exc()))
@@ -47,14 +72,18 @@ def _child(rank, world_size, store, backend, timeout_s, fn, args, results):
 
 
 def spawn(fn, world_size: int, *args, backend: str = "gloo",
-          timeout_s: float = DEFAULT_TIMEOUT_S) -> list:
+          timeout_s: float = DEFAULT_TIMEOUT_S, grace: float = 60.0) -> list:
     """Run ``fn(*args)`` on ranks 0..world_size-1 of a fresh world (each
-    in its own spawned process, its default process group started) and
-    return the list of their results in rank order. ``fn`` and ``args``
-    must pickle (``fn`` a module-level function). A rank that raises, or
-    dies, makes `spawn` stop every rank and raise RuntimeError with that
-    rank's traceback; past a deadline of ``timeout_s`` + 60 s it stops
-    them all and raises TimeoutError."""
+    in its own spawned process, its default process group started, with
+    ``timeout_s`` as its collectives' timeout) and return the list of
+    their results in rank order. ``fn`` and ``args`` must pickle (``fn`` a
+    module-level function). A rank that raises, or dies, makes `spawn`
+    stop every rank and raise RuntimeError with that rank's traceback.
+    The deadline is ``timeout_s`` + ``grace`` seconds from the world's
+    last progress (its spawn, a rank's `progress` report, a rank's
+    result): past it, `spawn` stops every rank and raises TimeoutError.
+    Until every rank has reported once (its imports done), the deadline
+    is at least STARTUP_S from the spawn."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -66,7 +95,10 @@ def spawn(fn, world_size: int, *args, backend: str = "gloo",
                     args=(r, world_size, store, backend, timeout_s, fn, args, results))
         for r in range(world_size)
     ]
-    deadline = time.monotonic() + timeout_s + 60.0
+    patience = timeout_s + grace
+    t_spawn = time.monotonic()
+    deadline = t_spawn + patience
+    started: set = set()
     out: dict = {}
     try:
         for p in procs:
@@ -81,11 +113,17 @@ def spawn(fn, world_size: int, *args, backend: str = "gloo",
                     raise RuntimeError(
                         f"rank {dead[0]} died with exit code {procs[dead[0]].exitcode}"
                     ) from None
-                if time.monotonic() > deadline:
+                now = time.monotonic()
+                starting = len(started) < world_size and now < t_spawn + STARTUP_S
+                if now > deadline and not starting:
                     raise TimeoutError(
                         f"ranks {sorted(set(range(world_size)) - set(out))} of "
                         f"{world_size} did not finish in time"
                     ) from None
+                continue
+            started.add(rank)
+            deadline = time.monotonic() + patience
+            if ok is None:  # a progress report
                 continue
             if not ok:
                 raise RuntimeError(f"rank {rank} of {world_size} failed:\n{value}")
@@ -166,6 +204,7 @@ def _call_all(calls) -> list:
                 telemetry.reset()
         else:
             out.append(resolve(target)(*args, mesh=mesh, **kwargs))
+        progress()
     return out
 
 
@@ -181,4 +220,5 @@ def capture_cli(argvs) -> list:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli.run(list(argv))
         results.append((rc, out.getvalue(), err.getvalue()))
+        progress()
     return results

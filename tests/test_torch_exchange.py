@@ -44,20 +44,90 @@ def _t(u32):
 
 # --- compress / scatter / overlay ----------------------------------------------
 
-@pytest.mark.parametrize("n_loc,w,k,cap", [(12, 3, 3, 40), (16, 2, 4, 8), (5, 1, 2, 8),
-                                           (40, 4, 4, 16), (7, 3, 1, 64)])
+def _delta_case(seed, n_loc, w, k, fill, b):
+    """A (B*n_loc, W) slice and its (n_loc, k) cut for one compress case.
+    ``fill``: "sparse" (`_random_delta`: 60% zero words, the last
+    destination empty), "random" (60% zero words, no destination forced
+    empty), "zero" (every word zero), "full" (no zero word). ``b``
+    replicas: replica 1 keeps its words, the others only their first row's,
+    so replica 1 alone overflows a small capacity."""
+    if fill == "sparse":
+        return _random_delta(seed, n_loc, w, k)
+    rng = np.random.default_rng(seed)
+    rows = (b or 1) * n_loc
+    changed = rng.integers(1, 2**32, (rows, w), dtype=np.uint64).astype(np.uint32)
+    if fill == "zero":
+        changed[:] = 0
+    elif fill == "random":
+        changed[rng.random((rows, w)) < 0.6] = 0
+    if b:
+        parts = changed.reshape(b, n_loc, w)
+        parts[[r for r in range(b) if r != 1], 1:] = 0
+    return changed, rng.random((n_loc, k)) < 0.5
+
+
+# (n_loc, W, k, capacity, fill, replicas); a capacity "at" is destination
+# 0's count, "past" one below it (the count one past the capacity).
+# "ragged-tiles": n_loc*W = 9,000 words, not a multiple of the kernel's
+# 4,096-word tile.
+COMPRESS_CASES = [
+    pytest.param(12, 3, 3, 40, "sparse", None, id="12-3-3-40"),
+    pytest.param(16, 2, 4, 8, "sparse", None, id="16-2-4-8"),
+    pytest.param(5, 1, 2, 8, "sparse", None, id="5-1-2-8"),
+    pytest.param(40, 4, 4, 16, "sparse", None, id="40-4-4-16"),
+    pytest.param(7, 3, 1, 64, "sparse", None, id="7-3-1-64"),
+    pytest.param(20, 8, 3, 50, "zero", None, id="all-zero"),
+    pytest.param(20, 8, 3, 50, "full", None, id="all-nonzero"),
+    pytest.param(10, 4, 2, 1, "random", None, id="capacity-1"),
+    pytest.param(16, 3, 3, "at", "random", None, id="count-at-capacity"),
+    pytest.param(16, 3, 3, "past", "random", None, id="count-past-capacity"),
+    pytest.param(30, 5, 1, 64, "random", None, id="k-1"),
+    pytest.param(33, 5, 32, 20, "random", None, id="k-32"),
+    pytest.param(1000, 9, 4, 3000, "random", None, id="ragged-tiles"),
+    pytest.param(40, 6, 4, 12, "random", 3, id="B-3-one-over"),
+]
+
+
+@pytest.mark.parametrize("n_loc,w,k,cap,fill,b", COMPRESS_CASES)
 @pytest.mark.parametrize("aggregate", [False, True])
-def test_compress_deltas_equals_jax(n_loc, w, k, cap, aggregate):
+def test_compress_deltas_equals_jax(n_loc, w, k, cap, fill, b, aggregate):
     """idx, val and counts equal the JAX buffers for either packing of
     the JAX function (so the port's one layout is both), overflow and
-    all-empty destinations included."""
-    changed, need = _random_delta(n_loc * w + k, n_loc, w, k)
-    idx, val, counts = kernels.compress_deltas(_t(changed), torch.from_numpy(need), cap)
-    j_idx, j_val, j_counts = jax_exch.compress_deltas(
-        jnp.asarray(changed), jnp.asarray(need), cap, aggregate=aggregate)
-    assert np.array_equal(idx.numpy(), np.asarray(j_idx))
-    assert np.array_equal(val.numpy().view(np.uint32), np.asarray(j_val))
-    assert np.array_equal(counts.numpy(), np.asarray(j_counts))
+    all-empty destinations included; with ``replicas`` B, each replica's
+    buffers equal the JAX function on its own rows."""
+    changed, need = _delta_case(n_loc * w + k, n_loc, w, k, fill, b)
+    spec = cap
+    if isinstance(cap, str):
+        count0 = int(((changed != 0) & need[:, :1]).sum())
+        cap = count0 if cap == "at" else count0 - 1
+        assert cap >= 1
+    idx, val, counts = kernels.compress_deltas(_t(changed), torch.from_numpy(need), cap,
+                                               replicas=b)
+    want = [jax_exch.compress_deltas(jnp.asarray(part), jnp.asarray(need), cap,
+                                     aggregate=aggregate)
+            for part in np.split(changed, b or 1)]
+    j_idx, j_val, j_counts = (np.stack(x) if b else x[0]
+                              for x in zip(*([np.asarray(a) for a in r] for r in want)))
+    assert np.array_equal(idx.numpy(), j_idx)
+    assert np.array_equal(val.numpy().view(np.uint32), j_val)
+    assert np.array_equal(counts.numpy(), j_counts)
+    if fill == "zero":
+        assert not counts.any() and bool((idx == -1).all())
+    if fill == "full":
+        assert np.array_equal(counts.numpy(), need.sum(axis=0) * w)
+    if spec in ("at", "past"):
+        assert int(counts[0]) == cap + (spec == "past")
+    if b:
+        assert (counts > cap).any(dim=1).tolist() == [r == 1 for r in range(b)]
+
+
+def test_chip_smoke_compress_edges_run_on_the_cpu():
+    """chip_smoke phase 14 (a)'s edge cases build their inputs and compare
+    on the CPU, where both sides are the plain version (the card runs the
+    kernel against it)."""
+    import chip_smoke
+
+    chip_smoke.check_compress_edges(torch.device("cpu"), np.random.default_rng(0))
 
 
 def test_compress_overflow_keeps_the_first_words():
