@@ -10,7 +10,9 @@ million-node steps on the north-star graph cached by ``python -m
 p2p_gossip_tpu_torch.scale --cache CACHE``; ``python3 chip_smoke.py
 --phase 16`` runs phase 16 alone, with phase 11's campaigns as its
 references; ``python3 chip_smoke.py --phase 14a`` runs phases 14 (a) and
-16 (a) alone, the exchange kernels' checks and timings.)
+16 (a) alone, the exchange kernels' checks and timings; ``python3
+chip_smoke.py --phase 17`` runs phase 17 alone, the server on a mesh and
+``scale.py --mesh``.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -178,6 +180,23 @@ Phases (any failure raises and the script exits nonzero):
    coverage campaigns and the push-pull campaign equal to the
    single-device campaigns; (d) ``run_coverage_campaign(mesh=)`` over the
    NCCL ranks equal to the call without a mesh.
+17. The server on a mesh (``GossipServer(mesh=...)``): (a)
+   ``make_slot_mesh(8)`` on ``torch.cuda.device_count()`` NCCL ranks (one
+   rank: 1 x 1, in this process); (b) phase 13's trace at full width
+   through the mesh server with the dense and with the delta exchange,
+   every request bitwise phase 13's result, requests/s, p50/p99
+   turnaround, occupancy and ms a dispatch beside phase 13's, a flood and
+   a push-pull dispatch under ``torch.profiler``, the peak device memory
+   of the largest flood and protocol dispatch (staging included) within
+   20% of the mesh admission model's per-rank bytes, and a request over an
+   explicit budget rejected; (c) two gloo ranks on the one card, the
+   reduced trace (N = 2,000) on (replicas x nodes) 2 x 1, 1 x 2 and
+   ``make_slot_mesh(4)``, every request equal to the single-device server's;
+   (d) ``scale.py --mesh 1x1`` in-process on one NCCL rank on phase 12's 1M
+   BA graph (through an npz cache): processed, full coverage, ttc99 and
+   coverage rows equal to phase 12's flood, the rank's peak within 20% of
+   ``resident_bytes``. ``python3 chip_smoke.py --phase 17`` runs it alone,
+   building phase 13's and phase 12's references itself.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -228,6 +247,10 @@ after it (``launches_sharded_campaign_<mode>``): ``gather_or`` once per
 degree bucket a tick for the local batch, ``coverage_per_slot`` and
 ``popcount_rows`` once a tick, the exchange kernels once a tick exactly on
 delta and hub; ``or_fold`` and ``scatter_or`` once a round on push-pull.
+Phase 17 (b) zeroes them just before each drain and reads them just after
+it (``launches_serve_mesh_<exchange>``; by kind of dispatch in its record
+line): ``gather_or``, ``coverage_per_slot``, ``popcount_rows``,
+``scatter_or`` and ``or_fold`` launched, the exchange kernels on delta.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -2972,6 +2995,7 @@ def serve_main_path(graph, dev):
     if bench.verify(server, trace, log=log):
         raise AssertionError("serve: a request differs from its solo campaign")
     log(f"serve: verification took {time.perf_counter() - t0:.1f} s")
+    results = {d["request_id"]: server.result(d["request_id"]) for d in trace}
     server.submit(serve_request(trace, "flood", range(1000, 1000 + SERVE_SLOTS), "profiled"))
     _, wall, by_name, calls = device_events(server.step)
     if not by_name:
@@ -2985,7 +3009,7 @@ def serve_main_path(graph, dev):
     summary = dict(summary, busy_share_flood_dispatch=busy_us / (wall * 1e6))
     del server
     torch.cuda.empty_cache()
-    return launches, summary, graphs
+    return launches, summary, graphs, results
 
 
 def _request(d):
@@ -3177,14 +3201,14 @@ def serve_phase(graph, dev, rng):
     t0 = time.perf_counter()
     check_digest_batched_ragged(dev, rng)
     digest = check_digest_batched(dev, rng, reps=10)
-    launches, summary, graphs = serve_main_path(graph, dev)
+    launches, summary, graphs, results = serve_main_path(graph, dev)
     rings = serve_rings(graphs, dev)
     memory = serve_admission(graphs, dev)
     serve_reduced(dev)
     log(json.dumps({"serve": dict(summary, memory=memory)}))
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
     return dict(digest=digest, launches=launches, summary=summary, rings=rings,
-                memory=memory)
+                memory=memory, results=results, graphs=graphs)
 
 # --- phase 14 -----------------------------------------------------------------
 
@@ -4561,6 +4585,417 @@ def sharded_campaign_phase(graph, dg, dgf_edge, cov_set, gossip_set, delays, pha
     return dict(kernels=kernels_b8, runs=runs, gloo=gloo)
 
 
+# --- phase 17 -----------------------------------------------------------------
+
+SERVE_MESH_EXCHANGES = ("dense", "delta")
+SERVE_MESH_KERNELS = ("gather_or", "coverage_per_slot", "compress_deltas", "scatter_deltas",
+                      "scatter_or", "or_fold", "popcount_rows")
+GLOO_SERVE_MESHES = ((2, 1), (1, 2))  # (replicas, nodes) on 2 ranks, then make_slot_mesh(4)
+
+
+def _quiet(msg: str) -> None:
+    pass
+
+
+def serve_mesh_worker(graphs, trace, device):
+    """Phase 17 (a) and (b), on every rank of the card's NCCL world:
+    `make_slot_mesh(SERVE_SLOTS)`, the full trace through a mesh server once
+    a SERVE_MESH_EXCHANGES exchange (launches counted by kind of dispatch,
+    from a reset just before each drain), a flood and a push-pull dispatch
+    of SERVE_SLOTS replicas profiled on the first rank, the peak device
+    memory of the trace's largest flood and largest protocol dispatch
+    (the mesh admission model's choice) with a fresh server each, staging
+    included, and a request over an explicit budget. Every rank makes
+    every call; ``device`` None means ``cuda:<rank>``. Returns host
+    values."""
+    import torch
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.batch.campaign_sharded import _campaign_chunk
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import launch
+    from p2p_gossip_tpu_torch.parallel import protocols_sharded as ps
+    from p2p_gossip_tpu_torch.parallel.mesh import make_slot_mesh
+    from p2p_gossip_tpu_torch.serve import bench
+    from p2p_gossip_tpu_torch.serve.scheduler import mesh_request_cost
+    from p2p_gossip_tpu_torch.serve.server import GossipServer
+
+    dev = torch.device(device if device else f"cuda:{dist.get_rank()}")
+    cuda = dev.type == "cuda"
+    mesh = make_slot_mesh(SERVE_SLOTS, device=dev)
+    say = log if mesh.is_first else _quiet
+    # A dispatch's kind: flood or protocol, on the ER or the BA topology.
+    kind_of = {d["request_id"]: ("flood" if d["protocol"] == "flood" else "protocol")
+               + f" {d['topology']['family']}" for d in trace}
+    out = {"shape": dict(mesh.shape), "drains": {}}
+    for ex in SERVE_MESH_EXCHANGES:
+        by_kind: dict = {}
+        last = dict.fromkeys(kernels.launches, 0)
+
+        def on_step(step, by_kind=by_kind, last=last):
+            if cuda:
+                torch.cuda.synchronize()
+            kind = kind_of[step["request_ids"][0]]
+            got = by_kind.setdefault(kind, dict.fromkeys(kernels.launches, 0))
+            for name, count in kernels.launches.items():
+                got[name] += count - last[name]
+                last[name] = count
+            got.setdefault("walls", []).append(step["wall_s"])
+
+        if cuda:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        server, summary = bench.run_trace(trace, SERVE_SLOTS, graphs=graphs, log=say,
+                                          mesh=mesh, exchange=ex, on_step=on_step)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        out["drains"][ex] = dict(
+            summary=summary, launches=launches, by_kind=by_kind,
+            results={d["request_id"]: server.result(d["request_id"]) for d in trace})
+        del server
+        launch.progress()
+
+    # A protocol dispatch stages its ELL on the host on every call: its cost
+    # on each topology, alone.
+    staging = {}
+    for d in trace:
+        family = d["topology"]["family"]
+        if d["protocol"] == "pushpull" and family not in staging:
+            t0 = time.perf_counter()
+            ps.stage_partnered(trace_graph(graphs, d), mesh, "pushpull", 2, None, 1,
+                               _campaign_chunk(d["shares"], None), "auto", "dense", 2, None)
+            staging[family] = time.perf_counter() - t0
+    out["protocol_staging_s"] = staging
+    profiles = {}
+    for kind in ("flood", "pushpull"):
+        server = GossipServer(slots=SERVE_SLOTS, mesh=mesh)
+        server._graphs.update(graphs)
+        server.submit(serve_request(trace, kind, range(1000, 1000 + SERVE_SLOTS),
+                                    f"profiled-{kind}"))
+        if mesh.is_first and cuda:
+            _, wall, by_name, calls = device_events(server.step)
+            busy = sum(by_name.values())
+            profiles[kind] = dict(wall_s=wall, busy_us=busy,
+                                  busy_share=busy / (wall * 1e6) if wall else None,
+                                  top=sorted(((us, calls[n], n) for n, us in by_name.items()),
+                                             reverse=True)[:6])
+        else:
+            server.step()
+        del server
+        launch.progress()
+
+    rs, ns = mesh.shape["replicas"], mesh.shape["nodes"]
+
+    def modeled(d):
+        g = trace_graph(graphs, d)
+        return mesh_request_cost(_request(d), g.degree, SERVE_SLOTS, rs, ns)["dispatch_bytes"]
+
+    largest = {"flood": max((d for d in trace if d["protocol"] == "flood"), key=modeled),
+               "protocol": max((d for d in trace if d["protocol"] != "flood"), key=modeled)}
+    memory = {}
+    base = device_allocated(cuda)
+    for label, d in largest.items():
+        req = dict(d, request_id=f"mem-{label}", seeds=list(range(3000, 3000 + SERVE_SLOTS)))
+        server = GossipServer(slots=SERVE_SLOTS, mesh=mesh)
+        server._graphs.update(graphs)
+        steps = []
+
+        def drain(server=server, req=req, steps=steps):
+            server.submit(req)
+            while (step := server.step()) is not None:
+                steps.append(step)
+
+        _, wall, peak = measured_run(drain, base, cuda)
+        tag = (f"{d['protocol']}{' lossy' if d.get('loss_prob') else ''}"
+               f"{' churn' if d.get('churn_prob') else ''} {d['topology']['family']}")
+        memory[label] = dict(peak=peak, model=server._states[req["request_id"]].cost[
+            "dispatch_bytes"], runner=steps[0]["resident_bytes"], request=tag, wall_s=wall)
+        del server
+        launch.progress()
+    over = GossipServer(slots=SERVE_SLOTS, mesh=mesh,
+                        hbm_budget_bytes=memory["flood"]["model"] - 1)
+    over._graphs.update(graphs)
+    rid = over.submit(dict(largest["flood"], request_id="over-budget"))
+    out.update(profiles=profiles, memory=memory,
+               over_budget=(over.status(rid), over.drain()))
+    return out
+
+
+def gloo_serve_worker(trace, meshes, device):
+    """Phase 17 (c), on every rank of a gloo world on the one card: the
+    reduced trace through a mesh server on each (replicas, nodes) mesh of
+    ``meshes`` (slots SERVE_SLOTS), then on `make_slot_mesh(4)` (slots 4).
+    Returns each mesh's shape and results by request id."""
+    from p2p_gossip_tpu_torch.parallel import launch
+    from p2p_gossip_tpu_torch.parallel.mesh import make_mesh, make_slot_mesh
+    from p2p_gossip_tpu_torch.serve import bench
+
+    built = [(make_mesh(n, replicas=r, device=device), SERVE_SLOTS) for r, n in meshes]
+    built.append((make_slot_mesh(4, device=device), 4))
+    out = []
+    for mesh, slots in built:
+        server, _ = bench.run_trace(trace, slots, log=_quiet, mesh=mesh)
+        out.append((dict(mesh.shape), {d["request_id"]: server.result(d["request_id"])
+                                       for d in trace}))
+        launch.progress()
+    return out
+
+
+def serve_mesh_references(graph, dev):
+    """Phase 17's references when phase 13 did not run (``--phase 17``):
+    the trace's graphs and the single-device server's results on the card."""
+    from p2p_gossip_tpu_torch.serve import bench
+
+    trace = serve_trace()
+    graphs = serve_graphs(graph, trace)
+    server, summary = bench.run_trace(trace, SERVE_SLOTS, dev, graphs=graphs, log=log)
+    results = {d["request_id"]: server.result(d["request_id"]) for d in trace}
+    return dict(summary=summary, results=results, graphs=graphs)
+
+
+def check_serve_mesh(out, serve13):
+    """Phase 17 (b)'s checks on one rank's worker result: every request of
+    each drain bitwise phase 13's, every SERVE_MESH_KERNELS kernel launched
+    (the exchange kernels on the delta drain), peaks within MEMORY_TOLERANCE
+    of the mesh admission model, the over-budget request rejected."""
+    from p2p_gossip_tpu_torch.serve import bench
+
+    for ex, drain in out["drains"].items():
+        bad = [rid for rid, want in serve13["results"].items()
+               if not bench.same_result(drain["results"][rid], want)]
+        if bad:
+            raise AssertionError(f"serve mesh [{ex}]: {bad} differ from phase 13's results")
+        n = drain["launches"]
+        need = [k for k in SERVE_MESH_KERNELS
+                if ex == "delta" or k not in ("compress_deltas", "scatter_deltas")]
+        if any(n[k] == 0 for k in need):
+            raise AssertionError(f"serve mesh [{ex}]: a kernel of the path was not launched: "
+                                 f"{n}")
+    for label, m in out["memory"].items():
+        check_resident(f"serve mesh memory[{label}: {m['request']}, {SERVE_SLOTS} slots, "
+                       "staging included, the mesh admission model]", m["peak"], m["model"])
+    if out["over_budget"] != ("rejected", 0):
+        raise AssertionError(f"serve mesh: the over-budget request was not rejected: "
+                             f"{out['over_budget']}")
+
+
+def gloo_serve_ranks(dev):
+    """Phase 17 (c): two gloo ranks on the one card, the reduced trace on
+    each GLOO_SERVE_MESHES mesh and `make_slot_mesh(4)`, every request equal
+    to the single-device server's on the card."""
+    from p2p_gossip_tpu_torch.parallel import launch
+    from p2p_gossip_tpu_torch.serve import bench
+
+    trace = serve_trace(SERVE_REDUCED_NODES, 10, 256, 32)
+    want, _ = bench.run_trace(trace, SERVE_SLOTS, dev, log=_quiet)
+    t0 = time.perf_counter()
+    results = launch.spawn(gloo_serve_worker, 2, trace, GLOO_SERVE_MESHES, GLOO_DEVICE,
+                           backend="gloo")
+    wall = time.perf_counter() - t0
+    for rank_out in results:
+        for shape, got in rank_out:
+            bad = [d["request_id"] for d in trace
+                   if not bench.same_result(got[d["request_id"]], want.result(d["request_id"]))]
+            if bad:
+                raise AssertionError(f"gloo serve mesh {shape}: {bad} differ from the "
+                                     "single-device server")
+    shapes = [shape for shape, _ in results[0]]
+    log(f"serve mesh (c): 2 gloo ranks, meshes {shapes} (replicas x nodes), {len(trace)} "
+        f"requests (N={SERVE_REDUCED_NODES}) each: every request equals the single-device "
+        f"server's on the card ({wall:.1f} s, host transport, not a speed)")
+    return shapes
+
+
+def scale_mesh(ba, scale12, dev):
+    """Phase 17 (d): ``scale.py --mesh 1x1`` in-process on one NCCL rank, on
+    phase 12's 1M BA graph through an npz cache (removed afterwards):
+    processed, full coverage, the ttc99 median and max and the coverage rows
+    equal phase 12's single-device flood; the rank's peak device memory
+    within MEMORY_TOLERANCE of the sharded runner's ``resident_bytes``."""
+    import contextlib
+    import hashlib
+    import io
+
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch import scale
+    from p2p_gossip_tpu_torch.models.topology import load_or_build_graph_cache
+    from p2p_gossip_tpu_torch.parallel.mesh import default_backend, initialize_multihost
+
+    graph = ba["graph"]
+    cache_dir = os.path.join("p2p_gossip_tpu_torch", "build", "phase17")
+    os.makedirs(cache_dir, exist_ok=True)
+    cache = os.path.join(cache_dir, "ba_mesh.npz")
+    argv = ["--topology", "ba", "--nodes", str(graph.n), "--baM", str(SCALE_BA_M), "--prob", "0",
+            "--shares", str(SCALE_ORIGINS), "--horizon", str(HORIZON), "--seed", str(SEED),
+            "--cache", cache, "--mesh", "1x1"] + (["--cpu"] if dev.type == "cpu" else [])
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        load_or_build_graph_cache(cache, topology="ba", nodes=graph.n, prob=0.0,
+                                  ba_m=SCALE_BA_M, seed=SEED, build=lambda: graph, log=_quiet)
+        initialize_multihost(backend=default_backend(dev), device=dev)
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = scale.main(argv)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        if os.path.exists(cache):
+            os.remove(cache)
+    rec = json.loads(next(ln for ln in err.getvalue().splitlines()
+                          if ln.startswith("scale-record: "))[len("scale-record: "):])
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    want_sha = hashlib.sha256(np.asarray(ba["coverage"], dtype=np.int64).tobytes()).hexdigest()
+    if rc or "(1x1 mesh)" not in line["metric"]:
+        raise AssertionError(f"scale --mesh 1x1: exit {rc}, {line}")
+    if not (rec["processed"] == SCALE_ORIGINS * graph.n and rec["full_coverage"]
+            and rec["ttc99_median"] == scale12["ttc99_median"]
+            and rec["ttc99_max"] == scale12["ttc99_max"]
+            and rec["coverage_sha256"] == want_sha):
+        raise AssertionError(f"scale --mesh 1x1 differs from phase 12's BA flood: {rec}")
+    peak, model = rec["rank_peak_device_bytes"][0], rec["rank_resident_bytes"][0]
+    log(f"scale --mesh 1x1 (1M BA, {SCALE_ORIGINS} shares, one NCCL rank): processed, full "
+        f"coverage, ttc99 median {rec['ttc99_median']} / max {rec['ttc99_max']} and the "
+        f"coverage rows == phase 12's single-device flood; {rec['ticks']} ticks, wall "
+        f"{rec['wall_s']:.4f} s -> {rec['ms_per_tick']:.2f} ms/tick, "
+        f"{rec['node_updates_per_s']:.4e} node-updates/s (phase 12: {scale12['wall_s']:.4f} s, "
+        f"{scale12['ms_per_tick']:.2f} ms/tick, {scale12['rate']:.4e}); stage_s "
+        f"{rec['stage_s']:.2f} (phase 12 {scale12['stage_s']:.2f}); cache load "
+        f"{rec['cache_load_s']:.2f} s; rank RSS peak {rec['rank_rss_peak_bytes'][0] / 2**30:.2f} "
+        "GiB")
+    check_resident("scale --mesh 1x1 rank 0", peak, model)
+    return rec
+
+
+def serve_mesh_phase(serve13, ba, scale12, dev):
+    """Phase 17: (a) `make_slot_mesh(SERVE_SLOTS)` on the card's NCCL ranks
+    (one rank: 1 x 1, in this process), (b) the phase-13 trace through
+    ``GossipServer(mesh=...)`` with the dense and the delta exchange, every
+    request bitwise phase 13's (``serve13``), (c) two gloo ranks on the card,
+    (d) ``scale.py --mesh 1x1`` on phase 12's 1M BA graph (``ba``, with its
+    flood ``scale12``)."""
+    import torch
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.parallel import launch
+    from p2p_gossip_tpu_torch.parallel.mesh import initialize_multihost
+
+    t_phase = time.perf_counter()
+    trace = serve_trace()
+    graphs = serve13["graphs"]
+    ranks = torch.cuda.device_count()
+    if ranks == 1:
+        initialize_multihost(backend="nccl", device=dev)
+        try:
+            out = serve_mesh_worker(graphs, trace, str(dev))
+        finally:
+            dist.destroy_process_group()
+    else:
+        out = launch.spawn(serve_mesh_worker, ranks, graphs, trace, None, backend="nccl")[0]
+    log(f"serve mesh (a): make_slot_mesh({SERVE_SLOTS}) on {ranks} NCCL rank(s): "
+        f"{out['shape']} (replicas x nodes)")
+    check_serve_mesh(out, serve13)
+    s13 = serve13["summary"]
+    for ex, drain in out["drains"].items():
+        s = drain["summary"]
+        log(f"serve mesh (b) [{ex}]: {s['requests']} requests in {s['dispatches']} dispatches, "
+            f"{s['wall_s']:.3f} s -> {s['requests_per_s']:.3f} requests/s (phase 13: "
+            f"{s13['requests_per_s']:.3f}); p50 {s['p50_turnaround_s']:.4f} / p99 "
+            f"{s['p99_turnaround_s']:.4f} s (phase 13: {s13['p50_turnaround_s']:.4f} / "
+            f"{s13['p99_turnaround_s']:.4f}); occupancy {s['slot_occupancy']:.4f} (phase 13: "
+            f"{s13['slot_occupancy']:.4f}); {s['ms_per_dispatch']:.2f} ms a dispatch (phase "
+            f"13: {s13['ms_per_dispatch']:.2f}); every request == phase 13's")
+        for kind, n in drain["by_kind"].items():
+            walls = n["walls"]
+            log(f"  {kind} dispatches: {len(walls)}, {1e3 * float(np.mean(walls)):.2f} ms "
+                f"each; launches {({k: v for k, v in n.items() if k != 'walls' and v})}")
+    for kind, p in out["profiles"].items():
+        log(f"  profile ({kind} dispatch, {SERVE_SLOTS} replicas, wall {p['wall_s'] * 1e3:.2f} "
+            f"ms): device busy {p['busy_us'] / 1e3:.2f} ms = {p['busy_share']:.3f} of wall")
+        for us, calls, name in p["top"]:
+            log(f"    {us / 1e3:9.3f} ms  x{calls:<5d} {name[:100]}")
+    log("  a protocol dispatch's host staging of its ELL (every call), alone: "
+        + ", ".join(f"{fam} {sec:.3f} s" for fam, sec in out["protocol_staging_s"].items()))
+    log(f"  a request modeled at {out['memory']['flood']['model']} bytes a rank against a "
+        f"budget of {out['memory']['flood']['model'] - 1} is rejected on every rank")
+    shapes = gloo_serve_ranks(dev)
+    rec = scale_mesh(ba, scale12, dev)
+    record = {
+        "mesh": out["shape"],
+        **{f"serve_{ex}": {k: d["summary"][k] for k in (
+            "requests_per_s", "p50_turnaround_s", "p99_turnaround_s", "slot_occupancy",
+            "ms_per_dispatch", "dispatches", "wall_s")} for ex, d in out["drains"].items()},
+        "phase13": {k: s13[k] for k in ("requests_per_s", "p50_turnaround_s",
+                                        "p99_turnaround_s", "slot_occupancy",
+                                        "ms_per_dispatch", "dispatches")},
+        "launches_by_kind": {ex: {kind: {k: v for k, v in n.items() if k != "walls" and v}
+                                  for kind, n in d["by_kind"].items()}
+                             for ex, d in out["drains"].items()},
+        "busy_share": {k: p["busy_share"] for k, p in out["profiles"].items()},
+        "dispatch_ms_by_kind": {ex: {kind: 1e3 * float(np.mean(n["walls"]))
+                                     for kind, n in d["by_kind"].items()}
+                                for ex, d in out["drains"].items()},
+        "protocol_staging_s": out["protocol_staging_s"],
+        "memory": {k: {"peak": m["peak"], "model": m["model"], "runner": m["runner"]}
+                   for k, m in out["memory"].items()},
+        "gloo_meshes": shapes,
+        "scale_mesh_1x1": {k: rec[k] for k in ("wall_s", "ms_per_tick", "node_updates_per_s",
+                                               "stage_s", "ticks")},
+    }
+    log(json.dumps({"phase17": record}))
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_17_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 17``: phase 17 by itself, with its
+    references built here: phase 13's single-device server results on the
+    phase-5 graph and phase 12's 1M BA graph and flood. Prints phase 17's
+    record; the default run (every phase) is the script's contract."""
+    import torch
+
+    import p2p_gossip_tpu_torch as pt
+    from p2p_gossip_tpu_torch.engine.sync import DeviceGraph, run_flood_coverage
+    from p2p_gossip_tpu_torch.engine.sync import time_to_coverage
+    from p2p_gossip_tpu_torch.ops import build, kernels
+    from p2p_gossip_tpu_torch.runtime import native
+
+    t_start = time.perf_counter()
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    graph = pt.erdos_renyi(N_NODES, EDGE_P, seed=SEED)
+    serve13 = serve_mesh_references(graph, dev)
+    native.build()
+    ba_graph = native.native_barabasi_albert(SCALE_CONFIGS[0][1], m=SCALE_BA_M, seed=SEED)
+    origins = np.random.default_rng(SEED).integers(0, ba_graph.n,
+                                                   SCALE_ORIGINS).astype(np.int32)
+    t0 = time.perf_counter()
+    dg = DeviceGraph.build(ba_graph, device=dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    run_flood_coverage(ba_graph, origins, HORIZON, device_graph=dg, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats, cov = run_flood_coverage(ba_graph, origins, HORIZON, device_graph=dg, device=dev)
+    wall = time.perf_counter() - t0
+    ticks = kernels.launches["coverage_per_slot"]  # once a tick
+    ttc = time_to_coverage(cov, ba_graph.n, 0.99)
+    scale12 = dict(ttc99_median=float(np.median(ttc)), ttc99_max=int(ttc.max()),
+                   wall_s=wall, ms_per_tick=wall / ticks * 1e3,
+                   rate=stats.totals()["processed"] / wall, stage_s=stage_s)
+    del dg
+    torch.cuda.empty_cache()
+    serve_mesh_phase(serve13, dict(graph=ba_graph, coverage=cov), scale12, dev)
+    log(f"--phase 17 took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def phase_16_alone(dev) -> int:
     """``python3 chip_smoke.py --phase 16``: phase 16 by itself, on its own
     graph and stagings, with phase 11's single-device campaigns run here as
@@ -4677,6 +5112,8 @@ def main() -> int:
         return phase_16_alone(dev)
     if sys.argv[1:3] == ["--phase", "14a"]:
         return phase_14a_alone(dev)
+    if sys.argv[1:3] == ["--phase", "17"]:
+        return phase_17_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -4754,7 +5191,8 @@ def main() -> int:
     campaigns16 = sharded_campaign_phase(
         graph, dg, dgf_edge, cov_set, gossip_set, delays,
         {kind: phase11[kind]["campaign"] for kind in ("coverage", "pushpull")}, dev, rng)
-    log(f"chip_smoke phases 1-16 took {time.perf_counter() - t_start:.1f} s")
+    serve17 = serve_mesh_phase(serve, ba, scale["ba"], dev)
+    log(f"chip_smoke phases 1-17 took {time.perf_counter() - t_start:.1f} s")
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -4913,6 +5351,8 @@ def main() -> int:
                for label, *_ in SHARDED_PROTOCOL_RUNS},
             **{f"launches_sharded_campaign_{mode}": campaigns16["runs"][mode]["launches"][name]
                for mode, _ in SHARDED_MODES + CAMPAIGN_PROTOCOL_MODES},
+            **{f"launches_serve_mesh_{ex}": serve17["drains"][ex]["launches"][name]
+               for ex in SERVE_MESH_EXCHANGES},
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

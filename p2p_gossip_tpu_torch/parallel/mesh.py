@@ -16,6 +16,9 @@ stop flag), graph rows on the second.
 
 `make_mesh` lays ranks out as the JAX package lays devices out: rank r of
 the mesh's rank list sits at coordinate ``(r // nodes, r % nodes)``.
+`make_slot_mesh` shapes the gossip server's (replicas, nodes) mesh so its
+replica axis divides the server's slots; `make_multihost_mesh` lays a
+(shares, nodes) mesh over several hosts, the nodes axis within a host.
 """
 
 from __future__ import annotations
@@ -200,6 +203,79 @@ def make_mesh(
         group = dist.new_group(list(mesh_ranks))
     return Mesh(device_mesh, device, mesh_ranks, int(n_share_shards),
                 int(n_node_shards), group, first_axis)
+
+
+def slot_mesh_shape(n_ranks: int, slots: int, node_bytes: int | None = None,
+                    hbm_bytes: int | None = None) -> tuple[int, int]:
+    """The (replica_shards, node_shards) of the serving mesh over
+    ``n_ranks`` ranks (the JAX package's ``make_slot_mesh`` rule): start
+    from `auto_axis_split`, then shrink the replica axis to the largest
+    divisor of the rank count that also divides ``slots``, the surplus
+    going to the nodes axis, so every dispatch of ``slots`` replicas
+    splits evenly over the replica shards and every rank is used (6 ranks
+    serving 8 slots: 2 x 3)."""
+    if slots < 1:
+        raise ValueError(f"slots must be >= 1, got {slots}")
+    replica_shards, node_shards = auto_axis_split(n_ranks, node_bytes=node_bytes,
+                                                  hbm_bytes=hbm_bytes)
+    while replica_shards > 1 and slots % replica_shards:
+        replica_shards -= 1
+        while n_ranks % replica_shards:
+            replica_shards -= 1
+        node_shards = n_ranks // replica_shards
+    return replica_shards, node_shards
+
+
+def make_slot_mesh(slots: int, device=None, ranks=None, node_bytes: int | None = None,
+                   hbm_bytes: int | None = None) -> Mesh:
+    """The serving scheduler's (replicas, nodes) mesh over ``ranks``
+    (default: every rank of the world), shaped by `slot_mesh_shape`: its
+    replica axis divides ``slots``, as `serve.server.GossipServer` requires.
+    Collective (it calls `make_mesh`): every rank of the world calls it."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call initialize_multihost() first")
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    replica_shards, node_shards = slot_mesh_shape(len(ranks), slots, node_bytes, hbm_bytes)
+    return make_mesh(n_node_shards=node_shards, ranks=ranks, device=device,
+                     replicas=replica_shards)
+
+
+def make_multihost_mesh(n_node_shards: int | None = None, n_share_shards: int | None = None,
+                        ranks=None, device=None) -> Mesh:
+    """A (shares, nodes) mesh laid out for several hosts (the JAX package's
+    ``make_multihost_mesh``): the shares axis spans hosts (share shards
+    exchange nothing but one counter sum a pass, so the slow network
+    carries almost nothing), the nodes axis stays within a host's local
+    ranks (it carries the per-tick frontier exchange over NVLink).
+
+    Under ``torchrun`` ranks are host-major (rank = node_rank x
+    ``LOCAL_WORLD_SIZE`` + local_rank), so the canonical layout, one share
+    shard a host, is ``make_mesh(n_node_shards=LOCAL_WORLD_SIZE,
+    n_share_shards=hosts)``: row h of the mesh is host h's ranks. A world
+    of one host (no ``LOCAL_WORLD_SIZE``, or the world's size) is plain
+    `make_mesh`. On several hosts a shape whose nodes axis would cross a
+    host (``n_node_shards`` not dividing ``LOCAL_WORLD_SIZE``), or that
+    does not cover whole hosts, raises ValueError, as does one needing
+    more ranks than there are. Collective: every rank calls it."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call initialize_multihost() first")
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", len(ranks)))
+    if local < 1 or len(ranks) % local:
+        raise ValueError(f"LOCAL_WORLD_SIZE {local} does not divide the {len(ranks)} ranks")
+    hosts = len(ranks) // local
+    if hosts == 1:
+        return make_mesh(n_node_shards, n_share_shards or 1, ranks=ranks, device=device)
+    if n_share_shards is None:
+        n_share_shards = hosts
+    if n_node_shards is None:
+        n_node_shards = len(ranks) // n_share_shards
+    if n_node_shards < 1 or local % n_node_shards or (n_share_shards * n_node_shards) % local:
+        raise ValueError(
+            f"mesh {n_share_shards}x{n_node_shards} (shares x nodes) does not lay its nodes "
+            f"axis within hosts of {local} ranks over whole hosts"
+        )
+    return make_mesh(n_node_shards, n_share_shards, ranks=ranks, device=device)
 
 
 def campaign_node_bytes(n_nodes: int, ell_slots: int, shares: int, ring_size: int = 2) -> int:

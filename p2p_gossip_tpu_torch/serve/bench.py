@@ -14,17 +14,24 @@ inert); a mismatch fails the run. The last line is one JSON object.
 
     python -m p2p_gossip_tpu_torch.serve.bench [--requests 24] [--slots 8]
         [--nodes 100000] [--shares 4096] [--horizon 64] [--seed 0]
-        [--smoke] [--no-verify] [--device cuda|cpu] [--out FILE]
+        [--smoke] [--no-verify] [--device cuda|cpu] [--out FILE] [--mesh]
 
 The defaults are the full-width trace (ER N = 100,000 p = 0.001 and BA
 m = 3, 4,096 shares, horizon 64); ``--device cpu --smoke`` is the tests'
 size (N = 128, 4 shares, horizon 16, 12 requests).
+
+``--mesh`` serves on `parallel.mesh.make_slot_mesh` over every rank of the
+world (`initialize_multihost`): under ``torchrun --nproc-per-node K`` the
+K ranks (NCCL; gloo with ``--device cpu``), as one process a 1 x 1 mesh.
+Every rank drains the trace; the first verifies and prints, and the JSON
+line gains ``"mesh": "RxN"`` (replica shards x node shards).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -111,15 +118,19 @@ def same_result(got, want) -> bool:
 
 
 def run_trace(trace: list[dict], slots: int = 8, device=None, graphs: dict | None = None,
-              log=print):
+              log=print, mesh=None, exchange: str = "dense", on_step=None):
     """Submit every request of ``trace`` to one fresh `GossipServer` on
-    ``device`` and drain it. ``graphs`` (topology fingerprint -> Graph)
-    pre-fills the server's graph cache, for a caller that built a trace
-    graph already. Returns (server, summary dict); raises if a request
-    did not finish."""
+    ``device`` (or on ``mesh`` with its ``exchange``: every rank of the
+    mesh calls this) and drain it. ``graphs`` (topology fingerprint ->
+    Graph) pre-fills the server's graph cache, for a caller that built a
+    trace graph already; ``on_step`` sees each dispatch's summary. Returns
+    (server, summary dict); raises if a request did not finish."""
     from p2p_gossip_tpu_torch.serve.server import GossipServer
 
-    server = GossipServer(slots=slots, device=device)
+    if mesh is not None:
+        server = GossipServer(slots=slots, mesh=mesh, exchange=exchange)
+    else:
+        server = GossipServer(slots=slots, device=device)
     server._graphs.update(graphs or {})
     t0 = time.perf_counter()
     for request_dict in trace:
@@ -127,6 +138,8 @@ def run_trace(trace: list[dict], slots: int = 8, device=None, graphs: dict | Non
     walls = []
     while (summary := server.step()) is not None:
         walls.append(summary["wall_s"])
+        if on_step is not None:
+            on_step(summary)
     wall = time.perf_counter() - t0
     turnarounds = []
     for request_dict in trace:
@@ -181,6 +194,8 @@ def main(argv=None) -> int:
                     help="skip the per-request solo bitwise comparison")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", help="also append the JSON line to FILE")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve on make_slot_mesh(--slots) over every rank of the world")
     args = ap.parse_args(argv)
     size = dict(requests=args.requests, nodes=args.nodes, shares=args.shares,
                 horizon=args.horizon, mean_degree=ER_MEAN_DEGREE)
@@ -191,21 +206,41 @@ def main(argv=None) -> int:
 
     from p2p_gossip_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    mesh, first = None, True
+    if args.mesh:
+        from p2p_gossip_tpu_torch.parallel.mesh import (
+            initialize_multihost,
+            local_device,
+            make_slot_mesh,
+        )
+
+        device = local_device(None if args.device == "cuda" else args.device)
+        rank, _ = initialize_multihost(device=device)
+        first = rank == 0
+        if not first:  # the first rank writes; the ranks agree on telemetry's rings
+            for var in ("P2P_TELEMETRY", "P2P_HEARTBEAT"):
+                os.environ.pop(var, None)
+        mesh = make_slot_mesh(args.slots, device=device)
+    else:
+        device = resolve_device(args.device)
+    out = print if first else (lambda *a, **k: None)
     trace = build_trace(size["requests"], args.seed, size["nodes"], size["shares"],
                         size["horizon"], size["mean_degree"])
     kind = "cpu" if device.type == "cpu" else torch.cuda.get_device_name(device)
-    print(f"serve bench: {len(trace)} requests, slots={args.slots}, N={size['nodes']}, "
-          f"{size['shares']} shares, horizon {size['horizon']} on {kind}", flush=True)
-    server, summary = run_trace(trace, args.slots, device)
-    bad = None if args.no_verify else verify(server, trace)
+    shape = None if mesh is None else "x".join(str(v) for v in mesh.shape.values())
+    out(f"serve bench: {len(trace)} requests, slots={args.slots}, N={size['nodes']}, "
+        f"{size['shares']} shares, horizon {size['horizon']} on {kind}"
+        + (f", mesh {shape} (replicas x nodes)" if mesh is not None else ""), flush=True)
+    server, summary = run_trace(trace, args.slots, device, log=out, mesh=mesh)
+    bad = None if args.no_verify or not first else verify(server, trace, log=out)
     row = {"bench": "serve", "device": kind, "smoke": bool(args.smoke),
            "nodes": size["nodes"], "shares": size["shares"], "horizon": size["horizon"],
+           **({"mesh": shape} if mesh is not None else {}),
            **summary, "verified": 0 if bad is None else len(trace),
            "bitwise_ok": None if bad is None else bad == 0}
     line = json.dumps(row)
-    print(line)
-    if args.out:
+    out(line)
+    if args.out and first:
         with open(args.out, "a") as f:
             f.write(line + "\n")
     return 0 if not bad else 1

@@ -184,6 +184,108 @@ def modeled_request_cost(request: SimRequest, degree, slots: int = 1) -> dict:
     }
 
 
+def _mesh_rank_bytes(request: SimRequest, degree: np.ndarray, rb: int, replica_shards: int,
+                     k: int, exchange: str, async_k: int) -> tuple[int, int]:
+    """(staged, pass) device bytes of one rank of a dispatch on a (replicas,
+    nodes) mesh: ``rb`` local replicas over this rank's ``n / k`` rows, in
+    the sharded campaign runners' own terms (`parallel.engine_sharded.
+    _Runner.resident_bytes` for the flood, `parallel.protocols_sharded.
+    _Runner.resident_bytes` for the protocols) for the shape a server
+    request takes there: one delay of 1 tick (a sharded ring of 2 slots, 3
+    under async K = 2), one pass of the request's shares, coverage on.
+    Host arithmetic on the degree array only: the flood's staged shard is
+    the whole graph's degree buckets (or full-width ELL, the smaller) over
+    ``k``, and the
+    delta capacity is the runners' on the largest cut a shard can have
+    (none on one node shard, at most ``n / k`` rows otherwise); the hub
+    exchange is priced as the delta one (its hub ring rows uncounted)."""
+    from p2p_gossip_tpu_torch.parallel.async_ticks import (
+        effective_ring,
+        group_offsets,
+        parse_exchange,
+    )
+    from p2p_gossip_tpu_torch.parallel.exchange import delta_capacity
+
+    n, s, horizon = int(degree.shape[0]), int(request.shares), int(request.horizon)
+    n_padded = -(-n // k) * k
+    n_loc = n_padded // k
+    w = _words(max(1, s))
+    row = w * _WORD_BYTES
+    loc, glob = rb * n_loc * row, rb * n_padded * row
+    transpose = glob if rb > 1 and k > 1 else 0
+    transport, k_async = parse_exchange(exchange, async_k)
+    ring = effective_ring(_RING_SLOTS, k_async)
+    delta = transport in ("delta", "hub") or (transport == "auto" and k > 1)
+    outages = int(request.max_outages) if request.churn_prob > 0 else 0
+    # The coverage rows: the flood's of the shares, a protocol's of its pass.
+    cover = rb * (replica_shards + 1) * horizon * 4
+    if request.protocol == "flood":
+        cover *= s
+        capacity = delta_capacity(n_loc if k > 1 else 1, n_loc, w) if delta else 0
+        from p2p_gossip_tpu_torch.engine.sync import _staged_graph_bytes
+        from p2p_gossip_tpu_torch.ops.ell import DEFAULT_DEGREE_BLOCK
+
+        # The shard's degree buckets, or its direct ELL where bucketing saves
+        # little (`stage_sharded_graph`'s rule).
+        staged = min(_staged_graph_bytes(degree, DEFAULT_DEGREE_BLOCK, True, bucketed)
+                     for bucketed in (True, False)) // k
+        staged += n_loc * k if delta else 0
+        staged += rb * n_loc * 4 if rb > 1 else 0
+        passed = 2 * rb * n_loc * outages * 4
+        state = rb * ((ring + 1) * n_loc * row + 2 * n_loc * 4) + cover
+        state += rb * 2 * ring * k * capacity * 4
+        offs = group_offsets((1,), k_async)[0] if k_async else ()
+        canvases = len(offs) * (1 if delta else 2) if offs else 1
+        tick = 4 * loc + canvases * glob + rb * n_padded * 4 + transpose
+        return staged, passed + state + tick
+    anti = request.protocol != "pushk"
+    delta = delta and anti
+    landed = k_async > 0 and not delta
+    picks = int(request.fanout) if request.protocol == "pushk" else 1
+    dmax = max(int(degree.max()) if n else 0, 1)
+    capacity = delta_capacity(n_loc, n_loc, w) if delta else 0
+    staged = n_loc * (8 * dmax + 8 + 1 + 8 + 8) + (n_loc if delta else 0)
+    staged += rb * n_loc * (8 + 1 + 8 + 8 + 8) if rb > 1 else 0
+    staged += rb * n_loc * (picks + 1) * 8
+    passed = 2 * rb * n_padded * outages * 4
+    state = rb * ring * n_loc * row + loc + rb * n_loc * 12 + cover * w * _WORD_BITS
+    if delta:
+        state += 2 * glob + rb * 2 * ring * k * capacity * 4
+    elif landed:
+        state += glob
+    own = 0 if request.protocol == "pull" else picks * loc
+    pulled = loc if anti else 0
+    read = 3 * loc + (0 if delta or landed else glob + transpose) if anti else 0
+    peaks = [own + read, 3 * loc + (rb * n_padded * 8 if request.protocol == "pull" else 0)]
+    if request.protocol != "pull":
+        peaks.append(own + pulled + 2 * glob + loc)
+    if delta:
+        peaks.append(2 * loc + max(loc, 2 * rb * capacity * 4))
+    if landed:
+        peaks.append(loc + glob + transpose)
+    return staged, passed + state + max(peaks)
+
+
+def mesh_request_cost(request: SimRequest, degree, slots: int, replica_shards: int,
+                      node_shards: int, exchange: str = "dense", async_k: int = 2) -> dict:
+    """`modeled_request_cost` for a server on a (replicas, nodes) mesh, per
+    rank: the traffic fields are the JAX package's, value for value;
+    ``staged_bytes`` and ``resident_bytes`` are one rank's staged operands
+    and pass state with ``slots / replica_shards`` local replicas over ``n /
+    node_shards`` rows (`_mesh_rank_bytes`), ``dispatch_bytes`` their sum:
+    what admission holds against the smallest budget of the mesh's ranks.
+    Every rank computes the same numbers."""
+    degree = np.asarray(degree)
+    cost = modeled_request_cost(request, degree, slots)
+    rb = int(slots) // int(replica_shards)
+    staged, resident = _mesh_rank_bytes(request, degree, rb, int(replica_shards),
+                                        int(node_shards), exchange, async_k)
+    cost.update(resident_bytes=int(resident), staged_bytes=int(staged),
+                dispatch_bytes=int(staged + resident), replica_shards=int(replica_shards),
+                node_shards=int(node_shards), local_replicas=rb)
+    return cost
+
+
 @dataclasses.dataclass(frozen=True)
 class SlotUnit:
     """One replica of one request: the scheduler's unit of work. ``seq``
@@ -236,19 +338,26 @@ class SlotScheduler:
         degree,
         hbm_budget_bytes: float | None = None,
         max_request_bytes: int | None = None,
+        cost: dict | None = None,
     ) -> tuple[bool, dict, str | None]:
         """(admitted, cost, reason). A full dispatch holds the staged graph
         and ``slots`` replica slots, so the fit test is
         ``dispatch_bytes <= hbm_budget_bytes``; a budget of None or 0
         checks nothing (the server passes the card's free memory, 0 on the
         CPU). ``max_request_bytes`` optionally caps a single request's
-        total modeled traffic (a service-level knob, off by default)."""
-        cost = modeled_request_cost(request, degree, self.slots)
+        total modeled traffic (a service-level knob, off by default).
+        ``cost`` replaces the single-device model (a mesh server passes
+        `mesh_request_cost`, one rank's bytes)."""
+        if cost is None:
+            cost = modeled_request_cost(request, degree, self.slots)
         if hbm_budget_bytes and cost["dispatch_bytes"] > hbm_budget_bytes:
+            held = (f"{cost['resident_bytes']} for {cost['local_replicas']} local replicas "
+                    "a rank" if "local_replicas" in cost
+                    else f"{cost['resident_bytes']} x {self.slots} slots")
             return False, cost, (
                 f"modeled dispatch footprint {cost['dispatch_bytes']} bytes "
-                f"(staged graph {cost['staged_bytes']} + {cost['resident_bytes']} x "
-                f"{self.slots} slots) exceeds the {int(hbm_budget_bytes)}-byte HBM budget"
+                f"(staged graph {cost['staged_bytes']} + {held}) exceeds the "
+                f"{int(hbm_budget_bytes)}-byte HBM budget"
             )
         if max_request_bytes is not None and cost["request_bytes"] > max_request_bytes:
             return False, cost, (

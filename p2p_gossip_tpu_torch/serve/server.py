@@ -31,11 +31,13 @@ Graphs are cached per topology fingerprint, and their `DeviceGraph`
 stagings per (fingerprint, bucketing): one build and one staging per
 distinct topology, however many requests name it.
 
-Not ported: the JAX server's ``mesh`` (its sharded dispatch waits for
-the sharded campaigns, ROADMAP §1 items 2 and 3; a mesh raises
-NotImplementedError).
-``exchange`` and ``async_k`` configure only that sharded dispatch, and
-are accepted and unused, as in a JAX server without a mesh.
+With ``mesh`` (a factorized ``(replicas, nodes)`` mesh of
+``torch.distributed`` ranks, `parallel.mesh.make_slot_mesh`) dispatches run
+on the sharded campaign runners (`batch.campaign_sharded`): each rank
+carries ``slots / replica_shards`` replicas of its node shard, and results
+are bitwise the single-device server's. ``exchange`` (and ``async_k``)
+pick those runners' frontier exchange, per request when the request pins
+one; without a mesh they are accepted and unused, as in the JAX server.
 """
 
 from __future__ import annotations
@@ -44,12 +46,13 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from p2p_gossip_tpu_torch import telemetry
 from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
 from p2p_gossip_tpu_torch.models.seeds import replica_loss_seeds
 from p2p_gossip_tpu_torch.serve.request import SimRequest, build_graph
-from p2p_gossip_tpu_torch.serve.scheduler import BatchPlan, SlotScheduler
+from p2p_gossip_tpu_torch.serve.scheduler import BatchPlan, SlotScheduler, mesh_request_cost
 from p2p_gossip_tpu_torch.utils import logging as p2plog
 from p2p_gossip_tpu_torch.utils.checkpoint import (
     fingerprint,
@@ -61,6 +64,7 @@ from p2p_gossip_tpu_torch.utils.device import resolve_device
 log = p2plog.get_logger("Serve.Server")
 
 _PROGRESS_KERNEL = "serve.server"
+_NO_BUDGET = 2**62  # a rank without a budget, in the mesh-wide minimum
 
 
 class RequestState:
@@ -116,7 +120,29 @@ class GossipServer:
     ``hbm_budget_bytes`` is the admission budget for one dispatch's
     modeled device bytes (`serve.scheduler.modeled_request_cost`); None
     means `engine.sync.device_budget_bytes` at submission (the card's free
-    memory, 0 and so no check on the CPU)."""
+    memory, 0 and so no check on the CPU).
+
+    ``mesh`` (a ``(replicas, nodes)`` mesh, e.g. `parallel.mesh.
+    make_slot_mesh`) runs every dispatch on the sharded campaign runners;
+    ``slots`` must be a multiple of its replica shards, and the server's
+    device is the mesh's. The contract is SPMD:
+
+    - every rank of the mesh builds the server and makes the same calls in
+      the same order (`submit`, `step` / `drain`, `preempt`, `resume`); the
+      scheduler has no clock, so every rank forms the same plans, and every
+      rank ends with every request's full per-replica arrays;
+    - admission agrees: a rank prices a dispatch per rank
+      (`serve.scheduler.mesh_request_cost`) against the smallest budget of
+      the mesh's ranks (one ``all_reduce(MIN)`` a `submit`; a rank without
+      a budget counts as none), so every rank admits or rejects alike;
+    - only the mesh's first rank writes: the ``request``, ``slot`` and
+      heartbeat events and the checkpoint files; after a write every rank
+      meets at a barrier on the mesh's group, so none reads a checkpoint
+      before it is whole. A checkpoint is the request's (its
+      fingerprint): a mesh server's partial result resumes in a
+      single-device server and the other way round.
+
+    A rank outside ``mesh`` raises ValueError here (it takes no part)."""
 
     def __init__(
         self,
@@ -131,12 +157,20 @@ class GossipServer:
         device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "a server over a device mesh waits for the next multi-GPU slice "
-                "(ROADMAP §1 item 3: the server's mesh= branch, after "
-                "campaign_sharded, item 2)"
-            )
-        self.device = resolve_device(device)
+            from p2p_gossip_tpu_torch.batch.campaign_sharded import _campaign_mesh_dims
+
+            replica_shards, _ = _campaign_mesh_dims(mesh)
+            if slots % replica_shards:
+                raise ValueError(
+                    f"slots ({slots}) must be a multiple of the mesh's replica shards "
+                    f"({replica_shards}): otherwise the batch rounds up and its shape drifts"
+                )
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
+        # The one process that writes events and checkpoint files.
+        self._writes = mesh is None or mesh.is_first
         self.slots = int(slots)
         self.hbm_budget_bytes = hbm_budget_bytes
         self.max_request_bytes = max_request_bytes
@@ -147,6 +181,7 @@ class GossipServer:
         self._states: dict[str, RequestState] = {}
         self._graphs: dict = {}
         self._device_graphs: dict = {}
+        self._sharded_graphs: dict = {}
         self._batches = 0
         self._occupied_slots = 0
 
@@ -175,9 +210,48 @@ class GossipServer:
             )
         return self._device_graphs[key]
 
+    def _sharded_graph(self, request: SimRequest):
+        """The flood's `stage_sharded_graph` of this rank's node shard, per
+        topology (a protocol campaign stages its ELL on every call)."""
+        from p2p_gossip_tpu_torch.parallel.engine_sharded import stage_sharded_graph
+
+        fp = request.topology_fp
+        if fp not in self._sharded_graphs:
+            self._sharded_graphs[fp] = stage_sharded_graph(self._graph(request), self.mesh)
+        return self._sharded_graphs[fp]
+
+    def _exchange(self, request: SimRequest) -> str:
+        """A request's exchange: its own, or the server's for "auto"."""
+        return request.exchange if request.exchange != "auto" else self.exchange
+
+    # -- the mesh's agreement ------------------------------------------------
+
+    def _mesh_min(self, value: int) -> int:
+        """The smallest ``value`` over the mesh's ranks (one all_reduce)."""
+        import torch.distributed as dist
+
+        t = torch.tensor([int(value)], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.mesh.group)
+        return int(t.item())
+
+    def _admission_budget(self) -> float:
+        """The budget `submit` admits against: the explicit one or the
+        card's free memory; on a mesh the smallest over its ranks."""
+        budget = self.hbm_budget_bytes
+        if budget is None:
+            from p2p_gossip_tpu_torch.engine.sync import device_budget_bytes
+
+            budget = device_budget_bytes(self.device)
+        if self.mesh is None:
+            return budget
+        low = self._mesh_min(int(budget) if budget else _NO_BUDGET)
+        return 0 if low == _NO_BUDGET else low
+
     # -- telemetry ---------------------------------------------------------
 
     def _emit_request(self, state: RequestState, event: str, **extra):
+        if not self._writes:
+            return
         ev = {
             "type": "request",
             "request_id": state.request.request_id,
@@ -193,6 +267,8 @@ class GossipServer:
         telemetry.emit(ev)
 
     def _heartbeat(self):
+        if not self._writes:
+            return
         telemetry.emit_progress(
             _PROGRESS_KERNEL,
             chunk=self._batches,
@@ -216,14 +292,16 @@ class GossipServer:
         if rid in self._states:
             raise ValueError(f"duplicate request_id {rid!r}")
         graph = self._graph(request)
-        budget = self.hbm_budget_bytes
-        if budget is None:
-            from p2p_gossip_tpu_torch.engine.sync import device_budget_bytes
+        cost = None
+        if self.mesh is not None:
+            from p2p_gossip_tpu_torch.batch.campaign_sharded import _campaign_mesh_dims
 
-            budget = device_budget_bytes(self.device)
+            cost = mesh_request_cost(request, graph.degree, self.slots,
+                                     *_campaign_mesh_dims(self.mesh),
+                                     exchange=self._exchange(request), async_k=self.async_k)
         admitted, cost, reason = self.scheduler.admit(
-            request, graph.degree, hbm_budget_bytes=budget,
-            max_request_bytes=self.max_request_bytes,
+            request, graph.degree, hbm_budget_bytes=self._admission_budget(),
+            max_request_bytes=self.max_request_bytes, cost=cost,
         )
         state = RequestState(request, graph.n, cost)
         state.degree = graph.degree.astype(np.int64)
@@ -263,19 +341,22 @@ class GossipServer:
         path = self._checkpoint_path(state)
         if path is None or not state.done.any():
             return
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
-        save_checkpoint(
-            path,
-            {
-                "done": state.done,
-                "generated": state.generated,
-                "received": state.received,
-                "sent": state.sent,
-                "coverage": state.coverage,
-            },
-            {"fingerprint": state.checkpoint_fingerprint(),
-             "request": state.request.to_dict()},
-        )
+        if self._writes:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            save_checkpoint(
+                path,
+                {
+                    "done": state.done,
+                    "generated": state.generated,
+                    "received": state.received,
+                    "sent": state.sent,
+                    "coverage": state.coverage,
+                },
+                {"fingerprint": state.checkpoint_fingerprint(),
+                 "request": state.request.to_dict()},
+            )
+        if self.mesh is not None:
+            self._mesh_min(0)  # a barrier: no rank reads before the file is whole
 
     def _try_restore(self, state: RequestState) -> bool:
         path = self._checkpoint_path(state)
@@ -367,6 +448,21 @@ class GossipServer:
         )
         loss = LinkLossModel(ref.loss_prob) if ref.loss_prob > 0 else None
         lseeds = replica_loss_seeds(seeds) if loss is not None else None
+        if self.mesh is not None:
+            from p2p_gossip_tpu_torch.batch.campaign_sharded import (
+                run_sharded_campaign,
+                run_sharded_protocol_campaign,
+            )
+
+            sharded = dict(loss=loss, loss_seeds=lseeds, batch_size=self.slots,
+                           record_coverage=True, exchange=self._exchange(ref),
+                           async_k=self.async_k)
+            if ref.protocol == "flood":
+                return run_sharded_campaign(graph, replicas, ref.horizon, self.mesh,
+                                            sharded_graph=self._sharded_graph(ref), **sharded)
+            return run_sharded_protocol_campaign(graph, replicas, ref.horizon, self.mesh,
+                                                 protocol=ref.protocol, fanout=ref.fanout,
+                                                 **sharded)
         common = dict(
             loss=loss, loss_seeds=lseeds, batch_size=self.slots,
             device_graph=self._device_graph(ref), device=self.device,
@@ -403,16 +499,16 @@ class GossipServer:
             touched[unit.request_id] = state
         self._batches += 1
         self._occupied_slots += plan.occupied
-        slot_ev = {
-            "type": "slot",
-            "batch": self._batches - 1,
-            "signature": plan.signature_key,
-            "slots": plan.slots,
-            "occupied": plan.occupied,
-            "request_ids": plan.request_ids,
-            "wall_s": round(wall, 4),
-        }
-        telemetry.emit(slot_ev)
+        if self._writes:
+            telemetry.emit({
+                "type": "slot",
+                "batch": self._batches - 1,
+                "signature": plan.signature_key,
+                "slots": plan.slots,
+                "occupied": plan.occupied,
+                "request_ids": plan.request_ids,
+                "wall_s": round(wall, 4),
+            })
         for state in touched.values():
             if state.complete:
                 self._finish(state)
@@ -429,6 +525,9 @@ class GossipServer:
             "slots": plan.slots,
             "request_ids": plan.request_ids,
             "wall_s": wall,
+            # On a mesh: the sharded runner's modeled peak of this rank.
+            **({"resident_bytes": result.extra["resident_bytes"]}
+               if "resident_bytes" in result.extra else {}),
         }
 
     def _finish(self, state: RequestState):

@@ -7,13 +7,14 @@ identically produce bit-identical streams, so the FIRST index where two
 aligned streams differ is the first divergent tick — no re-run, no
 bisection search; the recorder already holds the whole history.
 
-This module is standard library only: it reads digest events out of a
-sink event list, aligns streams on their tick indices, and reports the
+The alignment is standard library only: it reads digest events out of
+a sink event list, aligns streams on their tick indices, and reports the
 first divergence. The streams may come from either package: the port
 emits the JAX package's kernel names, slicing and provenance keys, so a
 port stream and a JAX stream of the same run line up tick for tick.
-(The JAX package's ``capture_event_digests`` drives its event engine,
-which the port does not have yet.)
+`capture_event_digests` builds the host side of such a comparison: the
+port's event engine (engine/event.py) digested after every tick through
+its ``on_tick`` hook, with the numpy twin of the device digest.
 
 Alignment semantics: streams carry absolute tick indices (``t0`` +
 offset). Only ticks PRESENT IN BOTH streams are compared — a kernel
@@ -25,7 +26,7 @@ empty overlap is visibly vacuous rather than silently green.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 def digest_streams(events, kernel: str | None = None) -> dict:
@@ -153,3 +154,53 @@ def inject_fault(stream: dict, tick: int, bit: int = 0) -> dict:
     out = dict(stream)
     out[tick] = int(out[tick]) ^ (1 << (bit % 32))
     return out
+
+
+@dataclass
+class TickCapture:
+    """Host-side per-tick state capture around a window: the frontier
+    snapshots the bisector dumps once it has named the divergent tick."""
+
+    digests: dict = field(default_factory=dict)      # {tick: uint32}
+    received: dict = field(default_factory=dict)     # {tick: (n,) int64 copy}
+    seen_counts: dict = field(default_factory=dict)  # {tick: (n,) int64}
+
+
+def capture_event_digests(graph, schedule, horizon_ticks: int,
+                          window: tuple[int, int] | None = None,
+                          **event_kwargs) -> TickCapture:
+    """Run the port's event engine and digest every post-tick state with
+    the numpy twin of the device digest (`telemetry.digest.tick_digest_np`):
+    the host side of an event-vs-tick-engine comparison (the JAX
+    package's ``capture_event_digests``, value for value).
+
+    The digest folds the (seen, received, sent) triple the sync flood's
+    kernel folds, ``seen`` packed to the schedule's share count (the
+    digest does not depend on the word count). ``window=(lo, hi)`` also
+    snapshots each node's received total and seen-set size for the ticks
+    in [lo, hi]: the frontier dump around a named divergence.
+    ``event_kwargs`` go to `engine.event.run_event_sim`."""
+    import numpy as np
+
+    from p2p_gossip_tpu_torch.engine.event import run_event_sim
+    from p2p_gossip_tpu_torch.ops import bitmask
+    from p2p_gossip_tpu_torch.telemetry import digest as tel_digest
+
+    s = int(schedule.num_shares)
+    w = bitmask.num_words(max(s, 1))
+    cap = TickCapture()
+
+    def on_tick(t, seen, received, sent):
+        member = np.zeros((graph.n, max(s, 1)), dtype=bool)
+        for i, shares in enumerate(seen):
+            live = [sh for sh in shares if sh < s]
+            member[i, live] = True
+        cap.digests[t] = tel_digest.tick_digest_np(
+            tel_digest.pack_seen_np(member, w), received, sent)
+        if window is not None and window[0] <= t <= window[1]:
+            cap.received[t] = np.asarray(received, dtype=np.int64).copy()
+            cap.seen_counts[t] = np.asarray([len(shares) for shares in seen],
+                                            dtype=np.int64)
+
+    run_event_sim(graph, schedule, horizon_ticks, on_tick=on_tick, **event_kwargs)
+    return cap

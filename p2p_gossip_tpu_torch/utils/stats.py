@@ -147,3 +147,15 @@ def format_final_statistics(stats: NodeStats, per_node: bool = True) -> str:
     out.write(f"Total shares sent: {t['sent']}\n")
     out.write(f"Total socket connections: {t['connections']}\n")
     return out.getvalue()
+
+
+def format_periodic_stats(stats: NodeStats, sim_time: float) -> str:
+    """The `PrintPeriodicStats` report (p2pnetwork.cc:231-250)."""
+    t = stats.totals()
+    avg = t["processed"] // max(stats.n, 1)
+    return (
+        f"=== Periodic Stats at {sim_time:g}s ===\n"
+        f"Total shares generated: {t['generated']}\n"
+        f"Average shares per node: {avg}\n"
+        f"Total socket connections: {t['connections']}\n"
+    )

@@ -5,14 +5,15 @@ keys equal to the JAX strings, the same slot plans for one trace, a mixed
 drain whose every result is bitwise the JAX server's and a port solo
 campaign's, preemption and resume in one server and across the two
 packages through a checkpoint directory, duplicate ids, admission against
-an explicit budget with the port's own memory model, the refused mesh, a
-schema-valid event stream, and the bench's smoke run.
+an explicit budget with the port's own memory model, a mesh of the wrong
+kind refused, a schema-valid event stream, and the bench's smoke run.
 
 The port runs on the CPU (its kernels' plain torch versions), the JAX
 package on the CPU as its own tests run it."""
 
 import collections
 import json
+import types
 import weakref
 
 import numpy as np
@@ -398,12 +399,16 @@ def test_preempted_request_resumes_in_the_other_package(writer, reader, tmp_path
 
 
 def test_duplicate_ids_and_the_mesh_are_refused():
+    """A duplicate request id, and a mesh that is not the sharded
+    campaigns' (replicas, nodes) one (a (shares, nodes) mesh); the server on
+    a (replicas, nodes) mesh runs in tests/test_torch_serve_mesh.py."""
     srv = _server(slots=4)
     srv.submit(_req("dup", seeds=(0,)))
     with pytest.raises(ValueError, match="duplicate"):
         srv.submit(_req("dup", seeds=(1,)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GossipServer(slots=4, mesh=object(), device="cpu")
+    shares_mesh = types.SimpleNamespace(shape={"shares": 1, "nodes": 1}, coordinate=(0, 0))
+    with pytest.raises(ValueError, match=r"\(replicas, nodes\) mesh"):
+        GossipServer(slots=4, mesh=shares_mesh)
 
 
 def test_server_device_defaults_to_cuda():
