@@ -12,7 +12,8 @@ p2p_gossip_tpu_torch.scale --cache CACHE``; ``python3 chip_smoke.py
 references; ``python3 chip_smoke.py --phase 14a`` runs phases 14 (a) and
 16 (a) alone, the exchange kernels' checks and timings; ``python3
 chip_smoke.py --phase 17`` runs phase 17 alone, the server on a mesh and
-``scale.py --mesh``.)
+``scale.py --mesh``; ``python3 chip_smoke.py --phase 18`` runs phase 18
+alone, the divergence bisector and the protocol comparison.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -197,6 +198,25 @@ Phases (any failure raises and the script exits nonzero):
    coverage rows equal to phase 12's flood, the rank's peak within 20% of
    ``resident_bytes``. ``python3 chip_smoke.py --phase 17`` runs it alone,
    building phase 13's and phase 12's references itself.
+18. The research tools (``p2p_gossip_tpu_torch.divergence``,
+   ``.protocol_compare``): (a) the divergence bisector at its defaults
+   (ER N = 96): its 8 pairs on the card, the five sharded ones on one
+   world of 4 gloo ranks on the card, every pair clean and both of its
+   streams equal, digest for digest, to the same pair run on the CPU in
+   this call (the world's CPU job and this process's), a fault injected
+   at tick 4 located on every pair, the tick-7 reports equal to the CPU's,
+   and the bisector's CLI on the card (its host-side pairs); (b) every
+   pair clean at full width, each pair's wall printed: ``sync-campaign``
+   on ``bench.py``'s graph (ER N = 100,000, p = 0.001) with 4,096 shares,
+   ``pushpull-campaign`` there with 128 shares (its campaign's pass: a
+   wider one splits the campaign's stream), horizon 64; the sharded pairs
+   on the same world at N = 10,000 (256 shares, horizon 32); native-sync
+   at N = 2,000 (64 shares: the event engine is host Python); (c) the
+   protocol comparison's rows at its defaults (N = 2,000) equal on the
+   card and the CPU apart from ``wall_s``, and its table at
+   docs/RESULTS.md's on-chip configuration (ER N = 100,000, p = 0.001, 64
+   shares, horizon 96, fanout 3) with the card's walls.
+   ``python3 chip_smoke.py --phase 18`` runs it alone.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -251,6 +271,13 @@ Phase 17 (b) zeroes them just before each drain and reads them just after
 it (``launches_serve_mesh_<exchange>``; by kind of dispatch in its record
 line): ``gather_or``, ``coverage_per_slot``, ``popcount_rows``,
 ``scatter_or`` and ``or_fold`` launched, the exchange kernels on delta.
+Phase 18 zeroes them just before each card run and each world job and
+reads them after it: on the card ``gather_or``, ``coverage_per_slot``,
+``scatter_or`` and ``tick_digest`` launched by (a)'s host-side pairs,
+``gather_or``, ``tick_digest``, ``compress_deltas`` and
+``scatter_deltas`` on every rank of the world's card jobs, each (b) pair's
+kernels and (c)'s flood and protocol kernels; on the CPU (the world's CPU
+job, the CPU halves of (a) and (c)) none.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -4948,6 +4975,257 @@ def serve_mesh_phase(serve13, ba, scale12, dev):
     return out
 
 
+# --- phase 18: the divergence bisector and the protocol comparison ----------
+
+# (a): the bisector at its defaults. Tick 4 lies in every pair's streams
+# (the flood campaigns' end at tick 6); at tick 7 the reports must equal
+# the CPU's, which, as the JAX script's, miss on those two pairs.
+BISECT_FAULT_TICK = 4
+BISECT_LATE_FAULT_TICK = 7
+# (b): the host-side pairs at full width, by pair (the solo flood's chunk
+# is the whole schedule, so each run is one digest stream). The push-pull
+# campaign runs its shares in passes of 128 with a stream each, so 128
+# shares is the widest pair it forms; the event engine is host Python.
+BISECT_FULL = {
+    "native-sync": dict(n=2000, p=0.005, shares=64, horizon=32, chunk=64),
+    "sync-campaign": dict(n=N_NODES, p=EDGE_P, shares=4096, horizon=HORIZON, chunk=4096),
+    "pushpull-campaign": dict(n=N_NODES, p=EDGE_P, shares=128, horizon=HORIZON, chunk=128),
+}
+# (b): the sharded pairs on 4 gloo ranks at phase 16 (c)'s size.
+BISECT_SHARDED_FULL = dict(n=GLOO_CAMPAIGN_NODES, p=EDGE_P * N_NODES / GLOO_CAMPAIGN_NODES,
+                           shares=GLOO_CAMPAIGN_SHARES, horizon=GLOO_CAMPAIGN_HORIZON,
+                           chunk=GLOO_CAMPAIGN_SHARES)
+# (c): the protocol comparison's defaults (N = 2,000), and docs/RESULTS.md's
+# on-chip configuration.
+COMPARE_FULL = dict(nodes=N_NODES, prob=EDGE_P, shares=64, horizon=96, fanout=3)
+BISECT_FULL_KERNELS = {"native-sync": ("gather_or", "tick_digest"),
+                       "sync-campaign": ("gather_or", "coverage_per_slot", "tick_digest"),
+                       "pushpull-campaign": ("scatter_or", "coverage_per_slot", "tick_digest")}
+BISECT_CARD_KERNELS = ("gather_or", "coverage_per_slot", "scatter_or", "tick_digest")
+BISECT_WORLD_KERNELS = ("gather_or", "tick_digest", "compress_deltas", "scatter_deltas")
+COMPARE_KERNELS = ("gather_or", "coverage_per_slot", "scatter_or")
+
+
+def bisect_args(**flags):
+    """The bisector's flags: its defaults, with ``flags`` set."""
+    from p2p_gossip_tpu_torch import divergence
+
+    args = divergence.parse_args([])
+    for key, value in flags.items():
+        setattr(args, key, value)
+    return args
+
+
+def bisect_world(jobs):
+    """Phase 18's spawned world of 4 gloo ranks: for each ``(names, flags,
+    device)`` job, the sharded pairs' streams (on the first rank), each
+    pair's wall and this rank's kernel launches in the job."""
+    from p2p_gossip_tpu_torch import divergence
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    meshes: dict = {}
+    out = []
+    for names, flags, device in jobs:
+        mesh_set = meshes.setdefault(device, divergence.Meshes(device))
+        kernels.reset_launches()
+        streams, walls = {}, {}
+        for name in names:
+            t0 = time.perf_counter()
+            streams.update(divergence.world_pairs([name], flags, device, mesh_set))
+            walls[name] = time.perf_counter() - t0
+        out.append(dict(streams=streams, walls=walls, launches=dict(kernels.launches)))
+    return out
+
+
+def check_kernel_launches(label, launches, names, on_card):
+    """On the card every kernel of ``names`` launched; on the CPU none did."""
+    bad = {n: launches[n] for n in names if (launches[n] > 0) != on_card}
+    if bad:
+        raise RuntimeError(f"{label}: launches {bad}, expected "
+                           f"{'> 0 (the card)' if on_card else '0 (the CPU)'}")
+
+
+def check_clean(label, name, report):
+    if report.get("diverged") or not report.get("compared"):
+        raise RuntimeError(f"{label}: pair {name} diverged at tick {report.get('tick')} "
+                           f"({report.get('compared')} ticks compared): {report}")
+
+
+def check_same_streams(name, card, cpu):
+    from p2p_gossip_tpu_torch.telemetry import compare
+
+    for side, got, want in (("a", card[0], cpu[0]), ("b", card[1], cpu[1])):
+        if got != want:
+            div = compare.first_divergence(got, want)
+            raise RuntimeError(f"phase 18 (a): pair {name} stream {side} on the card differs "
+                               f"from the CPU's at tick {div.tick} ({len(got)} / "
+                               f"{len(want)} ticks)")
+
+
+def bisect_phase(dev):
+    """Phase 18 (a) and (b): the divergence bisector at its defaults on the
+    card, against the same pairs on the CPU and with faults injected, then
+    at full width. The sharded pairs of all three runs come from one world
+    of 4 gloo ranks, which runs while this process runs the host-side
+    pairs of (a)."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from p2p_gossip_tpu_torch import divergence
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    card, on_card = str(dev), dev.type == "cuda"
+    host_pairs = [name for name in divergence.PAIRS if name not in divergence.SHARDED_PAIRS]
+    sharded = list(divergence.SHARDED_PAIRS)
+    jobs = [(sharded, vars(bisect_args()), card), (sharded, vars(bisect_args()), "cpu"),
+            (sharded, vars(bisect_args(**BISECT_SHARDED_FULL)), card)]
+    with ThreadPoolExecutor(1) as pool:
+        world = pool.submit(launch.spawn, bisect_world, divergence.WORLD, jobs)
+        streams, launches = {}, {}
+        for side, device in (("card", card), ("cpu", "cpu")):
+            args = bisect_args(device=device)
+            kernels.reset_launches()
+            streams[side] = {name: divergence.pair_streams(name, args) for name in host_pairs}
+            launches[side] = dict(kernels.launches)
+        # The entry point a user calls, on the card, host-side pairs only
+        # (the sharded ones would start a second world).
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = divergence.main(["--device", card, "--json",
+                                  *(f for name in host_pairs for f in ("--pair", name))])
+        cli = json.loads(out.getvalue().strip().splitlines()[-1])
+        if rc != 0 or not cli["ok"]:
+            raise RuntimeError(f"phase 18 (a): the bisector's CLI on the card: {cli}")
+        ranks = world.result()
+    world_s = time.perf_counter() - t_phase
+    check_kernel_launches("phase 18 (a) card", launches["card"], BISECT_CARD_KERNELS, on_card)
+    check_kernel_launches("phase 18 (a) cpu", launches["cpu"], BISECT_CARD_KERNELS, False)
+    for label, job, card_job in (("small card", 0, on_card), ("small cpu", 1, False),
+                                 ("full card", 2, on_card)):
+        for r, rank in enumerate(ranks):
+            check_kernel_launches(f"phase 18 world {label} rank {r}", rank[job]["launches"],
+                                  BISECT_WORLD_KERNELS, card_job)
+    for side, job in (("card", 0), ("cpu", 1)):
+        streams[side].update(ranks[0][job]["streams"])
+
+    # (a): clean, equal to the CPU digest for digest, faults located.
+    reports = {}
+    for name in divergence.PAIRS:
+        check_same_streams(name, streams["card"][name], streams["cpu"][name])
+        clean = divergence.run_pair(name, bisect_args(device=card), streams["card"][name])
+        check_clean("phase 18 (a)", name, clean)
+        fault = divergence.run_pair(name, bisect_args(device=card,
+                                                      inject_fault=BISECT_FAULT_TICK),
+                                    streams["card"][name])
+        if not fault.get("fault_located") or fault["located_tick"] != BISECT_FAULT_TICK:
+            raise RuntimeError(f"phase 18 (a): pair {name} missed the fault at tick "
+                               f"{BISECT_FAULT_TICK}: {fault}")
+        late = [divergence.run_pair(name, bisect_args(device=device,
+                                                      inject_fault=BISECT_LATE_FAULT_TICK),
+                                    streams[side][name])
+                for side, device in (("card", card), ("cpu", "cpu"))]
+        if late[0] != late[1]:
+            raise RuntimeError(f"phase 18 (a): pair {name} at tick {BISECT_LATE_FAULT_TICK}: "
+                               f"card {late[0]} != cpu {late[1]}")
+        reports[name] = dict(compared=clean["compared"],
+                             ticks=[len(s) for s in streams["card"][name]],
+                             late_located=late[0].get("fault_located"))
+        log(f"phase 18 (a) {name}: clean over {clean['compared']} ticks, card == cpu "
+            f"digest for digest, fault at tick {BISECT_FAULT_TICK} located; tick "
+            f"{BISECT_LATE_FAULT_TICK}: {divergence.format_report(late[0])}")
+
+    # (b): full width. The sharded pairs came from the world's third job.
+    walls = {}
+    for name in sharded:
+        check_clean("phase 18 (b)", name,
+                    divergence.run_pair(name, bisect_args(**BISECT_SHARDED_FULL),
+                                        ranks[0][2]["streams"][name]))
+        walls[name] = ranks[0][2]["walls"][name]
+        log(f"phase 18 (b) {name}: clean at N={BISECT_SHARDED_FULL['n']} "
+            f"({BISECT_SHARDED_FULL['shares']} shares, horizon "
+            f"{BISECT_SHARDED_FULL['horizon']}, 4 gloo ranks on {card}), "
+            f"{walls[name]:.2f} s")
+    for name in host_pairs:
+        flags = BISECT_FULL[name]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = divergence.run_pair(name, bisect_args(device=card, **flags))
+        walls[name] = time.perf_counter() - t0
+        check_clean("phase 18 (b)", name, report)
+        check_kernel_launches(f"phase 18 (b) {name}", kernels.launches,
+                              BISECT_FULL_KERNELS[name], on_card)
+        log(f"phase 18 (b) {name}: clean over {report['compared']} ticks at N={flags['n']} "
+            f"({flags['shares']} shares, horizon {flags['horizon']}), {walls[name]:.2f} s")
+    record = dict(pairs_a=reports, world_s=world_s, walls_b_s=walls,
+                  sizes_b=dict(BISECT_FULL, sharded=BISECT_SHARDED_FULL))
+    log(json.dumps({"phase18_bisect": record}))
+    log(f"phase 18 (a)-(b) took {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
+def compare_phase(dev):
+    """Phase 18 (c): the protocol comparison at its defaults on the card
+    and on the CPU (equal rows apart from ``wall_s``), then at
+    docs/RESULTS.md's on-chip configuration, its table printed."""
+    from p2p_gossip_tpu_torch import protocol_compare
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    import p2p_gossip_tpu_torch as pt
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    rows = {}
+    for side, device in (("card", str(dev)), ("cpu", "cpu")):
+        kernels.reset_launches()
+        rows[side] = protocol_compare.compare_protocols(
+            protocol_compare.parse_args(["--device", device]))
+        check_kernel_launches(f"phase 18 (c) {side}", kernels.launches, COMPARE_KERNELS,
+                              on_card and side == "card")
+    strip = [[{k: v for k, v in r.items() if k != "wall_s"} for r in rows[side]]
+             for side in ("card", "cpu")]
+    if strip[0] != strip[1]:
+        raise RuntimeError(f"phase 18 (c): card rows {strip[0]} != cpu rows {strip[1]}")
+    log(f"phase 18 (c): the comparison's rows at N=2000 equal on {dev} and the CPU; walls "
+        + ", ".join(f"{r['protocol']} {r['wall_s']} s / {c['wall_s']} s"
+                    for r, c in zip(rows["card"], rows["cpu"])))
+    argv = ["--device", str(dev)] + [f for k, v in COMPARE_FULL.items()
+                                     for f in (f"--{k}", str(v))]
+    args = protocol_compare.parse_args(argv)
+    graph = pt.erdos_renyi(args.nodes, args.prob, seed=args.seed)
+    kernels.reset_launches()
+    full = protocol_compare.compare_protocols(args, graph)
+    check_kernel_launches("phase 18 (c) full", kernels.launches, COMPARE_KERNELS, on_card)
+    log(protocol_compare.format_table(args, graph, full))
+    record = dict(rows_2000=rows, rows_full=full, config_full=COMPARE_FULL)
+    log(json.dumps({"phase18_compare": record}))
+    log(f"phase 18 (c) took {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
+def phase_18_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 18``: phase 18 by itself (it needs
+    no earlier phase's results). Prints its records; the default run
+    (every phase) is the script's contract."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import build
+
+    t_start = time.perf_counter()
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    bisect_phase(dev)
+    compare_phase(dev)
+    log(f"--phase 18 took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def phase_17_alone(dev) -> int:
     """``python3 chip_smoke.py --phase 17``: phase 17 by itself, with its
     references built here: phase 13's single-device server results on the
@@ -5114,6 +5392,8 @@ def main() -> int:
         return phase_14a_alone(dev)
     if sys.argv[1:3] == ["--phase", "17"]:
         return phase_17_alone(dev)
+    if sys.argv[1:3] == ["--phase", "18"]:
+        return phase_18_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -5192,7 +5472,10 @@ def main() -> int:
         graph, dg, dgf_edge, cov_set, gossip_set, delays,
         {kind: phase11[kind]["campaign"] for kind in ("coverage", "pushpull")}, dev, rng)
     serve17 = serve_mesh_phase(serve, ba, scale["ba"], dev)
-    log(f"chip_smoke phases 1-17 took {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    bisect_phase(dev)
+    compare_phase(dev)
+    log(f"chip_smoke phases 1-18 took {time.perf_counter() - t_start:.1f} s")
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {

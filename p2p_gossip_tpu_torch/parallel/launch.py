@@ -11,7 +11,10 @@ last progress: a rank reports progress with `progress` (the workers here
 do after every call), so a world that keeps working is never stopped for
 being slow under load, and one in which no rank has reported for
 ``timeout_s`` + ``grace`` seconds is. A rank's start (a fresh interpreter
-importing torch, slow on a loaded host) has an allowance of its own.
+importing torch, slow on a loaded host) has an allowance of its own, and
+no rank enters the rendezvous before every rank has started: each
+reports its start, then waits on a start event that the parent sets once
+all have, so one rank's slow start never runs out another's ``timeout=``.
 `spawn` returns each rank's result, or raises with the failing rank's
 traceback. Workers are spawned (not forked) and import only this package
 and torch.
@@ -49,7 +52,7 @@ def progress() -> None:
         results.put((rank, None, None))
 
 
-def _child(rank, world_size, store, backend, timeout_s, fn, args, results):
+def _child(rank, world_size, store, backend, timeout_s, fn, args, results, start):
     global _reporter
     import torch
     import torch.distributed as dist
@@ -57,11 +60,17 @@ def _child(rank, world_size, store, backend, timeout_s, fn, args, results):
     torch.set_num_threads(1)
     _reporter = (rank, results)
     progress()  # started: its imports are done
+    start.wait()  # every rank has started
     try:
         dist.init_process_group(
             backend, init_method=f"file://{store}", rank=rank,
             world_size=world_size, timeout=datetime.timedelta(seconds=timeout_s),
         )
+        if backend == "gloo":
+            # Every rank's mesh is connected before any rank goes on: one
+            # that finished at once would close its sockets on a peer still
+            # connecting to it ("Connection closed by peer").
+            dist.barrier()
         progress()
         results.put((rank, True, fn(*args)))
     except BaseException:  # the parent re-raises it with this traceback
@@ -83,16 +92,19 @@ def spawn(fn, world_size: int, *args, backend: str = "gloo",
     last progress (its spawn, a rank's `progress` report, a rank's
     result): past it, `spawn` stops every rank and raises TimeoutError.
     Until every rank has reported once (its imports done), the deadline
-    is at least STARTUP_S from the spawn."""
+    is at least STARTUP_S from the spawn and no rank starts its process
+    group; past it, the TimeoutError names the ranks that never started."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
+    start = ctx.Event()
     tmp = tempfile.mkdtemp(prefix="p2p_spawn_")
     store = os.path.join(tmp, "rendezvous")
     procs = [
         ctx.Process(target=_child, daemon=True,
-                    args=(r, world_size, store, backend, timeout_s, fn, args, results))
+                    args=(r, world_size, store, backend, timeout_s, fn, args, results,
+                          start))
         for r in range(world_size)
     ]
     patience = timeout_s + grace
@@ -116,12 +128,19 @@ def spawn(fn, world_size: int, *args, backend: str = "gloo",
                 now = time.monotonic()
                 starting = len(started) < world_size and now < t_spawn + STARTUP_S
                 if now > deadline and not starting:
+                    if len(started) < world_size:
+                        raise TimeoutError(
+                            f"ranks {sorted(set(range(world_size)) - started)} of "
+                            f"{world_size} did not start in time"
+                        ) from None
                     raise TimeoutError(
                         f"ranks {sorted(set(range(world_size)) - set(out))} of "
                         f"{world_size} did not finish in time"
                     ) from None
                 continue
             started.add(rank)
+            if len(started) == world_size:
+                start.set()
             deadline = time.monotonic() + patience
             if ok is None:  # a progress report
                 continue

@@ -64,7 +64,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "serve/scheduler.py", "serve/server.py", "serve/bench.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
                    "parallel/exchange.py", "parallel/async_ticks.py",
-                   "parallel/engine_sharded.py", "parallel/protocols_sharded.py"):
+                   "parallel/engine_sharded.py", "parallel/protocols_sharded.py",
+                   "divergence.py", "protocol_compare.py"):
         assert os.path.join("p2p_gossip_tpu_torch", module) in names
     bad = []
     for path in files:
