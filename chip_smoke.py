@@ -13,7 +13,9 @@ references; ``python3 chip_smoke.py --phase 14a`` runs phases 14 (a) and
 16 (a) alone, the exchange kernels' checks and timings; ``python3
 chip_smoke.py --phase 17`` runs phase 17 alone, the server on a mesh and
 ``scale.py --mesh``; ``python3 chip_smoke.py --phase 18`` runs phase 18
-alone, the divergence bisector and the protocol comparison.)
+alone, the divergence bisector and the protocol comparison; ``python3
+chip_smoke.py --phase 19`` runs the port's benchmark entry point whole,
+``python -m p2p_gossip_tpu_torch.bench``, in a subprocess.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -217,6 +219,18 @@ Phases (any failure raises and the script exits nonzero):
    docs/RESULTS.md's on-chip configuration (ER N = 100,000, p = 0.001, 64
    shares, horizon 96, fanout 3) with the card's walls.
    ``python3 chip_smoke.py --phase 18`` runs it alone.
+19. The benchmark entry point (``p2p_gossip_tpu_torch.bench``): its
+   headline, baseline and flood-campaign legs in this process on phase
+   5's graph, schedule and staging, with 3 timed runs, each run's
+   per-node counters and executed ticks equal to phase 5's timed run;
+   the row's keys the documented set, ``ticks`` phase 5's, the median,
+   runs and spread printed with the card's name and power limit.
+   ``python3 chip_smoke.py --phase 19`` runs ``python -m
+   p2p_gossip_tpu_torch.bench`` whole in a subprocess (every leg: the
+   serve leg's subprocess and the world of 8 gloo ranks included) and
+   requires ``processed`` = 819,200,000, ``ticks`` equal to the flood's on
+   phase 5's graph (run here), every sharded-campaign replica bitwise,
+   the serve leg bitwise and every exchange family ok.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -278,6 +292,9 @@ reads them after it: on the card ``gather_or``, ``coverage_per_slot``,
 ``scatter_deltas`` on every rank of the world's card jobs, each (b) pair's
 kernels and (c)'s flood and protocol kernels; on the CPU (the world's CPU
 job, the CPU halves of (a) and (c)) none.
+Phase 19 zeroes them just before the bench's legs and reads them after
+them (``launches_bench``): ``gather_or``, ``sector_occupancy``,
+``popcount_rows`` and ``coverage_per_slot`` launched.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -1477,7 +1494,7 @@ def main_path(graph, dg, sched, dev):
             f"loss-free main path launched {launches}, not {LOSS_FREE_LAUNCHES}: "
             "the options changed the option-free tick"
         )
-    return launches, dict(tick_ms=tick_ms, rate=totals["processed"] / wall)
+    return launches, dict(tick_ms=tick_ms, rate=totals["processed"] / wall, stats=stats)
 
 
 def options_path(graph, dg, sched, dev, base):
@@ -5205,6 +5222,162 @@ def compare_phase(dev):
     return record
 
 
+# --- phase 19: the benchmark entry point -------------------------------------
+
+BENCH_REPEATS = 3
+# Legs 1-4's kernels: the flood's three and the campaign's coverage count.
+BENCH_KERNELS = ("gather_or", "sector_occupancy", "popcount_rows", "coverage_per_slot")
+BENCH_TIMEOUT_S = 600
+
+
+def bench_config() -> dict:
+    """The bench's headline sizes at this script's (phase 5's) workload."""
+    return dict(nodes=N_NODES, prob=EDGE_P, shares=N_SHARES, gen_window=GEN_WINDOW,
+                horizon=HORIZON, chunk=CHUNK)
+
+
+def check_bench_row(row, phase5, launches, on_card) -> None:
+    """Phase 19's checks of the bench row its legs 1-4 made on phase 5's
+    workload (``phase5``: the main path's timed run): the documented keys,
+    phase 5's ticks and node-updates, ``value`` the median of
+    `BENCH_REPEATS` rates, the card named, and the kernels launched on the
+    card (none on the CPU)."""
+    from p2p_gossip_tpu_torch import bench
+
+    if set(row) != set(bench.ROW_KEYS):
+        raise AssertionError(f"bench row keys {sorted(row)} are not the documented "
+                             f"{sorted(bench.ROW_KEYS)}")
+    if row["ticks"] != phase5.extra["ticks_executed"]:
+        raise AssertionError(f"bench ticks {row['ticks']} != phase 5's "
+                             f"{phase5.extra['ticks_executed']}")
+    if row["processed"] != phase5.totals()["processed"]:
+        raise AssertionError(f"bench processed {row['processed']} != phase 5's")
+    if len(row["runs"]) != BENCH_REPEATS or row["value"] != float(np.median(row["runs"])):
+        raise AssertionError(f"bench value {row['value']} is not the median of {row['runs']}")
+    if on_card and not (row["device"] and row["power_limit"] and row["pct_hbm_peak"]):
+        raise AssertionError(f"bench row does not name the card: {row['device']}, "
+                             f"{row['power_limit']}, pct_hbm_peak {row['pct_hbm_peak']}")
+    check_kernel_launches("phase 19", launches, BENCH_KERNELS, on_card)
+
+
+def bench_phase(graph, dg, sched, dev, phase5):
+    """Phase 19 in the default run: the bench's legs 1-4 (headline with
+    the roofline, baseline, flood campaign) in this process on phase 5's
+    graph, schedule and staging, each timed run's per-node counters and
+    ticks required equal to ``phase5`` (the main path's timed run).
+    Returns the row and the legs' kernel launches."""
+    import torch
+
+    from p2p_gossip_tpu_torch import bench
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    head = bench.headline(graph, sched, dg, bench_config(), BENCH_REPEATS, dev,
+                          reference=phase5)
+    row = dict(head, **bench.baseline(graph, sched, HORIZON, head["value"]))
+    row["campaign"] = bench.campaign(dev)
+    launches = dict(kernels.launches)
+    row.update(dict.fromkeys(bench.MESH_LEGS), serve=None, protocol_campaign=None,
+               telemetry=bench.telemetry_summary())
+    check_bench_row(row, phase5, launches, on_card)
+    c = row["campaign"]
+    log(f"bench (phase 19) on {row['device']}, {row['power_limit']}: median "
+        f"{row['value']:.6e} node-updates/s of runs {row['runs']} (spread {row['spread']:.4f}), "
+        f"{row['ms_per_tick']:.4f} ms/tick, {row['ticks']} ticks == phase 5's, every run's "
+        f"counters == phase 5's; achieved {row['achieved_gbps']} GB/s of must-move bytes = "
+        f"{row['pct_hbm_peak']} % of 3,350 GB/s; vs_baseline {row['vs_baseline']:.2f}; campaign "
+        f"R={c['replicas']} {c['value']:.4e} node-updates/s, {c['wall_s']:.4f} s, warm loop "
+        f"{c['warm_loop_wall_s']:.4f} s; launches {launches}")
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(row=row, launches=launches)
+
+
+def check_bench_whole(row, ticks) -> None:
+    """``--phase 19``'s checks of the whole bench's row: full coverage at
+    bench.py's size, ``ticks`` (a flood's of the bench's graph), every
+    sharded-campaign replica bitwise, the serve leg bitwise, every
+    exchange family ok, the card named."""
+    from p2p_gossip_tpu_torch import bench
+
+    bad = []
+    if set(row) != set(bench.ROW_KEYS):
+        bad.append(f"keys {sorted(set(row) ^ set(bench.ROW_KEYS))}")
+    if row.get("processed") != N_SHARES * N_NODES:
+        bad.append(f"processed {row.get('processed')} != {N_SHARES * N_NODES}")
+    if row.get("ticks") != ticks:
+        bad.append(f"ticks {row.get('ticks')} != {ticks}")
+    if len(row.get("runs") or []) < BENCH_REPEATS:
+        bad.append(f"runs {row.get('runs')}")
+    cs = row.get("campaign_sharded") or {}
+    if not cs or cs.get("bitwise_equal_replicas") != cs.get("replicas"):
+        bad.append(f"campaign_sharded {cs.get('bitwise_equal_replicas')} of "
+                   f"{cs.get('replicas')} replicas bitwise")
+    if (row.get("serve") or {}).get("bitwise_ok") is not True:
+        bad.append(f"serve bitwise_ok {(row.get('serve') or {}).get('bitwise_ok')}")
+    families = (row.get("exchange") or {}).get("families") or []
+    if not families or not all(f.get("ok") for f in families):
+        bad.append(f"exchange families {[(f.get('family'), f.get('ok')) for f in families]}")
+    if len((row.get("async_ticks") or {}).get("legs") or []) != 2 + len(bench.ASYNC_KS):
+        bad.append("async_ticks legs")
+    if not (row.get("device") and row.get("power_limit")):
+        bad.append(f"device {row.get('device')}, power_limit {row.get('power_limit')}")
+    if bad:
+        raise AssertionError("python -m p2p_gossip_tpu_torch.bench: " + "; ".join(bad))
+
+
+def phase_19_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 19``: ``python -m
+    p2p_gossip_tpu_torch.bench`` whole in a subprocess, its row held to
+    `check_bench_whole`, ``ticks`` to one flood of the bench's own graph
+    and schedule (`bench.workload`: the C++ builder's graph), run here
+    first, which also builds the kernels. Prints the row; the default run
+    (every phase) is the script's contract."""
+    import torch
+
+    from p2p_gossip_tpu_torch import bench
+    from p2p_gossip_tpu_torch.engine.sync import run_sync_sim
+    from p2p_gossip_tpu_torch.ops import build
+
+    t_start = time.perf_counter()
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    cfg = bench.FULL
+    graph, sched, dg = bench.workload(cfg, dev)
+    ticks = run_sync_sim(graph, sched, cfg["horizon"], chunk_size=cfg["chunk"], device_graph=dg,
+                         device=dev).extra["ticks_executed"]
+    log(f"the bench's flood (its graph): {ticks} ticks ({time.perf_counter() - t_start:.1f} s)")
+    del graph, dg
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "p2p_gossip_tpu_torch.bench"],
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    sys.stderr.write(proc.stderr[-8000:])
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m p2p_gossip_tpu_torch.bench exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} lines on stdout, not 1")
+    row = json.loads(lines[0])
+    check_bench_whole(row, ticks)
+    log(f"python -m p2p_gossip_tpu_torch.bench: {wall:.1f} s; median {row['value']:.6e} "
+        f"node-updates/s of runs {row['runs']} (spread {row['spread']:.4f}), "
+        f"{row['ms_per_tick']:.4f} ms/tick, {row['ticks']} ticks, on {row['device']}, "
+        f"{row['power_limit']}; every leg's checks passed")
+    log(json.dumps({"phase19_bench": row}))
+    log(f"--phase 19 took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def phase_18_alone(dev) -> int:
     """``python3 chip_smoke.py --phase 18``: phase 18 by itself (it needs
     no earlier phase's results). Prints its records; the default run
@@ -5394,6 +5567,8 @@ def main() -> int:
         return phase_17_alone(dev)
     if sys.argv[1:3] == ["--phase", "18"]:
         return phase_18_alone(dev)
+    if sys.argv[1:3] == ["--phase", "19"]:
+        return phase_19_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -5475,7 +5650,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bisect_phase(dev)
     compare_phase(dev)
-    log(f"chip_smoke phases 1-18 took {time.perf_counter() - t_start:.1f} s")
+    bench19 = bench_phase(graph, dg, sched, dev, base["stats"])
+    log(f"chip_smoke phases 1-19 took {time.perf_counter() - t_start:.1f} s")
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -5636,6 +5812,7 @@ def main() -> int:
                for mode, _ in SHARDED_MODES + CAMPAIGN_PROTOCOL_MODES},
             **{f"launches_serve_mesh_{ex}": serve17["drains"][ex]["launches"][name]
                for ex in SERVE_MESH_EXCHANGES},
+            "launches_bench": bench19["launches"][name],
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))
