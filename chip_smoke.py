@@ -15,7 +15,9 @@ chip_smoke.py --phase 17`` runs phase 17 alone, the server on a mesh and
 ``scale.py --mesh``; ``python3 chip_smoke.py --phase 18`` runs phase 18
 alone, the divergence bisector and the protocol comparison; ``python3
 chip_smoke.py --phase 19`` runs the port's benchmark entry point whole,
-``python -m p2p_gossip_tpu_torch.bench``, in a subprocess.)
+``python -m p2p_gossip_tpu_torch.bench``, in a subprocess; ``python3
+chip_smoke.py --phase 20`` runs phase 20 alone, the static-analysis gate on
+the card.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -231,6 +233,21 @@ Phases (any failure raises and the script exits nonzero):
    requires ``processed`` = 819,200,000, ``ticks`` equal to the flood's on
    phase 5's graph (run here), every sharded-campaign replica bitwise,
    the serve leg bitwise and every exchange family ok.
+20. The port's static-analysis gate on the card
+   (``p2p_gossip_tpu_torch.staticcheck``): the op audit of every
+   registered entry (the single-device ones in this process, the sharded
+   ones on one NCCL rank) on CUDA tensors, under the dispatch recorder and
+   ``torch.cuda.set_sync_debug_mode("warn")`` (restored after), beside the
+   same audit on the CPU (the sharded entries' on a spawned world of one
+   gloo rank); the telemetry-off check; the build half of the staging
+   sentinel. It fails on any rule's violation, on an entry whose host
+   reads a tick on the card differ from the CPU audit's, on a sync CUDA
+   flags beyond an entry's budget (the CPU audit's host reads and host
+   stagings), on an entry whose launched kernels are not the plain twins
+   its CPU audit called, and on a kernel no entry launched
+   (``scatter_or_atomic``, kept for phase 3's A/B, excepted). Its
+   ``staticcheck`` line gives each entry's host reads a tick, the syncs
+   CUDA flagged and its launches by kernel.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -295,6 +312,9 @@ job, the CPU halves of (a) and (c)) none.
 Phase 19 zeroes them just before the bench's legs and reads them after
 them (``launches_bench``): ``gather_or``, ``sector_occupancy``,
 ``popcount_rows`` and ``coverage_per_slot`` launched.
+Phase 20 reads each audited entry's launches as the change of the counts
+over its call (``launches_staticcheck``: the sum over the entries): every
+kernel but ``scatter_or_atomic`` launched by some entry.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -5281,8 +5301,10 @@ def bench_phase(graph, dg, sched, dev, phase5):
     row = dict(head, **bench.baseline(graph, sched, HORIZON, head["value"]))
     row["campaign"] = bench.campaign(dev)
     launches = dict(kernels.launches)
+    # staticcheck_ok: null here, as the mesh legs are; phase 20 runs the gate
+    # itself, on the card.
     row.update(dict.fromkeys(bench.MESH_LEGS), serve=None, protocol_campaign=None,
-               telemetry=bench.telemetry_summary())
+               telemetry=bench.telemetry_summary(), staticcheck_ok=None)
     check_bench_row(row, phase5, launches, on_card)
     c = row["campaign"]
     log(f"bench (phase 19) on {row['device']}, {row['power_limit']}: median "
@@ -5325,8 +5347,135 @@ def check_bench_whole(row, ticks) -> None:
         bad.append("async_ticks legs")
     if not (row.get("device") and row.get("power_limit")):
         bad.append(f"device {row.get('device')}, power_limit {row.get('power_limit')}")
+    if row.get("staticcheck_ok") is not True:
+        bad.append(f"staticcheck_ok {row.get('staticcheck_ok')}")
     if bad:
         raise AssertionError("python -m p2p_gossip_tpu_torch.bench: " + "; ".join(bad))
+
+
+def check_staticcheck(cpu: dict, card: dict, on_card: bool) -> list[str]:
+    """Phase 20's cross-checks of the card's audit against the CPU's, per
+    entry: host reads a tick equal; syncs CUDA flagged within the budget
+    of the CPU audit's host reads and stagings; the kernels launched the
+    plain twins the CPU audit called. On the CPU (a rehearsal) both sides
+    ran the plain twins and flagged no sync."""
+    bad = []
+    want = {r["entry"]: r for r in cpu["entries"]}
+    for r in card["entries"]:
+        c = want.get(r["entry"])
+        if c is None:
+            bad.append(f"{r['entry']}: no CPU audit")
+            continue
+        if r.get("host_reads_per_tick") != c.get("host_reads_per_tick"):
+            bad.append(f"{r['entry']}: {r.get('host_reads_per_tick')} host reads a tick on "
+                       f"the card, {c.get('host_reads_per_tick')} on the CPU")
+        if on_card and r.get("syncs") is not None and r["syncs"] > c["host_reads"] + c["h2d"]:
+            bad.append(f"{r['entry']}: {r['syncs']} syncs flagged, budget "
+                       f"{c['host_reads']} host reads + {c['h2d']} stagings "
+                       f"(at {r.get('sync_sites')})")
+        if set(r.get("kernels") or {}) != set(c.get("kernels") or {}):
+            bad.append(f"{r['entry']}: launched {sorted(r.get('kernels') or {})}, its CPU "
+                       f"audit's plain twins {sorted(c.get('kernels') or {})}")
+    return bad
+
+
+def staticcheck_phase(dev) -> dict:
+    """Phase 20: the static-analysis gate on ``dev``
+    (`p2p_gossip_tpu_torch.staticcheck`), beside the same audit on the CPU.
+    Raises on any violation or disagreement (`check_staticcheck`) and on a
+    kernel no entry launched. Returns the ``staticcheck`` line's record
+    and the launches by kernel summed over the entries."""
+    import concurrent.futures
+
+    import torch
+    import torch.distributed as dist
+
+    from p2p_gossip_tpu_torch.parallel import launch
+    from p2p_gossip_tpu_torch.parallel.mesh import default_backend, initialize_multihost
+    from p2p_gossip_tpu_torch.staticcheck import op_audit, restage, telemetry_off
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    mode = torch.cuda.get_sync_debug_mode() if on_card else None
+    # The sharded entries' CPU audit runs beside the card's, in two halves,
+    # each in a world of one gloo rank (the card's sharded entries run on
+    # one rank); the single-device entries' CPU audit runs here after the
+    # card's.
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    cpu_worlds = [pool.submit(launch.spawn, op_audit.sharded_audit, 1, "cpu", False, (k, 2))
+                  for k in range(2)]
+    split = {}
+    t0 = time.perf_counter()
+    card = op_audit.run_audit(device=str(dev), sync_debug=on_card)
+    split["card_audit"] = time.perf_counter() - t0
+    tel = telemetry_off.run_telemetry_check(device=str(dev))
+    build = restage.build_sentinel() if on_card else {"violations": []}
+    split["telemetry_build"] = time.perf_counter() - t0 - split["card_audit"]
+    initialize_multihost(backend=default_backend(dev), device=dev)
+    try:
+        sharded = op_audit.sharded_audit(str(dev), on_card)
+    finally:
+        dist.destroy_process_group()
+    split["sharded"] = time.perf_counter() - t0 - sum(split.values())
+    cpu = op_audit.run_audit(device="cpu")
+    split["cpu_audit"] = time.perf_counter() - t0 - sum(split.values())
+    halves = [f.result()[0] for f in cpu_worlds]
+    pool.shutdown()
+    cpu_sharded = dict(entries=[r for h in halves for r in h["entries"]],
+                       violations=[v for h in halves for v in h["violations"]],
+                       telemetry=dict(violations=[v for h in halves
+                                                  for v in h["telemetry"]["violations"]]))
+    split["cpu_wait"] = time.perf_counter() - t0 - sum(split.values())
+    split["cpu_audits"] = sum(r["wall_s"] for r in cpu["entries"] + cpu_sharded["entries"])
+    if on_card and torch.cuda.get_sync_debug_mode() != mode:
+        raise RuntimeError("phase 20: the sync-debug mode was not restored")
+    violations = (cpu["violations"] + card["violations"] + tel["violations"]
+                  + build["violations"] + sharded["violations"]
+                  + sharded["telemetry"]["violations"] + cpu_sharded["violations"]
+                  + cpu_sharded["telemetry"]["violations"])
+    entries = card["entries"] + sharded["entries"]
+    violations += op_audit.kernel_coverage(entries)
+    bad = [f"[{v['rule']}] {v.get('entry', '')} {v['message']}" for v in violations]
+    bad += check_staticcheck(dict(entries=cpu["entries"] + cpu_sharded["entries"]),
+                             dict(entries=entries), on_card)
+    if bad:
+        raise RuntimeError("phase 20: the static-analysis gate failed:\n  "
+                           + "\n  ".join(bad))
+    launches: dict = {}
+    for r in entries:
+        for name, n in (r.get("kernels") or {}).items():
+            launches[name] = launches.get(name, 0) + n
+    record = {r["entry"]: {"host_reads_per_tick": r["host_reads_per_tick"],
+                           "syncs": r["syncs"], "launches": r["kernels"]} for r in entries}
+    wall = time.perf_counter() - t_phase
+    log(f"phase 20: {len(entries)} entries ({sharded['entries_audited']} sharded on one "
+        f"{default_backend(dev)} rank), {tel['pairs_checked']} + "
+        f"{sharded['telemetry']['pairs_checked']} telemetry pairs, clean; host reads a tick "
+        f"equal to the CPU audit's; second build {build.get('second_build_s')} s; "
+        f"launches {launches}")
+    log(f"phase 20 took {wall:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in split.items()))
+    return dict(record=record, launches=launches, wall_s=wall)
+
+
+def phase_20_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 20``: phase 20 by itself, after the
+    kernels' build. Prints its ``staticcheck`` line; the default run (every
+    phase) is the script's contract."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import build
+
+    t_start = time.perf_counter()
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    phase20 = staticcheck_phase(dev)
+    print(json.dumps({"staticcheck": phase20["record"]}))
+    log(f"--phase 20 took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
 
 
 def phase_19_alone(dev) -> int:
@@ -5569,6 +5718,8 @@ def main() -> int:
         return phase_18_alone(dev)
     if sys.argv[1:3] == ["--phase", "19"]:
         return phase_19_alone(dev)
+    if sys.argv[1:3] == ["--phase", "20"]:
+        return phase_20_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -5651,7 +5802,9 @@ def main() -> int:
     bisect_phase(dev)
     compare_phase(dev)
     bench19 = bench_phase(graph, dg, sched, dev, base["stats"])
-    log(f"chip_smoke phases 1-19 took {time.perf_counter() - t_start:.1f} s")
+    phase20 = staticcheck_phase(dev)
+    print(json.dumps({"staticcheck": phase20["record"]}))
+    log(f"chip_smoke phases 1-20 took {time.perf_counter() - t_start:.1f} s")
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -5813,6 +5966,7 @@ def main() -> int:
             **{f"launches_serve_mesh_{ex}": serve17["drains"][ex]["launches"][name]
                for ex in SERVE_MESH_EXCHANGES},
             "launches_bench": bench19["launches"][name],
+            "launches_staticcheck": phase20["launches"].get(name, 0),
             **{k: v for k, v in m.items() if k not in base_keys},
         })
     print(json.dumps({"kernels": record}))

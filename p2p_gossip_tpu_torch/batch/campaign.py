@@ -880,3 +880,24 @@ def run_protocol_campaign(
         batch_size=batch_size,
         coverage=coverage,
     )
+
+
+# --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
+# A campaign batch is the tick engine's loop with B replicas stacked along
+# the rows: the JAX package's ``_audit_spec_batch`` (B = 2, the loss coin on,
+# one loss seed a replica) through `engine.sync._audit_spec`.
+
+from p2p_gossip_tpu_torch.engine import sync as _sync  # noqa: E402
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+for _kind, _fn, _jax in (("while", _sync._run_chunk_while, "batch.campaign._run_while_batch"),
+                         ("coverage", _sync._run_chunk_coverage,
+                          "batch.campaign._run_coverage_batch")):
+    _bodies = _sync._tick_bodies(_fn)
+    register_entry(f"engine.sync.{_fn.__name__}[replicas]", _fn,
+                   spec=lambda k=_kind: _sync._audit_spec(k, replicas=2), counterpart=_jax,
+                   host_reads_per_tick=1, tick_bodies=_bodies)
+    register_entry(f"engine.sync.{_fn.__name__}[replicas][telemetry]", _fn,
+                   spec=lambda k=_kind: _sync._audit_spec(k, telemetry=True, replicas=2),
+                   counterpart=f"{_jax}[telemetry]", host_reads_per_tick=1,
+                   tick_bodies=_bodies + _sync._TELEMETRY_BODIES)

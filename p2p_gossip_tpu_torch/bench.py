@@ -18,8 +18,8 @@ copy of the counters and each required to equal the warm-up's counters;
 ``value`` is the median of the K rates, ``runs`` every rate, ``spread``
 (max - min) / median.
 
-The row, key by key (bench.py's, without ``staticcheck_ok`` and ``cost``,
-which read jaxprs and XLA's cost analysis):
+The row, key by key (bench.py's, without ``cost``, which reads XLA's
+cost analysis):
 
 - ``metric``, ``value``, ``unit``, ``ticks``: as bench.py, the metric
   naming the card (``torch.cuda.get_device_name``) or "CPU";
@@ -47,7 +47,11 @@ which read jaxprs and XLA's cost analysis):
   (`parallel.launch.spawn`) at the JAX scripts' sizes, each labelled
   ``"platform": "cpu"``;
 - ``telemetry``: host spans by phase (device rings stay off), the event
-  count and the stream (``P2P_TELEMETRY``).
+  count and the stream (``P2P_TELEMETRY``);
+- ``staticcheck_ok``: whether the port's static-analysis gate (``python
+  -m p2p_gossip_tpu_torch.staticcheck --json --device cpu``, run in a
+  subprocess before the warm-up, outside every timed window) passed: true
+  or false; a gate that crashes or times out raises.
 
 ``serve`` and the mesh legs are null with ``--smoke``, as in bench.py.
 With ``P2P_BENCH_PROFILE_DIR`` set, one extra timed run goes under
@@ -101,7 +105,9 @@ ROW_KEYS = (
     "metric", "value", "unit", "runs", "spread", "ticks", "ms_per_tick", "processed",
     "device", "power_limit", "vs_baseline", "achieved_gbps", "pct_hbm_peak",
     "modeled_bytes_total", *MESH_LEGS, "serve", "campaign", "protocol_campaign", "telemetry",
+    "staticcheck_ok",
 )
+STATICCHECK_TIMEOUT_S = 600
 PROFILE_KEYS = ("profiled", "profile_trace", "profiled_wall_s", "busy_share", "top_kernels")
 
 
@@ -671,6 +677,29 @@ def mesh_legs(smoke: bool = False) -> dict:
     return out
 
 
+def staticcheck_ok() -> bool:
+    """The port's static-analysis gate on the CPU, in a subprocess: its
+    JSON report's ``ok``. Raises if the gate crashed (no report) or timed
+    out."""
+    from p2p_gossip_tpu_torch.telemetry import span
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    with span("staticcheck"):
+        proc = subprocess.run(
+            [sys.executable, "-m", "p2p_gossip_tpu_torch.staticcheck", "--json",
+             "--device", "cpu"],
+            capture_output=True, text=True, timeout=STATICCHECK_TIMEOUT_S, cwd=root)
+    lines = proc.stdout.strip().splitlines()
+    report = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+    if proc.returncode not in (0, 1) or report is None or report["ok"] != (proc.returncode == 0):
+        raise RuntimeError(f"the static-analysis gate crashed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    log(f"staticcheck: {'ok' if report['ok'] else 'FAIL'}, {report['violations_total']} "
+        f"violation(s) in {time.perf_counter() - t0:.1f}s")
+    return bool(report["ok"])
+
+
 # --- telemetry and the profiled run -----------------------------------------
 
 
@@ -754,6 +783,7 @@ def main(argv=None) -> int:
     # Host spans only: the device rings would change the kernels timed.
     telemetry.configure(os.environ.get("P2P_TELEMETRY") or None, rings=False)
     try:
+        gate_ok = staticcheck_ok()
         graph, sched, dg = workload(cfg, device)
         head = headline(graph, sched, dg, cfg, args.repeats, device, smoke=args.smoke,
                         profile_dir=os.environ.get("P2P_BENCH_PROFILE_DIR") or None)
@@ -763,6 +793,7 @@ def main(argv=None) -> int:
         row.update(mesh_legs(args.smoke))
         row["serve"] = serve(device, args.smoke)
         row["telemetry"] = telemetry_summary()
+        row["staticcheck_ok"] = gate_ok
     finally:
         telemetry.close()
     line = json.dumps(row)

@@ -896,3 +896,74 @@ def time_to_coverage(coverage: np.ndarray, n: int, fraction: float = 0.99):
     target = int(np.ceil(fraction * n))
     hit = coverage >= target
     return np.where(hit.any(axis=0), hit.argmax(axis=0), -1)
+
+
+# --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
+# The JAX package's ``_audit_spec_chunk_while`` / ``_chunk_coverage``: ER(48,
+# 0.2), 32 shares, horizon 16. The loops' one host read a tick is the
+# in-flight flag, ``bool(nonzero)`` (`_run_chunk_while`, `_run_chunk_coverage`).
+
+_SYNC = "p2p_gossip_tpu_torch/engine/sync.py"
+_TELEMETRY_BODIES = ("p2p_gossip_tpu_torch/telemetry/rings.py:flood_row",
+                     "p2p_gossip_tpu_torch/telemetry/digest.py:write")
+_AUDIT_TICKS = 8  # the ticks the specs run: the flood of their four shares quiesces
+
+
+def _tick_bodies(loop) -> tuple:
+    """A tick loop's once-a-tick code: its loop, `_tick` and what it calls."""
+    return (f"{_SYNC}:{loop.__name__}[loop]", f"{_SYNC}:_tick", f"{_SYNC}:_gather",
+            f"{_SYNC}:apply_tick_updates")
+
+
+def _audit_spec(kind: str, telemetry: bool = False, replicas: int = 1):
+    """``kind`` "while" or "coverage"; ``replicas`` B > 1 stacks B copies of
+    the case as a campaign batch (`batch.campaign`'s specs), with the loss
+    coin on and one loss seed a replica (the JAX package's
+    ``_audit_spec_batch``)."""
+    from p2p_gossip_tpu_torch.staticcheck import specs
+    from p2p_gossip_tpu_torch.staticcheck.registry import AuditSpec
+
+    chunk, horizon = 32, 16
+    dg, origins, gen_ticks, last_gen = specs.flood_inputs(chunk, horizon)
+    opts = NO_OPTIONS
+    if replicas > 1:
+        origins = (origins[None, :] + torch.arange(replicas, device=dg.device)[:, None]
+                   * dg.n).reshape(-1)
+        gen_ticks = gen_ticks.repeat(replicas)
+        seeds = specs.tensor(np.arange(replicas), np.int32)
+        opts = TickOptions(loss=(1 << 20, seeds), replicas=replicas,
+                           degree=dg.degree.repeat(replicas))
+    kwargs = dict(chunk_size=chunk, horizon=horizon, opts=opts)
+    if kind == "coverage":
+        kwargs["coverage_slots"] = 4
+        args = (dg, origins, gen_ticks)
+        out = ("int32",) * 4  # seen, received, sent, coverage
+        setup = 1  # gen_ticks.cpu(): the chunk's last generation tick, once
+    else:
+        args = (dg, origins, gen_ticks, 0, last_gen)
+        out = ("int32",) * 4  # seen, received, sent, snaps
+        setup = 0
+    # JAX's `_run_while_batch` returns no snapshot rows.
+    counterpart = (0, 1, 2, None if kind == "while" and replicas > 1 else 3)
+    if telemetry:
+        kwargs["rings"] = tel_rings.chunk_rings(horizon, dg.device,
+                                                replicas if replicas > 1 else None)
+    return AuditSpec(
+        args=args, kwargs=kwargs, integer_only=True, bitmask_words=1,
+        bitmask_outputs=(0,), out_dtypes=out, counterpart_outputs=counterpart,
+        ticks=_AUDIT_TICKS, setup_reads=setup, off_kwargs=dict(kwargs, rings=None),
+    )
+
+
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+for _kind, _fn, _jax in (("while", _run_chunk_while, "engine.sync._run_chunk_while"),
+                         ("coverage", _run_chunk_coverage, "engine.sync._run_chunk_coverage")):
+    _bodies = _tick_bodies(_fn)
+    register_entry(f"engine.sync.{_fn.__name__}", _fn,
+                   spec=lambda k=_kind: _audit_spec(k), counterpart=_jax,
+                   host_reads_per_tick=1, tick_bodies=_bodies)
+    register_entry(f"engine.sync.{_fn.__name__}[telemetry]", _fn,
+                   spec=lambda k=_kind: _audit_spec(k, telemetry=True),
+                   counterpart=f"{_jax}[telemetry]", host_reads_per_tick=1,
+                   tick_bodies=_bodies + _TELEMETRY_BODIES)

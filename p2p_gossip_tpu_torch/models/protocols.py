@@ -800,3 +800,65 @@ def pushk_oracle(
         processed=generated + received,
         degree=graph.degree.astype(np.int64),
     )
+
+
+# --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
+# The JAX package's ``_audit_spec_solo`` / ``_audit_spec_replicas``: ER(48,
+# 0.2) full-width, 32 shares, 8 rounds, coverage recorded, the loss coin on;
+# the campaign form stacks B = 2 replicas with their own pick and loss seeds.
+# The round loop reads nothing on the host; a chunk stages its generation
+# events once (`_gen_events`: word, bit and origin, three host constants).
+
+_PROTOCOLS = "p2p_gossip_tpu_torch/models/protocols.py"
+_AUDIT_ROUNDS = 8
+
+
+def _audit_spec(mode: str, telemetry: bool = False, replicas: int = 1):
+    from p2p_gossip_tpu_torch.staticcheck import specs
+    from p2p_gossip_tpu_torch.staticcheck.registry import AuditSpec
+
+    chunk, horizon = 32, _AUDIT_ROUNDS
+    dg, origins, gen_ticks = specs.partnered_inputs(chunk, horizon)
+    dev, b = dg.device, replicas
+    c = 2 if mode == "pushk" else 1
+    nodes = torch.arange(b * dg.n, dtype=torch.int64, device=dev) % dg.n
+    picks = torch.arange(c, dtype=torch.int64, device=dev)
+    loss = (1 << 20, 7)
+    if b == 1:
+        key = pick_key(nodes[:, None], picks[None, :], 42)
+    else:
+        origins = (origins[None, :].astype(np.int64)
+                   + np.arange(b)[:, None] * dg.n).reshape(-1)
+        gen_ticks = np.tile(gen_ticks, b)
+        row_seeds = specs.tensor(np.arange(b), np.int32).repeat_interleave(dg.n)
+        key = pick_key(nodes[:, None], picks[None, :], row_seeds[:, None])
+        loss = (1 << 20, specs.tensor(np.arange(b) + 11, np.int32)
+                .repeat_interleave(dg.n)[None, :, None])
+    kwargs = dict(mode=mode, chunk_size=chunk, horizon=horizon, n_cov=chunk, plain=False,
+                  replicas=b)
+    if telemetry:
+        kwargs["rings"] = tel_rings.chunk_rings(horizon, dev, b if b > 1 else None)
+    return AuditSpec(
+        args=(dg, origins, gen_ticks, key, None, None, loss), kwargs=kwargs,
+        integer_only=True, bitmask_words=1, bitmask_outputs=(3,),
+        # received, sent (the JAX package's two uint32 halves), coverage, ring
+        out_dtypes=("int32", "int64", "int32", "int32"),
+        counterpart_outputs=(1, (2, 3), 4, 0),
+        ticks=horizon, h2d=3, off_kwargs=dict(kwargs, rings=None),
+    )
+
+
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+for _mode, _jax in (("pushpull", "_run_pushpull"), ("pushk", "_run_pushk")):
+    for _b, _tag, _jname in ((1, _mode, _jax), (2, f"{_mode}-replicas", f"{_jax}_replicas")):
+        _bodies = (f"{_PROTOCOLS}:_run_chunk[loop]", f"{_PROTOCOLS}:_draw_rounds",
+                   f"{_PROTOCOLS}:_push_plan")
+        register_entry(f"models.protocols._run_chunk[{_tag}]", _run_chunk,
+                       spec=lambda m=_mode, b=_b: _audit_spec(m, replicas=b),
+                       counterpart=f"models.protocols.{_jname}", tick_bodies=_bodies)
+        register_entry(f"models.protocols._run_chunk[{_tag}][telemetry]", _run_chunk,
+                       spec=lambda m=_mode, b=_b: _audit_spec(m, telemetry=True, replicas=b),
+                       counterpart=f"models.protocols.{_jname}[telemetry]",
+                       tick_bodies=_bodies + (f"{_PROTOCOLS}:_RoundTelemetry.gather",
+                                              f"{_PROTOCOLS}:_RoundTelemetry.round"))

@@ -66,3 +66,37 @@ def slot_scatter(
     out = torch.zeros((n_nodes * n_words,), dtype=torch.int32, device=rows.device)
     out.index_add_(0, flat, vals)
     return out.view(n_nodes, n_words)
+
+
+# --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
+
+def _audit_spec(kind: str):
+    """N = 8 rows, W = 2 words (the JAX package's ``_audit_spec``)."""
+    import numpy as np
+
+    from p2p_gossip_tpu_torch.staticcheck import specs
+    from p2p_gossip_tpu_torch.staticcheck.registry import AuditSpec
+
+    n, w = 8, 2
+    rng = np.random.default_rng(0)
+    if kind == "cov":
+        return AuditSpec(fn=lambda seen: coverage_per_slot(seen, w * WORD_BITS - 3),
+                         args=(specs.words(rng, (n, w)),), integer_only=True,
+                         bitmask_words=w, bitmask_args=(0,), out_dtypes=("int32",),
+                         counterpart_outputs=(0,))
+    s = w * WORD_BITS
+    return AuditSpec(
+        fn=lambda rows, slots, active: slot_scatter(n, w, rows, slots, active),
+        args=(specs.tensor(rng.integers(0, n, s), np.int32),
+              specs.tensor(np.arange(s), np.int32), specs.tensor(rng.random(s) < 0.5)),
+        integer_only=True, bitmask_words=w, bitmask_outputs=(0,), out_dtypes=("int32",),
+        counterpart_outputs=(0,),
+    )
+
+
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+register_entry("ops.bitmask.coverage_per_slot", coverage_per_slot,
+               spec=lambda: _audit_spec("cov"), counterpart="ops.bitmask.coverage_per_slot")
+register_entry("ops.bitmask.slot_scatter", slot_scatter, spec=lambda: _audit_spec("scatter"),
+               counterpart="ops.bitmask.slot_scatter")

@@ -366,3 +366,39 @@ def shard_buckets(cnt, width: int, rows_fn, n_shards: int, *,
         else:
             buckets.append((rows_arr[0], idx_arr[0], msk_arr[0]))
     return tuple(buckets)
+
+
+# --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
+
+def _audit_spec(kind: str):
+    """8 rows, degree cap 3, W = 2 words, the loss coin on (the JAX
+    package's ``_audit_spec_propagate``), on a random ring."""
+    from p2p_gossip_tpu_torch.staticcheck import specs
+    from p2p_gossip_tpu_torch.staticcheck.registry import AuditSpec
+
+    rng = np.random.default_rng(0)
+    n, dmax, w, ring = 8, 3, 2, 2
+    hist = specs.words(rng, (ring, n, w))
+    idx = specs.tensor(rng.integers(0, n, (n, dmax)), np.int32)
+    msk = specs.tensor(rng.random((n, dmax)) < 0.8)
+    common = dict(integer_only=True, bitmask_words=w, bitmask_args=(0,), bitmask_outputs=(0,),
+                  out_dtypes=("int32",), counterpart_outputs=(0,))
+    loss = (1 << 20, 3)
+    if kind == "frontier":
+        return AuditSpec(args=(hist[0], 1, idx, msk), kwargs=dict(loss=loss), **common)
+    if kind == "uniform":
+        return AuditSpec(args=(hist, 1, idx, msk),
+                         kwargs=dict(ring_size=ring, uniform_delay=1, loss=loss), **common)
+    dly = specs.tensor(rng.integers(1, ring, (n, dmax)), np.int32)
+    return AuditSpec(args=(hist, 1, idx, dly, msk), kwargs=dict(ring_size=ring, loss=loss),
+                     **common)
+
+
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+register_entry("ops.ell.propagate", propagate, spec=lambda: _audit_spec("per_edge"),
+               counterpart="ops.ell.propagate")
+register_entry("ops.ell.propagate_uniform", propagate_uniform,
+               spec=lambda: _audit_spec("uniform"), counterpart="ops.ell.propagate_uniform")
+register_entry("ops.ell.gather_or_frontier", gather_or_frontier,
+               spec=lambda: _audit_spec("frontier"), counterpart="ops.ell.gather_or_frontier")

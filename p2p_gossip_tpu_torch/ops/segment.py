@@ -46,3 +46,30 @@ def scatter_or(
         out = torch.empty((n_rows, payload.shape[1]), dtype=torch.int32,
                           device=payload.device)
     return kernels.scatter_or(payload, offsets, entries, base=base, out=out, plain=plain)
+
+
+# --- audit spec (staticcheck/: the op audit runs this tiny case) ------------
+
+def _audit_spec():
+    """M = 6 payload rows of W = 2 words into 8 rows (the JAX package's
+    ``_audit_spec_scatter``)."""
+    import numpy as np
+
+    from p2p_gossip_tpu_torch.staticcheck import specs
+    from p2p_gossip_tpu_torch.staticcheck.registry import AuditSpec
+
+    m, w, n_rows = 6, 2, 8
+    rng = np.random.default_rng(0)
+    return AuditSpec(
+        fn=lambda dst, payload, mask: scatter_or(n_rows, dst, payload, mask),
+        args=(specs.tensor(rng.integers(0, n_rows, m), np.int32), specs.words(rng, (m, w)),
+              specs.tensor(rng.random(m) < 0.8)),
+        integer_only=True, bitmask_words=w, bitmask_args=(1,), bitmask_outputs=(0,),
+        out_dtypes=("int32",), counterpart_outputs=(0,),
+    )
+
+
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+register_entry("ops.segment.scatter_or", scatter_or, spec=_audit_spec,
+               counterpart="ops.segment.scatter_or")

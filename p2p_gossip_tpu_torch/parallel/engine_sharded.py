@@ -1133,3 +1133,64 @@ def run_sharded_flood_coverage(
     stats.extra["ticks_executed"] = out["ticks"]
     stats.extra["resident_bytes"] = runner.resident_bytes(horizon_ticks, cov_slots)
     return stats, coverage
+
+
+# --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
+# The JAX package's ``_audit_spec_flood_runner``: ER(16, 0.3), a 32-share
+# pass, horizon 16, two shares at node 0 on tick 0, on a mesh of every rank
+# of the world along the nodes axis (a (replicas, nodes) mesh and 2 local
+# replicas for the campaign forms). A rank runs the pass it would in
+# `run_sharded_sim`: the tick's one host read is the mesh vector
+# (`_Runner.run_pass`'s ``vec.tolist()``); a telemetry row on delta also
+# stages its fallback counts (`_Runner._telemetry_row`). A call stages the
+# pass's rows, liveness and ticks once (three host constants) and reads the
+# summed counters back once (and each ring, telemetry on).
+
+_SHARDED = "p2p_gossip_tpu_torch/parallel/engine_sharded.py"
+_FLOOD_BODIES = tuple(f"{_SHARDED}:_Runner.{m}" for m in (
+    "run_pass[loop]", "_read", "_gather", "_landed", "_rebuild", "_overlay_own", "_prefetch",
+    "_flagged", "_gather_rows"))
+
+
+def _audit_spec(exchange: str = "dense", telemetry: bool = False, campaign: bool = False):
+    from p2p_gossip_tpu_torch.staticcheck import op_audit, specs
+    from p2p_gossip_tpu_torch.staticcheck.registry import AuditSpec
+
+    graph = specs.sharded_graph()
+    mesh = op_audit.audit_mesh("replicas" if campaign else "shares")
+    chunk, horizon, rb = 32, 16, (2 if campaign else 1)
+    sg = stage_sharded_graph(graph, mesh)
+    plan, need, hub = _plan(sg, mesh, chunk, "auto", exchange, 2,
+                            8 if exchange.endswith("hub") else None, None)
+    runner = _Runner(plan, mesh, sg, need, hub, None, None, 0, telemetry, False,
+                     replicas=rb if campaign else 0)
+    origins = np.zeros((rb, chunk), dtype=np.int32)
+    gen_ticks = np.full((rb, chunk), horizon, dtype=np.int32)
+    gen_ticks[:, :2] = 0
+    out = ("int32", "int64") + (("int64", "int32") if telemetry else ())
+    return AuditSpec(
+        fn=runner.run_pass, args=(origins, gen_ticks, 0, 0, horizon, []),
+        integer_only=True, bitmask_words=bitmask.num_words(chunk),
+        # the summed counters, the exchange counters a replica; the rings
+        out_dtypes=out, counterpart_outputs=(0, None) + ((None, None) if telemetry else ()),
+        ticks=lambda result: result["ticks"], setup_reads=1 + (2 if telemetry else 0), h2d=3,
+    )
+
+
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+for _tag, _kw in (("", {}), ("[telemetry]", dict(telemetry=True)),
+                  ("[delta]", dict(exchange="delta")), ("[hub]", dict(exchange="hub")),
+                  ("[async]", dict(exchange="async")),
+                  ("[async-delta]", dict(exchange="async-delta")),
+                  ("[async-hub]", dict(exchange="async-hub")),
+                  ("[campaign]", dict(campaign=True)),
+                  ("[campaign-delta]", dict(campaign=True, exchange="delta")),
+                  ("[campaign-hub]", dict(campaign=True, exchange="hub"))):
+    _tel = bool(_kw.get("telemetry"))
+    register_entry(f"parallel.engine_sharded._Runner.run_pass{_tag}",
+                   spec=lambda kw=_kw: _audit_spec(**kw),
+                   counterpart=f"parallel.engine_sharded.flood_runner{_tag}",
+                   host_reads_per_tick=2 if _tel else 1, sharded=True,
+                   tick_bodies=_FLOOD_BODIES + ((f"{_SHARDED}:_Runner._telemetry_row",)
+                                                if _tel else ()))

@@ -390,3 +390,50 @@ def overlay_hub(
     recon.view(-1, w).index_copy_(0, rows, block)
     return recon
 
+
+
+# --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
+
+def _audit_spec(kind: str):
+    """2 shards of 4 rows x 2 words, capacity 8 (the JAX package's
+    ``_audit_spec``): the delta exchange's pack (`ops.kernels.
+    compress_deltas`), its rebuild (`ops.kernels.scatter_deltas`) and the hub
+    overlay."""
+    from p2p_gossip_tpu_torch.ops import kernels
+    from p2p_gossip_tpu_torch.staticcheck import specs
+    from p2p_gossip_tpu_torch.staticcheck.registry import AuditSpec
+
+    n_loc, w, cap, shards = 4, 2, 8, 2
+    rng = np.random.default_rng(0)
+    changed = specs.words(rng, (n_loc, w))
+    common = dict(integer_only=True, bitmask_words=w)
+    if kind == "compress":
+        need = specs.tensor(rng.random((n_loc, shards)) < 0.5)
+        return AuditSpec(fn=lambda ch, nd: kernels.compress_deltas(ch, nd, cap),
+                         args=(changed, need), bitmask_args=(0,),
+                         out_dtypes=("int32",) * 3, counterpart_outputs=(0, 1, 2), **common)
+    if kind == "hub":
+        h = 2
+        hub_global = specs.tensor(np.stack([rng.choice(n_loc, h, replace=False) + s * n_loc
+                                            for s in range(shards)]), np.int64)
+        recon = specs.tensor(np.zeros((shards * n_loc, w)), np.int32)
+        return AuditSpec(fn=overlay_hub, args=(recon, hub_global, specs.words(rng, (shards * h, w))),
+                         bitmask_args=(0, 2), bitmask_outputs=(0,), out_dtypes=("int32",),
+                         counterpart_outputs=(0,), **common)
+    idx = specs.tensor(rng.integers(-1, n_loc * w, (shards, cap)), np.int32)
+    return AuditSpec(fn=lambda i, v: kernels.scatter_deltas(i, v, n_loc, w, shards * n_loc),
+                     args=(idx, specs.words(rng, (shards, cap))), bitmask_outputs=(0,),
+                     out_dtypes=("int32",), counterpart_outputs=(0,), **common)
+
+
+from p2p_gossip_tpu_torch.ops import kernels as _kernels  # noqa: E402
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+register_entry("ops.kernels.compress_deltas", _kernels.compress_deltas,
+               spec=lambda: _audit_spec("compress"),
+               counterpart="parallel.exchange.compress_deltas[delta]")
+register_entry("ops.kernels.scatter_deltas", _kernels.scatter_deltas,
+               spec=lambda: _audit_spec("scatter"),
+               counterpart="parallel.exchange.scatter_deltas[delta]")
+register_entry("parallel.exchange.overlay_hub", overlay_hub, spec=lambda: _audit_spec("hub"),
+               counterpart="parallel.exchange.overlay_hub[hub]")

@@ -980,3 +980,76 @@ def run_sharded_partnered_sim(
     if record_coverage:
         return stats, np.concatenate(cov_chunks, axis=1)
     return stats
+
+
+# --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
+# The JAX package's ``_audit_spec_partnered_runner``: ER(16, 0.3), a 32-share
+# pass of 8 rounds, two shares at node 0 on round 0, the loss coin on, seed
+# 42, fanout 2 for fanout push; the replicated ring on dense, the sharded
+# one on the campaign form (2 local replicas on a (replicas, nodes) mesh).
+# Delta and hub read one mesh vector a round (`_Runner._advance`), the
+# others none; a telemetry row on delta stages its fallback counts. A call
+# stages its generations (four host constants) and the exchange counters
+# (one), and reads the counters and exchange counters back once (and each
+# ring, telemetry on).
+
+_PARTNERED = "p2p_gossip_tpu_torch/parallel/protocols_sharded.py"
+_ROUND_BODIES = tuple(f"{_PARTNERED}:_Runner.{m}" for m in (
+    "_round", "_pull", "_push", "_advance", "_gather_rows"))
+_AUDIT_ROUNDS = 8
+
+
+def _audit_spec(protocol: str, exchange: str = "dense", telemetry: bool = False,
+                campaign: bool = False):
+    from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
+    from p2p_gossip_tpu_torch.staticcheck import op_audit, specs
+    from p2p_gossip_tpu_torch.staticcheck.registry import AuditSpec
+
+    graph = specs.sharded_graph()
+    mesh = op_audit.audit_mesh("replicas" if campaign else "shares")
+    chunk, horizon, rb = 32, _AUDIT_ROUNDS, (2 if campaign else 1)
+    ring_mode = "sharded" if campaign else ("replicated" if exchange == "dense" else "auto")
+    plan, (ell_idx, delays, degree, hub_plan), _, _ = stage_partnered(
+        graph, mesh, protocol, 2, None, 1, chunk, ring_mode, exchange, 2,
+        2 if exchange == "hub" else None)
+    loss = LinkLossModel(2.0 ** -12, seed=7)
+    runner = _Runner(plan, mesh, ell_idx, delays, degree, hub_plan, None, loss, 42, telemetry,
+                     False, replicas=rb if campaign else 0)
+    if campaign:
+        runner.set_replicas(np.arange(rb) + 42, None, np.arange(rb) + 7)
+    origins = np.zeros((rb, chunk), dtype=np.int32)
+    gen_ticks = np.full((rb, chunk), horizon, dtype=np.int32)
+    gen_ticks[:, :2] = 0
+    out = ("int64", "int64") + (("int64", "int32") if telemetry else ())
+    return AuditSpec(
+        fn=runner.run_pass, args=(origins, gen_ticks, horizon, False),
+        integer_only=True, bitmask_words=bitmask.num_words(chunk),
+        # the summed counters (received, sent), the exchange counters; the rings
+        out_dtypes=out, counterpart_outputs=(0, None) + ((None, None) if telemetry else ()),
+        ticks=horizon, setup_reads=2 + (2 if telemetry else 0), h2d=5,
+    )
+
+
+from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E402
+
+for _tag, _jax, _kw in (
+        ("[pushpull]", "pushpull_runner", dict(protocol="pushpull")),
+        ("[pushpull][telemetry]", "pushpull_runner[telemetry]",
+         dict(protocol="pushpull", telemetry=True)),
+        ("[pushk]", "pushk_runner", dict(protocol="pushk")),
+        ("[pushk][telemetry]", "pushk_runner[telemetry]",
+         dict(protocol="pushk", telemetry=True)),
+        ("[pushpull-delta]", "pushpull_runner[delta]", dict(protocol="pushpull",
+                                                            exchange="delta")),
+        ("[pushpull-hub]", "pushpull_runner[hub]", dict(protocol="pushpull", exchange="hub")),
+        ("[pushpull-async]", "pushpull_runner[async]", dict(protocol="pushpull",
+                                                            exchange="async")),
+        ("[pushpull-campaign]", "pushpull_runner[campaign]", dict(protocol="pushpull",
+                                                                  campaign=True))):
+    _tel = bool(_kw.get("telemetry"))
+    register_entry(f"parallel.protocols_sharded._Runner.run_pass{_tag}",
+                   spec=lambda kw=_kw: _audit_spec(**kw),
+                   counterpart=f"parallel.protocols_sharded.{_jax}",
+                   host_reads_per_tick=2 if _tel else 1, sharded=True,
+                   tick_bodies=_ROUND_BODIES + ((f"{_PARTNERED}:_Runner._telemetry_row",)
+                                                if _tel else ()))

@@ -136,6 +136,7 @@ def _whole_row(record, small):
         serve={"bitwise_ok": True},
         exchange={"families": [{"family": f, "ok": True} for f in bench.EXCHANGE_FAMILIES]},
         async_ticks={"legs": [{}] * (2 + len(bench.ASYNC_KS))},
+        staticcheck_ok=True,
     )
 
 
@@ -144,7 +145,8 @@ def test_check_bench_whole_passes(record, small, small_sizes):
 
 
 @pytest.mark.parametrize("fault", ["processed", "ticks", "runs", "campaign_sharded", "serve",
-                                   "exchange", "async_ticks", "power_limit", "key"])
+                                   "exchange", "async_ticks", "power_limit", "key",
+                                   "staticcheck_ok"])
 def test_check_bench_whole_refuses(fault, record, small, small_sizes):
     row = _whole_row(record, small)
     ticks = small[3].extra["ticks_executed"]
@@ -166,6 +168,8 @@ def test_check_bench_whole_refuses(fault, record, small, small_sizes):
         row["power_limit"] = None
     elif fault == "key":
         del row["telemetry"]
+    elif fault == "staticcheck_ok":
+        row["staticcheck_ok"] = False
     with pytest.raises(AssertionError, match="p2p_gossip_tpu_torch.bench"):
         chip_smoke.check_bench_whole(row, ticks)
 

@@ -65,7 +65,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
                    "parallel/exchange.py", "parallel/async_ticks.py",
                    "parallel/engine_sharded.py", "parallel/protocols_sharded.py",
-                   "divergence.py", "protocol_compare.py", "bench.py"):
+                   "divergence.py", "protocol_compare.py", "bench.py",
+                   "staticcheck/__init__.py", "staticcheck/__main__.py",
+                   "staticcheck/registry.py", "staticcheck/entrypoints.py",
+                   "staticcheck/specs.py", "staticcheck/op_audit.py",
+                   "staticcheck/astlint.py", "staticcheck/telemetry_off.py",
+                   "staticcheck/restage.py", "staticcheck/fixtures.py"):
         assert os.path.join("p2p_gossip_tpu_torch", module) in names
     bad = []
     for path in files:
