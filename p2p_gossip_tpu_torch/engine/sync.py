@@ -120,29 +120,31 @@ class DeviceGraph:
             bucketed = graph.n >= 4096
         placeholder = np.ones((1, 1), dtype=np.int32)
         buckets = None
-        if ell_delays is None and bucketed:
-            # Bucket ELLs straight from CSR: the global ELL is never built.
-            uniform = constant_delay
-            dmax_delay = constant_delay
-            buckets = build_degree_buckets(graph, None)
-            ell_idx = ell_delays = placeholder
-            ell_mask = placeholder.astype(bool)
-        else:
-            ell_idx, ell_mask = graph.ell()
-            if ell_delays is None:
-                ell_delays = np.full(ell_idx.shape, constant_delay, dtype=np.int32)
-            dmax_delay = int(ell_delays.max()) if ell_delays.size else 1
-            uniform = detect_uniform_delay(ell_delays, ell_mask)
-            if bucketed:
-                buckets = build_degree_buckets(
-                    graph,
-                    None if uniform is not None else ell_delays,
-                    ell=(ell_idx, ell_mask),
-                )
+        with span("stage.buckets") as sp:  # the host's planning; the copy follows
+            if ell_delays is None and bucketed:
+                # Bucket ELLs straight from CSR: the global ELL is never built.
+                uniform = constant_delay
+                dmax_delay = constant_delay
+                buckets = build_degree_buckets(graph, None)
                 ell_idx = ell_delays = placeholder
                 ell_mask = placeholder.astype(bool)
-            elif uniform is not None:
-                ell_delays = placeholder
+            else:
+                ell_idx, ell_mask = graph.ell()
+                if ell_delays is None:
+                    ell_delays = np.full(ell_idx.shape, constant_delay, dtype=np.int32)
+                dmax_delay = int(ell_delays.max()) if ell_delays.size else 1
+                uniform = detect_uniform_delay(ell_delays, ell_mask)
+                if bucketed:
+                    buckets = build_degree_buckets(
+                        graph,
+                        None if uniform is not None else ell_delays,
+                        ell=(ell_idx, ell_mask),
+                    )
+                    ell_idx = ell_delays = placeholder
+                    ell_mask = placeholder.astype(bool)
+                elif uniform is not None:
+                    ell_delays = placeholder
+            sp.set(buckets=0 if buckets is None else len(buckets))
         return DeviceGraph.from_numpy(
             graph.n, ell_idx, ell_delays, ell_mask, graph.degree,
             dmax_delay + 1, uniform, buckets, device=device,
@@ -441,43 +443,45 @@ def _tick(
     the rows of every tensor here: ``origins`` are stacked rows r*N +
     origin, ``slots`` and ``gen_ticks`` the (B*S,) share slots and ticks."""
     n, w = seen.shape
-    up = None if opts.churn is None else churn_mod.up_mask(*opts.churn, t)
-    if rings is None:
-        arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up, opts.replicas)
-    else:
-        wire = _gather(dg, hist, occ, t, plain, opts.loss, replicas=opts.replicas)
-        lossless = None if opts.loss is None else _gather(
-            dg, hist, occ, t, plain, replicas=opts.replicas)
-        arrivals = wire if up is None else wire & -up.to(torch.int32)[:, None]
-    gen_active = gen_ticks == t
-    if up is not None:
-        gen_active &= up[origins]
-    gen_bits = bitmask.slot_scatter(n, w, origins, slots, gen_active)
-    gen_cnt = torch.zeros((n,), dtype=torch.int32, device=seen.device)
-    gen_cnt.index_add_(0, origins, gen_active.to(torch.int32))
-    pre_connect = t < opts.connect_tick
-    live_bits, live_cnt = gen_bits, gen_cnt
-    if pre_connect:
-        live_bits, live_cnt = torch.zeros_like(gen_bits), torch.zeros_like(gen_cnt)
-    slot = hist[t % dg.ring_size]
-    degree = dg.degree if opts.degree is None else opts.degree
-    _, newly_out, _, _, newly_cnt = apply_tick_updates(
-        seen, arrivals, live_bits, live_cnt, received, sent, degree,
-        out=slot, plain=plain,
-    )
-    if pre_connect:
-        seen |= gen_bits
-    kernels.sector_occupancy(slot, out=occ[t % dg.ring_size], plain=plain)
+    with span("gather"):
+        up = None if opts.churn is None else churn_mod.up_mask(*opts.churn, t)
+        if rings is None:
+            arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up, opts.replicas)
+        else:
+            wire = _gather(dg, hist, occ, t, plain, opts.loss, replicas=opts.replicas)
+            lossless = None if opts.loss is None else _gather(
+                dg, hist, occ, t, plain, replicas=opts.replicas)
+            arrivals = wire if up is None else wire & -up.to(torch.int32)[:, None]
+    with span("update"):
+        gen_active = gen_ticks == t
+        if up is not None:
+            gen_active &= up[origins]
+        gen_bits = bitmask.slot_scatter(n, w, origins, slots, gen_active)
+        gen_cnt = torch.zeros((n,), dtype=torch.int32, device=seen.device)
+        gen_cnt.index_add_(0, origins, gen_active.to(torch.int32))
+        pre_connect = t < opts.connect_tick
+        live_bits, live_cnt = gen_bits, gen_cnt
+        if pre_connect:
+            live_bits, live_cnt = torch.zeros_like(gen_bits), torch.zeros_like(gen_cnt)
+        slot = hist[t % dg.ring_size]
+        degree = dg.degree if opts.degree is None else opts.degree
+        _, newly_out, _, _, newly_cnt = apply_tick_updates(
+            seen, arrivals, live_bits, live_cnt, received, sent, degree,
+            out=slot, plain=plain,
+        )
+        if pre_connect:
+            seen |= gen_bits
+        kernels.sector_occupancy(slot, out=occ[t % dg.ring_size], plain=plain)
+        # newly_out = newly | live_bits holds a bit iff a node newly processed
+        # a share or a live generation fired — read from the two small count
+        # vectors instead of another (N, W) pass. Before connect_tick the
+        # live count is zero: the slot holds no generation bit then.
+        nonzero = (newly_cnt.sum() + live_cnt.sum()) > 0
     if rings is not None:
         met, dig = rings
         tel_rings.flood_row(met, t, wire, newly_out, newly_cnt, degree, lossless,
                             plain=plain)
         tel_digest.write(dig, t, seen, received, sent, plain=plain)
-    # newly_out = newly | live_bits holds a bit iff a node newly processed a
-    # share or a live generation fired — read from the two small count
-    # vectors instead of another (N, W) pass. Before connect_tick the live
-    # count is zero: the slot holds no generation bit then.
-    nonzero = (newly_cnt.sum() + live_cnt.sum()) > 0
     return newly_out, nonzero
 
 
@@ -542,14 +546,16 @@ def _run_chunk_while(
     in_flight = [False] * dg.ring_size
     t = t_start
     while t < horizon and (any(in_flight) or t <= last_gen):
-        for i, b in enumerate(snap_ticks):
-            if b == t:
-                snaps[i].copy_(received)
-        _, nonzero = _tick(
-            dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
-            plain, opts, rings,
-        )
-        in_flight[t % dg.ring_size] = bool(nonzero)
+        with span("tick"):
+            for i, b in enumerate(snap_ticks):
+                if b == t:
+                    snaps[i].copy_(received)
+            _, nonzero = _tick(
+                dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
+                plain, opts, rings,
+            )
+            with span("sync"):
+                in_flight[t % dg.ring_size] = bool(nonzero)
         t += 1
     for i, b in enumerate(snap_ticks):
         if b >= t:  # at or after quiescence: the (unchanging) final counts
@@ -596,15 +602,17 @@ def _run_chunk_coverage(
     in_flight = [False] * dg.ring_size
     t = 0
     while t < horizon and (any(in_flight) or t <= last_gen):
-        newly_out, nonzero = _tick(
-            dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
-            plain, opts, rings,
-        )
-        cov_run += bitmask.coverage_per_slot(
-            newly_out.view(b, dg.n, w)[:, :, :cov_w], cov_slots, plain=plain
-        )
-        cov_hist[:, t] = cov_run
-        in_flight[t % dg.ring_size] = bool(nonzero)
+        with span("tick"):
+            newly_out, nonzero = _tick(
+                dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
+                plain, opts, rings,
+            )
+            cov_run += bitmask.coverage_per_slot(
+                newly_out.view(b, dg.n, w)[:, :, :cov_w], cov_slots, plain=plain
+            )
+            cov_hist[:, t] = cov_run
+            with span("sync"):
+                in_flight[t % dg.ring_size] = bool(nonzero)
         t += 1
     cov_hist[:, t:] = cov_run[:, None]
     return seen, received, sent, cov_hist
@@ -717,11 +725,13 @@ def run_sync_sim(
     ``device="cpu"`` for the CPU. ``plain=True`` runs the kernels' plain
     torch versions on any device (the comparison run for the kernels)."""
     dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
-    opts = _tick_options(dg, churn, loss, connect_tick)
-    chunk_size = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
-    chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
-    boundaries = filter_snapshot_boundaries(snapshot_ticks, horizon_ticks)
-    snap_received = np.zeros((len(boundaries), graph.n), dtype=np.int64)
+    with span("inputs", shares=schedule.num_shares):
+        opts = _tick_options(dg, churn, loss, connect_tick)
+        chunk_size = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
+        chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
+        boundaries = filter_snapshot_boundaries(snapshot_ticks, horizon_ticks)
+        snap_received = np.zeros((len(boundaries), graph.n), dtype=np.int64)
+        chunks = schedule.chunk(chunk_size)
     log.info(
         f"starting sync simulation: {graph.n} nodes, {graph.num_edges} links, "
         f"{schedule.num_shares} shares in chunks of {chunk_size}, horizon "
@@ -754,31 +764,30 @@ def run_sync_sim(
 
     tel = tel_sink.rings_enabled()
     name = "engine.sync.run_sync_sim"
-    chunks = schedule.chunk(chunk_size)
     for ci, chunk in checkpointed_chunks(chunks, checkpointer, stop_after_chunks):
         live = chunk.gen_ticks < horizon_ticks
         if not live.any():
             continue
-        origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
-        first_t = int(chunk.gen_ticks[live].min())
-        last_t = int(chunk.gen_ticks[live].max())
+        with span("inputs", shares=chunk.num_shares, chunk=ci):
+            origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
+            first_t = int(chunk.gen_ticks[live].min())
+            last_t = int(chunk.gen_ticks[live].max())
+            origins = torch.as_tensor(origins.astype(np.int64), device=dg.device)
+            gen_ticks = torch.as_tensor(gen_ticks, device=dg.device)
         if log.enabled(p2plog.LOG_DEBUG):
             log.debug(
                 f"chunk {ci}: {int(live.sum())} live shares, gen ticks "
                 f"[{first_t}, {last_t}]"
             )
         rings = tel_rings.chunk_rings(horizon_ticks, dg.device) if tel else None
-        with span("dispatch", kernel="engine.sync._run_chunk_while", chunk=ci):
+        with span("dispatch", kernel="engine.sync._run_chunk_while", chunk=ci) as sp:
             _, r, s, snaps, ticks = _run_chunk_while(
-                dg,
-                torch.as_tensor(origins.astype(np.int64), device=dg.device),
-                torch.as_tensor(gen_ticks, device=dg.device),
-                first_t,
-                last_t,
+                dg, origins, gen_ticks, first_t, last_t,
                 chunk_size=chunk_size, horizon=horizon_ticks, opts=opts,
                 snap_ticks=boundaries, rings=rings, plain=plain,
             )
-        with span("d2h", chunk=ci):
+            sp.set(ticks=ticks)
+        with span("d2h", chunk=ci, bytes=r.nbytes + s.nbytes + snaps.nbytes):
             received += r.cpu().numpy().astype(np.int64)
             sent += s.cpu().numpy().astype(np.int64)
             snap_received += snaps.cpu().numpy().astype(np.int64)
@@ -796,21 +805,22 @@ def run_sync_sim(
             digest_head=digest_head,
         )
 
-    generated = effective_generated(schedule, horizon_ticks, churn)
-    degree = graph.degree.astype(np.int64)
-    stats = NodeStats(
-        generated=generated,
-        received=received,
-        forwarded=received.copy(),
-        sent=sent,
-        processed=generated + received,
-        degree=degree,
-    )
-    stats.extra["ticks_executed"] = ticks_executed
-    if snapshot_ticks is not None:
-        stats.extra["snapshots"] = assemble_snapshots(
-            schedule, churn, boundaries, snap_received, degree.sum()
+    with span("stats"):
+        generated = effective_generated(schedule, horizon_ticks, churn)
+        degree = graph.degree.astype(np.int64)
+        stats = NodeStats(
+            generated=generated,
+            received=received,
+            forwarded=received.copy(),
+            sent=sent,
+            processed=generated + received,
+            degree=degree,
         )
+        stats.extra["ticks_executed"] = ticks_executed
+        if snapshot_ticks is not None:
+            stats.extra["snapshots"] = assemble_snapshots(
+                schedule, churn, boundaries, snap_received, degree.sum()
+            )
     return stats
 
 
@@ -840,8 +850,12 @@ def run_flood_coverage(
     floor = MIN_CHUNK_SHARES if chunk_size is None else chunk_size
     chunk_size = bitmask.num_words(max(s, floor)) * bitmask.WORD_BITS
     dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
-    sched = Schedule(graph.n, origins, np.zeros(s, dtype=np.int32))
-    o, g = sched.padded(chunk_size, horizon_ticks)
+    with span("inputs", shares=s):
+        sched = Schedule(graph.n, origins, np.zeros(s, dtype=np.int32))
+        o, g = sched.padded(chunk_size, horizon_ticks)
+        o = torch.as_tensor(o.astype(np.int64), device=dg.device)
+        g = torch.as_tensor(g, device=dg.device)
+        opts = _tick_options(dg, churn, loss)
     # The JAX engine logs here which coverage path a TPU run takes (its
     # Pallas kernel or XLA); the port's coverage always runs its CUDA
     # kernel on the card, so there is no such line.
@@ -850,11 +864,8 @@ def run_flood_coverage(
     rings = tel_rings.chunk_rings(horizon_ticks, dg.device) if tel else None
     with span("dispatch", kernel="engine.sync._run_chunk_coverage"):
         _, r, snt, cov = _run_chunk_coverage(
-            dg,
-            torch.as_tensor(o.astype(np.int64), device=dg.device),
-            torch.as_tensor(g, device=dg.device),
-            chunk_size=chunk_size, horizon=horizon_ticks, coverage_slots=s,
-            opts=_tick_options(dg, churn, loss), rings=rings, plain=plain,
+            dg, o, g, chunk_size=chunk_size, horizon=horizon_ticks, coverage_slots=s,
+            opts=opts, rings=rings, plain=plain,
         )
     digest_head = None
     if tel:
@@ -866,25 +877,29 @@ def run_flood_coverage(
         tel_digest.emit_digest(name, dvals, t0=0, ticks=int(dvals.shape[0]))
         nz = np.flatnonzero(dvals)
         digest_head = int(dvals[nz[-1]]) if nz.size else 0
-    generated = effective_generated(sched, horizon_ticks, churn)
-    received = r.cpu().numpy().astype(np.int64)
-    stats = NodeStats(
-        generated=generated,
-        received=received,
-        forwarded=received.copy(),
-        sent=snt.cpu().numpy().astype(np.int64),
-        processed=generated + received,
-        degree=graph.degree.astype(np.int64),
-    )
-    coverage = cov[0].cpu().numpy()[:, :s]
-    tel_progress.emit_progress(
-        name, chunk=0, chunks_total=1, ticks_done=int(coverage.shape[0]),
-        coverage_pct=(
-            float(coverage[-1].mean()) / dg.n * 100.0 if coverage.size else None
-        ),
-        digest_head=digest_head,
-    )
-    stats.extra["coverage"] = coverage
+    with span("d2h", bytes=r.nbytes + snt.nbytes + cov[0].nbytes):
+        received = r.cpu().numpy()
+        sent = snt.cpu().numpy()
+        coverage = cov[0].cpu().numpy()[:, :s]
+    with span("stats"):
+        generated = effective_generated(sched, horizon_ticks, churn)
+        received = received.astype(np.int64)
+        stats = NodeStats(
+            generated=generated,
+            received=received,
+            forwarded=received.copy(),
+            sent=sent.astype(np.int64),
+            processed=generated + received,
+            degree=graph.degree.astype(np.int64),
+        )
+        tel_progress.emit_progress(
+            name, chunk=0, chunks_total=1, ticks_done=int(coverage.shape[0]),
+            coverage_pct=(
+                float(coverage[-1].mean()) / dg.n * 100.0 if coverage.size else None
+            ),
+            digest_head=digest_head,
+        )
+        stats.extra["coverage"] = coverage
     return stats, coverage
 
 

@@ -18,6 +18,8 @@ import functools
 
 import numpy as np
 
+from p2p_gossip_tpu_torch.telemetry.spans import span
+
 # Dense O(n^2) ER sampling below this size; sparse per-row binomial above.
 _DENSE_ER_LIMIT = 4096
 
@@ -131,19 +133,20 @@ class Graph:
     def from_edges(n: int, edges: np.ndarray) -> "Graph":
         """Build a symmetric, deduplicated CSR graph from an (m, 2) edge list."""
         edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-        edges = edges[edges[:, 0] != edges[:, 1]]
-        lo = np.minimum(edges[:, 0], edges[:, 1])
-        hi = np.maximum(edges[:, 0], edges[:, 1])
-        keys = np.unique(lo * n + hi)
-        lo, hi = keys // n, keys % n
-        src = np.concatenate([lo, hi])
-        dst = np.concatenate([hi, lo])
-        order = np.lexsort((dst, src))
-        src, dst = src[order], dst[order]
-        indptr = np.zeros(n + 1, dtype=np.int64)
-        np.add.at(indptr, src + 1, 1)
-        np.cumsum(indptr, out=indptr)
-        return Graph(n=n, indptr=indptr, indices=dst.astype(np.int32))
+        with span("stage.csr", edges=int(edges.shape[0])):
+            edges = edges[edges[:, 0] != edges[:, 1]]
+            lo = np.minimum(edges[:, 0], edges[:, 1])
+            hi = np.maximum(edges[:, 0], edges[:, 1])
+            keys = np.unique(lo * n + hi)
+            lo, hi = keys // n, keys % n
+            src = np.concatenate([lo, hi])
+            dst = np.concatenate([hi, lo])
+            order = np.lexsort((dst, src))
+            src, dst = src[order], dst[order]
+            indptr = np.zeros(n + 1, dtype=np.int64)
+            np.add.at(indptr, src + 1, 1)
+            np.cumsum(indptr, out=indptr)
+            return Graph(n=n, indptr=indptr, indices=dst.astype(np.int32))
 
 
 def _forced_edges(n: int, has_upper_edge: np.ndarray) -> np.ndarray:

@@ -37,10 +37,7 @@ from p2p_gossip_tpu_torch.telemetry.sink import (  # noqa: F401
     reset,
     rings_enabled,
 )
-from p2p_gossip_tpu_torch.telemetry.spans import (  # noqa: F401
-    emit_counter,
-    span,
-)
+from p2p_gossip_tpu_torch.telemetry.spans import span  # noqa: F401
 from p2p_gossip_tpu_torch.telemetry.progress import (  # noqa: F401
     configure_heartbeat,
     emit_progress,

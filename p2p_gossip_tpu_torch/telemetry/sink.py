@@ -10,7 +10,8 @@ with launch counts).
 Two enablement axes, deliberately separate:
 
 - ``enabled()``   — host spans + event emission. Cheap (a dict append
-  or one JSONL write per event, never per tick).
+  or one JSONL write per event; the tick loops' spans emit four a
+  tick).
 - ``rings_enabled()`` — device metric and digest rings. These add work
   to every tick (integer reductions, the digest kernel, an extra gather
   or scatter), so code that measures performance can record spans
@@ -130,9 +131,11 @@ def emit(event: dict) -> None:
         if _file is not None:
             _file.write(json.dumps(event) + "\n")
         # Mirror into the buffer either way: in-process consumers
-        # (the tests, chip_smoke.py) read events() without re-parsing
-        # the file. Bounded in practice — events are per
-        # chunk/span, never per tick.
+        # (the tests, chip_smoke.py, the benchmark's readers) read
+        # events() without re-parsing the file. Unbounded: the tick
+        # loops' spans add four events a tick, ~1 KB, so a configured
+        # sink is for runs of bounded length (tens of thousands of
+        # ticks), not for a server left running.
         _buffer.append(event)
 
 

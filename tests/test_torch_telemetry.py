@@ -33,6 +33,7 @@ from p2p_gossip_tpu_torch.engine import sync
 from p2p_gossip_tpu_torch.models import protocols
 from p2p_gossip_tpu_torch.ops import kernels
 from p2p_gossip_tpu_torch.telemetry import chrometrace, digest, rings, schema
+from p2p_gossip_tpu_torch.telemetry import spans as spans_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, P = 64, 0.12
@@ -293,6 +294,132 @@ def test_off_by_default():
         pass
     assert not telemetry.enabled() and not telemetry.rings_enabled()
     assert telemetry.events() == []
+
+
+def test_span_set_adds_counted_attrs():
+    telemetry.configure(None, rings=False)
+    with telemetry.span("d2h", chunk=2) as sp:
+        sp.set(bytes=64)
+    (s,) = [e for e in telemetry.events() if e["type"] == "span"]
+    assert s["attrs"] == {"chunk": 2, "bytes": 64}
+
+
+def test_spans_off_share_one_context_and_read_no_clock(monkeypatch):
+    """With telemetry off every span is the one shared no-op context, and a
+    whole flood and coverage run read no clock through the spans module."""
+    off = telemetry.span("tick")
+    assert all(telemetry.span(n, k=1) is off for n in ("gather", "update", "sync", "x"))
+    with off as sp:
+        sp.set(ticks=3)
+
+    class NoClock:
+        @staticmethod
+        def perf_counter():
+            raise AssertionError("a span read the clock with telemetry off")
+
+    monkeypatch.setattr(spans_mod, "time", NoClock)
+    runs = _port_runs()
+    for name in ("flood", "coverage"):
+        runs[name]()
+    assert telemetry.events() == []
+
+
+# --- the flood engine's spans: tick phases and the entry's host work ---------------
+
+def _loop_ticks_from_coverage(cov, ring_size, last_gen=0):
+    """The coverage loop's stop rule over its rows: tick t ran a frontier iff
+    its row grew (tick 0 generates); the loop runs while a frontier of the
+    last ``ring_size`` ticks is in flight or a generation is pending."""
+    busy = np.ones(cov.shape[0], dtype=bool)
+    busy[1:] = (cov[1:] != cov[:-1]).any(axis=1)
+    t = 0
+    while t < cov.shape[0] and (busy[max(t - ring_size, 0):t].any() or t <= last_gen):
+        t += 1
+    return t
+
+
+def _entry_spans(kind):
+    """One run of the flood (``while``, three chunks) or coverage entry
+    with spans on: (its span events, the ticks its loop ran by the
+    entry's own account, the dispatch spans' ``ticks`` sum or None)."""
+    _, gp = _graphs()
+    telemetry.configure(None, rings=False)
+    if kind == "while":
+        _, sp = _schedules()
+        stats = sync.run_sync_sim(gp, sp, HORIZON, chunk_size=32, device="cpu")
+        ticks = stats.extra["ticks_executed"]
+    else:
+        _, cov = sync.run_flood_coverage(gp, [0, 1, 2, 3], 32, device="cpu")
+        ticks = _loop_ticks_from_coverage(cov, sync.DeviceGraph.build(gp, device="cpu")
+                                          .ring_size)
+    events = [e for e in telemetry.events() if e["type"] == "span"]
+    dispatched = [e["attrs"].get("ticks") for e in events if e["name"] == "dispatch"]
+    return events, ticks, (sum(dispatched) if kind == "while" else None)
+
+
+def _inside(inner, outer):
+    return (outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + 1e-9)
+
+
+@pytest.mark.parametrize("kind", ["while", "coverage"])
+def test_tick_spans_nest_and_count_the_loops_ticks(kind):
+    """Each ``tick`` span holds exactly one ``gather``, ``update`` and
+    ``sync`` one level down; the ``tick`` spans number the ticks the loop
+    ran (``ticks_executed``, or the coverage rows' stop rule), as do the
+    dispatch spans' ``ticks``; the entry's host work has its spans."""
+    events, ticks, dispatched = _entry_spans(kind)
+    by = {}
+    for e in events:
+        by.setdefault(e["name"], []).append(e)
+    assert ticks > 0 and len(by["tick"]) == ticks
+    if dispatched is not None:
+        assert dispatched == ticks
+    for name in ("gather", "update", "sync"):
+        assert len(by[name]) == ticks
+    for tick in by["tick"]:
+        for name in ("gather", "update", "sync"):
+            (child,) = [e for e in by[name] if _inside(e, tick)]
+            assert child["depth"] == tick["depth"] + 1
+    assert all(t["depth"] == by["dispatch"][0]["depth"] + 1 for t in by["tick"])
+    assert {"inputs", "d2h", "stats", "stage.buckets"} <= set(by)
+    assert all(e["attrs"]["bytes"] > 0 for e in by["d2h"])
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_spans_mirror_onto_the_profiler(on):
+    """Under torch.profiler each span is a ``p2p.<name>`` range nested in
+    its parent's, one a span event; with the sink off there is none."""
+    _, gp = _graphs()
+    _, sp = _schedules(shares=40)
+    if on:
+        telemetry.configure(None, rings=False)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        pt.Graph.from_edges(gp.n, gp.edges())
+        sync.run_sync_sim(gp, sp, HORIZON, chunk_size=32, device="cpu")
+    ranges = sorted(((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()[4:])
+                     for e in prof.profiler.kineto_results.events()
+                     if e.name().startswith("p2p.")), key=lambda r: (r[0], -r[1]))
+    if not on:
+        assert ranges == []
+        return
+    want = {}
+    for e in telemetry.events():
+        if e["type"] == "span":
+            want[e["name"]] = want.get(e["name"], 0) + 1
+    got = {}
+    for _, _, name in ranges:
+        got[name] = got.get(name, 0) + 1
+    assert got == want and want["tick"] > 0 and want["stage.csr"] == 1
+    parent = {"tick": "dispatch", "gather": "tick", "update": "tick", "sync": "tick"}
+    stack = []
+    for s, e, name in ranges:
+        while stack and stack[-1][1] < e:
+            stack.pop()
+        if name in parent:
+            assert stack and stack[-1][2] == parent[name], (name, stack[-1:])
+        stack.append((s, e, name))
 
 
 def test_env_var_enables(tmp_path, monkeypatch):
