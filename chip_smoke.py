@@ -17,7 +17,8 @@ alone, the divergence bisector and the protocol comparison; ``python3
 chip_smoke.py --phase 19`` runs the port's benchmark entry point whole,
 ``python -m p2p_gossip_tpu_torch.bench``, in a subprocess; ``python3
 chip_smoke.py --phase 20`` runs phase 20 alone, the static-analysis gate on
-the card.)
+the card; ``python3 chip_smoke.py --phase 21`` runs phase 21 alone, the
+tick update kernel's checks and timings.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -248,6 +249,14 @@ Phases (any failure raises and the script exits nonzero):
    (``scatter_or_atomic``, kept for phase 3's A/B, excepted). Its
    ``staticcheck`` line gives each entry's host reads a tick, the syncs
    CUDA flagged and its launches by kernel.
+21. The tick update (``tick_update``): the kernel against its plain torch
+   passes, bitwise in every output and in-place update, on ragged shapes
+   (W = 1, 3, 4, 33; generations in the frontier and, as before the
+   connect tick, out of it) and at burst32k's (100,000 x 1,024, 32,768
+   events) and coverage4k's (10^6 x 128, 4,096 events) shapes with dense
+   and sparse arrivals; timed there from the same state each run, beside
+   its least bytes at 3.35 TB/s, its plain passes and the engine's update
+   before it.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -296,12 +305,13 @@ hub; every other path's counts carry ``or_fold: 0``.
 Phase 16 (b) zeroes them just before each timed campaign and reads them
 after it (``launches_sharded_campaign_<mode>``): ``gather_or`` once per
 degree bucket a tick for the local batch, ``coverage_per_slot`` and
-``popcount_rows`` once a tick, the exchange kernels once a tick exactly on
+``tick_update`` once a tick, the exchange kernels once a tick exactly on
 delta and hub; ``or_fold`` and ``scatter_or`` once a round on push-pull.
 Phase 17 (b) zeroes them just before each drain and reads them just after
 it (``launches_serve_mesh_<exchange>``; by kind of dispatch in its record
 line): ``gather_or``, ``coverage_per_slot``, ``popcount_rows``,
-``scatter_or`` and ``or_fold`` launched, the exchange kernels on delta.
+``tick_update``, ``scatter_or`` and ``or_fold`` launched, the exchange
+kernels on delta.
 Phase 18 zeroes them just before each card run and each world job and
 reads them after it: on the card ``gather_or``, ``coverage_per_slot``,
 ``scatter_or`` and ``tick_digest`` launched by (a)'s host-side pairs,
@@ -311,7 +321,7 @@ kernels and (c)'s flood and protocol kernels; on the CPU (the world's CPU
 job, the CPU halves of (a) and (c)) none.
 Phase 19 zeroes them just before the bench's legs and reads them after
 them (``launches_bench``): ``gather_or``, ``sector_occupancy``,
-``popcount_rows`` and ``coverage_per_slot`` launched.
+``tick_update`` and ``coverage_per_slot`` launched.
 Phase 20 reads each audited entry's launches as the change of the counts
 over its call (``launches_staticcheck``: the sum over the entries): every
 kernel but ``scatter_or_atomic`` launched by some entry.
@@ -339,9 +349,9 @@ SNAPSHOTS = [8, 16, 24, 32]  # the options run's periodic-stats boundaries
 # options existed: with every option off the tick launches what it did.
 # The flood never scatters.
 LOSS_FREE_LAUNCHES = {
-    "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 29, "coverage_per_slot": 7,
+    "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 0, "coverage_per_slot": 7,
     "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
-    "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0,
+    "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0, "tick_update": 29,
 }
 FLOOD_KERNELS = tuple(name for name, count in LOSS_FREE_LAUNCHES.items() if count)
 SOURCE = "p2p_gossip_tpu_torch/csrc/gossip_kernels.cu"
@@ -351,6 +361,8 @@ REPLACES = {
     # gather-OR it serves.
     "sector_occupancy": "p2p_gossip_tpu/ops/ell.py:157",
     "popcount_rows": "p2p_gossip_tpu/ops/pallas_kernels.py:152",
+    # No TPU kernel: the tick update XLA fused (engine/sync.py apply_tick_updates).
+    "tick_update": "p2p_gossip_tpu/engine/sync.py:339",
     "coverage_per_slot": "p2p_gossip_tpu/ops/pallas_kernels.py:122",
     "scatter_or": "p2p_gossip_tpu/ops/segment.py:41",
     "tick_digest": "p2p_gossip_tpu/telemetry/digest.py:118",
@@ -2488,11 +2500,11 @@ def campaigns_path(graph, dg, dgf_edge, cov_set, gossip_set, dev):
         else:
             want_gather = len(dg.buckets) * ticks
             want_cov = ticks if kind == "coverage" else 0
-            if (launches["gather_or"] != want_gather or launches["popcount_rows"] != ticks
+            if (launches["gather_or"] != want_gather or launches["tick_update"] != ticks
                     or launches["coverage_per_slot"] != want_cov or launches["scatter_or"]):
                 raise AssertionError(
                     f"campaign {kind}: a tick launches gather_or once per degree bucket "
-                    f"({want_gather} in {ticks} ticks), popcount_rows once and "
+                    f"({want_gather} in {ticks} ticks), tick_update once and "
                     f"coverage_per_slot {'once' if want_cov else 'never'}: {launches}")
         if launches["tick_digest"]:
             raise AssertionError(f"campaign {kind}: tick_digest launched with telemetry off")
@@ -2784,7 +2796,7 @@ def scale_path(topology, nodes, prob, dev, cache_dir, graph=None, hook=None):
     stats.check_conservation()
     ticks = launches["coverage_per_slot"]
     want = dict(dict.fromkeys(LOSS_FREE_LAUNCHES, 0), gather_or=len(dg.buckets) * ticks,
-                sector_occupancy=ticks, popcount_rows=ticks, coverage_per_slot=ticks)
+                sector_occupancy=ticks, tick_update=ticks, coverage_per_slot=ticks)
     if ticks == 0 or launches != want:
         raise AssertionError(f"scale[{topology}]: launches {launches}, want {want} (gather_or "
                              "once per degree bucket per tick)")
@@ -3049,7 +3061,7 @@ def serve_main_path(graph, dev):
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     for name in ("gather_or", "sector_occupancy", "popcount_rows", "coverage_per_slot",
-                 "scatter_or"):
+                 "scatter_or", "tick_update"):
         if launches[name] == 0:
             raise AssertionError(f"serve: {name} was not launched by the trace: {launches}")
     if launches["tick_digest"] or launches["scatter_or_atomic"]:
@@ -4554,7 +4566,7 @@ def check_campaign_results(runs, refs, ref_meshed):
 
 def check_campaign_launches(runs, b):
     """Phase 16 (b)'s launches: gather_or once per degree bucket a tick for
-    the local batch, popcount_rows once a tick (the ticks counted by
+    the local batch, tick_update once a tick (the ticks counted by
     coverage_per_slot, once a tick), compress_deltas and scatter_deltas
     once a tick exactly on delta and hub (scatter fewer only after an
     overflow), or_fold and scatter_or once a round on the push-pull
@@ -4566,7 +4578,7 @@ def check_campaign_launches(runs, b):
         ticks = n["coverage_per_slot"]
         ex = res.extra["exchange"]
         delta = ex["mode"] in ("delta", "hub")
-        want = {"gather_or": runs["gathers_per_tick"] * ticks, "popcount_rows": ticks,
+        want = {"gather_or": runs["gathers_per_tick"] * ticks, "tick_update": ticks,
                 "compress_deltas": ticks if delta else 0,
                 "scatter_deltas": ticks if delta and not ex["overflow_write_ticks"] else None}
         for name, count in want.items():
@@ -4653,7 +4665,7 @@ def sharded_campaign_phase(graph, dg, dgf_edge, cov_set, gossip_set, delays, pha
 
 SERVE_MESH_EXCHANGES = ("dense", "delta")
 SERVE_MESH_KERNELS = ("gather_or", "coverage_per_slot", "compress_deltas", "scatter_deltas",
-                      "scatter_or", "or_fold", "popcount_rows")
+                      "scatter_or", "or_fold", "popcount_rows", "tick_update")
 GLOO_SERVE_MESHES = ((2, 1), (1, 2))  # (replicas, nodes) on 2 ranks, then make_slot_mesh(4)
 
 
@@ -5246,7 +5258,7 @@ def compare_phase(dev):
 
 BENCH_REPEATS = 3
 # Legs 1-4's kernels: the flood's three and the campaign's coverage count.
-BENCH_KERNELS = ("gather_or", "sector_occupancy", "popcount_rows", "coverage_per_slot")
+BENCH_KERNELS = ("gather_or", "sector_occupancy", "tick_update", "coverage_per_slot")
 BENCH_TIMEOUT_S = 600
 
 
@@ -5455,6 +5467,200 @@ def staticcheck_phase(dev) -> dict:
         f"launches {launches}")
     log(f"phase 20 took {wall:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in split.items()))
     return dict(record=record, launches=launches, wall_s=wall)
+
+
+# --- phase 21: the tick update ------------------------------------------------
+
+# (N, W, S): burst32k's flood (100,000 nodes, 32,768 shares) and
+# coverage4k's (10^6 nodes, 4,096 origins), S the generation events a tick
+# carries; then ragged shapes.
+TICK_UPDATE_SHAPES = ((100_000, 1024, 32_768), (1_000_000, 128, 4_096))
+TICK_UPDATE_RAGGED = ((777, 3), (1000, 1), (513, 4), (4099, 33))
+# A sparse frontier's 16-byte units of arrivals kept (the rest zero).
+TICK_UPDATE_SPARSE = 0.05
+
+
+def tick_update_inputs(rng, n, w, s, dev, sparse=None):
+    """A tick's update inputs: random seen; arrivals random words, or with
+    only a ``sparse`` share of their 16-byte units kept; S events on random
+    rows (pairs sharing a word, bit 31 among them, a sixteenth active, one
+    row out of range); counters near 2^31 so they wrap; degrees up to
+    1,000."""
+    import torch
+
+    seen = random_words(rng, (n, w), dev)
+    arrivals = random_words(rng, (n, w), dev)
+    if sparse is not None:
+        keep = rng.random((n, -(-w // 4))) < sparse
+        mask = torch.as_tensor(np.repeat(keep, 4, axis=1)[:, :w], device=dev)
+        arrivals = torch.where(mask, arrivals, 0)
+    rows = rng.integers(0, n, s)
+    rows[1::2] = rows[0::2][: s // 2]  # slots 2k and 2k + 1 share a word
+    rows[-1] = n  # dropped
+    slots = np.arange(s) % (32 * w)
+    active = rng.random(s) < 1 / 16
+    active[31 % s] = True
+    i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32), device=dev)  # noqa: E731
+    return dict(
+        seen=seen, arrivals=arrivals,
+        rows=torch.as_tensor(rows, dtype=torch.int64, device=dev),
+        slots=torch.as_tensor(slots, dtype=torch.int64, device=dev),
+        active=torch.as_tensor(active, device=dev),
+        gen_cnt=i32(rng.integers(0, 3, n)), degree=i32(rng.integers(1, 1001, n)),
+        received=i32(rng.integers(2**31 - 50, 2**31, n)),
+        sent=i32(rng.integers(-2**31, 2**31 - 1, n)),
+    )
+
+
+def run_tick_update(case, *, frontier=True, plain=False):
+    """One `kernels.tick_update` call on copies of ``case``'s state:
+    (out, newly_cnt, seen, received, sent) after it."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    seen, received, sent = (case[k].clone() for k in ("seen", "received", "sent"))
+    out, cnt = kernels.tick_update(
+        seen, case["arrivals"], case["rows"], case["slots"], case["active"], case["gen_cnt"],
+        received, sent, case["degree"], frontier=frontier, out=torch.empty_like(seen),
+        plain=plain)
+    return out, cnt, seen, received, sent
+
+
+def check_tick_update_case(label, case, frontier=True) -> int:
+    names = ("out", "newly_cnt", "seen", "received", "sent")
+    got = run_tick_update(case, frontier=frontier)
+    want = run_tick_update(case, frontier=frontier, plain=True)
+    return max(compare(f"tick_update{label} {k}", a, b) for k, a, b in zip(names, got, want))
+
+
+def tick_update_bytes(case) -> tuple[int, int]:
+    """Least bytes of the case's update: arrivals read and out written, 8 B
+    a word; seen read and written where a 16-byte unit of arrivals holds a
+    bit, 32 B a unit; 28 B of counters a row (gen_cnt, degree, received and
+    sent read and written, newly_cnt written); 17 B an event. Returns
+    (bytes, nonzero units)."""
+    import torch
+
+    n, w = case["seen"].shape
+    units = torch.nn.functional.pad(case["arrivals"], (0, (-w) % 4)).view(n, -1, 4)
+    nonzero = int((units != 0).any(dim=2).sum())
+    return n * w * 8 + nonzero * 32 + n * 28 + case["rows"].numel() * 17, nonzero
+
+
+def previous_tick_update(case, seen, received, sent, out):
+    """The flood tick's update as the engine ran it before the kernel: the
+    generation plane (`ops.bitmask.slot_scatter`), then torch passes with
+    the ``popcount_rows`` kernel."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import bitmask
+
+    n, w = seen.shape
+    gen_bits = bitmask.slot_scatter(n, w, case["rows"], case["slots"], case["active"])
+    newly = case["arrivals"] & ~seen
+    newly_cnt = bitmask.popcount_rows(newly)
+    seen |= case["arrivals"]
+    seen |= gen_bits
+    torch.bitwise_or(newly, gen_bits, out=out)
+    received += newly_cnt
+    sent += (newly_cnt + case["gen_cnt"]) * case["degree"]
+
+
+def time_tick_update(case, reps, how="kernel") -> float:
+    """Median milliseconds of one update over ``reps`` runs, each from the
+    case's state (restored by a copy outside the timed events; the copy
+    keeps the device busy while the host enqueues the call): ``how`` the
+    kernel, its plain passes ("plain") or the engine's update before the
+    kernel ("previous")."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    seen, received, sent = (case[k].clone() for k in ("seen", "received", "sent"))
+    out = torch.empty_like(seen)
+
+    def run():
+        if how == "previous":
+            return previous_tick_update(case, seen, received, sent, out)
+        return kernels.tick_update(seen, case["arrivals"], case["rows"], case["slots"],
+                                   case["active"], case["gen_cnt"], received, sent,
+                                   case["degree"], out=out, plain=how == "plain")
+
+    times = []
+    for i in range(reps + 1):
+        seen.copy_(case["seen"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        if i:  # the first run warms up
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def tick_update_phase(dev, reps=10) -> dict:
+    """Phase 21: the tick update kernel against its plain torch passes,
+    bitwise, on ragged shapes (with the generations in the frontier and,
+    as before the connect tick, out of it) and at burst32k's and
+    coverage4k's shapes with dense and sparse arrivals; timed at those
+    shapes beside the least bytes at 3.35 TB/s, its plain passes and the
+    engine's update before it (`previous_tick_update`)."""
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    err = 0
+    for n, w in TICK_UPDATE_RAGGED:
+        for sparse in (None, TICK_UPDATE_SPARSE):
+            case = tick_update_inputs(rng, n, w, 3 * w + 5, dev, sparse)
+            for frontier in (True, False):
+                err = max(err, check_tick_update_case(f"({n}, {w})", case, frontier))
+    out = {}
+    for n, w, s in TICK_UPDATE_SHAPES:
+        for kind, sparse in (("dense", None), ("sparse", TICK_UPDATE_SPARSE)):
+            case = tick_update_inputs(rng, n, w, s, dev, sparse)
+            err = max(err, check_tick_update_case(f"({n}, {w}) {kind}", case))
+            nbytes, nonzero = tick_update_bytes(case)
+            row = dict(ms=time_tick_update(case, reps),
+                       plain_ms=time_tick_update(case, max(2, reps // 4), "plain"),
+                       previous_ms=time_tick_update(case, reps, "previous"),
+                       bound_ms=bound_ms(nbytes), units_nonzero=nonzero)
+            out[f"{n}x{w}_{kind}"] = row
+            log(f"tick_update ({n}, {w}) {kind}, S = {s}: bitwise equal; kernel "
+                f"{row['ms']:.4f} ms, the engine's passes before it {row['previous_ms']:.4f} "
+                f"ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({nonzero} of {n * -(-w // 4)} units nonzero)")
+            del case
+            torch.cuda.empty_cache()
+    dense = out[f"{TICK_UPDATE_SHAPES[0][0]}x{TICK_UPDATE_SHAPES[0][1]}_dense"]
+    record = dict(max_abs_err=err, ms=dense["ms"], plain_ms=dense["plain_ms"],
+                  bound_ms=dense["bound_ms"], library_ms=None,
+                  previous_ms=dense["previous_ms"],
+                  **{f"{k}_{key}": v[key] for k, v in out.items()
+                     for key in ("ms", "plain_ms", "previous_ms", "bound_ms")})
+    log(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+    return record
+
+
+def phase_21_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 21``: phase 21 by itself, after the
+    kernels' build. Prints its record; the default run (every phase) is the
+    script's contract."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import build
+
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    print(json.dumps({"phase21_tick_update": tick_update_phase(dev)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
 
 
 def phase_20_alone(dev) -> int:
@@ -5720,6 +5926,8 @@ def main() -> int:
         return phase_19_alone(dev)
     if sys.argv[1:3] == ["--phase", "20"]:
         return phase_20_alone(dev)
+    if sys.argv[1:3] == ["--phase", "21"]:
+        return phase_21_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -5804,7 +6012,8 @@ def main() -> int:
     bench19 = bench_phase(graph, dg, sched, dev, base["stats"])
     phase20 = staticcheck_phase(dev)
     print(json.dumps({"staticcheck": phase20["record"]}))
-    log(f"chip_smoke phases 1-20 took {time.perf_counter() - t_start:.1f} s")
+    tick21 = tick_update_phase(dev)
+    log(f"chip_smoke phases 1-21 took {time.perf_counter() - t_start:.1f} s")
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -5840,6 +6049,9 @@ def main() -> int:
         "sector_occupancy": dict(occupancy, ms_captured=cu["occupancy_ms"],
                                  plain_ms_captured=cu["occupancy_plain_ms"]),
         "popcount_rows": popcount,
+        # Phase 21: dense arrivals at burst32k's (100,000, 1,024), sparse and
+        # coverage4k's (10^6, 128) beside it.
+        "tick_update": tick21,
         "coverage_per_slot": dict(coverage, max_abs_err=max(coverage["max_abs_err"],
                                                             frontier["max_abs_err"]),
                                   ms_frontier=frontier["ms"],

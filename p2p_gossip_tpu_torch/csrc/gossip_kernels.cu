@@ -370,6 +370,124 @@ __global__ void popcount_rows_kernel(const uint32_t* __restrict__ words,
 }
 
 // ---------------------------------------------------------------------------
+// tick_update
+//
+// Replaces: no TPU kernel. The JAX package's tick update (engine/sync.py
+//   apply_tick_updates: arrivals & ~seen, its popcount, the ORs into seen
+//   and the frontier, the counters) is a few jnp expressions that XLA
+//   fused into its own loops on the TPU. Eager PyTorch ran them as a chain
+//   of elementwise passes, some 18 reads and writes of (N, W) planes a
+//   tick, one of them a fresh plane built for the tick's few generation
+//   bits.
+// Computes, over the n rows of w words of seen, arrivals and out:
+//   newly = arrivals & ~seen;  seen |= arrivals;  out = newly
+//   cnt[r] = the set bits of row r of newly
+//   newly_cnt[r] = cnt[r];  received[r] += cnt[r];
+//   sent[r] += (cnt[r] + gen_cnt[r]) * degree[r]
+//   in uint32, so the counters wrap as the engine's int32 counters do.
+//   Then (tick_generations_kernel) for each event e with active[e], 0 <=
+//   rows[e] < n and 0 <= slots[e] < 32 w: bit slots[e] % 32 of word
+//   slots[e] / 32 of row rows[e] is ORed into seen and, when `out` is
+//   passed to it, into out. The generations enter after newly is taken, as
+//   the torch passes had it.
+// Bound on the H100: bytes. A dense tick reads arrivals, reads and writes
+//   seen and writes out: 16 B a word, 1.64 GB at 100,000 x 1,024. Where a
+//   16-byte unit of arrivals is zero, seen does not change, so neither its
+//   read nor its write is needed: a sparse frontier costs 8 B a word.
+// Design: g lanes own a row, g the least power of two that gives each
+//   lane at most kTickBatch of the row's units (16 bytes when the rows are
+//   whole aligned 16-byte units, else 4), at most 32; a block of 256
+//   threads holds 256 / g rows. So W = 1 puts 256 rows in a block, W = 128
+//   (32 units) 8 lanes on a row, W = 1,024 a warp on a row. One code path
+//   for every W. Each lane loads kTickBatch units of arrivals before it
+//   uses any, then seen for those of them that are nonzero, so a lane
+//   keeps that many loads in flight; seen is stored only where the unit's
+//   newly is nonzero. (At 10^6 x 128 a warp a row, one unit a lane, took
+//   0.85 ms dense and 0.69 sparse against 0.81 and 0.56 this way; a batch
+//   of 8 was slower at both widths, PERF.md.) The row's count sums in registers and folds
+//   over its g lanes by shuffle-XOR (every lane of the warp takes part,
+//   rows past n with 0); the group's first lane writes the counters. The
+//   events' launch is one thread an event, with atomicOr because two
+//   events may share a word. It covers every event every tick, inactive
+//   ones returning at once, so the host never reads how many fire.
+// ---------------------------------------------------------------------------
+constexpr int kTickThreads = 256;
+constexpr int kTickBatch = 4;
+
+__device__ inline bool any_bits(uint32_t v) { return v != 0u; }
+__device__ inline bool any_bits(uint4 v) { return (v.x | v.y | v.z | v.w) != 0u; }
+__device__ inline int popc_units(uint32_t v) { return __popc(v); }
+__device__ inline int popc_units(uint4 v) {
+  return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTickThreads)
+    tick_update_kernel(T* __restrict__ seen, const T* __restrict__ arrivals,
+                       T* __restrict__ out, int n, int units, int g,
+                       const int32_t* __restrict__ gen_cnt,
+                       const int32_t* __restrict__ degree,
+                       uint32_t* __restrict__ received, uint32_t* __restrict__ sent,
+                       int32_t* __restrict__ newly_cnt) {
+  const int sub = threadIdx.x & (g - 1);
+  const long long row = (long long)blockIdx.x * (kTickThreads / g) + threadIdx.x / g;
+  const bool live = row < n;
+  int cnt = 0;
+  if (live) {
+    const size_t base = (size_t)row * (size_t)units;
+    T* s_row = seen + base;
+    const T* a_row = arrivals + base;
+    T* o_row = out + base;
+    for (int u0 = sub; u0 < units; u0 += g * kTickBatch) {
+      T a[kTickBatch], s[kTickBatch];
+#pragma unroll
+      for (int i = 0; i < kTickBatch; ++i) {
+        const int u = u0 + i * g;
+        a[i] = u < units ? __ldcs(a_row + u) : zero_unit<T>();
+      }
+#pragma unroll
+      for (int i = 0; i < kTickBatch; ++i) {
+        const int u = u0 + i * g;
+        s[i] = u < units && any_bits(a[i]) ? s_row[u] : zero_unit<T>();
+      }
+#pragma unroll
+      for (int i = 0; i < kTickBatch; ++i) {
+        const int u = u0 + i * g;
+        if (u < units) {
+          const T newly = and_not_units(a[i], s[i]);
+          o_row[u] = newly;
+          if (any_bits(newly)) {
+            s_row[u] = or_units(s[i], a[i]);
+            cnt += popc_units(newly);
+          }
+        }
+      }
+    }
+  }
+  for (int off = g >> 1; off > 0; off >>= 1) cnt += __shfl_xor_sync(kFullMask, cnt, off);
+  if (live && sub == 0) {
+    const uint32_t c = (uint32_t)cnt;
+    newly_cnt[row] = (int32_t)c;
+    received[row] += c;
+    sent[row] += (c + (uint32_t)gen_cnt[row]) * (uint32_t)degree[row];
+  }
+}
+
+__global__ void tick_generations_kernel(const long long* __restrict__ rows,
+                                        const long long* __restrict__ slots,
+                                        const uint8_t* __restrict__ active, int m,
+                                        int n, int w, uint32_t* seen, uint32_t* out) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m || !active[e]) return;
+  const long long r = rows[e], s = slots[e];
+  if (r < 0 || r >= n || s < 0 || s >= 32LL * w) return;
+  const size_t off = (size_t)r * (size_t)w + (size_t)(s >> 5);
+  const uint32_t bit = 1u << (unsigned)(s & 31);
+  atomicOr(seen + off, bit);
+  if (out != nullptr) atomicOr(out + off, bit);
+}
+
+// ---------------------------------------------------------------------------
 // coverage_per_slot
 //
 // Replaces: p2p_gossip_tpu/ops/pallas_kernels.py coverage_per_slot_pallas
@@ -1272,6 +1390,45 @@ int gossip_popcount_rows(const void* words, int n, int w, long long ld,
 
 // `replicas` row blocks of n rows each, rep_ld words apart; out holds
 // replicas * n_slots counts.
+// `seen`, `arrivals` and `out` are (n, w) row-major and distinct; `gen_cnt`,
+// `degree`, `received`, `sent` and `newly_cnt` (n,) 32-bit; `rows` and
+// `slots` (m,) int64, `active` (m,) bytes. frontier == 0: the generation
+// bits go into seen only. Two launches, the row pass then the events'.
+int gossip_tick_update(void* seen, const void* arrivals, void* out, int n, int w,
+                       const void* gen_cnt, const void* degree, void* received, void* sent,
+                       void* newly_cnt, const void* rows, const void* slots,
+                       const void* active, int m, int frontier, void* stream) {
+  if (n < 0 || w < 1 || m < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = w % 4 == 0 && aligned16(seen) && aligned16(arrivals) && aligned16(out);
+  const int units = vec ? w / 4 : w;
+  int g = 1;
+  while (g * kTickBatch < units && g < 32) g <<= 1;
+  const int rows_per_block = kTickThreads / g;
+  const long long blocks = ((long long)n + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0) {
+#define GOSSIP_TICK_UPDATE_LAUNCH(T)                                                  \
+  tick_update_kernel<T><<<(unsigned)blocks, kTickThreads, 0, s>>>(                    \
+      (T*)seen, (const T*)arrivals, (T*)out, n, units, g, (const int32_t*)gen_cnt,    \
+      (const int32_t*)degree, (uint32_t*)received, (uint32_t*)sent, (int32_t*)newly_cnt)
+    if (vec) {
+      GOSSIP_TICK_UPDATE_LAUNCH(uint4);
+    } else {
+      GOSSIP_TICK_UPDATE_LAUNCH(uint32_t);
+    }
+#undef GOSSIP_TICK_UPDATE_LAUNCH
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (m > 0) {
+    const int threads = 256;
+    tick_generations_kernel<<<(unsigned)((m + threads - 1) / threads), threads, 0, s>>>(
+        (const long long*)rows, (const long long*)slots, (const uint8_t*)active, m, n, w,
+        (uint32_t*)seen, frontier ? (uint32_t*)out : nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
 int gossip_coverage_per_slot(const void* words, int n, int w, long long ld,
                              int replicas, long long rep_ld, int n_slots,
                              void* out, void* stream) {

@@ -10,8 +10,9 @@ The NS-3 event loop becomes a synchronous graph message-passing simulation:
   gather reads only the sectors of a source row that hold bits;
 - the per-node seen-set (p2pnode.h:38) is an (N x S/32) int32 bitmask;
 - generation events (`GenerateAndGossipShare`, p2pnode.cc:106) are
-  pre-sampled host-side and scattered into the frontier at their tick;
-- counters (p2pnode.h:40-43) update from the ``popcount_rows`` kernel;
+  pre-sampled host-side and ORed into seen and the frontier at their tick;
+- the dedup against seen, the new frontier and the counters (p2pnode.h:40-43)
+  are one ``tick_update`` kernel call a tick;
 - a Python loop advances time until no message is in flight and no
   generation is pending (or the horizon). Its predicate is read on the
   host once per tick — one device sync per tick.
@@ -43,6 +44,7 @@ coverage rows.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -264,12 +266,13 @@ def flood_resident_hbm_bytes(
     - the chunk state (`_chunk_state`): ``seen`` (N, W) int32, the
       (D, N, W) frontier ring, its (D, N) int32 sector occupancy, the
       (N,) int32 ``received`` and ``sent``;
-    - the tick's live temporaries at its peak, ``newly = arrivals &
-      ~seen`` in `apply_tick_updates`: ``arrivals`` (`ops.ell`'s output),
-      the generation bits (`ops.bitmask.slot_scatter`), ``~seen`` and
-      ``newly``, four (N, W) int32; and four (N,) int32 count vectors
-      (the generation counts, the newly counts and the two ``sent``
-      terms).
+    - the tick's live temporaries at its peak, the `ops.kernels.
+      tick_update` call: ``arrivals`` (`ops.ell`'s output), one (N, W)
+      int32, and two (N,) int32 count vectors (the live generations and
+      the newly counts). The kernel writes the rest in place. The plain
+      torch passes (the CPU, ``plain=True``) hold three (N, W) planes
+      more, the generation bits, ``~seen`` and ``newly``; the CPU has no
+      budget to fit.
 
     Per-share and per-tick buffers (origins, slots, coverage rows) are a
     few MB and left out."""
@@ -278,7 +281,7 @@ def flood_resident_hbm_bytes(
     row = w * 4
     staged = _staged_graph_bytes(degree, block, uniform_delay)
     state = (1 + ring_size) * n * row + ring_size * n * 4 + 2 * n * 4
-    tick = 4 * n * row + 4 * n * 4
+    tick = n * row + 2 * n * 4
     return staged + state + tick
 
 
@@ -347,6 +350,19 @@ def device_budget_bytes(device=None) -> float:
     return float(free)
 
 
+class TickGenerations(NamedTuple):
+    """A tick's generation events, the third argument of
+    `apply_tick_updates`: event e puts share slot ``slots[e]`` into row
+    ``rows[e]`` where ``active[e]`` ((S,) int64, int64 and bool on the
+    state's device); ``frontier`` False (before ``connect_tick``) puts the
+    bits into ``seen`` only."""
+
+    rows: torch.Tensor
+    slots: torch.Tensor
+    active: torch.Tensor
+    frontier: bool = True
+
+
 def apply_tick_updates(
     seen, arrivals, gen_bits, gen_cnt, received, sent, degree, *,
     out=None, plain: bool = False,
@@ -355,17 +371,19 @@ def apply_tick_updates(
     GenerateAndGossipShare): dedup against ``seen``, count first-time
     receives, and charge one send per peer per processed share.
 
-    Updates ``seen``, ``received`` and ``sent`` in place (int32, wrapping
-    exactly as the JAX engine's counters) and writes ``newly_out`` — the
-    frontier this tick contributes to its delay-line slot — into ``out``
-    when given. Returns (seen, newly_out, received, sent, newly_cnt)."""
-    newly = arrivals & ~seen
-    newly_cnt = bitmask.popcount_rows(newly, plain=plain)
-    seen |= arrivals
-    seen |= gen_bits
-    newly_out = torch.bitwise_or(newly, gen_bits, out=out)
-    received += newly_cnt
-    sent += (newly_cnt + gen_cnt) * degree
+    ``gen_bits`` is the tick's generation events, a `TickGenerations` (the
+    events, not an (N, W) plane of their bits); ``gen_cnt`` (N,) int32 the
+    live generations a row (zero before ``connect_tick``). Updates
+    ``seen``, ``received`` and ``sent`` in place (int32, wrapping exactly
+    as the JAX engine's counters) and writes ``newly_out`` — the frontier
+    this tick contributes to its delay-line slot — into ``out`` when given:
+    one `ops.kernels.tick_update` call, the kernel on the card, the torch
+    passes on the CPU and with ``plain``. Returns (seen, newly_out,
+    received, sent, newly_cnt)."""
+    newly_out, newly_cnt = kernels.tick_update(
+        seen, arrivals, gen_bits.rows, gen_bits.slots, gen_bits.active, gen_cnt, received,
+        sent, degree, frontier=gen_bits.frontier, out=out, plain=plain,
+    )
     return seen, newly_out, received, sent, newly_cnt
 
 
@@ -417,7 +435,7 @@ def _tick(
     dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, plain,
     opts: TickOptions = NO_OPTIONS, rings=None,
 ):
-    """One synchronous tick at time ``t``: gather arrivals, scatter this
+    """One synchronous tick at time ``t``: gather arrivals, OR in this
     tick's generations, update seen and the counters, and write the new
     frontier into hist slot ``t mod D`` and its sector occupancy into occ
     slot ``t mod D``. Returns that slot's frontier and a 0-d device tensor
@@ -442,7 +460,6 @@ def _tick(
     A campaign batch (``opts.replicas`` B > 1) stacks its replicas along
     the rows of every tensor here: ``origins`` are stacked rows r*N +
     origin, ``slots`` and ``gen_ticks`` the (B*S,) share slots and ticks."""
-    n, w = seen.shape
     with span("gather"):
         up = None if opts.churn is None else churn_mod.up_mask(*opts.churn, t)
         if rings is None:
@@ -456,26 +473,22 @@ def _tick(
         gen_active = gen_ticks == t
         if up is not None:
             gen_active &= up[origins]
-        gen_bits = bitmask.slot_scatter(n, w, origins, slots, gen_active)
-        gen_cnt = torch.zeros((n,), dtype=torch.int32, device=seen.device)
-        gen_cnt.index_add_(0, origins, gen_active.to(torch.int32))
-        pre_connect = t < opts.connect_tick
-        live_bits, live_cnt = gen_bits, gen_cnt
-        if pre_connect:
-            live_bits, live_cnt = torch.zeros_like(gen_bits), torch.zeros_like(gen_cnt)
+        live = t >= opts.connect_tick
+        live_cnt = torch.zeros(received.shape, dtype=torch.int32, device=seen.device)
+        if live:
+            live_cnt.index_add_(0, origins, gen_active.to(torch.int32))
         slot = hist[t % dg.ring_size]
         degree = dg.degree if opts.degree is None else opts.degree
         _, newly_out, _, _, newly_cnt = apply_tick_updates(
-            seen, arrivals, live_bits, live_cnt, received, sent, degree,
-            out=slot, plain=plain,
+            seen, arrivals, TickGenerations(origins, slots, gen_active, live), live_cnt,
+            received, sent, degree, out=slot, plain=plain,
         )
-        if pre_connect:
-            seen |= gen_bits
         kernels.sector_occupancy(slot, out=occ[t % dg.ring_size], plain=plain)
-        # newly_out = newly | live_bits holds a bit iff a node newly processed
-        # a share or a live generation fired — read from the two small count
-        # vectors instead of another (N, W) pass. Before connect_tick the
-        # live count is zero: the slot holds no generation bit then.
+        # newly_out = newly | the live generation bits holds a bit iff a node
+        # newly processed a share or a live generation fired — read from the
+        # two small count vectors instead of another (N, W) pass. Before
+        # connect_tick the live count is zero: the slot holds no generation
+        # bit then.
         nonzero = (newly_cnt.sum() + live_cnt.sum()) > 0
     if rings is not None:
         met, dig = rings

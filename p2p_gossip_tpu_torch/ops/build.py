@@ -42,6 +42,9 @@ _SIGNATURES = {
     "gossip_sector_occupancy": (_P, _I, _I, _LL, _P, _P),
     # words, n, w, ld, out, stream
     "gossip_popcount_rows": (_P, _I, _I, _LL, _P, _P),
+    # seen, arrivals, out, n, w, gen_cnt, degree, received, sent, newly_cnt,
+    # rows, slots, active, m, frontier, stream
+    "gossip_tick_update": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # words, n, w, ld, replicas, rep_ld, n_slots, out, stream
     "gossip_coverage_per_slot": (_P, _I, _I, _LL, _I, _LL, _I, _P, _P),
     # src, n_src, w, offsets, entries, pull_row, base, and_not, n_out, out,

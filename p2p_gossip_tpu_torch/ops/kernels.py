@@ -6,6 +6,8 @@
 | `gather_or`         | ops/ell.py gather_or_frontier / propagate (XLA gather)   |
 | `sector_occupancy`  | none: the gather's companion pass over each new slot    |
 | `popcount_rows`     | ops/pallas_kernels.py popcount_rows_pallas              |
+| `tick_update`       | none: engine/sync.py apply_tick_updates, which XLA      |
+|                     | fused (the port's torch passes over (N, W) planes)      |
 | `coverage_per_slot` | ops/pallas_kernels.py coverage_per_slot_pallas          |
 | `scatter_or`        | ops/segment.py scatter_or / scatter_or_bits (XLA) and   |
 |                     | the protocols' round OR (models/protocols.py:160)       |
@@ -43,7 +45,7 @@ WORD_BITS = 32
 launches = {
     "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
     "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
-    "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0,
+    "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0, "tick_update": 0,
 }
 
 
@@ -123,6 +125,102 @@ def popcount_rows(
         _stream(words.device),
     )
     return out
+
+
+# --- tick_update ------------------------------------------------------------
+
+def tick_update_plain(seen, arrivals, rows, slots, active, gen_cnt, received, sent, degree,
+                      frontier, out):
+    """The tick's update as torch passes over (N, W) planes: the generation
+    events scattered into a fresh plane (`ops.bitmask.slot_scatter`),
+    ``newly = arrivals & ~seen`` and its popcount, the ORs into ``seen``
+    and the frontier, then the counters. Returns (newly_out, newly_cnt)."""
+    from p2p_gossip_tpu_torch.ops import bitmask
+
+    n, w = seen.shape
+    gen_bits = bitmask.slot_scatter(n, w, rows, slots, active)
+    newly = arrivals & ~seen
+    newly_cnt = popcount_rows_plain(newly)
+    seen |= arrivals
+    seen |= gen_bits
+    if frontier:
+        newly_out = torch.bitwise_or(newly, gen_bits, out=out)
+    else:
+        newly_out = newly if out is None else out.copy_(newly)
+    received += newly_cnt
+    sent += (newly_cnt + gen_cnt) * degree
+    return newly_out, newly_cnt
+
+
+def tick_update(
+    seen: torch.Tensor,
+    arrivals: torch.Tensor,
+    rows: torch.Tensor,
+    slots: torch.Tensor,
+    active: torch.Tensor,
+    gen_cnt: torch.Tensor,
+    received: torch.Tensor,
+    sent: torch.Tensor,
+    degree: torch.Tensor,
+    *,
+    frontier: bool = True,
+    out: torch.Tensor | None = None,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One tick's update of the flood state, in place:
+
+        newly = arrivals & ~seen;  seen |= arrivals | G;  out = newly | G
+        received += popcount(newly);  sent += (popcount(newly) + gen_cnt) * degree
+
+    per row, G the tick's generation bits: event e sets bit ``slots[e]``
+    (word ``slots[e] // 32``) of row ``rows[e]`` where ``active[e]``; rows
+    outside ``[0, N)`` are dropped. ``frontier`` False (before the connect
+    tick) leaves G out of ``out``. ``seen``, ``arrivals`` and ``out`` (N, W)
+    int32, ``rows`` and ``slots`` (S,) int64 with slots in ``[0, 32 W)``,
+    ``active`` (S,) bool, ``gen_cnt``, ``received``, ``sent`` and
+    ``degree`` (N,) int32; the counters wrap as int32. Returns ``out`` (a
+    fresh tensor when None) and the (N,) int32 popcount of ``newly``.
+
+    On the card one call is two launches, counted once: the row pass and
+    the events' ORs, with no host read of how many events fire."""
+    _require(seen.dim() == 2 and arrivals.shape == seen.shape,
+             "seen and arrivals must be (N, W) alike")
+    n, w = seen.shape
+    _require(max(n, rows.shape[0]) < 2**31, "more than 2^31 - 1 rows or events")
+    _require(out is None or out.shape == seen.shape, "out must be shaped like seen")
+    _require(rows.dim() == 1 and slots.shape == rows.shape and active.shape == rows.shape,
+             "rows, slots and active must be (S,) alike")
+    _require(active.dtype == torch.bool, f"active must be bool, got {active.dtype}")
+    for name, t in (("gen_cnt", gen_cnt), ("received", received), ("sent", sent),
+                    ("degree", degree)):
+        _require(t.shape == (n,), f"{name} must be (N,)")
+    if not _use_kernel(seen, plain):
+        return tick_update_plain(seen, arrivals, rows, slots, active, gen_cnt, received,
+                                 sent, degree, frontier, out)
+    if out is None:
+        out = torch.empty_like(seen)
+    tensors = [("seen", seen, torch.int32), ("arrivals", arrivals, torch.int32),
+               ("out", out, torch.int32), ("rows", rows, torch.int64),
+               ("slots", slots, torch.int64), ("active", active, torch.bool)]
+    tensors += [(name, t, torch.int32) for name, t in (
+        ("gen_cnt", gen_cnt), ("received", received), ("sent", sent), ("degree", degree))]
+    for name, t, dtype in tensors:
+        _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        _require(t.device == seen.device, f"{name} is on {t.device}, not {seen.device}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(out.data_ptr() not in (seen.data_ptr(), arrivals.data_ptr()),
+             "out must not alias seen or arrivals")
+    newly_cnt = torch.empty((n,), dtype=torch.int32, device=seen.device)
+    if not (n and w):
+        return out, newly_cnt.zero_()
+    _launch(
+        "tick_update", _lib().gossip_tick_update,
+        seen.data_ptr(), arrivals.data_ptr(), out.data_ptr(), n, w,
+        gen_cnt.data_ptr(), degree.data_ptr(), received.data_ptr(), sent.data_ptr(),
+        newly_cnt.data_ptr(), rows.data_ptr(), slots.data_ptr(), active.data_ptr(),
+        rows.shape[0], int(frontier), _stream(seen.device),
+    )
+    return out, newly_cnt
 
 
 # --- coverage_per_slot ------------------------------------------------------

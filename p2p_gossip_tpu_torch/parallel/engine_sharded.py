@@ -57,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from p2p_gossip_tpu_torch.engine.sync import (
+    TickGenerations,
     apply_tick_updates,
     assemble_snapshots,
     filter_snapshot_boundaries,
@@ -496,10 +497,10 @@ class _Runner:
         churn rows); the pass state — ``seen``, the ring (local rows, or all
         rows when replicated, then with its occupancy ring), the counters,
         the delta rings and hub ring, the coverage rows — each rb times in
-        campaign mode; and the tick's peak in `apply_tick_updates`: four
-        (rb*n_loc, W) temporaries (arrivals, the generation bits, ~seen,
-        newly) and, when gathers read a sharded ring, the read canvas
-        (rb*n_padded, W) with its occupancy, or the landed canvases under
+        campaign mode; and the tick's peak in `apply_tick_updates` (the
+        `ops.kernels.tick_update` call): the (rb*n_loc, W) arrivals and,
+        when gathers read a sharded ring, the read canvas (rb*n_padded, W)
+        with its occupancy, or the landed canvases under
         async (two an offset on the dense transport: this tick's and the
         next's in flight). With rb > 1 on several node shards an all_gather
         lands rank-major and is copied replica-major: one canvas more."""
@@ -514,7 +515,7 @@ class _Runner:
         if cov_slots:
             state += rb * (p.s + 1) * horizon * cov_slots * 4
         loc, glob = rb * p.n_loc * row, rb * p.n_padded * row
-        tick = 4 * loc
+        tick = loc
         if len(self.groups) > 1:
             tick += loc
         transpose = rb > 1 and p.k > 1
@@ -744,21 +745,16 @@ class _Runner:
             gen_active = (gen_ticks == t) & in_shard
             if up is not None:
                 gen_active &= up[local_rows]
-            gen_bits = bitmask.slot_scatter(rb * n_loc, w, local_rows, slots, gen_active)
-            gen_cnt = torch.zeros((rb * n_loc,), dtype=torch.int32, device=dev)
-            gen_cnt.index_add_(0, local_rows, gen_active.to(torch.int32))
-            pre_connect = t < self.connect_tick
-            live_bits, live_cnt = gen_bits, gen_cnt
-            if pre_connect:
-                live_bits, live_cnt = torch.zeros_like(gen_bits), torch.zeros_like(gen_cnt)
+            live = t >= self.connect_tick
+            live_cnt = torch.zeros((rb * n_loc,), dtype=torch.int32, device=dev)
+            if live:
+                live_cnt.index_add_(0, local_rows, gen_active.to(torch.int32))
             slot_w = t % ring
             out = newly_buf if newly_buf is not None else st["hist"][slot_w]
             _, newly_out, _, _, newly_cnt = apply_tick_updates(
-                seen, arrivals, live_bits, live_cnt, received, sent, self.degree_rb,
-                out=out, plain=plain,
+                seen, arrivals, TickGenerations(local_rows, slots, gen_active, live), live_cnt,
+                received, sent, self.degree_rb, out=out, plain=plain,
             )
-            if pre_connect:
-                seen |= gen_bits
             if not p.sharded_ring:
                 if newly_buf is not None:
                     if rb == 1:
@@ -806,6 +802,9 @@ class _Runner:
                     fallbacks[i] += fb[i // rb][i % rb]
             if landed_next is not None:
                 st["landed"] = landed_next
+            # This tick's planes go before the next tick allocates its own, so
+            # a tick's peak is its own (`resident_bytes`).
+            arrivals = part = src = occ = wire = lossless = part_nl = None
             t += 1
         for kind, value in st["landed"].values():
             if kind == "dense":  # a prefetch no tick reads: done before its buffer goes

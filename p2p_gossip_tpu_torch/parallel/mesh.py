@@ -284,14 +284,14 @@ def campaign_node_bytes(n_nodes: int, ell_slots: int, shares: int, ring_size: in
     with the replicated ring: the staged ELL (an int32 index and a bool
     mask a slot, ``ell_slots`` slots over the degree buckets) and degrees;
     ``seen``, the (ring, N, W) ring and its occupancy ring, the counters;
-    the tick's four (N, W) temporaries. ``W`` = ``shares`` / 32 words.
+    the tick's (N, W) arrivals. ``W`` = ``shares`` / 32 words.
     Feed it to ``make_mesh(replicas="auto", node_bytes=...)`` (JAX's TPU
     pricing, ``estimate_node_bytes``, is not this card's)."""
     w = -(-max(1, shares) // 32)
     row = 4 * w
     staged = 5 * ell_slots + 4 * n_nodes
     state = (ring_size + 1) * n_nodes * row + ring_size * n_nodes * 4 + 2 * n_nodes * 4
-    return staged + state + 4 * n_nodes * row
+    return staged + state + n_nodes * row
 
 
 def auto_axis_split(

@@ -82,10 +82,11 @@ def slot_resident_bytes(request: SimRequest, n: int) -> int:
 
     - flood (`batch.campaign.run_coverage_campaign` ->
       `engine.sync._run_chunk_coverage`), at W words a row (the shares with
-      a 128-share floor), peaking at the tick update's ``arrivals & ~seen``:
-      ``seen`` and the D-slot frontier ring, the ring's (D, N) occupancy,
-      the counters, the tick's four (N, W) and four (N,) temporaries (as
-      `engine.sync.flood_resident_hbm_bytes` counts them), the stacked
+      a 128-share floor), peaking at the tick update (`ops.kernels.
+      tick_update`): ``seen`` and the D-slot frontier ring, the ring's (D,
+      N) occupancy, the counters, the tick's (N, W) ``arrivals`` and two
+      (N,) temporaries (as `engine.sync.flood_resident_hbm_bytes` counts
+      them), the stacked
       ``degree``, the (horizon + 2, S) coverage rows, the pass's int64
       rows and slots and int32 ticks, and under churn the two (N, K)
       interval arrays;
@@ -125,7 +126,7 @@ def slot_resident_bytes(request: SimRequest, n: int) -> int:
         w = _words(max(s, _PASS_FLOOR))
         row = w * _WORD_BYTES
         state = (1 + d) * n * row + d * n * 4 + 2 * n * 4
-        tick = 4 * n * row + 4 * n * 4
+        tick = n * row + 2 * n * 4
         cover = (horizon + 2) * s * 4
         events = w * _WORD_BITS * (8 + 8 + 4)
         return state + tick + n * 4 + cover + events + n * intervals
@@ -236,7 +237,7 @@ def _mesh_rank_bytes(request: SimRequest, degree: np.ndarray, rb: int, replica_s
         state += rb * 2 * ring * k * capacity * 4
         offs = group_offsets((1,), k_async)[0] if k_async else ()
         canvases = len(offs) * (1 if delta else 2) if offs else 1
-        tick = 4 * loc + canvases * glob + rb * n_padded * 4 + transpose
+        tick = loc + canvases * glob + rb * n_padded * 4 + transpose
         return staged, passed + state + tick
     anti = request.protocol != "pushk"
     delta = delta and anti

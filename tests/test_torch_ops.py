@@ -248,10 +248,20 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
                                                     torch.empty((50, 3), dtype=torch.int32)))
     stack = words.view(2, 25, 3)
     assert torch.equal(kernels.or_fold(stack), kernels.or_fold_plain(stack))
+    events = (torch.arange(4) * 7, torch.arange(4) * 13, torch.tensor([True, False] * 2))
+    gen_cnt, degree = torch.arange(50, dtype=torch.int32) % 2, torch.arange(50, dtype=torch.int32)
+    states = [(words.clone(), torch.zeros(50, dtype=torch.int32),
+               torch.zeros(50, dtype=torch.int32)) for _ in range(2)]
+    got = kernels.tick_update(states[0][0], words.flip(0), *events, gen_cnt, *states[0][1:],
+                              degree, out=torch.empty_like(words))
+    want = kernels.tick_update_plain(states[1][0], words.flip(0), *events, gen_cnt,
+                                     *states[1][1:], degree, True, None)
+    for a, b in zip(got + states[0], want + states[1]):
+        assert torch.equal(a, b)
     assert kernels.launches == {
         "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
         "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
-        "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0,
+        "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0, "tick_update": 0,
     }
 
 
@@ -271,6 +281,11 @@ def test_no_kernel_for_other_devices():
     with pytest.raises(ValueError):
         kernels.scatter_or_atomic(words, torch.zeros(2, dtype=torch.int32, device="meta"),
                                   out=torch.empty((3, 2), dtype=torch.int32, device="meta"))
+    counter = torch.zeros(4, dtype=torch.int32, device="meta")
+    event = torch.zeros(2, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        kernels.tick_update(words, words, event, event, event.bool(), counter, counter, counter,
+                            counter)
 
 
 def test_gather_or_rejects_bad_arguments():

@@ -97,7 +97,7 @@ def test_library_path_is_keyed_by_source_hash():
     with open(build.SOURCE, encoding="utf-8") as f:
         src = f.read()
     for entry in ("gossip_gather_or", "gossip_popcount_rows", "gossip_coverage_per_slot",
-                  "gossip_scatter_or"):
+                  "gossip_scatter_or", "gossip_tick_update"):
         assert f"int {entry}(" in src
         assert entry in build._SIGNATURES
 

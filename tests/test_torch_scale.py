@@ -107,7 +107,7 @@ def test_resident_model_counts_the_staging_and_state(kind, delays, w):
     dg = DeviceGraph.build(g, d, device="cpu")
     n, ring = g.n, dg.ring_size
     state = (1 + ring) * n * w * 4 + ring * n * 4 + 2 * n * 4
-    tick = 4 * n * w * 4 + 4 * n * 4
+    tick = n * w * 4 + 2 * n * 4
     model = sync.flood_resident_hbm_bytes(
         g.degree, w, ring_size=ring, uniform_delay=dg.uniform_delay is not None
     )

@@ -220,7 +220,7 @@ def test_modeled_bytes_equal_the_staged_nbytes(protocol, n):
     if protocol == "flood":
         w = 4  # 100 shares with the 128-share floor
         state = sum(t.nbytes for t in _chunk_state(dg, w, replicas=1))
-        tick = 4 * n * w * 4 + 4 * n * 4
+        tick = n * w * 4 + 2 * n * 4
         assert cost["resident_bytes"] == state + tick + 4 * n + 14 * 100 * 4 + 128 * 20
 
 
