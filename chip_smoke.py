@@ -51,7 +51,7 @@ Phases (any failure raises and the script exits nonzero):
    device time by kernel and the device's busy share of the run's wall
    time.
 9. The random-partner protocols at full size, on the phase-5 graph staged
-   full-width: push-pull with log-normal per-edge delays (max 5 ticks,
+   as its CSR (`PartnerGraph`): push-pull with log-normal per-edge delays (max 5 ticks,
    D = 6), pull with a uniform delay, fanout push (k = 2, uniform delay)
    and a push-pull coverage run with 4,096 origins; one warm and one timed
    run each, every run against its plain run (counters and coverage
@@ -5812,6 +5812,7 @@ def phase_16_alone(dev) -> int:
     import p2p_gossip_tpu_torch as pt
     from p2p_gossip_tpu_torch.batch.campaign import flood_replicas
     from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+    from p2p_gossip_tpu_torch.models.protocols import PartnerGraph
     from p2p_gossip_tpu_torch.ops import build
 
     path, nvcc_s = build.build()
@@ -5819,7 +5820,7 @@ def phase_16_alone(dev) -> int:
     graph = pt.erdos_renyi(N_NODES, EDGE_P, seed=SEED)
     dg = DeviceGraph.build(graph, device=dev)
     delays = pt.lognormal_delays(graph, mean_ticks=2.0, sigma=0.5, max_ticks=5, seed=SEED)
-    dgf_edge = DeviceGraph.build(graph, delays, bucketed=False, device=dev)
+    dgf_edge = PartnerGraph.build(graph, delays, device=dev)
     cov_set = flood_replicas(graph, COVERAGE_ORIGINS, np.arange(CAMPAIGN_REPLICAS) + SEED,
                              HORIZON)
     gossip_set = campaign_replicas(graph, N_SHARES)
@@ -5903,6 +5904,7 @@ def main() -> int:
 
     import p2p_gossip_tpu_torch as pt
     from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+    from p2p_gossip_tpu_torch.models.protocols import PartnerGraph
     from p2p_gossip_tpu_torch.ops import build
 
     # Phases 3-9 measure and count the telemetry-off path; phase 10 turns
@@ -5945,12 +5947,12 @@ def main() -> int:
         f"per-edge ring D={dg_edge.ring_size}")
 
     t0 = time.perf_counter()
-    # The protocols' full-width stagings: uniform delay, and the push-pull
-    # run's log-normal per-edge delays (D = 6).
-    dgf = DeviceGraph.build(graph, bucketed=False, device=dev)
-    dgf_edge = DeviceGraph.build(graph, delays, bucketed=False, device=dev)
-    log(f"full-width staging: {time.perf_counter() - t0:.1f} s, ELL width "
-        f"{dgf.ell_idx.shape[1]}, per-edge ring D={dgf_edge.ring_size}")
+    # The protocols' CSR stagings: uniform delay, and the push-pull run's
+    # log-normal per-edge delays (D = 6).
+    dgf = PartnerGraph.build(graph, device=dev)
+    dgf_edge = PartnerGraph.build(graph, delays, device=dev)
+    log(f"partner staging: {time.perf_counter() - t0:.1f} s, {dgf.num_entries} CSR "
+        f"entries, per-edge ring D={dgf_edge.ring_size}")
 
     rng = np.random.default_rng(SEED)
     w_flood, w_cov = CHUNK // 32, COVERAGE_ORIGINS // 32

@@ -343,7 +343,7 @@ def _resolve_loss(loss, loss_seeds, r_total: int):
 
 def _campaign_checkpointer(
     checkpoint_path, checkpoint_every, kind: str, graph, replicas: ReplicaSet,
-    horizon: int, chunk: int, dg: DeviceGraph, batch_size: int,
+    horizon: int, chunk: int, dg, batch_size: int,
     loss_cfg, loss_seed_arr, arrays: dict, extra: tuple = (), writer: bool = True,
 ):
     """Batch-boundary checkpointing shared by every campaign runner: the
@@ -357,6 +357,7 @@ def _campaign_checkpointer(
     fp = fingerprint(
         "campaign", kind, graph.n, graph.edges(), replicas.origins,
         replicas.gen_ticks, replicas.seeds, horizon, chunk,
+        dg.canonical_delays() if isinstance(dg, protocols.PartnerGraph) else
         _canonical_delays(dg), dg.uniform_delay, dg.ring_size, batch_size,
         replicas.churn[0] if replicas.churn is not None else None,
         replicas.churn[1] if replicas.churn is not None else None,
@@ -484,7 +485,7 @@ class _Batch:
     """One replica batch staged for the tick engine: the events as stacked
     rows (row r*N + origin), the per-row degree, churn and loss seeds."""
 
-    def __init__(self, dg: DeviceGraph, origins, gen_ticks, churn, lseeds, loss_cfg):
+    def __init__(self, dg, origins, gen_ticks, churn, lseeds, loss_cfg):
         b = origins.shape[0]
         dev = dg.device
         self.size = b
@@ -743,7 +744,7 @@ def run_protocol_campaign(
     loss_seeds=None,
     batch_size: int | None = None,
     chunk_size: int | None = None,
-    device_graph: DeviceGraph | None = None,
+    device_graph: protocols.PartnerGraph | None = None,
     record_coverage: bool = True,
     mesh=None,
     checkpoint_path: str | None = None,
@@ -768,8 +769,12 @@ def run_protocol_campaign(
     ``chunk_size=None`` pads a pass to a multiple of 32 shares, at least
     128; shares beyond one pass run in chunks with exactly additive
     counters. Checkpoints land at replica-batch boundaries, as in
-    `run_coverage_campaign`. Needs a full-width staging
-    (``DeviceGraph.build(..., bucketed=False)``), as the solo protocols do.
+    `run_coverage_campaign`. The graph is staged as the solo protocols
+    stage it, its CSR (`models.protocols.PartnerGraph`; ``ell_delays`` one
+    delay per CSR entry or the (N, dmax) ELL), or ``device_graph`` is that
+    staging. ``extra["rounds_executed"]``: the rounds run, horizon x passes
+    x batches. Spans ``inputs``, ``d2h`` and ``stats`` as the flood
+    entries'.
     """
     if protocol not in ("pushpull", "pull", "pushk"):
         raise ValueError(f"protocol must be pushpull|pull|pushk, got {protocol!r}")
@@ -823,25 +828,30 @@ def run_protocol_campaign(
     tel = tel_sink.rings_enabled()
     batches = list(_iter_batches(replicas, batch_size, horizon, lseed_arr))
     t0 = time.perf_counter()
+    rounds = 0
     for bi, batch in checkpointed_chunks(batches, checkpointer, stop_after_batches):
-        lo, live, origins, gen_ticks, churn, seeds, lseeds = batch
-        origins, gen_ticks, churn, seeds, lseeds = (
-            split.part(x) for x in (origins, gen_ticks, churn, seeds, lseeds))
-        row_seeds = _u32_tensor(seeds, dev).repeat_interleave(dg.n)
-        key = pick_key(nodes[:, None], picks[None, :], row_seeds[:, None])
-        loss_dev = None
-        if loss_thr > 0:
-            loss_dev = (loss_thr, _u32_tensor(lseeds, dev).repeat_interleave(dg.n)[None, :, None])
-        staged = _Batch(dg, origins, gen_ticks, churn, None, None)
+        with span("inputs", shares=s * b, batch=bi):
+            lo, live, origins, gen_ticks, churn, seeds, lseeds = batch
+            origins, gen_ticks, churn, seeds, lseeds = (
+                split.part(x) for x in (origins, gen_ticks, churn, seeds, lseeds))
+            row_seeds = _u32_tensor(seeds, dev).repeat_interleave(dg.n)
+            key = pick_key(nodes[:, None], picks[None, :], row_seeds[:, None])
+            loss_dev = None
+            if loss_thr > 0:
+                loss_dev = (loss_thr,
+                            _u32_tensor(lseeds, dev).repeat_interleave(dg.n)[None, :, None])
+            staged = _Batch(dg, origins, gen_ticks, churn, None, None)
         for ci in range(n_chunks):
-            lo_s, hi_s = ci * chunk, min((ci + 1) * chunk, s)
-            live_s = hi_s - lo_s
-            pad_o = np.zeros((b, chunk), dtype=np.int64)
-            pad_g = np.full((b, chunk), horizon, dtype=np.int32)
-            rows = staged.rows.reshape(b, s)
-            pad_o[:, :live_s] = rows[:, lo_s:hi_s]
-            pad_g[:, :live_s] = gen_ticks[:, lo_s:hi_s]
+            with span("inputs", shares=chunk * b, batch=bi, chunk=ci):
+                lo_s, hi_s = ci * chunk, min((ci + 1) * chunk, s)
+                live_s = hi_s - lo_s
+                pad_o = np.zeros((b, chunk), dtype=np.int64)
+                pad_g = np.full((b, chunk), horizon, dtype=np.int32)
+                rows = staged.rows.reshape(b, s)
+                pad_o[:, :live_s] = rows[:, lo_s:hi_s]
+                pad_g[:, :live_s] = gen_ticks[:, lo_s:hi_s]
             rings = tel_rings.chunk_rings(horizon, dev, b) if tel else None
+            rounds += horizon
             with span("dispatch", kernel=f"batch.campaign.{protocol}_replicas",
                       batch=bi, chunk=ci):
                 r, snt, cov = protocols._run_chunk(
@@ -868,18 +878,21 @@ def run_protocol_campaign(
                                            digest_head=head)
     wall = time.perf_counter() - t0
 
-    return CampaignResult(
-        n=graph.n,
-        seeds=replicas.seeds,
-        generated=_campaign_generated(replicas, horizon),
-        received=received,
-        sent=sent,
-        degree=graph.degree.astype(np.int64),
-        horizon=horizon,
-        wall_s=wall,
-        batch_size=batch_size,
-        coverage=coverage,
-    )
+    with span("stats"):
+        result = CampaignResult(
+            n=graph.n,
+            seeds=replicas.seeds,
+            generated=_campaign_generated(replicas, horizon),
+            received=received,
+            sent=sent,
+            degree=graph.degree.astype(np.int64),
+            horizon=horizon,
+            wall_s=wall,
+            batch_size=batch_size,
+            coverage=coverage,
+        )
+        result.extra["rounds_executed"] = rounds
+    return result
 
 
 # --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------

@@ -7,10 +7,13 @@ counters and coverage rows. The reference floods (`engine.sync`); these
 are the classic low-bandwidth alternatives (BASELINE.json config 5 is
 push-pull with log-normal per-edge delays).
 
-Each round every node with a neighbour picks one (push-pull, pull) or
-``fanout`` (fanout push) uniform-random neighbours by the counter-based
-hash of `models.partnersel`, keyed only by (seed, round), so share chunks
-see the same exchanges and counters add across chunks. Both directions of
+The graph is staged as its CSR on the device (`PartnerGraph`): indptr,
+indices, per-entry delays or the one uniform delay, degree. Each round
+every node with a neighbour picks one (push-pull, pull) or ``fanout``
+(fanout push) uniform-random neighbours by the counter-based hash of
+`models.partnersel`, keyed only by (seed, round), so share chunks see the
+same exchanges and counters add across chunks; pick k of node v is CSR
+entry ``indptr[v] + k``. Both directions of
 an exchange read the sender's state as it was ``delay`` rounds ago, from a
 ring of past rows: ``seen`` for push-pull and pull, the frontier (``newly
 | generated``) for fanout push; the slot is ``(t - delay) mod D`` with the
@@ -30,6 +33,13 @@ rows and the block's push plan (the pushes sorted by destination,
   sizes later rounds charge to ``sent`` and, at the chunk's end, the
   ``received`` counts; with ``record_coverage`` the ``coverage_per_slot``
   kernel on ``seen``.
+
+Spans (`telemetry.span`): ``stage.partners`` [edges, bytes] around the
+staging; in `_run_chunk` each round's enqueue ``round`` holds ``draw``
+[rounds] (a block's draw, every PICK_BLOCK rounds), ``exchange`` (the
+`scatter_or` call) and ``count`` (generations, ``popcount_rows``,
+``coverage_per_slot``); the entry's ``inputs``, ``d2h`` and ``stats`` as
+the flood's.
 
 With telemetry's rings on, each round also writes a metric row and a
 state digest (`_RoundTelemetry`), harvested once a chunk as the JAX
@@ -53,17 +63,13 @@ the device, equal to that pair's ``combine_u64`` below 2^63.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
-from p2p_gossip_tpu_torch.engine.sync import (
-    DEFAULT_CHUNK_SIZE,
-    MIN_CHUNK_SHARES,
-    DeviceGraph,
-    _canonical_delays,
-)
+from p2p_gossip_tpu_torch.engine.sync import DEFAULT_CHUNK_SIZE, MIN_CHUNK_SHARES
 from p2p_gossip_tpu_torch.models import churn as churn_mod
 from p2p_gossip_tpu_torch.models.churn import effective_generated
 from p2p_gossip_tpu_torch.models.generation import Schedule
@@ -116,17 +122,115 @@ def check_pull_credit_width(graph: Graph, eff_chunk: int) -> None:
         )
 
 
-def _stage(graph, ell_delays, constant_delay, device_graph, device) -> DeviceGraph:
-    """The full-width staging the picks index (``ell_idx[node, k]``)."""
+@dataclasses.dataclass
+class PartnerGraph:
+    """The random-partner protocols' staging: the graph's CSR on the
+    device. A pick ``k`` of node v reads entry ``indptr[v] + k``: its
+    neighbour ``indices[...]`` and, with per-edge delays, that link's
+    ``edge_delay[...]``. The CSR row is the ELL row of ``Graph.ell()`` (the
+    ELL is filled from ``csr_rows_pos``), so the picks are the full-width
+    ELL's; no (N, dmax) array is built on the host or the device.
+
+    ``indices`` and ``edge_delay`` hold one sentinel entry past the last,
+    neighbour 0 and delay 1 (the ELL's padding): the pick of the last row
+    when it has no neighbour reads it. A degree-0 row never exchanges, so
+    what its pick reads only has to be a valid row."""
+
+    n: int
+    indptr: torch.Tensor               # (N+1,) int64
+    indices: torch.Tensor              # (E+1,) int32
+    edge_delay: torch.Tensor | None    # (E+1,) int32; None: one delay on every link
+    degree: torch.Tensor               # (N,) int32
+    ring_size: int                     # D = max delay + 1
+    uniform_delay: int | None
+    delay_range: tuple                 # (least, largest) delay a pick can carry
+
+    @property
+    def device(self) -> torch.device:
+        return self.degree.device
+
+    @property
+    def num_entries(self) -> int:
+        return int(self.indices.shape[0]) - 1
+
+    @property
+    def nbytes(self) -> int:
+        staged = (self.indptr, self.indices, self.edge_delay, self.degree)
+        return sum(t.nbytes for t in staged if t is not None)
+
+    @staticmethod
+    def build(graph: Graph, delays=None, constant_delay: int = 1, *,
+              device=None) -> "PartnerGraph":
+        """Stage ``graph`` with ``delays``: None (``constant_delay`` on every
+        link), one int per CSR entry (``models.latency.
+        lognormal_edge_delays``), or the (N, dmax) ELL layout the flood
+        takes, whose ring size keeps the JAX staging's rule (its largest
+        entry, padding included, + 1)."""
+        device = resolve_device(device)
+        e = int(graph.indices.shape[0])
+        with span("stage.partners", edges=e) as sp:
+            if delays is None:
+                per_entry = np.full(e, constant_delay, dtype=np.int32)
+                dmax = constant_delay
+            else:
+                delays = np.asarray(delays)
+                if delays.ndim == 2:
+                    dmax = int(delays.max()) if delays.size else 1
+                    rows, pos = graph.csr_rows_pos()
+                    per_entry = delays[rows, pos]
+                elif delays.shape == (e,):
+                    per_entry = delays
+                    dmax = int(delays.max()) if e else 1
+                else:
+                    raise ValueError(f"delays must be ({e},) per CSR entry or (N, dmax), "
+                                     f"got {delays.shape}")
+            lo, hi = (int(per_entry.min()), int(per_entry.max())) if e else (1, 1)
+            uniform = lo if e and lo == hi else None
+
+            def i32(a, tail):
+                a = np.concatenate([np.asarray(a, dtype=np.int32), np.int32([tail])])
+                return torch.as_tensor(a, device=device)
+
+            pg = PartnerGraph(
+                n=graph.n,
+                indptr=torch.as_tensor(graph.indptr.astype(np.int64), device=device),
+                indices=i32(graph.indices, 0),
+                edge_delay=None if uniform is not None else i32(per_entry, 1),
+                degree=torch.as_tensor(graph.degree.astype(np.int32), device=device),
+                ring_size=dmax + 1,
+                uniform_delay=uniform,
+                delay_range=(lo, hi),
+            )
+            sp.set(bytes=pg.nbytes)
+        return pg
+
+    def canonical_delays(self) -> np.ndarray:
+        """Per-edge delays in CSR order, or the one uniform delay: the
+        checkpoint fingerprint's input, equal to `engine.sync.
+        _canonical_delays` of a `DeviceGraph` of the same delays."""
+        if self.uniform_delay is not None:
+            return np.asarray([self.uniform_delay], dtype=np.int64)
+        return self.edge_delay[:-1].cpu().numpy()
+
+
+def partner_graph_bytes(degree: np.ndarray, per_edge_delay: bool = False) -> int:
+    """Bytes of the `PartnerGraph` of a graph of this degree array:
+    ``indptr`` (int64), ``indices`` and, with per-edge delays,
+    ``edge_delay`` (int32, one sentinel entry each), ``degree`` (int32)."""
+    n = int(np.asarray(degree).shape[0])
+    entries = int(np.asarray(degree, dtype=np.int64).sum()) + 1
+    return 8 * (n + 1) + 4 * entries * (2 if per_edge_delay else 1) + 4 * n
+
+
+def _stage(graph, delays, constant_delay, device_graph, device) -> PartnerGraph:
+    """The protocols' CSR staging (`PartnerGraph.build`), or the one given."""
     device = resolve_device(device)
     if device_graph is None:
-        device_graph = DeviceGraph.build(
-            graph, ell_delays, constant_delay, bucketed=False, device=device
-        )
-    if device_graph.buckets is not None:
+        device_graph = PartnerGraph.build(graph, delays, constant_delay, device=device)
+    if not isinstance(device_graph, PartnerGraph):
         raise ValueError(
-            "random-partner protocols require a DeviceGraph built with "
-            "bucketed=False (partner selection reads the full ELL)"
+            "random-partner protocols take a PartnerGraph (PartnerGraph.build: the "
+            "CSR their picks index), not the flood's DeviceGraph, bucketed=False or not"
         )
     if device_graph.device != device:
         raise ValueError(f"device_graph lives on {device_graph.device}, not {device}")
@@ -173,14 +277,14 @@ def _draw_rounds(dg, key, override, churn, loss, t0: int, t1: int, mode: str,
         node_partners = partners = override[t0:t1].reshape(b, n, -1)
         slot = torch.remainder(ticks - 1, ring)
     else:
-        k = pick_from_key(key, ticks, degree)
-        node_partners = partners = dg.ell_idx[node, k]
+        pos = dg.indptr[node] + pick_from_key(key, ticks, degree)  # the pick's CSR entry
+        node_partners = partners = dg.indices[pos]
         if replicas > 1:
             partners = partners + (rows - node)  # the partner's stacked row
         if dg.uniform_delay is not None:
             slot = torch.remainder(ticks - dg.uniform_delay, ring)
         else:
-            slot = torch.remainder(ticks - dg.ell_delay[node, k], ring)
+            slot = torch.remainder(ticks - dg.edge_delay[pos], ring)
     draw = dict(partners=partners, up=None)
     draw["src"] = (slot * n + rows).expand(partners.shape).to(torch.int32).contiguous()
     attempted = degree > 0  # a degree-0 row never exchanges
@@ -225,18 +329,13 @@ def _push_plan(partners, src, push_ok, n: int, ring: int):
     )
 
 
-def _check_ring_slots(dg: DeviceGraph, override) -> None:
+def _check_ring_slots(dg: PartnerGraph, override) -> None:
     """Round t writes ring slot t mod D in the same `kernels.scatter_or`
     call that reads slots (t - d) mod D; none of those is slot t when
-    every delay a pick can carry lies in [1, D - 1]. Checked once a chunk,
-    so the kernel's precondition (no read row is a row it writes) holds."""
-    if override is not None:
-        lo = hi = 1
-    elif dg.uniform_delay is not None:
-        lo = hi = dg.uniform_delay
-    else:
-        delays = dg.ell_delay[dg.ell_mask]
-        lo, hi = (int(delays.min()), int(delays.max())) if delays.numel() else (1, 1)
+    every delay a pick can carry lies in [1, D - 1]. Checked once a chunk
+    (on the per-entry delays' range, taken at staging), so the kernel's
+    precondition (no read row is a row it writes) holds."""
+    lo, hi = (1, 1) if override is not None else dg.delay_range
     if not 1 <= lo <= hi <= dg.ring_size - 1:
         raise ValueError(f"delays [{lo}, {hi}] do not fit a ring of {dg.ring_size} slots")
 
@@ -265,7 +364,7 @@ def _gen_events(origins: np.ndarray, gen_ticks: np.ndarray, horizon: int, w: int
 
 
 def _run_chunk(
-    dg: DeviceGraph,
+    dg: PartnerGraph,
     origins: np.ndarray,      # (S,) chunk origins
     gen_ticks: np.ndarray,    # (S,) int32; >= horizon never fires
     key: torch.Tensor,        # (N, c) `pick_key` of every (node, pick)
@@ -327,59 +426,63 @@ def _run_chunk(
 
     _check_ring_slots(dg, override)
     for t in range(horizon):
-        i = t % PICK_BLOCK
-        if i == 0:
-            draw = _draw_rounds(dg, key, override, churn, loss, t,
-                                min(t + PICK_BLOCK, horizon), mode,
-                                coins=tel is not None, replicas=replicas)
-        partners, attempted = draw["partners"][i], draw["attempted"][i]
-        offsets = entries = None
-        if "plan" in draw:
-            offsets, entries = draw["plan"]
-            offsets = offsets[i * n:(i + 1) * n + 1]
-        pull_row = draw["pull_row"][i] if "pull_row" in draw else None
-        row = hist[t % ring]
-        if tel is not None:  # msgs_gathered: the round's arrivals, before the OR with seen
-            tel.gather(flat, offsets, entries, pull_row)
-        # The new ring row in one pass: push-pull and pull seen | pulled |
-        # pushed, fanout push the frontier pushed & ~seen.
-        kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
-                           andnot=mode == "pushk", out=row, plain=plain)
-        if mode == "pull":
-            # The responder transmits: each attempted pull credits the
-            # partner with the size of the row it served, before the coin.
-            served = torch.where(attempted, flat_cnt[draw["served"][i]], 0)
-            sent.index_add_(0, partners.view(-1).to(torch.int64),
-                            served.view(-1).to(torch.int64))
-            or_work = served
-        else:
-            # The sender counts every attempted send. The JAX package sums
-            # a node's picks in int32 and adds the sum as a uint32: the
-            # same value mod 2^32.
-            digest = torch.where(attempted, flat_cnt[draw["src"][i]], 0)
-            or_work = digest.sum(dim=1, dtype=torch.int64) & _U32
-            sent += or_work
+        with span("round"):
+            i = t % PICK_BLOCK
+            if i == 0:
+                b = min(t + PICK_BLOCK, horizon) - t
+                with span("draw", rounds=b):
+                    draw = _draw_rounds(dg, key, override, churn, loss, t, t + b, mode,
+                                        coins=tel is not None, replicas=replicas)
+            partners, attempted = draw["partners"][i], draw["attempted"][i]
+            offsets = entries = None
+            if "plan" in draw:
+                offsets, entries = draw["plan"]
+                offsets = offsets[i * n:(i + 1) * n + 1]
+            pull_row = draw["pull_row"][i] if "pull_row" in draw else None
+            row = hist[t % ring]
+            if tel is not None:  # msgs_gathered: the round's arrivals, before the OR with seen
+                tel.gather(flat, offsets, entries, pull_row)
+            # The new ring row in one pass: push-pull and pull seen | pulled |
+            # pushed, fanout push the frontier pushed & ~seen.
+            with span("exchange"):
+                kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
+                                   andnot=mode == "pushk", out=row, plain=plain)
+            if mode == "pull":
+                # The responder transmits: each attempted pull credits the
+                # partner with the size of the row it served, before the coin.
+                served = torch.where(attempted, flat_cnt[draw["served"][i]], 0)
+                sent.index_add_(0, partners.view(-1).to(torch.int64),
+                                served.view(-1).to(torch.int64))
+                or_work = served
+            else:
+                # The sender counts every attempted send. The JAX package sums
+                # a node's picks in int32 and adds the sum as a uint32: the
+                # same value mod 2^32.
+                digest = torch.where(attempted, flat_cnt[draw["src"][i]], 0)
+                or_work = digest.sum(dim=1, dtype=torch.int64) & _U32
+                sent += or_work
 
-        if t in spans:
-            lo, hi = spans[t]
-            vals, org = bits[lo:hi], gen_org[lo:hi]
-            fire = torch.ones_like(vals)
-            if draw["up"] is not None:
-                fire = draw["up"][i][org].to(torch.int32)
-                vals = vals * fire
-            row.view(-1).index_add_(0, words[lo:hi], vals)
-            fired.index_add_(0, org, fire)
-        bitmask.popcount_rows(row, out=hcnt[t % ring], plain=plain)
-        if mode == "pushk":
-            seen |= row
-        else:
-            seen = row
-        if tel is not None:
-            tel.round(t, draw, i, fired, or_work, seen, sent)
-        if cov is not None:
-            cov[:, t] = bitmask.coverage_per_slot(
-                seen.view(replicas, dg.n, w)[:, :, :cov_w], n_cov, plain=plain
-            )
+            with span("count"):
+                if t in spans:
+                    lo, hi = spans[t]
+                    vals, org = bits[lo:hi], gen_org[lo:hi]
+                    fire = torch.ones_like(vals)
+                    if draw["up"] is not None:
+                        fire = draw["up"][i][org].to(torch.int32)
+                        vals = vals * fire
+                    row.view(-1).index_add_(0, words[lo:hi], vals)
+                    fired.index_add_(0, org, fire)
+                bitmask.popcount_rows(row, out=hcnt[t % ring], plain=plain)
+                if mode == "pushk":
+                    seen |= row
+                else:
+                    seen = row
+                if cov is not None:
+                    cov[:, t] = bitmask.coverage_per_slot(
+                        seen.view(replicas, dg.n, w)[:, :, :cov_w], n_cov, plain=plain
+                    )
+            if tel is not None:
+                tel.round(t, draw, i, fired, or_work, seen, sent)
     final = bitmask.popcount_rows(seen, plain=plain) if mode == "pushk" else hcnt[
         (horizon - 1) % ring]
     return final - fired, sent, cov, hist
@@ -499,18 +602,19 @@ def _run_partnered_sim(
     chunk_size = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
     chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
     seed = int(seed) & _U32
-    nodes = torch.arange(dg.n, dtype=torch.int64, device=dev)
-    picks = torch.arange(fanout, dtype=torch.int64, device=dev)
-    key = pick_key(nodes[:, None], picks[None, :], seed)  # pick 0 for push-pull
-    override = None
-    if partners_override is not None:
-        override = torch.as_tensor(
-            np.asarray(partners_override, dtype=np.int32), device=dev
-        )
-    churn_dev = churn_mod.to_device(churn, dev)
-    loss_cfg = None
-    if loss is not None and loss.threshold > 0:
-        loss_cfg = loss.static_cfg
+    with span("inputs", shares=schedule.num_shares):
+        nodes = torch.arange(dg.n, dtype=torch.int64, device=dev)
+        picks = torch.arange(fanout, dtype=torch.int64, device=dev)
+        key = pick_key(nodes[:, None], picks[None, :], seed)  # pick 0 for push-pull
+        override = None
+        if partners_override is not None:
+            override = torch.as_tensor(
+                np.asarray(partners_override, dtype=np.int32), device=dev
+            )
+        churn_dev = churn_mod.to_device(churn, dev)
+        loss_cfg = None
+        if loss is not None and loss.threshold > 0:
+            loss_cfg = loss.static_cfg
 
     received = np.zeros(graph.n, dtype=np.int64)
     sent = np.zeros(graph.n, dtype=np.int64)
@@ -519,7 +623,7 @@ def _run_partnered_sim(
         lambda: (
             "partnered_sim", *fingerprint_extra, graph.n, graph.edges(),
             schedule.origins, schedule.gen_ticks, horizon_ticks, chunk_size,
-            _canonical_delays(dg), dg.uniform_delay, dg.ring_size, seed,
+            dg.canonical_delays(), dg.uniform_delay, dg.ring_size, seed,
             partners_override,
             churn.down_start if churn is not None else None,
             churn.down_end if churn is not None else None,
@@ -530,10 +634,13 @@ def _run_partnered_sim(
     tel = tel_sink.rings_enabled()
     name = f"models.protocols.{fingerprint_extra[0]}"
     cov_chunks = []
+    rounds = 0
     chunks = schedule.chunk(chunk_size) or [schedule]
     for ci, chunk in checkpointed_chunks(chunks, checkpointer, stop_after_chunks):
-        origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
+        with span("inputs", shares=chunk.num_shares, chunk=ci):
+            origins, gen_ticks = chunk.padded(chunk_size, horizon_ticks)
         rings = tel_rings.chunk_rings(horizon_ticks, dev) if tel else None
+        rounds += horizon_ticks
         with span("dispatch", kernel=name, chunk=ci):
             r, s, cov, _ = _run_chunk(
                 dg, origins, gen_ticks, key, override, churn_dev, loss_cfg,
@@ -541,7 +648,8 @@ def _run_partnered_sim(
                 n_cov=chunk.num_shares if record_coverage else None, plain=plain,
                 rings=rings,
             )
-        with span("d2h", chunk=ci):
+        with span("d2h", chunk=ci, bytes=r.nbytes + s.nbytes + (
+                cov[0].nbytes if record_coverage else 0)):
             received += r.cpu().numpy().astype(np.int64)
             sent += s.cpu().numpy()
             if record_coverage:
@@ -559,16 +667,18 @@ def _run_partnered_sim(
             ticks_done=horizon_ticks * (ci + 1), digest_head=digest_head,
         )
 
-    generated = effective_generated(schedule, horizon_ticks, churn)
-    stats = NodeStats(
-        generated=generated,
-        received=received,
-        forwarded=received.copy(),
-        sent=sent,
-        processed=generated + received,
-        degree=graph.degree.astype(np.int64),
-    )
-    cov = np.concatenate(cov_chunks, axis=1) if record_coverage else None
+    with span("stats"):
+        generated = effective_generated(schedule, horizon_ticks, churn)
+        stats = NodeStats(
+            generated=generated,
+            received=received,
+            forwarded=received.copy(),
+            sent=sent,
+            processed=generated + received,
+            degree=graph.degree.astype(np.int64),
+        )
+        stats.extra["rounds_executed"] = rounds
+        cov = np.concatenate(cov_chunks, axis=1) if record_coverage else None
     return stats, cov
 
 
@@ -581,7 +691,7 @@ def run_pushpull_sim(
     seed: int = 0,
     record_coverage: bool = False,
     partners_override: np.ndarray | None = None,
-    device_graph: DeviceGraph | None = None,
+    device_graph: PartnerGraph | None = None,
     chunk_size: int = DEFAULT_CHUNK_SIZE,
     churn=None,
     loss=None,
@@ -600,6 +710,12 @@ def run_pushpull_sim(
     ``run_pushpull_sim``, with identical counters and coverage rows.
     Returns (stats, coverage or None); coverage is (horizon, S) int32 node
     counts per round.
+
+    ``ell_delays``: per-edge delays, one per CSR entry (`models.latency.
+    lognormal_edge_delays`) or in the flood's (N, dmax) ELL layout; None
+    puts ``constant_delay`` on every link. ``device_graph``: a
+    `PartnerGraph` staged once (`PartnerGraph.build`), else one is staged.
+    ``stats.extra["rounds_executed"]``: the rounds run, horizon x chunks.
 
     ``partners_override`` (horizon, N) pins each round's partners (with a
     one-round delay), for the numpy oracles. ``churn``: an exchange with a
@@ -633,7 +749,7 @@ def run_pushk_sim(
     seed: int = 0,
     record_coverage: bool = False,
     partners_override: np.ndarray | None = None,
-    device_graph: DeviceGraph | None = None,
+    device_graph: PartnerGraph | None = None,
     chunk_size: int = DEFAULT_CHUNK_SIZE,
     churn=None,
     loss=None,
@@ -804,8 +920,8 @@ def pushk_oracle(
 
 # --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
 # The JAX package's ``_audit_spec_solo`` / ``_audit_spec_replicas``: ER(48,
-# 0.2) full-width, 32 shares, 8 rounds, coverage recorded, the loss coin on;
-# the campaign form stacks B = 2 replicas with their own pick and loss seeds.
+# 0.2) staged as its CSR, 32 shares, 8 rounds, coverage recorded, the loss
+# coin on; the campaign form stacks B = 2 replicas with their own pick and loss seeds.
 # The round loop reads nothing on the host; a chunk stages its generation
 # events once (`_gen_events`: word, bit and origin, three host constants).
 

@@ -55,7 +55,8 @@ def topology_fingerprint(topology: dict) -> str:
     """Deterministic fingerprint of a topology spec: the family plus its
     canonically-ordered build parameters (utils.checkpoint.fingerprint).
     Two requests with equal fingerprints build the identical graph, so
-    the server caches one Graph/DeviceGraph per fingerprint."""
+    the server caches one Graph, and one staging a protocol family, per
+    fingerprint."""
     family = topology.get("family")
     params = sorted(
         (k, v) for k, v in topology.items() if k != "family"

@@ -63,15 +63,17 @@ def _words(shares: int) -> int:
 
 
 def staged_graph_bytes(degree: np.ndarray, protocol: str) -> int:
-    """Bytes of the `DeviceGraph` a dispatch of ``protocol`` stages once
-    for its topology: the flood's default (degree-bucketed from 4,096
-    nodes), the protocols' full-width ELL (``bucketed=False``: the picks
-    index it)."""
+    """Bytes of the staging a dispatch of ``protocol`` holds once for its
+    topology: the flood's `DeviceGraph` (its default, degree-bucketed from
+    4,096 nodes), the protocols' CSR (`models.protocols.PartnerGraph`,
+    one delay on every link: no per-entry delays)."""
     from p2p_gossip_tpu_torch.engine.sync import _staged_graph_bytes
+    from p2p_gossip_tpu_torch.models.protocols import partner_graph_bytes
     from p2p_gossip_tpu_torch.ops.ell import DEFAULT_DEGREE_BLOCK
 
-    bucketed = None if protocol == "flood" else False
-    return _staged_graph_bytes(np.asarray(degree), DEFAULT_DEGREE_BLOCK, True, bucketed)
+    if protocol != "flood":
+        return partner_graph_bytes(degree)
+    return _staged_graph_bytes(np.asarray(degree), DEFAULT_DEGREE_BLOCK, True)
 
 
 def slot_resident_bytes(request: SimRequest, n: int) -> int:
@@ -160,7 +162,7 @@ def modeled_request_cost(request: SimRequest, degree, slots: int = 1) -> dict:
     index per entry) plus the elementwise OR/mask/counter passes
     (``6 * n * w * 4``); flops are the OR-reduce word ops of the same
     gather. Residency is the port's: ``staged_bytes`` the dispatch's
-    `DeviceGraph` (`staged_graph_bytes`), ``resident_bytes`` one replica
+    staged graph (`staged_graph_bytes`), ``resident_bytes`` one replica
     slot (`slot_resident_bytes`), ``dispatch_bytes`` the staged graph plus
     ``slots`` slots — what a dispatch of the request holds on the device
     and what admission compares against the budget."""

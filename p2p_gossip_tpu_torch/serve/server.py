@@ -27,9 +27,11 @@ per-dispatch ``progress``/``digest``/``ring`` events, and heartbeat
 payloads carrying ``active_requests``/``queue_depth`` so stall detection
 stays meaningful while one process multiplexes many runs.
 
-Graphs are cached per topology fingerprint, and their `DeviceGraph`
-stagings per (fingerprint, bucketing): one build and one staging per
-distinct topology, however many requests name it.
+Graphs are cached per topology fingerprint, and their stagings per
+(fingerprint, protocol family): the flood's `DeviceGraph`, the
+random-partner protocols' CSR (`models.protocols.PartnerGraph`); one
+build and one staging per distinct topology and family, however many
+requests name it.
 
 With ``mesh`` (a factorized ``(replicas, nodes)`` mesh of
 ``torch.distributed`` ranks, `parallel.mesh.make_slot_mesh`) dispatches run
@@ -194,20 +196,18 @@ class GossipServer:
         return self._graphs[fp]
 
     def _device_graph(self, request: SimRequest):
-        """The `DeviceGraph` per (topology, protocol family) on the
-        server's device: partner selection reads the full ELL, so the
-        partnered protocols need ``bucketed=False`` (batch/campaign.py's
-        rule)."""
+        """The staging per (topology, protocol family) on the server's
+        device: the flood's `DeviceGraph` (its default, degree-bucketed from
+        4,096 nodes), or the CSR the partnered protocols' picks index
+        (`PartnerGraph`, batch/campaign.py's rule)."""
         from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+        from p2p_gossip_tpu_torch.models.protocols import PartnerGraph
 
-        # None = the auto default the solo flood reference builds with;
-        # False = the full-ELL form partner selection requires.
-        bucketed = None if request.protocol == "flood" else False
-        key = (request.topology_fp, bucketed)
+        flood = request.protocol == "flood"
+        key = (request.topology_fp, flood)
         if key not in self._device_graphs:
-            self._device_graphs[key] = DeviceGraph.build(
-                self._graph(request), bucketed=bucketed, device=self.device
-            )
+            build = DeviceGraph.build if flood else PartnerGraph.build
+            self._device_graphs[key] = build(self._graph(request), device=self.device)
         return self._device_graphs[key]
 
     def _sharded_graph(self, request: SimRequest):

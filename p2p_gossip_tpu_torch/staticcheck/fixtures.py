@@ -66,12 +66,13 @@ def recompile_fixture(device="cpu") -> dict:
     stages its graph again; the serve sentinel must count more stagings
     than its trace has topologies."""
     from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+    from p2p_gossip_tpu_torch.models.protocols import PartnerGraph
     from p2p_gossip_tpu_torch.serve.server import GossipServer
     from p2p_gossip_tpu_torch.staticcheck.restage import run_serve_sentinel
 
     def uncached(self, request):
-        bucketed = None if request.protocol == "flood" else False
-        return DeviceGraph.build(self._graph(request), bucketed=bucketed, device=self.device)
+        build = DeviceGraph.build if request.protocol == "flood" else PartnerGraph.build
+        return build(self._graph(request), device=self.device)
 
     with unittest.mock.patch.object(GossipServer, "_device_graph", uncached):
         report = run_serve_sentinel(device=device)

@@ -3,21 +3,23 @@
 The port's counterpart of ``p2p_gossip_tpu/staticcheck/recompile.py``. The
 port has no jit cache to recompile; the one-time costs the sweep and the
 server must not pay twice are the host staging of a graph
-(`engine.sync.DeviceGraph.build`, which `models.protocols._stage` and the
-campaigns call) and, on the card, the kernel library's build
-(`ops.build.build`).
+(`engine.sync.DeviceGraph.build` for the flood, `models.protocols.
+PartnerGraph.build` for the random-partner protocols; the campaigns call
+both) and, on the card, the kernel library's build (`ops.build.build`).
 
 The sentinel replays the JAX sentinel's grid (``default_grid``) through
 `batch.sweep.run_sweep` and its serve trace (``default_serve_trace``)
 through the single-device `serve.GossipServer`, counting the stagings by
-kind (``bucketed``: the flood's default staging; ``full-width``: the one
-partner selection reads) against `expected_stagings`, which derives them
-from the code's own staging rules:
+kind (``bucketed``: the flood's default staging; ``partners``: the CSR
+partner selection reads; ``full-width``: a `DeviceGraph` built with
+``bucketed=False``, which neither replay stages) against
+`expected_stagings`, which derives them from the code's own staging
+rules:
 
 - the sweep builds its graph and stages it once a cell
-  (`batch.sweep.run_cell`: a flood cell bucketed, a protocol cell
-  full-width);
-- the server stages one `DeviceGraph` per (topology, protocol family) key
+  (`batch.sweep.run_cell`: a flood cell bucketed, a protocol cell its
+  partners);
+- the server stages once per (topology, protocol family) key
   (`serve.server.GossipServer._device_graph`).
 
 Measured != expected fails in either direction, as in JAX: an over-count
@@ -31,6 +33,7 @@ server is not in JAX's.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import unittest.mock
 
@@ -64,8 +67,9 @@ def default_serve_trace() -> list[dict]:
     return [{"request_id": f"sentinel-{i}", **base, **r} for i, r in enumerate(reqs)]
 
 
-def _kind(bucketed) -> str:
-    return "full-width" if bucketed is False else "bucketed"
+def _kind(protocol: str) -> str:
+    """The staging a protocol's dispatch builds."""
+    return "bucketed" if protocol in ("push", "flood") else "partners"
 
 
 def expected_stagings(spec: dict) -> dict[str, int]:
@@ -74,7 +78,7 @@ def expected_stagings(spec: dict) -> dict[str, int]:
 
     out: collections.Counter = collections.Counter()
     for cell in expand_grid(spec):
-        out[_kind(None if cell["protocol"] == "push" else False)] += 1
+        out[_kind(cell["protocol"])] += 1
     return dict(out)
 
 
@@ -86,8 +90,8 @@ def expected_serve_stagings(trace: list[dict]) -> dict[str, int]:
     keys = set()
     for d in trace:
         req = SimRequest.from_dict(d)
-        keys.add((req.topology_fp, None if req.protocol == "flood" else False))
-    return dict(collections.Counter(_kind(b) for _, b in keys))
+        keys.add((req.topology_fp, _kind(req.protocol)))
+    return dict(collections.Counter(kind for _, kind in keys))
 
 
 @dataclasses.dataclass
@@ -114,22 +118,34 @@ class SentinelReport:
 
 
 class _Counter:
-    """Counts `DeviceGraph.build` calls by kind while patched in."""
+    """Counts `DeviceGraph.build` and `PartnerGraph.build` calls by kind
+    while patched in."""
 
     def __init__(self):
         from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+        from p2p_gossip_tpu_torch.models.protocols import PartnerGraph
 
         self.orig = DeviceGraph.build
+        self.orig_partners = PartnerGraph.build
         self.counts: collections.Counter = collections.Counter()
 
     def build(self, graph, *args, bucketed=None, **kwargs):
-        self.counts[_kind(bucketed)] += 1
+        self.counts["full-width" if bucketed is False else "bucketed"] += 1
         return self.orig(graph, *args, bucketed=bucketed, **kwargs)
 
+    def build_partners(self, graph, *args, **kwargs):
+        self.counts["partners"] += 1
+        return self.orig_partners(graph, *args, **kwargs)
+
+    @contextlib.contextmanager
     def patch(self):
         from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+        from p2p_gossip_tpu_torch.models.protocols import PartnerGraph
 
-        return unittest.mock.patch.object(DeviceGraph, "build", staticmethod(self.build))
+        with unittest.mock.patch.object(DeviceGraph, "build", staticmethod(self.build)), \
+                unittest.mock.patch.object(PartnerGraph, "build",
+                                           staticmethod(self.build_partners)):
+            yield
 
 
 def run_sentinel(device="cpu") -> SentinelReport:

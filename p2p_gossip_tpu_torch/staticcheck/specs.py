@@ -49,16 +49,16 @@ def flood_inputs(chunk: int = 32, horizon: int = 16):
 
 
 def partnered_inputs(chunk: int = 32, horizon: int = 8):
-    """The protocols' tiny case: ER(48, 0.2) staged full-width, four
-    shares at nodes 0, 5, 10, 15 on tick 0. Returns (DeviceGraph, origins,
-    gen_ticks) with the schedule as host arrays (the round loop stages
-    its own events)."""
-    from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+    """The protocols' tiny case: ER(48, 0.2) staged as its CSR, four
+    shares at nodes 0, 5, 10, 15 on tick 0. Returns (PartnerGraph,
+    origins, gen_ticks) with the schedule as host arrays (the round loop
+    stages its own events)."""
     from p2p_gossip_tpu_torch.models.generation import Schedule
+    from p2p_gossip_tpu_torch.models.protocols import PartnerGraph
     from p2p_gossip_tpu_torch.models.topology import erdos_renyi
 
     graph = erdos_renyi(48, 0.2, seed=0)
-    dg = DeviceGraph.build(graph, bucketed=False, device=device())
+    dg = PartnerGraph.build(graph, device=device())
     sched = Schedule(graph.n, np.arange(4, dtype=np.int32) * 5 % graph.n,
                      np.zeros(4, dtype=np.int32))
     origins, gen_ticks = sched.padded(chunk, horizon)

@@ -823,7 +823,8 @@ def _run(args) -> int:
     from p2p_gossip_tpu_torch.models.latency import (
         fifo_link_model,
         lognormal_delays,
-        serialization_delays,
+        lognormal_edge_delays,
+        serialization_ticks,
     )
     from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
     from p2p_gossip_tpu_torch.models.seeds import churn_stream_seed, loss_stream_seed
@@ -898,23 +899,30 @@ def _run(args) -> int:
                 g.n, args.simTime, tick_dt, args.poissonRate, seed=args.seed
             )
 
+    # The device engine's random-partner protocols take one delay per CSR
+    # entry (their picks index the CSR row); the flood, the sharded and
+    # the host engines take the (N, dmax) ELL layout.
+    per_entry = args.protocol in PARTNERED and args.backend == "tpu"
     delays = None
     if args.delayModel == "lognormal":
-        delays = lognormal_delays(
+        draw = lognormal_edge_delays if per_entry else lognormal_delays
+        delays = draw(
             g, args.delayMeanTicks, args.delaySigma, args.delayMaxTicks,
             seed=args.seed,
         )
     elif args.delayModel == "serialization":
         if args.shareBytes < 0 or args.bandwidthMbps <= 0:
             return _error("--shareBytes must be >= 0 and --bandwidthMbps > 0")
-        delays = serialization_delays(
-            g, message_bytes=args.shareBytes,
+        ticks = serialization_ticks(
+            message_bytes=args.shareBytes,
             bandwidth_mbps=args.bandwidthMbps, tick_dt=tick_dt,
         )
+        shape = g.indices.shape if per_entry else (g.n, g.ell_width)
+        delays = np.full(shape, ticks, dtype=np.int32)
         print(
             f"serialization delay model: {args.shareBytes} B at "
             f"{args.bandwidthMbps:g} Mbps on {args.Latency:g} ms latency "
-            f"-> {int(delays.max())} tick(s)/hop",
+            f"-> {ticks} tick(s)/hop",
             file=sys.stderr,
         )
     fifo = None

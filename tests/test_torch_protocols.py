@@ -162,7 +162,6 @@ from p2p_gossip_tpu.engine.sync import DeviceGraph as JaxDeviceGraph  # noqa: E4
 from p2p_gossip_tpu.models.linkloss import drop_mask_jnp  # noqa: E402
 from p2p_gossip_tpu.ops import segment as jsegment  # noqa: E402
 from p2p_gossip_tpu_torch import convert  # noqa: E402
-from p2p_gossip_tpu_torch.engine.sync import DeviceGraph  # noqa: E402
 from p2p_gossip_tpu_torch.models.partnersel import pick_key  # noqa: E402
 from p2p_gossip_tpu_torch.ops import kernels  # noqa: E402
 
@@ -182,7 +181,7 @@ def test_round_call_matches_jax_round(mode):
     case = _case("er", n=120, seed=7, delay="lognormal")
     g, sched, seed = case["g"], case["sched"], 2**31 + 3
     fanout = 2 if mode == "pushk" else 1
-    dg = DeviceGraph.build(g, case["d"], bucketed=False, device="cpu")
+    dg = protocols.PartnerGraph.build(g, case["d"], device="cpu")
     jdg = JaxDeviceGraph.build(case["jg"], case["jd"], bucketed=False)
     n, ring = dg.n, dg.ring_size
     cm = churn.random_churn(g.n, HORIZON, 0.3, 4.0, 2, seed=5)

@@ -28,7 +28,7 @@ from p2p_gossip_tpu.serve import scheduler as jsched
 from p2p_gossip_tpu.serve.server import GossipServer as JaxServer
 from p2p_gossip_tpu_torch import telemetry
 from p2p_gossip_tpu_torch.batch import campaign as tc
-from p2p_gossip_tpu_torch.engine.sync import DeviceGraph, _chunk_state
+from p2p_gossip_tpu_torch.engine.sync import _chunk_state
 from p2p_gossip_tpu_torch.models.linkloss import LinkLossModel
 from p2p_gossip_tpu_torch.models.seeds import replica_loss_seeds
 from p2p_gossip_tpu_torch.serve import bench, scheduler
@@ -198,21 +198,24 @@ def test_scheduler_remove_and_fifo():
 @pytest.mark.parametrize("protocol", ["flood", "pushpull", "pushk"])
 @pytest.mark.parametrize("n", [40, 5000])
 def test_modeled_bytes_equal_the_staged_nbytes(protocol, n):
-    """The model's staged graph is the `DeviceGraph` the server stages
-    (bucketed flood from 4,096 nodes, full-width protocols) byte for byte,
-    and a flood slot's state is `_chunk_state`'s; the traffic fields are
-    the JAX package's."""
+    """The model's staged graph is the staging the server holds (the
+    flood's `DeviceGraph`, bucketed from 4,096 nodes; the protocols' CSR,
+    `PartnerGraph`) byte for byte, and a flood slot's state is
+    `_chunk_state`'s; the traffic fields are the JAX package's."""
     topo = {"family": "erdos_renyi", "n": n, "p": min(1.0, 6 / n), "seed": 1}
     req = SimRequest.make(topo, protocol, 100, 12, (0, 1, 2), request_id="m")
     g = build_graph(topo)
     cost = modeled_request_cost(req, g.degree, slots=4)
-    bucketed = None if protocol == "flood" else False
-    dg = DeviceGraph.build(g, bucketed=bucketed, device="cpu")
-    staged = [dg.ell_idx, dg.ell_delay, dg.ell_mask, dg.degree]
-    for bucket in dg.buckets or ():
-        staged += [t for t in bucket if t is not None]
+    dg = _server(slots=4)._device_graph(req)
+    if protocol == "flood":
+        staged = [dg.ell_idx, dg.ell_delay, dg.ell_mask, dg.degree]
+        for bucket in dg.buckets or ():
+            staged += [t for t in bucket if t is not None]
+        assert (dg.buckets is not None) == (n >= 4096)
+    else:
+        staged = [dg.indptr, dg.indices, dg.degree]
+        assert dg.edge_delay is None and dg.nbytes == sum(t.nbytes for t in staged)
     assert cost["staged_bytes"] == sum(t.nbytes for t in staged)
-    assert (dg.buckets is not None) == (protocol == "flood" and n >= 4096)
     assert cost["dispatch_bytes"] == cost["staged_bytes"] + 4 * cost["resident_bytes"]
     want = jsched.modeled_request_cost(_jax(req), g.n, g.max_degree)
     for key in ("bytes_per_tick", "flops_per_tick", "slot_bytes", "request_bytes"):
