@@ -18,7 +18,8 @@ chip_smoke.py --phase 19`` runs the port's benchmark entry point whole,
 ``python -m p2p_gossip_tpu_torch.bench``, in a subprocess; ``python3
 chip_smoke.py --phase 20`` runs phase 20 alone, the static-analysis gate on
 the card; ``python3 chip_smoke.py --phase 21`` runs phase 21 alone, the
-tick update kernel's checks and timings.)
+tick update kernel's checks and timings; ``python3 chip_smoke.py --phase
+22`` runs phase 22 alone, the gather masked by seen.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -257,6 +258,14 @@ Phases (any failure raises and the script exits nonzero):
    and sparse arrivals; timed there from the same state each run, beside
    its least bytes at 3.35 TB/s, its plain passes and the engine's update
    before it.
+22. The gather masked by the destinations' seen-sets (``gather_or`` with
+   ``seen``) on the engine's own state at burst32k's shape (the
+   benchmark's ER 100K graph, 32,768 shares over 16 ticks, W = 1,024) at
+   dense ticks of the burst, and at coverage4k's (its 1M BA graph, 4,096
+   origins on tick 0, W = 128) across the flood: bitwise against the
+   unmasked kernel & ~seen at every tick and against the plain version at
+   the first two; the masked, counting (``stats``) and unmasked kernels
+   timed in turns; the units read and pruned.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -5645,6 +5654,156 @@ def tick_update_phase(dev, reps=10) -> dict:
     return record
 
 
+# --- phase 22: the gather masked by seen --------------------------------------
+
+# (label, configuration in gossipbench/configs, shares, generation ticks
+# [0, hi), ticks at which the gather is checked and timed): burst32k's
+# flood (ER 100K, 32,768 shares over 16 ticks, W = 1,024) at dense ticks of
+# its burst, and coverage4k's (1M BA, 4,096 origins on tick 0, W = 128)
+# across its flood. The graphs are the benchmark's (its frozen generators).
+SEEN_CASES = (
+    ("burst32k", "er100k", 32_768, 16, (4, 6, 10, 14, 18)),
+    ("coverage4k", "ba1m", 4_096, 1, (3, 5, 7, 9)),
+)
+SEEN_PLAIN_TICKS = 2  # the first ticks of a case held against the plain version too
+SEEN_TIMING_TURNS = 3  # masked, counting, unmasked kernels timed in turns
+
+
+def seen_case_inputs(config: str, shares: int, hi: int, dev):
+    """A cell's graph drawn by the benchmark's generator, staged as the
+    benchmark stages it, and one simulation's schedule (origins uniform,
+    ticks uniform in [0, hi), in tick order)."""
+    import p2p_gossip_tpu_torch as pt
+    from gossipbench.gen import schedule as gen_schedule
+    from gossipbench.gen import topology as gen_topology
+    from p2p_gossip_tpu_torch.engine.sync import DeviceGraph
+    from p2p_gossip_tpu_torch.models.topology import Graph
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "gossipbench", "configs", f"{config}.json")) as f:
+        cfg = json.load(f)
+    n = int(cfg["graph"]["n"])
+    graph = Graph.from_edges(n, gen_topology.edges_of(cfg["graph"], [SEED, 22]))
+    dg = DeviceGraph.build(graph, constant_delay=int(cfg["delay_ticks"]), device=dev)
+    origins, ticks = gen_schedule.uniform_ticks(n, shares, 0, hi,
+                                                np.random.default_rng([SEED, 22]))
+    return graph, dg, pt.Schedule(n, origins, ticks)
+
+
+def check_seen_tick(label, dg, hist, occ, seen, t, dev, reps, plain):
+    """The gather of tick ``t`` on the engine's own state: the masked kernel
+    against the unmasked kernel & ~seen and (``plain``) the plain version,
+    its counting instantiation against it, all bitwise; then the three
+    kernels timed in turns and the counts of one call."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops.ell import propagate_bucketed
+
+    n = dg.n
+
+    def run(seen_arg=None, stats=None, plain_=False):
+        return propagate_bucketed(
+            hist, t, dg.buckets, n_out=n, ring_size=dg.ring_size,
+            uniform_delay=dg.uniform_delay, occ=occ, seen=seen_arg, stats=stats,
+            plain=plain_)
+
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = run(seen, stats)
+    read, pruned = stats.tolist()
+    raw = run()
+    err = compare(f"gather_or[{label} tick {t}, seen] vs unmasked & ~seen", got, raw & ~seen)
+    err = max(err, compare(f"gather_or[{label} tick {t}, seen] counting-free", run(seen), got))
+    if plain:
+        err = max(err, compare(f"gather_or[{label} tick {t}, seen] vs plain", got,
+                               run(seen, plain_=True)))
+    del raw
+    times = {"masked": [], "counting": [], "unmasked": []}
+    for _ in range(SEEN_TIMING_TURNS):
+        times["masked"].append(time_ms(lambda: run(seen), reps, calls=KERNEL_CALLS))
+        times["counting"].append(time_ms(lambda: run(seen, stats), reps, calls=KERNEL_CALLS))
+        times["unmasked"].append(time_ms(lambda: run(), reps, calls=KERNEL_CALLS))
+    row = {k: float(np.median(v)) for k, v in times.items()}
+    row.update(units_read=read, units_pruned=pruned,
+               pruned_share=pruned / (read + pruned) if read + pruned else 0.0,
+               new_bits=set_bits(got), max_abs_err=err)
+    log(f"gather_or[{label} tick {t}, seen]: bitwise equal (unmasked & ~seen"
+        f"{', plain' if plain else ''}); masked {row['masked']:.4f} ms, counting "
+        f"{row['counting']:.4f} ms, unmasked {row['unmasked']:.4f} ms; units read {read}, "
+        f"pruned {pruned} ({row['pruned_share']:.4f} of the unmasked loads); "
+        f"{row['new_bits']} new bits")
+    return row
+
+
+def seen_phase(dev, reps=10) -> dict:
+    """Phase 22: the gather masked by the destinations' seen-sets
+    (`kernels.gather_or` with ``seen``) on the engine's own state at
+    burst32k's and coverage4k's shapes: bitwise against the unmasked kernel
+    & ~seen at every captured tick and against the plain version at the
+    first SEEN_PLAIN_TICKS; the masked, counting and unmasked kernels timed
+    in turns, and the counting kernel's time over the masked one's; the
+    share of the unmasked loads pruned."""
+    import torch
+
+    from p2p_gossip_tpu_torch.engine.sync import _chunk_state, _tick
+
+    t0 = time.perf_counter()
+    record = {"max_abs_err": 0}
+    for label, config, shares, hi, ticks in SEEN_CASES:
+        t1 = time.perf_counter()
+        graph, dg, sched = seen_case_inputs(config, shares, hi, dev)
+        log(f"phase 22 {label}: N={graph.n} edges={graph.num_edges} dmax={graph.max_degree}, "
+            f"{len(dg.buckets)} buckets, {shares} shares in ticks [0, {hi}) "
+            f"({time.perf_counter() - t1:.1f} s to draw and stage)")
+        chunk = max(shares, 4096)
+        origins, gen_ticks = sched.padded(chunk, HORIZON)
+        origins = torch.as_tensor(origins.astype(np.int64), device=dev)
+        gen_ticks = torch.as_tensor(gen_ticks, device=dev)
+        slots = torch.arange(chunk, dtype=torch.int64, device=dev)
+        seen, hist, occ, received, sent = _chunk_state(dg, chunk // 32)
+        rows = {}
+        for t in range(max(ticks) + 1):
+            if t in ticks:
+                rows[t] = check_seen_tick(label, dg, hist, occ, seen, t, dev, reps,
+                                          plain=t in ticks[:SEEN_PLAIN_TICKS])
+            _tick(dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, False)
+        total = {k: sum(r[k] for r in rows.values())
+                 for k in ("masked", "counting", "unmasked", "units_read", "units_pruned")}
+        share = total["units_pruned"] / max(total["units_read"] + total["units_pruned"], 1)
+        over = total["counting"] / total["masked"] - 1.0
+        log(f"phase 22 {label}, ticks {list(ticks)}: masked {total['masked']:.4f} ms, "
+            f"unmasked {total['unmasked']:.4f} ms ({total['masked'] / total['unmasked']:.3f} "
+            f"of it), counting {total['counting']:.4f} ms ({100 * over:+.2f}% over masked); "
+            f"pruned {share:.4f} of the unmasked loads")
+        record["max_abs_err"] = max(record["max_abs_err"],
+                                    max(r["max_abs_err"] for r in rows.values()))
+        record[label] = dict(
+            ms=total["masked"], unmasked_ms=total["unmasked"], counting_ms=total["counting"],
+            counting_over_pct=100 * over, pruned_share=share, ticks={t: {k: v for k, v in r.items() if k != "max_abs_err"}
+                                       for t, r in rows.items()})
+        del seen, hist, occ, received, sent, dg, graph
+        torch.cuda.empty_cache()
+    log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
+    return record
+
+
+def phase_22_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 22``: phase 22 by itself, after the
+    kernels' build. Prints its record; the default run (every phase) is the
+    script's contract."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import build
+
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    print(json.dumps({"phase22_gather_seen": seen_phase(dev)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def phase_21_alone(dev) -> int:
     """``python3 chip_smoke.py --phase 21``: phase 21 by itself, after the
     kernels' build. Prints its record; the default run (every phase) is the
@@ -5930,6 +6089,8 @@ def main() -> int:
         return phase_20_alone(dev)
     if sys.argv[1:3] == ["--phase", "21"]:
         return phase_21_alone(dev)
+    if sys.argv[1:3] == ["--phase", "22"]:
+        return phase_22_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -6015,7 +6176,8 @@ def main() -> int:
     phase20 = staticcheck_phase(dev)
     print(json.dumps({"staticcheck": phase20["record"]}))
     tick21 = tick_update_phase(dev)
-    log(f"chip_smoke phases 1-21 took {time.perf_counter() - t_start:.1f} s")
+    seen22 = seen_phase(dev)
+    log(f"chip_smoke phases 1-22 took {time.perf_counter() - t_start:.1f} s")
 
     cu, ce = captured["uniform"], captured["per_edge"]
     measured = {
@@ -6039,6 +6201,12 @@ def main() -> int:
             bound_ms_per_edge_captured_loss=ce["bound_ms_loss"],
             plain_ms_per_edge_captured_loss=ce["plain_ms_loss"],
             ms_per_edge_captured_again=ce["ms_again"],
+            # Phase 22: masked by seen on the engine's own state, summed over
+            # the captured ticks of burst32k's and coverage4k's floods.
+            max_abs_err_seen=seen22["max_abs_err"],
+            **{f"{key}_seen_{label}": seen22[label][key]
+               for label, *_ in SEEN_CASES
+               for key in ("ms", "unmasked_ms", "counting_ms", "pruned_share")},
             # Phase 11: B = 8 replicas in one launch a bucket, on campaign
             # (b)'s tick-10 ring and (a)'s tick-2 ring, (b)'s also with the
             # per-replica loss coins and an up mask.

@@ -101,8 +101,10 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   concatenate-and-scatter back to node order in propagate_bucketed
 //   (ell.py:523-525). It has no Pallas source.
 // Computes:
-//   out[dst, :] = up[dst] ? OR_k keep(r,k) ? hist[slot(r,k), idx[r,k], :] & S : 0
+//   raw[dst, :] = up[dst] ? OR_k keep(r,k) ? hist[slot(r,k), idx[r,k], :] & S : 0
 //                         : 0
+//   out[dst, :] = raw[dst, :]                 (seen null)
+//               = raw[dst, :] & ~seen[dst, :] (the seen instantiations)
 //   dst = rows ? rows[r] : r
 //   keep(r,k) = mask[r,k] && !drop(idx[r,k], dst, tick)
 //   drop(s, d, t) = mix32(seed ^ s*0x9E3779B1 ^ d*0x85EBCA77 ^ t*0xC2B2AE3D)
@@ -114,24 +116,45 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   zero words, so the result is the plain gather-OR. `up` (null: every
 //   node up) is the churn model's destination mask, `drop` the link-loss
 //   coin of p2p_gossip_tpu/ops/ell.py _loss_keep (models/linkloss.py spec;
-//   the JAX package applies both in and after its gather).
+//   the JAX package applies both in and after its gather). `seen` (the
+//   rows of `out`) makes the output the flood tick's `newly` before its
+//   generations, the only part of the arrivals the tick keeps
+//   (tick_update below), and lets the kernel skip every read that could
+//   only bring bits the destination already has.
 //   Node ids: the coin hashes dst + id_offset, the destination's GLOBAL
 //   node id (a node shard of the sharded engine passes its first row's
 //   id; 0 everywhere else). Source ids are idx values, global already.
 //   Replicas (Monte-Carlo campaigns): B independent rings stacked along
-//   the rows, hist (ring, B*n_src, w), occ (ring, B*n_src), out
+//   the rows, hist (ring, B*n_src, w), occ (ring, B*n_src), out and seen
 //   (B*n_out, w), up (B*n_out). Replica r = blockIdx.y reads source row
-//   r*n_src + s, writes row r*n_out + dst and tests up[r*n_out + dst];
-//   its coin hashes the node ids s and dst with loss_seeds[r] (loss_seed
-//   for every replica when loss_seeds is null). The ELL is shared. With
-//   B = 1 every offset is the solo kernel's.
-// Bound on the H100: bytes. The function must move each source row once
-//   (~0.1 GB at N = 100,000, W = 256), but each valid edge reads its source
-//   row again: ~100 edges per row turn that into ~10 GB of row reads per
-//   tick, and the source slot (100 MB) is twice the 50 MB L2. Most of those
-//   words are zero: shares are ordered by generation tick, so a row's new
-//   bits sit in the few 32-byte sectors of the shares now spreading (about
-//   0.1-0.2 of the sectors in the middle of a flood).
+//   r*n_src + s, writes row r*n_out + dst, tests up[r*n_out + dst] and
+//   reads seen[r*n_out + dst]; its coin hashes the node ids s and dst with
+//   loss_seeds[r] (loss_seed for every replica when loss_seeds is null).
+//   The ELL is shared. With B = 1 every offset is the solo kernel's.
+// Bound on the H100: bytes. The function must move each occupied source
+//   sector once (~0.1 GB at N = 100,000, W = 256), but each valid edge
+//   reads its source row again: ~100 edges per row turn that into ~10 GB
+//   of row reads per tick, and the source slot (100 MB) is twice the 50 MB
+//   L2, so the kernel waits on L2 and DRAM for those rereads, a round trip
+//   per batch of neighbours, and is paced by the round trips of a row and
+//   the warps resident per SM. Most rereads carry nothing the tick keeps:
+//   shares are ordered by generation tick, so a 16-byte unit of a row holds
+//   shares of one generation; a source's units of the generation now at
+//   hop 3 are almost always seen already at the destination, and the bits
+//   it lacks of the generation at hop 2 come from ~10 of its ~100
+//   neighbours. With `seen` the kernel reads the staging, the
+//   destination's seen units in the band, and a neighbour's unit only while
+//   the destination still lacks a bit of it. At burst32k's dense ticks it
+//   loads 48-50% of the unmasked kernel's neighbour units and takes 0.66-0.84
+//   of its time (chip_smoke phase 22, PERF.md). The time falls by less than
+//   the loads: the units of the two newest generations are never covered
+//   (most of the bits a destination lacks there reach no neighbour yet), so
+//   a warp reads every neighbour of such rows, batch after batch; most of
+//   the gain is the saturated sectors (step 2): without that pass, on
+//   per-unit coverage alone, the same ticks took 0.85-0.99 of the unmasked
+//   time. The seen read costs a round trip to DRAM a wide row, paid where
+//   nothing prunes: renewal's sparse ticks take 1.07-1.11 of the unmasked
+//   time, coverage4k's early ticks (W = 128, nothing seen yet) 1.17.
 // Design: one warp per destination row, 8 rows per block.
 //   1. Stage: the warp compacts the row's valid entries through `mask`
 //      (ballot + prefix popcount) into shared memory, 128 entries at a
@@ -139,7 +162,17 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //      Neighbours with no occupied sector are dropped here. The OR of the
 //      staged occupancy words (`any`) is the output row's possibly nonzero
 //      sectors.
-//   2. Sectors outside `any` are written as zeros without a read. The
+//   2. (seen) Saturated sectors: a sector of `any` none of whose units the
+//      destination lacks a bit of is taken out of `any`, and a staged
+//      neighbour left with no sector of `any` is dropped from the staging
+//      (an in-place recompaction, only when a sector went). Where the row's
+//      seen is one 16-byte load a lane (W <= 128 words: a BA row of ~6
+//      entries, paced by its dependent loads; kRowSeen) that load is
+//      issued before the staging's, which do not wait on it, so it costs no
+//      round trip; a wider row reads only its band's seen units, after
+//      staging (W = 1,024: ~100 entries a row, the read is small beside
+//      them). Both schedules follow from W; the rest is one code path.
+//   3. Sectors outside `any` are written as zeros without a read. The
 //      16-byte units of the sectors in `any` (the row's band) are numbered
 //      densely and lanes own two units of the band each: a band of at most
 //      2L units takes L lanes per neighbour (L a power of two, at most
@@ -148,6 +181,25 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //      unit's sector; a shuffle-XOR tree folds the neighbour groups. With
 //      every sector occupied this is one neighbour at a time, the lanes
 //      covering 64 units of its row per pass.
+//      (seen) A lane's accumulator starts at its unit's seen (loaded again:
+//      the warp read it a moment before; OR what earlier staging rounds
+//      wrote), so a unit is covered once the accumulator is all ones, and
+//      the output is accumulator & ~seen. A lane loads a neighbour's unit
+//      only while its unit is not covered; units the destination has whole
+//      are never read. The neighbours are taken kSeenBatch a group at a
+//      time: the loads of a batch are issued together (a covered test
+//      before each load would chain every load on the one before it), then
+//      the groups' accumulators are folded by the shuffle-XOR tree, so
+//      every lane sees the whole warp's coverage, and between batches the
+//      warp stops once no lane lacks a bit (a vote). The fold period,
+//      kSeenBatch = 8 neighbours a group, was the fastest of 4, 6, 8 and 12
+//      at burst32k's ticks and within 3% of the best at coverage4k's.
+//      Starting the first batch before the seen load returns (its loads
+//      not waiting on coverage), a one-batch path for rows whose
+//      neighbours fit one batch (seen loaded beside the neighbours), and an
+//      L2 prefetch of the whole seen row before staging were each slower at
+//      both shapes and at renewal's: the first two hold seen values in
+//      registers across the batch, the third adds 4 KB of reads a row.
 //   The loop runs over neighbours, not sectors, so each neighbour's
 //   occupied sectors are read together as coalesced runs of its row.
 //   Walking sector by sector (16 neighbours' 32-byte sector per load) was
@@ -158,15 +210,15 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   walk the fewer iterations that made the sector walk fast (PERF.md).
 //   Rows with more than 128 entries take further staging rounds that OR
 //   into the row the first round wrote. Loads are 16 bytes a thread when
-//   w % 4 == 0 and hist and out are 16-byte aligned (the entry point picks
-//   the instantiation), 4 bytes otherwise. Rows are written straight into
-//   node order through `rows` (null = identity), dropping rows outside
-//   [0, n_out); bucket rows partition range(N), so no two warps write the
-//   same row. Offsets are size_t: ring*N*W passes 2^31 at real sizes.
-//   No tensor cores: an OR over a 0.1%-dense adjacency has no matrix-
-//   product form that pays. Replicas are grid y, so B replicas are one
-//   launch; a staged entry's row in the ring is slot * B*n_src + r*n_src +
-//   s, its word offset that row times w.
+//   w % 4 == 0 and hist, out and seen are 16-byte aligned (the entry point
+//   picks the instantiation), 4 bytes otherwise. Rows are written straight
+//   into node order through `rows` (null = identity), dropping rows
+//   outside [0, n_out); bucket rows partition range(N), so no two warps
+//   write the same row. Offsets are size_t: ring*N*W passes 2^31 at real
+//   sizes. No tensor cores: an OR over a 0.1%-dense adjacency has no
+//   matrix-product form that pays. Replicas are grid y, so B replicas are
+//   one launch; a staged entry's row in the ring is slot * B*n_src +
+//   r*n_src + s, its word offset that row times w.
 //   Options (off: the kernel reads and writes what it did without them).
 //   The loss coin is a separate instantiation (kLoss), computed in the
 //   staging step: about a dozen integer operations in registers per valid
@@ -175,18 +227,39 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   row is never read and its occupancy does not widen the row's band. A
 //   down destination (`up`) writes a zero row and reads nothing; it must
 //   still write, because the callers hand in uninitialised outputs.
+//   `seen` is a separate instantiation too (kSeen): without it the kernel
+//   is the unmasked one, read for read.
+//   Counters (kStats, a seen instantiation the engine launches only with
+//   telemetry's span sink on): units_read, the neighbour units loaded, and
+//   units_pruned, the units the unmasked kernel would have loaded for the
+//   same staging (every unit of each staged neighbour's occupied sectors)
+//   less units_read. Each thread counts into its own shared-memory slot
+//   (registers are the scarce resource here), a warp sums by shuffles, a
+//   block by shared atomics, and the block's last warp adds the sums into
+//   stats[0] and stats[1], one atomicAdd a word. The counting costs 3-6% of
+//   the masked kernel's time at burst32k's ticks and 5-14% at coverage4k's
+//   (short rows: the per-block sums weigh more); the traced runs pay it.
+//   Spreading the global atomics over 64 addresses, or leaving them out,
+//   changed nothing measurable: the cost is the counting in the row loop.
 //   Registers: the gather waits on L2 and is paced by the warps resident
 //   per SM. The loss instantiation asks for six blocks of 256 threads a
 //   SM, which caps it at the 40 registers the loss-free kernel takes on
 //   its own; left free it took 48, five blocks a SM, and ran ~20% slower
 //   than the loss-free kernel though it reads fewer edges. The loss-free
 //   instantiation keeps its plain bound: the six-block request, at the
-//   same 40 registers, made it slower in the flood (PERF.md).
+//   same 40 registers, made it slower in the flood (PERF.md). The seen
+//   instantiations ask for six blocks too: left free they took 48-64
+//   registers (four or five blocks a SM) and ran 10-25% slower at
+//   burst32k's ticks than at 40 registers, where `-Xptxas -v` reports
+//   24-112 bytes of spills (the batch's loads in flight are what the
+//   registers hold); the unmasked instantiations take 40 (16-byte units)
+//   and 32 registers.
 // ---------------------------------------------------------------------------
 constexpr int kGatherWarps = 8;
 constexpr int kGatherMinBlocks = 6;
 constexpr int kGatherStage = 128;
 constexpr int kLaneUnits = 2;
+constexpr int kSeenBatch = 8;  // neighbours a group between coverage tests
 
 constexpr uint32_t kCoinSrc = 0x9E3779B1u;
 constexpr uint32_t kCoinDst = 0x85EBCA77u;
@@ -202,25 +275,36 @@ __device__ inline uint32_t mix32(uint32_t h) {
   return h;
 }
 
-template <typename T, bool kLoss>
-__global__ void __launch_bounds__(kGatherWarps * 32, kLoss ? kGatherMinBlocks : 0)
-gather_or_kernel(const uint32_t* __restrict__ hist,
-                 const uint32_t* __restrict__ occ, int n_src, int slot_rows,
-                 int w, int sw,
-                 int ring, int tick, int uniform_slot,
-                 const int32_t* __restrict__ idx,
-                 const uint8_t* __restrict__ mask,
-                 const int32_t* __restrict__ delay, int n_rows, int cap,
-                 const int32_t* __restrict__ rows, int n_out,
-                 const uint8_t* __restrict__ up, uint32_t loss_seed,
-                 uint32_t loss_limit, const uint32_t* __restrict__ loss_seeds,
-                 int id_offset, uint32_t* __restrict__ out) {
-  __shared__ unsigned long long s_off[kGatherWarps][kGatherStage];
-  __shared__ uint32_t s_occ[kGatherWarps][kGatherStage];
-  const int warp = threadIdx.x >> 5;
+template <typename T> __device__ inline T ones_unit();
+template <> __device__ inline uint32_t ones_unit<uint32_t>() { return kFullMask; }
+template <> __device__ inline uint4 ones_unit<uint4>() {
+  return make_uint4(kFullMask, kFullMask, kFullMask, kFullMask);
+}
+__device__ inline bool full_units(uint32_t v) { return v == kFullMask; }
+__device__ inline bool full_units(uint4 v) { return (v.x & v.y & v.z & v.w) == kFullMask; }
+__device__ inline uint32_t shfl_from(uint32_t v, int src) {
+  return __shfl_sync(kFullMask, v, src);
+}
+__device__ inline uint4 shfl_from(uint4 v, int src) {
+  return make_uint4(shfl_from(v.x, src), shfl_from(v.y, src), shfl_from(v.z, src),
+                    shfl_from(v.w, src));
+}
+
+// One destination row, by one warp (`off` and `occ_of` its staging in
+// shared memory). kStats: adds this lane's neighbour units loaded to
+// cnt[0] and the units the unmasked kernel would load for its staged
+// entries to cnt[1] (the lane's slot in shared memory).
+template <typename T, bool kLoss, bool kSeen, bool kRowSeen, bool kStats>
+__device__ __forceinline__ void gather_row(
+    const uint32_t* __restrict__ hist, const uint32_t* __restrict__ occ, int n_src,
+    int slot_rows, int w, int sw, int ring, int tick, int uniform_slot,
+    const int32_t* __restrict__ idx, const uint8_t* __restrict__ mask,
+    const int32_t* __restrict__ delay, int r, int cap, const int32_t* __restrict__ rows,
+    int n_out, const uint8_t* __restrict__ up, uint32_t loss_seed, uint32_t loss_limit,
+    const uint32_t* __restrict__ loss_seeds, int id_offset,
+    const uint32_t* __restrict__ seen, uint32_t* __restrict__ out,
+    unsigned long long* off, uint32_t* occ_of, int* cnt) {
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kGatherWarps + warp;
-  if (r >= n_rows) return;  // warp-uniform: only warp-level syncs follow
   const int dst = rows ? rows[r] : r;
   if (dst < 0 || dst >= n_out) return;
 
@@ -236,9 +320,9 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
   const T* src = reinterpret_cast<const T*>(hist);
   const int dst_row = (int)blockIdx.y * n_out + dst;
   T* row_out = reinterpret_cast<T*>(out + (size_t)dst_row * (size_t)w);
+  const T* seen_row =
+      kSeen ? reinterpret_cast<const T*>(seen + (size_t)dst_row * (size_t)w) : nullptr;
   const size_t e0 = (size_t)r * (size_t)cap;
-  unsigned long long* off = s_off[warp];
-  uint32_t* occ_of = s_occ[warp];
 
   if (up && !up[dst_row]) {  // warp-uniform: a down node receives nothing
     for (int u = lane; u < n_units; u += 32) row_out[u] = zero_unit<T>();
@@ -248,9 +332,18 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
   const uint32_t coin_row =
       kLoss ? seed ^ ((uint32_t)(dst + id_offset) * kCoinDst) ^ ((uint32_t)tick * kCoinTick)
             : 0u;
+  // kStats: the units of the last sector (a row of w % sw != 0 ends in a
+  // short one).
+  const int last_units = n_units - ((nsec - 1) << sec_shift);
 
   int k0 = 0;
   do {
+    // The row's seen, one unit a lane, where it fits one load a lane
+    // (lanes past the row hold ones: nothing lacking). Issued before the
+    // staging's loads, which do not wait on it.
+    T sv = ones_unit<T>();
+    if (kRowSeen && lane < n_units) sv = __ldg(seen_row + lane);
+
     // 1. Stage this round's valid entries, compacted.
     const int k1 = k0 + kGatherStage < cap ? k0 + kGatherStage : cap;
     int nv = 0;
@@ -282,6 +375,9 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
         off[pos] = o;
         occ_of[pos] = oc;
         any |= oc;
+        if (kStats)
+          cnt[1] += (__popc(oc) << sec_shift) -
+                    (((oc >> (nsec - 1)) & 1u) ? (1 << sec_shift) - last_units : 0);
       }
       nv += __popc(b);
     }
@@ -289,7 +385,53 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
     for (int m = 16; m > 0; m >>= 1) any |= __shfl_xor_sync(kFullMask, any, m);
     __syncwarp();
 
-    // 2. Zeros outside the band, then passes over the band.
+    if constexpr (kSeen) {
+      // 2. The sectors of `any` where the destination lacks a bit.
+      uint32_t lack = 0u;
+      if (kRowSeen) {
+        const unsigned units = __ballot_sync(kFullMask, !full_units(sv));
+        const int ups = 1 << sec_shift;
+        lack = __ballot_sync(
+            kFullMask,
+            lane < nsec && ((units >> (lane << sec_shift)) & ((1u << ups) - 1u)) != 0u);
+      } else {
+        const int n_band = __popc(any) << sec_shift;
+        for (int c = lane; c < n_band; c += 32) {
+          const int s = nth_set_bit(any, c >> sec_shift);
+          const int u = (s << sec_shift) + (c & ((1 << sec_shift) - 1));
+          if (u < n_units && !full_units(__ldg(seen_row + u))) lack |= 1u << s;
+        }
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) lack |= __shfl_xor_sync(kFullMask, lack, m);
+      }
+      const uint32_t band = any & lack;
+      if (band != any) {  // warp-uniform: drop neighbours left with no sector
+        int nk = 0;
+        for (int jb = 0; jb < nv; jb += 32) {
+          const int j = jb + lane;
+          unsigned long long o = 0;
+          uint32_t oc = 0u;
+          if (j < nv) {
+            o = off[j];
+            oc = occ_of[j];
+          }
+          const bool keep = (oc & band) != 0u;
+          const unsigned b = __ballot_sync(kFullMask, keep);
+          __syncwarp();  // this chunk read before any lane overwrites it
+          if (keep) {
+            const int pos = nk + __popc(b & ((1u << lane) - 1u));
+            off[pos] = o;
+            occ_of[pos] = oc;
+          }
+          nk += __popc(b);
+        }
+        __syncwarp();
+        nv = nk;
+        any = band;
+      }
+    }
+
+    // 3. Zeros outside the band, then passes over the band.
     if (k0 == 0) {
       for (int u = lane; u < n_units; u += 32)
         if (!((any >> (u >> sec_shift)) & 1u)) row_out[u] = zero_unit<T>();
@@ -319,25 +461,129 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
           }
         }
       }
+      if constexpr (!kSeen) {
 #pragma unroll 4
-      for (int j = group; j < nv; j += groups) {
-        const uint32_t oc = occ_of[j];
-        const T* row = src + off[j];
+        for (int j = group; j < nv; j += groups) {
+          const uint32_t oc = occ_of[j];
+          const T* row = src + off[j];
+#pragma unroll
+          for (int i = 0; i < kLaneUnits; ++i)
+            if (unit[i] >= 0 && ((oc >> sec[i]) & 1u))
+              acc[i] = or_units(acc[i], __ldg(row + unit[i]));
+        }
+#pragma unroll
+        for (int i = 0; i < kLaneUnits; ++i) {
+          for (int m = lanes; m < 32; m <<= 1) acc[i] = or_units(acc[i], shfl_xor(acc[i], m));
+          if (group == 0 && unit[i] >= 0)
+            row_out[unit[i]] = k0 == 0 ? acc[i] : or_units(row_out[unit[i]], acc[i]);
+        }
+      } else {
+        // The accumulator starts at what the destination has: its seen
+        // and what earlier rounds wrote. No unit: all ones (covered).
+#pragma unroll
+        for (int i = 0; i < kLaneUnits; ++i) {
+          acc[i] = ones_unit<T>();
+          if (unit[i] >= 0) {
+            acc[i] = __ldg(seen_row + unit[i]);
+            if (k0 > 0) acc[i] = or_units(acc[i], row_out[unit[i]]);
+          }
+        }
+        const int step = groups * kSeenBatch;
+        for (int jb = 0; jb < nv; jb += step) {
+          bool want[kLaneUnits];
+#pragma unroll
+          for (int i = 0; i < kLaneUnits; ++i) want[i] = !full_units(acc[i]);
+          int loaded = 0;
+#pragma unroll
+          for (int p = 0; p < kSeenBatch; ++p) {
+            const int j = jb + p * groups + group;
+            if (j < nv) {
+              const uint32_t oc = occ_of[j];
+              const T* row = src + off[j];
+#pragma unroll
+              for (int i = 0; i < kLaneUnits; ++i)
+                if (want[i] && ((oc >> (unit[i] >> sec_shift)) & 1u)) {
+                  acc[i] = or_units(acc[i], __ldg(row + unit[i]));
+                  if (kStats) ++loaded;
+                }
+            }
+          }
+          if (kStats) cnt[0] += loaded;
+          bool left = false;
+#pragma unroll
+          for (int i = 0; i < kLaneUnits; ++i) {
+            for (int m = lanes; m < 32; m <<= 1) acc[i] = or_units(acc[i], shfl_xor(acc[i], m));
+            left |= !full_units(acc[i]);
+          }
+          if (jb + step < nv && !__any_sync(kFullMask, left)) break;  // covered
+        }
+        // Every group holds the warp's accumulator (each batch ends in
+        // the fold; without a batch the groups' starts are equal).
 #pragma unroll
         for (int i = 0; i < kLaneUnits; ++i)
-          if (unit[i] >= 0 && ((oc >> sec[i]) & 1u))
-            acc[i] = or_units(acc[i], __ldg(row + unit[i]));
-      }
-#pragma unroll
-      for (int i = 0; i < kLaneUnits; ++i) {
-        for (int m = lanes; m < 32; m <<= 1) acc[i] = or_units(acc[i], shfl_xor(acc[i], m));
-        if (group == 0 && unit[i] >= 0)
-          row_out[unit[i]] = k0 == 0 ? acc[i] : or_units(row_out[unit[i]], acc[i]);
+          if (group == 0 && unit[i] >= 0)
+            row_out[unit[i]] = and_not_units(acc[i], __ldg(seen_row + unit[i]));
       }
     }
     __syncwarp();  // the next round overwrites this round's staging
     k0 += kGatherStage;
   } while (k0 < cap);
+}
+
+template <typename T, bool kLoss, bool kSeen, bool kRowSeen, bool kStats>
+__global__ void __launch_bounds__(kGatherWarps * 32, kLoss || kSeen ? kGatherMinBlocks : 0)
+gather_or_kernel(const uint32_t* __restrict__ hist,
+                 const uint32_t* __restrict__ occ, int n_src, int slot_rows,
+                 int w, int sw,
+                 int ring, int tick, int uniform_slot,
+                 const int32_t* __restrict__ idx,
+                 const uint8_t* __restrict__ mask,
+                 const int32_t* __restrict__ delay, int n_rows, int cap,
+                 const int32_t* __restrict__ rows, int n_out,
+                 const uint8_t* __restrict__ up, uint32_t loss_seed,
+                 uint32_t loss_limit, const uint32_t* __restrict__ loss_seeds,
+                 int id_offset, const uint32_t* __restrict__ seen,
+                 unsigned long long* __restrict__ stats, uint32_t* __restrict__ out) {
+  __shared__ unsigned long long s_off[kGatherWarps][kGatherStage];
+  __shared__ uint32_t s_occ[kGatherWarps][kGatherStage];
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kGatherWarps + warp;
+  // kStats: each thread's counts (units read, units the unmasked kernel
+  // would read) in shared memory, not registers, and the block's sums; the
+  // count of the block's warps done is zeroed before any warp starts, and
+  // the last warp to finish adds the block's sums in.
+  __shared__ int s_lane[kStats ? kGatherWarps * 32 : 1][2];
+  __shared__ unsigned long long s_cnt[2];
+  __shared__ unsigned s_done;
+  int* cnt = s_lane[kStats ? threadIdx.x : 0];
+  if (kStats) {
+    cnt[0] = cnt[1] = 0;
+    if (threadIdx.x < 2) s_cnt[threadIdx.x] = 0ull;
+    if (threadIdx.x == 0) s_done = 0u;
+    __syncthreads();
+  }
+  if (r < n_rows)  // warp-uniform: only warp-level syncs inside
+    gather_row<T, kLoss, kSeen, kRowSeen, kStats>(
+        hist, occ, n_src, slot_rows, w, sw, ring, tick, uniform_slot, idx, mask, delay, r,
+        cap, rows, n_out, up, loss_seed, loss_limit, loss_seeds, id_offset, seen, out,
+        s_off[warp], s_occ[warp], cnt);
+  if constexpr (kStats) {
+    int n_read = cnt[0], n_would = cnt[1];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      n_read += __shfl_xor_sync(kFullMask, n_read, m);
+      n_would += __shfl_xor_sync(kFullMask, n_would, m);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(&s_cnt[0], (unsigned long long)n_read);
+      atomicAdd(&s_cnt[1], (unsigned long long)(n_would - n_read));
+      __threadfence_block();
+      if (atomicAdd(&s_done, 1u) == kGatherWarps - 1) {  // the block's last warp
+        atomicAdd(stats, atomicAdd(&s_cnt[0], 0ull));
+        atomicAdd(stats + 1, atomicAdd(&s_cnt[1], 0ull));
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1347,34 +1593,55 @@ int gossip_sector_occupancy(const void* words, int n, int w, long long ld,
 // `replicas` stacked rings (grid y): n_src and n_out count one replica's
 // rows; `loss_seeds` (null: loss_seed for all) holds one seed a replica.
 // `id_offset` is added to each destination row's node id in the coin.
+// `seen` (null: the unmasked gather) has out's rows and masks the output
+// with ~seen; `stats` (null: none, else two uint64 words, needs `seen`)
+// launches the counting instantiation: units read, units pruned.
 int gossip_gather_or(const void* hist, const void* occ, int n_src, int w,
                      int ring, int tick, int uniform_slot, const void* idx,
                      const void* mask, const void* delay, int n_rows, int cap,
                      const void* rows, int n_out, const void* up, int loss_on,
                      unsigned int loss_seed, unsigned int loss_limit,
                      const void* loss_seeds, int replicas, int id_offset,
-                     void* out, void* stream) {
+                     const void* seen, void* stats, void* out, void* stream) {
+  if (stats && !seen) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n_rows + kGatherWarps - 1) / kGatherWarps),
                   (unsigned)replicas);
   const int sw = sector_words(w);
-  const bool vec = w % 4 == 0 && aligned16(hist) && aligned16(out);
-#define GOSSIP_GATHER_LAUNCH(T, LOSS)                                          \
-  gather_or_kernel<T, LOSS><<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>( \
+  const bool vec = w % 4 == 0 && aligned16(hist) && aligned16(out) &&
+                   (!seen || aligned16(seen));
+#define GOSSIP_GATHER_LAUNCH(T, LOSS, SEEN, ROW, STATS)                        \
+  gather_or_kernel<T, LOSS, SEEN, ROW, STATS><<<grid, kGatherWarps * 32, 0,     \
+                                                (cudaStream_t)stream>>>(        \
       (const uint32_t*)hist, (const uint32_t*)occ, n_src, replicas * n_src, w, \
       sw, ring, tick,                                                          \
       uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,                 \
       (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,         \
       (const uint8_t*)up, loss_seed, loss_limit, (const uint32_t*)loss_seeds, \
-      id_offset, (uint32_t*)out)
-  if (vec && loss_on) {
-    GOSSIP_GATHER_LAUNCH(uint4, true);
-  } else if (vec) {
-    GOSSIP_GATHER_LAUNCH(uint4, false);
-  } else if (loss_on) {
-    GOSSIP_GATHER_LAUNCH(uint32_t, true);
-  } else {
-    GOSSIP_GATHER_LAUNCH(uint32_t, false);
+      id_offset, (const uint32_t*)seen, (unsigned long long*)stats, (uint32_t*)out)
+#define GOSSIP_GATHER_SEEN(T, LOSS)                                            \
+  if (!seen) {                                                                 \
+    GOSSIP_GATHER_LAUNCH(T, LOSS, false, false, false);                        \
+  } else if (w / (int)(sizeof(T) / 4) <= 32) {                                 \
+    if (stats) {                                                               \
+      GOSSIP_GATHER_LAUNCH(T, LOSS, true, true, true);                         \
+    } else {                                                                   \
+      GOSSIP_GATHER_LAUNCH(T, LOSS, true, true, false);                        \
+    }                                                                          \
+  } else if (stats) {                                                          \
+    GOSSIP_GATHER_LAUNCH(T, LOSS, true, false, true);                          \
+  } else {                                                                     \
+    GOSSIP_GATHER_LAUNCH(T, LOSS, true, false, false);                         \
   }
+  if (vec && loss_on) {
+    GOSSIP_GATHER_SEEN(uint4, true);
+  } else if (vec) {
+    GOSSIP_GATHER_SEEN(uint4, false);
+  } else if (loss_on) {
+    GOSSIP_GATHER_SEEN(uint32_t, true);
+  } else {
+    GOSSIP_GATHER_SEEN(uint32_t, false);
+  }
+#undef GOSSIP_GATHER_SEEN
 #undef GOSSIP_GATHER_LAUNCH
   return (int)cudaGetLastError();
 }

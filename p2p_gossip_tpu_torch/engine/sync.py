@@ -9,6 +9,9 @@ The NS-3 event loop becomes a synchronous graph message-passing simulation:
   ``sector_occupancy`` kernel, run on the slot the tick writes), so the
   gather reads only the sectors of a source row that hold bits;
 - the per-node seen-set (p2pnode.h:38) is an (N x S/32) int32 bitmask;
+- the gather is masked by the destinations' seen-sets (``gather_or``'s
+  ``seen``): it returns ``arrivals & ~seen``, all the tick keeps of its
+  arrivals, and reads no neighbour unit whose bits a destination has;
 - generation events (`GenerateAndGossipShare`, p2pnode.cc:106) are
   pre-sampled host-side and ORed into seen and the frontier at their tick;
 - the dedup against seen, the new frontier and the counters (p2pnode.h:40-43)
@@ -398,37 +401,61 @@ class TickOptions:
     A campaign batch sets ``replicas`` B > 1 and ``degree``, the (B*N,)
     int32 degree of every stacked row; its churn intervals are then (B*N,
     K) and its loss seed may be a (B,) int32 tensor of per-replica seeds
-    (`ops.kernels.gather_or`)."""
+    (`ops.kernels.gather_or`).
+
+    ``gather_stats`` is the gather's (2,) int64 counter of neighbour units
+    read and pruned (`ops.kernels.gather_or`'s ``stats``), which an entry
+    allocates once a run with telemetry's span sink on (`_gather_stats`)
+    and reads in its ``stats`` span; None launches the gather without
+    counting."""
 
     churn: tuple | None = None
     loss: tuple | None = None
     connect_tick: int = 0
     replicas: int = 1
     degree: torch.Tensor | None = None
+    gather_stats: torch.Tensor | None = None
 
 
 NO_OPTIONS = TickOptions()
 
 
 def _gather(dg: DeviceGraph, hist, occ, t: int, plain: bool, loss=None, up=None,
-            replicas: int = 1):
+            replicas: int = 1, seen=None, stats=None):
+    kw = dict(occ=occ, loss=loss, up=up, replicas=replicas, seen=seen, stats=stats,
+              plain=plain)
     if dg.buckets is not None:
         return propagate_bucketed(
             hist, t, dg.buckets, n_out=dg.n, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up,
-            replicas=replicas, plain=plain,
+            uniform_delay=dg.uniform_delay, **kw,
         )
     if dg.uniform_delay is not None:
         return propagate_uniform(
             hist, t, dg.ell_idx, dg.ell_mask, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, occ=occ, loss=loss, up=up,
-            replicas=replicas, plain=plain,
+            uniform_delay=dg.uniform_delay, **kw,
         )
     return propagate(
-        hist, t, dg.ell_idx, dg.ell_delay, dg.ell_mask,
-        ring_size=dg.ring_size, occ=occ, loss=loss, up=up, replicas=replicas,
-        plain=plain,
+        hist, t, dg.ell_idx, dg.ell_delay, dg.ell_mask, ring_size=dg.ring_size, **kw,
     )
+
+
+def _gather_stats(dg: DeviceGraph, plain: bool) -> torch.Tensor | None:
+    """The gather's read/pruned counter for a run (`TickOptions.
+    gather_stats`): a zeroed (2,) int64 tensor where the span sink is on,
+    the device rings are off (their ticks gather unmasked) and the kernel
+    runs (a card, not ``plain``); else None."""
+    if (not tel_sink.enabled() or tel_sink.rings_enabled() or plain
+            or dg.device.type != "cuda"):
+        return None
+    return torch.zeros((2,), dtype=torch.int64, device=dg.device)
+
+
+def _record_gather_stats(sp, opts: TickOptions) -> None:
+    """Put the run's gather counts on the entry's ``stats`` span (after
+    the entry's sync: the read waits on nothing)."""
+    if opts.gather_stats is not None:
+        read, pruned = opts.gather_stats.tolist()
+        sp.set(gather_units_read=read, gather_units_pruned=pruned)
 
 
 def _tick(
@@ -456,6 +483,10 @@ def _tick(
     under churn the gather runs without the up mask and the mask is
     applied after it (the same arrivals); ``loss_dropped`` needs a second,
     loss-free gather. Both extra costs are paid only with telemetry on.
+    Without rings the gather takes ``seen`` and returns ``arrivals &
+    ~seen``; the rings' rows count the raw wire, so their ticks gather
+    unmasked. The update's result is the same either way: it keeps only
+    ``arrivals & ~seen`` and ORs the arrivals into ``seen``.
 
     A campaign batch (``opts.replicas`` B > 1) stacks its replicas along
     the rows of every tensor here: ``origins`` are stacked rows r*N +
@@ -463,7 +494,8 @@ def _tick(
     with span("gather"):
         up = None if opts.churn is None else churn_mod.up_mask(*opts.churn, t)
         if rings is None:
-            arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up, opts.replicas)
+            arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up, opts.replicas,
+                               seen, opts.gather_stats)
         else:
             wire = _gather(dg, hist, occ, t, plain, opts.loss, replicas=opts.replicas)
             lossless = None if opts.loss is None else _gather(
@@ -685,11 +717,12 @@ def _stage(graph, ell_delays, constant_delay, device_graph, device):
     return device_graph
 
 
-def _tick_options(dg, churn, loss, connect_tick=0) -> TickOptions:
+def _tick_options(dg, churn, loss, connect_tick=0, plain: bool = False) -> TickOptions:
     return TickOptions(
         churn=churn_mod.to_device(churn, dg.device),
         loss=None if loss is None else loss.static_cfg,
         connect_tick=int(connect_tick),
+        gather_stats=_gather_stats(dg, plain),
     )
 
 
@@ -739,7 +772,7 @@ def run_sync_sim(
     torch versions on any device (the comparison run for the kernels)."""
     dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
     with span("inputs", shares=schedule.num_shares):
-        opts = _tick_options(dg, churn, loss, connect_tick)
+        opts = _tick_options(dg, churn, loss, connect_tick, plain)
         chunk_size = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
         chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
         boundaries = filter_snapshot_boundaries(snapshot_ticks, horizon_ticks)
@@ -818,7 +851,8 @@ def run_sync_sim(
             digest_head=digest_head,
         )
 
-    with span("stats"):
+    with span("stats") as sp:
+        _record_gather_stats(sp, opts)
         generated = effective_generated(schedule, horizon_ticks, churn)
         degree = graph.degree.astype(np.int64)
         stats = NodeStats(
@@ -868,7 +902,7 @@ def run_flood_coverage(
         o, g = sched.padded(chunk_size, horizon_ticks)
         o = torch.as_tensor(o.astype(np.int64), device=dg.device)
         g = torch.as_tensor(g, device=dg.device)
-        opts = _tick_options(dg, churn, loss)
+        opts = _tick_options(dg, churn, loss, plain=plain)
     # The JAX engine logs here which coverage path a TPU run takes (its
     # Pallas kernel or XLA); the port's coverage always runs its CUDA
     # kernel on the card, so there is no such line.
@@ -894,7 +928,8 @@ def run_flood_coverage(
         received = r.cpu().numpy()
         sent = snt.cpu().numpy()
         coverage = cov[0].cpu().numpy()[:, :s]
-    with span("stats"):
+    with span("stats") as sp:
+        _record_gather_stats(sp, opts)
         generated = effective_generated(sched, horizon_ticks, churn)
         received = received.astype(np.int64)
         stats = NodeStats(

@@ -33,10 +33,10 @@ _U32 = ctypes.c_uint32  # values up to 0xFFFFFFFF (c_int raises from 2^31)
 _SIGNATURES = {
     # hist, occ, n_src, w, ring, tick, uniform_slot, idx, mask, delay,
     # n_rows, cap, rows, n_out, up, loss_on, loss_seed, loss_limit,
-    # loss_seeds, replicas, id_offset, out, stream
+    # loss_seeds, replicas, id_offset, seen, stats, out, stream
     "gossip_gather_or": (
         _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I,
-        _P, _I, _U32, _U32, _P, _I, _I, _P, _P,
+        _P, _I, _U32, _U32, _P, _I, _I, _P, _P, _P, _P,
     ),
     # words, n, w, ld, out, stream
     "gossip_sector_occupancy": (_P, _I, _I, _LL, _P, _P),

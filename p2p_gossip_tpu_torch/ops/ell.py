@@ -20,6 +20,11 @@ arrivals are zero). ``replicas`` B stacks B rings along the rows, each
 variant still one launch per ELL (`kernels.gather_or`): the ring is (D,
 B*N_src, W), ``occ`` (D, B*N_src), ``up`` (B*N_out,), the arrivals (B*N_out,
 W), and the loss seed may be a (B,) int32 tensor, one seed a replica.
+``seen`` ((B*N_out, W) int32, the destinations' seen-sets) masks the
+arrivals to ``& ~seen`` — what the flood tick keeps of them — and lets the
+kernel skip reads that could only bring bits the destination has;
+``stats`` is the kernel's (2,) int64 read/pruned counter
+(`kernels.gather_or`). Both None: the raw gather.
 
 The host planners (`bucket_rows_by_count`, `build_degree_buckets`,
 `detect_uniform_delay`, and the sharded engine's `split_ell_by_delay` and
@@ -65,6 +70,8 @@ def gather_or_frontier(
     loss: tuple | None = None,
     up: torch.Tensor | None = None,
     replicas: int = 1,
+    seen: torch.Tensor | None = None,
+    stats: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """OR-gather arrivals from a single source frontier: (N_out, W).
@@ -77,7 +84,7 @@ def gather_or_frontier(
     return kernels.gather_or(
         frontier.unsqueeze(0), tick, ell_idx, ell_mask, uniform_slot=0,
         occ=None if occ is None else occ.unsqueeze(0), loss=loss, up=up,
-        out=out, replicas=replicas, plain=plain,
+        out=out, replicas=replicas, seen=seen, stats=stats, plain=plain,
     )
 
 
@@ -93,6 +100,8 @@ def propagate_uniform(
     loss: tuple | None = None,
     up: torch.Tensor | None = None,
     replicas: int = 1,
+    seen: torch.Tensor | None = None,
+    stats: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Uniform per-edge delay: the delay-line slot is one scalar per tick,
@@ -103,7 +112,7 @@ def propagate_uniform(
     return gather_or_frontier(
         hist[slot], tick, ell_idx, ell_mask,
         occ=None if occ is None else occ[slot], loss=loss, up=up,
-        replicas=replicas, plain=plain,
+        replicas=replicas, seen=seen, stats=stats, plain=plain,
     )
 
 
@@ -119,6 +128,8 @@ def propagate(
     loss: tuple | None = None,
     up: torch.Tensor | None = None,
     replicas: int = 1,
+    seen: torch.Tensor | None = None,
+    stats: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Per-edge delays: arrivals (N_out, W) int32."""
@@ -130,7 +141,7 @@ def propagate(
     )
     return kernels.gather_or(
         hist, tick, ell_idx, ell_mask, ell_delay, occ=occ, loss=loss, up=up,
-        out=out, replicas=replicas, plain=plain,
+        out=out, replicas=replicas, seen=seen, stats=stats, plain=plain,
     )
 
 
@@ -146,6 +157,8 @@ def propagate_bucketed(
     loss: tuple | None = None,
     up: torch.Tensor | None = None,
     replicas: int = 1,
+    seen: torch.Tensor | None = None,
+    stats: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """Gather-OR over degree buckets (see `build_degree_buckets`),
@@ -165,7 +178,7 @@ def propagate_bucketed(
             hist, tick, b_idx, b_mask,
             None if uniform_delay is not None else b_delay,
             uniform_slot=uniform_slot, rows=rows, occ=occ, loss=loss, up=up,
-            out=arrivals, replicas=replicas, plain=plain,
+            out=arrivals, replicas=replicas, seen=seen, stats=stats, plain=plain,
         )
     return arrivals
 

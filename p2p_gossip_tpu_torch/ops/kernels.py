@@ -317,7 +317,7 @@ def sector_occupancy(
 
 def gather_or_plain(
     hist, tick, idx, mask, delay, uniform_slot, rows, out, occ=None, loss=None, up=None,
-    replicas: int = 1, id_offset: int = 0,
+    replicas: int = 1, id_offset: int = 0, seen=None,
 ):
     """A masked ``|=`` over the degree columns, then a write into node
     order that drops rows outside ``[0, len(out))``. The mask (with the
@@ -325,9 +325,10 @@ def gather_or_plain(
     (kept) or zero words, ``occ`` (when given) as an AND with each gathered
     row's expanded sector mask — exactly what the kernel reads, so a wrong
     occupancy shows here too — and ``up`` as an AND of each destination
-    row with all-ones (up) or zero (down). ``replicas`` stacked rings run
-    one after the other, each on its own rows and its own loss seed; the
-    coin reads destination ids plus ``id_offset``."""
+    row with all-ones (up) or zero (down). ``seen`` (out's rows) then
+    clears what each destination has: the raw OR ``& ~seen``. ``replicas``
+    stacked rings run one after the other, each on its own rows and its own
+    loss seed; the coin reads destination ids plus ``id_offset``."""
     if replicas > 1:
         d, n_src, w = hist.shape[0], hist.shape[1] // replicas, hist.shape[2]
         n_out = out.shape[0] // replicas
@@ -340,6 +341,7 @@ def gather_or_plain(
                 hist[:, src], tick, idx, mask, delay, uniform_slot, rows, out[dst],
                 None if occ is None else occ[:, src], r_loss,
                 None if up is None else up[dst], id_offset=id_offset,
+                seen=None if seen is None else seen[dst],
             )
         return out
     d, n_src, w = hist.shape
@@ -371,6 +373,8 @@ def gather_or_plain(
         live = torch.zeros_like(ok)
         live[ok] = up[dst[ok]]
         acc &= -live.to(torch.int32)[:, None]
+    if seen is not None:  # rows outside [0, len(out)) are dropped below
+        acc &= ~(seen if rows is None else seen[dst.clamp(0, out.shape[0] - 1)])
     if rows is None:
         out.copy_(acc)
     else:
@@ -393,6 +397,8 @@ def gather_or(
     out: torch.Tensor,
     replicas: int = 1,
     id_offset: int = 0,
+    seen: torch.Tensor | None = None,
+    stats: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """ELL gather-OR over a frontier-history ring, written into ``out``:
@@ -400,6 +406,17 @@ def gather_or(
         out[dst] = up[dst] ? OR_k (mask[r, k] && !drop(idx[r, k], dst, tick))
                                   ? hist[slot(r, k), idx[r, k]] : 0
                            : 0,       dst = rows[r] (r when rows is None)
+
+    and, with ``seen`` ((B*N_out, W) int32, the rows of ``out``), ``out[dst]
+    &= ~seen[dst]``: the flood tick's new bits before its generations. The
+    kernel then reads a neighbour's 16-byte unit only while the destination
+    still lacks a bit of it (none where it has the unit whole, none once
+    the neighbours read so far cover it); the result is the same whichever
+    neighbours it skipped. ``stats`` (a (2,) int64 tensor on the card,
+    with ``seen``) launches the kernel's counting instantiation, which adds
+    the neighbour units it loaded and the units the unmasked gather would
+    have loaded besides (pruned) into ``stats[0]`` and ``stats[1]``; the
+    plain version counts nothing.
 
     ``hist`` (D, N_src, W) int32; ``idx`` (R, C) int32; ``mask`` (R, C)
     bool; ``delay`` (R, C) int32 per-edge delays with slot(r, k) = (tick -
@@ -444,6 +461,8 @@ def gather_or(
     _require(occ is None or occ.shape == hist.shape[:2], "occ must be (D, N_src)")
     _require(up is None or (up.shape == (out.shape[0],) and up.dtype == torch.bool),
              "up must be (N_out,) bool")
+    _require(seen is None or seen.shape == out.shape, "seen must have out's shape")
+    _require(stats is None or seen is not None, "stats needs seen")
     if loss is not None and loss[0] <= 0:
         loss = None  # threshold 0: the coin never drops
     seeds = None
@@ -454,7 +473,7 @@ def gather_or(
     if not _use_kernel(hist, plain):
         return gather_or_plain(
             hist, tick, idx, mask, delay, uniform_slot, rows, out, occ, loss, up,
-            replicas, id_offset,
+            replicas, id_offset, seen,
         )
     tensors = [("hist", hist, torch.int32), ("idx", idx, torch.int32),
                ("mask", mask, torch.bool), ("out", out, torch.int32)]
@@ -469,6 +488,11 @@ def gather_or(
         tensors.append(("up", up, torch.bool))
     if seeds is not None:
         tensors.append(("loss seeds", seeds, torch.int32))
+    if seen is not None:
+        tensors.append(("seen", seen, torch.int32))
+    if stats is not None:
+        _require(stats.shape == (2,), "stats must be (2,)")
+        tensors.append(("stats", stats, torch.int64))
     for name, t, dtype in tensors:
         _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
         _require(t.device == hist.device, f"{name} is on {t.device}, not {hist.device}")
@@ -492,6 +516,8 @@ def gather_or(
             n_out, None if up is None else up.data_ptr(),
             int(loss is not None), loss_seed, loss_limit,
             None if seeds is None else seeds.data_ptr(), replicas, int(id_offset),
+            None if seen is None else seen.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             out.data_ptr(), _stream(hist.device),
         )
     return out
