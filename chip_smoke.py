@@ -246,8 +246,7 @@ Phases (any failure raises and the script exits nonzero):
    reads a tick on the card differ from the CPU audit's, on a sync CUDA
    flags beyond an entry's budget (the CPU audit's host reads and host
    stagings), on an entry whose launched kernels are not the plain twins
-   its CPU audit called, and on a kernel no entry launched
-   (``scatter_or_atomic``, kept for phase 3's A/B, excepted). Its
+   its CPU audit called, and on a kernel no entry launched. Its
    ``staticcheck`` line gives each entry's host reads a tick, the syncs
    CUDA flagged and its launches by kernel.
 21. The tick update (``tick_update``): the kernel against its plain torch
@@ -264,8 +263,7 @@ Phases (any failure raises and the script exits nonzero):
    dense ticks of the burst, and at coverage4k's (its 1M BA graph, 4,096
    origins on tick 0, W = 128) across the flood: bitwise against the
    unmasked kernel & ~seen at every tick and against the plain version at
-   the first two; the masked, counting (``stats``) and unmasked kernels
-   timed in turns; the units read and pruned.
+   the first two; the masked and unmasked kernels timed in turns.
 
 Phase 3 also holds the ``scatter_or`` kernel (the destination-owned OR
 over a destination-sorted plan) against its plain version on ragged
@@ -273,9 +271,7 @@ shapes (with a base, in place, the and-not frontier and pulled rows) and
 at the protocols' own shapes (M = N for push-pull, M = 2N for fanout 2,
 W = 256) over rings captured at rounds 10 and 40 of the phase-9 push-pull
 run, and on the push-pull round's own call (pulled rows + pushes over
-``seen``); it times the plan alone, and, as the same-call A/B, the
-previous atomic design (``scatter_or_atomic``) and the round as that
-design ran it. Phase 4 also runs the protocols (push-pull, pull,
+``seen``); it times the plan alone. Phase 4 also runs the protocols (push-pull, pull,
 fanout push) with the kernels and with the plain versions on small graphs,
 with churn and loss, with coverage rows, and stopped after a chunk and
 resumed from a checkpoint; and the CLI's protocol, topology and
@@ -333,7 +329,7 @@ them (``launches_bench``): ``gather_or``, ``sector_occupancy``,
 ``tick_update`` and ``coverage_per_slot`` launched.
 Phase 20 reads each audited entry's launches as the change of the counts
 over its call (``launches_staticcheck``: the sum over the entries): every
-kernel but ``scatter_or_atomic`` launched by some entry.
+kernel launched by some entry.
 The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -359,7 +355,7 @@ SNAPSHOTS = [8, 16, 24, 32]  # the options run's periodic-stats boundaries
 # The flood never scatters.
 LOSS_FREE_LAUNCHES = {
     "gather_or": 87, "sector_occupancy": 29, "popcount_rows": 0, "coverage_per_slot": 7,
-    "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
+    "scatter_or": 0, "tick_digest": 0,
     "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0, "tick_update": 29,
 }
 FLOOD_KERNELS = tuple(name for name, count in LOSS_FREE_LAUNCHES.items() if count)
@@ -1005,8 +1001,7 @@ def check_scatter_ragged(dev, rng):
     starts as all ones, so a row the kernel should write and does not
     shows), a base, the base as ``out`` itself (in place), the and-not
     frontier, and pulled rows (-1 and out of range among them) over a
-    base. The atomic kernel (the previous design), ORing into zeros, must
-    give the no-base result."""
+    base."""
     import torch
 
     from p2p_gossip_tpu_torch.ops import kernels, segment
@@ -1045,12 +1040,9 @@ def check_scatter_ragged(dev, rng):
             want = kernels.scatter_or(src, offsets, entries, out=torch.empty_like(base))
             compare(f"{label} segment]", segment.scatter_or(
                 n_out, dst, src, mask_arg, src_row=rows_arg), want)
-            compare(f"{label} atomic]", kernels.scatter_or_atomic(
-                src, dst, src_row=rows_arg, mask=mask_arg, out=torch.zeros_like(base)), want)
     log("scatter_or ragged shapes (M 0..4099, W 1/3/8/256, bit 31, masks, one "
         "destination of up to 4,099 entries, out-of-range dst and rows, identity rows; "
-        "no base, base, in place, and-not, pulled rows; via ops.segment; the atomic "
-        "kernel from zeros): bitwise equal")
+        "no base, base, in place, and-not, pulled rows; via ops.segment): bitwise equal")
 
 
 def scatter_or_bound_bytes(n_out, w, distinct_rows, entries, pull_rows, base):
@@ -1072,11 +1064,7 @@ def check_scatter(graph, dg_edge, sched, dev, reps):
     seen``, out = the round's ring slot). Each against its plain version,
     bitwise; timed beside its bound (`scatter_or_bound_bytes`, from this
     ring's distinct kept rows); the plan timed alone, as the round loop
-    makes it (16 rounds in one call, per round). The same call times the
-    previous design as the A/B: the atomic kernel (zero fill + kernel) on
-    the same pushes, and the round as that design ran it (the pull's
-    one-column gather_or, zero-filled atomic scatter, ``seen | incoming``
-    into the slot)."""
+    makes it (16 rounds in one call, per round)."""
     import torch
 
     from p2p_gossip_tpu_torch.models import protocols
@@ -1111,25 +1099,17 @@ def check_scatter(graph, dg_edge, sched, dev, reps):
                 out = torch.empty((n, w), dtype=torch.int32, device=dev)
                 return kernels.scatter_or(flat, offsets, entries, out=out, plain=plain)
 
-            def atomic(dst=dst, rows=rows, mask=mask):
-                out = torch.zeros((n, w), dtype=torch.int32, device=dev)
-                return kernels.scatter_or_atomic(flat, dst, src_row=rows, mask=mask, out=out)
-
             def plan_block(block=block):
                 return protocols._push_plan(block["partners"], block["src"],
                                             block["attempted"], n, ring)
 
             got = run(False)
             err = compare(f"scatter_or[{label} round {t}]", got, run(True))
-            compare(f"scatter_or_atomic[{label} round {t}]", atomic(), got)
             m = int(dst.numel())
             kept = int(mask.sum())
             distinct = int(torch.unique(rows.long()[mask]).numel())
             nbytes = scatter_or_bound_bytes(n, w, distinct, kept, 0, False)
-            atomic_bytes = distinct * w * 4 + n * w * 4 + m * 9
             ms = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
-            atomic_ms = time_ms(atomic, reps, calls=KERNEL_CALLS)
-            ms_again = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
             plain_ms = time_ms(lambda: run(True), max(2, reps // 4), warmup=1)
             plan_ms = time_ms(plan_block, reps, calls=2) / protocols.PICK_BLOCK
             # The plan's device time alone (the event time above includes
@@ -1140,19 +1120,12 @@ def check_scatter(graph, dg_edge, sched, dev, reps):
             nonzero = float((flat[rows.long()] != 0).float().mean())
             results[label + tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                         bound_ms=bound_ms(nbytes), plan_ms=plan_ms,
-                                        plan_device_ms=plan_device_ms,
-                                        atomic_ms=atomic_ms, ms_again=ms_again)
-            log(
-                f"scatter_or_atomic[{label}, round-{t} ring] (the previous kernel, the A/B "
-                f"baseline): zero fill + kernel {atomic_ms:.4f} ms, its bound "
-                f"{bound_ms(atomic_bytes):.4f} ms (unsorted indices, 9 bytes an entry); "
-                f"equal to scatter_or"
-            )
+                                        plan_device_ms=plan_device_ms)
             log(
                 f"scatter_or[{label}, round-{t} ring D={ring}] M={m} kept={kept} W={w}, "
                 f"{distinct} distinct source rows, {nonzero:.4f} of their words nonzero: "
-                f"bitwise equal; kernel from zeros given its plan {ms:.4f} ms (again after "
-                f"the atomic: {ms_again:.4f} ms), plain {plain_ms:.3f} ms, bound "
+                f"bitwise equal; kernel from zeros given its plan {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, bound "
                 f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB); plan (16 rounds a call) "
                 f"{plan_ms:.4f} ms a round by CUDA events, device time "
                 + ("not measured" if plan_device_ms is None else f"{plan_device_ms:.4f} ms")
@@ -1166,11 +1139,7 @@ def check_scatter(graph, dg_edge, sched, dev, reps):
 def check_round_call(dg, hist, t, dev, reps):
     """The push-pull round's own `scatter_or` call on a captured ring:
     pull rows and the push plan of round t from `_draw_rounds`, ``base``
-    = seen (slot t-1), out = slot t; against its plain version and, for
-    the A/B, against the three-pass round of the atomic design: the
-    pull's one-column gather_or (coin inside), the zero-filled atomic
-    scatter, and ``seen | incoming`` into the slot — three launches and a
-    fill."""
+    = seen (slot t-1), out = slot t; against its plain version."""
     import torch
 
     from p2p_gossip_tpu_torch.models import protocols
@@ -1191,38 +1160,22 @@ def check_round_call(dg, hist, t, dev, reps):
         return kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
                                   out=row, plain=plain)
 
-    partners, attempted = draw["partners"][0], draw["attempted"][0]
-    src_rows = draw["src"][0].reshape(-1)
-    # The picked edge's delay, back from its slot (t - delay) mod D.
-    delay = torch.remainder(t - draw["src"][0] // n, ring).to(torch.int32)
-
-    def three_pass_round():
-        incoming = torch.empty((n, w), dtype=torch.int32, device=dev)
-        kernels.gather_or(hist, t, partners, attempted, delay, out=incoming)
-        kernels.scatter_or_atomic(flat, partners.reshape(-1), src_row=src_rows,
-                                  mask=attempted.reshape(-1), out=incoming)
-        return torch.bitwise_or(seen, incoming, out=row)
-
     want = run(True).clone()
     err = compare(f"scatter_or[push-pull round call, round {t}]", run(False), want)
-    compare(f"three-pass round [round {t}]", three_pass_round(), want)
     kept_pull = pull_row[pull_row >= 0].long()
     kept_push = entries[: int(offsets[-1])].long()
     distinct = int(torch.unique(torch.cat([kept_pull, kept_push])).numel())
     nbytes = scatter_or_bound_bytes(n, w, distinct, int(kept_push.numel()), n, True)
     ms = time_ms(lambda: run(False), reps, calls=KERNEL_CALLS)
-    three_pass_ms = time_ms(three_pass_round, reps, calls=KERNEL_CALLS)
     plain_ms = time_ms(lambda: run(True), max(2, reps // 4), warmup=1)
     log(
         f"scatter_or[push-pull round call, round-{t} ring D={ring}] pull rows "
         f"{int(kept_pull.numel())}, push entries {int(kept_push.numel())}, {distinct} "
         f"distinct source rows, base = seen, out = slot {t % ring}: bitwise equal to its "
-        f"plain version and to the three-pass round; one call {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB); the "
-        f"three-pass round (gather + fill + atomic scatter + OR) {three_pass_ms:.4f} ms"
+        f"plain version; one call {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)"
     )
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
-                three_pass_ms=three_pass_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -1723,7 +1676,7 @@ def protocols_path(graph, dg_uni, dg_edge, sched, dev):
     if launches["scatter_or"] != rounds:
         raise AssertionError(f"scatter_or launched {launches['scatter_or']} times in "
                              f"{rounds} rounds: the round is one call")
-    for name in ("gather_or", "sector_occupancy", "scatter_or_atomic"):
+    for name in ("gather_or", "sector_occupancy"):
         if launches[name]:
             raise AssertionError(f"{name} launched on the protocols path")
     if launches["tick_digest"]:
@@ -3073,8 +3026,8 @@ def serve_main_path(graph, dev):
                  "scatter_or", "tick_update"):
         if launches[name] == 0:
             raise AssertionError(f"serve: {name} was not launched by the trace: {launches}")
-    if launches["tick_digest"] or launches["scatter_or_atomic"]:
-        raise AssertionError(f"serve: tick_digest or scatter_or_atomic launched: {launches}")
+    if launches["tick_digest"]:
+        raise AssertionError(f"serve: tick_digest launched: {launches}")
     log(f"serve: launches over the drain {launches}")
     t0 = time.perf_counter()
     if bench.verify(server, trace, log=log):
@@ -5666,7 +5619,7 @@ SEEN_CASES = (
     ("coverage4k", "ba1m", 4_096, 1, (3, 5, 7, 9)),
 )
 SEEN_PLAIN_TICKS = 2  # the first ticks of a case held against the plain version too
-SEEN_TIMING_TURNS = 3  # masked, counting, unmasked kernels timed in turns
+SEEN_TIMING_TURNS = 3  # masked and unmasked kernels timed in turns
 
 
 def seen_case_inputs(config: str, shares: int, hi: int, dev):
@@ -5690,47 +5643,35 @@ def seen_case_inputs(config: str, shares: int, hi: int, dev):
     return graph, dg, pt.Schedule(n, origins, ticks)
 
 
-def check_seen_tick(label, dg, hist, occ, seen, t, dev, reps, plain):
+def check_seen_tick(label, dg, hist, occ, seen, t, reps, plain):
     """The gather of tick ``t`` on the engine's own state: the masked kernel
     against the unmasked kernel & ~seen and (``plain``) the plain version,
-    its counting instantiation against it, all bitwise; then the three
-    kernels timed in turns and the counts of one call."""
-    import torch
-
+    bitwise; then the two kernels timed in turns."""
     from p2p_gossip_tpu_torch.ops.ell import propagate_bucketed
 
     n = dg.n
 
-    def run(seen_arg=None, stats=None, plain_=False):
+    def run(seen_arg=None, plain_=False):
         return propagate_bucketed(
             hist, t, dg.buckets, n_out=n, ring_size=dg.ring_size,
-            uniform_delay=dg.uniform_delay, occ=occ, seen=seen_arg, stats=stats,
-            plain=plain_)
+            uniform_delay=dg.uniform_delay, occ=occ, seen=seen_arg, plain=plain_)
 
-    stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    got = run(seen, stats)
-    read, pruned = stats.tolist()
+    got = run(seen)
     raw = run()
     err = compare(f"gather_or[{label} tick {t}, seen] vs unmasked & ~seen", got, raw & ~seen)
-    err = max(err, compare(f"gather_or[{label} tick {t}, seen] counting-free", run(seen), got))
     if plain:
         err = max(err, compare(f"gather_or[{label} tick {t}, seen] vs plain", got,
                                run(seen, plain_=True)))
     del raw
-    times = {"masked": [], "counting": [], "unmasked": []}
+    times = {"masked": [], "unmasked": []}
     for _ in range(SEEN_TIMING_TURNS):
         times["masked"].append(time_ms(lambda: run(seen), reps, calls=KERNEL_CALLS))
-        times["counting"].append(time_ms(lambda: run(seen, stats), reps, calls=KERNEL_CALLS))
         times["unmasked"].append(time_ms(lambda: run(), reps, calls=KERNEL_CALLS))
     row = {k: float(np.median(v)) for k, v in times.items()}
-    row.update(units_read=read, units_pruned=pruned,
-               pruned_share=pruned / (read + pruned) if read + pruned else 0.0,
-               new_bits=set_bits(got), max_abs_err=err)
+    row.update(new_bits=set_bits(got), max_abs_err=err)
     log(f"gather_or[{label} tick {t}, seen]: bitwise equal (unmasked & ~seen"
-        f"{', plain' if plain else ''}); masked {row['masked']:.4f} ms, counting "
-        f"{row['counting']:.4f} ms, unmasked {row['unmasked']:.4f} ms; units read {read}, "
-        f"pruned {pruned} ({row['pruned_share']:.4f} of the unmasked loads); "
-        f"{row['new_bits']} new bits")
+        f"{', plain' if plain else ''}); masked {row['masked']:.4f} ms, unmasked "
+        f"{row['unmasked']:.4f} ms; {row['new_bits']} new bits")
     return row
 
 
@@ -5739,9 +5680,8 @@ def seen_phase(dev, reps=10) -> dict:
     (`kernels.gather_or` with ``seen``) on the engine's own state at
     burst32k's and coverage4k's shapes: bitwise against the unmasked kernel
     & ~seen at every captured tick and against the plain version at the
-    first SEEN_PLAIN_TICKS; the masked, counting and unmasked kernels timed
-    in turns, and the counting kernel's time over the masked one's; the
-    share of the unmasked loads pruned."""
+    first SEEN_PLAIN_TICKS; the masked and unmasked kernels timed in
+    turns."""
     import torch
 
     from p2p_gossip_tpu_torch.engine.sync import _chunk_state, _tick
@@ -5763,23 +5703,19 @@ def seen_phase(dev, reps=10) -> dict:
         rows = {}
         for t in range(max(ticks) + 1):
             if t in ticks:
-                rows[t] = check_seen_tick(label, dg, hist, occ, seen, t, dev, reps,
+                rows[t] = check_seen_tick(label, dg, hist, occ, seen, t, reps,
                                           plain=t in ticks[:SEEN_PLAIN_TICKS])
             _tick(dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks, False)
-        total = {k: sum(r[k] for r in rows.values())
-                 for k in ("masked", "counting", "unmasked", "units_read", "units_pruned")}
-        share = total["units_pruned"] / max(total["units_read"] + total["units_pruned"], 1)
-        over = total["counting"] / total["masked"] - 1.0
+        total = {k: sum(r[k] for r in rows.values()) for k in ("masked", "unmasked")}
         log(f"phase 22 {label}, ticks {list(ticks)}: masked {total['masked']:.4f} ms, "
             f"unmasked {total['unmasked']:.4f} ms ({total['masked'] / total['unmasked']:.3f} "
-            f"of it), counting {total['counting']:.4f} ms ({100 * over:+.2f}% over masked); "
-            f"pruned {share:.4f} of the unmasked loads")
+            f"of it)")
         record["max_abs_err"] = max(record["max_abs_err"],
                                     max(r["max_abs_err"] for r in rows.values()))
         record[label] = dict(
-            ms=total["masked"], unmasked_ms=total["unmasked"], counting_ms=total["counting"],
-            counting_over_pct=100 * over, pruned_share=share, ticks={t: {k: v for k, v in r.items() if k != "max_abs_err"}
-                                       for t, r in rows.items()})
+            ms=total["masked"], unmasked_ms=total["unmasked"],
+            ticks={t: {k: v for k, v in r.items() if k != "max_abs_err"}
+                   for t, r in rows.items()})
         del seen, hist, occ, received, sent, dg, graph
         torch.cuda.empty_cache()
     log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
@@ -6206,7 +6142,7 @@ def main() -> int:
             max_abs_err_seen=seen22["max_abs_err"],
             **{f"{key}_seen_{label}": seen22[label][key]
                for label, *_ in SEEN_CASES
-               for key in ("ms", "unmasked_ms", "counting_ms", "pruned_share")},
+               for key in ("ms", "unmasked_ms")},
             # Phase 11: B = 8 replicas in one launch a bucket, on campaign
             # (b)'s tick-10 ring and (a)'s tick-2 ring, (b)'s also with the
             # per-replica loss coins and an up mask.
@@ -6234,7 +6170,7 @@ def main() -> int:
         # ms / bound_ms: the push-pull push (M = N) from zeros on the
         # round-10 ring, given its plan; fanout 2's beside it, both on the
         # dense round-40 ring, and the push-pull round's own call (pull +
-        # push, base = seen) on both rings. The atomic A/B is logged only.
+        # push, base = seen) on both rings.
         "scatter_or": dict(
             {k: scatter["pushpull M=N"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                                      "bound_ms", "plan_ms",

@@ -587,10 +587,12 @@ def run_coverage_campaign(
         pad_g[:, :s] = split.part(gen_ticks)
         staged = _Batch(dg, pad_o, pad_g, split.part(churn), split.part(lseeds), loss_cfg)
         rows, ticks = staged.events(dg.device)
+        fire = staged.gen_ticks[staged.gen_ticks < horizon]
         rings = tel_rings.chunk_rings(horizon, dg.device, split.size) if tel else None
         with span("dispatch", kernel="batch.campaign._run_coverage_batch", batch=bi):
             _, r, snt, cov = _run_chunk_coverage(
                 dg, rows, ticks, chunk_size=chunk, horizon=horizon,
+                last_gen=int(fire.max()) if fire.size else 0,
                 coverage_slots=s, opts=staged.tick_options(), rings=rings, plain=plain,
             )
         r, snt = (split.gather(x.view(split.size, -1)) for x in (r, snt))
@@ -906,11 +908,10 @@ from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E4
 for _kind, _fn, _jax in (("while", _sync._run_chunk_while, "batch.campaign._run_while_batch"),
                          ("coverage", _sync._run_chunk_coverage,
                           "batch.campaign._run_coverage_batch")):
-    _bodies = _sync._tick_bodies(_fn)
     register_entry(f"engine.sync.{_fn.__name__}[replicas]", _fn,
                    spec=lambda k=_kind: _sync._audit_spec(k, replicas=2), counterpart=_jax,
-                   host_reads_per_tick=1, tick_bodies=_bodies)
+                   host_reads_per_tick=1, tick_bodies=_sync._TICK_BODIES)
     register_entry(f"engine.sync.{_fn.__name__}[replicas][telemetry]", _fn,
                    spec=lambda k=_kind: _sync._audit_spec(k, telemetry=True, replicas=2),
                    counterpart=f"{_jax}[telemetry]", host_reads_per_tick=1,
-                   tick_bodies=_bodies + _sync._TELEMETRY_BODIES)
+                   tick_bodies=_sync._TICK_BODIES + _sync._TELEMETRY_BODIES)

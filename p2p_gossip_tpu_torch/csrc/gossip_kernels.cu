@@ -229,18 +229,10 @@ __global__ void sector_occupancy_kernel(const uint32_t* __restrict__ words,
 //   still write, because the callers hand in uninitialised outputs.
 //   `seen` is a separate instantiation too (kSeen): without it the kernel
 //   is the unmasked one, read for read.
-//   Counters (kStats, a seen instantiation the engine launches only with
-//   telemetry's span sink on): units_read, the neighbour units loaded, and
-//   units_pruned, the units the unmasked kernel would have loaded for the
-//   same staging (every unit of each staged neighbour's occupied sectors)
-//   less units_read. Each thread counts into its own shared-memory slot
-//   (registers are the scarce resource here), a warp sums by shuffles, a
-//   block by shared atomics, and the block's last warp adds the sums into
-//   stats[0] and stats[1], one atomicAdd a word. The counting costs 3-6% of
-//   the masked kernel's time at burst32k's ticks and 5-14% at coverage4k's
-//   (short rows: the per-block sums weigh more); the traced runs pay it.
-//   Spreading the global atomics over 64 addresses, or leaving them out,
-//   changed nothing measurable: the cost is the counting in the row loop.
+//   Twelve instantiations in all: 16- or 4-byte units, loss on or off,
+//   and unmasked, seen in one load a lane (kRowSeen) or seen read over
+//   the band. A run with telemetry's spans on launches the same ones as a
+//   run with them off.
 //   Registers: the gather waits on L2 and is paced by the warps resident
 //   per SM. The loss instantiation asks for six blocks of 256 threads a
 //   SM, which caps it at the 40 registers the loss-free kernel takes on
@@ -291,10 +283,8 @@ __device__ inline uint4 shfl_from(uint4 v, int src) {
 }
 
 // One destination row, by one warp (`off` and `occ_of` its staging in
-// shared memory). kStats: adds this lane's neighbour units loaded to
-// cnt[0] and the units the unmasked kernel would load for its staged
-// entries to cnt[1] (the lane's slot in shared memory).
-template <typename T, bool kLoss, bool kSeen, bool kRowSeen, bool kStats>
+// shared memory).
+template <typename T, bool kLoss, bool kSeen, bool kRowSeen>
 __device__ __forceinline__ void gather_row(
     const uint32_t* __restrict__ hist, const uint32_t* __restrict__ occ, int n_src,
     int slot_rows, int w, int sw, int ring, int tick, int uniform_slot,
@@ -303,7 +293,7 @@ __device__ __forceinline__ void gather_row(
     int n_out, const uint8_t* __restrict__ up, uint32_t loss_seed, uint32_t loss_limit,
     const uint32_t* __restrict__ loss_seeds, int id_offset,
     const uint32_t* __restrict__ seen, uint32_t* __restrict__ out,
-    unsigned long long* off, uint32_t* occ_of, int* cnt) {
+    unsigned long long* off, uint32_t* occ_of) {
   const int lane = threadIdx.x & 31;
   const int dst = rows ? rows[r] : r;
   if (dst < 0 || dst >= n_out) return;
@@ -332,9 +322,6 @@ __device__ __forceinline__ void gather_row(
   const uint32_t coin_row =
       kLoss ? seed ^ ((uint32_t)(dst + id_offset) * kCoinDst) ^ ((uint32_t)tick * kCoinTick)
             : 0u;
-  // kStats: the units of the last sector (a row of w % sw != 0 ends in a
-  // short one).
-  const int last_units = n_units - ((nsec - 1) << sec_shift);
 
   int k0 = 0;
   do {
@@ -375,9 +362,6 @@ __device__ __forceinline__ void gather_row(
         off[pos] = o;
         occ_of[pos] = oc;
         any |= oc;
-        if (kStats)
-          cnt[1] += (__popc(oc) << sec_shift) -
-                    (((oc >> (nsec - 1)) & 1u) ? (1 << sec_shift) - last_units : 0);
       }
       nv += __popc(b);
     }
@@ -493,7 +477,6 @@ __device__ __forceinline__ void gather_row(
           bool want[kLaneUnits];
 #pragma unroll
           for (int i = 0; i < kLaneUnits; ++i) want[i] = !full_units(acc[i]);
-          int loaded = 0;
 #pragma unroll
           for (int p = 0; p < kSeenBatch; ++p) {
             const int j = jb + p * groups + group;
@@ -502,13 +485,10 @@ __device__ __forceinline__ void gather_row(
               const T* row = src + off[j];
 #pragma unroll
               for (int i = 0; i < kLaneUnits; ++i)
-                if (want[i] && ((oc >> (unit[i] >> sec_shift)) & 1u)) {
+                if (want[i] && ((oc >> (unit[i] >> sec_shift)) & 1u))
                   acc[i] = or_units(acc[i], __ldg(row + unit[i]));
-                  if (kStats) ++loaded;
-                }
             }
           }
-          if (kStats) cnt[0] += loaded;
           bool left = false;
 #pragma unroll
           for (int i = 0; i < kLaneUnits; ++i) {
@@ -530,7 +510,7 @@ __device__ __forceinline__ void gather_row(
   } while (k0 < cap);
 }
 
-template <typename T, bool kLoss, bool kSeen, bool kRowSeen, bool kStats>
+template <typename T, bool kLoss, bool kSeen, bool kRowSeen>
 __global__ void __launch_bounds__(kGatherWarps * 32, kLoss || kSeen ? kGatherMinBlocks : 0)
 gather_or_kernel(const uint32_t* __restrict__ hist,
                  const uint32_t* __restrict__ occ, int n_src, int slot_rows,
@@ -543,47 +523,16 @@ gather_or_kernel(const uint32_t* __restrict__ hist,
                  const uint8_t* __restrict__ up, uint32_t loss_seed,
                  uint32_t loss_limit, const uint32_t* __restrict__ loss_seeds,
                  int id_offset, const uint32_t* __restrict__ seen,
-                 unsigned long long* __restrict__ stats, uint32_t* __restrict__ out) {
+                 uint32_t* __restrict__ out) {
   __shared__ unsigned long long s_off[kGatherWarps][kGatherStage];
   __shared__ uint32_t s_occ[kGatherWarps][kGatherStage];
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kGatherWarps + warp;
-  // kStats: each thread's counts (units read, units the unmasked kernel
-  // would read) in shared memory, not registers, and the block's sums; the
-  // count of the block's warps done is zeroed before any warp starts, and
-  // the last warp to finish adds the block's sums in.
-  __shared__ int s_lane[kStats ? kGatherWarps * 32 : 1][2];
-  __shared__ unsigned long long s_cnt[2];
-  __shared__ unsigned s_done;
-  int* cnt = s_lane[kStats ? threadIdx.x : 0];
-  if (kStats) {
-    cnt[0] = cnt[1] = 0;
-    if (threadIdx.x < 2) s_cnt[threadIdx.x] = 0ull;
-    if (threadIdx.x == 0) s_done = 0u;
-    __syncthreads();
-  }
   if (r < n_rows)  // warp-uniform: only warp-level syncs inside
-    gather_row<T, kLoss, kSeen, kRowSeen, kStats>(
+    gather_row<T, kLoss, kSeen, kRowSeen>(
         hist, occ, n_src, slot_rows, w, sw, ring, tick, uniform_slot, idx, mask, delay, r,
         cap, rows, n_out, up, loss_seed, loss_limit, loss_seeds, id_offset, seen, out,
-        s_off[warp], s_occ[warp], cnt);
-  if constexpr (kStats) {
-    int n_read = cnt[0], n_would = cnt[1];
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) {
-      n_read += __shfl_xor_sync(kFullMask, n_read, m);
-      n_would += __shfl_xor_sync(kFullMask, n_would, m);
-    }
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(&s_cnt[0], (unsigned long long)n_read);
-      atomicAdd(&s_cnt[1], (unsigned long long)(n_would - n_read));
-      __threadfence_block();
-      if (atomicAdd(&s_done, 1u) == kGatherWarps - 1) {  // the block's last warp
-        atomicAdd(stats, atomicAdd(&s_cnt[0], 0ull));
-        atomicAdd(stats + 1, atomicAdd(&s_cnt[1], 0ull));
-      }
-    }
-  }
+        s_off[warp], s_occ[warp]);
 }
 
 // ---------------------------------------------------------------------------
@@ -954,57 +903,6 @@ scatter_or_kernel(const uint32_t* src, int n_src, int w,
     }
   }
 }
-
-// ---------------------------------------------------------------------------
-// scatter_or_atomic
-//
-// The scatter_or design this file had before the destination-owned one,
-// kept only as the same-call baseline that chip_smoke.py times the new
-// kernel against; no path of the package launches it.
-// Computes: out[dst[m], :] |= src[row(m), :] for every entry m < M with
-//   mask[m] (null: every entry), row(m) = src_row[m] (null: m),
-//   dst[m] in [0, n_out) and row(m) in [0, n_src); other entries are
-//   dropped. `out` is ORed into, not overwritten.
-// Design: one warp per entry, eight entries per block, 16- or 4-byte
-//   loads as above; each nonzero source word goes to `out` by one
-//   atomicOr, exact in any order. Once rows saturate, every word is one
-//   atomic, most setting no new bit (PERF.md).
-// ---------------------------------------------------------------------------
-__device__ inline void or_word(uint32_t* p, uint32_t v) {
-  if (v) atomicOr(p, v);
-}
-__device__ inline void or_into(uint32_t* p, uint32_t v) { or_word(p, v); }
-__device__ inline void or_into(uint32_t* p, uint4 v) {
-  or_word(p, v.x);
-  or_word(p + 1, v.y);
-  or_word(p + 2, v.z);
-  or_word(p + 3, v.w);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kScatterWarps * 32)
-scatter_or_atomic_kernel(const uint32_t* __restrict__ src, int n_src, int w,
-                         const int32_t* __restrict__ src_row,
-                         const int32_t* __restrict__ dst,
-                         const uint8_t* __restrict__ mask, int m, int n_out,
-                         uint32_t* out) {
-  const long long e =
-      (long long)blockIdx.x * kScatterWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (e >= m) return;  // warp-uniform, as every test below
-  if (mask && !mask[e]) return;
-  const int d = dst[e];
-  const long long s = src_row ? (long long)src_row[e] : e;
-  if (d < 0 || d >= n_out || s < 0 || s >= n_src) return;
-  constexpr int kUnitWords = (int)(sizeof(T) / sizeof(uint32_t));
-  const int n_units = w / kUnitWords;
-  const T* row = reinterpret_cast<const T*>(src + (size_t)s * (size_t)w);
-  uint32_t* o = out + (size_t)d * (size_t)w;
-  for (int u = lane; u < n_units; u += 32) {
-    or_into(o + u * kUnitWords, __ldg(row + u));
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // tick_digest
@@ -1594,43 +1492,35 @@ int gossip_sector_occupancy(const void* words, int n, int w, long long ld,
 // rows; `loss_seeds` (null: loss_seed for all) holds one seed a replica.
 // `id_offset` is added to each destination row's node id in the coin.
 // `seen` (null: the unmasked gather) has out's rows and masks the output
-// with ~seen; `stats` (null: none, else two uint64 words, needs `seen`)
-// launches the counting instantiation: units read, units pruned.
+// with ~seen.
 int gossip_gather_or(const void* hist, const void* occ, int n_src, int w,
                      int ring, int tick, int uniform_slot, const void* idx,
                      const void* mask, const void* delay, int n_rows, int cap,
                      const void* rows, int n_out, const void* up, int loss_on,
                      unsigned int loss_seed, unsigned int loss_limit,
                      const void* loss_seeds, int replicas, int id_offset,
-                     const void* seen, void* stats, void* out, void* stream) {
-  if (stats && !seen) return (int)cudaErrorInvalidValue;
+                     const void* seen, void* out, void* stream) {
   const dim3 grid((unsigned)((n_rows + kGatherWarps - 1) / kGatherWarps),
                   (unsigned)replicas);
   const int sw = sector_words(w);
   const bool vec = w % 4 == 0 && aligned16(hist) && aligned16(out) &&
                    (!seen || aligned16(seen));
-#define GOSSIP_GATHER_LAUNCH(T, LOSS, SEEN, ROW, STATS)                        \
-  gather_or_kernel<T, LOSS, SEEN, ROW, STATS><<<grid, kGatherWarps * 32, 0,     \
-                                                (cudaStream_t)stream>>>(        \
+#define GOSSIP_GATHER_LAUNCH(T, LOSS, SEEN, ROW)                               \
+  gather_or_kernel<T, LOSS, SEEN, ROW><<<grid, kGatherWarps * 32, 0,            \
+                                         (cudaStream_t)stream>>>(               \
       (const uint32_t*)hist, (const uint32_t*)occ, n_src, replicas * n_src, w, \
       sw, ring, tick,                                                          \
       uniform_slot, (const int32_t*)idx, (const uint8_t*)mask,                 \
       (const int32_t*)delay, n_rows, cap, (const int32_t*)rows, n_out,         \
       (const uint8_t*)up, loss_seed, loss_limit, (const uint32_t*)loss_seeds, \
-      id_offset, (const uint32_t*)seen, (unsigned long long*)stats, (uint32_t*)out)
+      id_offset, (const uint32_t*)seen, (uint32_t*)out)
 #define GOSSIP_GATHER_SEEN(T, LOSS)                                            \
   if (!seen) {                                                                 \
-    GOSSIP_GATHER_LAUNCH(T, LOSS, false, false, false);                        \
+    GOSSIP_GATHER_LAUNCH(T, LOSS, false, false);                               \
   } else if (w / (int)(sizeof(T) / 4) <= 32) {                                 \
-    if (stats) {                                                               \
-      GOSSIP_GATHER_LAUNCH(T, LOSS, true, true, true);                         \
-    } else {                                                                   \
-      GOSSIP_GATHER_LAUNCH(T, LOSS, true, true, false);                        \
-    }                                                                          \
-  } else if (stats) {                                                          \
-    GOSSIP_GATHER_LAUNCH(T, LOSS, true, false, true);                          \
+    GOSSIP_GATHER_LAUNCH(T, LOSS, true, true);                                 \
   } else {                                                                     \
-    GOSSIP_GATHER_LAUNCH(T, LOSS, true, false, false);                         \
+    GOSSIP_GATHER_LAUNCH(T, LOSS, true, false);                                \
   }
   if (vec && loss_on) {
     GOSSIP_GATHER_SEEN(uint4, true);
@@ -1748,28 +1638,6 @@ int gossip_scatter_or(const void* src, int n_src, int w, const void* offsets,
 #undef GOSSIP_SCATTER_LAUNCH
   return (int)cudaGetLastError();
 }
-
-// `src_row` and `mask` may be null (row m reads src row m; every entry
-// kept). `src` and `out` are row-major with W words a row.
-int gossip_scatter_or_atomic(const void* src, int n_src, int w,
-                             const void* src_row, const void* dst,
-                             const void* mask, int m, int n_out, void* out,
-                             void* stream) {
-  const dim3 grid((unsigned)(((long long)m + kScatterWarps - 1) / kScatterWarps));
-  const bool vec = w % 4 == 0 && aligned16(src) && aligned16(out);
-#define GOSSIP_SCATTER_ATOMIC_LAUNCH(T)                                          \
-  scatter_or_atomic_kernel<T><<<grid, kScatterWarps * 32, 0, (cudaStream_t)stream>>>( \
-      (const uint32_t*)src, n_src, w, (const int32_t*)src_row,                  \
-      (const int32_t*)dst, (const uint8_t*)mask, m, n_out, (uint32_t*)out)
-  if (vec) {
-    GOSSIP_SCATTER_ATOMIC_LAUNCH(uint4);
-  } else {
-    GOSSIP_SCATTER_ATOMIC_LAUNCH(uint32_t);
-  }
-#undef GOSSIP_SCATTER_ATOMIC_LAUNCH
-  return (int)cudaGetLastError();
-}
-
 
 // `seen` is (replicas * n, w) with row stride ld words, replica r's node i
 // at row r * n + i; `received`, `sent_lo` and (when not null) `sent_hi` are

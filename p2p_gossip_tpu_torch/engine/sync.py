@@ -401,29 +401,21 @@ class TickOptions:
     A campaign batch sets ``replicas`` B > 1 and ``degree``, the (B*N,)
     int32 degree of every stacked row; its churn intervals are then (B*N,
     K) and its loss seed may be a (B,) int32 tensor of per-replica seeds
-    (`ops.kernels.gather_or`).
-
-    ``gather_stats`` is the gather's (2,) int64 counter of neighbour units
-    read and pruned (`ops.kernels.gather_or`'s ``stats``), which an entry
-    allocates once a run with telemetry's span sink on (`_gather_stats`)
-    and reads in its ``stats`` span; None launches the gather without
-    counting."""
+    (`ops.kernels.gather_or`)."""
 
     churn: tuple | None = None
     loss: tuple | None = None
     connect_tick: int = 0
     replicas: int = 1
     degree: torch.Tensor | None = None
-    gather_stats: torch.Tensor | None = None
 
 
 NO_OPTIONS = TickOptions()
 
 
 def _gather(dg: DeviceGraph, hist, occ, t: int, plain: bool, loss=None, up=None,
-            replicas: int = 1, seen=None, stats=None):
-    kw = dict(occ=occ, loss=loss, up=up, replicas=replicas, seen=seen, stats=stats,
-              plain=plain)
+            replicas: int = 1, seen=None):
+    kw = dict(occ=occ, loss=loss, up=up, replicas=replicas, seen=seen, plain=plain)
     if dg.buckets is not None:
         return propagate_bucketed(
             hist, t, dg.buckets, n_out=dg.n, ring_size=dg.ring_size,
@@ -437,25 +429,6 @@ def _gather(dg: DeviceGraph, hist, occ, t: int, plain: bool, loss=None, up=None,
     return propagate(
         hist, t, dg.ell_idx, dg.ell_delay, dg.ell_mask, ring_size=dg.ring_size, **kw,
     )
-
-
-def _gather_stats(dg: DeviceGraph, plain: bool) -> torch.Tensor | None:
-    """The gather's read/pruned counter for a run (`TickOptions.
-    gather_stats`): a zeroed (2,) int64 tensor where the span sink is on,
-    the device rings are off (their ticks gather unmasked) and the kernel
-    runs (a card, not ``plain``); else None."""
-    if (not tel_sink.enabled() or tel_sink.rings_enabled() or plain
-            or dg.device.type != "cuda"):
-        return None
-    return torch.zeros((2,), dtype=torch.int64, device=dg.device)
-
-
-def _record_gather_stats(sp, opts: TickOptions) -> None:
-    """Put the run's gather counts on the entry's ``stats`` span (after
-    the entry's sync: the read waits on nothing)."""
-    if opts.gather_stats is not None:
-        read, pruned = opts.gather_stats.tolist()
-        sp.set(gather_units_read=read, gather_units_pruned=pruned)
 
 
 def _tick(
@@ -494,8 +467,7 @@ def _tick(
     with span("gather"):
         up = None if opts.churn is None else churn_mod.up_mask(*opts.churn, t)
         if rings is None:
-            arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up, opts.replicas,
-                               seen, opts.gather_stats)
+            arrivals = _gather(dg, hist, occ, t, plain, opts.loss, up, opts.replicas, seen)
         else:
             wire = _gather(dg, hist, occ, t, plain, opts.loss, replicas=opts.replicas)
             lossless = None if opts.loss is None else _gather(
@@ -550,6 +522,84 @@ def _share_slots(chunk_size: int, replicas: int, device) -> torch.Tensor:
     return slots if replicas == 1 else slots.repeat(replicas)
 
 
+def _run_ticks(
+    dg: DeviceGraph,
+    origins: torch.Tensor,
+    gen_ticks: torch.Tensor,
+    t_start: int,
+    last_gen: int,
+    *,
+    chunk_size: int,
+    horizon: int,
+    opts: TickOptions,
+    rings: tuple | None,
+    plain: bool,
+    snap_ticks: list[int] | None = None,
+    coverage_slots: int | None = None,
+):
+    """The flood engine's tick loop, from ``t_start`` to quiescence (or the
+    horizon): the body of `_run_chunk_while` and `_run_chunk_coverage`.
+    Returns (seen, received, sent, snaps, coverage, ticks executed). The
+    loop predicate — a message in flight in any hist slot, or a generation
+    still pending — is the JAX engine's ``any(hist != 0) | t <= last_gen``,
+    kept as one host flag per ring slot: the loop's one host read a tick.
+
+    ``snap_ticks`` (sorted boundaries; None: no snapshots, ``snaps`` None)
+    makes ``snaps`` (K, N) int32: row i holds ``received`` as the tick
+    counter reaches boundary i (the totals over ticks strictly before it),
+    or the final counts for a boundary at or after the exit tick.
+
+    ``coverage_slots`` (None: no coverage, ``coverage`` None) makes
+    ``coverage`` (B, horizon, coverage_slots) int32 node counts per tick
+    for the first ``coverage_slots`` share slots (B = ``opts.replicas``);
+    rows past the exit tick hold the final value. Each (node, share) bit
+    enters the tick's new frontier at most once, so per-tick coverage is a
+    running sum of the frontier's per-slot counts (one
+    ``coverage_per_slot`` launch a tick for all B replicas).
+
+    Both are device copies only, no host sync."""
+    w = bitmask.num_words(chunk_size)
+    b = opts.replicas
+    slots = _share_slots(chunk_size, b, dg.device)
+    seen, hist, occ, received, sent = _chunk_state(dg, w, b)
+    snaps = cov_hist = None
+    if snap_ticks is not None:
+        snaps = torch.zeros((len(snap_ticks), seen.shape[0]), dtype=torch.int32,
+                            device=dg.device)
+    if coverage_slots is not None:
+        cov_w = bitmask.num_words(coverage_slots)
+        cov_run = torch.zeros((b, coverage_slots), dtype=torch.int32, device=dg.device)
+        cov_hist = torch.zeros((b, horizon, coverage_slots), dtype=torch.int32,
+                               device=dg.device)
+    in_flight = [False] * dg.ring_size
+    t = t_start
+    while t < horizon and (any(in_flight) or t <= last_gen):
+        with span("tick"):
+            if snaps is not None:
+                for i, boundary in enumerate(snap_ticks):
+                    if boundary == t:
+                        snaps[i].copy_(received)
+            newly_out, nonzero = _tick(
+                dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
+                plain, opts, rings,
+            )
+            if cov_hist is not None:
+                cov_run += bitmask.coverage_per_slot(
+                    newly_out.view(b, dg.n, w)[:, :, :cov_w], coverage_slots, plain=plain
+                )
+                cov_hist[:, t] = cov_run
+            with span("sync"):
+                in_flight[t % dg.ring_size] = bool(nonzero)
+        t += 1
+    if snaps is not None:
+        for i, boundary in enumerate(snap_ticks):
+            if boundary >= t:  # at or after quiescence: the (unchanging) final counts
+                snaps[i].copy_(received)
+    if cov_hist is not None:
+        cov_hist[:, t:] = cov_run[:, None]
+    return seen, received, sent, snaps, cov_hist, t - t_start
+
+
 def _run_chunk_while(
     dg: DeviceGraph,
     origins: torch.Tensor,    # (S,) int64 on dg.device
@@ -564,16 +614,9 @@ def _run_chunk_while(
     rings: tuple | None = None,
     plain: bool = False,
 ):
-    """Run one share chunk to quiescence (or the horizon). Returns (seen,
-    received, sent, snaps, ticks executed). The loop predicate — a message
-    in flight in any hist slot, or a generation still pending — is the JAX
-    engine's ``any(hist != 0) | t <= last_gen``, kept as one host flag per
-    ring slot.
-
-    With ``snap_ticks`` (sorted boundaries), ``snaps`` is (K, N) int32: row
-    i holds ``received`` as the tick counter reaches boundary i (the totals
-    over ticks strictly before it), or the final counts for a boundary at
-    or after the exit tick. Device copies only, no host sync.
+    """Run one share chunk to quiescence (or the horizon) in `_run_ticks`.
+    Returns (seen, received, sent, snaps, ticks executed); ``snaps`` is
+    (K, N) int32, one row per boundary of ``snap_ticks`` (K = 0 without).
 
     ``rings`` (telemetry on): a fresh (metric ring, digest ring) pair from
     `telemetry.rings.chunk_rings`, whose rows [t_start, exit) the ticks write.
@@ -582,30 +625,11 @@ def _run_chunk_while(
     passes stacked (B*S,) ``origins`` (rows r*N + origin) and
     ``gen_ticks``, and the batch's first and last live generation ticks;
     the counters come back (B*N,) and the predicate holds for the batch."""
-    w = bitmask.num_words(chunk_size)
-    slots = _share_slots(chunk_size, opts.replicas, dg.device)
-    seen, hist, occ, received, sent = _chunk_state(dg, w, opts.replicas)
-    snap_ticks = snap_ticks or []
-    snaps = torch.zeros((len(snap_ticks), seen.shape[0]), dtype=torch.int32,
-                        device=dg.device)
-    in_flight = [False] * dg.ring_size
-    t = t_start
-    while t < horizon and (any(in_flight) or t <= last_gen):
-        with span("tick"):
-            for i, b in enumerate(snap_ticks):
-                if b == t:
-                    snaps[i].copy_(received)
-            _, nonzero = _tick(
-                dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
-                plain, opts, rings,
-            )
-            with span("sync"):
-                in_flight[t % dg.ring_size] = bool(nonzero)
-        t += 1
-    for i, b in enumerate(snap_ticks):
-        if b >= t:  # at or after quiescence: the (unchanging) final counts
-            snaps[i].copy_(received)
-    return seen, received, sent, snaps, t - t_start
+    seen, received, sent, snaps, _, ticks = _run_ticks(
+        dg, origins, gen_ticks, t_start, last_gen, chunk_size=chunk_size, horizon=horizon,
+        opts=opts, rings=rings, plain=plain, snap_ticks=snap_ticks or [],
+    )
+    return seen, received, sent, snaps, ticks
 
 
 def _run_chunk_coverage(
@@ -615,51 +639,27 @@ def _run_chunk_coverage(
     *,
     chunk_size: int,
     horizon: int,
+    last_gen: int,
     coverage_slots: int | None = None,
     opts: TickOptions = NO_OPTIONS,
     rings: tuple | None = None,
     plain: bool = False,
 ):
-    """Coverage-recording run from t=0. Returns (seen, received, sent,
-    coverage) with coverage (B, horizon, S) int32 node counts per tick (B
-    = ``opts.replicas``, 1 for a solo run); rows past the exit tick hold
-    the final value (a replica's coverage stops changing at its own
-    quiescence). ``opts`` as in `_tick`, ``rings`` as in
+    """Coverage-recording run from t=0 in `_run_ticks`. Returns (seen,
+    received, sent, coverage) with coverage (B, horizon, S) int32 node
+    counts per tick over the first ``coverage_slots`` slots (all
+    ``chunk_size`` by default; B = ``opts.replicas``, 1 for a solo run);
+    rows past the exit tick hold the final value (a replica's coverage
+    stops changing at its own quiescence). ``last_gen`` is the last
+    generation tick below the horizon (0 when none), which the caller
+    knows from its host schedule. ``opts`` as in `_tick`, ``rings`` as in
     `_run_chunk_while`; a campaign batch stacks its inputs as there (JAX
-    ``_run_coverage_batch``).
-
-    Coverage accumulates incrementally: each (node, share) bit enters the
-    tick's new frontier at most once, so per-tick coverage is a running
-    sum of the frontier's per-slot counts (one ``coverage_per_slot``
-    launch a tick for all B replicas, over the first ``coverage_slots``
-    slots)."""
-    w = bitmask.num_words(chunk_size)
-    b = opts.replicas
-    cov_slots = chunk_size if coverage_slots is None else coverage_slots
-    cov_w = bitmask.num_words(cov_slots)
-    slots = _share_slots(chunk_size, b, dg.device)
-    g = gen_ticks.cpu().numpy()
-    live = g[g < horizon]
-    last_gen = int(live.max()) if live.size else 0
-    seen, hist, occ, received, sent = _chunk_state(dg, w, b)
-    cov_run = torch.zeros((b, cov_slots), dtype=torch.int32, device=dg.device)
-    cov_hist = torch.zeros((b, horizon, cov_slots), dtype=torch.int32, device=dg.device)
-    in_flight = [False] * dg.ring_size
-    t = 0
-    while t < horizon and (any(in_flight) or t <= last_gen):
-        with span("tick"):
-            newly_out, nonzero = _tick(
-                dg, t, seen, hist, occ, received, sent, origins, slots, gen_ticks,
-                plain, opts, rings,
-            )
-            cov_run += bitmask.coverage_per_slot(
-                newly_out.view(b, dg.n, w)[:, :, :cov_w], cov_slots, plain=plain
-            )
-            cov_hist[:, t] = cov_run
-            with span("sync"):
-                in_flight[t % dg.ring_size] = bool(nonzero)
-        t += 1
-    cov_hist[:, t:] = cov_run[:, None]
+    ``_run_coverage_batch``)."""
+    seen, received, sent, _, cov_hist, _ = _run_ticks(
+        dg, origins, gen_ticks, 0, last_gen, chunk_size=chunk_size, horizon=horizon,
+        opts=opts, rings=rings, plain=plain,
+        coverage_slots=chunk_size if coverage_slots is None else coverage_slots,
+    )
     return seen, received, sent, cov_hist
 
 
@@ -717,12 +717,11 @@ def _stage(graph, ell_delays, constant_delay, device_graph, device):
     return device_graph
 
 
-def _tick_options(dg, churn, loss, connect_tick=0, plain: bool = False) -> TickOptions:
+def _tick_options(dg, churn, loss, connect_tick=0) -> TickOptions:
     return TickOptions(
         churn=churn_mod.to_device(churn, dg.device),
         loss=None if loss is None else loss.static_cfg,
         connect_tick=int(connect_tick),
-        gather_stats=_gather_stats(dg, plain),
     )
 
 
@@ -772,7 +771,7 @@ def run_sync_sim(
     torch versions on any device (the comparison run for the kernels)."""
     dg = _stage(graph, ell_delays, constant_delay, device_graph, device)
     with span("inputs", shares=schedule.num_shares):
-        opts = _tick_options(dg, churn, loss, connect_tick, plain)
+        opts = _tick_options(dg, churn, loss, connect_tick)
         chunk_size = min(chunk_size, max(MIN_CHUNK_SHARES, schedule.num_shares))
         chunk_size = bitmask.num_words(chunk_size) * bitmask.WORD_BITS
         boundaries = filter_snapshot_boundaries(snapshot_ticks, horizon_ticks)
@@ -851,8 +850,7 @@ def run_sync_sim(
             digest_head=digest_head,
         )
 
-    with span("stats") as sp:
-        _record_gather_stats(sp, opts)
+    with span("stats"):
         generated = effective_generated(schedule, horizon_ticks, churn)
         degree = graph.degree.astype(np.int64)
         stats = NodeStats(
@@ -902,7 +900,7 @@ def run_flood_coverage(
         o, g = sched.padded(chunk_size, horizon_ticks)
         o = torch.as_tensor(o.astype(np.int64), device=dg.device)
         g = torch.as_tensor(g, device=dg.device)
-        opts = _tick_options(dg, churn, loss, plain=plain)
+        opts = _tick_options(dg, churn, loss)
     # The JAX engine logs here which coverage path a TPU run takes (its
     # Pallas kernel or XLA); the port's coverage always runs its CUDA
     # kernel on the card, so there is no such line.
@@ -911,8 +909,8 @@ def run_flood_coverage(
     rings = tel_rings.chunk_rings(horizon_ticks, dg.device) if tel else None
     with span("dispatch", kernel="engine.sync._run_chunk_coverage"):
         _, r, snt, cov = _run_chunk_coverage(
-            dg, o, g, chunk_size=chunk_size, horizon=horizon_ticks, coverage_slots=s,
-            opts=opts, rings=rings, plain=plain,
+            dg, o, g, chunk_size=chunk_size, horizon=horizon_ticks, last_gen=0,
+            coverage_slots=s, opts=opts, rings=rings, plain=plain,
         )
     digest_head = None
     if tel:
@@ -928,8 +926,7 @@ def run_flood_coverage(
         received = r.cpu().numpy()
         sent = snt.cpu().numpy()
         coverage = cov[0].cpu().numpy()[:, :s]
-    with span("stats") as sp:
-        _record_gather_stats(sp, opts)
+    with span("stats"):
         generated = effective_generated(sched, horizon_ticks, churn)
         received = received.astype(np.int64)
         stats = NodeStats(
@@ -963,8 +960,8 @@ def time_to_coverage(coverage: np.ndarray, n: int, fraction: float = 0.99):
 
 # --- audit specs (staticcheck/: the op audit runs these tiny cases) ---------
 # The JAX package's ``_audit_spec_chunk_while`` / ``_chunk_coverage``: ER(48,
-# 0.2), 32 shares, horizon 16. The loops' one host read a tick is the
-# in-flight flag, ``bool(nonzero)`` (`_run_chunk_while`, `_run_chunk_coverage`).
+# 0.2), 32 shares, horizon 16. Both entries run `_run_ticks`, whose one host
+# read a tick is the in-flight flag, ``bool(nonzero)``; neither reads outside it.
 
 _SYNC = "p2p_gossip_tpu_torch/engine/sync.py"
 _TELEMETRY_BODIES = ("p2p_gossip_tpu_torch/telemetry/rings.py:flood_row",
@@ -972,10 +969,9 @@ _TELEMETRY_BODIES = ("p2p_gossip_tpu_torch/telemetry/rings.py:flood_row",
 _AUDIT_TICKS = 8  # the ticks the specs run: the flood of their four shares quiesces
 
 
-def _tick_bodies(loop) -> tuple:
-    """A tick loop's once-a-tick code: its loop, `_tick` and what it calls."""
-    return (f"{_SYNC}:{loop.__name__}[loop]", f"{_SYNC}:_tick", f"{_SYNC}:_gather",
-            f"{_SYNC}:apply_tick_updates")
+#: The entries' once-a-tick code: the loop of `_run_ticks`, `_tick` and what it calls.
+_TICK_BODIES = (f"{_SYNC}:_run_ticks[loop]", f"{_SYNC}:_tick", f"{_SYNC}:_gather",
+               f"{_SYNC}:apply_tick_updates")
 
 
 def _audit_spec(kind: str, telemetry: bool = False, replicas: int = 1):
@@ -998,14 +994,12 @@ def _audit_spec(kind: str, telemetry: bool = False, replicas: int = 1):
                            degree=dg.degree.repeat(replicas))
     kwargs = dict(chunk_size=chunk, horizon=horizon, opts=opts)
     if kind == "coverage":
-        kwargs["coverage_slots"] = 4
+        kwargs.update(last_gen=last_gen, coverage_slots=4)
         args = (dg, origins, gen_ticks)
         out = ("int32",) * 4  # seen, received, sent, coverage
-        setup = 1  # gen_ticks.cpu(): the chunk's last generation tick, once
     else:
         args = (dg, origins, gen_ticks, 0, last_gen)
         out = ("int32",) * 4  # seen, received, sent, snaps
-        setup = 0
     # JAX's `_run_while_batch` returns no snapshot rows.
     counterpart = (0, 1, 2, None if kind == "while" and replicas > 1 else 3)
     if telemetry:
@@ -1014,7 +1008,7 @@ def _audit_spec(kind: str, telemetry: bool = False, replicas: int = 1):
     return AuditSpec(
         args=args, kwargs=kwargs, integer_only=True, bitmask_words=1,
         bitmask_outputs=(0,), out_dtypes=out, counterpart_outputs=counterpart,
-        ticks=_AUDIT_TICKS, setup_reads=setup, off_kwargs=dict(kwargs, rings=None),
+        ticks=_AUDIT_TICKS, setup_reads=0, off_kwargs=dict(kwargs, rings=None),
     )
 
 
@@ -1022,11 +1016,10 @@ from p2p_gossip_tpu_torch.staticcheck.registry import register_entry  # noqa: E4
 
 for _kind, _fn, _jax in (("while", _run_chunk_while, "engine.sync._run_chunk_while"),
                          ("coverage", _run_chunk_coverage, "engine.sync._run_chunk_coverage")):
-    _bodies = _tick_bodies(_fn)
     register_entry(f"engine.sync.{_fn.__name__}", _fn,
                    spec=lambda k=_kind: _audit_spec(k), counterpart=_jax,
-                   host_reads_per_tick=1, tick_bodies=_bodies)
+                   host_reads_per_tick=1, tick_bodies=_TICK_BODIES)
     register_entry(f"engine.sync.{_fn.__name__}[telemetry]", _fn,
                    spec=lambda k=_kind: _audit_spec(k, telemetry=True),
                    counterpart=f"{_jax}[telemetry]", host_reads_per_tick=1,
-                   tick_bodies=_bodies + _TELEMETRY_BODIES)
+                   tick_bodies=_TICK_BODIES + _TELEMETRY_BODIES)

@@ -44,7 +44,7 @@ WORD_BITS = 32
 
 launches = {
     "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
-    "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
+    "scatter_or": 0, "tick_digest": 0,
     "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0, "tick_update": 0,
 }
 
@@ -398,7 +398,6 @@ def gather_or(
     replicas: int = 1,
     id_offset: int = 0,
     seen: torch.Tensor | None = None,
-    stats: torch.Tensor | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
     """ELL gather-OR over a frontier-history ring, written into ``out``:
@@ -412,11 +411,7 @@ def gather_or(
     kernel then reads a neighbour's 16-byte unit only while the destination
     still lacks a bit of it (none where it has the unit whole, none once
     the neighbours read so far cover it); the result is the same whichever
-    neighbours it skipped. ``stats`` (a (2,) int64 tensor on the card,
-    with ``seen``) launches the kernel's counting instantiation, which adds
-    the neighbour units it loaded and the units the unmasked gather would
-    have loaded besides (pruned) into ``stats[0]`` and ``stats[1]``; the
-    plain version counts nothing.
+    neighbours it skipped.
 
     ``hist`` (D, N_src, W) int32; ``idx`` (R, C) int32; ``mask`` (R, C)
     bool; ``delay`` (R, C) int32 per-edge delays with slot(r, k) = (tick -
@@ -462,7 +457,6 @@ def gather_or(
     _require(up is None or (up.shape == (out.shape[0],) and up.dtype == torch.bool),
              "up must be (N_out,) bool")
     _require(seen is None or seen.shape == out.shape, "seen must have out's shape")
-    _require(stats is None or seen is not None, "stats needs seen")
     if loss is not None and loss[0] <= 0:
         loss = None  # threshold 0: the coin never drops
     seeds = None
@@ -490,9 +484,6 @@ def gather_or(
         tensors.append(("loss seeds", seeds, torch.int32))
     if seen is not None:
         tensors.append(("seen", seen, torch.int32))
-    if stats is not None:
-        _require(stats.shape == (2,), "stats must be (2,)")
-        tensors.append(("stats", stats, torch.int64))
     for name, t, dtype in tensors:
         _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
         _require(t.device == hist.device, f"{name} is on {t.device}, not {hist.device}")
@@ -517,7 +508,6 @@ def gather_or(
             int(loss is not None), loss_seed, loss_limit,
             None if seeds is None else seeds.data_ptr(), replicas, int(id_offset),
             None if seen is None else seen.data_ptr(),
-            None if stats is None else stats.data_ptr(),
             out.data_ptr(), _stream(hist.device),
         )
     return out
@@ -660,55 +650,6 @@ def scatter_or(
             "scatter_or", _lib().gossip_scatter_or,
             src.data_ptr(), n_src, w, ptr(offsets), ptr(entries), ptr(pull_row),
             ptr(base), int(andnot), n_out, out.data_ptr(), _stream(src.device),
-        )
-    return out
-
-
-def scatter_or_atomic(
-    src: torch.Tensor,
-    dst: torch.Tensor,
-    *,
-    src_row: torch.Tensor | None = None,
-    mask: torch.Tensor | None = None,
-    out: torch.Tensor,
-    plain: bool = False,
-) -> torch.Tensor:
-    """The previous scatter design, one warp per entry and one
-    ``atomicOr`` per nonzero word, in place: ``out[dst[m]] |=
-    src[src_row[m]]`` for every kept entry (dropping as `scatter_or_plan`
-    does). No path of the package calls it; chip_smoke.py times it beside
-    `scatter_or` on the same inputs. Its plain version is the plan and
-    `scatter_or_plain` with ``base=out``."""
-    _require(src.dim() == 2 and out.dim() == 2 and src.shape[1] == out.shape[1],
-             "src and out must be (R, W) and (N, W)")
-    _require(dst.dim() == 1, "dst must be (M,)")
-    m = dst.shape[0]
-    _require(src_row is None or src_row.shape == (m,), "src_row must be (M,)")
-    _require(mask is None or (mask.shape == (m,) and mask.dtype == torch.bool),
-             "mask must be (M,) bool")
-    if not _use_kernel(src, plain):
-        offsets, entries = scatter_or_plan(dst, src_row, mask, out.shape[0], src.shape[0])
-        return scatter_or_plain(src, offsets, entries, None, out, False, out)
-    tensors = [("src", src, torch.int32), ("dst", dst, torch.int32),
-               ("out", out, torch.int32)]
-    if src_row is not None:
-        tensors.append(("src_row", src_row, torch.int32))
-    else:
-        _require(m <= src.shape[0], "identity rows need M <= R")
-    if mask is not None:
-        tensors.append(("mask", mask, torch.bool))
-    for name, t, dtype in tensors:
-        _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
-        _require(t.device == src.device, f"{name} is on {t.device}, not {src.device}")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
-    n_src, w = src.shape
-    if m and w:
-        _launch(
-            "scatter_or_atomic", _lib().gossip_scatter_or_atomic,
-            src.data_ptr(), n_src, w,
-            None if src_row is None else src_row.data_ptr(), dst.data_ptr(),
-            None if mask is None else mask.data_ptr(), m, out.shape[0],
-            out.data_ptr(), _stream(src.device),
         )
     return out
 

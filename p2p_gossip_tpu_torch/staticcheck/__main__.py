@@ -16,7 +16,7 @@ in this process. ``--device cuda`` (the default, as for every port entry
 point) also runs each entry under ``torch.cuda.set_sync_debug_mode("warn")``
 and the build half of the staging sentinel: the counterpart of JAX's
 ``--compile`` stage. Every kernel of `ops.kernels` must be run by some
-entry (the atomic scatter-OR, kept for an A/B, excepted).
+entry.
 
 Exit 1 iff any analyzer reports a violation (also ``--fixture``'s
 contract: each seeded bug must keep exiting 1). Violations go to stdout,

@@ -68,13 +68,8 @@ WIDE = {"torch.float64", "torch.complex64", "torch.complex128"}
 FLOAT_PREFIX = ("torch.float", "torch.bfloat", "torch.complex", "torch.half")
 DYNAMIC_OPS = ("aten.nonzero", "aten.masked_select", "aten.unique", "aten._unique")
 H2D_OPS = ("aten.lift_fresh", "aten.lift_fresh_copy")
-#: The one kernel no registered entry launches: the atomic scatter-OR,
-#: kept only for chip_smoke phase 3's A/B.
-UNREGISTERED_KERNELS = ("scatter_or_atomic",)
-#: Every other kernel's plain twin in `ops.kernels` (``scatter_or_plain``
-#: also serves ``scatter_or_atomic``).
-PLAIN_TWINS = {f"{name}_plain": name for name in kernels.launches
-               if name not in UNREGISTERED_KERNELS}
+#: Every kernel's plain twin in `ops.kernels`.
+PLAIN_TWINS = {f"{name}_plain": name for name in kernels.launches}
 _TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
 
 
@@ -440,13 +435,12 @@ def run_audit(device="cpu", sharded: bool = False, sync_debug: bool = False,
 
 def kernel_coverage(reports) -> list[dict]:
     """Every kernel of `ops.kernels` run by some audited entry (its launches
-    on the card, its plain twin on the CPU), the atomic scatter-OR kept
-    for the A/B excepted."""
+    on the card, its plain twin on the CPU)."""
     ran = {k for r in reports for k in (r.get("kernels") or {})}
     return [Violation("(registry)", "kernel-coverage",
                       f"kernel {name} is run by no registered entry: register the entry "
                       "that launches it").as_dict()
-            for name in kernels.launches if name not in ran and name not in UNREGISTERED_KERNELS]
+            for name in kernels.launches if name not in ran]
 
 
 def audit_mesh(kind: str):

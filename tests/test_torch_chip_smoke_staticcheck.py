@@ -1,7 +1,7 @@
 """chip_smoke.py's phase 20, rehearsed on the CPU: the static-analysis
 gate's body (`chip_smoke.staticcheck_phase`) without the sync-debug mode,
 the CPU audit beside itself; its ``staticcheck`` line's keys, every
-kernel but the atomic scatter-OR run by some entry; and its cross-checks,
+kernel run by some entry; and its cross-checks,
 each refusing the disagreement it names."""
 
 import os
@@ -47,8 +47,9 @@ def test_staticcheck_line_keys(phase20):
 
 
 def test_every_kernel_but_the_atomic_scatter_is_run(phase20):
-    """On the CPU the launches are the plain twins the entries called."""
-    assert set(phase20["launches"]) == set(kernels.launches) - {"scatter_or_atomic"}
+    """On the CPU the launches are the plain twins the entries called: every
+    kernel's."""
+    assert set(phase20["launches"]) == set(kernels.launches)
     assert all(n > 0 for n in phase20["launches"].values())
 
 

@@ -9,11 +9,12 @@ and per-replica loss seeds, with a row of more than 128 entries, at W = 4,
 tick's ``seen`` to the gather (the raw gather with telemetry's rings on)
 and stays bitwise the JAX package's in counters, executed ticks and
 coverage rows, under loss, churn, a per-edge delay ring and a campaign of
-two replicas. The gather's counter reaches the entries' ``stats`` span.
+two replicas. With the span sink on, the entries call the gather as with
+it off.
 
 Card (``card`` marker, skipped without one): the kernel against the plain
-version with ``seen`` on ragged shapes, its counts against the unmasked
-gather's loads, and whole runs against ``plain=True`` runs. On the card,
+version with ``seen`` on ragged shapes, and whole runs against
+``plain=True`` runs. On the card,
 without the JAX package: ``python -m pytest --noconftest -p no:cacheprovider
 -m card tests/test_torch_gather_seen.py``. The JAX package is imported only
 inside the CPU parity tests."""
@@ -146,27 +147,22 @@ def test_masked_gather_checks_its_arguments():
     with pytest.raises(ValueError, match="seen"):
         kernels.gather_or(hist, 0, idx, mask, uniform_slot=0, out=out,
                           seen=torch.zeros((N, 3), dtype=torch.int32))
-    with pytest.raises(ValueError, match="stats needs seen"):
-        kernels.gather_or(hist, 0, idx, mask, uniform_slot=0, out=out,
-                          stats=torch.zeros(2, dtype=torch.int64))
     seen = _seen(rng, N, 4)
-    stats = torch.zeros(2, dtype=torch.int64)
     got = kernels.gather_or(hist, 0, idx, mask, uniform_slot=0, occ=occ, out=out.clone(),
-                            seen=seen, stats=stats)
+                            seen=seen)
     raw = kernels.gather_or(hist, 0, idx, mask, uniform_slot=0, occ=occ, out=out.clone())
     assert torch.equal(got, raw & ~seen)
-    assert stats.tolist() == [0, 0]  # the plain version counts nothing
 
 
 # --- the engine -------------------------------------------------------------------
 
 def _spy(monkeypatch):
-    """Record each gather_or call's ``seen`` and ``stats``."""
+    """Record each gather_or call's keyword arguments."""
     calls = []
     gather = kernels.gather_or
 
     def spy(*args, **kw):
-        calls.append((kw.get("seen"), kw.get("stats")))
+        calls.append(kw)
         return gather(*args, **kw)
 
     monkeypatch.setattr(kernels, "gather_or", spy)
@@ -223,7 +219,7 @@ def test_engine_runs_the_masked_gather_and_equals_jax(case, monkeypatch):
         jstats = jax_sync_sim(jg, jsched, 700, chunk_size=128, **kw_j)
         assert stats.extra["ticks_executed"] == jstats.extra["ticks_executed"]
     _same(stats, jstats)
-    assert calls and all(seen is not None and stats_ is None for seen, stats_ in calls)
+    assert calls and all(kw["seen"] is not None for kw in calls)
 
 
 def test_campaign_of_two_replicas_runs_the_masked_gather(monkeypatch):
@@ -246,7 +242,8 @@ def test_campaign_of_two_replicas_runs_the_masked_gather(monkeypatch):
     for key in ("generated", "received", "sent", "coverage"):
         np.testing.assert_array_equal(getattr(got, key), getattr(want, key), err_msg=key)
     assert got.coverage[:, -1].max() > 5
-    assert calls and all(seen is not None and seen.shape[0] == 2 * 48 for seen, _ in calls)
+    assert calls and all(kw["seen"] is not None and kw["seen"].shape[0] == 2 * 48
+                         for kw in calls)
 
 
 def test_rings_keep_the_raw_gather(monkeypatch):
@@ -276,41 +273,38 @@ def test_rings_keep_the_raw_gather(monkeypatch):
         jax_tel.reset()
     assert got.equal_counts(want)
     assert want_ev and got_ev == want_ev
-    assert calls and all(seen is None and stats is None for seen, stats in calls)
+    assert calls and all(kw["seen"] is None for kw in calls)
 
 
 @pytest.mark.parametrize("entry", ["run_sync_sim", "run_flood_coverage"])
-def test_gather_counts_reach_the_stats_span(entry, monkeypatch):
-    """The entry allocates the counter once a run with the span sink on and
-    the rings off (on the card), hands it to every gather and puts its two
-    words on its ``stats`` span; without the sink, or on the CPU, there is
-    no counter."""
+def test_sink_on_launches_the_timed_gather(entry, monkeypatch):
+    """With telemetry's span sink on (its rings off) an entry calls the
+    gather with the keywords of a run with the sink off, ``seen`` given and
+    nothing counted; its ``stats`` span carries no gather counts, and its
+    counters are the sink-off run's."""
     g = pt.erdos_renyi(60, 0.1, seed=1)
     sched = pt.uniform_renewal_schedule(60, sim_time=1.0, tick_dt=0.01, lo=0.2, hi=0.6, seed=1)
 
     def run():
         if entry == "run_sync_sim":
-            sync.run_sync_sim(g, sched, 100, device="cpu")
-        else:
-            sync.run_flood_coverage(g, [0, 9, 33], 30, device="cpu")
+            return sync.run_sync_sim(g, sched, 100, device="cpu"), None
+        return sync.run_flood_coverage(g, [0, 9, 33], 30, device="cpu")
 
-    dg = sync.DeviceGraph.build(g, device="cpu")
-    assert sync._gather_stats(dg, False) is None  # the sink is off
-    telemetry.configure(None, rings=False)
-    assert sync._gather_stats(dg, False) is None  # on the CPU the kernel never runs
-    made = []
-
-    def counter(dg_, plain):
-        made.append(torch.tensor([5, 7], dtype=torch.int64))
-        return made[-1]
-
-    monkeypatch.setattr(sync, "_gather_stats", counter)
     calls = _spy(monkeypatch)
-    run()
+    off, off_cov = run()
+    off_keys = [sorted(kw) for kw in calls]
+    calls.clear()
+    telemetry.configure(None, rings=False)
+    on, on_cov = run()
+    assert off_keys and [sorted(kw) for kw in calls] == off_keys
+    assert all(kw["seen"] is not None and "stats" not in kw for kw in calls)
     spans = [e for e in telemetry.events() if e.get("name") == "stats"]
-    assert len(made) == 1 and len(spans) == 1
-    assert spans[0]["attrs"] == {"gather_units_read": 5, "gather_units_pruned": 7}
-    assert calls and all(stats is made[0] for _, stats in calls)
+    assert len(spans) == 1
+    assert spans[0].get("attrs", {}) == {}  # no counts: the span times the stats only
+    assert on.equal_counts(off)
+    assert on.extra.get("ticks_executed") == off.extra.get("ticks_executed")
+    if on_cov is not None:
+        np.testing.assert_array_equal(on_cov, off_cov)
 
 
 # --- on the card -------------------------------------------------------------------
@@ -320,31 +314,6 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: run on the chip")
     return torch.device("cuda", 0)
-
-
-def _would_load(hist, occ, idx, mask, delay, tick, loss, b, w):
-    """Units the unmasked kernel loads: every unit of each staged
-    neighbour's occupied sectors (a staged neighbour: valid, kept by the
-    coin, occupied)."""
-    from p2p_gossip_tpu_torch.models.linkloss import drop_mask_torch
-
-    n_units = w // 4 if w % 4 == 0 else w
-    unit_words = 4 if w % 4 == 0 else 1
-    sw = kernels.sector_words(w)
-    units_of = torch.tensor([sum(1 for u in range(n_units) if (u * unit_words) // sw == s)
-                             for s in range(32)], dtype=torch.int64)
-    total = 0
-    n = idx.shape[0]
-    slot = torch.remainder(tick - delay.long(), hist.shape[0])
-    for r in range(b):
-        keep = mask.clone()
-        if loss is not None:
-            seed = loss[1][r].item() & 0xFFFFFFFF if b > 1 else loss[1]
-            keep &= ~drop_mask_torch(idx, torch.arange(n)[:, None], tick, loss[0], seed)
-        words = occ[slot, r * N + idx.long()].long() & 0xFFFFFFFF
-        bits = (words[..., None] >> torch.arange(32)) & 1
-        total += int(((bits * units_of).sum(-1) * keep).sum())
-    return total
 
 
 @pytest.mark.card
@@ -365,24 +334,15 @@ def test_kernel_equals_plain_with_seen_on_card(card, opts, w):
     hist_c, occ_c, idx_c, mask_c, delay_c, seen_c = (
         t.to(card) for t in (hist, occ, idx, mask, delay, seen))
     up = torch.as_tensor(rng.random(b * N) > 0.2) if opts == "loss+up" and b == 1 else None
-    stats = torch.zeros(2, dtype=torch.int64, device=card)
 
-    def run(plain, seen_, stats_=None):
+    def run(plain, seen_):
         return kernels.gather_or(hist_c, 5, idx_c, mask_c, delay_c, occ=occ_c,
                                  out=torch.full((b * N, w), -1, dtype=torch.int32, device=card),
-                                 seen=seen_, stats=stats_, plain=plain,
+                                 seen=seen_, plain=plain,
                                  up=None if up is None else up.to(card), **kw)
 
-    got = run(False, seen_c, stats)
-    want = run(True, seen_c)
-    assert torch.equal(got, want)
-    assert torch.equal(run(False, seen_c), want)  # the counting-free instantiation
+    assert torch.equal(run(False, seen_c), run(True, seen_c))
     assert torch.equal(run(False, None), run(True, None))  # the unmasked kernel
-    read, pruned = stats.tolist()
-    if up is None:  # every destination up: the counts cover the unmasked loads
-        assert read + pruned == _would_load(hist, occ, idx, mask, delay, 5, kw.get("loss"),
-                                            b, w)
-    assert read > 0 and pruned > 0
 
 
 @pytest.mark.card
@@ -404,5 +364,4 @@ def test_masked_runs_equal_plain_and_count_on_card(card, entry):
     _same(got, want)
     if got_cov is not None:
         np.testing.assert_array_equal(got_cov, want_cov)
-    attrs = [e["attrs"] for e in telemetry.events() if e.get("name") == "stats"][0]
-    assert attrs["gather_units_read"] > 0 and attrs["gather_units_pruned"] > 0
+    assert [e.get("attrs", {}) for e in telemetry.events() if e.get("name") == "stats"] == [{}]

@@ -237,8 +237,6 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
         kernels.scatter_or(words, offsets, entries, pull_row=pull, base=base, out=out),
         kernels.scatter_or_plain(words, offsets, entries, pull, base, False,
                                  torch.empty_like(out)))
-    assert torch.equal(kernels.scatter_or_atomic(words, dst, out=torch.zeros_like(out)),
-                       kernels.scatter_or(words, offsets, entries, out=out))
     need = torch.arange(50)[:, None] % torch.tensor([2, 3]) == 0
     idx, val, counts = kernels.compress_deltas(words, need, 16)
     for a, b in zip((idx, val, counts), kernels.compress_deltas_plain(words, need, 16)):
@@ -260,7 +258,7 @@ def test_cpu_dispatch_is_plain_and_counts_no_launch():
         assert torch.equal(a, b)
     assert kernels.launches == {
         "gather_or": 0, "sector_occupancy": 0, "popcount_rows": 0, "coverage_per_slot": 0,
-        "scatter_or": 0, "scatter_or_atomic": 0, "tick_digest": 0,
+        "scatter_or": 0, "tick_digest": 0,
         "compress_deltas": 0, "scatter_deltas": 0, "or_fold": 0, "tick_update": 0,
     }
 
@@ -278,9 +276,6 @@ def test_no_kernel_for_other_devices():
         kernels.scatter_or(words, torch.zeros(4, dtype=torch.int32, device="meta"),
                            torch.zeros(2, dtype=torch.int32, device="meta"),
                            out=torch.empty((3, 2), dtype=torch.int32, device="meta"))
-    with pytest.raises(ValueError):
-        kernels.scatter_or_atomic(words, torch.zeros(2, dtype=torch.int32, device="meta"),
-                                  out=torch.empty((3, 2), dtype=torch.int32, device="meta"))
     counter = torch.zeros(4, dtype=torch.int32, device="meta")
     event = torch.zeros(2, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
@@ -834,17 +829,13 @@ def test_scatter_or_kernel_wrapper_checks():
     with pytest.raises(ValueError):
         kernels.scatter_or_plan(torch.zeros(3, dtype=torch.int32), None,
                                 torch.ones(3, dtype=torch.int32), 5, 4)
-    with pytest.raises(ValueError):
-        kernels.scatter_or_atomic(src, torch.zeros(3, dtype=torch.int32), out=out[:, :2])
-    assert "scatter_or" in kernels.launches and "scatter_or_atomic" in kernels.launches
+    assert "scatter_or" in kernels.launches
     # src, n_src, w, offsets, entries, pull_row, base, and_not, n_out, out, stream
     sig = build._SIGNATURES["gossip_scatter_or"]
     assert len(sig) == 11 and sig[7] == sig[8] == ctypes.c_int
-    assert len(build._SIGNATURES["gossip_scatter_or_atomic"]) == 10
     with open(build.SOURCE, encoding="utf-8") as f:
         src_text = f.read()
     assert "int gossip_scatter_or(" in src_text
-    assert "int gossip_scatter_or_atomic(" in src_text
 
 
 # --- or_fold (the sharded protocols' reduce-scatter OR) ------------------------------
