@@ -19,7 +19,8 @@ chip_smoke.py --phase 19`` runs the port's benchmark entry point whole,
 chip_smoke.py --phase 20`` runs phase 20 alone, the static-analysis gate on
 the card; ``python3 chip_smoke.py --phase 21`` runs phase 21 alone, the
 tick update kernel's checks and timings; ``python3 chip_smoke.py --phase
-22`` runs phase 22 alone, the gather masked by seen.)
+22`` runs phase 22 alone, the gather masked by seen; ``python3 chip_smoke.py
+--phase 3n`` runs phase 3's ``scatter_or`` checks (ragged shapes, narrow rows) alone.)
 
 Phases (any failure raises and the script exits nonzero):
 
@@ -271,9 +272,15 @@ shapes (with a base, in place, the and-not frontier and pulled rows) and
 at the protocols' own shapes (M = N for push-pull, M = 2N for fanout 2,
 W = 256) over rings captured at rounds 10 and 40 of the phase-9 push-pull
 run, and on the push-pull round's own call (pulled rows + pushes over
-``seen``); it times the plan alone. Phase 4 also runs the protocols (push-pull, pull,
-fanout push) with the kernels and with the plain versions on small graphs,
-with churn and loss, with coverage rows, and stopped after a chunk and
+``seen``); it times the plan alone. Then the push-pull cells' own round
+calls, each on the cell's graph from gossipbench's generator: campaign8's
+(8 replicas x 100,000 rows at W = 4, one lane a row) and the 1M cell's
+round at W = 4 (one lane a row, hub runs of more than 500 entries taken by
+the whole warp) and at W = 128 (a warp a row), each bitwise against its
+plain version, its launch counted under those lanes, and timed beside its
+bound. Phase 4 also runs the protocols (push-pull, pull, fanout push)
+with the kernels and with the plain versions on small graphs, with churn
+and loss, with coverage rows, and stopped after a chunk and
 resumed from a checkpoint; and the CLI's protocol, topology and
 generation flags on the card and on the CPU.
 
@@ -1176,6 +1183,137 @@ def check_round_call(dg, hist, t, dev, reps):
         f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)"
     )
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes))
+
+
+# Phase 3's narrow rows: the push-pull cells' round calls, each on the
+# cell's own graph (gossipbench's generator and staging) and its own ring.
+NARROW_ROUND = 12  # the captured round: rows past the first rounds' empty ones
+NARROW_CASES = (  # label, gossipbench config, replicas, shares a pass, lanes a row
+    ("campaign8 W=4", "er100k", 8, 128, 1),
+    ("pushpull 1M W=4", "ba1m-lognormal", 1, 128, 1),
+    ("pushpull 1M W=128", "ba1m-lognormal", 1, 4096, 32),
+)
+# The 1M BA round must hold a run longer than this: its hubs' push runs,
+# which the whole warp takes at W = 4. A round's longest is 685 entries on
+# the cell's graph (835 on the program's BA graph): one push a node a
+# round does not reach 1,000 at 1M nodes.
+NARROW_HUB_RUN = 500
+
+
+def narrow_case_graph(config: str, dev):
+    """A push-pull cell's graph drawn by the benchmark's generator and
+    staged as the cell's entry stages it: the protocols' CSR with the
+    configuration's per-link delays, or its one delay."""
+    from gossipbench.gen import delays as gen_delays
+    from gossipbench.gen import topology as gen_topology
+    from p2p_gossip_tpu_torch.models.protocols import PartnerGraph
+    from p2p_gossip_tpu_torch.models.topology import Graph
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "gossipbench", "configs", f"{config}.json")) as f:
+        cfg = json.load(f)
+    n = int(cfg["graph"]["n"])
+    graph = Graph.from_edges(n, gen_topology.edges_of(cfg["graph"], [SEED, 25]))
+    if "delays" in cfg:
+        delays = gen_delays.edge_delays(cfg["delays"], n, graph.indptr, graph.indices)
+        return PartnerGraph.build(graph, delays, device=dev)
+    return PartnerGraph.build(graph, constant_delay=int(cfg["delay_ticks"]), device=dev)
+
+
+def narrow_round(pg, replicas: int, chunk: int, t: int, dev):
+    """Round ``t``'s `scatter_or` call of a push-pull pass (``replicas`` >
+    1: a campaign batch, each replica its own partner seed) of ``chunk``
+    shares from origins on tick 0, on the ring rounds 0..t-1 left: (flat
+    ring, offsets, entries, pull rows, seen = slot t-1, out = slot t)."""
+    import torch
+
+    from p2p_gossip_tpu_torch.models import protocols
+    from p2p_gossip_tpu_torch.models.partnersel import pick_key
+
+    n = replicas * pg.n
+    origins = np.random.default_rng([SEED, 25]).integers(0, pg.n, (replicas, chunk))
+    rows = (origins + np.arange(replicas)[:, None] * pg.n).reshape(-1)
+    nodes = torch.arange(n, dtype=torch.int64, device=dev)
+    seeds = (nodes // pg.n + SEED)[:, None]
+    key = pick_key((nodes % pg.n)[:, None], torch.zeros((1, 1), dtype=torch.int64, device=dev),
+                   seeds)
+    hist = protocols._run_chunk(
+        pg, rows, np.zeros(rows.size, np.int32), key, None, None, None, mode="pushpull",
+        chunk_size=chunk, horizon=t, n_cov=None, plain=False, replicas=replicas)[3]
+    draw = protocols._draw_rounds(pg, key, None, None, None, t, t + 1, "pushpull",
+                                  replicas=replicas)
+    offsets, entries = draw["plan"]
+    ring = pg.ring_size
+    return (hist.view(-1, hist.shape[-1]), offsets, entries, draw["pull_row"][0],
+            hist[(t - 1) % ring], hist[t % ring])
+
+
+def check_scatter_narrow(dev, reps):
+    """The push-pull cells' round calls (NARROW_CASES): campaign8's
+    (800,000 rows at W = 4: one lane a row), the 1M BA round at W = 4
+    (one lane a row, hub runs of more than NARROW_HUB_RUN entries taken by
+    the whole warp) and at W = 128 (a warp a row), both on the 1M cell's
+    graph. Each against its plain
+    version, bitwise; its launch counted under the lanes the case names;
+    the kernel timed beside its bound (`scatter_or_bound_bytes`) by
+    launches of its C entry point, so the wrapper's host work, which is
+    most of a call at campaign8's 0.02 ms, is left out."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import kernels
+
+    results, staged = {}, {}
+    for label, config, replicas, chunk, lanes in NARROW_CASES:
+        if config not in staged:
+            staged.clear()  # one graph staged at a time
+            torch.cuda.empty_cache()
+            staged[config] = narrow_case_graph(config, dev)
+        pg = staged[config]
+        flat, offsets, entries, pull_row, seen, row = narrow_round(pg, replicas, chunk,
+                                                                  NARROW_ROUND, dev)
+        n, w = row.shape
+
+        def run(plain):
+            return kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
+                                      out=row, plain=plain)
+
+        want = run(True).clone()
+        kernels.reset_launches()
+        err = compare(f"scatter_or[{label} round {NARROW_ROUND}]", run(False), want)
+        if kernels.scatter_or_lanes != {lanes: 1}:
+            raise AssertionError(f"scatter_or[{label}]: launches by lanes "
+                                 f"{kernels.scatter_or_lanes}, not {{{lanes}: 1}}")
+        runs = offsets[1:] - offsets[:-1]
+        max_run = int(runs.max())
+        if config == "ba1m-lognormal" and max_run <= NARROW_HUB_RUN:
+            raise AssertionError(f"scatter_or[{label}]: longest run {max_run} entries, "
+                                 f"not above {NARROW_HUB_RUN}")
+        kept_pull = pull_row[pull_row >= 0].long()
+        kept_push = entries[: int(offsets[-1])].long()
+        distinct = int(torch.unique(torch.cat([kept_pull, kept_push])).numel())
+        nbytes = scatter_or_bound_bytes(n, w, distinct, int(kept_push.numel()), n, True)
+
+        def launch():  # the kernel alone: its C entry point, past the wrapper's host work
+            err = kernels._lib().gossip_scatter_or(
+                flat.data_ptr(), flat.shape[0], w, offsets.data_ptr(), entries.data_ptr(),
+                pull_row.data_ptr(), seen.data_ptr(), 0, n, row.data_ptr(), lanes,
+                torch.cuda.current_stream(dev).cuda_stream)
+            assert err == 0, f"scatter_or[{label}]: launch failed with error {err}"
+
+        ms = time_ms(launch, reps, calls=KERNEL_CALLS)
+        results[label] = dict(max_abs_err=err, ms=ms, bound_ms=bound_ms(nbytes), lanes=lanes,
+                              max_run=max_run, runs_over_32=int((runs > 32).sum()))
+        log(f"scatter_or[{label}, round-{NARROW_ROUND} ring D={pg.ring_size}] {n} rows, W={w}, "
+            f"{lanes} lane(s) a row; pull rows {int(kept_pull.numel())}, push entries "
+            f"{int(kept_push.numel())}, longest run {max_run}, "
+            f"{results[label]['runs_over_32']} runs over 32: bitwise equal to its plain "
+            f"version; one launch {ms:.4f} ms (CUDA events over its C entry point), "
+            f"bound {bound_ms(nbytes):.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)")
+        del flat, offsets, entries, pull_row, seen, row, want
+    staged.clear()
+    torch.cuda.empty_cache()
+    return results
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -5897,6 +6035,27 @@ def phase_17_alone(dev) -> int:
     return 0
 
 
+def phase_3n_alone(dev) -> int:
+    """``python3 chip_smoke.py --phase 3n``: phase 3's `scatter_or` checks
+    on ragged shapes (`check_scatter_ragged`, narrow rows among them) and
+    its narrow-row calls at the push-pull cells' shapes
+    (`check_scatter_narrow`) by themselves. Prints the calls' record; the
+    default run (every phase) is the script's contract."""
+    import torch
+
+    from p2p_gossip_tpu_torch.ops import build
+
+    path, nvcc_s = build.build()
+    log(f"kernels built in {nvcc_s:.2f} s -> {path}")
+    check_scatter_ragged(dev, np.random.default_rng(SEED))
+    print(json.dumps({"scatter_or_narrow": check_scatter_narrow(dev, reps=10)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def phase_16_alone(dev) -> int:
     """``python3 chip_smoke.py --phase 16``: phase 16 by itself, on its own
     graph and stagings, with phase 11's single-device campaigns run here as
@@ -6027,6 +6186,8 @@ def main() -> int:
         return phase_21_alone(dev)
     if sys.argv[1:3] == ["--phase", "22"]:
         return phase_22_alone(dev)
+    if sys.argv[1:3] == ["--phase", "3n"]:
+        return phase_3n_alone(dev)
     t_start = time.perf_counter()
     path, nvcc_s = build.build()
     build.load_library()
@@ -6066,6 +6227,7 @@ def main() -> int:
     coverage = check_coverage(graph.n, w_cov, dev, rng, reps=20)
     frontier = check_coverage_frontier(graph, dg, dev, reps=20)
     scatter = check_scatter(graph, dgf_edge, sched, dev, reps=10)
+    scatter.update(check_scatter_narrow(dev, reps=10))
     del dg_edge
     torch.cuda.empty_cache()
 
@@ -6184,6 +6346,9 @@ def main() -> int:
                    ("round_call", "round call"),
                    ("round_call_dense", f"round call round {PROTOCOL_DENSE_ROUND}"))
                for key in ("ms", "bound_ms", "plain_ms")},
+            # The push-pull cells' round calls at their own shapes.
+            **{f"{key}_{label.replace(' ', '_').replace('=', '')}": scatter[label][key]
+               for label, *_ in NARROW_CASES for key in ("ms", "bound_ms", "lanes", "max_run")},
         ),
         # ms / bound_ms: dense random words at 100,000 x 256, the flood's
         # lo-only fold; with sent_hi (the protocols') and on the flood's own

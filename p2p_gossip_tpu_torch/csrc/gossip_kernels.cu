@@ -823,30 +823,167 @@ coverage_per_slot_kernel(const uint32_t* __restrict__ words, int n, int w,
 // Design: the transpose is done before the kernel: kernels.scatter_or_plan
 //   sorts each round's entries by destination (a sort in torch, index
 //   bookkeeping of a few MB against GBs of rows), so the scatter becomes a
-//   gather that one warp per destination row owns, eight rows a block. The
-//   warp ORs the base row, the pulled row and its entries' rows in
-//   registers and stores each word once: no atomics, no zero fill, and the
-//   result does not depend on the entries' order. Lanes stride the row in
-//   16-byte units when W % 4 == 0 and every table is 16-byte aligned (the
-//   entry point picks the instantiation), 4-byte words otherwise, two
-//   units a lane a pass; wider rows take more passes. The warp reads up to
-//   32 entry indices with one coalesced load and broadcasts them with
-//   __shfl_sync; a longer run (one hot destination) loops. Source rows are
-//   loaded kScatterBatch entries at a time before they are ORed, so a warp
-//   keeps several row loads in flight. Rows of src are read through the
-//   read-only path; base is read with plain loads, since it may be out.
+//   gather that a group of kLanes lanes per destination row owns, 32 /
+//   kLanes rows a warp and eight warps a block. The group ORs the base row,
+//   the pulled row and its entries' rows in registers and stores each word
+//   once: no atomics, no zero fill, and the result does not depend on the
+//   entries' order. Lanes stride the row in 16-byte units when W % 4 == 0
+//   and every table is 16-byte aligned (the entry point picks the
+//   instantiation), 4-byte words otherwise. kLanes is the smallest power of
+//   two at least the row's units, capped at 32; the caller computes it
+//   (kernels.scatter_or_row_lanes) and passes it, so its launch counter and
+//   the launch agree.
+//   kLanes = 32 (rows of 32 units or more, e.g. W = 128 at uint4): a warp a
+//   row, two units a lane a pass; wider rows take more passes. The warp
+//   reads up to 32 entry indices with one coalesced load and broadcasts
+//   them with __shfl_sync; a longer run (one hot destination) loops.
+//   kLanes < 32 (narrow rows, e.g. W = 4 at uint4: one lane a row): a lane
+//   holds at most one unit of its row. The group reads its run's entry
+//   indices kScatterBatch or more at a time, one load each lane, and
+//   broadcasts them with __shfl_sync within the group (width kLanes; a
+//   lone lane keeps its own). A run longer than kScatterLongRun (a hub that
+//   hundreds of nodes push to) would hold the whole warp behind one group:
+//   its group leaves it, the warp finds such rows with __ballot_sync once
+//   its short rows are done, and all 32 lanes take each in turn, 32 /
+//   kLanes entries at a time, folding the row with __reduce_or_sync unit by
+//   unit and word by word into the owning lane's registers. Every row is
+//   still stored once, at the end, by its own group.
+//   In both, source rows are loaded kScatterBatch entries at a time before
+//   they are ORed, so a lane keeps several row loads in flight. Rows of src
+//   are read through the read-only path; base is read with plain loads,
+//   since it may be out.
 // ---------------------------------------------------------------------------
 constexpr int kScatterWarps = 8;
 constexpr int kScatterLaneUnits = 2;
 constexpr int kScatterBatch = 4;
+// Runs longer than this leave a narrow group for the whole warp. On a 1M
+// BA push-pull round at W = 4 (runs up to 685) 8 and 16 were fastest, 32
+// 3% and 128 9% slower, and no long-run pass 45% slower; at campaign8's
+// runs (at most ~9) the threshold is never reached.
+constexpr int kScatterLongRun = 16;
 
-template <typename T, bool kAndNot>
+__device__ inline uint32_t reduce_or(uint32_t v) { return __reduce_or_sync(kFullMask, v); }
+__device__ inline uint4 reduce_or(uint4 v) {
+  return make_uint4(reduce_or(v.x), reduce_or(v.y), reduce_or(v.z), reduce_or(v.w));
+}
+
+// scatter_or_kernel at kLanes < 32: a group of kLanes lanes a destination
+// row, each lane at most one unit of it (the row has at most kLanes units).
+template <typename T, bool kAndNot, int kLanes>
+__device__ __forceinline__ void scatter_or_narrow(
+    const uint32_t* src, int n_src, int w, const int32_t* __restrict__ offsets,
+    const int32_t* __restrict__ entries, const int32_t* __restrict__ pull_row,
+    const uint32_t* base, int n_out, uint32_t* out) {
+  constexpr int kRows = 32 / kLanes;  // rows a warp
+  // Entry indices a lane loads a step, so a group reads at least
+  // kScatterBatch of its run at once.
+  constexpr int kIdx = kLanes >= kScatterBatch ? 1 : kScatterBatch / kLanes;
+  constexpr int kStep = kLanes * kIdx;
+  constexpr int kUnitWords = (int)(sizeof(T) / sizeof(uint32_t));
+  const int lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * kScatterWarps + (threadIdx.x >> 5)) * kRows;
+  if (first >= n_out) return;  // warp-uniform: only warp-level syncs follow
+  const int group = lane / kLanes;  // the lane's row in the warp
+  const int u = lane % kLanes;      // the lane's unit of it
+  const unsigned gmask = ((1u << kLanes) - 1u) << (group * kLanes);
+  const int d = first + group;
+  const bool row_ok = d < n_out;  // a row past n_out stays empty
+  const int n_units = w / kUnitWords;
+  const bool ok = row_ok && u < n_units;
+  const T* rows = reinterpret_cast<const T*>(src);
+  int e0 = 0, e1 = 0, p = -1;
+  if (row_ok) {
+    if (offsets) {
+      e0 = offsets[d];
+      e1 = offsets[d + 1];
+    }
+    if (pull_row) p = pull_row[d];
+  }
+  const T keep = base && ok  // kAndNot: the base words to clear
+                     ? reinterpret_cast<const T*>(base + (size_t)d * (size_t)w)[u]
+                     : zero_unit<T>();
+  T acc = kAndNot ? zero_unit<T>() : keep;
+  if (ok && p >= 0 && p < n_src) acc = or_units(acc, __ldg(rows + (size_t)p * n_units + u));
+
+  // A long run is left to the whole warp; the group's first lane flags it.
+  const bool hub = e1 - e0 > kScatterLongRun;
+  const unsigned hubs = __ballot_sync(kFullMask, hub && u == 0);
+  const int end = hub ? e0 : e1;  // group-uniform
+  for (int eb = e0; eb < end; eb += kStep) {
+    int mine[kIdx];
+#pragma unroll
+    for (int k = 0; k < kIdx; ++k) {
+      const int e = eb + k * kLanes + u;
+      mine[k] = e < end ? entries[e] : -1;
+    }
+    const int n = end - eb < kStep ? end - eb : kStep;
+    for (int j = 0; j < n; j += kScatterBatch) {  // j == 0 alone when kIdx > 1
+      T v[kScatterBatch];
+#pragma unroll
+      for (int q = 0; q < kScatterBatch; ++q) {
+        int s;
+        if constexpr (kLanes == 1) {
+          s = mine[q];
+        } else if constexpr (kIdx > 1) {
+          s = __shfl_sync(gmask, mine[q / kLanes], q % kLanes, kLanes);
+        } else {
+          s = __shfl_sync(gmask, mine[0], (j + q) & (kLanes - 1), kLanes);
+        }
+        const bool live = j + q < n && s >= 0 && s < n_src;  // group-uniform
+        v[q] = live && ok ? __ldg(rows + (size_t)s * n_units + u) : zero_unit<T>();
+      }
+#pragma unroll
+      for (int q = 0; q < kScatterBatch; ++q) acc = or_units(acc, v[q]);
+    }
+  }
+
+  // The long runs, one at a time with every lane: lane (slot, u) reads
+  // unit u of entries h0 + slot, h0 + slot + kRows, ...
+  for (unsigned h = hubs; h != 0u; h &= h - 1u) {
+    const int lead = __ffs(h) - 1;  // the hub row's first lane
+    const int h0 = __shfl_sync(kFullMask, e0, lead);
+    const int h1 = __shfl_sync(kFullMask, e1, lead);
+    const bool unit_ok = u < n_units;
+    T part = zero_unit<T>();
+    for (int eb = h0 + group; eb < h1; eb += kRows * kScatterBatch) {
+      int s[kScatterBatch];
+#pragma unroll
+      for (int q = 0; q < kScatterBatch; ++q) {
+        const int e = eb + q * kRows;
+        s[q] = e < h1 ? entries[e] : -1;
+      }
+      T v[kScatterBatch];
+#pragma unroll
+      for (int q = 0; q < kScatterBatch; ++q)
+        v[q] = unit_ok && s[q] >= 0 && s[q] < n_src ? __ldg(rows + (size_t)s[q] * n_units + u)
+                                                    : zero_unit<T>();
+#pragma unroll
+      for (int q = 0; q < kScatterBatch; ++q) part = or_units(part, v[q]);
+    }
+    for (int uu = 0; uu < n_units; ++uu) {
+      const T all = reduce_or(u == uu ? part : zero_unit<T>());
+      if (lane == lead + uu) acc = or_units(acc, all);
+    }
+  }
+
+  if (ok) {
+    T* out_row = reinterpret_cast<T*>(out + (size_t)d * (size_t)w);
+    out_row[u] = kAndNot ? and_not_units(acc, keep) : acc;
+  }
+}
+
+template <typename T, bool kAndNot, int kLanes>
 __global__ void __launch_bounds__(kScatterWarps * 32)
 scatter_or_kernel(const uint32_t* src, int n_src, int w,
                   const int32_t* __restrict__ offsets,
                   const int32_t* __restrict__ entries,
                   const int32_t* __restrict__ pull_row, const uint32_t* base,
                   int n_out, uint32_t* out) {
+  if constexpr (kLanes < 32) {
+    scatter_or_narrow<T, kAndNot, kLanes>(src, n_src, w, offsets, entries, pull_row, base,
+                                          n_out, out);
+    return;
+  }
   const int d = blockIdx.x * kScatterWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (d >= n_out) return;  // warp-uniform: only warp-level syncs follow
@@ -1613,28 +1750,49 @@ int gossip_coverage_per_slot(const void* words, int n, int w, long long ld,
 // `offsets`/`entries`, `pull_row` and `base` may each be null (no
 // entries, no pull, a zero base); `offsets` holds n_out + 1 positions into
 // `entries`. and_not != 0 writes acc & ~base. `src`, `base` and `out` are
-// row-major with W words a row.
+// row-major with W words a row. `lanes` (1, 2, 4, 8, 16 or 32) is the
+// lanes a destination row takes, kernels.scatter_or_row_lanes of W and of
+// the instantiation below; any other value, or fewer lanes than the row's
+// units (at most 32) at the instantiation picked here, refuses the launch.
 int gossip_scatter_or(const void* src, int n_src, int w, const void* offsets,
                       const void* entries, const void* pull_row,
                       const void* base, int and_not, int n_out, void* out,
-                      void* stream) {
-  const dim3 grid((unsigned)((n_out + kScatterWarps - 1) / kScatterWarps));
+                      int lanes, void* stream) {
   const bool vec = w % 4 == 0 && aligned16(src) && aligned16(out) &&
                    (base == nullptr || aligned16(base));
-#define GOSSIP_SCATTER_LAUNCH(T, ANDNOT)                                           \
-  scatter_or_kernel<T, ANDNOT><<<grid, kScatterWarps * 32, 0, (cudaStream_t)stream>>>( \
+  // A group narrower than the row would leave its units past the group's
+  // lanes unwritten: refuse it, whatever the caller's test of alignment.
+  const int units = vec ? w / 4 : w;
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+      lanes < (units < 32 ? units : 32))
+    return (int)cudaErrorInvalidValue;
+  const int rows_per_block = kScatterWarps * 32 / lanes;
+  const dim3 grid((unsigned)((n_out + rows_per_block - 1) / rows_per_block));
+#define GOSSIP_SCATTER_LAUNCH(T, ANDNOT, LANES)                                    \
+  scatter_or_kernel<T, ANDNOT, LANES><<<grid, kScatterWarps * 32, 0,             \
+                                        (cudaStream_t)stream>>>(                  \
       (const uint32_t*)src, n_src, w, (const int32_t*)offsets,                     \
       (const int32_t*)entries, (const int32_t*)pull_row, (const uint32_t*)base,    \
       n_out, (uint32_t*)out)
-  if (vec && and_not) {
-    GOSSIP_SCATTER_LAUNCH(uint4, true);
-  } else if (vec) {
-    GOSSIP_SCATTER_LAUNCH(uint4, false);
-  } else if (and_not) {
-    GOSSIP_SCATTER_LAUNCH(uint32_t, true);
-  } else {
-    GOSSIP_SCATTER_LAUNCH(uint32_t, false);
+#define GOSSIP_SCATTER_LANES(T, ANDNOT)                                            \
+  switch (lanes) {                                                                 \
+    case 1: GOSSIP_SCATTER_LAUNCH(T, ANDNOT, 1); break;                            \
+    case 2: GOSSIP_SCATTER_LAUNCH(T, ANDNOT, 2); break;                            \
+    case 4: GOSSIP_SCATTER_LAUNCH(T, ANDNOT, 4); break;                            \
+    case 8: GOSSIP_SCATTER_LAUNCH(T, ANDNOT, 8); break;                            \
+    case 16: GOSSIP_SCATTER_LAUNCH(T, ANDNOT, 16); break;                          \
+    default: GOSSIP_SCATTER_LAUNCH(T, ANDNOT, 32); break;                          \
   }
+  if (vec && and_not) {
+    GOSSIP_SCATTER_LANES(uint4, true);
+  } else if (vec) {
+    GOSSIP_SCATTER_LANES(uint4, false);
+  } else if (and_not) {
+    GOSSIP_SCATTER_LANES(uint32_t, true);
+  } else {
+    GOSSIP_SCATTER_LANES(uint32_t, false);
+  }
+#undef GOSSIP_SCATTER_LANES
 #undef GOSSIP_SCATTER_LAUNCH
   return (int)cudaGetLastError();
 }

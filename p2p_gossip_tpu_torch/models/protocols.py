@@ -36,10 +36,11 @@ rows and the block's push plan (the pushes sorted by destination,
 
 Spans (`telemetry.span`): ``stage.partners`` [edges, bytes] around the
 staging; in `_run_chunk` each round's enqueue ``round`` holds ``draw``
-[rounds] (a block's draw, every PICK_BLOCK rounds), ``exchange`` (the
-`scatter_or` call) and ``count`` (generations, ``popcount_rows``,
-``coverage_per_slot``); the entry's ``inputs``, ``d2h`` and ``stats`` as
-the flood's.
+[rounds] (a block's draw, every PICK_BLOCK rounds), ``exchange`` [lanes]
+(the `scatter_or` call; the lanes a destination row takes in its kernel,
+`ops.kernels.scatter_or_row_lanes`) and ``count`` (generations,
+``popcount_rows``, ``coverage_per_slot``); the entry's ``inputs``,
+``d2h`` and ``stats`` as the flood's.
 
 With telemetry's rings on, each round also writes a metric row and a
 state digest (`_RoundTelemetry`), harvested once a chunk as the JAX
@@ -425,6 +426,9 @@ def _run_chunk(
         tel = _RoundTelemetry(rings, mode, hcnt, loss is not None, plain)
 
     _check_ring_slots(dg, override)
+    # The lanes a destination row takes in the round's scatter_or: every
+    # round's call has the chunk's W and the ring's alignment.
+    lanes = kernels.scatter_or_row_lanes(w, kernels.scatter_or_vec(flat, hist[0], seen))
     for t in range(horizon):
         with span("round"):
             i = t % PICK_BLOCK
@@ -444,7 +448,7 @@ def _run_chunk(
                 tel.gather(flat, offsets, entries, pull_row)
             # The new ring row in one pass: push-pull and pull seen | pulled |
             # pushed, fanout push the frontier pushed & ~seen.
-            with span("exchange"):
+            with span("exchange", lanes=lanes):
                 kernels.scatter_or(flat, offsets, entries, pull_row=pull_row, base=seen,
                                    andnot=mode == "pushk", out=row, plain=plain)
             if mode == "pull":

@@ -48,8 +48,8 @@ _SIGNATURES = {
     # words, n, w, ld, replicas, rep_ld, n_slots, out, stream
     "gossip_coverage_per_slot": (_P, _I, _I, _LL, _I, _LL, _I, _P, _P),
     # src, n_src, w, offsets, entries, pull_row, base, and_not, n_out, out,
-    # stream
-    "gossip_scatter_or": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
+    # lanes, stream
+    "gossip_scatter_or": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     # seen, n, w, ld, received, sent_lo, sent_hi, replicas, id_offset, out,
     # out_stride, stream
     "gossip_tick_digest": (_P, _I, _I, _LL, _P, _P, _P, _I, _I, _P, _LL, _P),

@@ -25,7 +25,10 @@ the plain version on any device — the comparison runs of the kernels use
 it; nothing falls back to it.
 
 ``launches`` counts kernel launches per kernel (one per launch, and only
-there), so a run can show which kernels its main path went through.
+there), so a run can show which kernels its main path went through;
+``scatter_or_lanes`` counts `scatter_or` launches by the lanes a
+destination row took (`scatter_or_row_lanes`). `reset_launches` clears
+both.
 
 Bitmasks are torch.int32 tensors holding the uint32 bit pattern (torch's
 uint32 lacks shifts on the CPU). ``>>`` on int32 sign-extends, so every
@@ -49,9 +52,13 @@ launches = {
 }
 
 
+scatter_or_lanes: dict[int, int] = {}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    scatter_or_lanes.clear()
 
 
 def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
@@ -593,6 +600,28 @@ def scatter_or_plain(src, offsets, entries, pull_row, base, andnot, out):
     return out.copy_(acc)
 
 
+def scatter_or_vec(src: torch.Tensor, out: torch.Tensor,
+                   base: torch.Tensor | None = None) -> bool:
+    """Whether `scatter_or` reads its rows as 16-byte units: W % 4 == 0
+    and ``src``, ``out`` and ``base`` (when given) 16-byte aligned, the
+    test the kernel's entry point makes to pick its instantiation."""
+    ptrs = src.data_ptr() | out.data_ptr() | (0 if base is None else base.data_ptr())
+    return src.shape[1] % 4 == 0 and ptrs % 16 == 0
+
+
+def scatter_or_row_lanes(w: int, vec: bool) -> int:
+    """The lanes of a warp that own one destination row in the
+    `scatter_or` kernel: the smallest power of two at least the row's
+    units (16-byte units when ``vec``, else 4-byte words), at most 32.
+    A warp holds 32 // lanes rows; a row of more than 32 units takes its
+    warp in passes."""
+    units = w // 4 if vec else w
+    lanes = 1
+    while lanes < units and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
 def scatter_or(
     src: torch.Tensor,
     offsets: torch.Tensor | None,
@@ -646,11 +675,13 @@ def scatter_or(
         return None if t is None else t.data_ptr()
 
     if n_out and w:
+        lanes = scatter_or_row_lanes(w, scatter_or_vec(src, out, base))
         _launch(
             "scatter_or", _lib().gossip_scatter_or,
             src.data_ptr(), n_src, w, ptr(offsets), ptr(entries), ptr(pull_row),
-            ptr(base), int(andnot), n_out, out.data_ptr(), _stream(src.device),
+            ptr(base), int(andnot), n_out, out.data_ptr(), lanes, _stream(src.device),
         )
+        scatter_or_lanes[lanes] = scatter_or_lanes.get(lanes, 0) + 1
     return out
 
 

@@ -830,9 +830,10 @@ def test_scatter_or_kernel_wrapper_checks():
         kernels.scatter_or_plan(torch.zeros(3, dtype=torch.int32), None,
                                 torch.ones(3, dtype=torch.int32), 5, 4)
     assert "scatter_or" in kernels.launches
-    # src, n_src, w, offsets, entries, pull_row, base, and_not, n_out, out, stream
+    # src, n_src, w, offsets, entries, pull_row, base, and_not, n_out, out, lanes,
+    # stream
     sig = build._SIGNATURES["gossip_scatter_or"]
-    assert len(sig) == 11 and sig[7] == sig[8] == ctypes.c_int
+    assert len(sig) == 12 and sig[7] == sig[8] == sig[10] == ctypes.c_int
     with open(build.SOURCE, encoding="utf-8") as f:
         src_text = f.read()
     assert "int gossip_scatter_or(" in src_text
